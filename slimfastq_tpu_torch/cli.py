@@ -1,0 +1,130 @@
+"""``sfq-torch`` command-line interface: the ``sfq`` encode/decode path on
+PyTorch (CUDA by default, ``--device cpu`` for the kernels' plain
+versions).
+
+Usage:
+  sfq-torch [-1|-2|-3|-4] in.fastq [-o out.sfq]     # encode
+  sfq-torch -d in.sfq [-o out.fastq]                # decode
+  sfq-torch -d in.sfq                               # decode to stdout
+  cat in.fastq | sfq-torch - -o out.sfq             # stdin encode
+
+Containers are byte-identical to the JAX package's ``sfq``.
+``--streaming``, ``--sharded`` and ``--resume`` are not yet ported.
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+import sys
+
+from . import __version__
+from .api import decode_fastq, encode_fastq
+
+
+def build_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(
+        prog="sfq-torch",
+        description="lossless FASTQ codec on PyTorch/CUDA "
+                    "(containers identical to sfq)")
+    p.add_argument("input", help="input file, or '-' for stdin")
+    p.add_argument("-o", "--output",
+                   help="output file (default: input+'.sfq' on encode, "
+                        "stdout on decode)")
+    p.add_argument("-d", "--decode", action="store_true",
+                   help="decompress instead of compress")
+    for lv in (1, 2, 3, 4):
+        p.add_argument(f"-{lv}", dest="level", action="store_const",
+                       const=lv, help=f"compression level {lv}"
+                       + (" (default)" if lv == 3 else ""))
+    p.add_argument("-f", "--force", action="store_true",
+                   help="overwrite existing output file")
+    p.add_argument("-v", "--verbose", action="store_true",
+                   help="print per-stream statistics")
+    p.add_argument("--block-records", type=int, default=None, metavar="N",
+                   help="records per independently-decodable block "
+                        "(encode only; default 65536)")
+    p.add_argument("--device", choices=["cuda", "cpu"], default="cuda",
+                   help="device of the coder (default: cuda)")
+    for flag in ("--streaming", "--sharded", "--resume"):
+        p.add_argument(flag, action="store_true",
+                       help="not yet ported in the torch port")
+    p.add_argument("--version", action="version",
+                   version=f"sfq-torch {__version__}")
+    p.set_defaults(level=3)
+    return p
+
+
+def _stats(encoded: bytes, raw_len: int, out=None) -> None:
+    out = out if out is not None else sys.stderr
+    from .utils.stats import container_report
+    rep = container_report(encoded)
+    print(f"records:         {rep['records']}  "
+          f"(blocks: {rep['blocks']})", file=out)
+    print(f"raw bytes:       {raw_len}", file=out)
+    print(f"compressed:      {rep['compressed_bytes']}"
+          f"  (ratio {raw_len / max(rep['compressed_bytes'], 1):.3f})",
+          file=out)
+    for name, b in sorted(rep["stream_bytes"].items(),
+                          key=lambda kv: -kv[1]):
+        print(f"  {name:<6} {b:>12}", file=out)
+    print(f"  {'(hdrs)':<6} {rep['header_overhead_bytes']:>12}", file=out)
+
+
+def main(argv: list[str] | None = None) -> int:
+    args = build_parser().parse_args(argv)
+    for flag in ("streaming", "sharded", "resume"):
+        if getattr(args, flag):
+            print(f"sfq-torch: --{flag} is not yet ported in the torch port",
+                  file=sys.stderr)
+            return 2
+
+    if args.input == "-":
+        data = sys.stdin.buffer.read()
+    else:
+        if not os.path.exists(args.input):
+            print(f"sfq-torch: {args.input}: no such file", file=sys.stderr)
+            return 2
+        with open(args.input, "rb") as f:
+            data = f.read()
+
+    overrides = {}
+    if args.block_records:
+        overrides["block_records"] = args.block_records
+    try:
+        if args.decode:
+            result = decode_fastq(data, device=args.device)
+        else:
+            result = encode_fastq(data, level=args.level,
+                                  device=args.device, **overrides)
+    except NotImplementedError as e:
+        print(f"sfq-torch: {e}", file=sys.stderr)
+        return 2
+    except (ValueError, RuntimeError) as e:
+        print(f"sfq-torch: {e}", file=sys.stderr)
+        return 1
+
+    if args.output:
+        dst = args.output
+    elif args.decode:
+        dst = "-"
+    else:
+        dst = (args.input + ".sfq") if args.input != "-" else "-"
+
+    if dst == "-":
+        sys.stdout.buffer.write(result)
+    else:
+        if os.path.exists(dst) and not args.force:
+            print(f"sfq-torch: {dst} exists (use -f to overwrite)",
+                  file=sys.stderr)
+            return 2
+        with open(dst, "wb") as f:
+            f.write(result)
+
+    if args.verbose and not args.decode:
+        _stats(result, len(data))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,119 @@
+"""Build and bind the port's CUDA kernels.
+
+Each ``csrc/<name>.cu`` compiles with nvcc into its own shared library
+with a plain ``extern "C"`` interface (``csrc/build/lib<name>.so``), loaded
+with ctypes. A library is rebuilt when its source is newer than it.
+Pointers and the CUDA stream pass as ``c_void_p``; every C entry returns
+``cudaGetLastError()`` after its launch and ``check`` raises on non-zero.
+
+Launch counts: every kernel wrapper adds one to ``launches[name]`` where
+it launches its kernel, and nowhere else, so a run can show which kernels
+its path went through.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import os
+import shutil
+import subprocess
+import threading
+
+import torch
+
+CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
+    __file__))), "csrc")
+BUILD = os.path.join(CSRC, "build")
+SOURCES = ("coder", "compact")
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+
+launches = {"lane_encode": 0, "lane_decode": 0, "compact_lanes_dev": 0}
+
+_libs: dict[str, ctypes.CDLL] = {}
+_lock = threading.Lock()
+
+
+def reset_launches() -> None:
+    for k in launches:
+        launches[k] = 0
+
+
+def _nvcc() -> str:
+    path = shutil.which("nvcc") or os.path.join(
+        os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "nvcc")
+    if not os.path.exists(path):
+        raise RuntimeError("nvcc not found (set CUDA_HOME): the port's CUDA "
+                           "kernels are compiled from csrc/ at first use")
+    return path
+
+
+def _so(name: str) -> str:
+    return os.path.join(BUILD, f"lib{name}.so")
+
+
+def _stale(name: str) -> bool:
+    so = _so(name)
+    src = os.path.join(CSRC, f"{name}.cu")
+    return not os.path.exists(so) or os.path.getmtime(so) < \
+        os.path.getmtime(src)
+
+
+def build(names=SOURCES) -> dict[str, str]:
+    """Compile every stale source, one nvcc process each, all started
+    together. Returns each built library's ptxas report (registers,
+    shared memory, spills)."""
+    todo = [n for n in names if _stale(n)]
+    if not todo:
+        return {}
+    os.makedirs(BUILD, exist_ok=True)
+    nvcc = _nvcc()
+    procs = {}
+    for n in todo:
+        tmp = f"{_so(n)}.{os.getpid()}.tmp"
+        cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, os.path.join(CSRC, f"{n}.cu")]
+        procs[n] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                     stderr=subprocess.PIPE, text=True), tmp)
+    reports, errors = {}, []
+    for n, (p, tmp) in procs.items():
+        out, err = p.communicate()
+        if p.returncode != 0:
+            errors.append(f"nvcc {n}.cu failed:\n{out}{err}")
+            continue
+        os.replace(tmp, _so(n))
+        reports[n] = err
+    if errors:
+        raise RuntimeError("\n".join(errors))
+    return reports
+
+
+def load(name: str, signatures: dict[str, list]) -> ctypes.CDLL:
+    """The built library for csrc/<name>.cu (built on first use), with
+    argtypes set from ``signatures`` and an int (cudaError_t) restype."""
+    with _lock:
+        lib = _libs.get(name)
+        if lib is None:
+            build((name,))
+            lib = ctypes.CDLL(_so(name))
+            lib.error_string.restype = ctypes.c_char_p
+            lib.error_string.argtypes = [ctypes.c_int]
+            for fn, args in signatures.items():
+                getattr(lib, fn).restype = ctypes.c_int
+                getattr(lib, fn).argtypes = args
+            _libs[name] = lib
+        return lib
+
+
+def check(lib: ctypes.CDLL, err: int, what: str) -> None:
+    if err != 0:
+        raise RuntimeError(f"{what}: CUDA error {err} "
+                           f"({lib.error_string(err).decode()})")
+
+
+def stream_ptr(t: torch.Tensor) -> int:
+    """PyTorch's current stream on t's device, for a kernel launch."""
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+PTR = ctypes.c_void_p
+INT = ctypes.c_int

@@ -1,0 +1,387 @@
+"""The lockstep lane coder: Kernel E (encode) and Kernel D (decode).
+
+Ports of the JAX package's ``ops/streams_jax.py`` ``_build_encode`` and
+``_build_decode``, with the same inputs and outputs so the two can be
+compared output for output:
+
+* ``lane_encode(idx_c, bit_c, geom, CB)``: the encode schedule (table
+  index and bit of every bit-step, ``[NC, 8*depth, W]`` int32) ->
+  ``ebufs [NC, W, CB]`` u8 (each chunk's renorm bytes), ``eptrs [NC, W]``
+  i32 (bytes each lane emitted per chunk, counted past CB so the caller
+  sees an overflow), ``low [W]`` (the final coder low, u32 bits held in
+  int32) and ``emax`` (max of eptrs, a 0-d int32 tensor).
+* ``lane_decode(payload, lens, acts, poss, resets, kind, geom)``: per-lane
+  payload bytes ``[W, Lb]`` u8 with lengths ``[W]`` and the per-step
+  active/position/read-start matrices ``[Sp, W]`` int32 -> symbols
+  ``[Sp, W]`` u8 (0 where a step is inactive).
+
+Both run the batch-synchronous, collision-capped table law (see
+ops/ranger.py) with the format-v4 visit-count warm-up when the geometry
+sets ``0 < rate_lo < rate``. On CUDA tensors the wrappers launch the
+kernels of csrc/coder.cu; on CPU tensors they run the plain PyTorch
+versions below, which carry low/range/code in int64 masked to 32 bits
+(torch.uint32 has no arithmetic) and the table in int32, whose adds wrap
+exactly as the format's collision-count field requires.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from . import _cuda
+from .ranger import (BOT, CAP_LOG2, CNT_SHIFT, MASK32, PROB_BITS, PROB_INIT,
+                     PROB_MAX, PROB_MIN, PROB_ONE, RENORM_ITERS, TOP)
+
+CHUNK_SYMS = 8  # symbol-steps per emission chunk
+KINDS = {"qual": 0, "seq": 1, "byte": 2, "flag": 3}
+_PMASK = (1 << CNT_SHIFT) - 1
+
+_P, _I = _cuda.PTR, _cuda.INT
+_SIGS = {
+    # idx_c, bit_c, NC, KD, W, table, vtab, sac_base, rate, rate_lo, CB,
+    # ebufs, eptrs, low, emax, stream
+    "lane_encode": [_P, _P, _I, _I, _I, _P, _P, _I, _I, _I, _I, _P, _P, _P,
+                    _P, _P],
+    # payload, Lb, lens, acts, poss, resets, Sp, W, table, vtab, sac_base,
+    # rate, rate_lo, depth, kind, num_ctx, k0, k1, k2, k3, syms, stream
+    "lane_decode": [_P, _I, _P, _P, _P, _P, _I, _I, _P, _P, _I, _I, _I, _I,
+                    _I, _I, _I, _I, _I, _I, _P, _P],
+}
+MAX_LANES = 1024  # one CTA, one thread per lane
+
+
+def _warm(geom) -> bool:
+    rate_lo = getattr(geom, "rate_lo", 0)
+    return 0 < rate_lo < geom.rate
+
+
+def _tables(geom, dev):
+    """Fresh adaptive table (PROB_INIT, sacrificial row pinned at PROB_MAX)
+    and, for a warm-up geometry, its zeroed visit table."""
+    table = torch.full((geom.table_size,), PROB_INIT, dtype=torch.int32,
+                       device=dev)
+    table[geom.sac_base:] = PROB_MAX
+    vtab = (torch.zeros(geom.table_size, dtype=torch.int32, device=dev)
+            if _warm(geom) else None)
+    return table, vtab
+
+
+def _lg_lut(dev):
+    """lg[c] = #{j < 10 : c > 2^j} for c in [0, 1025] (ceil_log2 of a
+    count, saturating at 10, 0 for c <= 1): the threshold sums of the
+    table law as one lookup."""
+    c = torch.arange(1026, device=dev)[:, None]
+    return (c > (1 << torch.arange(10, device=dev))[None, :]).sum(
+        dim=1).int()
+
+
+def _u32_bits(x: torch.Tensor) -> torch.Tensor:
+    """int64 values in [0, 2^32) -> the same 32 bits as int32."""
+    return torch.where(x >= (1 << 31), x - (1 << 32), x).to(torch.int32)
+
+
+class _Law:
+    """Table law of one bit-step, plain version (ranger_np.table_mark +
+    table_update in whole-lane tensor ops). The table, the probabilities
+    and the deltas are int32, so the collision-count field in bits 22-31
+    wraps exactly as the format requires."""
+
+    def __init__(self, geom, W: int, dev):
+        self.rate = geom.rate
+        self.table, self.vtab = _tables(geom, dev)
+        lg = _lg_lut(dev)
+        # at most 2^CAP_LOG2 lanes can collide: the cap never scales
+        self.extra = ((lg - CAP_LOG2).clamp_(min=0)
+                      if W > (1 << CAP_LOG2) else None)
+        if self.vtab is not None:  # effective shift by visit count
+            self.shift = (lg[1:] + geom.rate_lo).clamp_(max=geom.rate)
+
+    def mark(self, idx, marks):
+        """Step A: deposit the count markers (``marks`` = real <<
+        CNT_SHIFT). Returns the marked entries and the clamped p."""
+        self.table.index_add_(0, idx, marks)
+        marked = self.table[idx]
+        return marked, (marked & _PMASK).clamp_(PROB_MIN, PROB_MAX)
+
+    def update(self, idx, real, marked, p, one):
+        """Step B: every lane's delta from the pre-step snapshot, merged
+        by addition with the marker removal, then the touched entries
+        clamped (colliding lanes store one value, so order is moot)."""
+        if self.vtab is not None:
+            shift = self.shift[self.vtab[idx].clamp_(max=1024)]
+            self.vtab.index_add_(0, idx, real)
+        else:
+            shift = self.rate
+        delta = torch.where(one, -(p >> shift), (PROB_ONE - p) >> shift)
+        if self.extra is not None:
+            delta >>= self.extra[(marked >> CNT_SHIFT).clamp_(min=0)]
+        t = self.table
+        t.index_add_(0, idx, (delta - (1 << CNT_SHIFT)) * real)
+        t[idx] = t[idx].clamp_(PROB_MIN, PROB_MAX)
+
+
+def _coder_step(low, rng, p, one):
+    """The binary decision's interval split (before renormalisation)."""
+    split = (rng >> PROB_BITS) * p
+    return (low + split * one) & MASK32, torch.where(one, rng - split, split)
+
+
+def _renorm(low, rng):
+    """(agree, do) of one renorm round: `do` lanes shift a byte out."""
+    agree = ((low ^ (low + rng)) & MASK32) < TOP
+    return agree, agree | (rng < BOT)
+
+
+def lane_encode_plain(idx_c: torch.Tensor, bit_c: torch.Tensor, geom,
+                      CB: int):
+    """Plain PyTorch version of Kernel E (same outputs)."""
+    NC, KD, W = idx_c.shape
+    dev = idx_c.device
+    law = _Law(geom, W, dev)
+    real_all = (idx_c < geom.sac_base).int()
+    marks_all = real_all << CNT_SHIFT
+    one_all = bit_c != 0
+    low = torch.zeros(W, dtype=torch.int64, device=dev)
+    rng = torch.full((W,), MASK32, dtype=torch.int64, device=dev)
+    ebufs = torch.zeros((NC, W, CB), dtype=torch.uint8, device=dev)
+    eptrs = torch.zeros((NC, W), dtype=torch.int32, device=dev)
+    loff = torch.arange(W, device=dev) * CB
+    sink = W * CB
+    ebuf = torch.zeros(W * CB + 1, dtype=torch.uint8, device=dev)
+    for c in range(NC):
+        ebuf.zero_()
+        eptr = torch.zeros(W, dtype=torch.int64, device=dev)
+        for i in range(KD):
+            idx, one = idx_c[c, i], one_all[c, i]
+            marked, p = law.mark(idx, marks_all[c, i])
+            low, rng = _coder_step(low, rng, p, one)
+            for _ in range(RENORM_ITERS):
+                agree, do = _renorm(low, rng)
+                if not bool(do.any()):
+                    break   # a renorm round with no lane to shift is a no-op
+                rng = torch.where(do & ~agree, (-low) & (BOT - 1), rng)
+                tgt = torch.where(do & (eptr < CB), loff + eptr, sink)
+                ebuf.index_put_((tgt,), (low >> 24).to(torch.uint8))
+                eptr = eptr + do
+                low = torch.where(do, (low << 8) & MASK32, low)
+                rng = torch.where(do, (rng << 8) & MASK32, rng)
+            law.update(idx, real_all[c, i], marked, p, one)
+        ebufs[c] = ebuf[:-1].reshape(W, CB)
+        eptrs[c] = eptr.int()
+    return ebufs, eptrs, _u32_bits(low), eptrs.max()
+
+
+def _ctx_init(kind: str, W: int, dev):
+    z = torch.zeros(W, dtype=torch.int64, device=dev)
+    return (z, z.clone()) if kind == "qual" else (z,)
+
+
+def _qdelta_code(a, b):
+    """2-bit quantised q1-q2 delta (frozen format rule, config.QualGeom):
+    0: equal; 1: up by <=3; 2: down by <=3; 3: |delta| > 3."""
+    d = a - b
+    return torch.where(d == 0, 0, torch.where((d > 0) & (d <= 3), 1,
+                                              torch.where((d < 0) & (d >= -3),
+                                                          2, 3)))
+
+
+def _ctx_step(kind: str, geom, cst, pos, rs):
+    """Online context of one symbol-step (the reference's _ctx_step)."""
+    if kind == "qual":
+        a, b = (torch.where(rs, 0, x) for x in cst)
+        ctx = a
+        shift = geom.depth
+        if geom.q2_bits:
+            ctx = ctx | ((b >> (geom.depth - geom.q2_bits)) << shift)
+            shift += geom.q2_bits
+        if geom.delta_bits:
+            ctx = ctx | (_qdelta_code(a, b) << shift)
+            shift += geom.delta_bits
+        if geom.pos_bits:
+            posb = (pos >> geom.pos_shift).clamp_(max=(1 << geom.pos_bits)
+                                                  - 1)
+            ctx = ctx | (posb << shift)
+        return ctx, (a, b)
+    if kind == "seq":
+        h = torch.where(rs, 0, cst[0])
+        j = pos.clamp(max=geom.order)
+        return h + ((1 << (2 * j)) - 1) // 3, (h,)
+    if kind == "byte":
+        return (cst[0] if geom.order else torch.zeros_like(cst[0])), cst
+    if kind == "flag":
+        return cst[0], cst
+    raise ValueError(kind)
+
+
+def _ctx_advance(kind: str, geom, cst, sym):
+    if kind == "qual":
+        return (sym, cst[0])
+    if kind == "seq":
+        return (((cst[0] << 2) | sym) & ((1 << (2 * geom.order)) - 1),)
+    if kind == "byte":
+        return (sym,)
+    if kind == "flag":
+        return (((cst[0] << 1) | sym) & ((1 << geom.hist_bits) - 1),)
+    raise ValueError(kind)
+
+
+def lane_decode_plain(payload: torch.Tensor, lens: torch.Tensor,
+                      acts: torch.Tensor, poss: torch.Tensor,
+                      resets: torch.Tensor, kind: str, geom):
+    """Plain PyTorch version of Kernel D (same output)."""
+    W, Lb = payload.shape
+    Sp = acts.shape[0]
+    dev = payload.device
+    law = _Law(geom, W, dev)
+    pay = payload.reshape(-1)
+    rowoff = torch.arange(W, device=dev) * Lb
+    lens64 = lens.long()
+    act_all = acts != 0
+    # an active step's context is a real one, an inactive step codes in
+    # the sacrificial row: `real` is `act`
+    real_all = act_all.int()
+    marks_all = real_all << CNT_SHIFT
+    rs_all = resets != 0
+    pos_all = poss.long()
+    low = torch.zeros(W, dtype=torch.int64, device=dev)
+    rng = torch.full((W,), MASK32, dtype=torch.int64, device=dev)
+    code = torch.zeros(W, dtype=torch.int64, device=dev)
+    ptr = torch.zeros(W, dtype=torch.int64, device=dev)
+
+    def read(ptr, do):
+        """Next payload byte of every lane where `do`; 0 past its end."""
+        b = pay.index_select(0, rowoff + ptr.clamp(max=Lb - 1)).long()
+        return b * ((ptr < lens64) & do)
+
+    everyone = torch.ones(W, dtype=torch.bool, device=dev)
+    for _ in range(4):
+        code = (code << 8) | read(ptr, everyone)
+        ptr = ptr + 1
+    cst = _ctx_init(kind, W, dev)
+    depth = geom.depth
+    nodes = (1 << depth) - 1
+    syms = torch.zeros((Sp, W), dtype=torch.uint8, device=dev)
+    for t in range(Sp):
+        act, real, marks = act_all[t], real_all[t], marks_all[t]
+        ctx, cst = _ctx_step(kind, geom, cst, pos_all[t], rs_all[t])
+        base = torch.where(act, ctx, geom.num_ctx) * nodes - 1
+        node = torch.ones(W, dtype=torch.int64, device=dev)
+        for _ in range(depth):
+            idx = base + node
+            marked, p = law.mark(idx, marks)
+            split = (rng >> PROB_BITS) * p
+            one = ((code - low) & MASK32) >= split
+            low, rng = _coder_step(low, rng, p, one)
+            for _ in range(RENORM_ITERS):
+                agree, do = _renorm(low, rng)
+                if not bool(do.any()):
+                    break
+                rng = torch.where(do & ~agree, (-low) & (BOT - 1), rng)
+                code = torch.where(do, ((code << 8) | read(ptr, do))
+                                   & MASK32, code)
+                ptr = ptr + do
+                low = torch.where(do, (low << 8) & MASK32, low)
+                rng = torch.where(do, (rng << 8) & MASK32, rng)
+            law.update(idx, real, marked, p, one)
+            node = 2 * node + one
+        sym = (node - (1 << depth)) * act
+        cst = _ctx_advance(kind, geom, cst, sym)
+        syms[t] = sym.to(torch.uint8)
+    return syms
+
+
+def _kind_params(kind: str, geom):
+    """Context parameters Kernel D builds its online context from."""
+    if kind == "qual":
+        return (geom.q2_bits, geom.delta_bits, geom.pos_bits, geom.pos_shift)
+    if kind == "seq":
+        return (geom.order, 0, 0, 0)
+    if kind == "byte":
+        return (geom.order, 0, 0, 0)
+    if kind == "flag":
+        return (geom.hist_bits, 0, 0, 0)
+    raise ValueError(kind)
+
+
+def _check_lanes(W: int, what: str) -> None:
+    if W > MAX_LANES:
+        raise ValueError(f"{what}: W={W} lanes exceeds {MAX_LANES} (one "
+                         "CTA per stream; a grid-wide barrier is needed "
+                         "for more)")
+
+
+def lane_encode(idx_c: torch.Tensor, bit_c: torch.Tensor, geom, CB: int):
+    """Kernel E on CUDA tensors, its plain version on CPU tensors."""
+    if idx_c.dim() != 3 or idx_c.dtype != torch.int32 \
+            or bit_c.dtype != torch.int32 or bit_c.shape != idx_c.shape:
+        raise ValueError("idx_c and bit_c must be [NC, 8*depth, W] int32")
+    NC, KD, W = idx_c.shape
+    if KD != CHUNK_SYMS * geom.depth:
+        raise ValueError(f"schedule depth {KD} != {CHUNK_SYMS}*{geom.depth}")
+    if idx_c.device != bit_c.device:
+        raise ValueError("idx_c and bit_c must share a device")
+    if idx_c.device.type == "cpu":
+        return lane_encode_plain(idx_c, bit_c, geom, CB)
+    if idx_c.device.type != "cuda":
+        raise ValueError(f"unsupported device {idx_c.device}")
+    _check_lanes(W, "lane_encode")
+    dev = idx_c.device
+    idx_c, bit_c = idx_c.contiguous(), bit_c.contiguous()
+    lib = _cuda.load("coder", _SIGS)
+    table, vtab = _tables(geom, dev)
+    ebufs = torch.zeros((NC, W, CB), dtype=torch.uint8, device=dev)
+    eptrs = torch.empty((NC, W), dtype=torch.int32, device=dev)
+    low = torch.empty(W, dtype=torch.int32, device=dev)
+    emax = torch.zeros(1, dtype=torch.int32, device=dev)
+    err = lib.lane_encode(
+        idx_c.data_ptr(), bit_c.data_ptr(), NC, KD, W, table.data_ptr(),
+        vtab.data_ptr() if vtab is not None else None, geom.sac_base,
+        geom.rate, getattr(geom, "rate_lo", 0), CB, ebufs.data_ptr(),
+        eptrs.data_ptr(), low.data_ptr(), emax.data_ptr(),
+        _cuda.stream_ptr(idx_c))
+    _cuda.launches["lane_encode"] += 1
+    _cuda.check(lib, err, "lane_encode")
+    return ebufs, eptrs, low, emax[0]
+
+
+def lane_decode(payload: torch.Tensor, lens: torch.Tensor,
+                acts: torch.Tensor, poss: torch.Tensor, resets: torch.Tensor,
+                kind: str, geom):
+    """Kernel D on CUDA tensors, its plain version on CPU tensors.
+    acts/poss/resets may be [Sp, W] or the reference's [NC, 8, W]."""
+    if payload.dim() != 2 or payload.dtype != torch.uint8:
+        raise ValueError("payload must be [W, Lb] uint8")
+    W, Lb = payload.shape
+    if Lb < 1:
+        raise ValueError("payload needs at least one column")
+    if lens.shape != (W,) or lens.dtype != torch.int32:
+        raise ValueError("lens must be [W] int32")
+    acts, poss, resets = (x.reshape(-1, W) for x in (acts, poss, resets))
+    if any(x.dtype != torch.int32 or x.shape != acts.shape
+           for x in (acts, poss, resets)):
+        raise ValueError("acts/poss/resets must be int32 of one shape")
+    if any(x.device != payload.device for x in (lens, acts, poss, resets)):
+        raise ValueError("decode inputs must share a device")
+    if payload.device.type == "cpu":
+        return lane_decode_plain(payload, lens, acts, poss, resets, kind,
+                                 geom)
+    if payload.device.type != "cuda":
+        raise ValueError(f"unsupported device {payload.device}")
+    _check_lanes(W, "lane_decode")
+    dev = payload.device
+    Sp = acts.shape[0]
+    payload, lens = payload.contiguous(), lens.contiguous()
+    acts, poss, resets = (x.contiguous() for x in (acts, poss, resets))
+    lib = _cuda.load("coder", _SIGS)
+    table, vtab = _tables(geom, dev)
+    syms = torch.empty((Sp, W), dtype=torch.uint8, device=dev)
+    k = _kind_params(kind, geom)
+    err = lib.lane_decode(
+        payload.data_ptr(), Lb, lens.data_ptr(), acts.data_ptr(),
+        poss.data_ptr(), resets.data_ptr(), Sp, W, table.data_ptr(),
+        vtab.data_ptr() if vtab is not None else None, geom.sac_base,
+        geom.rate, getattr(geom, "rate_lo", 0), geom.depth, KINDS[kind],
+        geom.num_ctx, *k, syms.data_ptr(), _cuda.stream_ptr(payload))
+    _cuda.launches["lane_decode"] += 1
+    _cuda.check(lib, err, "lane_decode")
+    return syms

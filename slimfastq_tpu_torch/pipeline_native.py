@@ -1,0 +1,313 @@
+"""Block pipeline: C++ host modelling (native/) + the PyTorch device drivers
+(ops/streams_torch).
+
+Byte-format identical to the JAX package's pipeline. Works directly on the
+raw FASTQ buffer + index arrays, never materialising per-record Python
+objects. SEQ and QUAL always take the device-raw path: the block's raw
+bytes cross to the device once and the lane pack/unpack happens there; the
+five aux streams are modelled on the host and coded on the device.
+
+Not ported yet (each raises): blocks whose raw byte span reaches 2 GiB
+(device offsets are int32; the reference packs those on the host), and
+level-4 long-range MATCH (the encoder's matcher trial and decoding a block
+with MATCH_USED).
+"""
+
+from __future__ import annotations
+
+from dataclasses import replace
+
+import numpy as np
+
+from . import native
+from .config import CodecConfig
+from .models import matcher as M
+from .ops import pack_torch, streams_torch
+from .pipeline import (MATCH_USED, QUAL_NODELTA, EncodedBlock, EncodedStream,
+                       _BASE_TO_CODE, _CODE_TO_BASE, _lane_lengths_matrix,
+                       streams_for)
+
+# device-side byte<->symbol maps (full 256-entry tables, gather-friendly):
+# encode maps non-ACGT to symbol 0 (the SEQX stream patches them back on
+# decode); decode maps any symbol byte through its low 2 bits
+_BASE_TO_CODE_DEV = np.where(_BASE_TO_CODE == 255, 0,
+                             _BASE_TO_CODE).astype(np.uint8)
+_CODE_TO_BASE_FULL = _CODE_TO_BASE[np.arange(256) & 3].astype(np.uint8)
+
+_MAX_SPAN = 1 << 31  # int32 device offsets
+
+
+def _lanes_to_mat(lanes_b, Wa: int):
+    """Per-lane byte buffers -> ([S, Wa] u8 matrix, counts). Row-major
+    fill (contiguous memcpy per lane) + one blocked C++ transpose."""
+    counts = np.array([len(b) for b in lanes_b], dtype=np.int64)
+    S = int(counts.max()) if counts.size else 0
+    if S == 0:
+        return np.zeros((0, Wa), dtype=np.uint8), counts
+    symsT = np.zeros((Wa, S), dtype=np.uint8)
+    for w, b in enumerate(lanes_b):
+        if len(b):
+            symsT[w, : len(b)] = b
+    return native.transpose_mat(symsT), counts
+
+
+def _span_too_large(what: str, span: int) -> ValueError:
+    return ValueError(
+        f"{what} spans {span} bytes (>= 2 GiB): the host-pack path for such "
+        "blocks is not yet ported in the torch port; use a smaller "
+        "--block-records")
+
+
+def stream_jobs_fast(data: np.ndarray, idx: dict, lo: int, hi: int,
+                     cfg: CodecConfig):
+    """Every stream's (kind, geom, syms, counts, pos, reset) coding job,
+    straight from the raw buffer + index arrays. SEQ and QUAL jobs carry
+    syms = pos = reset = None: their lane pack and pos/reset happen on
+    the device; the host only runs the non-ACGT census for SEQX.
+    Returns (jobs, n, minq, qual_depth, ll_mat, extra)."""
+    n = hi - lo
+    W, Wa = cfg.lanes, cfg.aux_lanes
+    sl = slice(lo, hi)
+    seq_off = idx["seq_off"][sl]
+    qual_off = idx["qual_off"][sl]
+    lengths = idx["seq_len"][sl].astype(np.int64)
+
+    jobs: dict[str, tuple] = {}
+    prev_step = Wa if cfg.fmt >= 3 else 1  # delta baseline (frozen/fmt)
+
+    # --- LEN ---------------------------------------------------------------
+    lsyms, lcounts = _lanes_to_mat(native.lens_encode(lengths, Wa,
+                                                      prev_step), Wa)
+    jobs["LEN"] = ("byte", cfg.bytes_, lsyms, lcounts, None, None)
+
+    # --- IDs + plus: flags/IDD/IDX -----------------------------------------
+    bidx = {k: np.ascontiguousarray(idx[k][sl])
+            for k in ("id_off", "id_len", "plus_off", "plus_len")}
+    flags, dl, xl = native.ids_encode(data, bidx, n, Wa, prev_step)
+    # FLAG stream: 3 symbols per record, lane-grouped (row-major fill +
+    # one transpose)
+    f3 = flags.reshape(n, 3)
+    rec_per_lane = ((n - np.arange(Wa) + Wa - 1) // Wa
+                    if n else np.zeros(Wa, dtype=np.int64))
+    fcounts = (3 * rec_per_lane).astype(np.int64)
+    maxrec = int(rec_per_lane.max()) if n else 0
+    if maxrec:
+        fT = np.zeros((Wa, 3 * maxrec), dtype=np.uint8)
+        for w in range(Wa):
+            sub = f3[w::Wa]
+            if sub.size:
+                fT[w, : sub.size] = sub.ravel()
+        fsyms = native.transpose_mat(fT)
+    else:
+        fsyms = np.zeros((0, Wa), dtype=np.uint8)
+    jobs["FLAG"] = ("flag", cfg.flags, fsyms, fcounts, None, None)
+
+    for name, lanes_b in (("IDD", dl), ("IDX", xl)):
+        syms, counts = _lanes_to_mat(lanes_b, Wa)
+        jobs[name] = ("byte", cfg.bytes_, syms, counts, None, None)
+
+    # --- SEQ + SEQX ---------------------------------------------------------
+    ll_mat = _lane_lengths_matrix(lengths, W)
+    scounts = ll_mat.sum(axis=0)
+    nbad, rec_bad = native.scan_bad(data, seq_off, lengths)
+    if nbad:
+        # rare path: run-length exception lane streams, emitted in C++;
+        # only the records scan_bad flagged are rescanned
+        seqx_lane = native.seqx_encode(data, seq_off, lengths, Wa,
+                                       rec_bad=rec_bad, nbad=nbad)
+    else:
+        seqx_lane = [np.zeros(0, dtype=np.uint8)] * Wa
+    sxsyms, sx_counts = _lanes_to_mat(seqx_lane, Wa)
+    jobs["SEQX"] = ("byte", cfg.bytes_, sxsyms, sx_counts, None, None)
+
+    # --- v5: per-block SEQ order fallback (+ the MATCH slot) ---------------
+    extra = {"seq_order": 0, "qual_nodelta": False}
+    sgeom = cfg.seq
+    if cfg.fmt >= 5:
+        eff = M.effective_seq_order(cfg.seq.order, int(lengths.sum()))
+        if eff != cfg.seq.order:
+            sgeom = replace(cfg.seq, order=eff)
+            extra["seq_order"] = eff
+        jobs["MATCH"] = ("byte", cfg.bytes_,
+                         np.zeros((0, Wa), dtype=np.uint8),
+                         np.zeros(Wa, dtype=np.int64), None, None)
+        if cfg.match and sgeom.match_bits and n > M.MATCH_CHUNK:
+            raise NotImplementedError(
+                "level 4 / MATCH not yet ported in the torch port")
+    jobs["SEQ"] = ("seq", sgeom, None, scounts, None, None)
+
+    # --- QUAL ---------------------------------------------------------------
+    if n and int(lengths.sum()):
+        minq, maxq = native.minmax_ranges(data, qual_off, lengths)
+    else:
+        minq = maxq = 33
+    qrange = maxq - minq + 1
+    qual_depth = 6 if qrange <= 64 else (7 if qrange <= 128 else 8)
+    qdelta = cfg.qual.delta_bits
+    if cfg.fmt >= 5 and qdelta:
+        qdelta = M.effective_qual_delta(qdelta, int(lengths.sum()))
+        extra["qual_nodelta"] = qdelta == 0
+    qgeom = replace(cfg.qual, depth=qual_depth, delta_bits=qdelta)
+    jobs["QUAL"] = ("qual", qgeom, None, scounts, None, None)
+
+    return jobs, n, minq, qual_depth, ll_mat, extra
+
+
+def prepare_block_fast(data: np.ndarray, idx: dict, lo: int, hi: int,
+                       cfg: CodecConfig):
+    """Host-only half of a block encode (stream modelling + aux lane
+    matrices + the padded raw byte range). The returned opaque tuple
+    feeds encode_prepared_block — split so a pipelined caller can prep
+    block k+1 while block k is on the device."""
+    jobs, n, minq, qual_depth, ll_mat, extra = stream_jobs_fast(
+        data, idx, lo, hi, cfg)
+    raw_args = None
+    if n:
+        base = int(idx["id_off"][lo]) - 1  # the record's '@'
+        last = hi - 1
+        end = int(idx["qual_off"][last] + idx["qual_len"][last])
+        span = end - base
+        if span >= _MAX_SPAN:
+            raise _span_too_large("block", span)
+        # the block's raw byte range ships to the device once, padded to
+        # the shape bucket here, in the pipelined host half; offsets
+        # become block-local
+        sl = slice(lo, hi)
+        dpad = np.empty(pack_torch.pad_flat(span), dtype=np.uint8)
+        dpad[:span] = data[base:end]
+        dpad[span:] = 0
+        raw_args = (dpad, idx["seq_off"][sl] - base,
+                    idx["qual_off"][sl] - base,
+                    idx["seq_len"][sl].astype(np.int64))
+    v5 = extra if cfg.fmt >= 5 else None
+    return jobs, n, minq, qual_depth, ll_mat, raw_args, v5
+
+
+def seq_qual_args(pre, cfg: CodecConfig) -> tuple:
+    """The arguments, but the device, of streams_torch.encode_seq_qual_raw
+    (and seq_qual_jobs) for a prepared block that holds records."""
+    jobs, _, minq, _, ll_mat, raw_args, _ = pre
+    return (jobs["SEQ"][1], jobs["QUAL"][1], *raw_args, cfg.lanes,
+            _BASE_TO_CODE_DEV, minq, ll_mat, jobs["SEQ"][3])
+
+
+def _empty_stream(counts) -> EncodedStream:
+    c64 = np.asarray(counts).astype(np.int64)
+    return EncodedStream(c64, np.zeros_like(c64),
+                         np.zeros((len(c64), 0), dtype=np.uint8))
+
+
+def encode_prepared_block(pre, cfg: CodecConfig, device) -> EncodedBlock:
+    """Device half of a block encode: code every stream of a prepared
+    block on ``device`` and assemble the EncodedBlock."""
+    jobs, n, minq, qual_depth, ll_mat, raw_args, v5 = pre
+    raw_out = None
+    if raw_args is not None:
+        raw_out = streams_torch.encode_seq_qual_raw(
+            *seq_qual_args(pre, cfg), device)
+    streams: dict[str, EncodedStream] = {}
+    for name in streams_for(cfg.fmt):
+        kind, geom, syms, counts, _pos, _reset = jobs[name]
+        if name in ("SEQ", "QUAL"):
+            if raw_out is None:  # a block of no records
+                streams[name] = _empty_stream(counts)
+                continue
+            payload, lens = raw_out[name]
+        elif syms.shape[0] == 0:
+            # all-empty lane stream (e.g. the MATCH slot): byte-identical
+            # to coding zero steps, no device call
+            streams[name] = _empty_stream(counts)
+            continue
+        else:
+            payload, lens = streams_torch.encode_stream(kind, geom, syms,
+                                                        counts, device)
+        streams[name] = EncodedStream(np.asarray(counts).astype(np.int64),
+                                      lens, payload)
+    flags = QUAL_NODELTA if (v5 is not None and v5["qual_nodelta"]) else 0
+    return EncodedBlock(n, minq, qual_depth, streams, flags=flags,
+                        seq_order=(v5 or {}).get("seq_order", 0))
+
+
+def decode_block_device(blk: EncodedBlock, cfg: CodecConfig, device):
+    """Device half of a block decode: entropy-decode all streams on
+    ``device`` and lane-unpack SEQ/QUAL to record-major byte buffers.
+    Returns an opaque intermediate for decode_block_finish (the host
+    half: ID chain decode, SEQX patch, FASTQ assembly)."""
+    n = blk.num_records
+    W, Wa = cfg.lanes, cfg.aux_lanes
+    if n == 0:
+        return None
+    if cfg.fmt >= 5 and (blk.flags & MATCH_USED):
+        raise NotImplementedError(
+            "level 4 / MATCH not yet ported in the torch port")
+
+    def dec_lanes(name, kind="byte", geom=None, counts=None):
+        es = blk.streams[name]
+        g = geom if geom is not None else cfg.bytes_
+        c = counts if counts is not None else es.sym_counts
+        S = int(np.asarray(c).max()) if len(c) else 0
+        syms = streams_torch.decode_stream(kind, g, es.payload, es.lane_lens,
+                                           c, S, device)
+        if syms.size:  # one blocked transpose, then zero-copy row views
+            rows = native.transpose_mat(np.ascontiguousarray(syms))
+            return [rows[w, : c[w]] for w in range(len(c))]
+        return [np.zeros(0, dtype=np.uint8) for _ in range(len(c))]
+
+    prev_step = Wa if cfg.fmt >= 3 else 1  # delta baseline (frozen/fmt)
+
+    # 1. lengths
+    lengths = native.lens_decode(dec_lanes("LEN"), n, Wa, prev_step)
+
+    # 2. flags (implicit counts: 3 per record), back to record order
+    rec_per_lane = (n - np.arange(Wa) + Wa - 1) // Wa
+    flag_lanes = dec_lanes("FLAG", kind="flag", geom=cfg.flags,
+                           counts=3 * rec_per_lane)
+    flags = native.flags_reorder(np.concatenate(flag_lanes), n, Wa)
+
+    # 3. ID delta/exception streams (chain decode is in the finish half)
+    idd_lanes = dec_lanes("IDD")
+    idx_lanes = dec_lanes("IDX")
+
+    # 4. seq exceptions (parsed + patched in C++ in the finish half)
+    sx_lanes = dec_lanes("SEQX")
+
+    # 5/6. seq + qual -> record-major flat byte buffers
+    ss = blk.streams["SEQ"]
+    qs = blk.streams["QUAL"]
+    qgeom = replace(cfg.qual, depth=blk.qual_depth,
+                    delta_bits=0 if (blk.flags & QUAL_NODELTA)
+                    else cfg.qual.delta_bits)
+    sgeom = (replace(cfg.seq, order=blk.seq_order)
+             if (cfg.fmt >= 5 and blk.seq_order) else cfg.seq)
+    rec_starts = np.zeros(n, dtype=np.int64)
+    rec_starts[1:] = np.cumsum(lengths[:-1])
+    total = int(lengths.sum())
+    if total >= _MAX_SPAN:
+        raise _span_too_large("block sequence data", total)
+    ll_mat = _lane_lengths_matrix(lengths, W)
+    scounts = ll_mat.sum(axis=0)
+    S = int(scounts.max()) if scounts.size else 0
+    seq_bytes, qual_bytes = streams_torch.decode_seq_qual_raw(
+        sgeom, qgeom, ss.payload, ss.lane_lens, qs.payload, qs.lane_lens,
+        ll_mat, scounts, S, rec_starts, lengths, total, _CODE_TO_BASE_FULL,
+        blk.minq, device)
+    return (n, prev_step, lengths, flags, idd_lanes, idx_lanes, sx_lanes,
+            rec_starts, seq_bytes, qual_bytes)
+
+
+def decode_block_finish(inter, cfg: CodecConfig) -> memoryview | bytes:
+    """Host half of a block decode: ID chain decode, SEQX patch, FASTQ
+    assembly. Returns a bytes-like (memoryview, zero-copy)."""
+    if inter is None:
+        return b""
+    (n, prev_step, lengths, flags, idd_lanes, idx_lanes, sx_lanes,
+     rec_starts, seq_bytes, qual_bytes) = inter
+    ida, ioff, ilen, pla, poff, plen = native.ids_decode(
+        n, cfg.aux_lanes, flags, idd_lanes, idx_lanes, prev_step)
+    # SEQX exception runs are patched into the assembled output's seq
+    # fields, so seq/qual stay read-only views
+    return native.fastq_assemble(
+        n, ida, ioff, ilen,
+        np.ascontiguousarray(seq_bytes), rec_starts,
+        np.ascontiguousarray(qual_bytes), lengths,
+        pla, poff, plen, sx_lanes=sx_lanes, fmt=cfg.fmt)

@@ -1,0 +1,159 @@
+"""The port's lane coder (slimfastq_tpu_torch.ops.coder_torch: Kernels E and
+D, here their plain PyTorch versions) and its schedule math
+(ops/streams_torch._schedule) against the JAX package's
+streams_jax._build_schedule, _build_encode and _build_decode, output for
+output, with exact equality: the schedule, eptrs, low, emax and every
+ebufs byte on encode, every symbol on decode. The same inputs, made with
+numpy from a seed, go to both."""
+
+from dataclasses import replace
+
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+from slimfastq_tpu.config import config_for_level
+from slimfastq_tpu.ops import ranger_np as R
+from slimfastq_tpu.ops import streams_jax as SJ
+from slimfastq_tpu.pipeline import _seq_symbol_layout
+from slimfastq_tpu_torch.ops import coder_torch as CT
+from slimfastq_tpu_torch.ops import streams_torch as ST
+
+torch.set_num_threads(1)
+
+
+def _geom(level, kind, warm=True):
+    cfg = config_for_level(level)
+    g = {"qual": cfg.qual, "seq": cfg.seq, "byte": cfg.bytes_,
+         "flag": cfg.flags}[kind]
+    return g if warm else replace(g, rate_lo=0)
+
+
+def _reads(rng, n, W, maxlen, kind, equal_len=False):
+    lengths = (np.full(n, maxlen, dtype=np.int64) if equal_len else
+               rng.integers(0, maxlen + 1, size=n).astype(np.int64))
+    _, counts, S, pos, reset = _seq_symbol_layout(lengths, W)
+    if kind == "seq":
+        syms = rng.integers(0, 4, size=(S, W))
+    else:
+        syms = np.clip(30 + np.cumsum(rng.integers(-2, 3, size=(S, W)),
+                                      axis=0), 0, 63)
+    return syms.astype(np.uint32), counts, pos, reset
+
+
+def _ragged(rng, S, W, hi):
+    counts = rng.integers(0, S + 1, size=W)
+    counts[0] = 0
+    counts[-1] = S
+    return rng.integers(0, hi, size=(S, W)).astype(np.uint32), counts
+
+
+def _t(x):
+    return torch.from_numpy(np.ascontiguousarray(x).astype(np.int32))
+
+
+def _check(kind, geom, syms, counts, pos=None, reset=None, hard=False):
+    S, W = syms.shape
+    Sp = R.pad_steps(S)
+    args = [SJ._pad2(x, Sp, W) for x in (syms, pos, reset)]
+    # schedule: the JAX program vs the port's tensor ops
+    sched = SJ._build_schedule(kind, geom, Sp, W)
+    j_idx, j_bit = (np.asarray(x) for x in sched(
+        *(jnp.asarray(a) for a in args),
+        jnp.asarray(counts.astype(np.int32))))
+    p_idx, p_bit = ST._schedule(kind, geom, *(_t(a) for a in args),
+                                _t(counts))
+    assert np.array_equal(p_idx.numpy(), j_idx)
+    assert np.array_equal(p_bit.numpy(), j_bit)
+    # encode: Kernel E's plain version vs _build_encode
+    CB = SJ._chunk_bytes(geom.depth, hard)
+    assert CB == ST._chunk_bytes(geom.depth, hard)
+    eb, ep, lo, em = SJ._build_encode(kind, geom, Sp, W, hard)(
+        jnp.asarray(j_idx), jnp.asarray(j_bit))
+    pe = CT.lane_encode(p_idx, p_bit, geom, CB)
+    NC = Sp // CT.CHUNK_SYMS
+    assert np.array_equal(pe[1].numpy(), np.asarray(ep))
+    assert np.array_equal(pe[2].numpy().view(np.uint32), np.asarray(lo))
+    assert int(pe[3]) == int(em)
+    assert np.array_equal(pe[0].numpy(), np.asarray(eb).reshape(NC, W, CB))
+    # decode: Kernel D's plain version vs _build_decode on one payload
+    payload, lens = SJ._compact_host(np.asarray(eb), np.asarray(ep),
+                                     np.asarray(lo), counts, CB)
+    Lb = ((max(payload.shape[1], 1) + 2047) // 2048) * 2048
+    pay = np.zeros((W, Lb), dtype=np.uint8)
+    pay[:, : payload.shape[1]] = payload
+    acts = (np.arange(Sp)[:, None] < counts[None, :]).astype(np.int32)
+    K = SJ._CHUNK_SYMS
+    jd = SJ._build_decode(kind, geom, Sp, W, Lb // 4)(
+        jnp.asarray(pay.view("<u4").reshape(-1)),
+        jnp.asarray(lens.astype(np.int32)),
+        *(jnp.asarray(a.reshape(NC, K, W)) for a in (acts, *args[1:])))
+    pd = CT.lane_decode(torch.from_numpy(pay), _t(lens), _t(acts),
+                        *(_t(a) for a in args[1:]), kind, geom)
+    assert np.array_equal(pd.numpy(), np.asarray(jd))
+    mask = acts.astype(bool)
+    assert np.array_equal(pd.numpy()[mask], args[0][mask])
+
+
+@pytest.mark.parametrize("level,warm", [(2, True), (3, True), (3, False),
+                                        (4, True)])
+def test_qual_coder(level, warm):
+    """Level 4 adds the 2-bit q1-q2 delta to the context."""
+    rng = np.random.default_rng(10 + level + warm)
+    syms, counts, pos, reset = _reads(rng, 40, 16, 40, "qual")
+    _check("qual", _geom(level, "qual", warm), syms, counts, pos, reset)
+
+
+@pytest.mark.parametrize("level,warm", [(2, True), (3, True), (3, False)])
+def test_seq_coder(level, warm):
+    rng = np.random.default_rng(20 + level + warm)
+    syms, counts, pos, reset = _reads(rng, 48, 16, 60, "seq")
+    _check("seq", _geom(level, "seq", warm), syms, counts, pos, reset)
+
+
+def test_byte_coder():
+    rng = np.random.default_rng(30)
+    syms, counts = _ragged(rng, 200, 8, 256)
+    _check("byte", _geom(3, "byte"), syms, counts)
+
+
+def test_flag_coder():
+    rng = np.random.default_rng(32)
+    syms, counts = _ragged(rng, 500, 8, 2)
+    _check("flag", _geom(3, "flag"), syms, counts)
+
+
+def test_hard_buffer_variant():
+    """The worst-case chunk buffers give the same streams as the
+    optimistic ones; both sides take them alike."""
+    rng = np.random.default_rng(33)
+    syms, counts, pos, reset = _reads(rng, 16, 8, 64, "qual")
+    _check("qual", _geom(2, "qual"), syms, counts, pos, reset, hard=True)
+
+
+def test_seq_collision_w1024():
+    """W = 1024 lanes whose reads all start at step 0: at each read start
+    every lane marks the same table entry, so the 10-bit count field in
+    bits 22-31 wraps (1024 lanes -> count 0). The int32 table of the port
+    must wrap exactly as the JAX program's."""
+    rng = np.random.default_rng(34)
+    syms, counts, pos, reset = _reads(rng, 2048, 1024, 100, "seq",
+                                      equal_len=True)
+    assert R.pad_steps(syms.shape[0]) == 256
+    _check("seq", _geom(3, "seq"), syms, counts, pos, reset)
+
+
+def test_wrappers_reject_bad_inputs():
+    geom = _geom(3, "qual")
+    z = torch.zeros((2, 48, 4), dtype=torch.int32)
+    with pytest.raises(ValueError):
+        CT.lane_encode(z.long(), z, geom, 64)
+    with pytest.raises(ValueError):
+        CT.lane_encode(z[:, :40], z[:, :40], geom, 64)
+    with pytest.raises(ValueError):
+        CT.lane_decode(torch.zeros((4, 8), dtype=torch.uint8),
+                       torch.zeros(4, dtype=torch.int64),
+                       *(torch.zeros((8, 4), dtype=torch.int32),) * 3,
+                       "qual", geom)

@@ -1,0 +1,125 @@
+"""Kernels E, D and C against their plain PyTorch versions on a CUDA card,
+byte for byte. Marked `cuda`: they skip without a card. This file imports
+neither JAX nor the JAX package, so it runs on a machine that has only
+PyTorch and a card:
+
+    python -m pytest tests/test_torch_cuda.py -m cuda -q
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from slimfastq_tpu_torch.config import config_for_level
+from slimfastq_tpu_torch.ops import coder_torch as CT
+from slimfastq_tpu_torch.ops import compact_torch as CC
+from slimfastq_tpu_torch.ops import streams_torch as ST
+
+torch.set_num_threads(1)
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    return torch.device("cuda")
+
+
+def _stream(kind, rng, dev, W):
+    """(syms, counts, pos, reset) on the card: reads of 100 symbols that
+    all start at step 0 for seq/qual (every lane at one context at each
+    read start), ragged lanes for byte/flag."""
+    Sp = 256
+    if kind in ("seq", "qual"):
+        ll = np.full((Sp // 100, W), 100, dtype=np.int64)
+        counts = ll.sum(axis=0)
+        pos, reset = ST._pos_reset(torch.from_numpy(ll).to(dev), Sp,
+                                   int(counts.max()), W)
+        if kind == "seq":
+            syms = rng.integers(0, 4, size=(Sp, W))
+        else:
+            syms = np.clip(30 + np.cumsum(rng.integers(-2, 3, (Sp, W)),
+                                          axis=0), 0, 63)
+    else:
+        counts = rng.integers(Sp // 2, Sp + 1, size=W)
+        syms = rng.integers(0, 256 if kind == "byte" else 2, size=(Sp, W))
+        pos = reset = torch.zeros((Sp, W), dtype=torch.int32, device=dev)
+    return (torch.from_numpy(syms.astype(np.int32)).to(dev), counts, pos,
+            reset)
+
+
+@pytest.mark.parametrize("kind,W,hard", [("seq", 1024, False),
+                                         ("qual", 1024, False),
+                                         ("qual", 256, True),
+                                         ("byte", 64, False),
+                                         ("flag", 64, False)])
+def test_coder_and_compact_kernels_match_plain(dev, kind, W, hard):
+    cfg = config_for_level(3)
+    geom = {"seq": cfg.seq, "qual": cfg.qual, "byte": cfg.bytes_,
+            "flag": cfg.flags}[kind]
+    rng = np.random.default_rng(1)
+    syms, counts, pos, reset = _stream(kind, rng, dev, W)
+    c = torch.from_numpy(counts.astype(np.int32)).to(dev)
+    idx_c, bit_c = ST._schedule(kind, geom, syms, pos, reset, c)
+    CB = ST._chunk_bytes(geom.depth, hard)
+    ke = CT.lane_encode(idx_c, bit_c, geom, CB)
+    pe = CT.lane_encode_plain(idx_c, bit_c, geom, CB)
+    for a, b in zip(ke, pe):
+        assert torch.equal(a.cpu(), b.cpu())
+    ebufs, eptrs, low, emax = ke
+    assert int(emax) <= CB
+    Bmax = int(eptrs.sum(dim=0).max()) + 5
+    kc = CC.compact_lanes_dev(ebufs, eptrs, Bmax)
+    pc = CC.compact_lanes_plain(ebufs, eptrs, Bmax)
+    for a, b in zip(kc, pc):
+        assert torch.equal(a.cpu(), b.cpu())
+    pay, lens = ST._flush_append(kc[0].cpu().numpy(),
+                                 kc[1].cpu().numpy().astype(np.int64),
+                                 low.cpu().numpy().view(np.uint32), counts)
+    Sp = syms.shape[0]
+    args = (torch.from_numpy(pay).to(dev),
+            torch.from_numpy(lens.astype(np.int32)).to(dev),
+            ST._acts(c, Sp), pos, reset)
+    kd = CT.lane_decode(*args, kind, geom)
+    pd = CT.lane_decode_plain(*args, kind, geom)
+    assert torch.equal(kd.cpu(), pd.cpu())
+    mask = torch.arange(Sp, device=dev)[:, None] < c[None, :]
+    assert torch.equal(kd[mask].int(), syms[mask])
+
+
+def test_compact_kernel_ragged_chunks(dev):
+    """Kernel C on chunk counts past CB (an overflowed optimistic buffer)
+    and across several 256-chunk tiles of one lane."""
+    rng = np.random.default_rng(2)
+    NC, W, CB = 700, 64, 32
+    eptrs = rng.integers(0, CB + 8, size=(NC, W)).astype(np.int32)
+    eptrs[:, 3] = 0
+    ebufs = rng.integers(0, 256, size=(NC, W, CB)).astype(np.uint8)
+    eb, ep = (torch.from_numpy(x).to(dev) for x in (ebufs, eptrs))
+    for Bmax in (int(eptrs.sum(axis=0).max()), 100):
+        k = CC.compact_lanes_dev(eb, ep, Bmax)
+        p = CC.compact_lanes_plain(eb, ep, Bmax)
+        for a, b in zip(k, p):
+            assert torch.equal(a.cpu(), b.cpu())
+
+
+def test_main_path_round_trip_on_card(dev):
+    from slimfastq_tpu_torch import api
+    from slimfastq_tpu_torch.ops import _cuda
+    from slimfastq_tpu_torch.utils.synth import synth_fastq
+    data = synth_fastq(3000, read_len=100, seed=3, var_len=True,
+                       n_rate=0.01)
+    _cuda.reset_launches()
+    enc = api.encode_fastq(data, block_records=1024)
+    assert api.decode_fastq(enc) == data
+    assert api.decode_fastq(enc, device="cpu") == data
+    assert all(v > 0 for v in _cuda.launches.values())
+
+
+def test_wide_block_refused(dev):
+    geom = config_for_level(3).flags
+    z = torch.zeros((1, 8, 2048), dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError, match="exceeds"):
+        CT.lane_encode(z, z, geom, 16)

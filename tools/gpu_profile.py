@@ -1,0 +1,98 @@
+#!/usr/bin/env python3
+"""Where the time goes in the PyTorch/CUDA port (slimfastq_tpu_torch) on
+one GPU: the pinned block (65,536 reads x 100 bp, level 3, the generator of
+bench.py and chip_smoke.py) encoded and decoded once, warm, under
+torch.profiler.
+
+Prints one JSON line per direction: its wall seconds; device time by
+kernel (self device time summed over launches, and the launch count,
+copies included); the device busy share of the wall (all device time over
+the wall; kernels run on one stream, so they do not overlap); and, for the
+codec's trace spans (`sfq.*`), the host time and the device time of the
+work they enqueued, each summed over the span's calls.
+Needs a CUDA card.
+
+Usage: python3 tools/gpu_profile.py [reads]
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import re
+import sys
+import time
+
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
+    __file__))))
+
+
+def _kernel_name(key: str) -> str:
+    m = re.search(r"(lane_encode_kernel|lane_decode_kernel|"
+                  r"compact_lanes_kernel)", key)
+    return m.group(1) if m else key[:80]
+
+
+def _profile(fn):
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+    device, spans = {}, {}
+    for e in prof.key_averages():
+        on_device = e.device_type == DeviceType.CUDA
+        if e.key.startswith("sfq."):
+            # a span has a host entry and, where it enqueued device work,
+            # a device entry of the same name
+            s = spans.setdefault(e.key, {"host_ms": 0.0, "device_ms": 0.0,
+                                         "count": 0})
+            if on_device:
+                s["device_ms"] += e.device_time_total / 1e3
+            else:
+                s["host_ms"] += e.cpu_time_total / 1e3
+                s["count"] += e.count
+        elif on_device and e.key != "Activity Buffer Request":
+            name = _kernel_name(e.key)
+            d = device.setdefault(name, {"device_ms": 0.0, "count": 0})
+            d["device_ms"] += e.self_device_time_total / 1e3
+            d["count"] += e.count
+    busy = sum(d["device_ms"] for d in device.values()) / 1e3
+    return out, {"wall_s": wall, "device_busy_s": busy,
+                 "device_busy_share": busy / wall,
+                 "device": dict(sorted(device.items(),
+                                       key=lambda kv: -kv[1]["device_ms"])),
+                 "spans": dict(sorted(spans.items()))}
+
+
+def main() -> int:
+    import torch
+    if not torch.cuda.is_available():
+        print("gpu_profile: no CUDA device", file=sys.stderr)
+        return 1
+    from slimfastq_tpu_torch import api
+    from slimfastq_tpu_torch.utils.synth import synth_fastq
+    reads = int(sys.argv[1]) if len(sys.argv) > 1 else 65536
+    data = synth_fastq(reads, read_len=100, seed=0, var_len=False,
+                       n_rate=0.0005)
+    enc = api.encode_fastq(data, level=3)           # warm: build, allocate
+    assert api.decode_fastq(enc) == data
+    enc, rep_e = _profile(lambda: api.encode_fastq(data, level=3))
+    dec, rep_d = _profile(lambda: api.decode_fastq(enc))
+    assert dec == data
+    card = torch.cuda.get_device_name(0)
+    for direction, rep in (("encode", rep_e), ("decode", rep_d)):
+        print(json.dumps({"direction": direction, "reads": reads,
+                          "raw_bytes": len(data),
+                          "compressed_bytes": len(enc), "card": card,
+                          **rep}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
