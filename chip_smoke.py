@@ -11,18 +11,26 @@ Phases (any failure exits non-zero; nothing is caught):
   3. kernels: each of Kernel E (lane_encode), D (lane_decode) and C
      (compact_lanes_dev) against its plain PyTorch version on the card,
      byte for byte, at W = 1024, Sp = 256 with the level-3 SEQ (all lanes
-     at context 0 at every read start: the collision case) and QUAL
-     geometries, and at the aux width W = 64 with the byte and flag kinds;
-     then each kernel timed with CUDA events on the main path's own inputs
-     (the pinned 64k x 100 bp block's QUAL stream: W = 1024, Sp = 6400,
-     NC = 800), where C is held against its plain version once more and
-     D's output against the packed QUAL symbols;
+     at context 0 at every read start: the collision case, with 1,024 and
+     with 700 active lanes, where the format's count field wraps) and QUAL
+     geometries, and at the aux width W = 64 with the byte and flag kinds
+     (tables in shared memory); then each kernel timed with CUDA events on
+     the main path's own inputs (the pinned 64k x 100 bp block's QUAL
+     stream: W = 1024, Sp = 6400, NC = 800), where C is held against its
+     plain version once more and D's output against the packed QUAL
+     symbols; and one 1,024-thread barrier timed, for D's lockstep bound
+     (bit-steps x one barrier; E's is printed beside its byte bound);
   4. main path: the pinned block through api.encode_fastq / decode_fastq
      on the card: container size and SHA-256 equal the JAX package's,
-     the round trip is exact, every kernel's launch count moved; then
-     encode and decode wall time over 4 blocks of the same generator.
+     the round trip is exact, every kernel's launch count moved; then the
+     block's seven E and seven D launches, on the main path's inputs,
+     timed alone and launched at once through the main path's StreamSet
+     (the block's coder span, first launch to join, beside the sum), and
+     the main path's device halves timed with CUDA events; then encode
+     and decode wall time over 4 blocks of the same generator.
 
-Prints a `kernels` JSON line, then, as its last line, the `ok` JSON line.
+Prints a `block`, an `earlier_ms` (recorded constants) and a `kernels`
+JSON line, then, as its last line, the `ok` JSON line.
 """
 
 from __future__ import annotations
@@ -42,6 +50,12 @@ PINNED_SHA256 = \
     "056cae0e9fd312106cae2a401155a533840c167a46ced960fad355c4471a3f6c"
 WALL_BLOCKS = 4
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM published memory rate
+# Each kernel's time at the timed shape before E and D moved their table
+# law into shared memory (this script, H100 80GB HBM3, 700 W), printed on
+# a line of its own as recorded constants
+EARLIER_MS = {"lane_encode": 142.01, "lane_decode": 136.97,
+              "compact_lanes_dev": 0.0317}
+BARRIER_ITERS = 200000
 
 
 def _pinned(reads: int) -> bytes:
@@ -86,13 +100,13 @@ def _compare(errs: dict, name: str, what: str, a, b) -> None:
 # phase 3a: kernels against their plain versions at the reduced shape
 # ---------------------------------------------------------------------------
 
-def _reads_layout(W: int, Sp: int, read_len: int):
-    """Every lane holds reads of `read_len` starting at step 0: at each read
-    start all W lanes share one context (the collision case)."""
+def _reads_layout(W: int, Sp: int, read_len: int, active: int):
+    """The first `active` lanes hold reads of `read_len` starting at step
+    0, the others none: at each read start the active lanes share one
+    context (the collision case)."""
     import numpy as np
-    n = W * (Sp // read_len)
-    lengths = np.full(n, read_len, dtype=np.int64)
-    ll = lengths.reshape(-1, W)
+    ll = np.full((Sp // read_len, W), read_len, dtype=np.int64)
+    ll[:, active:] = 0
     return ll, ll.sum(axis=0)
 
 
@@ -161,14 +175,17 @@ def check_kernels(dev):
     cfg = config_for_level(3)
     rng = np.random.default_rng(7)
     Sp, W = 256, 1024
-    ll, counts = _reads_layout(W, Sp, READ_LEN)
-    pos, reset = ST._pos_reset(torch.from_numpy(ll).to(dev), Sp,
-                               int(counts.max()), W)
     seq = rng.integers(0, 4, size=(Sp, W)).astype(np.uint8)
     steps = rng.integers(-2, 3, size=(Sp, W))
     qual = np.clip(30 + np.cumsum(steps, axis=0), 0, 41).astype(np.uint8)
     plain_qual, errs = {}, {}
-    _check_stream("seq", cfg.seq, seq, counts, pos, reset, dev, {}, errs)
+    # 700 lanes on one entry read a negative count, 1,024 a count of 0
+    for active in (700, W):
+        ll, counts = _reads_layout(W, Sp, READ_LEN, active)
+        pos, reset = ST._pos_reset(torch.from_numpy(ll).to(dev), Sp,
+                                   int(counts.max()), W)
+        _check_stream("seq", cfg.seq, seq, counts, pos, reset, dev, {},
+                      errs)
     _check_stream("qual", cfg.qual, qual, counts, pos, reset, dev,
                   plain_qual, errs)
     Wa = cfg.aux_lanes
@@ -180,8 +197,9 @@ def check_kernels(dev):
     _check_stream("flag", cfg.flags,
                   rng.integers(0, 2, size=(Sp, Wa)).astype(np.uint8),
                   ragged, zeros, zeros, dev, {}, errs)
-    print(f"kernels match their plain versions: seq/qual at W={W} "
-          f"Sp={Sp}, byte/flag at W={Wa} Sp={Sp}", flush=True)
+    print(f"kernels match their plain versions: seq (1,024 and 700 "
+          f"colliding lanes)/qual at W={W} Sp={Sp}, byte/flag at W={Wa} "
+          f"Sp={Sp}", flush=True)
     return plain_qual, errs
 
 
@@ -214,8 +232,11 @@ def time_kernels(data: bytes, dev, errs: dict) -> dict:
     NC, KD, _ = q.idx_c.shape
     out = {"shape": {"W": W, "Sp": Sp, "NC": NC, "depth": q.geom.depth},
            "bit_steps": NC * KD}
-    ebufs, eptrs, low = ST._encode_chunks("qual", q.geom, q.idx_c, q.bit_c)
-    CB = ebufs.shape[2]
+    CB = ST._chunk_bytes(q.geom.depth, hard=False)
+    ebufs, eptrs, low, emax = coder_torch.lane_encode(q.idx_c, q.bit_c,
+                                                      q.geom, CB)
+    if int(emax) > CB:
+        raise AssertionError("QUAL: optimistic chunk buffer overflowed")
     e_ms = _time_ms(lambda: coder_torch.lane_encode(q.idx_c, q.bit_c, q.geom,
                                                     CB), 3)
     e_bytes = 2 * q.idx_c.numel() * 4 + ebufs.numel() + eptrs.numel() * 4 \
@@ -255,6 +276,24 @@ def time_kernels(data: bytes, dev, errs: dict) -> dict:
     return out
 
 
+def barrier_us(dev) -> float:
+    """One 1,024-thread __syncthreads() on the card (us): csrc/coder.cu's
+    barrier_loop, CUDA events around BARRIER_ITERS barriers, less a launch
+    of none."""
+    import torch
+    from slimfastq_tpu_torch.ops import _cuda, coder_torch
+    lib = _cuda.load("coder", coder_torch._SIGS)
+    out = torch.zeros(1, dtype=torch.int32, device=dev)
+
+    def run(iters):
+        _cuda.check(lib, lib.barrier_loop(iters, 1024, out.data_ptr(),
+                                          _cuda.stream_ptr(out)),
+                    "barrier_loop")
+    full = _time_ms(lambda: run(BARRIER_ITERS), 3)
+    empty = _time_ms(lambda: run(0), 3)
+    return (full - empty) * 1e3 / BARRIER_ITERS
+
+
 # ---------------------------------------------------------------------------
 # phase 4: the main path
 # ---------------------------------------------------------------------------
@@ -282,6 +321,94 @@ def main_path(data: bytes) -> dict:
           f"the JAX package's, round trip exact, launches {launches}",
           flush=True)
     return launches
+
+
+def _events_ms(fn):
+    """(ms between CUDA events on the calling stream around fn(), its
+    result), after the card is idle."""
+    import torch
+    torch.cuda.synchronize()
+    t0 = torch.cuda.Event(enable_timing=True)
+    t1 = torch.cuda.Event(enable_timing=True)
+    t0.record()
+    out = fn()
+    t1.record()
+    torch.cuda.synchronize()
+    return t0.elapsed_time(t1), out
+
+
+def block_spans(data: bytes, dev) -> dict:
+    """The pinned block's seven coder launches per direction, with the
+    inputs the main path gives them (pipeline_native's own setup): each
+    stream's E and D time (ms) alone, and the block's coder span, its
+    streams launched at once through streams_torch.StreamSet as the main
+    path launches them, from the calling stream's event before the first
+    launch to its event after the join. The main path decodes LEN first
+    and the rest once the host has read its lengths; here the seven
+    decodes start together, so the decode span leaves out that host step.
+    `device_half_ms` times the main path's own device halves
+    (pipeline_native.encode_prepared_block, decode_block_device) with
+    events on the calling stream: schedules, packing, compaction and the
+    host's reads and flush included. The launches at once must give what
+    the launches alone give."""
+    import numpy as np
+    import torch
+    from slimfastq_tpu_torch import native, pipeline_native as PN
+    from slimfastq_tpu_torch.config import config_for_level
+    from slimfastq_tpu_torch.ops import coder_torch
+    from slimfastq_tpu_torch.ops import streams_torch as ST
+    from slimfastq_tpu_torch.ops.ranger import pad_steps
+    cfg = config_for_level(3)
+    idx, n = native.fastq_index(data)
+    pre = PN.prepare_block_fast(np.frombuffer(data, dtype=np.uint8), idx, 0,
+                                n, cfg)
+    jobs = list(PN._coder_jobs(pre, cfg, dev))
+    ll_mat = pre[4]
+    enc_ms, blk = _events_ms(lambda: PN.encode_prepared_block(pre, cfg, dev))
+    dec_ms, _ = _events_ms(lambda: PN.decode_block_device(blk, cfg, dev))
+    launches = {"encode": {}, "decode": {}}
+    for name, kind, geom, idx_c, bit_c, _counts in jobs:
+        CB = ST._chunk_bytes(geom.depth, hard=False)
+        launches["encode"][name] = (
+            lambda idx_c=idx_c, bit_c=bit_c, geom=geom, CB=CB:
+            coder_torch.lane_encode(idx_c, bit_c, geom, CB), (idx_c, bit_c))
+        es = blk.streams[name]
+        W = es.payload.shape[0]
+        counts = ST._to(es.sym_counts, dev, torch.int32)
+        S = int(es.sym_counts.max())
+        Sp = pad_steps(S)
+        if kind in ("seq", "qual"):
+            pos, reset = ST._pos_reset(ST._lane_lens(ll_mat, W, dev), Sp, S,
+                                       W)
+        else:
+            pos = reset = ST._pad2(None, Sp, W, dev)
+        args = (ST._payload_tensor(es.payload, dev),
+                ST._to(es.lane_lens, dev, torch.int32), ST._acts(counts, Sp),
+                pos, reset)
+        launches["decode"][name] = (
+            lambda args=args, kind=kind, geom=geom:
+            coder_torch.lane_decode(*args, kind, geom), args)
+    out = {}
+    for direction, fns in launches.items():
+        alone = {k: _time_ms(fn, 1) for k, (fn, _) in fns.items()}
+        ss = ST.StreamSet(dev)
+
+        def at_once():
+            res = [ss.launch(fn, *inputs)[0] for fn, inputs in fns.values()]
+            ss.join()
+            return res
+        span, res = _events_ms(at_once)
+        for (name, (fn, _)), got in zip(fns.items(), res):
+            _compare({}, name, f"{direction} {name}: launched at once vs "
+                     "alone", got, fn())
+        total = sum(alone.values())
+        out[direction] = {"span_ms": span, "sum_ms": total,
+                          "span_below_sum": span < total,
+                          "streams_ms": alone,
+                          "device_half_ms": (enc_ms if direction == "encode"
+                                             else dec_ms)}
+    print(json.dumps({"block": out}), flush=True)
+    return out
 
 
 def wall(dev) -> None:
@@ -330,7 +457,10 @@ def main() -> int:
     plain, errs = check_kernels(dev)
     data = _pinned(READS)
     times = time_kernels(data, dev, errs)
+    bar_us = barrier_us(dev)
+    print(json.dumps({"barrier_us": bar_us}), flush=True)
     launches = main_path(data)
+    spans = block_spans(data, dev)
     wall(dev)
 
     replaces = {
@@ -357,10 +487,31 @@ def main() -> int:
             row["plain_ms"] = full_plain[0]
             row["plain_shape"] = (f"W={shape['W']} NC={shape['NC']} qual, "
                                   "CUDA events")
-        else:  # E, D: bound in fact by the serial chain, not by bytes
-            row["bit_steps"] = times["bit_steps"]
-            row["us_per_bit_step"] = ms * 1e3 / times["bit_steps"]
+        else:
+            direction = "encode" if name == "lane_encode" else "decode"
+            steps = times["bit_steps"]
+            lockstep_ms = steps * bar_us / 1e3
+            row.update({
+                "bit_steps": steps, "us_per_bit_step": ms * 1e3 / steps,
+                "barrier_us": bar_us,
+                "block_streams_ms": spans[direction]["streams_ms"],
+                "block_span_ms": spans[direction]["span_ms"],
+                "block_sum_ms": spans[direction]["sum_ms"]})
+            if name == "lane_encode":
+                # E's table evolves with the schedule alone: the function
+                # needs no barrier, so its bound stays the byte bound and
+                # this design's barrier floor stands beside it
+                row["lockstep_ms"] = lockstep_ms
+            else:
+                # D's law couples the lanes at every bit-step: one barrier
+                # per bit-step is the floor of the function
+                row.update({"bound_ms": lockstep_ms, "bound_by": "latency",
+                            "byte_bound_ms": row["bound_ms"]})
         kernels.append(row)
+    print(json.dumps({"earlier_ms": {
+        "note": "constants recorded before the shared-memory table law "
+                "(this script, H100 80GB HBM3, 700 W), not measured in this "
+                "run", **EARLIER_MS}}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -9,34 +9,69 @@
 // Contract (byte-identical to the JAX package and its NumPy oracle,
 // ranger_np.py): W lanes advance in lockstep, one binary decision per lane
 // per bit-step, through a carry-less 32-bit range coder with byte renorm.
-// All lanes share one adaptive table of int32 entries (12-bit probability
-// in the low bits, a collision-count marker in bits 22-31 during a step)
-// under the batch-synchronous collision-capped law of
-// ranger_np.table_update: every lane reads the table as it stood after
-// all lanes deposited their markers, all deltas merge by (wrapping)
-// addition, then touched entries are clamped. Geometries with
-// 0 < rate_lo < rate also keep a visit table (format-v4 warm-up).
+// All lanes share one adaptive table under the batch-synchronous
+// collision-capped law of ranger_np.table_mark + table_update: every lane
+// reads the entry as it stood before the step, together with the number
+// of real lanes on that entry in this step (the format's 10-bit count
+// field: 512..1023 read negative, 1024 reads 0); the deltas, scaled down by
+// that count, merge by addition; the entry is clamped to [16, 4080].
+// Geometries with 0 < rate_lo < rate also count visits (format-v4
+// warm-up): the shift is min(rate, rate_lo + ceil_log2(min(vis,1024)+1)).
 //
-// Design: one CTA per stream, one thread per lane (blockDim = W <= 1024).
-// The table (and the visit table) lives in global memory, where it stays
-// L2-resident (L3 SEQ: 4,194,306 entries = 16.8 MB, plus a visit table of
-// the same size; L3 QUAL: 8,193 x 63 entries = 2.1 MB). One bit-step is
-// four phases separated by __syncthreads():
-//   1. atomicAdd(table[idx], 1 << 22) for real (non-sacrificial) entries;
-//   2. read `marked` and `vis` (every lane sees every marker, no delta);
-//      run the coder step, compute the delta;
-//   3. atomicAdd(table[idx], delta - (1 << 22)), atomicAdd(vtab[idx], 1);
-//   4. table[idx] = clamp(table[idx]) (colliding lanes store one value).
-// atomicAdd on int wraps exactly as the format's 10-bit count field needs
-// (at W = 1024 a SEQ read start puts >= 512 lanes on one entry). Table
-// reads go through __ldcg so that no stale L1 line is ever observed.
+// Design: one CTA per stream, one thread per lane (W <= 1024, rounded up
+// to whole warps; the extra threads take part in barriers only).
+// * Table entries are 16 bits: p in bits 0-11 (always in [16, 4080]) and
+//   a saturating visit count in bits 12-15. The law reads the visit count
+//   only through the shift above, which stops changing at a count `vcap`
+//   (8 for QUAL, 2 for L3 SEQ, 1 for L1/L2 SEQ), so min(vis, vcap) is
+//   exact; the wrapper derives vcap and refuses a geometry past 15.
+// * Where the table and the hash fit the 227 KB of shared memory (the
+//   byte and flag kinds, and the small L1 tables) it lives there, built by
+//   the kernel; otherwise (L3 SEQ 8.4 MB, QUAL 1.03 MB) in device memory,
+//   L2-resident, read with plain loads (a CTA's own stores are ordered by
+//   __syncthreads, so L1 may serve them).
+// * The law's per-step bookkeeping is an open-addressed hash of >= 2W
+//   slots (key, count, delta sum) in shared memory, double-buffered by
+//   bit-step parity. No global atomics. Each real lane inserts its entry
+//   (atomicCAS; the lane whose CAS placed the key owns the slot), adds 1
+//   to its count and later its delta to its sum, all shared atomics, whose
+//   same-address conflicts the hardware resolves. (Grouping a warp's
+//   lanes first with __match_any_sync and reducing each group's deltas
+//   measured slower: a per-group __reduce_add_sync loops over the warp's
+//   groups, a leader's sum over its group.)
+// * Two barriers per bit-step:
+//     phase 1: owners of step t-1 store clamp(p + sum) with the visit
+//       count raised by the step's count, and clear their slot; every lane
+//       inserts its step-t entry;
+//     barrier;
+//     phase 2: read the slot's count and the entry (p, vis), code the
+//       decision, add the delta to the slot; load step t+1's entry of a
+//       device table (see Lockstep::fetch);
+//     barrier.
+//   This equals the format's marker arithmetic: today's entry is
+//   clamp(p + sum(d - MARK) + sum(MARK)) = clamp(p + sum(d)), int32
+//   addition commutes, and colliding lanes store one value.
+// * Loads ahead of their use: Kernel E's schedule four bit-steps ahead
+//   (a register ring over an unrolled loop: a register copy would wait on
+//   the pending load), a device table's entry one bit-step ahead, Kernel
+//   D's step inputs one symbol-step ahead and its next payload byte.
+//   (A barrier does not wait for a thread's pending loads; only their use
+//   does.)
 //
-// Bound on the H100: latency of a serial chain, not bytes or operations.
-// QUAL at the 64k-record block runs 6,400 steps x 6 bits = 38,400
-// bit-steps, each four block-wide barriers plus L2 atomics, on one SM.
-// The design makes no attempt to hide that; the queued work is SEQ and
-// QUAL on two CUDA streams, fusing the schedule into Kernel E, tables in
-// (distributed) shared memory and W > 1024.
+// Bound on the H100: both kernels are a serial chain of bit-steps on one
+// SM (QUAL at the 64k-record block: 6,400 steps x 6 bits = 38,400
+// bit-steps). Kernel D's law couples the lanes at every bit-step, so its
+// floor is bit-steps x one 1,024-thread barrier (barrier_loop below
+// measures it). Kernel E needs no such barrier: its table's evolution
+// depends only on the schedule, so the function itself is bound only by
+// its bytes; the barriers are this design's cost, not the function's. At
+// W = 1024 both run far above the barrier floor, bound by issuing ~200
+// instructions per lane and bit-step for 32 warps on the SM's 4
+// schedulers. A block's seven streams run as seven
+// CTAs on their own CUDA streams, so a block costs its longest chain, not
+// the sum. Next: a decoupled encode (p of every decision by a per-entry
+// scan, no barrier), QUAL's table in a cluster's distributed shared
+// memory, W > 1024.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -47,62 +82,151 @@ constexpr uint32_t TOP = 1u << 24;
 constexpr uint32_t BOT = 1u << 16;
 constexpr int PROB_BITS = 12;
 constexpr int PROB_ONE = 1 << PROB_BITS;
+constexpr int PROB_INIT = PROB_ONE / 2;
 constexpr int PROB_MIN = 16;
 constexpr int PROB_MAX = PROB_ONE - PROB_MIN;
 constexpr int CAP_LOG2 = 4;
-constexpr int CNT_SHIFT = 22;
-constexpr int MARK = 1 << CNT_SHIFT;
+constexpr int CNT_BITS = 10;  // the format's collision-count field
 constexpr int RENORM_ITERS = 4;
+constexpr int AHEAD = 4;  // Kernel E's schedule prefetch, in bit-steps
+constexpr int P_MASK = PROB_ONE - 1;  // entry bits 0-11: p
+constexpr int VIS_SHIFT = PROB_BITS;  // entry bits 12-15: visit count
+constexpr int EMPTY = -1;
+constexpr unsigned FULL = 0xFFFFFFFFu;
+constexpr int SMEM_LIMIT = 232448;  // dynamic shared memory of one CTA
 
 enum Kind { QUAL = 0, SEQ = 1, BYTE = 2, FLAG = 3 };
 
-// #{j < 10 : c > 2^j}: ceil_log2 of a count, saturating at 10
-__device__ __forceinline__ int lg10(int c) {
-  int lg = 0;
-#pragma unroll
-  for (int j = 0; j < 10; ++j) lg += c > (1 << j);
-  return lg;
+// #{j < 10 : c > 2^j}: ceil_log2 of a count, saturating at 10, 0 for c <= 1
+__device__ __forceinline__ int ceil_log2(int c) {
+  return c > 1 ? min(32 - __clz(c - 1), 10) : 0;
 }
 
 __device__ __forceinline__ int clampi(int v, int lo, int hi) {
   return v < lo ? lo : (v > hi ? hi : v);
 }
 
-// Table law state of one lane for one bit-step.
-struct Law {
-  int* table;
-  int* vtab;  // nullptr unless warm-up
-  int sac_base, rate, rate_lo;
+struct Geo {
+  int table_size, sac_base, rate, rate_lo, vcap;
+};
 
-  // phase 1, barrier, phase 2 read: returns `marked`, sets *vis
-  __device__ __forceinline__ int mark(int idx, bool real, int* vis) const {
-    if (real) atomicAdd(table + idx, MARK);
-    __syncthreads();
-    *vis = vtab ? min(__ldcg(vtab + idx), 1024) : 0;
-    return __ldcg(table + idx);
-  }
+// Layout of the dynamic shared memory: [table (if in shared memory)]
+// [hash keys | counts | delta sums], each hash array two buffers of 2^nsl.
+__host__ __device__ inline int table_smem_bytes(int table_size) {
+  return (table_size * 2 + 15) / 16 * 16;
+}
 
-  __device__ __forceinline__ int delta(int marked, int p, bool one,
-                                       int vis) const {
-    int r = vtab ? min(rate, rate_lo + lg10(vis + 1)) : rate;
-    int d = one ? -(p >> r) : (PROB_ONE - p) >> r;
-    int cnt = marked >> CNT_SHIFT;  // arithmetic: a wrapped count is <= 0
-    return d >> max(lg10(cnt) - CAP_LOG2, 0);
-  }
+__host__ __device__ inline int hash_smem_bytes(int nsl) {
+  return 3 * 2 * (1 << nsl) * 4;
+}
 
-  // barrier, phase 3, barrier, phase 4, barrier
-  __device__ __forceinline__ void update(int idx, bool real, int d) const {
-    __syncthreads();
-    if (real) {
-      atomicAdd(table + idx, d - MARK);
-      if (vtab) atomicAdd(vtab + idx, 1);
+// One lane's view of the table law across bit-steps.
+template <bool SMEM, bool WARM>
+struct Lockstep {
+  uint16_t* table;  // shared or device memory
+  int *key, *cnt, *sum;
+  int nsl;  // log2 of the slots in one buffer
+  Geo g;
+  // this bit-step (and, until phase 1 of the next, the one before)
+  int b = 0, idx = 0, slot = 0, p = PROB_MAX, vis = 0, n = 0;
+  int ahead = 0;  // a device table's entry for the next bit-step
+  bool real = false, own = false;
+
+  __device__ void setup(unsigned char* smem, uint16_t* gtable, Geo geo,
+                        int ns_log2) {
+    g = geo;
+    nsl = ns_log2;
+    table = SMEM ? reinterpret_cast<uint16_t*>(smem) : gtable;
+    key = reinterpret_cast<int*>(
+        smem + (SMEM ? table_smem_bytes(g.table_size) : 0));
+    cnt = key + (2 << nsl);
+    sum = cnt + (2 << nsl);
+    for (int i = threadIdx.x; i < (2 << nsl); i += blockDim.x) {
+      key[i] = EMPTY;
+      cnt[i] = 0;
+      sum[i] = 0;
+    }
+    if (SMEM) {  // fresh table, the sacrificial row pinned at PROB_MAX
+      for (int i = threadIdx.x; i < g.table_size; i += blockDim.x)
+        table[i] = (uint16_t)(i < g.sac_base ? PROB_INIT : PROB_MAX);
     }
     __syncthreads();
-    if (real) {
-      int v = __ldcg(table + idx);
-      __stcg(table + idx, clampi(v, PROB_MIN, PROB_MAX));
+  }
+
+  // the slot of `k` in buffer b (linear probing; at most W keys in >= 2W
+  // slots); `own` is set where this call placed the key
+  __device__ __forceinline__ int find(int k) {
+    const unsigned m = (1u << nsl) - 1;
+    unsigned h = ((unsigned)k * 2654435761u) >> (32 - nsl);
+    for (;;) {
+      const int old = atomicCAS(key + b + h, EMPTY, k);
+      if (old == EMPTY) {
+        own = true;
+        return (int)h;
+      }
+      if (old == k) return (int)h;
+      h = (h + 1) & m;
     }
-    __syncthreads();
+  }
+
+  // phase 1 of bit-step s: commit step s-1, enter this step's entry
+  __device__ __forceinline__ void enter(int s, int i, bool live) {
+    if (own) {
+      const int at = b + slot;
+      const int np = clampi(p + sum[at], PROB_MIN, PROB_MAX);
+      const int nv = WARM ? min(vis + n, g.vcap) : 0;
+      table[idx] = (uint16_t)(np | (nv << VIS_SHIFT));
+      key[at] = EMPTY;
+      cnt[at] = 0;
+      sum[at] = 0;
+    }
+    b = (s & 1) << nsl;
+    idx = i;
+    real = live && i < g.sac_base;
+    own = false;
+    if (real) {
+      slot = find(i);
+      atomicAdd(cnt + b + slot, 1);
+    }
+  }
+
+  // Load a device table's entry for the next bit-step `i` ahead of its
+  // use, during phase 2 of this one: its last store (in phase 1 of this
+  // step at the latest) is ordered before by this step's first barrier,
+  // and the next commit stores this step's entries, which lie on another
+  // tree level (depth >= 2, which the wrapper enforces for a device
+  // table).
+  __device__ __forceinline__ void fetch(int i, bool live) {
+    if (!SMEM && live && i < g.sac_base) ahead = table[i];
+  }
+
+  // phase 2 (after the barrier): this step's probability
+  __device__ __forceinline__ uint32_t prob() {
+    if (real) {
+      n = cnt[b + slot];
+      const int e = SMEM ? table[idx] : ahead;
+      p = e & P_MASK;
+      vis = e >> VIS_SHIFT;
+    } else {
+      p = PROB_MAX;  // the sacrificial row never adapts
+    }
+    return (uint32_t)p;
+  }
+
+  // phase 2: this lane's delta into its slot
+  __device__ __forceinline__ void update(bool one) {
+    int d = 0;
+    if (real) {
+      const int r = WARM ? min(g.rate, g.rate_lo + ceil_log2(vis + 1))
+                         : g.rate;
+      d = one ? -(p >> r) : (PROB_ONE - p) >> r;
+      // n lanes scale the delta down by 2^(ceil_log2(n) - CAP_LOG2) where
+      // the format's 10-bit count field holds more than 2^CAP_LOG2: it
+      // reads n < 512 as is, 512..1023 negative and 1024 as 0
+      if (n > (1 << CAP_LOG2) && n < (1 << (CNT_BITS - 1)))
+        d >>= 32 - __clz(n - 1) - CAP_LOG2;
+    }
+    if (real) atomicAdd(sum + b + slot, d);
   }
 };
 
@@ -112,50 +236,81 @@ __device__ __forceinline__ bool renorm_needed(uint32_t low, uint32_t rng,
   return *agree || rng < BOT;
 }
 
-__global__ void lane_encode_kernel(const int* __restrict__ idx_c,
-                                   const int* __restrict__ bit_c, int NC,
-                                   int KD, int W, Law law, int CB,
-                                   uint8_t* __restrict__ ebufs,
-                                   int* __restrict__ eptrs,
-                                   uint32_t* __restrict__ low_out,
-                                   int* __restrict__ emax) {
+template <bool SMEM, bool WARM>
+__global__ void __launch_bounds__(1024, 1)
+    lane_encode_kernel(const int* __restrict__ idx_c,
+                       const int* __restrict__ bit_c, int NC, int KD, int W,
+                       Geo geo, uint16_t* gtable, int nsl, int CB,
+                       uint8_t* __restrict__ ebufs, int* __restrict__ eptrs,
+                       uint32_t* __restrict__ low_out,
+                       int* __restrict__ emax) {
+  extern __shared__ __align__(16) unsigned char smem[];
   const int w = threadIdx.x;
+  const bool live = w < W;
+  Lockstep<SMEM, WARM> L;
+  L.setup(smem, gtable, geo, nsl);
   uint32_t low = 0, rng = 0xFFFFFFFFu;
   int emx = 0;
+  const int steps = NC * KD;
+  // the schedule of bit-step `at`; a ring of AHEAD slots in registers,
+  // slot k reloaded AHEAD bit-steps on right after its use (the loop is
+  // unrolled over the ring, so no register copy waits on a pending load)
+  const int* ip = idx_c + w;  // bit-step `at` of this lane, walked on
+  const int* bp = bit_c + w;
+  auto sched = [&](int at, int* i, bool* o) {
+    *i = geo.sac_base;
+    *o = false;
+    if (live && at < steps) {
+      *i = *ip;
+      *o = *bp != 0;
+    }
+    ip += W;
+    bp += W;
+  };
+  int ri[AHEAD];
+  bool ro[AHEAD];
+#pragma unroll
+  for (int k = 0; k < AHEAD; ++k) sched(k, &ri[k], &ro[k]);
+  L.fetch(ri[0], live);
+  int s = 0;
   for (int c = 0; c < NC; ++c) {
     uint8_t* eb = ebufs + ((size_t)c * W + w) * CB;
     int eptr = 0;
-    for (int i = 0; i < KD; ++i) {
-      const size_t at = ((size_t)c * KD + i) * W + w;
-      const int idx = idx_c[at];
-      const bool one = bit_c[at] != 0;
-      const bool real = idx < law.sac_base;
-      int vis;
-      const int marked = law.mark(idx, real, &vis);
-      const int p = clampi(marked & (MARK - 1), PROB_MIN, PROB_MAX);
-      const uint32_t split = (rng >> PROB_BITS) * (uint32_t)p;
-      if (one) {
-        low += split;
-        rng -= split;
-      } else {
-        rng = split;
+    for (int i = 0; i < KD; i += AHEAD) {  // KD = 8 * depth
+#pragma unroll
+      for (int k = 0; k < AHEAD; ++k, ++s) {
+        const bool one = ro[k];
+        L.enter(s, ri[k], live);
+        sched(s + AHEAD, &ri[k], &ro[k]);
+        __syncthreads();
+        const uint32_t split = (rng >> PROB_BITS) * L.prob();
+        if (one) {
+          low += split;
+          rng -= split;
+        } else {
+          rng = split;
+        }
+        for (int r = 0; r < RENORM_ITERS; ++r) {
+          bool agree;
+          if (!renorm_needed(low, rng, &agree)) break;  // state is final
+          if (!agree) rng = (0u - low) & (BOT - 1);
+          if (live && eptr < CB) eb[eptr] = (uint8_t)(low >> 24);
+          ++eptr;  // counted past CB: the caller reruns with hard buffers
+          low <<= 8;
+          rng <<= 8;
+        }
+        L.update(one);
+        L.fetch(ri[(k + 1) % AHEAD], live);
+        __syncthreads();
       }
-      for (int r = 0; r < RENORM_ITERS; ++r) {
-        bool agree;
-        if (!renorm_needed(low, rng, &agree)) break;  // state is final
-        if (!agree) rng = (0u - low) & (BOT - 1);
-        if (eptr < CB) eb[eptr] = (uint8_t)(low >> 24);
-        ++eptr;  // counted past CB: the caller reruns with hard buffers
-        low <<= 8;
-        rng <<= 8;
-      }
-      law.update(idx, real, real ? law.delta(marked, p, one, vis) : 0);
     }
-    eptrs[(size_t)c * W + w] = eptr;
+    if (live) eptrs[(size_t)c * W + w] = eptr;
     emx = max(emx, eptr);
   }
-  low_out[w] = low;
-  atomicMax(emax, emx);
+  if (live) {
+    low_out[w] = low;
+    atomicMax(emax, emx);
+  }
 }
 
 // Online context of one symbol-step (streams_jax._ctx_step/_ctx_advance).
@@ -173,32 +328,45 @@ __device__ __forceinline__ uint32_t qdelta_code(uint32_t a, uint32_t b) {
   return 3;
 }
 
-__global__ void lane_decode_kernel(const uint8_t* __restrict__ payload,
-                                   int Lb, const int* __restrict__ lens,
-                                   const int* __restrict__ acts,
-                                   const int* __restrict__ poss,
-                                   const int* __restrict__ resets, int Sp,
-                                   int W, Law law, Ctx cx,
-                                   uint8_t* __restrict__ syms) {
+template <bool SMEM, bool WARM>
+__global__ void __launch_bounds__(1024, 1)
+    lane_decode_kernel(const uint8_t* __restrict__ payload, int Lb,
+                       const int* __restrict__ lens,
+                       const int* __restrict__ acts,
+                       const int* __restrict__ poss,
+                       const int* __restrict__ resets, int Sp, int W,
+                       Geo geo, uint16_t* gtable, int nsl, Ctx cx,
+                       uint8_t* __restrict__ syms) {
+  extern __shared__ __align__(16) unsigned char smem[];
   const int w = threadIdx.x;
-  const uint8_t* row = payload + (size_t)w * Lb;
-  const int len = lens[w];
-  int ptr = 0;
-  // next payload byte of this lane; 0 past its end (read_bytes)
-  auto next = [&]() -> uint32_t {
-    const uint32_t b = ptr < len ? row[min(ptr, Lb - 1)] : 0u;
-    ++ptr;
-    return b;
+  const bool live = w < W;
+  Lockstep<SMEM, WARM> L;
+  L.setup(smem, gtable, geo, nsl);
+  const uint8_t* row = payload + (size_t)(live ? w : 0) * Lb;
+  const int len = live ? lens[w] : 0;
+  // payload byte q of this lane; 0 past its end (read_bytes)
+  auto fetch = [&](int q) -> uint32_t {
+    return q < len ? row[min(q, Lb - 1)] : 0u;
   };
+  int ptr = 0;
   uint32_t low = 0, rng = 0xFFFFFFFFu, code = 0;
-  for (int r = 0; r < 4; ++r) code = (code << 8) | next();
+  for (int r = 0; r < 4; ++r) code = (code << 8) | fetch(ptr++);
+  uint32_t nb = fetch(ptr);  // the next byte, loaded ahead of its use
   uint32_t sa = 0, sb = 0;  // qual: (a, b); seq: h; byte: prev; flag: hist
   const int nodes = (1 << cx.depth) - 1;
-  for (int t = 0; t < Sp; ++t) {
-    const size_t at = (size_t)t * W + w;
-    const bool act = acts[at] != 0;
-    const bool rs = resets[at] != 0;
-    const uint32_t pos = (uint32_t)poss[at];
+  // this symbol-step's inputs, then the next one's, loaded ahead
+  auto inputs = [&](int t, bool* act, bool* rs, uint32_t* pos) {
+    *act = *rs = false;
+    *pos = 0;
+    if (live && t < Sp) {
+      const size_t at = (size_t)t * W + w;
+      *act = acts[at] != 0;
+      *rs = resets[at] != 0;
+      *pos = (uint32_t)poss[at];
+    }
+  };
+  // the first table entry of symbol-step t: its context row
+  auto row_of = [&](bool act, bool rs, uint32_t pos) -> int {
     uint32_t ctx;
     if (cx.kind == QUAL) {
       if (rs) sa = sb = 0;
@@ -222,46 +390,86 @@ __global__ void lane_decode_kernel(const uint8_t* __restrict__ payload,
     } else {
       ctx = sa;
     }
-    const int base = (act ? (int)ctx : cx.num_ctx) * nodes;
-    int node = 1;
-    for (int d = 0; d < cx.depth; ++d) {
-      const int idx = base + node - 1;
-      const bool real = idx < law.sac_base;
-      int vis;
-      const int marked = law.mark(idx, real, &vis);
-      const int p = clampi(marked & (MARK - 1), PROB_MIN, PROB_MAX);
-      const uint32_t split = (rng >> PROB_BITS) * (uint32_t)p;
-      const bool one = code - low >= split;
-      if (one) {
-        low += split;
-        rng -= split;
-      } else {
-        rng = split;
-      }
-      for (int r = 0; r < RENORM_ITERS; ++r) {
-        bool agree;
-        if (!renorm_needed(low, rng, &agree)) break;
-        if (!agree) rng = (0u - low) & (BOT - 1);
-        code = (code << 8) | next();
-        low <<= 8;
-        rng <<= 8;
-      }
-      law.update(idx, real, real ? law.delta(marked, p, one, vis) : 0);
-      node = 2 * node + one;
-    }
-    const uint32_t sym = act ? (uint32_t)(node - (1 << cx.depth)) : 0u;
-    if (cx.kind == QUAL) {
-      sb = sa;
-      sa = sym;
-    } else if (cx.kind == SEQ) {
-      sa = ((sa << 2) | sym) & ((1u << (2 * cx.k0)) - 1);
-    } else if (cx.kind == BYTE) {
-      sa = sym;
+    return (act ? (int)ctx : cx.num_ctx) * nodes;
+  };
+  bool act, rs, nact, nrs;
+  uint32_t pos, npos;
+  inputs(0, &act, &rs, &pos);
+  inputs(1, &nact, &nrs, &npos);
+  int base = row_of(act, rs, pos), node = 1, d = 0, t = 0;
+  L.fetch(base, live);
+  for (int s = 0; s < Sp * cx.depth; ++s) {
+    L.enter(s, base + node - 1, live);
+    __syncthreads();
+    const uint32_t split = (rng >> PROB_BITS) * L.prob();
+    const bool one = code - low >= split;
+    if (one) {
+      low += split;
+      rng -= split;
     } else {
-      sa = ((sa << 1) | sym) & ((1u << cx.k0) - 1);
+      rng = split;
     }
-    syms[at] = (uint8_t)sym;
+    for (int r = 0; r < RENORM_ITERS; ++r) {
+      bool agree;
+      if (!renorm_needed(low, rng, &agree)) break;
+      if (!agree) rng = (0u - low) & (BOT - 1);
+      code = (code << 8) | nb;
+      nb = fetch(++ptr);
+      low <<= 8;
+      rng <<= 8;
+    }
+    L.update(one);
+    node = 2 * node + one;
+    if (++d == cx.depth) {  // the symbol is complete
+      const uint32_t sym = act ? (uint32_t)(node - (1 << cx.depth)) : 0u;
+      if (cx.kind == QUAL) {
+        sb = sa;
+        sa = sym;
+      } else if (cx.kind == SEQ) {
+        sa = ((sa << 2) | sym) & ((1u << (2 * cx.k0)) - 1);
+      } else if (cx.kind == BYTE) {
+        sa = sym;
+      } else {
+        sa = ((sa << 1) | sym) & ((1u << cx.k0) - 1);
+      }
+      if (live) syms[(size_t)t * W + w] = (uint8_t)sym;
+      act = nact;
+      rs = nrs;
+      pos = npos;
+      inputs(++t + 1, &nact, &nrs, &npos);
+      base = row_of(act, rs, pos);
+      node = 1;
+      d = 0;
+    }
+    L.fetch(base + node - 1, live);
+    __syncthreads();
   }
+}
+
+// One barrier of `blockDim` threads per loop step: the latency that bounds
+// Kernel D's lockstep from below.
+__global__ void barrier_loop_kernel(int iters, int* out) {
+  int acc = threadIdx.x;
+  for (int i = 0; i < iters; ++i) {
+    __syncthreads();
+    acc += i;
+  }
+  if (acc == -1) *out = acc;
+}
+
+// Block shape and dynamic shared memory of one coder launch.
+struct Shape {
+  int threads, nsl, bytes;
+};
+
+// false where W lanes or the shared-memory layout do not fit one CTA
+bool shape_of(int W, bool smem_table, int table_size, Shape* sh) {
+  sh->threads = (W + 31) / 32 * 32;
+  sh->nsl = 0;  // 2^nsl >= 2 * threads
+  while ((1 << sh->nsl) < 2 * sh->threads) ++sh->nsl;
+  sh->bytes = (smem_table ? table_smem_bytes(table_size) : 0) +
+              hash_smem_bytes(sh->nsl);
+  return W >= 1 && sh->threads <= 1024 && sh->bytes <= SMEM_LIMIT;
 }
 
 }  // namespace
@@ -272,25 +480,64 @@ const char* error_string(int err) {
   return cudaGetErrorString((cudaError_t)err);
 }
 
+// table: the 16-bit device table (unused when smem_table); vcap: the
+// saturating visit count, 0 without warm-up.
 int lane_encode(const int* idx_c, const int* bit_c, int NC, int KD, int W,
-                int* table, int* vtab, int sac_base, int rate, int rate_lo,
-                int CB, uint8_t* ebufs, int* eptrs, uint32_t* low,
-                int* emax, cudaStream_t stream) {
-  Law law{table, vtab, sac_base, rate, rate_lo};
-  lane_encode_kernel<<<1, W, 0, stream>>>(idx_c, bit_c, NC, KD, W, law, CB,
-                                          ebufs, eptrs, low, emax);
-  return (int)cudaGetLastError();
+                uint16_t* table, int table_size, int sac_base, int rate,
+                int rate_lo, int vcap, int smem_table, int CB,
+                uint8_t* ebufs, int* eptrs, uint32_t* low, int* emax,
+                cudaStream_t stream) {
+  Shape sh;
+  if (!shape_of(W, smem_table, table_size, &sh))
+    return (int)cudaErrorInvalidValue;
+  const Geo g{table_size, sac_base, rate, rate_lo, vcap};
+  auto go = [&](auto kern) -> int {
+    const cudaError_t e = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, sh.bytes);
+    if (e != cudaSuccess) return (int)e;
+    kern<<<1, sh.threads, sh.bytes, stream>>>(idx_c, bit_c, NC, KD, W, g,
+                                              table, sh.nsl, CB, ebufs,
+                                              eptrs, low, emax);
+    return (int)cudaGetLastError();
+  };
+  if (smem_table)
+    return vcap ? go(lane_encode_kernel<true, true>)
+                : go(lane_encode_kernel<true, false>);
+  return vcap ? go(lane_encode_kernel<false, true>)
+              : go(lane_encode_kernel<false, false>);
 }
 
 int lane_decode(const uint8_t* payload, int Lb, const int* lens,
                 const int* acts, const int* poss, const int* resets, int Sp,
-                int W, int* table, int* vtab, int sac_base, int rate,
-                int rate_lo, int depth, int kind, int num_ctx, int k0, int k1,
-                int k2, int k3, uint8_t* syms, cudaStream_t stream) {
-  Law law{table, vtab, sac_base, rate, rate_lo};
-  Ctx cx{kind, depth, num_ctx, k0, k1, k2, k3};
-  lane_decode_kernel<<<1, W, 0, stream>>>(payload, Lb, lens, acts, poss,
-                                          resets, Sp, W, law, cx, syms);
+                int W, uint16_t* table, int table_size, int sac_base,
+                int rate, int rate_lo, int vcap, int smem_table, int depth,
+                int kind, int num_ctx, int k0, int k1, int k2, int k3,
+                uint8_t* syms, cudaStream_t stream) {
+  Shape sh;
+  if (!shape_of(W, smem_table, table_size, &sh))
+    return (int)cudaErrorInvalidValue;
+  const Geo g{table_size, sac_base, rate, rate_lo, vcap};
+  const Ctx cx{kind, depth, num_ctx, k0, k1, k2, k3};
+  auto go = [&](auto kern) -> int {
+    const cudaError_t e = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, sh.bytes);
+    if (e != cudaSuccess) return (int)e;
+    kern<<<1, sh.threads, sh.bytes, stream>>>(payload, Lb, lens, acts, poss,
+                                              resets, Sp, W, g, table,
+                                              sh.nsl, cx, syms);
+    return (int)cudaGetLastError();
+  };
+  if (smem_table)
+    return vcap ? go(lane_decode_kernel<true, true>)
+                : go(lane_decode_kernel<true, false>);
+  return vcap ? go(lane_decode_kernel<false, true>)
+              : go(lane_decode_kernel<false, false>);
+}
+
+// `iters` barriers of `threads` threads in one CTA (a measurement aid:
+// chip_smoke.py times it for Kernel D's lockstep bound).
+int barrier_loop(int iters, int threads, int* out, cudaStream_t stream) {
+  barrier_loop_kernel<<<1, threads, 0, stream>>>(iters, out);
   return (int)cudaGetLastError();
 }
 

@@ -22,6 +22,11 @@ kernels of csrc/coder.cu; on CPU tensors they run the plain PyTorch
 versions below, which carry low/range/code in int64 masked to 32 bits
 (torch.uint32 has no arithmetic) and the table in int32, whose adds wrap
 exactly as the format's collision-count field requires.
+
+The kernels keep 16-bit entries (12-bit p, the visit count saturated at
+``visit_cap``) and hold the table in shared memory where
+``table_in_smem`` says it fits; the wrappers refuse a geometry whose cap
+needs more than 4 bits.
 """
 
 from __future__ import annotations
@@ -38,16 +43,21 @@ _PMASK = (1 << CNT_SHIFT) - 1
 
 _P, _I = _cuda.PTR, _cuda.INT
 _SIGS = {
-    # idx_c, bit_c, NC, KD, W, table, vtab, sac_base, rate, rate_lo, CB,
-    # ebufs, eptrs, low, emax, stream
-    "lane_encode": [_P, _P, _I, _I, _I, _P, _P, _I, _I, _I, _I, _P, _P, _P,
-                    _P, _P],
-    # payload, Lb, lens, acts, poss, resets, Sp, W, table, vtab, sac_base,
-    # rate, rate_lo, depth, kind, num_ctx, k0, k1, k2, k3, syms, stream
-    "lane_decode": [_P, _I, _P, _P, _P, _P, _I, _I, _P, _P, _I, _I, _I, _I,
-                    _I, _I, _I, _I, _I, _I, _P, _P],
+    # idx_c, bit_c, NC, KD, W, table, table_size, sac_base, rate, rate_lo,
+    # vcap, smem_table, CB, ebufs, eptrs, low, emax, stream
+    "lane_encode": [_P, _P, _I, _I, _I, _P, _I, _I, _I, _I, _I, _I, _I, _P,
+                    _P, _P, _P, _P],
+    # payload, Lb, lens, acts, poss, resets, Sp, W, table, table_size,
+    # sac_base, rate, rate_lo, vcap, smem_table, depth, kind, num_ctx,
+    # k0, k1, k2, k3, syms, stream
+    "lane_decode": [_P, _I, _P, _P, _P, _P, _I, _I, _P, _I, _I, _I, _I, _I,
+                    _I, _I, _I, _I, _I, _I, _I, _I, _P, _P],
+    # iters, threads, out, stream
+    "barrier_loop": [_I, _I, _P, _P],
 }
 MAX_LANES = 1024  # one CTA, one thread per lane
+SMEM_LIMIT = 232448  # dynamic shared memory one CTA may use on the H100
+VIS_BITS = 4  # the kernels' 16-bit entries: 12-bit p, 4-bit visit count
 
 
 def _warm(geom) -> bool:
@@ -64,6 +74,75 @@ def _tables(geom, dev):
     vtab = (torch.zeros(geom.table_size, dtype=torch.int32, device=dev)
             if _warm(geom) else None)
     return table, vtab
+
+
+def _ceil_log2(c: int) -> int:
+    """#{j < 10 : c > 2^j}, the law's threshold sum."""
+    return sum(c > (1 << j) for j in range(10))
+
+
+def _warm_shift(geom, vis: int) -> int:
+    """The warm-up law's adaptation shift after ``vis`` prior visits
+    (ranger_np.table_update)."""
+    return min(geom.rate, geom.rate_lo + _ceil_log2(min(vis, 1024) + 1))
+
+
+def visit_cap(geom) -> int:
+    """The least visit count from which the warm-up shift stops changing
+    (0 without warm-up): the kernels keep min(visits, cap) in 4 bits."""
+    if not _warm(geom):
+        return 0
+    top = _warm_shift(geom, 1024)
+    return next(v for v in range(1025) if _warm_shift(geom, v) == top)
+
+
+def table_bytes(geom) -> int:
+    """Bytes of the kernels' 16-bit table."""
+    return 2 * geom.table_size
+
+
+def hash_bytes(W: int) -> int:
+    """Shared memory of the kernels' per-step hash: two buffers of
+    2^k >= 2 * (W rounded up to whole warps) slots of three int32."""
+    slots = 1
+    while slots < 2 * ((W + 31) // 32 * 32):
+        slots *= 2
+    return 3 * 2 * slots * 4
+
+
+def table_in_smem(geom, W: int) -> bool:
+    """Whether the table and the hash of W lanes fit one CTA's shared
+    memory (the kernels then keep the table there)."""
+    return (table_bytes(geom) + 15) // 16 * 16 + hash_bytes(W) <= SMEM_LIMIT
+
+
+def _kernel_geom(geom, W: int, dev):
+    """The kernels' table arguments: (table tensor or None, vcap,
+    smem_table). Raises where the lanes or the geometry do not fit the
+    kernels (one CTA, the 16-bit entry)."""
+    if W > MAX_LANES:
+        raise ValueError(f"W={W} lanes exceeds {MAX_LANES} (one CTA per "
+                         "stream; a grid-wide barrier is needed for more)")
+    cap = visit_cap(geom)
+    if cap >= 1 << VIS_BITS:
+        raise ValueError(f"visit cap {cap} of rate={geom.rate} rate_lo="
+                         f"{geom.rate_lo} does not fit {VIS_BITS} bits")
+    if table_in_smem(geom, W):
+        return None, cap, 1
+    if geom.depth < 2:
+        # the kernels load a device table's entry one bit-step ahead,
+        # which needs consecutive bit-steps on different tree levels
+        raise ValueError("a depth-1 table must fit shared memory")
+    return device_table(geom, dev), cap, 0
+
+
+def device_table(geom, dev) -> torch.Tensor:
+    """A fresh table of the kernels' 16-bit entries in device memory
+    (PROB_INIT, visit count 0; the sacrificial row at PROB_MAX)."""
+    table = torch.full((geom.table_size,), PROB_INIT, dtype=torch.int16,
+                       device=dev)
+    table[geom.sac_base:] = PROB_MAX
+    return table
 
 
 def _lg_lut(dev):
@@ -303,13 +382,6 @@ def _kind_params(kind: str, geom):
     raise ValueError(kind)
 
 
-def _check_lanes(W: int, what: str) -> None:
-    if W > MAX_LANES:
-        raise ValueError(f"{what}: W={W} lanes exceeds {MAX_LANES} (one "
-                         "CTA per stream; a grid-wide barrier is needed "
-                         "for more)")
-
-
 def lane_encode(idx_c: torch.Tensor, bit_c: torch.Tensor, geom, CB: int):
     """Kernel E on CUDA tensors, its plain version on CPU tensors."""
     if idx_c.dim() != 3 or idx_c.dtype != torch.int32 \
@@ -324,21 +396,20 @@ def lane_encode(idx_c: torch.Tensor, bit_c: torch.Tensor, geom, CB: int):
         return lane_encode_plain(idx_c, bit_c, geom, CB)
     if idx_c.device.type != "cuda":
         raise ValueError(f"unsupported device {idx_c.device}")
-    _check_lanes(W, "lane_encode")
     dev = idx_c.device
+    table, vcap, smem = _kernel_geom(geom, W, dev)
     idx_c, bit_c = idx_c.contiguous(), bit_c.contiguous()
     lib = _cuda.load("coder", _SIGS)
-    table, vtab = _tables(geom, dev)
     ebufs = torch.zeros((NC, W, CB), dtype=torch.uint8, device=dev)
     eptrs = torch.empty((NC, W), dtype=torch.int32, device=dev)
     low = torch.empty(W, dtype=torch.int32, device=dev)
     emax = torch.zeros(1, dtype=torch.int32, device=dev)
     err = lib.lane_encode(
-        idx_c.data_ptr(), bit_c.data_ptr(), NC, KD, W, table.data_ptr(),
-        vtab.data_ptr() if vtab is not None else None, geom.sac_base,
-        geom.rate, getattr(geom, "rate_lo", 0), CB, ebufs.data_ptr(),
-        eptrs.data_ptr(), low.data_ptr(), emax.data_ptr(),
-        _cuda.stream_ptr(idx_c))
+        idx_c.data_ptr(), bit_c.data_ptr(), NC, KD, W,
+        None if table is None else table.data_ptr(), geom.table_size,
+        geom.sac_base, geom.rate, getattr(geom, "rate_lo", 0), vcap, smem,
+        CB, ebufs.data_ptr(), eptrs.data_ptr(), low.data_ptr(),
+        emax.data_ptr(), _cuda.stream_ptr(idx_c))
     _cuda.launches["lane_encode"] += 1
     _cuda.check(lib, err, "lane_encode")
     return ebufs, eptrs, low, emax[0]
@@ -367,21 +438,21 @@ def lane_decode(payload: torch.Tensor, lens: torch.Tensor,
                                  geom)
     if payload.device.type != "cuda":
         raise ValueError(f"unsupported device {payload.device}")
-    _check_lanes(W, "lane_decode")
     dev = payload.device
+    table, vcap, smem = _kernel_geom(geom, W, dev)
     Sp = acts.shape[0]
     payload, lens = payload.contiguous(), lens.contiguous()
     acts, poss, resets = (x.contiguous() for x in (acts, poss, resets))
     lib = _cuda.load("coder", _SIGS)
-    table, vtab = _tables(geom, dev)
     syms = torch.empty((Sp, W), dtype=torch.uint8, device=dev)
     k = _kind_params(kind, geom)
     err = lib.lane_decode(
         payload.data_ptr(), Lb, lens.data_ptr(), acts.data_ptr(),
-        poss.data_ptr(), resets.data_ptr(), Sp, W, table.data_ptr(),
-        vtab.data_ptr() if vtab is not None else None, geom.sac_base,
-        geom.rate, getattr(geom, "rate_lo", 0), geom.depth, KINDS[kind],
-        geom.num_ctx, *k, syms.data_ptr(), _cuda.stream_ptr(payload))
+        poss.data_ptr(), resets.data_ptr(), Sp, W,
+        None if table is None else table.data_ptr(), geom.table_size,
+        geom.sac_base, geom.rate, getattr(geom, "rate_lo", 0), vcap, smem,
+        geom.depth, KINDS[kind], geom.num_ctx, *k, syms.data_ptr(),
+        _cuda.stream_ptr(payload))
     _cuda.launches["lane_decode"] += 1
     _cuda.check(lib, err, "lane_decode")
     return syms

@@ -11,6 +11,12 @@ Byte-identical to the JAX package and its NumPy oracle. Per stream:
   flush bytes appended on the host (native.flush_append).
 * decode: acts/pos/reset derived as whole-array ops -> Kernel D.
 
+A block's streams are coded at once: ``encode_block`` launches Kernel E
+of every stream on its own CUDA stream (``StreamSet``) and reads all the
+overflow checks back in one synchronisation; ``StreamSet.decode`` does the
+same for Kernel D, each stream's symbols read back when its caller needs
+them.
+
 ``encode_stream``/``decode_stream`` serve any kind with host-supplied
 pos/reset (the main path sends the aux kinds ``byte`` and ``flag``);
 ``encode_seq_qual_raw``/``decode_seq_qual_raw`` carry SEQ and QUAL from
@@ -24,6 +30,7 @@ versions.
 
 from __future__ import annotations
 
+from contextlib import nullcontext
 from typing import NamedTuple
 
 import numpy as np
@@ -39,7 +46,7 @@ from .ranger import FLUSH_BYTES, pad_steps
 def _chunk_bytes(depth: int, hard: bool) -> int:
     """Per-lane emission capacity for one chunk. The hard bound is 3 bytes
     per bit-step (32-bit state, 8-bit renorm); the optimistic bound
-    (~1 byte/bit-step + slack) is almost never exceeded — _code
+    (~1 byte/bit-step + slack) is almost never exceeded — encode_block
     detects overflow and retries with the hard size."""
     bits = CHUNK_SYMS * depth
     b = (3 * bits + 8) if hard else (bits + 16)
@@ -166,29 +173,153 @@ def _flush_append(pay: np.ndarray, totals: np.ndarray, low: np.ndarray,
     return native.flush_append(pay, totals, low, counts, maxlen), lens
 
 
-def _encode_chunks(kind: str, geom, idx_c, bit_c):
-    """Schedule -> Kernel E's (ebufs, eptrs, low) on the device, with chunk
-    buffers sized optimistically and rerun at the hard size if any chunk
-    overflowed."""
-    for hard in (False, True):
-        CB = _chunk_bytes(geom.depth, hard)
-        with trace(f"sfq.encode.{kind}.coder"):
-            ebufs, eptrs, low, emax = coder_torch.lane_encode(idx_c, bit_c,
-                                                              geom, CB)
-        if int(emax) <= CB:
-            return ebufs, eptrs, low
-    raise AssertionError("encode chunk overflow even with hard buffers")
+# ---------------------------------------------------------------------------
+# a block's streams at once
+# ---------------------------------------------------------------------------
+
+_POOL: dict[int, list] = {}  # device index -> side CUDA streams
 
 
-def _code(kind: str, geom, idx_c, bit_c, counts: np.ndarray):
-    """Schedule -> (payload [W, maxlen] u8, lens [W] int64) on the host."""
-    ebufs, eptrs, low = _encode_chunks(kind, geom, idx_c, bit_c)
-    totals = eptrs.sum(dim=0).cpu().numpy()
-    with trace(f"sfq.encode.{kind}.compact"):
-        pay, _ = compact_torch.compact_lanes_dev(ebufs, eptrs,
-                                                 max(int(totals.max()), 1))
-    return _flush_append(pay.cpu().numpy(), totals,
-                         low.cpu().numpy().view(np.uint32), counts)
+class StreamSet:
+    """A block's coder launches, each on its own CUDA stream from a
+    per-device pool, so the block costs its longest chain and not the sum
+    (on the CPU they run in order on the calling thread). A launch starts
+    after the calling stream's work so far; ``join`` makes the calling
+    stream wait for every launch."""
+
+    def __init__(self, device):
+        self.dev = torch.device(device)
+        cuda = self.dev.type == "cuda"
+        self.main = torch.cuda.current_stream(self.dev) if cuda else None
+        self.used: list = []
+        self.outputs: list = []
+        self.decoded: dict = {}
+
+    def _next(self):
+        if self.main is None:
+            return None
+        pool = _POOL.setdefault(self.main.device_index, [])
+        if len(pool) == len(self.used):
+            pool.append(torch.cuda.Stream(self.dev))
+        self.used.append(pool[len(self.used)])
+        return self.used[-1]
+
+    def launch(self, fn, *inputs):
+        """fn() on the next stream of the pool; returns its output (a
+        tensor or a tuple of them) and the stream."""
+        s = self._next()
+        if s is None:
+            return fn(), None
+        s.wait_stream(self.main)
+        with torch.cuda.stream(s):
+            out = fn()
+        for t in inputs:
+            t.record_stream(s)
+        self.outputs.extend(out if isinstance(out, tuple) else (out,))
+        return out, s
+
+    def join(self) -> None:
+        """The calling stream waits for every launch so far; their outputs
+        are marked in use by it."""
+        if self.main is None:
+            return
+        for s in self.used:
+            self.main.wait_stream(s)
+        for t in self.outputs:
+            t.record_stream(self.main)
+
+    def decode(self, name: str, kind: str, geom, payload: np.ndarray,
+               lens: np.ndarray, counts: np.ndarray, num_steps: int,
+               pos: np.ndarray | None = None,
+               reset: np.ndarray | None = None) -> None:
+        """Launch Kernel D on one host-modelled stream; ``symbols(name)``
+        reads it back."""
+        W = payload.shape[0]
+        counts = np.asarray(counts)
+        Sp = pad_steps(num_steps)
+        if Sp == 0 or not (counts > 0).any():
+            self.decoded[name] = (None, None, num_steps, W)
+            return
+        dev = self.dev
+        args = (_payload_tensor(payload, dev), _to(lens, dev, torch.int32),
+                _acts(_to(counts, dev, torch.int32), Sp),
+                _pad2(pos, Sp, W, dev), _pad2(reset, Sp, W, dev))
+        with trace(f"sfq.decode.{name}.coder"):
+            syms, s = self.launch(lambda: coder_torch.lane_decode(
+                *args, kind, geom), *args)
+        self.decoded[name] = (syms, s, num_steps, W)
+
+    def symbols(self, name: str) -> np.ndarray:
+        """[num_steps, W] u8 symbols of a stream launched by ``decode``,
+        waiting for its stream only."""
+        syms, s, S, W = self.decoded[name]
+        if syms is None:
+            return np.zeros((S, W), dtype=np.uint8)
+        with torch.cuda.stream(s) if s is not None else nullcontext():
+            return syms[:S].cpu().numpy()
+
+
+def stream_schedule(kind: str, geom, syms: np.ndarray, counts: np.ndarray,
+                    device, pos: np.ndarray | None = None,
+                    reset: np.ndarray | None = None):
+    """The encode schedule (idx_c, bit_c) of a host-modelled [S, W] stream
+    on the device, or None where it codes no step."""
+    S, W = syms.shape
+    Sp = pad_steps(S)
+    if Sp == 0 or not (np.asarray(counts) > 0).any():
+        return None
+    dev = torch.device(device)
+    with trace(f"sfq.encode.{kind}.schedule"):
+        return _schedule(kind, geom, _pad2(syms, Sp, W, dev),
+                         _pad2(pos, Sp, W, dev), _pad2(reset, Sp, W, dev),
+                         _to(counts, dev, torch.int32))
+
+
+def encode_block(jobs, device) -> dict:
+    """Code a block's streams at once. ``jobs`` yields (name, kind, geom,
+    idx_c, bit_c, counts) in turn (a generator may build each schedule as
+    it goes; the launches before it run meanwhile). Kernel E of each runs
+    on its own CUDA stream with optimistic chunk buffers; one host
+    synchronisation reads every overflow check and compacted size; a
+    stream whose chunk overflowed is rerun with hard buffers; then Kernel
+    C and the flush bytes. Returns {name: (payload [W, maxlen] u8, lens
+    [W] int64)}."""
+    ss = StreamSet(device)
+    todo, outs = [], []
+    for name, kind, geom, idx_c, bit_c, counts in jobs:
+        CB = _chunk_bytes(geom.depth, hard=False)
+        with trace(f"sfq.encode.{name}.coder"):
+            out, _ = ss.launch(lambda: coder_torch.lane_encode(
+                idx_c, bit_c, geom, CB), idx_c, bit_c)
+        todo.append((name, geom, idx_c, bit_c, counts, CB))
+        outs.append(out)
+    if not todo:
+        return {}
+    ss.join()
+    # one synchronisation: each stream's emax and longest lane total
+    totals = [eptrs.sum(dim=0) for _, eptrs, _, _ in outs]
+    head = torch.stack([torch.stack([out[3], t.max()])
+                        for out, t in zip(outs, totals)]).cpu().tolist()
+    pays = []
+    for k, ((name, geom, idx_c, bit_c, _, CB), (emax, tmax)) in enumerate(
+            zip(todo, head)):
+        if emax > CB:  # rare: rerun with the worst-case chunk size
+            CB = _chunk_bytes(geom.depth, hard=True)
+            with trace(f"sfq.encode.{name}.coder"):
+                outs[k] = coder_torch.lane_encode(idx_c, bit_c, geom, CB)
+            if int(outs[k][3]) > CB:
+                raise AssertionError("encode chunk overflow even with hard "
+                                     "buffers")
+            totals[k] = outs[k][1].sum(dim=0)
+            tmax = int(totals[k].max())
+        ebufs, eptrs = outs[k][:2]
+        with trace(f"sfq.encode.{name}.compact"):
+            pays.append(compact_torch.compact_lanes_dev(ebufs, eptrs,
+                                                        max(tmax, 1))[0])
+    return {job[0]: _flush_append(pay.cpu().numpy(), t.cpu().numpy(),
+                                  out[2].cpu().numpy().view(np.uint32),
+                                  np.asarray(job[4]))
+            for job, out, t, pay in zip(todo, outs, totals, pays)}
 
 
 def _empty_encode(W: int):
@@ -200,18 +331,11 @@ def encode_stream(kind: str, geom, syms: np.ndarray, counts: np.ndarray,
                   reset: np.ndarray | None = None):
     """[S, W] symbols + per-lane counts -> (payload [W, maxlen] u8, lens
     [W] int64). pos/reset: host [S, W] matrices for qual/seq."""
-    S, W = syms.shape
     counts = np.asarray(counts)
-    Sp = pad_steps(S)
-    if Sp == 0 or not (counts > 0).any():
-        return _empty_encode(W)
-    dev = torch.device(device)
-    with trace(f"sfq.encode.{kind}.schedule"):
-        idx_c, bit_c = _schedule(kind, geom, _pad2(syms, Sp, W, dev),
-                                 _pad2(pos, Sp, W, dev),
-                                 _pad2(reset, Sp, W, dev),
-                                 _to(counts, dev, torch.int32))
-    return _code(kind, geom, idx_c, bit_c, counts)
+    sched = stream_schedule(kind, geom, syms, counts, device, pos, reset)
+    if sched is None:
+        return _empty_encode(syms.shape[1])
+    return encode_block([(kind, kind, geom, *sched, counts)], device)[kind]
 
 
 def _payload_tensor(payload: np.ndarray, dev) -> torch.Tensor:
@@ -232,19 +356,9 @@ def decode_stream(kind: str, geom, payload: np.ndarray, lens: np.ndarray,
                   pos: np.ndarray | None = None,
                   reset: np.ndarray | None = None) -> np.ndarray:
     """(payload, lens) -> [num_steps, W] u8 symbols (0 past each count)."""
-    W = payload.shape[0]
-    counts = np.asarray(counts)
-    S = num_steps
-    Sp = pad_steps(S)
-    if Sp == 0 or not (counts > 0).any():
-        return np.zeros((S, W), dtype=np.uint8)
-    dev = torch.device(device)
-    with trace(f"sfq.decode.{kind}.coder"):
-        syms = coder_torch.lane_decode(
-            _payload_tensor(payload, dev), _to(lens, dev, torch.int32),
-            _acts(_to(counts, dev, torch.int32), Sp),
-            _pad2(pos, Sp, W, dev), _pad2(reset, Sp, W, dev), kind, geom)
-    return syms[:S].cpu().numpy()
+    ss = StreamSet(device)
+    ss.decode(kind, kind, geom, payload, lens, counts, num_steps, pos, reset)
+    return ss.symbols(kind)
 
 
 # ---------------------------------------------------------------------------
@@ -279,7 +393,9 @@ def seq_qual_jobs(seq_geom, qual_geom, data: np.ndarray,
                   qual_bias: int, ll_mat: np.ndarray, counts: np.ndarray,
                   device):
     """Lane-pack SEQ and QUAL from raw block bytes on the device, then
-    yield each stream's CoderJob in turn (SEQ, then QUAL). ``data`` is
+    yield each stream's CoderJob in turn (QUAL, the longest chain, then
+    SEQ: a caller may launch the first while the second's schedule is
+    built). ``data`` is
     zero-padded to a pack_torch.pad_flat length (the pipelined caller
     pays the pad copy in its host half); some lane has symbols."""
     if len(data) != pack_torch.pad_flat(len(data)):
@@ -293,8 +409,8 @@ def seq_qual_jobs(seq_geom, qual_geom, data: np.ndarray,
             qual_bias)
         pos, reset = _pos_reset(_lane_lens(ll_mat, W, dev), Sp, S, W)
         counts_t = _to(counts, dev, torch.int32)
-    for name, kind, geom, syms in (("SEQ", "seq", seq_geom, seq_syms),
-                                   ("QUAL", "qual", qual_geom, qual_syms)):
+    for name, kind, geom, syms in (("QUAL", "qual", qual_geom, qual_syms),
+                                   ("SEQ", "seq", seq_geom, seq_syms)):
         syms = syms.int()
         with trace(f"sfq.encode.{kind}.schedule"):
             idx_c, bit_c = _schedule(kind, geom, syms, pos, reset, counts_t)
@@ -314,10 +430,11 @@ def encode_seq_qual_raw(seq_geom, qual_geom, data: np.ndarray,
     counts = np.asarray(counts)
     if not (counts > 0).any():
         return {"SEQ": _empty_encode(W), "QUAL": _empty_encode(W)}
-    return {job.name: _code(job.kind, job.geom, job.idx_c, job.bit_c, counts)
-            for job in seq_qual_jobs(seq_geom, qual_geom, data, seq_offs,
-                                     qual_offs, lengths, W, seq_map,
-                                     qual_bias, ll_mat, counts, device)}
+    return encode_block(
+        ((j.name, j.kind, j.geom, j.idx_c, j.bit_c, counts)
+         for j in seq_qual_jobs(seq_geom, qual_geom, data, seq_offs,
+                                qual_offs, lengths, W, seq_map, qual_bias,
+                                ll_mat, counts, device)), device)
 
 
 def decode_seq_qual_raw(seq_geom, qual_geom,
@@ -326,30 +443,34 @@ def decode_seq_qual_raw(seq_geom, qual_geom,
                         ll_mat: np.ndarray, counts: np.ndarray, S: int,
                         rec_starts: np.ndarray, lengths: np.ndarray,
                         total: int, seq_map: np.ndarray, qual_bias: int,
-                        device):
+                        device, streams: StreamSet | None = None):
     """Decode SEQ and QUAL and unpack them on the device straight to
     record-major flat byte buffers (seq through seq_map, qual + bias).
-    Returns (seq_bytes, qual_bytes) of length ``total``."""
+    Returns (seq_bytes, qual_bytes) of length ``total``. With
+    ``streams``, the two decodes join that block's other launches: on
+    return the calling stream waits for all of them."""
     W = seq_payload.shape[0]
     counts = np.asarray(counts)
     Sp = pad_steps(S)
+    ss = streams or StreamSet(device)
     if Sp == 0 or not (counts > 0).any() or total == 0:
         return (np.zeros(total, dtype=np.uint8),
                 np.zeros(total, dtype=np.uint8))
     dev = torch.device(device)
     pos, reset = _pos_reset(_lane_lens(ll_mat, W, dev), Sp, S, W)
     acts = _acts(_to(counts, dev, torch.int32), Sp)
-    dec = []
-    for kind, geom, payload, lens in (("seq", seq_geom, seq_payload,
-                                       seq_lens),
-                                      ("qual", qual_geom, qual_payload,
-                                       qual_lens)):
-        with trace(f"sfq.decode.{kind}.coder"):
-            dec.append(coder_torch.lane_decode(
-                _payload_tensor(payload, dev), _to(lens, dev, torch.int32),
-                acts, pos, reset, kind, geom))
+    dec = {}
+    for name, kind, geom, payload, lens in (
+            ("QUAL", "qual", qual_geom, qual_payload, qual_lens),
+            ("SEQ", "seq", seq_geom, seq_payload, seq_lens)):
+        args = (_payload_tensor(payload, dev), _to(lens, dev, torch.int32),
+                acts, pos, reset)
+        with trace(f"sfq.decode.{name}.coder"):
+            dec[name], _ = ss.launch(lambda: coder_torch.lane_decode(
+                *args, kind, geom), *args)
+    ss.join()
     with trace("sfq.decode.unpack_pair"):
         seq_flat, qual_flat = pack_torch.unpack_pair(
-            dec[0], dec[1], rec_starts, lengths, W, total, seq_map,
+            dec["SEQ"], dec["QUAL"], rec_starts, lengths, W, total, seq_map,
             qual_bias)
     return (seq_flat[:total].cpu().numpy(), qual_flat[:total].cpu().numpy())

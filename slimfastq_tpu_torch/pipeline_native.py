@@ -197,32 +197,42 @@ def _empty_stream(counts) -> EncodedStream:
                          np.zeros((len(c64), 0), dtype=np.uint8))
 
 
-def encode_prepared_block(pre, cfg: CodecConfig, device) -> EncodedBlock:
-    """Device half of a block encode: code every stream of a prepared
-    block on ``device`` and assemble the EncodedBlock."""
-    jobs, n, minq, qual_depth, ll_mat, raw_args, v5 = pre
-    raw_out = None
-    if raw_args is not None:
-        raw_out = streams_torch.encode_seq_qual_raw(
-            *seq_qual_args(pre, cfg), device)
-    streams: dict[str, EncodedStream] = {}
+def _coder_jobs(pre, cfg: CodecConfig, device):
+    """Every coded stream's (name, kind, geom, idx_c, bit_c, counts), its
+    schedule built on the device as the caller asks for it: QUAL and SEQ
+    first, the longest chains."""
+    jobs, _, _, _, _, raw_args, _ = pre
+    scounts = jobs["SEQ"][3]
+    if raw_args is not None and (scounts > 0).any():
+        for job in streams_torch.seq_qual_jobs(*seq_qual_args(pre, cfg),
+                                               device):
+            yield (job.name, job.kind, job.geom, job.idx_c, job.bit_c,
+                   scounts)
     for name in streams_for(cfg.fmt):
         kind, geom, syms, counts, _pos, _reset = jobs[name]
-        if name in ("SEQ", "QUAL"):
-            if raw_out is None:  # a block of no records
-                streams[name] = _empty_stream(counts)
-                continue
-            payload, lens = raw_out[name]
-        elif syms.shape[0] == 0:
-            # all-empty lane stream (e.g. the MATCH slot): byte-identical
-            # to coding zero steps, no device call
+        if name in ("SEQ", "QUAL") or syms.shape[0] == 0:
+            continue  # SEQ/QUAL above; an all-empty stream codes nothing
+        sched = streams_torch.stream_schedule(kind, geom, syms, counts,
+                                              device)
+        if sched is not None:
+            yield (name, kind, geom, *sched, counts)
+
+
+def encode_prepared_block(pre, cfg: CodecConfig, device) -> EncodedBlock:
+    """Device half of a block encode: code every stream of a prepared
+    block on ``device``, all at once (streams_torch.encode_block), and
+    assemble the EncodedBlock."""
+    jobs, n, minq, qual_depth, ll_mat, raw_args, v5 = pre
+    coded = streams_torch.encode_block(_coder_jobs(pre, cfg, device), device)
+    streams: dict[str, EncodedStream] = {}
+    for name in streams_for(cfg.fmt):
+        counts = jobs[name][3]
+        if name in coded:
+            payload, lens = coded[name]
+            streams[name] = EncodedStream(
+                np.asarray(counts).astype(np.int64), lens, payload)
+        else:  # byte-identical to coding zero steps
             streams[name] = _empty_stream(counts)
-            continue
-        else:
-            payload, lens = streams_torch.encode_stream(kind, geom, syms,
-                                                        counts, device)
-        streams[name] = EncodedStream(np.asarray(counts).astype(np.int64),
-                                      lens, payload)
     flags = QUAL_NODELTA if (v5 is not None and v5["qual_nodelta"]) else 0
     return EncodedBlock(n, minq, qual_depth, streams, flags=flags,
                         seq_order=(v5 or {}).get("seq_order", 0))
@@ -241,13 +251,26 @@ def decode_block_device(blk: EncodedBlock, cfg: CodecConfig, device):
         raise NotImplementedError(
             "level 4 / MATCH not yet ported in the torch port")
 
-    def dec_lanes(name, kind="byte", geom=None, counts=None):
+    # every stream's decode on its own CUDA stream: the aux streams first,
+    # then SEQ and QUAL once LEN's lengths give their pos/reset
+    ss = streams_torch.StreamSet(device)
+    counts = {}
+    rec_per_lane = (n - np.arange(Wa) + Wa - 1) // Wa
+    for name, kind, geom, c in (("LEN", "byte", cfg.bytes_, None),
+                                ("FLAG", "flag", cfg.flags,
+                                 3 * rec_per_lane),
+                                ("IDD", "byte", cfg.bytes_, None),
+                                ("IDX", "byte", cfg.bytes_, None),
+                                ("SEQX", "byte", cfg.bytes_, None)):
         es = blk.streams[name]
-        g = geom if geom is not None else cfg.bytes_
-        c = counts if counts is not None else es.sym_counts
-        S = int(np.asarray(c).max()) if len(c) else 0
-        syms = streams_torch.decode_stream(kind, g, es.payload, es.lane_lens,
-                                           c, S, device)
+        c = es.sym_counts if c is None else c
+        counts[name] = c
+        ss.decode(name, kind, geom, es.payload, es.lane_lens, c,
+                  int(np.asarray(c).max()) if len(c) else 0)
+
+    def lanes(name):
+        c = counts[name]
+        syms = ss.symbols(name)
         if syms.size:  # one blocked transpose, then zero-copy row views
             rows = native.transpose_mat(np.ascontiguousarray(syms))
             return [rows[w, : c[w]] for w in range(len(c))]
@@ -255,24 +278,12 @@ def decode_block_device(blk: EncodedBlock, cfg: CodecConfig, device):
 
     prev_step = Wa if cfg.fmt >= 3 else 1  # delta baseline (frozen/fmt)
 
-    # 1. lengths
-    lengths = native.lens_decode(dec_lanes("LEN"), n, Wa, prev_step)
+    # 1. lengths (waits for LEN's stream only)
+    lengths = native.lens_decode(lanes("LEN"), n, Wa, prev_step)
 
-    # 2. flags (implicit counts: 3 per record), back to record order
-    rec_per_lane = (n - np.arange(Wa) + Wa - 1) // Wa
-    flag_lanes = dec_lanes("FLAG", kind="flag", geom=cfg.flags,
-                           counts=3 * rec_per_lane)
-    flags = native.flags_reorder(np.concatenate(flag_lanes), n, Wa)
-
-    # 3. ID delta/exception streams (chain decode is in the finish half)
-    idd_lanes = dec_lanes("IDD")
-    idx_lanes = dec_lanes("IDX")
-
-    # 4. seq exceptions (parsed + patched in C++ in the finish half)
-    sx_lanes = dec_lanes("SEQX")
-
-    # 5/6. seq + qual -> record-major flat byte buffers
-    ss = blk.streams["SEQ"]
+    # 2. seq + qual -> record-major flat byte buffers; on return every
+    # stream of the block has been decoded
+    seq_s = blk.streams["SEQ"]
     qs = blk.streams["QUAL"]
     qgeom = replace(cfg.qual, depth=blk.qual_depth,
                     delta_bits=0 if (blk.flags & QUAL_NODELTA)
@@ -288,9 +299,17 @@ def decode_block_device(blk: EncodedBlock, cfg: CodecConfig, device):
     scounts = ll_mat.sum(axis=0)
     S = int(scounts.max()) if scounts.size else 0
     seq_bytes, qual_bytes = streams_torch.decode_seq_qual_raw(
-        sgeom, qgeom, ss.payload, ss.lane_lens, qs.payload, qs.lane_lens,
+        sgeom, qgeom, seq_s.payload, seq_s.lane_lens, qs.payload, qs.lane_lens,
         ll_mat, scounts, S, rec_starts, lengths, total, _CODE_TO_BASE_FULL,
-        blk.minq, device)
+        blk.minq, device, streams=ss)
+
+    # 3. flags (implicit counts: 3 per record), back to record order
+    flags = native.flags_reorder(np.concatenate(lanes("FLAG")), n, Wa)
+
+    # 4. ID delta/exception streams (chain decode is in the finish half)
+    # and seq exceptions (parsed + patched in C++ in the finish half)
+    idd_lanes, idx_lanes, sx_lanes = (lanes(k) for k in ("IDD", "IDX",
+                                                         "SEQX"))
     return (n, prev_step, lengths, flags, idd_lanes, idx_lanes, sx_lanes,
             rec_starts, seq_bytes, qual_bytes)
 

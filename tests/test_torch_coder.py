@@ -4,9 +4,13 @@ D, here their plain PyTorch versions) and its schedule math
 streams_jax._build_schedule, _build_encode and _build_decode, output for
 output, with exact equality: the schedule, eptrs, low, emax and every
 ebufs byte on encode, every symbol on decode. The same inputs, made with
-numpy from a seed, go to both."""
+numpy from a seed, go to both. Also: the kernels' geometry helpers (the
+saturating visit count of their 16-bit entries, the table bytes and
+whether a table fits shared memory) by brute force, and a block's streams
+coded in the order of the concurrent path against the JAX package's
+block."""
 
-from dataclasses import replace
+from dataclasses import asdict, replace
 
 import numpy as np
 import pytest
@@ -14,10 +18,16 @@ import torch
 
 import jax.numpy as jnp
 
+from slimfastq_tpu import native as jnative
+from slimfastq_tpu import pipeline_native as JPN
 from slimfastq_tpu.config import config_for_level
 from slimfastq_tpu.ops import ranger_np as R
 from slimfastq_tpu.ops import streams_jax as SJ
 from slimfastq_tpu.pipeline import _seq_symbol_layout
+from slimfastq_tpu.utils.synth import synth_fastq
+from slimfastq_tpu_torch import config as tconfig
+from slimfastq_tpu_torch import native as tnative
+from slimfastq_tpu_torch import pipeline_native as TPN
 from slimfastq_tpu_torch.ops import coder_torch as CT
 from slimfastq_tpu_torch.ops import streams_torch as ST
 
@@ -157,3 +167,119 @@ def test_wrappers_reject_bad_inputs():
                        torch.zeros(4, dtype=torch.int64),
                        *(torch.zeros((8, 4), dtype=torch.int32),) * 3,
                        "qual", geom)
+
+
+def _oracle_shift(geom, vis):
+    """ranger_np.table_update's warm-up shift after `vis` visits."""
+    lg = int(R.ceil_log2_counts(np.array([min(vis, 1024) + 1]))[0])
+    return min(geom.rate, geom.rate_lo + lg)
+
+
+@pytest.mark.parametrize("table,level", [(t, lv) for t in ("LEVELS",
+                                                           "LEVELS_V1")
+                                         for lv in (1, 2, 3, 4)])
+def test_visit_cap_is_exact(table, level):
+    """The kernels keep min(visits, visit_cap) in 4 bits: for every
+    geometry, at qual depths 6, 7 and 8, that count gives the warm-up
+    shift of the true count for every count up to 4096."""
+    cfg = getattr(tconfig, table)[level]
+    geoms = [replace(cfg.qual, depth=d) for d in (6, 7, 8)] + [cfg.seq]
+    for g in geoms:
+        cap = CT.visit_cap(g)
+        if not (0 < g.rate_lo < g.rate):
+            assert cap == 0
+            continue
+        assert 0 < cap < 1 << CT.VIS_BITS
+        for v in range(4097):
+            assert _oracle_shift(g, min(v, cap)) == _oracle_shift(g, v)
+        # and it is the least such count
+        assert _oracle_shift(g, cap - 1) != _oracle_shift(g, 1024)
+    assert CT.visit_cap(cfg.bytes_) == CT.visit_cap(cfg.flags) == 0
+
+
+def test_table_bytes_and_shared_memory_fit():
+    """16-bit tables: the byte and flag tables fit one CTA's 227 KB beside
+    the hash of 64 or 1,024 lanes; QUAL and SEQ at levels 3 and 4 do not
+    claim to."""
+    for W in (1, 31, 64, 100, 1024):
+        threads = -(-W // 32) * 32
+        slots = next(1 << k for k in range(20) if 1 << k >= 2 * threads)
+        assert CT.hash_bytes(W) == 3 * 2 * slots * 4
+    for level in (1, 2, 3, 4):
+        cfg = tconfig.LEVELS[level]
+        for g in (cfg.qual, cfg.seq, cfg.bytes_, cfg.flags):
+            assert CT.table_bytes(g) == 2 * g.table_size
+            for W in (64, 1024):
+                fits = (CT.table_bytes(g) + 15) // 16 * 16 \
+                    + CT.hash_bytes(W) <= 232448
+                assert CT.table_in_smem(g, W) == fits
+        for W in (64, 1024):
+            assert CT.table_in_smem(cfg.bytes_, W)
+            assert CT.table_in_smem(cfg.flags, W)
+            if level >= 3:
+                for d in (6, 7, 8):
+                    assert not CT.table_in_smem(replace(cfg.qual, depth=d),
+                                                W)
+                assert not CT.table_in_smem(cfg.seq, W)
+    cfg = tconfig.LEVELS[3]
+    assert CT.table_bytes(cfg.bytes_) == 131070
+    assert CT.table_bytes(cfg.qual) == 1032318
+    assert CT.table_bytes(cfg.seq) == 8388612
+
+
+def test_kernel_geometry_refusals():
+    """Where the 16-bit entry or one CTA cannot hold a geometry, the
+    kernels' wrappers raise (they never fall back to the plain version)."""
+    cpu = torch.device("cpu")
+    warm = replace(tconfig.LEVELS[3].seq, rate=14, rate_lo=1)
+    assert CT.visit_cap(warm) == 512
+    with pytest.raises(ValueError, match="visit cap"):
+        CT._kernel_geom(warm, 64, cpu)
+    with pytest.raises(ValueError, match="exceeds"):
+        CT._kernel_geom(tconfig.LEVELS[3].qual, 1025, cpu)
+    table, cap, smem = CT._kernel_geom(tconfig.LEVELS[3].qual, 1024, cpu)
+    assert (cap, smem) == (8, 0) and table.dtype == torch.int16
+    assert int(table[0]) == R.PROB_INIT
+    assert int(table[-1]) == R.PROB_MAX
+    assert CT._kernel_geom(tconfig.LEVELS[3].bytes_, 64, cpu) == (None, 0,
+                                                                  1)
+
+
+@pytest.mark.parametrize("order", ["path", "reversed"])
+def test_block_streams_at_once_match_jax(order):
+    """A block's streams as the concurrent path codes them (every schedule
+    launched before any result is read, QUAL and SEQ first; on decode the
+    aux streams first, LEN read back alone, SEQ and QUAL last), also with
+    the encode launches reversed, give the JAX package's block: every
+    stream's payload and lane lengths, and every decoded stream."""
+    jcfg = config_for_level(3, lanes=16, aux_lanes=8)
+    cfg = tconfig.from_reference(asdict(jcfg))
+    data = synth_fastq(70, read_len=40, seed=8, var_len=True, n_rate=0.02)
+    buf = np.frombuffer(data, dtype=np.uint8)
+    jidx, n = jnative.fastq_index(data)
+    jblk = JPN.encode_block_fast(buf, jidx, 0, n, jcfg, SJ)
+    tidx, _ = tnative.fastq_index(data)
+    pre = TPN.prepare_block_fast(buf, tidx, 0, n, cfg)
+    jobs = list(TPN._coder_jobs(pre, cfg, "cpu"))
+    assert [j[0] for j in jobs[:2]] == ["QUAL", "SEQ"]
+    if order == "reversed":
+        jobs = jobs[::-1]
+    coded = ST.encode_block(jobs, "cpu")
+    tblk = TPN.encode_prepared_block(pre, cfg, "cpu")
+    for name, es in jblk.streams.items():
+        assert np.array_equal(tblk.streams[name].payload, es.payload), name
+        assert np.array_equal(tblk.streams[name].lane_lens, es.lane_lens)
+        if name in coded:
+            assert np.array_equal(coded[name][0], es.payload), name
+            assert np.array_equal(coded[name][1], es.lane_lens), name
+        else:
+            assert not es.lane_lens.any(), name
+    got = TPN.decode_block_device(tblk, cfg, "cpu")
+    want = JPN.decode_block_device(jblk, jcfg, SJ)
+    for g, w in zip(got, want[:len(got)]):
+        if isinstance(g, list):
+            assert len(g) == len(w)
+            for a, b in zip(g, w):
+                assert np.array_equal(a, b)
+        else:
+            assert np.array_equal(g, w)

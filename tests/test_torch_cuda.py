@@ -1,10 +1,15 @@
 """Kernels E, D and C against their plain PyTorch versions on a CUDA card,
-byte for byte. Marked `cuda`: they skip without a card. This file imports
+byte for byte, on each table placement (shared memory, device memory),
+with and without the visit warm-up, and at the collision counts where the
+format's count field wraps; and a block coded with its streams at once
+against the same block coded one stream at a time. Marked `cuda`: they skip without a card. This file imports
 neither JAX nor the JAX package, so it runs on a machine that has only
 PyTorch and a card:
 
     python -m pytest tests/test_torch_cuda.py -m cuda -q
 """
+
+from dataclasses import replace
 
 import numpy as np
 import pytest
@@ -27,21 +32,23 @@ def dev():
     return torch.device("cuda")
 
 
-def _stream(kind, rng, dev, W):
+def _stream(kind, rng, dev, W, active=None, hi=64):
     """(syms, counts, pos, reset) on the card: reads of 100 symbols that
-    all start at step 0 for seq/qual (every lane at one context at each
-    read start), ragged lanes for byte/flag."""
+    all start at step 0 for seq/qual in the first `active` lanes (every
+    active lane at one context at each read start; the others empty),
+    ragged lanes for byte/flag."""
     Sp = 256
     if kind in ("seq", "qual"):
         ll = np.full((Sp // 100, W), 100, dtype=np.int64)
+        ll[:, W if active is None else active:] = 0
         counts = ll.sum(axis=0)
         pos, reset = ST._pos_reset(torch.from_numpy(ll).to(dev), Sp,
                                    int(counts.max()), W)
         if kind == "seq":
             syms = rng.integers(0, 4, size=(Sp, W))
         else:
-            syms = np.clip(30 + np.cumsum(rng.integers(-2, 3, (Sp, W)),
-                                          axis=0), 0, 63)
+            syms = np.clip(hi // 2 + np.cumsum(rng.integers(-2, 3, (Sp, W)),
+                                               axis=0), 0, hi - 1)
     else:
         counts = rng.integers(Sp // 2, Sp + 1, size=W)
         syms = rng.integers(0, 256 if kind == "byte" else 2, size=(Sp, W))
@@ -50,17 +57,36 @@ def _stream(kind, rng, dev, W):
             reset)
 
 
-@pytest.mark.parametrize("kind,W,hard", [("seq", 1024, False),
-                                         ("qual", 1024, False),
-                                         ("qual", 256, True),
-                                         ("byte", 64, False),
-                                         ("flag", 64, False)])
-def test_coder_and_compact_kernels_match_plain(dev, kind, W, hard):
-    cfg = config_for_level(3)
-    geom = {"seq": cfg.seq, "qual": cfg.qual, "byte": cfg.bytes_,
-            "flag": cfg.flags}[kind]
+def _geom(level, kind, depth=None):
+    cfg = config_for_level(level)
+    g = {"seq": cfg.seq, "qual": cfg.qual, "byte": cfg.bytes_,
+         "flag": cfg.flags}[kind]
+    return g if depth is None else replace(g, depth=depth)
+
+
+# (level, kind, W, hard, active lanes, qual depth, table in shared memory)
+CASES = {
+    "seq-collide-1024": (3, "seq", 1024, False, None, None, False),
+    "seq-collide-700": (3, "seq", 1024, False, 700, None, False),
+    "seq-collide-300": (3, "seq", 1024, False, 300, None, False),
+    "qual-d6": (3, "qual", 1024, False, None, None, False),
+    "qual-d8": (3, "qual", 1024, False, None, 8, False),
+    "qual-hard": (3, "qual", 256, True, None, None, False),
+    "seq-l1": (1, "seq", 1024, False, None, None, True),
+    "qual-l1": (1, "qual", 1024, False, None, None, True),
+    "byte": (3, "byte", 64, False, None, None, True),
+    "flag": (3, "flag", 64, False, None, None, True),
+}
+
+
+@pytest.mark.parametrize("case", list(CASES))
+def test_coder_and_compact_kernels_match_plain(dev, case):
+    level, kind, W, hard, active, depth, smem = CASES[case]
+    geom = _geom(level, kind, depth)
+    assert CT.table_in_smem(geom, W) == smem
     rng = np.random.default_rng(1)
-    syms, counts, pos, reset = _stream(kind, rng, dev, W)
+    syms, counts, pos, reset = _stream(kind, rng, dev, W, active,
+                                       hi=1 << (depth or 6))
     c = torch.from_numpy(counts.astype(np.int32)).to(dev)
     idx_c, bit_c = ST._schedule(kind, geom, syms, pos, reset, c)
     CB = ST._chunk_bytes(geom.depth, hard)
@@ -87,6 +113,42 @@ def test_coder_and_compact_kernels_match_plain(dev, kind, W, hard):
     assert torch.equal(kd.cpu(), pd.cpu())
     mask = torch.arange(Sp, device=dev)[:, None] < c[None, :]
     assert torch.equal(kd[mask].int(), syms[mask])
+
+
+def test_block_streams_at_once_equal_one_at_a_time(dev):
+    """A block's seven streams coded concurrently (encode_prepared_block,
+    decode_block_device) against each stream coded alone on the default
+    stream with a synchronisation between."""
+    from slimfastq_tpu_torch import native
+    from slimfastq_tpu_torch.pipeline_native import (
+        decode_block_device, encode_prepared_block, prepare_block_fast,
+        seq_qual_args)
+    from slimfastq_tpu_torch.utils.synth import synth_fastq
+    cfg = config_for_level(3, block_records=4096)
+    data = synth_fastq(4096, read_len=100, seed=5, var_len=True,
+                       n_rate=0.01)
+    idx, n = native.fastq_index(data)
+    pre = prepare_block_fast(np.frombuffer(data, dtype=np.uint8), idx, 0, n,
+                             cfg)
+    blk = encode_prepared_block(pre, cfg, dev)
+    alone = ST.encode_seq_qual_raw(*seq_qual_args(pre, cfg), dev)
+    for name, es in blk.streams.items():
+        if name in alone:
+            payload, lens = alone[name]
+        else:
+            kind, geom, syms, counts = pre[0][name][:4]
+            payload, lens = ST.encode_stream(kind, geom, syms, counts, dev)
+        torch.cuda.synchronize()
+        assert np.array_equal(es.lane_lens, lens), name
+        assert np.array_equal(es.payload, payload), name
+    inter = decode_block_device(blk, cfg, dev)
+    lanes = dict(zip(("IDD", "IDX", "SEQX"), inter[4:7]))
+    for name, got in lanes.items():
+        es = blk.streams[name]
+        want = ST.decode_stream("byte", cfg.bytes_, es.payload, es.lane_lens,
+                                es.sym_counts, int(es.sym_counts.max()), dev)
+        for w, row in enumerate(got):
+            assert np.array_equal(row, want[: len(row), w]), name
 
 
 def test_compact_kernel_ragged_chunks(dev):
@@ -123,3 +185,7 @@ def test_wide_block_refused(dev):
     z = torch.zeros((1, 8, 2048), dtype=torch.int32, device=dev)
     with pytest.raises(ValueError, match="exceeds"):
         CT.lane_encode(z, z, geom, 16)
+    warm = replace(config_for_level(3).seq, rate=14, rate_lo=1)
+    z = torch.zeros((1, 16, 64), dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError, match="visit cap"):
+        CT.lane_encode(z, z, warm, 16)

@@ -6,10 +6,12 @@ torch.profiler.
 
 Prints one JSON line per direction: its wall seconds; device time by
 kernel (self device time summed over launches, and the launch count,
-copies included); the device busy share of the wall (all device time over
-the wall; kernels run on one stream, so they do not overlap); and, for the
-codec's trace spans (`sfq.*`), the host time and the device time of the
-work they enqueued, each summed over the span's calls.
+copies included); the device busy share of the wall (the union of the
+device activities' intervals over the wall: a block's coder streams run
+at once on their own CUDA streams, so their times overlap) beside the sum
+of all device time; and, for the codec's trace spans (`sfq.*`), the host
+time and the device time of the work they enqueued, each summed over the
+span's calls.
 Needs a CUDA card.
 
 Usage: python3 tools/gpu_profile.py [reads]
@@ -28,9 +30,20 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
 
 
 def _kernel_name(key: str) -> str:
-    m = re.search(r"(lane_encode_kernel|lane_decode_kernel|"
+    m = re.search(r"(lane_encode_kernel<[^>]*>|lane_decode_kernel<[^>]*>|"
+                  r"lane_encode_kernel|lane_decode_kernel|"
                   r"compact_lanes_kernel)", key)
     return m.group(1) if m else key[:80]
+
+
+def _union_s(intervals) -> float:
+    """Seconds covered by a set of (start, end) intervals in us."""
+    total, end = 0.0, float("-inf")
+    for a, b in sorted(intervals):
+        if b > end:
+            total += b - max(a, end)
+            end = b
+    return total / 1e6
 
 
 def _profile(fn):
@@ -62,9 +75,14 @@ def _profile(fn):
             d = device.setdefault(name, {"device_ms": 0.0, "count": 0})
             d["device_ms"] += e.self_device_time_total / 1e3
             d["count"] += e.count
-    busy = sum(d["device_ms"] for d in device.values()) / 1e3
+    busy = _union_s((e.time_range.start, e.time_range.end)
+                    for e in prof.events()
+                    if e.device_type == DeviceType.CUDA
+                    and e.name != "Activity Buffer Request")
+    total = sum(d["device_ms"] for d in device.values()) / 1e3
     return out, {"wall_s": wall, "device_busy_s": busy,
                  "device_busy_share": busy / wall,
+                 "device_sum_s": total,
                  "device": dict(sorted(device.items(),
                                        key=lambda kv: -kv[1]["device_ms"])),
                  "spans": dict(sorted(spans.items()))}
