@@ -13,24 +13,32 @@ Phases (any failure exits non-zero; nothing is caught):
      byte for byte, at W = 1024, Sp = 256 with the level-3 SEQ (all lanes
      at context 0 at every read start: the collision case, with 1,024 and
      with 700 active lanes, where the format's count field wraps) and QUAL
-     geometries, and at the aux width W = 64 with the byte and flag kinds
-     (tables in shared memory); then each kernel timed with CUDA events on
+     geometries, at the aux width W = 64 with the byte and flag kinds
+     (tables in shared memory), and with level 4's SEQ (order 11, the
+     match-context family: 1,024 and 700 flagged lanes on one entry) and
+     QUAL (the q1-q2 delta); then each kernel timed with CUDA events on
      the main path's own inputs (the pinned 64k x 100 bp block's QUAL
-     stream: W = 1024, Sp = 6400, NC = 800), where C is held against its
-     plain version once more and D's output against the packed QUAL
-     symbols; and one 1,024-thread barrier timed, for D's lockstep bound
-     (bit-steps x one barrier; E's is printed beside its byte bound);
-  4. main path: the pinned block through api.encode_fastq / decode_fastq
-     on the card: container size and SHA-256 equal the JAX package's,
-     the round trip is exact, every kernel's launch count moved; then the
-     block's seven E and seven D launches, on the main path's inputs,
-     timed alone and launched at once through the main path's StreamSet
-     (the block's coder span, first launch to join, beside the sum), and
-     the main path's device halves timed with CUDA events; then encode
-     and decode wall time over 4 blocks of the same generator.
+     stream: W = 1024, Sp = 6400, NC = 800; and its level-4 SEQ stream
+     as the winning match trial codes it), where C is held against its
+     plain version once more and D's output against the packed symbols,
+     with the host's time for the level-4 matcher and trials; and one
+     1,024-thread barrier timed, for D's lockstep bound (bit-steps x one
+     barrier; E's is printed beside its byte bound);
+  4. main path, level 3 then level 4: the pinned block through
+     api.encode_fastq / decode_fastq on the card: container size and
+     SHA-256 equal the JAX package's, the round trip is exact, every
+     kernel's launch count moved (at level 4 the block takes a match
+     trial); at level 3 the block's seven E and seven D launches, on the
+     main path's inputs, timed alone and launched at once through the main
+     path's StreamSet (the block's coder span, first launch to join,
+     beside the sum); at level 4 its E launches (with the trials' SEQ and
+     MATCH) alone and in two orders; the main path's device halves timed
+     with CUDA events; then encode and decode wall time over 4 blocks of
+     the same generator, at each level.
 
-Prints a `block`, an `earlier_ms` (recorded constants) and a `kernels`
-JSON line, then, as its last line, the `ok` JSON line.
+Prints `block`, `block_l4`, `wall`, `wall_l4`, `earlier_ms` (recorded
+constants) and `kernels` JSON lines, then, as its last line, the `ok`
+JSON line.
 """
 
 from __future__ import annotations
@@ -41,13 +49,18 @@ import subprocess
 import sys
 import time
 
-# Pinned block (bench.py's shape): 65,536 reads x 100 bp, level 3.
+# Pinned block (bench.py's shape): 65,536 reads x 100 bp, level 3 and
+# level 4.
 READS, READ_LEN = 65536, 100
-PINNED_BYTES = 2593846
-# SHA-256 of the JAX package's container for the pinned block (its
-# api.encode_fastq(data, level=3, backend=streams_jax), run on a CPU)
-PINNED_SHA256 = \
-    "056cae0e9fd312106cae2a401155a533840c167a46ced960fad355c4471a3f6c"
+# size and SHA-256 of the JAX package's container for the pinned block
+# (its api.encode_fastq(data, level=level, backend=streams_jax), run on a
+# CPU), by level
+PINNED = {
+    3: (2593846,
+        "056cae0e9fd312106cae2a401155a533840c167a46ced960fad355c4471a3f6c"),
+    4: (2072715,
+        "31026796c476744a9da168b3b6132be07d3151b3c7020feeb8790e7a5322470f"),
+}
 WALL_BLOCKS = 4
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM published memory rate
 # Each kernel's time at the timed shape before E and D moved their table
@@ -110,11 +123,28 @@ def _reads_layout(W: int, Sp: int, read_len: int, active: int):
     return ll, ll.sum(axis=0)
 
 
+def _match_layout(syms, pos, counts):
+    """(e-letter symbols, mflag [Sp, W] u8) of a level-4 SEQ trial: every
+    active lane flagged over read positions [20, 90), its symbols there
+    mostly 0 (e-transform letters) and all 0 at positions 18-23, so at the
+    span's first steps every active lane shares one match-family entry."""
+    import numpy as np
+    rng = np.random.default_rng(9)
+    p = pos.cpu().numpy()
+    span = (p >= 20) & (p < 90) & (np.arange(p.shape[0])[:, None]
+                                   < counts[None, :])
+    e = np.where(rng.random(syms.shape) < 0.9, 0, syms)
+    out = np.where(span, e, syms).astype(np.uint8)
+    out[(p >= 18) & (p < 24)] = 0
+    return out, span.astype(np.uint8)
+
+
 def _check_stream(kind, geom, syms_np, counts_np, pos, reset, dev, plain,
-                  errs):
-    """E, C and D on the card against their plain versions for one stream.
-    Records the plain versions' times (ms) at this shape in `plain` and
-    each kernel's largest difference in `errs`."""
+                  errs, mflag_np=None):
+    """E, C and D on the card against their plain versions for one stream
+    (mflag_np: a level-4 SEQ stream's match-span flags). Records the plain
+    versions' times (ms) at this shape in `plain` and each kernel's
+    largest difference in `errs`."""
     import numpy as np
     import torch
     from slimfastq_tpu_torch.ops import coder_torch, compact_torch
@@ -122,7 +152,8 @@ def _check_stream(kind, geom, syms_np, counts_np, pos, reset, dev, plain,
     Sp, W = syms_np.shape
     syms = torch.from_numpy(syms_np.astype(np.int32)).to(dev)
     counts = torch.from_numpy(counts_np.astype(np.int32)).to(dev)
-    idx_c, bit_c = ST._schedule(kind, geom, syms, pos, reset, counts)
+    mflag = None if mflag_np is None else torch.from_numpy(mflag_np).to(dev)
+    idx_c, bit_c = ST._schedule(kind, geom, syms, pos, reset, counts, mflag)
     CB = ST._chunk_bytes(geom.depth, hard=False)
     enc_k = coder_torch.lane_encode(idx_c, bit_c, geom, CB)
     torch.cuda.synchronize()
@@ -151,10 +182,10 @@ def _check_stream(kind, geom, syms_np, counts_np, pos, reset, dev, plain,
     args = (torch.from_numpy(pay).to(dev),
             torch.from_numpy(lens.astype(np.int32)).to(dev),
             ST._acts(counts, Sp), pos, reset)
-    dec_k = coder_torch.lane_decode(*args, kind, geom)
+    dec_k = coder_torch.lane_decode(*args, kind, geom, mflag)
     torch.cuda.synchronize()
     t = time.perf_counter()
-    dec_p = coder_torch.lane_decode_plain(*args, kind, geom)
+    dec_p = coder_torch.lane_decode_plain(*args, kind, geom, mflag)
     torch.cuda.synchronize()
     plain["lane_decode"] = (time.perf_counter() - t) * 1e3
     _compare(errs, "lane_decode", f"lane_decode {kind} W={W}", dec_k,
@@ -165,9 +196,11 @@ def _check_stream(kind, geom, syms_np, counts_np, pos, reset, dev, plain,
 
 
 def check_kernels(dev):
-    """All four coder kinds. Returns the plain versions' times in the QUAL
-    case (the longest chain) at W = 1024, Sp = 256, and each kernel's
-    largest absolute difference from its plain version."""
+    """All four coder kinds, and level 4's SEQ with the match-context
+    family and QUAL with the q1-q2 delta. Returns the plain versions' times
+    in the QUAL case (the longest chain) at W = 1024, Sp = 256 and each
+    kernel's largest absolute difference from its plain version, then the
+    same at level 4 (times in the 1,024-lane SEQ case)."""
     import numpy as np
     import torch
     from slimfastq_tpu_torch.config import config_for_level
@@ -197,10 +230,22 @@ def check_kernels(dev):
     _check_stream("flag", cfg.flags,
                   rng.integers(0, 2, size=(Sp, Wa)).astype(np.uint8),
                   ragged, zeros, zeros, dev, {}, errs)
+    cfg4, errs4, plain_seq4 = config_for_level(4), {}, {}
+    for active in (700, W):  # every active lane flagged on one entry
+        ll, counts = _reads_layout(W, Sp, READ_LEN, active)
+        pos, reset = ST._pos_reset(torch.from_numpy(ll).to(dev), Sp,
+                                   int(counts.max()), W)
+        e_syms, mflag = _match_layout(seq, pos, counts)
+        _check_stream("seq", cfg4.seq, e_syms, counts, pos, reset, dev,
+                      plain_seq4, errs4, mflag)
+    _check_stream("qual", cfg4.qual, qual, counts, pos, reset, dev, {},
+                  errs4)
     print(f"kernels match their plain versions: seq (1,024 and 700 "
           f"colliding lanes)/qual at W={W} Sp={Sp}, byte/flag at W={Wa} "
-          f"Sp={Sp}", flush=True)
-    return plain_qual, errs
+          f"Sp={Sp}; level 4: seq with the match family (1,024 and 700 "
+          f"flagged lanes on one entry), qual with the q1-q2 delta",
+          flush=True)
+    return plain_qual, errs, plain_seq4, errs4
 
 
 # ---------------------------------------------------------------------------
@@ -276,6 +321,104 @@ def time_kernels(data: bytes, dev, errs: dict) -> dict:
     return out
 
 
+def time_kernels_l4(data: bytes, dev, errs4: dict) -> dict:
+    """Device times (ms) and byte bounds of E, C and D on the pinned
+    block's level-4 SEQ stream as the block codes it: the winning match
+    trial's e-letters and flags, the order-11 table (pipeline_native's own
+    setup). Also the host's share of a level-4 block: the matcher and the
+    trials' rewritten copies (host clock). D's output is held against the
+    packed trial symbols, C against its plain version (`errs4`)."""
+    import numpy as np
+    import torch
+    from slimfastq_tpu_torch import native
+    from slimfastq_tpu_torch import pipeline_native as PN
+    from slimfastq_tpu_torch.config import config_for_level
+    from slimfastq_tpu_torch.models import matcher as M
+    from slimfastq_tpu_torch.ops import coder_torch, compact_torch
+    from slimfastq_tpu_torch.ops import streams_torch as ST
+    from slimfastq_tpu_torch.pipeline import MATCH_USED
+    cfg = config_for_level(4)
+    idx, n = native.fastq_index(data)
+    buf = np.frombuffer(data, dtype=np.uint8)
+    host = {}
+    t = time.perf_counter()
+    PN.prepare_block_fast(buf, idx, 0, n, config_for_level(3))
+    host["prep_l3_ms"] = (time.perf_counter() - t) * 1e3
+    t = time.perf_counter()
+    pre = PN.prepare_block_fast(buf, idx, 0, n, cfg)
+    host["prep_l4_ms"] = (time.perf_counter() - t) * 1e3
+    lengths = idx["seq_len"].astype(np.int64)
+    t = time.perf_counter()
+    matches = native.match_find_arrays(buf, idx["seq_off"], lengths,
+                                       min(M.THRESHOLDS))
+    host["match_find_ms"] = (time.perf_counter() - t) * 1e3
+    t = time.perf_counter()
+    trials = PN._match_trials(matches, pre[5], cfg.lanes, cfg.aux_lanes,
+                              int(pre[4].sum(0).max()))
+    host["trials_ms"] = (time.perf_counter() - t) * 1e3
+    host["trials"] = [tr[0] for tr in trials]
+    blk = PN.encode_prepared_block(pre, cfg, dev)
+    if not blk.flags & MATCH_USED:
+        raise AssertionError("the pinned level-4 block takes no match trial")
+    # the trial the block kept: its SEQ bytes are the block's
+    for t_, alt, _, _, mflag in pre[6]["trials"]:
+        job = next(ST.seq_qual_jobs(*PN.seq_qual_args(pre, cfg, alt), dev,
+                                    mflag, ("SEQ",)))
+        pay, _ = ST.encode_block([("SEQ", "seq", job.geom, job.idx_c,
+                                    job.bit_c, pre[0]["SEQ"][3])],
+                                 dev)["SEQ"]
+        if np.array_equal(pay, blk.streams["SEQ"].payload):
+            break
+    else:
+        raise AssertionError("no trial gives the block's SEQ stream")
+    host["winner"] = t_
+    Sp, W = job.syms.shape
+    NC, KD, _ = job.idx_c.shape
+    out = {"shape": {"W": W, "Sp": Sp, "NC": NC, "depth": job.geom.depth,
+                     "order": job.geom.order,
+                     "table_entries": job.geom.table_size},
+           "bit_steps": NC * KD, "host": host}
+    CB = ST._chunk_bytes(job.geom.depth, hard=False)
+    ebufs, eptrs, low, emax = coder_torch.lane_encode(job.idx_c, job.bit_c,
+                                                      job.geom, CB)
+    if int(emax) > CB:
+        raise AssertionError("L4 SEQ: optimistic chunk buffer overflowed")
+    e_ms = _time_ms(lambda: coder_torch.lane_encode(
+        job.idx_c, job.bit_c, job.geom, CB), 3)
+    e_bytes = 2 * job.idx_c.numel() * 4 + ebufs.numel() + eptrs.numel() * 4 \
+        + W * 4
+    totals = eptrs.sum(dim=0)
+    Bmax = int(totals.max())
+    com_k = compact_torch.compact_lanes_dev(ebufs, eptrs, Bmax)
+    _compare(errs4, "compact_lanes_dev", f"compact L4 seq NC={NC} W={W}",
+             com_k, compact_torch.compact_lanes_plain(ebufs, eptrs, Bmax))
+    c_ms = _time_ms(lambda: compact_torch.compact_lanes_dev(ebufs, eptrs,
+                                                            Bmax), 20)
+    c_plain_ms = _time_ms(lambda: compact_torch.compact_lanes_plain(
+        ebufs, eptrs, Bmax), 5)
+    c_bytes = int(totals.sum()) + eptrs.numel() * 4 + W * Bmax + W * 4
+    mf = torch.zeros((Sp, W), dtype=torch.uint8, device=dev)
+    mf[: mflag.shape[0]] = torch.from_numpy(mflag).to(dev)
+    dargs = (ST._payload_tensor(blk.streams["SEQ"].payload, dev),
+             ST._to(blk.streams["SEQ"].lane_lens, dev, torch.int32),
+             ST._acts(job.counts, Sp), job.pos, job.reset)
+    dec = coder_torch.lane_decode(*dargs, "seq", job.geom, mf)
+    mask = dargs[2].bool()
+    if not torch.equal(dec[mask].int(), job.syms[mask]):
+        raise AssertionError("lane_decode of the pinned block's L4 SEQ "
+                             "stream does not return its trial symbols")
+    d_ms = _time_ms(lambda: coder_torch.lane_decode(*dargs, "seq", job.geom,
+                                                    mf), 3)
+    d_bytes = dargs[0].numel() + W * 4 + 3 * Sp * W * 4 + 2 * Sp * W
+    out["lane_encode"] = (e_ms, e_bytes)
+    out["compact_lanes_dev"] = (c_ms, c_bytes, c_plain_ms)
+    out["lane_decode"] = (d_ms, d_bytes)
+    print(f"L4 kernels at the main path's shape: the block keeps trial "
+          f"t={t_}; compact equals its plain version, decode returns the "
+          f"trial's symbols; host {json.dumps(host)}", flush=True)
+    return out
+
+
 def barrier_us(dev) -> float:
     """One 1,024-thread __syncthreads() on the card (us): csrc/coder.cu's
     barrier_loop, CUDA events around BARRIER_ITERS barriers, less a launch
@@ -298,27 +441,40 @@ def barrier_us(dev) -> float:
 # phase 4: the main path
 # ---------------------------------------------------------------------------
 
-def main_path(data: bytes) -> dict:
-    from slimfastq_tpu_torch import api
+def main_path(data: bytes, level: int) -> dict:
+    """The pinned block through api.encode_fastq / decode_fastq at
+    `level`, the launch counts set to 0 just before and read just after.
+    At level 4 the block must take a match trial (MATCH_USED)."""
+    import io
+    from slimfastq_tpu_torch import api, container
     from slimfastq_tpu_torch.ops import _cuda
+    from slimfastq_tpu_torch.pipeline import MATCH_USED
     _cuda.reset_launches()
-    enc = api.encode_fastq(data, level=3, device="cuda")
+    enc = api.encode_fastq(data, level=level, device="cuda")
     dec = api.decode_fastq(enc, device="cuda")
     launches = dict(_cuda.launches)
-    if len(enc) != PINNED_BYTES:
-        raise AssertionError(f"container is {len(enc)} bytes, expected "
-                             f"{PINNED_BYTES}")
+    nbytes, want_sha = PINNED[level]
+    if len(enc) != nbytes:
+        raise AssertionError(f"L{level} container is {len(enc)} bytes, "
+                             f"expected {nbytes}")
     sha = hashlib.sha256(enc).hexdigest()
-    if sha != PINNED_SHA256:
-        raise AssertionError(f"container SHA-256 {sha} differs from the JAX "
-                             "package's")
+    if sha != want_sha:
+        raise AssertionError(f"L{level} container SHA-256 {sha} differs "
+                             "from the JAX package's")
     if dec != data:
-        raise AssertionError("decode does not return the input")
+        raise AssertionError(f"L{level} decode does not return the input")
     idle = [k for k, v in launches.items() if v == 0]
     if idle:
-        raise AssertionError(f"kernels not launched on the main path: {idle}")
-    print(f"main path: {len(data)} raw -> {len(enc)} bytes, SHA-256 equals "
-          f"the JAX package's, round trip exact, launches {launches}",
+        raise AssertionError(f"kernels not launched on the L{level} main "
+                             f"path: {idle}")
+    f = io.BytesIO(enc)
+    cfg = container.read_header(f)
+    flags = [blk.flags for blk in container.iter_blocks(f, cfg)]
+    if level == 4 and not all(fl & MATCH_USED for fl in flags):
+        raise AssertionError(f"L4 block flags {flags}: no MATCH_USED")
+    print(f"main path L{level}: {len(data)} raw -> {len(enc)} bytes (ratio "
+          f"{len(data) / len(enc):.4f}), SHA-256 equals the JAX package's, "
+          f"block flags {flags}, round trip exact, launches {launches}",
           flush=True)
     return launches
 
@@ -411,21 +567,75 @@ def block_spans(data: bytes, dev) -> dict:
     return out
 
 
-def wall(dev) -> None:
+def l4_spans(data: bytes, dev) -> dict:
+    """The pinned level-4 block's encode launches (QUAL, the plain SEQ, each
+    match trial's SEQ@t and MATCH@t, the aux streams) on the main path's
+    inputs: each alone, and the block's coder span in two orders, all at
+    once (the main path's) and each trial's SEQ queued behind the plain
+    SEQ on one CUDA stream (at most one order-11 SEQ table in use at a
+    time), in turns (at once, serial, serial, at once); both must give
+    the bytes of the launches alone. Also the main path's device halves
+    at level 4, CUDA events on the calling stream."""
+    import numpy as np
+    from slimfastq_tpu_torch import native, pipeline_native as PN
+    from slimfastq_tpu_torch.config import config_for_level
+    from slimfastq_tpu_torch.ops import coder_torch
+    from slimfastq_tpu_torch.ops import streams_torch as ST
+    cfg = config_for_level(4)
+    idx, n = native.fastq_index(data)
+    pre = PN.prepare_block_fast(np.frombuffer(data, dtype=np.uint8), idx, 0,
+                                n, cfg)
+    enc_ms, blk = _events_ms(lambda: PN.encode_prepared_block(pre, cfg, dev))
+    dec_ms, _ = _events_ms(lambda: PN.decode_block_device(blk, cfg, dev))
+    fns = {}
+    for name, kind, geom, idx_c, bit_c, _counts in PN._coder_jobs(pre, cfg,
+                                                                  dev):
+        CB = ST._chunk_bytes(geom.depth, hard=False)
+        fns[name] = (lambda idx_c=idx_c, bit_c=bit_c, geom=geom, CB=CB:
+                     coder_torch.lane_encode(idx_c, bit_c, geom, CB),
+                     (idx_c, bit_c))
+    alone = {k: _time_ms(fn, 1) for k, (fn, _) in fns.items()}
+
+    def launch(serial: bool):
+        ss = ST.StreamSet(dev)
+        res, seq_stream = [], None
+        for name, (fn, inputs) in fns.items():
+            trial = serial and name.startswith("SEQ@")
+            out, s = ss.launch(fn, *inputs,
+                               after=seq_stream if trial else None)
+            if name == "SEQ":
+                seq_stream = s
+            res.append(out)
+        ss.join()
+        return res
+    spans = {"at_once_ms": [], "serial_ms": []}
+    for serial in (False, True, True, False):
+        span, res = _events_ms(lambda: launch(serial))
+        spans["serial_ms" if serial else "at_once_ms"].append(span)
+        for (name, (fn, _)), got in zip(fns.items(), res):
+            _compare({}, name, f"L4 encode {name}: launched at once vs "
+                     "alone", got, fn())
+    out = {"streams_ms": alone, "sum_ms": sum(alone.values()), **spans,
+           "device_half_ms": {"encode": enc_ms, "decode": dec_ms}}
+    print(json.dumps({"block_l4": out}), flush=True)
+    return out
+
+
+def wall(dev, level: int) -> None:
     import torch
     from slimfastq_tpu_torch import api
     data = _pinned(READS * WALL_BLOCKS)
     torch.cuda.synchronize()
     t = time.perf_counter()
-    enc = api.encode_fastq(data, level=3, device=dev)
+    enc = api.encode_fastq(data, level=level, device=dev)
     t_enc = time.perf_counter() - t
     t = time.perf_counter()
     dec = api.decode_fastq(enc, device=dev)
     t_dec = time.perf_counter() - t
     if dec != data:
-        raise AssertionError("4-block round trip is not exact")
-    print(json.dumps({"wall": {
-        "blocks": WALL_BLOCKS, "raw_bytes": len(data),
+        raise AssertionError(f"L{level} 4-block round trip is not exact")
+    print(json.dumps({"wall" if level == 3 else f"wall_l{level}": {
+        "level": level, "blocks": WALL_BLOCKS, "raw_bytes": len(data),
         "compressed_bytes": len(enc), "ratio": len(data) / len(enc),
         "encode_s": t_enc, "decode_s": t_dec,
         "encode_GBps": len(data) / t_enc / 1e9,
@@ -454,14 +664,18 @@ def main() -> int:
             if "registers" in line or "spill" in line:
                 print(f"  {name}.cu ptxas: {line.strip()}", flush=True)
 
-    plain, errs = check_kernels(dev)
+    plain, errs, plain4, errs4 = check_kernels(dev)
     data = _pinned(READS)
     times = time_kernels(data, dev, errs)
+    times4 = time_kernels_l4(data, dev, errs4)
     bar_us = barrier_us(dev)
     print(json.dumps({"barrier_us": bar_us}), flush=True)
-    launches = main_path(data)
+    launches = main_path(data, 3)
     spans = block_spans(data, dev)
-    wall(dev)
+    wall(dev, 3)
+    launches4 = main_path(data, 4)
+    spans4 = l4_spans(data, dev)
+    wall(dev, 4)
 
     replaces = {
         "lane_encode": "slimfastq_tpu/ops/streams_jax.py:298",
@@ -507,6 +721,29 @@ def main() -> int:
                 # per bit-step is the floor of the function
                 row.update({"bound_ms": lockstep_ms, "bound_by": "latency",
                             "byte_bound_ms": row["bound_ms"]})
+        # level 4: the pinned block's SEQ stream (the winning match trial,
+        # order-11 table); the checks of phase 3 at level 4
+        ms4, nbytes4, *full_plain4 = times4[name]
+        l4 = {"launches": launches4[name], "max_abs_err": errs4[name],
+              "ms": ms4, "plain_ms": plain4[name],
+              "plain_shape": "W=1024 Sp=256 seq, match family",
+              "bound_ms": nbytes4 / HBM_BYTES_PER_S * 1e3,
+              "bound_by": "bytes", "shape": times4["shape"]}
+        if full_plain4:
+            l4["plain_ms"] = full_plain4[0]
+            l4["plain_shape"] = "the shape above, CUDA events"
+        else:
+            steps4 = times4["bit_steps"]
+            l4.update({"bit_steps": steps4,
+                       "us_per_bit_step": ms4 * 1e3 / steps4})
+        if name == "lane_encode":
+            l4.update({"lockstep_ms": steps4 * bar_us / 1e3,
+                       "block_streams_ms": spans4["streams_ms"]})
+        if name == "lane_decode":
+            l4.update({"bound_ms": steps4 * bar_us / 1e3,
+                       "bound_by": "latency",
+                       "byte_bound_ms": l4["bound_ms"]})
+        row["l4"] = l4
         kernels.append(row)
     print(json.dumps({"earlier_ms": {
         "note": "constants recorded before the shared-memory table law "

@@ -97,9 +97,6 @@ def main(argv: list[str] | None = None) -> int:
         else:
             result = encode_fastq(data, level=args.level,
                                   device=args.device, **overrides)
-    except NotImplementedError as e:
-        print(f"sfq-torch: {e}", file=sys.stderr)
-        return 2
     except (ValueError, RuntimeError) as e:
         print(f"sfq-torch: {e}", file=sys.stderr)
         return 1

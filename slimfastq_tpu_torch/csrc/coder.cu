@@ -1,7 +1,10 @@
 // Lockstep lane coder: Kernel E (lane_encode) and Kernel D (lane_decode).
 //
 // Replaces: slimfastq_tpu/ops/streams_jax.py `_build_encode` (the encode
-// coder scan) and `_build_decode` (the decode coder scan). Those are plain
+// coder scan) and `_build_decode` (the decode coder scan), both with and
+// without `with_mflag` (format v5: a SEQ stream whose steps inside a match
+// span code in the match-context family; Kernel E needs no change for it,
+// since its schedule already carries each step's context). Those are plain
 // XLA programs, not Pallas, but they carry the whole coding loop; in eager
 // PyTorch the same loop would be ~30 tensor ops per bit-step, i.e. over a
 // million launches per stream per 64k-record block.
@@ -317,7 +320,8 @@ __global__ void __launch_bounds__(1024, 1)
 struct Ctx {
   int kind, depth, num_ctx;
   int k0, k1, k2, k3;  // qual: q2_bits, delta_bits, pos_bits, pos_shift;
-                       // seq/byte: order; flag: hist_bits
+                       // seq: order, match_bits, tree_ctx; byte: order;
+                       // flag: hist_bits
 };
 
 __device__ __forceinline__ uint32_t qdelta_code(uint32_t a, uint32_t b) {
@@ -328,13 +332,18 @@ __device__ __forceinline__ uint32_t qdelta_code(uint32_t a, uint32_t b) {
   return 3;
 }
 
-template <bool SMEM, bool WARM>
+// MATCH: a format-v5 SEQ stream with the match-context family, whose
+// match-span flags `mflags` select the family's row (a separate
+// instantiation, so a stream without the family runs the code it ran
+// before the family existed).
+template <bool SMEM, bool WARM, bool MATCH>
 __global__ void __launch_bounds__(1024, 1)
     lane_decode_kernel(const uint8_t* __restrict__ payload, int Lb,
                        const int* __restrict__ lens,
                        const int* __restrict__ acts,
                        const int* __restrict__ poss,
-                       const int* __restrict__ resets, int Sp, int W,
+                       const int* __restrict__ resets,
+                       const uint8_t* __restrict__ mflags, int Sp, int W,
                        Geo geo, uint16_t* gtable, int nsl, Ctx cx,
                        uint8_t* __restrict__ syms) {
   extern __shared__ __align__(16) unsigned char smem[];
@@ -355,18 +364,19 @@ __global__ void __launch_bounds__(1024, 1)
   uint32_t sa = 0, sb = 0;  // qual: (a, b); seq: h; byte: prev; flag: hist
   const int nodes = (1 << cx.depth) - 1;
   // this symbol-step's inputs, then the next one's, loaded ahead
-  auto inputs = [&](int t, bool* act, bool* rs, uint32_t* pos) {
-    *act = *rs = false;
+  auto inputs = [&](int t, bool* act, bool* rs, uint32_t* pos, bool* mf) {
+    *act = *rs = *mf = false;
     *pos = 0;
     if (live && t < Sp) {
       const size_t at = (size_t)t * W + w;
       *act = acts[at] != 0;
       *rs = resets[at] != 0;
       *pos = (uint32_t)poss[at];
+      if (MATCH) *mf = mflags[at] == 1;
     }
   };
   // the first table entry of symbol-step t: its context row
-  auto row_of = [&](bool act, bool rs, uint32_t pos) -> int {
+  auto row_of = [&](bool act, bool rs, uint32_t pos, bool mf) -> int {
     uint32_t ctx;
     if (cx.kind == QUAL) {
       if (rs) sa = sb = 0;
@@ -383,8 +393,12 @@ __global__ void __launch_bounds__(1024, 1)
       if (cx.k2) ctx |= min(pos >> cx.k3, (1u << cx.k2) - 1) << shift;
     } else if (cx.kind == SEQ) {
       if (rs) sa = 0;
-      const int j = min((int)pos, cx.k0);
-      ctx = sa + ((1u << (2 * j)) - 1) / 3;
+      if (MATCH && mf) {  // the match family: tree_ctx + low bits of h
+        ctx = (uint32_t)cx.k2 + (sa & ((1u << cx.k1) - 1));
+      } else {
+        const int j = min((int)pos, cx.k0);
+        ctx = sa + ((1u << (2 * j)) - 1) / 3;
+      }
     } else if (cx.kind == BYTE) {
       ctx = cx.k0 ? sa : 0;
     } else {
@@ -392,11 +406,11 @@ __global__ void __launch_bounds__(1024, 1)
     }
     return (act ? (int)ctx : cx.num_ctx) * nodes;
   };
-  bool act, rs, nact, nrs;
+  bool act, rs, mf, nact, nrs, nmf;
   uint32_t pos, npos;
-  inputs(0, &act, &rs, &pos);
-  inputs(1, &nact, &nrs, &npos);
-  int base = row_of(act, rs, pos), node = 1, d = 0, t = 0;
+  inputs(0, &act, &rs, &pos, &mf);
+  inputs(1, &nact, &nrs, &npos, &nmf);
+  int base = row_of(act, rs, pos, mf), node = 1, d = 0, t = 0;
   L.fetch(base, live);
   for (int s = 0; s < Sp * cx.depth; ++s) {
     L.enter(s, base + node - 1, live);
@@ -436,8 +450,9 @@ __global__ void __launch_bounds__(1024, 1)
       act = nact;
       rs = nrs;
       pos = npos;
-      inputs(++t + 1, &nact, &nrs, &npos);
-      base = row_of(act, rs, pos);
+      mf = nmf;
+      inputs(++t + 1, &nact, &nrs, &npos, &nmf);
+      base = row_of(act, rs, pos, mf);
       node = 1;
       d = 0;
     }
@@ -507,10 +522,13 @@ int lane_encode(const int* idx_c, const int* bit_c, int NC, int KD, int W,
               : go(lane_encode_kernel<false, false>);
 }
 
+// mflags: the [Sp, W] match-span flags of a format-v5 SEQ stream with the
+// match-context family, null for any other stream.
 int lane_decode(const uint8_t* payload, int Lb, const int* lens,
-                const int* acts, const int* poss, const int* resets, int Sp,
-                int W, uint16_t* table, int table_size, int sac_base,
-                int rate, int rate_lo, int vcap, int smem_table, int depth,
+                const int* acts, const int* poss, const int* resets,
+                const uint8_t* mflags, int Sp, int W, uint16_t* table,
+                int table_size, int sac_base, int rate, int rate_lo,
+                int vcap, int smem_table, int depth,
                 int kind, int num_ctx, int k0, int k1, int k2, int k3,
                 uint8_t* syms, cudaStream_t stream) {
   Shape sh;
@@ -523,15 +541,23 @@ int lane_decode(const uint8_t* payload, int Lb, const int* lens,
         kern, cudaFuncAttributeMaxDynamicSharedMemorySize, sh.bytes);
     if (e != cudaSuccess) return (int)e;
     kern<<<1, sh.threads, sh.bytes, stream>>>(payload, Lb, lens, acts, poss,
-                                              resets, Sp, W, g, table,
-                                              sh.nsl, cx, syms);
+                                              resets, mflags, Sp, W, g,
+                                              table, sh.nsl, cx, syms);
     return (int)cudaGetLastError();
   };
+  // the match family's instantiation where the flags are given
+  auto pick = [&](auto plain, auto match) {
+    return mflags ? go(match) : go(plain);
+  };
   if (smem_table)
-    return vcap ? go(lane_decode_kernel<true, true>)
-                : go(lane_decode_kernel<true, false>);
-  return vcap ? go(lane_decode_kernel<false, true>)
-              : go(lane_decode_kernel<false, false>);
+    return vcap ? pick(lane_decode_kernel<true, true, false>,
+                       lane_decode_kernel<true, true, true>)
+                : pick(lane_decode_kernel<true, false, false>,
+                       lane_decode_kernel<true, false, true>);
+  return vcap ? pick(lane_decode_kernel<false, true, false>,
+                     lane_decode_kernel<false, true, true>)
+              : pick(lane_decode_kernel<false, false, false>,
+                     lane_decode_kernel<false, false, true>);
 }
 
 // `iters` barriers of `threads` threads in one CTA (a measurement aid:

@@ -10,10 +10,12 @@ compared output for output:
   i32 (bytes each lane emitted per chunk, counted past CB so the caller
   sees an overflow), ``low [W]`` (the final coder low, u32 bits held in
   int32) and ``emax`` (max of eptrs, a 0-d int32 tensor).
-* ``lane_decode(payload, lens, acts, poss, resets, kind, geom)``: per-lane
-  payload bytes ``[W, Lb]`` u8 with lengths ``[W]`` and the per-step
-  active/position/read-start matrices ``[Sp, W]`` int32 -> symbols
-  ``[Sp, W]`` u8 (0 where a step is inactive).
+* ``lane_decode(payload, lens, acts, poss, resets, kind, geom, mflag)``:
+  per-lane payload bytes ``[W, Lb]`` u8 with lengths ``[W]`` and the
+  per-step active/position/read-start matrices ``[Sp, W]`` int32 (and, for
+  a format-v5 SEQ stream coded with the match-context family, its
+  match-span flags ``[Sp, W]`` u8; ``_build_decode(with_mflag=True)``) ->
+  symbols ``[Sp, W]`` u8 (0 where a step is inactive).
 
 Both run the batch-synchronous, collision-capped table law (see
 ops/ranger.py) with the format-v4 visit-count warm-up when the geometry
@@ -47,11 +49,11 @@ _SIGS = {
     # vcap, smem_table, CB, ebufs, eptrs, low, emax, stream
     "lane_encode": [_P, _P, _I, _I, _I, _P, _I, _I, _I, _I, _I, _I, _I, _P,
                     _P, _P, _P, _P],
-    # payload, Lb, lens, acts, poss, resets, Sp, W, table, table_size,
-    # sac_base, rate, rate_lo, vcap, smem_table, depth, kind, num_ctx,
-    # k0, k1, k2, k3, syms, stream
-    "lane_decode": [_P, _I, _P, _P, _P, _P, _I, _I, _P, _I, _I, _I, _I, _I,
-                    _I, _I, _I, _I, _I, _I, _I, _I, _P, _P],
+    # payload, Lb, lens, acts, poss, resets, mflags, Sp, W, table,
+    # table_size, sac_base, rate, rate_lo, vcap, smem_table, depth, kind,
+    # num_ctx, k0, k1, k2, k3, syms, stream
+    "lane_decode": [_P, _I, _P, _P, _P, _P, _P, _I, _I, _P, _I, _I, _I, _I,
+                    _I, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P],
     # iters, threads, out, stream
     "barrier_loop": [_I, _I, _P, _P],
 }
@@ -264,8 +266,9 @@ def _qdelta_code(a, b):
                                                           2, 3)))
 
 
-def _ctx_step(kind: str, geom, cst, pos, rs):
-    """Online context of one symbol-step (the reference's _ctx_step)."""
+def _ctx_step(kind: str, geom, cst, pos, rs, mflag=None):
+    """Online context of one symbol-step (the reference's _ctx_step);
+    mflag: the step's match-span flags (seq, format v5)."""
     if kind == "qual":
         a, b = (torch.where(rs, 0, x) for x in cst)
         ctx = a
@@ -284,7 +287,11 @@ def _ctx_step(kind: str, geom, cst, pos, rs):
     if kind == "seq":
         h = torch.where(rs, 0, cst[0])
         j = pos.clamp(max=geom.order)
-        return h + ((1 << (2 * j)) - 1) // 3, (h,)
+        ctx = h + ((1 << (2 * j)) - 1) // 3
+        if mflag is not None and geom.match_bits:
+            mctx = geom.tree_ctx + (h & ((1 << geom.match_bits) - 1))
+            ctx = torch.where(mflag == 1, mctx, ctx)
+        return ctx, (h,)
     if kind == "byte":
         return (cst[0] if geom.order else torch.zeros_like(cst[0])), cst
     if kind == "flag":
@@ -306,7 +313,7 @@ def _ctx_advance(kind: str, geom, cst, sym):
 
 def lane_decode_plain(payload: torch.Tensor, lens: torch.Tensor,
                       acts: torch.Tensor, poss: torch.Tensor,
-                      resets: torch.Tensor, kind: str, geom):
+                      resets: torch.Tensor, kind: str, geom, mflag=None):
     """Plain PyTorch version of Kernel D (same output)."""
     W, Lb = payload.shape
     Sp = acts.shape[0]
@@ -342,7 +349,8 @@ def lane_decode_plain(payload: torch.Tensor, lens: torch.Tensor,
     syms = torch.zeros((Sp, W), dtype=torch.uint8, device=dev)
     for t in range(Sp):
         act, real, marks = act_all[t], real_all[t], marks_all[t]
-        ctx, cst = _ctx_step(kind, geom, cst, pos_all[t], rs_all[t])
+        ctx, cst = _ctx_step(kind, geom, cst, pos_all[t], rs_all[t],
+                             None if mflag is None else mflag[t])
         base = torch.where(act, ctx, geom.num_ctx) * nodes - 1
         node = torch.ones(W, dtype=torch.int64, device=dev)
         for _ in range(depth):
@@ -374,7 +382,7 @@ def _kind_params(kind: str, geom):
     if kind == "qual":
         return (geom.q2_bits, geom.delta_bits, geom.pos_bits, geom.pos_shift)
     if kind == "seq":
-        return (geom.order, 0, 0, 0)
+        return (geom.order, geom.match_bits, geom.tree_ctx, 0)
     if kind == "byte":
         return (geom.order, 0, 0, 0)
     if kind == "flag":
@@ -417,9 +425,10 @@ def lane_encode(idx_c: torch.Tensor, bit_c: torch.Tensor, geom, CB: int):
 
 def lane_decode(payload: torch.Tensor, lens: torch.Tensor,
                 acts: torch.Tensor, poss: torch.Tensor, resets: torch.Tensor,
-                kind: str, geom):
+                kind: str, geom, mflag: torch.Tensor | None = None):
     """Kernel D on CUDA tensors, its plain version on CPU tensors.
-    acts/poss/resets may be [Sp, W] or the reference's [NC, 8, W]."""
+    acts/poss/resets (and mflag, the uint8 match-span flags of a format-v5
+    SEQ stream) may be [Sp, W] or the reference's [NC, 8, W]."""
     if payload.dim() != 2 or payload.dtype != torch.uint8:
         raise ValueError("payload must be [W, Lb] uint8")
     W, Lb = payload.shape
@@ -431,11 +440,17 @@ def lane_decode(payload: torch.Tensor, lens: torch.Tensor,
     if any(x.dtype != torch.int32 or x.shape != acts.shape
            for x in (acts, poss, resets)):
         raise ValueError("acts/poss/resets must be int32 of one shape")
-    if any(x.device != payload.device for x in (lens, acts, poss, resets)):
+    ins = [lens, acts, poss, resets]
+    if mflag is not None:
+        mflag = mflag.reshape(-1, W)
+        if mflag.dtype != torch.uint8 or mflag.shape != acts.shape:
+            raise ValueError("mflag must be uint8 of the shape of acts")
+        ins.append(mflag)
+    if any(x.device != payload.device for x in ins):
         raise ValueError("decode inputs must share a device")
     if payload.device.type == "cpu":
         return lane_decode_plain(payload, lens, acts, poss, resets, kind,
-                                 geom)
+                                 geom, mflag)
     if payload.device.type != "cuda":
         raise ValueError(f"unsupported device {payload.device}")
     dev = payload.device
@@ -443,12 +458,16 @@ def lane_decode(payload: torch.Tensor, lens: torch.Tensor,
     Sp = acts.shape[0]
     payload, lens = payload.contiguous(), lens.contiguous()
     acts, poss, resets = (x.contiguous() for x in (acts, poss, resets))
+    # the kernel takes the flags only where the geometry has the family
+    family = mflag is not None and kind == "seq" and geom.match_bits
+    mflag = mflag.contiguous() if family else None
     lib = _cuda.load("coder", _SIGS)
     syms = torch.empty((Sp, W), dtype=torch.uint8, device=dev)
     k = _kind_params(kind, geom)
     err = lib.lane_decode(
         payload.data_ptr(), Lb, lens.data_ptr(), acts.data_ptr(),
-        poss.data_ptr(), resets.data_ptr(), Sp, W,
+        poss.data_ptr(), resets.data_ptr(),
+        None if mflag is None else mflag.data_ptr(), Sp, W,
         None if table is None else table.data_ptr(), geom.table_size,
         geom.sac_base, geom.rate, getattr(geom, "rate_lo", 0), vcap, smem,
         geom.depth, KINDS[kind], geom.num_ctx, *k, syms.data_ptr(),

@@ -66,9 +66,11 @@ def _shift_t(x: torch.Tensor, n: int) -> torch.Tensor:
     return out
 
 
-def _ctx_precompute(kind: str, geom, syms, pos, reset):
+def _ctx_precompute(kind: str, geom, syms, pos, reset, mflag=None):
     """Closed-form [Sp, W] int32 context streams for the encode path; equal
-    to the decoder's carried-state contexts at every active step."""
+    to the decoder's carried-state contexts at every active step. mflag
+    (seq, format v5): 1 at the steps inside a match span, which code in
+    the match-context family tree_ctx + (h & (2^match_bits - 1))."""
     rs = reset != 0
     if kind == "qual":
         a = torch.where(rs, 0, _shift_t(syms, 1))
@@ -93,7 +95,11 @@ def _ctx_precompute(kind: str, geom, syms, pos, reset):
             h = h | torch.where(pos >= j, _shift_t(syms, j) << (2 * (j - 1)),
                                 0)
         j = pos.clamp(max=k)
-        return h + ((1 << (2 * j)) - 1) // 3
+        ctx = h + ((1 << (2 * j)) - 1) // 3
+        if mflag is not None and geom.match_bits:
+            mctx = geom.tree_ctx + (h & ((1 << geom.match_bits) - 1))
+            ctx = torch.where(mflag == 1, mctx, ctx)
+        return ctx
     if kind == "byte":
         return _shift_t(syms, 1) if geom.order else torch.zeros_like(syms)
     if kind == "flag":
@@ -105,16 +111,17 @@ def _ctx_precompute(kind: str, geom, syms, pos, reset):
     raise ValueError(kind)
 
 
-def _schedule(kind: str, geom, syms, pos, reset, counts):
+def _schedule(kind: str, geom, syms, pos, reset, counts, mflag=None):
     """[Sp, W] symbols/pos/reset (int32) + counts [W] -> the encode
     schedule idx_c, bit_c [NC, 8*depth, W] int32. Inactive steps code
-    symbol 0 in the sacrificial context num_ctx."""
+    symbol 0 in the sacrificial context num_ctx. mflag: [Sp, W] match-span
+    flags of a format-v5 SEQ trial."""
     Sp, W = syms.shape
     depth = geom.depth
     steps = torch.arange(Sp, device=syms.device, dtype=torch.int32)
     active = steps[:, None] < counts[None, :]
-    ctx = torch.where(active, _ctx_precompute(kind, geom, syms, pos, reset),
-                      geom.num_ctx)
+    ctx = torch.where(active, _ctx_precompute(kind, geom, syms, pos, reset,
+                                              mflag), geom.num_ctx)
     sym = torch.where(active, syms, 0)
     base = ctx * ((1 << depth) - 1)
     idx = torch.stack([base + ((1 << j) | (sym >> (depth - j))) - 1
@@ -204,10 +211,11 @@ class StreamSet:
         self.used.append(pool[len(self.used)])
         return self.used[-1]
 
-    def launch(self, fn, *inputs):
-        """fn() on the next stream of the pool; returns its output (a
-        tensor or a tuple of them) and the stream."""
-        s = self._next()
+    def launch(self, fn, *inputs, after=None):
+        """fn() on the next stream of the pool, or behind the work of
+        ``after``, a stream an earlier launch returned; returns its output
+        (a tensor or a tuple of them) and the stream."""
+        s = after or self._next()
         if s is None:
             return fn(), None
         s.wait_stream(self.main)
@@ -391,13 +399,15 @@ def seq_qual_jobs(seq_geom, qual_geom, data: np.ndarray,
                   seq_offs: np.ndarray, qual_offs: np.ndarray,
                   lengths: np.ndarray, W: int, seq_map: np.ndarray,
                   qual_bias: int, ll_mat: np.ndarray, counts: np.ndarray,
-                  device):
+                  device, seq_mflag: np.ndarray | None = None,
+                  only: tuple = ("SEQ", "QUAL")):
     """Lane-pack SEQ and QUAL from raw block bytes on the device, then
     yield each stream's CoderJob in turn (QUAL, the longest chain, then
     SEQ: a caller may launch the first while the second's schedule is
-    built). ``data`` is
-    zero-padded to a pack_torch.pad_flat length (the pipelined caller
-    pays the pad copy in its host half); some lane has symbols."""
+    built). ``data`` is zero-padded to a pack_torch.pad_flat length (the
+    pipelined caller pays the pad copy in its host half); some lane has
+    symbols. seq_mflag: the [S, W] match-span flags of a format-v5 SEQ
+    trial; ``only`` restricts the jobs (a trial re-codes SEQ alone)."""
     if len(data) != pack_torch.pad_flat(len(data)):
         raise ValueError("raw block bytes must be padded to pad_flat")
     S = int(counts.max())
@@ -411,30 +421,39 @@ def seq_qual_jobs(seq_geom, qual_geom, data: np.ndarray,
         counts_t = _to(counts, dev, torch.int32)
     for name, kind, geom, syms in (("QUAL", "qual", qual_geom, qual_syms),
                                    ("SEQ", "seq", seq_geom, seq_syms)):
+        if name not in only:
+            continue
         syms = syms.int()
+        mflag = (_pad2(seq_mflag, Sp, W, dev)
+                 if name == "SEQ" and seq_mflag is not None else None)
         with trace(f"sfq.encode.{kind}.schedule"):
-            idx_c, bit_c = _schedule(kind, geom, syms, pos, reset, counts_t)
+            idx_c, bit_c = _schedule(kind, geom, syms, pos, reset, counts_t,
+                                     mflag)
         yield CoderJob(name, kind, geom, syms, pos, reset, counts_t, idx_c,
                        bit_c)
-        del syms, idx_c, bit_c
+        del syms, mflag, idx_c, bit_c
 
 
 def encode_seq_qual_raw(seq_geom, qual_geom, data: np.ndarray,
                         seq_offs: np.ndarray, qual_offs: np.ndarray,
                         lengths: np.ndarray, W: int, seq_map: np.ndarray,
                         qual_bias: int, ll_mat: np.ndarray,
-                        counts: np.ndarray, device):
+                        counts: np.ndarray, device,
+                        seq_mflag: np.ndarray | None = None,
+                        only: tuple = ("SEQ", "QUAL")):
     """Encode SEQ and QUAL from raw block bytes (zero-padded to a
     pack_torch.pad_flat length) with on-device lane packing. Returns
-    {"SEQ": (payload, lens), "QUAL": (payload, lens)}."""
+    {"SEQ": (payload, lens), "QUAL": (payload, lens)}, restricted to
+    ``only``; seq_mflag as in seq_qual_jobs."""
     counts = np.asarray(counts)
     if not (counts > 0).any():
-        return {"SEQ": _empty_encode(W), "QUAL": _empty_encode(W)}
+        return {name: _empty_encode(W) for name in only}
     return encode_block(
         ((j.name, j.kind, j.geom, j.idx_c, j.bit_c, counts)
          for j in seq_qual_jobs(seq_geom, qual_geom, data, seq_offs,
                                 qual_offs, lengths, W, seq_map, qual_bias,
-                                ll_mat, counts, device)), device)
+                                ll_mat, counts, device, seq_mflag, only)),
+        device)
 
 
 def decode_seq_qual_raw(seq_geom, qual_geom,
@@ -443,12 +462,15 @@ def decode_seq_qual_raw(seq_geom, qual_geom,
                         ll_mat: np.ndarray, counts: np.ndarray, S: int,
                         rec_starts: np.ndarray, lengths: np.ndarray,
                         total: int, seq_map: np.ndarray, qual_bias: int,
-                        device, streams: StreamSet | None = None):
+                        device, streams: StreamSet | None = None,
+                        seq_mflag=None):
     """Decode SEQ and QUAL and unpack them on the device straight to
     record-major flat byte buffers (seq through seq_map, qual + bias).
     Returns (seq_bytes, qual_bytes) of length ``total``. With
     ``streams``, the two decodes join that block's other launches: on
-    return the calling stream waits for all of them."""
+    return the calling stream waits for all of them. seq_mflag: for a
+    format-v5 block whose SEQ is e-transformed, a function that returns
+    its [S, W] match-span flags, called once QUAL's decode is launched."""
     W = seq_payload.shape[0]
     counts = np.asarray(counts)
     Sp = pad_steps(S)
@@ -465,9 +487,15 @@ def decode_seq_qual_raw(seq_geom, qual_geom,
             ("SEQ", "seq", seq_geom, seq_payload, seq_lens)):
         args = (_payload_tensor(payload, dev), _to(lens, dev, torch.int32),
                 acts, pos, reset)
+        mflag = None
+        if name == "SEQ" and seq_mflag is not None:
+            mf = seq_mflag()
+            mflag = torch.zeros((Sp, W), dtype=torch.uint8, device=dev)
+            mflag[: mf.shape[0]] = _to(mf, dev)
+            args += (mflag,)
         with trace(f"sfq.decode.{name}.coder"):
             dec[name], _ = ss.launch(lambda: coder_torch.lane_decode(
-                *args, kind, geom), *args)
+                *args[:5], kind, geom, mflag=mflag), *args)
     ss.join()
     with trace("sfq.decode.unpack_pair"):
         seq_flat, qual_flat = pack_torch.unpack_pair(

@@ -5,12 +5,17 @@ Byte-format identical to the JAX package's pipeline. Works directly on the
 raw FASTQ buffer + index arrays, never materialising per-record Python
 objects. SEQ and QUAL always take the device-raw path: the block's raw
 bytes cross to the device once and the lane pack/unpack happens there; the
-five aux streams are modelled on the host and coded on the device.
+aux streams (LEN, FLAG, IDD, IDX, SEQX and a v5 block's MATCH) are
+modelled on the host and coded on the device.
 
-Not ported yet (each raises): blocks whose raw byte span reaches 2 GiB
-(device offsets are int32; the reference packs those on the host), and
-level-4 long-range MATCH (the encoder's matcher trial and decoding a block
-with MATCH_USED).
+Format v5 long-range matches (level 4): the host matcher finds each read's
+reference read; per threshold of matcher.THRESHOLDS a trial rewrites the
+matched spans with e-transform letters and codes SEQ again with the
+match-context family, plus the MATCH descriptor stream; a trial that makes
+SEQ + MATCH strictly smaller wins and sets MATCH_USED.
+
+Not ported yet (raises): blocks whose raw byte span reaches 2 GiB (device
+offsets are int32; the reference packs those on the host).
 """
 
 from __future__ import annotations
@@ -26,6 +31,7 @@ from .ops import pack_torch, streams_torch
 from .pipeline import (MATCH_USED, QUAL_NODELTA, EncodedBlock, EncodedStream,
                        _BASE_TO_CODE, _CODE_TO_BASE, _lane_lengths_matrix,
                        streams_for)
+from .utils.stats import trace
 
 # device-side byte<->symbol maps (full 256-entry tables, gather-friendly):
 # encode maps non-ACGT to symbol 0 (the SEQX stream patches them back on
@@ -64,7 +70,9 @@ def stream_jobs_fast(data: np.ndarray, idx: dict, lo: int, hi: int,
     straight from the raw buffer + index arrays. SEQ and QUAL jobs carry
     syms = pos = reset = None: their lane pack and pos/reset happen on
     the device; the host only runs the non-ACGT census for SEQX.
-    Returns (jobs, n, minq, qual_depth, ll_mat, extra)."""
+    Returns (jobs, n, minq, qual_depth, ll_mat, extra); extra["matches"]
+    holds the matcher's (ref, orient, v, score) arrays, or None where no
+    read matched."""
     n = hi - lo
     W, Wa = cfg.lanes, cfg.aux_lanes
     sl = slice(lo, hi)
@@ -120,8 +128,8 @@ def stream_jobs_fast(data: np.ndarray, idx: dict, lo: int, hi: int,
     sxsyms, sx_counts = _lanes_to_mat(seqx_lane, Wa)
     jobs["SEQX"] = ("byte", cfg.bytes_, sxsyms, sx_counts, None, None)
 
-    # --- v5: per-block SEQ order fallback (+ the MATCH slot) ---------------
-    extra = {"seq_order": 0, "qual_nodelta": False}
+    # --- v5: per-block SEQ order fallback + long-range matches -------------
+    extra = {"seq_order": 0, "qual_nodelta": False, "matches": None}
     sgeom = cfg.seq
     if cfg.fmt >= 5:
         eff = M.effective_seq_order(cfg.seq.order, int(lengths.sum()))
@@ -132,8 +140,10 @@ def stream_jobs_fast(data: np.ndarray, idx: dict, lo: int, hi: int,
                          np.zeros((0, Wa), dtype=np.uint8),
                          np.zeros(Wa, dtype=np.int64), None, None)
         if cfg.match and sgeom.match_bits and n > M.MATCH_CHUNK:
-            raise NotImplementedError(
-                "level 4 / MATCH not yet ported in the torch port")
+            m_arrs = native.match_find_arrays(data, seq_off, lengths,
+                                              min(M.THRESHOLDS))
+            if (m_arrs[0] >= 0).any():
+                extra["matches"] = m_arrs
     jobs["SEQ"] = ("seq", sgeom, None, scounts, None, None)
 
     # --- QUAL ---------------------------------------------------------------
@@ -153,12 +163,54 @@ def stream_jobs_fast(data: np.ndarray, idx: dict, lo: int, hi: int,
     return jobs, n, minq, qual_depth, ll_mat, extra
 
 
+def _match_span_bounds(m_arr, lengths):
+    """Vectorised frozen span rule -> (los, his) in read coords."""
+    recs, refs, orients, vs = m_arr
+    L = lengths[recs]
+    Lref = lengths[refs]
+    o1 = orients.astype(bool)
+    los = np.where(o1, np.maximum(0, L + vs - Lref), np.maximum(0, -vs))
+    his = np.where(o1, np.minimum(L, L + vs), np.minimum(L, Lref - vs))
+    return los, his
+
+
+def _match_trials(matches, raw_args, W: int, Wa: int, S: int) -> list:
+    """The per-threshold SEQ alternatives of a block whose reads matched,
+    in threshold order: [(min_score, raw_args with the matched spans
+    rewritten, MATCH syms [S', Wa], MATCH counts, mflag [S, W])]. A
+    threshold that accepts no read has none, and so has one that accepts
+    the same reads as the one before: its trial would code the same bytes,
+    which can never win the strict test against their twin."""
+    refs, orients, vs, scores = matches
+    dpad, offs_s, offs_q, lengths = raw_args
+    trials, prev = [], None
+    for t in M.THRESHOLDS:
+        acc = (refs >= 0) & (scores >= t)
+        if not acc.any() or (prev is not None and np.array_equal(acc, prev)):
+            continue
+        prev = acc
+        msyms, mcounts = _lanes_to_mat(
+            native.match_encode_lanes(matches, t, len(lengths), Wa), Wa)
+        recs = np.flatnonzero(acc)
+        los, his = _match_span_bounds(
+            (recs, refs[recs], orients[recs], vs[recs]), lengths)
+        mflag = native.match_mflag(recs, los, his, lengths, W, S)
+        # the spans rewritten with e-transform letters, refs read from the
+        # unmodified bytes (the reference's _e_rewrite_letters)
+        dpad_e = dpad.copy()
+        native.match_apply_arrays(dpad_e, dpad, offs_s, lengths, matches, t)
+        trials.append((t, (dpad_e, offs_s, offs_q, lengths), msyms, mcounts,
+                       mflag))
+    return trials
+
+
 def prepare_block_fast(data: np.ndarray, idx: dict, lo: int, hi: int,
                        cfg: CodecConfig):
     """Host-only half of a block encode (stream modelling + aux lane
-    matrices + the padded raw byte range). The returned opaque tuple
-    feeds encode_prepared_block — split so a pipelined caller can prep
-    block k+1 while block k is on the device."""
+    matrices + the padded raw byte range + a v5 block's match trials).
+    The returned opaque tuple feeds encode_prepared_block — split so a
+    pipelined caller can prep block k+1 while block k is on the
+    device."""
     jobs, n, minq, qual_depth, ll_mat, extra = stream_jobs_fast(
         data, idx, lo, hi, cfg)
     raw_args = None
@@ -179,15 +231,21 @@ def prepare_block_fast(data: np.ndarray, idx: dict, lo: int, hi: int,
         raw_args = (dpad, idx["seq_off"][sl] - base,
                     idx["qual_off"][sl] - base,
                     idx["seq_len"][sl].astype(np.int64))
-    v5 = extra if cfg.fmt >= 5 else None
+    v5 = None
+    if cfg.fmt >= 5:
+        matches = extra.pop("matches")
+        v5 = {**extra, "trials": [] if matches is None else _match_trials(
+            matches, raw_args, cfg.lanes, cfg.aux_lanes,
+            int(ll_mat.sum(0).max()))}
     return jobs, n, minq, qual_depth, ll_mat, raw_args, v5
 
 
-def seq_qual_args(pre, cfg: CodecConfig) -> tuple:
+def seq_qual_args(pre, cfg: CodecConfig, raw_args=None) -> tuple:
     """The arguments, but the device, of streams_torch.encode_seq_qual_raw
-    (and seq_qual_jobs) for a prepared block that holds records."""
-    jobs, _, minq, _, ll_mat, raw_args, _ = pre
-    return (jobs["SEQ"][1], jobs["QUAL"][1], *raw_args, cfg.lanes,
+    (and seq_qual_jobs) for a prepared block that holds records; raw_args:
+    a match trial's instead of the block's own."""
+    jobs, _, minq, _, ll_mat, own, _ = pre
+    return (jobs["SEQ"][1], jobs["QUAL"][1], *(raw_args or own), cfg.lanes,
             _BASE_TO_CODE_DEV, minq, ll_mat, jobs["SEQ"][3])
 
 
@@ -200,14 +258,24 @@ def _empty_stream(counts) -> EncodedStream:
 def _coder_jobs(pre, cfg: CodecConfig, device):
     """Every coded stream's (name, kind, geom, idx_c, bit_c, counts), its
     schedule built on the device as the caller asks for it: QUAL and SEQ
-    first, the longest chains."""
-    jobs, _, _, _, _, raw_args, _ = pre
+    first, the longest chains, then each match trial's SEQ and MATCH
+    (named SEQ@t and MATCH@t for its threshold t), then the aux streams."""
+    jobs, _, _, _, _, raw_args, v5 = pre
     scounts = jobs["SEQ"][3]
     if raw_args is not None and (scounts > 0).any():
         for job in streams_torch.seq_qual_jobs(*seq_qual_args(pre, cfg),
                                                device):
             yield (job.name, job.kind, job.geom, job.idx_c, job.bit_c,
                    scounts)
+        for t, alt, msyms, mcounts, mflag in (v5 or {}).get("trials", ()):
+            job = next(streams_torch.seq_qual_jobs(
+                *seq_qual_args(pre, cfg, alt), device, mflag, ("SEQ",)))
+            yield (f"SEQ@{t}", "seq", job.geom, job.idx_c, job.bit_c,
+                   scounts)
+            sched = streams_torch.stream_schedule("byte", cfg.bytes_, msyms,
+                                                  mcounts, device)
+            if sched is not None:
+                yield (f"MATCH@{t}", "byte", cfg.bytes_, *sched, mcounts)
     for name in streams_for(cfg.fmt):
         kind, geom, syms, counts, _pos, _reset = jobs[name]
         if name in ("SEQ", "QUAL") or syms.shape[0] == 0:
@@ -218,22 +286,37 @@ def _coder_jobs(pre, cfg: CodecConfig, device):
             yield (name, kind, geom, *sched, counts)
 
 
+def _coded_stream(coded: dict, name: str, counts) -> EncodedStream:
+    if name not in coded:  # byte-identical to coding zero steps
+        return _empty_stream(counts)
+    payload, lens = coded[name]
+    return EncodedStream(np.asarray(counts).astype(np.int64), lens, payload)
+
+
 def encode_prepared_block(pre, cfg: CodecConfig, device) -> EncodedBlock:
     """Device half of a block encode: code every stream of a prepared
     block on ``device``, all at once (streams_torch.encode_block), and
-    assemble the EncodedBlock."""
+    assemble the EncodedBlock. A v5 block's match trials are coded beside
+    the rest; the smallest SEQ + MATCH total wins, the plain SEQ first and
+    then the trials in threshold order, a trial only when strictly
+    smaller (flags bit0 records the choice)."""
     jobs, n, minq, qual_depth, ll_mat, raw_args, v5 = pre
     coded = streams_torch.encode_block(_coder_jobs(pre, cfg, device), device)
-    streams: dict[str, EncodedStream] = {}
-    for name in streams_for(cfg.fmt):
-        counts = jobs[name][3]
-        if name in coded:
-            payload, lens = coded[name]
-            streams[name] = EncodedStream(
-                np.asarray(counts).astype(np.int64), lens, payload)
-        else:  # byte-identical to coding zero steps
-            streams[name] = _empty_stream(counts)
-    flags = QUAL_NODELTA if (v5 is not None and v5["qual_nodelta"]) else 0
+    streams = {name: _coded_stream(coded, name, jobs[name][3])
+               for name in streams_for(cfg.fmt)}
+    flags = 0
+    if v5 is not None:
+        best = int(streams["SEQ"].lane_lens.sum())
+        for t, _, _, mcounts, _ in v5["trials"]:
+            seq = _coded_stream(coded, f"SEQ@{t}", jobs["SEQ"][3])
+            match = _coded_stream(coded, f"MATCH@{t}", mcounts)
+            total = int(seq.lane_lens.sum()) + int(match.lane_lens.sum())
+            if total < best:
+                best = total
+                flags = MATCH_USED
+                streams["SEQ"], streams["MATCH"] = seq, match
+        if v5["qual_nodelta"]:
+            flags |= QUAL_NODELTA
     return EncodedBlock(n, minq, qual_depth, streams, flags=flags,
                         seq_order=(v5 or {}).get("seq_order", 0))
 
@@ -242,26 +325,28 @@ def decode_block_device(blk: EncodedBlock, cfg: CodecConfig, device):
     """Device half of a block decode: entropy-decode all streams on
     ``device`` and lane-unpack SEQ/QUAL to record-major byte buffers.
     Returns an opaque intermediate for decode_block_finish (the host
-    half: ID chain decode, SEQX patch, FASTQ assembly)."""
+    half: ID chain decode, v5 match reconstruction, SEQX patch, FASTQ
+    assembly)."""
     n = blk.num_records
     W, Wa = cfg.lanes, cfg.aux_lanes
     if n == 0:
         return None
-    if cfg.fmt >= 5 and (blk.flags & MATCH_USED):
-        raise NotImplementedError(
-            "level 4 / MATCH not yet ported in the torch port")
 
     # every stream's decode on its own CUDA stream: the aux streams first,
-    # then SEQ and QUAL once LEN's lengths give their pos/reset
+    # then QUAL once LEN's lengths give its pos/reset, and SEQ once the
+    # MATCH stream of a block with MATCH_USED gives its match-span flags
     ss = streams_torch.StreamSet(device)
     counts = {}
     rec_per_lane = (n - np.arange(Wa) + Wa - 1) // Wa
-    for name, kind, geom, c in (("LEN", "byte", cfg.bytes_, None),
-                                ("FLAG", "flag", cfg.flags,
-                                 3 * rec_per_lane),
-                                ("IDD", "byte", cfg.bytes_, None),
-                                ("IDX", "byte", cfg.bytes_, None),
-                                ("SEQX", "byte", cfg.bytes_, None)):
+    aux = [("LEN", "byte", cfg.bytes_, None),
+           ("FLAG", "flag", cfg.flags, 3 * rec_per_lane),
+           ("IDD", "byte", cfg.bytes_, None),
+           ("IDX", "byte", cfg.bytes_, None),
+           ("SEQX", "byte", cfg.bytes_, None)]
+    match_used = cfg.fmt >= 5 and bool(blk.flags & MATCH_USED)
+    if match_used:
+        aux.append(("MATCH", "byte", cfg.bytes_, None))
+    for name, kind, geom, c in aux:
         es = blk.streams[name]
         c = es.sym_counts if c is None else c
         counts[name] = c
@@ -298,10 +383,22 @@ def decode_block_device(blk: EncodedBlock, cfg: CodecConfig, device):
     ll_mat = _lane_lengths_matrix(lengths, W)
     scounts = ll_mat.sum(axis=0)
     S = int(scounts.max()) if scounts.size else 0
+    m_arr = None
+
+    def seq_mflag():
+        """The parsed MATCH descriptors (record-sorted recs, refs,
+        orients, vs) -> SEQ's [S, W] match-span flags."""
+        nonlocal m_arr
+        m_lanes = lanes("MATCH")
+        with trace("sfq.decode.match_flags"):
+            m_arr = native.match_parse(m_lanes, Wa, n)
+            los, his = _match_span_bounds(m_arr, lengths)
+            return native.match_mflag(m_arr[0], los, his, lengths, W, S)
     seq_bytes, qual_bytes = streams_torch.decode_seq_qual_raw(
         sgeom, qgeom, seq_s.payload, seq_s.lane_lens, qs.payload, qs.lane_lens,
         ll_mat, scounts, S, rec_starts, lengths, total, _CODE_TO_BASE_FULL,
-        blk.minq, device, streams=ss)
+        blk.minq, device, streams=ss,
+        seq_mflag=seq_mflag if match_used else None)
 
     # 3. flags (implicit counts: 3 per record), back to record order
     flags = native.flags_reorder(np.concatenate(lanes("FLAG")), n, Wa)
@@ -311,16 +408,20 @@ def decode_block_device(blk: EncodedBlock, cfg: CodecConfig, device):
     idd_lanes, idx_lanes, sx_lanes = (lanes(k) for k in ("IDD", "IDX",
                                                          "SEQX"))
     return (n, prev_step, lengths, flags, idd_lanes, idx_lanes, sx_lanes,
-            rec_starts, seq_bytes, qual_bytes)
+            rec_starts, seq_bytes, qual_bytes, m_arr)
 
 
 def decode_block_finish(inter, cfg: CodecConfig) -> memoryview | bytes:
-    """Host half of a block decode: ID chain decode, SEQX patch, FASTQ
-    assembly. Returns a bytes-like (memoryview, zero-copy)."""
+    """Host half of a block decode: ID chain decode, v5 match
+    reconstruction, SEQX patch, FASTQ assembly. Returns a bytes-like
+    (memoryview, zero-copy)."""
     if inter is None:
         return b""
     (n, prev_step, lengths, flags, idd_lanes, idx_lanes, sx_lanes,
-     rec_starts, seq_bytes, qual_bytes) = inter
+     rec_starts, seq_bytes, qual_bytes, m_arr) = inter
+    if m_arr is not None:  # undo the e-transform, refs before dependents
+        seq_bytes = native.match_reconstruct_arrays(seq_bytes, rec_starts,
+                                                    lengths, m_arr)
     ida, ioff, ilen, pla, poff, plen = native.ids_decode(
         n, cfg.aux_lanes, flags, idd_lanes, idx_lanes, prev_step)
     # SEQX exception runs are patched into the assembled output's seq

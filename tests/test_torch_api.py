@@ -4,6 +4,7 @@ Containers must be byte-identical and each package must decode the
 other's; the geometry crosses over through config.from_reference."""
 
 import dataclasses
+import io
 
 import pytest
 import torch
@@ -11,10 +12,13 @@ import torch
 from slimfastq_tpu import api as japi
 from slimfastq_tpu import config as jconfig
 from slimfastq_tpu.ops import streams_jax
-from slimfastq_tpu.utils.synth import synth_fastq
+from slimfastq_tpu.utils.synth import corpus, synth_fastq
 from slimfastq_tpu_torch import api as tapi
 from slimfastq_tpu_torch import cli as tcli
 from slimfastq_tpu_torch import config as tconfig
+from slimfastq_tpu_torch import container as tcontainer
+from slimfastq_tpu_torch.models.matcher import MATCH_CHUNK
+from slimfastq_tpu_torch.pipeline import MATCH_USED
 
 torch.set_num_threads(1)
 
@@ -69,13 +73,39 @@ def test_default_device_is_cuda(data):
         tapi.resolve_device("meta")
 
 
-def test_level4_match_not_ported():
-    """Level 4 runs the long-range matcher on blocks above MATCH_CHUNK
-    records: not yet ported, so the port says so."""
-    big = synth_fastq(1100, read_len=20, seed=3)
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        tapi.encode_fastq(big, device="cpu", level=4, lanes=16,
-                          aux_lanes=8)
+def _block_flags(enc: bytes) -> list:
+    f = io.BytesIO(enc)
+    cfg = tcontainer.read_header(f)
+    return [blk.flags for blk in tcontainer.iter_blocks(f, cfg)]
+
+
+# one block above MATCH_CHUNK records, so level 4 runs the matcher
+KW4 = dict(lanes=128, aux_lanes=16, block_records=1536)
+
+
+def test_level4_match_containers_identical_and_cross_decode():
+    """A coverage corpus whose block takes a match trial (MATCH_USED):
+    the container equals the JAX package's and each decodes the other's."""
+    data = corpus("novaseq", 1100, seed=0)
+    enc_t = tapi.encode_fastq(data, device="cpu", level=4, **KW4)
+    enc_j = japi.encode_fastq(data, level=4, backend=streams_jax, **KW4)
+    assert enc_t == enc_j
+    assert _block_flags(enc_t)[0] & MATCH_USED
+    assert japi.decode_fastq(enc_t, backend=streams_jax) == data
+    assert tapi.decode_fastq(enc_j, device="cpu") == data
+
+
+def test_level4_without_matches():
+    """A level-4 block above MATCH_CHUNK records where the matcher finds
+    nothing (no shared genome): no trial, no MATCH_USED, the JAX
+    package's container."""
+    data = synth_fastq(MATCH_CHUNK + 76, read_len=20, seed=3,
+                       coverage_like=False)
+    enc_t = tapi.encode_fastq(data, device="cpu", level=4, **KW4)
+    assert enc_t == japi.encode_fastq(data, level=4, backend=streams_jax,
+                                      **KW4)
+    assert not _block_flags(enc_t)[0] & MATCH_USED
+    assert tapi.decode_fastq(enc_t, device="cpu") == data
 
 
 def test_cli_round_trip(tmp_path, capsys):

@@ -64,17 +64,22 @@ def _t(x):
     return torch.from_numpy(np.ascontiguousarray(x).astype(np.int32))
 
 
-def _check(kind, geom, syms, counts, pos=None, reset=None, hard=False):
+def _check(kind, geom, syms, counts, pos=None, reset=None, hard=False,
+           mflag=None):
+    """mflag: [S, W] u8 match-span flags of a format-v5 SEQ stream (the
+    JAX programs' with_mflag variants)."""
     S, W = syms.shape
     Sp = R.pad_steps(S)
     args = [SJ._pad2(x, Sp, W) for x in (syms, pos, reset)]
+    mf = [] if mflag is None else [SJ._pad2(mflag, Sp, W)]
     # schedule: the JAX program vs the port's tensor ops
-    sched = SJ._build_schedule(kind, geom, Sp, W)
+    sched = SJ._build_schedule(kind, geom, Sp, W, with_mflag=bool(mf))
     j_idx, j_bit = (np.asarray(x) for x in sched(
         *(jnp.asarray(a) for a in args),
-        jnp.asarray(counts.astype(np.int32))))
+        jnp.asarray(counts.astype(np.int32)),
+        *(jnp.asarray(m) for m in mf)))
     p_idx, p_bit = ST._schedule(kind, geom, *(_t(a) for a in args),
-                                _t(counts))
+                                _t(counts), *(_t(m) for m in mf))
     assert np.array_equal(p_idx.numpy(), j_idx)
     assert np.array_equal(p_bit.numpy(), j_bit)
     # encode: Kernel E's plain version vs _build_encode
@@ -96,12 +101,14 @@ def _check(kind, geom, syms, counts, pos=None, reset=None, hard=False):
     pay[:, : payload.shape[1]] = payload
     acts = (np.arange(Sp)[:, None] < counts[None, :]).astype(np.int32)
     K = SJ._CHUNK_SYMS
-    jd = SJ._build_decode(kind, geom, Sp, W, Lb // 4)(
+    jd = SJ._build_decode(kind, geom, Sp, W, Lb // 4, with_mflag=bool(mf))(
         jnp.asarray(pay.view("<u4").reshape(-1)),
         jnp.asarray(lens.astype(np.int32)),
-        *(jnp.asarray(a.reshape(NC, K, W)) for a in (acts, *args[1:])))
+        *(jnp.asarray(a.reshape(NC, K, W)) for a in (acts, *args[1:])),
+        *(jnp.asarray(m.astype(np.uint32).reshape(NC, K, W)) for m in mf))
     pd = CT.lane_decode(torch.from_numpy(pay), _t(lens), _t(acts),
-                        *(_t(a) for a in args[1:]), kind, geom)
+                        *(_t(a) for a in args[1:]), kind, geom,
+                        *(torch.from_numpy(m) for m in mf))
     assert np.array_equal(pd.numpy(), np.asarray(jd))
     mask = acts.astype(bool)
     assert np.array_equal(pd.numpy()[mask], args[0][mask])
@@ -155,6 +162,43 @@ def test_seq_collision_w1024():
     _check("seq", _geom(3, "seq"), syms, counts, pos, reset)
 
 
+def _match_spans(rng, syms, pos, counts, lo, hi, flagged):
+    """Match-span flags over read positions [lo, hi) of the first
+    `flagged` lanes, whose symbols there become e-transform letters
+    (mostly 0, an occasional mismatch), as a v5 trial codes them."""
+    S, W = syms.shape
+    steps = np.arange(S)[:, None]
+    mflag = ((pos >= lo) & (pos < hi) & (steps < counts[None, :])
+             & (np.arange(W)[None, :] < flagged)).astype(np.uint8)
+    e = np.where(rng.random(syms.shape) < 0.9, 0,
+                 rng.integers(1, 4, size=syms.shape))
+    return np.where(mflag == 1, e, syms).astype(np.uint32), mflag
+
+
+@pytest.mark.parametrize("order", [11, 10])
+def test_seq_coder_match_family(order):
+    """Level 4 SEQ with the match-context family (order 11, and order 10,
+    the per-block fallback of blocks under 2^20 bases)."""
+    rng = np.random.default_rng(40 + order)
+    syms, counts, pos, reset = _reads(rng, 48, 16, 60, "seq")
+    syms, mflag = _match_spans(rng, syms, pos, counts, 8, 50, 12)
+    assert mflag.any()
+    _check("seq", replace(_geom(4, "seq"), order=order), syms, counts, pos,
+           reset, mflag=mflag)
+
+
+def test_seq_match_collision_w1024():
+    """W = 1024 lanes, every one flagged over the same read positions with
+    the same leading e-letters: at the span's first steps all 1,024 lanes
+    share one match-family entry, so the 10-bit count field wraps."""
+    rng = np.random.default_rng(35)
+    syms, counts, pos, reset = _reads(rng, 2048, 1024, 100, "seq",
+                                      equal_len=True)
+    syms, mflag = _match_spans(rng, syms, pos, counts, 20, 90, 1024)
+    syms[(pos >= 18) & (pos < 24)] = 0
+    _check("seq", _geom(4, "seq"), syms, counts, pos, reset, mflag=mflag)
+
+
 def test_wrappers_reject_bad_inputs():
     geom = _geom(3, "qual")
     z = torch.zeros((2, 48, 4), dtype=torch.int32)
@@ -167,6 +211,12 @@ def test_wrappers_reject_bad_inputs():
                        torch.zeros(4, dtype=torch.int64),
                        *(torch.zeros((8, 4), dtype=torch.int32),) * 3,
                        "qual", geom)
+    with pytest.raises(ValueError, match="mflag"):
+        CT.lane_decode(torch.zeros((4, 8), dtype=torch.uint8),
+                       torch.zeros(4, dtype=torch.int32),
+                       *(torch.zeros((8, 4), dtype=torch.int32),) * 3,
+                       "seq", _geom(4, "seq"),
+                       torch.zeros((8, 4), dtype=torch.int32))
 
 
 def _oracle_shift(geom, vis):

@@ -1,8 +1,10 @@
 """Kernels E, D and C against their plain PyTorch versions on a CUDA card,
 byte for byte, on each table placement (shared memory, device memory),
-with and without the visit warm-up, and at the collision counts where the
-format's count field wraps; and a block coded with its streams at once
-against the same block coded one stream at a time. Marked `cuda`: they skip without a card. This file imports
+with and without the visit warm-up, at the collision counts where the
+format's count field wraps, and with the level-4 match-context family and
+q1-q2 delta; and a block (also a level-4 block with match trials) coded
+with its streams at once against the same block coded one stream at a
+time. Marked `cuda`: they skip without a card. This file imports
 neither JAX nor the JAX package, so it runs on a machine that has only
 PyTorch and a card:
 
@@ -32,11 +34,14 @@ def dev():
     return torch.device("cuda")
 
 
-def _stream(kind, rng, dev, W, active=None, hi=64):
-    """(syms, counts, pos, reset) on the card: reads of 100 symbols that
-    all start at step 0 for seq/qual in the first `active` lanes (every
-    active lane at one context at each read start; the others empty),
-    ragged lanes for byte/flag."""
+def _stream(kind, rng, dev, W, active=None, hi=64, match=False):
+    """(syms, counts, pos, reset, mflag) on the card: reads of 100 symbols
+    that all start at step 0 for seq/qual in the first `active` lanes
+    (every active lane at one context at each read start; the others
+    empty), ragged lanes for byte/flag. With `match` (seq), every active
+    lane is flagged over read positions [20, 90), whose symbols are
+    e-transform letters (mostly 0) and all 0 at positions 18-23: at the
+    span's first steps the active lanes share one match-family entry."""
     Sp = 256
     if kind in ("seq", "qual"):
         ll = np.full((Sp // 100, W), 100, dtype=np.int64)
@@ -53,8 +58,17 @@ def _stream(kind, rng, dev, W, active=None, hi=64):
         counts = rng.integers(Sp // 2, Sp + 1, size=W)
         syms = rng.integers(0, 256 if kind == "byte" else 2, size=(Sp, W))
         pos = reset = torch.zeros((Sp, W), dtype=torch.int32, device=dev)
+    mflag = None
+    if match:
+        p = pos.cpu().numpy()
+        span = (p >= 20) & (p < 90) & (np.arange(Sp)[:, None]
+                                       < counts[None, :])
+        e = np.where(rng.random((Sp, W)) < 0.9, 0, syms)
+        syms = np.where(span, e, syms)
+        syms[(p >= 18) & (p < 24)] = 0
+        mflag = torch.from_numpy(span.astype(np.uint8)).to(dev)
     return (torch.from_numpy(syms.astype(np.int32)).to(dev), counts, pos,
-            reset)
+            reset, mflag)
 
 
 def _geom(level, kind, depth=None):
@@ -64,31 +78,36 @@ def _geom(level, kind, depth=None):
     return g if depth is None else replace(g, depth=depth)
 
 
-# (level, kind, W, hard, active lanes, qual depth, table in shared memory)
+# (level, kind, W, hard, active lanes, qual depth, table in shared memory,
+# match-span flags)
 CASES = {
-    "seq-collide-1024": (3, "seq", 1024, False, None, None, False),
-    "seq-collide-700": (3, "seq", 1024, False, 700, None, False),
-    "seq-collide-300": (3, "seq", 1024, False, 300, None, False),
-    "qual-d6": (3, "qual", 1024, False, None, None, False),
-    "qual-d8": (3, "qual", 1024, False, None, 8, False),
-    "qual-hard": (3, "qual", 256, True, None, None, False),
-    "seq-l1": (1, "seq", 1024, False, None, None, True),
-    "qual-l1": (1, "qual", 1024, False, None, None, True),
-    "byte": (3, "byte", 64, False, None, None, True),
-    "flag": (3, "flag", 64, False, None, None, True),
+    "seq-collide-1024": (3, "seq", 1024, False, None, None, False, False),
+    "seq-collide-700": (3, "seq", 1024, False, 700, None, False, False),
+    "seq-collide-300": (3, "seq", 1024, False, 300, None, False, False),
+    "qual-d6": (3, "qual", 1024, False, None, None, False, False),
+    "qual-d8": (3, "qual", 1024, False, None, 8, False, False),
+    "qual-hard": (3, "qual", 256, True, None, None, False, False),
+    "seq-l1": (1, "seq", 1024, False, None, None, True, False),
+    "qual-l1": (1, "qual", 1024, False, None, None, True, False),
+    "byte": (3, "byte", 64, False, None, None, True, False),
+    "flag": (3, "flag", 64, False, None, None, True, False),
+    "seq-l4-match-1024": (4, "seq", 1024, False, None, None, False, True),
+    "seq-l4-match-700": (4, "seq", 1024, False, 700, None, False, True),
+    "qual-l4": (4, "qual", 1024, False, None, None, False, False),
 }
 
 
 @pytest.mark.parametrize("case", list(CASES))
 def test_coder_and_compact_kernels_match_plain(dev, case):
-    level, kind, W, hard, active, depth, smem = CASES[case]
+    level, kind, W, hard, active, depth, smem, match = CASES[case]
     geom = _geom(level, kind, depth)
     assert CT.table_in_smem(geom, W) == smem
     rng = np.random.default_rng(1)
-    syms, counts, pos, reset = _stream(kind, rng, dev, W, active,
-                                       hi=1 << (depth or 6))
+    syms, counts, pos, reset, mflag = _stream(kind, rng, dev, W, active,
+                                              hi=1 << (depth or 6),
+                                              match=match)
     c = torch.from_numpy(counts.astype(np.int32)).to(dev)
-    idx_c, bit_c = ST._schedule(kind, geom, syms, pos, reset, c)
+    idx_c, bit_c = ST._schedule(kind, geom, syms, pos, reset, c, mflag)
     CB = ST._chunk_bytes(geom.depth, hard)
     ke = CT.lane_encode(idx_c, bit_c, geom, CB)
     pe = CT.lane_encode_plain(idx_c, bit_c, geom, CB)
@@ -108,8 +127,8 @@ def test_coder_and_compact_kernels_match_plain(dev, case):
     args = (torch.from_numpy(pay).to(dev),
             torch.from_numpy(lens.astype(np.int32)).to(dev),
             ST._acts(c, Sp), pos, reset)
-    kd = CT.lane_decode(*args, kind, geom)
-    pd = CT.lane_decode_plain(*args, kind, geom)
+    kd = CT.lane_decode(*args, kind, geom, mflag)
+    pd = CT.lane_decode_plain(*args, kind, geom, mflag)
     assert torch.equal(kd.cpu(), pd.cpu())
     mask = torch.arange(Sp, device=dev)[:, None] < c[None, :]
     assert torch.equal(kd[mask].int(), syms[mask])
@@ -149,6 +168,46 @@ def test_block_streams_at_once_equal_one_at_a_time(dev):
                                 es.sym_counts, int(es.sym_counts.max()), dev)
         for w, row in enumerate(got):
             assert np.array_equal(row, want[: len(row), w]), name
+
+
+def test_match_trial_block_at_once_equal_one_at_a_time(dev):
+    """A level-4 block with match trials: its plain SEQ, trial SEQs and
+    MATCH streams coded at once beside QUAL (encode_prepared_block)
+    against each coded alone with a synchronisation between, the trial
+    choice made again from those; then its decode on the card."""
+    from slimfastq_tpu_torch import native
+    from slimfastq_tpu_torch.pipeline import MATCH_USED
+    from slimfastq_tpu_torch.pipeline_native import (
+        decode_block_device, decode_block_finish, encode_prepared_block,
+        prepare_block_fast, seq_qual_args)
+    from slimfastq_tpu_torch.utils.synth import synth_fastq
+    cfg = config_for_level(4, block_records=4096)
+    data = synth_fastq(4096, read_len=100, seed=5, n_rate=0.001)
+    idx, n = native.fastq_index(data)
+    pre = prepare_block_fast(np.frombuffer(data, dtype=np.uint8), idx, 0, n,
+                             cfg)
+    trials = pre[6]["trials"]
+    assert trials
+    blk = encode_prepared_block(pre, cfg, dev)
+    alone = ST.encode_seq_qual_raw(*seq_qual_args(pre, cfg), dev)
+    torch.cuda.synchronize()
+    best, flags = int(alone["SEQ"][1].sum()), 0
+    for t, alt, msyms, mcounts, mflag in trials:
+        seq = ST.encode_seq_qual_raw(*seq_qual_args(pre, cfg, alt), dev,
+                                     seq_mflag=mflag, only=("SEQ",))["SEQ"]
+        torch.cuda.synchronize()
+        match = ST.encode_stream("byte", cfg.bytes_, msyms, mcounts, dev)
+        torch.cuda.synchronize()
+        if int(seq[1].sum()) + int(match[1].sum()) < best:
+            best = int(seq[1].sum()) + int(match[1].sum())
+            flags = MATCH_USED
+            alone["SEQ"], alone["MATCH"] = seq, match
+    assert flags and blk.flags & MATCH_USED
+    for name in ("SEQ", "QUAL", "MATCH"):
+        assert np.array_equal(blk.streams[name].lane_lens, alone[name][1])
+        assert np.array_equal(blk.streams[name].payload, alone[name][0])
+    assert bytes(decode_block_finish(decode_block_device(blk, cfg, dev),
+                                     cfg)) == data
 
 
 def test_compact_kernel_ragged_chunks(dev):

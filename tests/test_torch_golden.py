@@ -1,5 +1,5 @@
 """The port decodes the JAX package's golden containers of formats v2-v5
-(levels 1-3) to their source, byte for byte, paired as
+(levels 1-4) to their source, byte for byte, paired as
 tests/test_golden.py pairs them. The kernels' plain versions run on the
 CPU; the format-v1 fixtures are in test_torch_golden_v1.py."""
 
@@ -22,7 +22,7 @@ def _read(name):
 
 
 @pytest.mark.parametrize("fmt", [2, 3, 4, 5])
-@pytest.mark.parametrize("level", [1, 2, 3])
+@pytest.mark.parametrize("level", [1, 2, 3, 4])
 def test_golden_decodes(fmt, level):
     sfq = _read(f"golden_v{fmt}_l{level}.sfq")
     cfg = container.read_header(io.BytesIO(sfq))

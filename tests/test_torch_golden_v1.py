@@ -1,5 +1,5 @@
 """The port decodes the JAX package's format-v1 golden containers (levels
-1-3; legacy header, un-prefixed blocks, per-base SEQX exceptions, the
+1-4; legacy header, un-prefixed blocks, per-base SEQX exceptions, the
 frozen LEVELS_V1 geometry) to their source, byte for byte, paired as
 tests/test_golden.py pairs them."""
 
@@ -22,7 +22,7 @@ def _read(name):
         return f.read()
 
 
-@pytest.mark.parametrize("level", [1, 2, 3])
+@pytest.mark.parametrize("level", [1, 2, 3, 4])
 def test_golden_v1_decodes(level):
     sfq = _read("golden_v1.sfq" if level == 2 else f"golden_v1_l{level}.sfq")
     cfg = container.read_header(io.BytesIO(sfq))

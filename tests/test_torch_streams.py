@@ -16,7 +16,9 @@ from slimfastq_tpu.pipeline import _scatter_record_symbols, \
 from slimfastq_tpu.pipeline_native import _BASE_TO_CODE_DEV, \
     _CODE_TO_BASE_FULL
 from slimfastq_tpu.utils.synth import synth_fastq
-from slimfastq_tpu_torch.ops import streams_torch
+from slimfastq_tpu_torch import native as tnative
+from slimfastq_tpu_torch.ops import coder_torch, streams_torch
+from slimfastq_tpu_torch.ops.ranger import pad_steps
 
 torch.set_num_threads(1)
 
@@ -121,11 +123,64 @@ def test_empty_streams(cfg):
     assert d.shape == (0, 8)
 
 
+def _spans_mflag(rng, lengths, W, S):
+    """[S, W] match-span flags of random spans over half the records
+    (native.match_mflag, as a v5 block builds them)."""
+    n = len(lengths)
+    recs = np.sort(rng.choice(n, size=n // 2, replace=False)).astype(
+        np.int64)
+    L = lengths[recs]
+    los = (rng.random(len(recs)) * L // 2).astype(np.int64)
+    his = np.maximum(los, L - (rng.random(len(recs)) * L // 4).astype(
+        np.int64))
+    return tnative.match_mflag(recs, los, his, lengths, W, S)
+
+
+def test_seq_mflag_decode_matches_jax():
+    """Kernel D's plain version with the match-context family against
+    streams_jax.decode_stream(mflag=) on a payload streams_jax coded with
+    the same flags (level 4 SEQ)."""
+    cfg = config_for_level(4, lanes=16, aux_lanes=8)
+    rng = np.random.default_rng(5)
+    W = cfg.lanes
+    lengths, counts, S, pos, reset = _read_layout(rng, 64, W, 60)
+    recs = [rng.integers(0, 4, size=L).astype(np.uint32) for L in lengths]
+    syms = _scatter_record_symbols(recs, W, S, counts)
+    mflag = _spans_mflag(rng, lengths, W, S)
+    assert mflag.any()
+    p, lens = streams_jax.encode_stream("seq", cfg.seq, syms, counts,
+                                        pos=pos, reset=reset, mflag=mflag)
+    want = streams_jax.decode_stream("seq", cfg.seq, p, lens, counts, S,
+                                     pos=pos, reset=reset, mflag=mflag)
+    Sp = pad_steps(S)
+    mf = np.zeros((Sp, W), dtype=np.uint8)
+    mf[:S] = mflag
+    got = coder_torch.lane_decode_plain(
+        streams_torch._payload_tensor(p, "cpu"),
+        torch.from_numpy(lens.astype(np.int32)),
+        streams_torch._acts(torch.from_numpy(counts.astype(np.int32)), Sp),
+        *(streams_torch._pad2(x, Sp, W, "cpu") for x in (pos, reset)),
+        "seq", cfg.seq, torch.from_numpy(mf)).numpy()[:S]
+    assert np.array_equal(got, want)
+    mask = np.arange(S)[:, None] < counts[None, :]
+    assert np.array_equal(got[mask], syms[mask])
+
+
 def test_seq_qual_raw_matches_jax():
     """The device-raw SEQ+QUAL drivers (lane pack, pos/reset, schedule,
     coder, compaction, flush) against streams_jax's on one raw block,
     and their decode + unpack back to the record bytes."""
-    cfg = config_for_level(3, lanes=16, aux_lanes=8)
+    _raw_block_matches_jax(3)
+
+
+def test_seq_qual_raw_match_trial_matches_jax():
+    """Level 4: the same, then SEQ re-coded alone with match-span flags,
+    as a v5 trial codes it, and decoded with the flags."""
+    _raw_block_matches_jax(4)
+
+
+def _raw_block_matches_jax(level):
+    cfg = config_for_level(level, lanes=16, aux_lanes=8)
     data = synth_fastq(48, read_len=40, seed=4, var_len=True, n_rate=0.01)
     buf = np.frombuffer(data, dtype=np.uint8)
     idx, n = jnative.fastq_index(data)
@@ -158,3 +213,20 @@ def test_seq_qual_raw_matches_jax():
     want_q = np.concatenate([buf[o: o + L] for o, L in
                              zip(idx["qual_off"], lengths)])
     assert np.array_equal(tq, want_q)
+    if level == 3:
+        return
+    mflag = _spans_mflag(np.random.default_rng(6), lengths, W, S)
+    jx = streams_jax.encode_seq_qual_raw(cfg.seq, qgeom, *args, padded=True,
+                                         seq_mflag=mflag, only=("SEQ",))
+    tt = streams_torch.encode_seq_qual_raw(cfg.seq, qgeom, *args, "cpu",
+                                           seq_mflag=mflag, only=("SEQ",))
+    assert list(tt) == ["SEQ"]
+    assert np.array_equal(tt["SEQ"][1], jx["SEQ"][1])
+    assert np.array_equal(tt["SEQ"][0], jx["SEQ"][0])
+    assert not np.array_equal(tt["SEQ"][0], dargs[0][: len(tt["SEQ"][0])])
+    dargs = (tt["SEQ"][0], tt["SEQ"][1]) + dargs[2:]
+    js, _ = streams_jax.decode_seq_qual_raw(cfg.seq, qgeom, *dargs,
+                                            seq_mflag=mflag)
+    ts, tq = streams_torch.decode_seq_qual_raw(cfg.seq, qgeom, *dargs, "cpu",
+                                               seq_mflag=lambda: mflag)
+    assert np.array_equal(ts, js) and np.array_equal(tq, want_q)

@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Where the time goes in the PyTorch/CUDA port (slimfastq_tpu_torch) on
-one GPU: the pinned block (65,536 reads x 100 bp, level 3, the generator of
-bench.py and chip_smoke.py) encoded and decoded once, warm, under
-torch.profiler.
+one GPU: the pinned block (65,536 reads x 100 bp, level 3 or 4, the
+generator of bench.py and chip_smoke.py) encoded and decoded once, warm,
+under torch.profiler.
 
 Prints one JSON line per direction: its wall seconds; device time by
 kernel (self device time summed over launches, and the launch count,
@@ -14,7 +14,7 @@ time and the device time of the work they enqueued, each summed over the
 span's calls.
 Needs a CUDA card.
 
-Usage: python3 tools/gpu_profile.py [reads]
+Usage: python3 tools/gpu_profile.py [reads [level]]
 """
 
 from __future__ import annotations
@@ -96,16 +96,18 @@ def main() -> int:
     from slimfastq_tpu_torch import api
     from slimfastq_tpu_torch.utils.synth import synth_fastq
     reads = int(sys.argv[1]) if len(sys.argv) > 1 else 65536
+    level = int(sys.argv[2]) if len(sys.argv) > 2 else 3
     data = synth_fastq(reads, read_len=100, seed=0, var_len=False,
                        n_rate=0.0005)
-    enc = api.encode_fastq(data, level=3)           # warm: build, allocate
+    enc = api.encode_fastq(data, level=level)       # warm: build, allocate
     assert api.decode_fastq(enc) == data
-    enc, rep_e = _profile(lambda: api.encode_fastq(data, level=3))
+    enc, rep_e = _profile(lambda: api.encode_fastq(data, level=level))
     dec, rep_d = _profile(lambda: api.decode_fastq(enc))
     assert dec == data
     card = torch.cuda.get_device_name(0)
     for direction, rep in (("encode", rep_e), ("decode", rep_d)):
         print(json.dumps({"direction": direction, "reads": reads,
+                          "level": level,
                           "raw_bytes": len(data),
                           "compressed_bytes": len(enc), "card": card,
                           **rep}), flush=True)
