@@ -9,21 +9,30 @@ Phases (any failure exits non-zero; nothing is caught):
   1. the card's name and power limit, the torch/CUDA versions;
   2. build the CUDA kernels from csrc/ (one nvcc per source, in parallel);
   3. kernels: each of Kernel E (lane_encode), D (lane_decode) and C
-     (compact_lanes_dev) against its plain PyTorch version on the card,
-     byte for byte, at W = 1024, Sp = 256 with the level-3 SEQ (all lanes
-     at context 0 at every read start: the collision case, with 1,024 and
-     with 700 active lanes, where the format's count field wraps) and QUAL
-     geometries, at the aux width W = 64 with the byte and flag kinds
-     (tables in shared memory), and with level 4's SEQ (order 11, the
-     match-context family: 1,024 and 700 flagged lanes on one entry) and
-     QUAL (the q1-q2 delta); then each kernel timed with CUDA events on
-     the main path's own inputs (the pinned 64k x 100 bp block's QUAL
-     stream: W = 1024, Sp = 6400, NC = 800; and its level-4 SEQ stream
-     as the winning match trial codes it), where C is held against its
-     plain version once more and D's output against the packed symbols,
-     with the host's time for the level-4 matcher and trials; and one
-     1,024-thread barrier timed, for D's lockstep bound (bit-steps x one
-     barrier; E's is printed beside its byte bound);
+     (compact_lanes_dev, one stream) against its plain PyTorch version on
+     the card, byte for byte, at W = 1024, Sp = 256 with the level-3 SEQ
+     (all lanes at context 0 at every read start: the collision case,
+     with 1,024 and with 700 active lanes, where the format's count field
+     wraps) and QUAL geometries, at the aux width W = 64 with the byte and
+     flag kinds (tables in shared memory), and with level 4's SEQ (order
+     11, the match-context family: 1,024 and 700 flagged lanes on one
+     entry) and QUAL (the q1-q2 delta); Kernel C's one launch over a
+     ragged mix of streams (W of 8 to 1,024, counts above CB, an empty
+     stream, rows longer than one shared-memory stage); then E and D
+     timed with CUDA events on the main path's own inputs (the pinned 64k
+     x 100 bp block's QUAL stream: W = 1024, Sp = 6400, NC = 800; and its
+     level-4 SEQ stream as the winning match trial codes it), where D's
+     output is held against the packed symbols, with the host's time for
+     the level-4 matcher and trials; Kernel C's one launch over the pinned
+     block's coded streams (7 at level 3, 11 at level 4, as encode_block
+     hands them over; again with QUAL at the hard chunk size) against its
+     plain version, its device time (profiler kernel records) and its
+     wrapper-inclusive time (CUDA events) beside its byte bound and its
+     32-byte-sector bound, at level 3 also on QUAL alone; the block's
+     compaction-to-host phase (tools/compact_phase.py: from the join of
+     the coder launches to the payloads on the host); and one 1,024-thread
+     barrier timed, for D's lockstep bound (bit-steps x one barrier; E's
+     is printed beside its byte bound);
   4. main path, level 3 then level 4: the pinned block through
      api.encode_fastq / decode_fastq on the card: container size and
      SHA-256 equal the JAX package's, the round trip is exact, every
@@ -36,9 +45,10 @@ Phases (any failure exits non-zero; nothing is caught):
      with CUDA events; then encode and decode wall time over 4 blocks of
      the same generator, at each level.
 
-Prints `block`, `block_l4`, `wall`, `wall_l4`, `earlier_ms` (recorded
-constants) and `kernels` JSON lines, then, as its last line, the `ok`
-JSON line.
+Prints `compact_block_l3`, `compact_block_l4`, `compact_phase_l3`,
+`compact_phase_l4`, `block`, `block_l4`, `wall`, `wall_l4`, `earlier_ms`
+(recorded constants) and `kernels` JSON lines, then the card's name and
+power limit and, as its last line, the `ok` JSON line.
 """
 
 from __future__ import annotations
@@ -63,11 +73,14 @@ PINNED = {
 }
 WALL_BLOCKS = 4
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM published memory rate
-# Each kernel's time at the timed shape before E and D moved their table
-# law into shared memory (this script, H100 80GB HBM3, 700 W), printed on
-# a line of its own as recorded constants
-EARLIER_MS = {"lane_encode": 142.01, "lane_decode": 136.97,
-              "compact_lanes_dev": 0.0317}
+# Recorded constants, printed on a line of their own (this script, H100
+# 80GB HBM3, 700 W): each kernel's time at the timed shape before E and D
+# moved their table law into shared memory, and Kernel C on QUAL alone
+# when it took one launch per stream (CUDA events around the wrapper)
+EARLIER_MS = {"before_smem_table_law": {"lane_encode": 142.01,
+                                        "lane_decode": 136.97,
+                                        "compact_lanes_dev": 0.0317},
+              "one_launch_per_stream": {"compact_lanes_dev": 0.0325}}
 BARRIER_ITERS = 200000
 
 
@@ -253,12 +266,12 @@ def check_kernels(dev):
 # ---------------------------------------------------------------------------
 
 def time_kernels(data: bytes, dev, errs: dict) -> dict:
-    """Device times (ms) and byte bounds of E, C and D on the pinned block's
+    """Device times (ms) and byte bounds of E and D on the pinned block's
     QUAL stream (the longest serial chain of the block), whose inputs come
     from the main path's own setup (pipeline_native.prepare_block_fast,
-    streams_torch.seq_qual_jobs). At this size C is also held against its
-    plain version (recorded in `errs`) and D's output against the packed
-    QUAL symbols."""
+    streams_torch.seq_qual_jobs). At this size C (one stream) is also held
+    against its plain version (recorded in `errs`) and D's output against
+    the packed QUAL symbols."""
     import numpy as np
     import torch
     from slimfastq_tpu_torch import native
@@ -291,11 +304,6 @@ def time_kernels(data: bytes, dev, errs: dict) -> dict:
     com_k = compact_torch.compact_lanes_dev(ebufs, eptrs, Bmax)
     _compare(errs, "compact_lanes_dev", f"compact qual NC={NC} W={W}", com_k,
              compact_torch.compact_lanes_plain(ebufs, eptrs, Bmax))
-    c_ms = _time_ms(lambda: compact_torch.compact_lanes_dev(ebufs, eptrs,
-                                                            Bmax), 20)
-    c_plain_ms = _time_ms(lambda: compact_torch.compact_lanes_plain(
-        ebufs, eptrs, Bmax), 5)
-    c_bytes = int(totals.sum()) + eptrs.numel() * 4 + W * Bmax + W * 4
     pay, lens = ST._flush_append(com_k[0].cpu().numpy(),
                                  totals.cpu().numpy().astype(np.int64),
                                  low.cpu().numpy().view(np.uint32),
@@ -313,7 +321,6 @@ def time_kernels(data: bytes, dev, errs: dict) -> dict:
                     3)
     d_bytes = pay.size + W * 4 + 3 * Sp * W * 4 + Sp * W
     out["lane_encode"] = (e_ms, e_bytes)
-    out["compact_lanes_dev"] = (c_ms, c_bytes, c_plain_ms)
     out["lane_decode"] = (d_ms, d_bytes)
     print(f"kernels at the main path's shape: compact equals its plain "
           f"version (NC={NC}, W={W}), decode returns the packed QUAL "
@@ -322,12 +329,13 @@ def time_kernels(data: bytes, dev, errs: dict) -> dict:
 
 
 def time_kernels_l4(data: bytes, dev, errs4: dict) -> dict:
-    """Device times (ms) and byte bounds of E, C and D on the pinned
+    """Device times (ms) and byte bounds of E and D on the pinned
     block's level-4 SEQ stream as the block codes it: the winning match
     trial's e-letters and flags, the order-11 table (pipeline_native's own
     setup). Also the host's share of a level-4 block: the matcher and the
     trials' rewritten copies (host clock). D's output is held against the
-    packed trial symbols, C against its plain version (`errs4`)."""
+    packed trial symbols, C (one stream) against its plain version
+    (`errs4`)."""
     import numpy as np
     import torch
     from slimfastq_tpu_torch import native
@@ -389,14 +397,9 @@ def time_kernels_l4(data: bytes, dev, errs4: dict) -> dict:
         + W * 4
     totals = eptrs.sum(dim=0)
     Bmax = int(totals.max())
-    com_k = compact_torch.compact_lanes_dev(ebufs, eptrs, Bmax)
     _compare(errs4, "compact_lanes_dev", f"compact L4 seq NC={NC} W={W}",
-             com_k, compact_torch.compact_lanes_plain(ebufs, eptrs, Bmax))
-    c_ms = _time_ms(lambda: compact_torch.compact_lanes_dev(ebufs, eptrs,
-                                                            Bmax), 20)
-    c_plain_ms = _time_ms(lambda: compact_torch.compact_lanes_plain(
-        ebufs, eptrs, Bmax), 5)
-    c_bytes = int(totals.sum()) + eptrs.numel() * 4 + W * Bmax + W * 4
+             compact_torch.compact_lanes_dev(ebufs, eptrs, Bmax),
+             compact_torch.compact_lanes_plain(ebufs, eptrs, Bmax))
     mf = torch.zeros((Sp, W), dtype=torch.uint8, device=dev)
     mf[: mflag.shape[0]] = torch.from_numpy(mflag).to(dev)
     dargs = (ST._payload_tensor(blk.streams["SEQ"].payload, dev),
@@ -411,11 +414,162 @@ def time_kernels_l4(data: bytes, dev, errs4: dict) -> dict:
                                                     mf), 3)
     d_bytes = dargs[0].numel() + W * 4 + 3 * Sp * W * 4 + 2 * Sp * W
     out["lane_encode"] = (e_ms, e_bytes)
-    out["compact_lanes_dev"] = (c_ms, c_bytes, c_plain_ms)
     out["lane_decode"] = (d_ms, d_bytes)
     print(f"L4 kernels at the main path's shape: the block keeps trial "
           f"t={t_}; compact equals its plain version, decode returns the "
           f"trial's symbols; host {json.dumps(host)}", flush=True)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 3c: Kernel C, one launch for all of a block's streams
+# ---------------------------------------------------------------------------
+
+C_KERNEL = "compact_streams_kernel"
+# (NC, W, CB, count cap, Bmax past the longest lane) of the ragged mix held
+# in one launch: W of 8, 64, 100 and 1024; NC not a multiple of the
+# kernel's 128-chunk tile; counts above CB; a lane of zeros in each; an
+# all-empty stream; rows longer than one shared-memory stage (27,904 bytes)
+RAGGED = [(300, 8, 32, 40, 5), (129, 64, 48, 48, 0), (77, 100, 16, 24, 3),
+          (800, 1024, 64, 4, 0), (5, 64, 16, 0, 1), (1600, 100, 32, 40, 9)]
+
+
+def _device_ms(fn, reps: int, key: str) -> float:
+    """Mean device time (ms) of a launch of the kernel whose name holds
+    `key`, from torch.profiler's kernel records over `reps` calls of fn
+    (one launch each) after one warm-up call. The profiler may drop
+    records (a run on the H100 kept 8 of 20): the mean is over the records
+    it kept, and there must be one."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    total, n = 0.0, 0
+    for e in prof.key_averages():
+        if e.device_type == DeviceType.CUDA and key in e.key:
+            total += e.self_device_time_total / 1e3
+            n += e.count
+    if not 1 <= n <= reps:
+        raise AssertionError(f"the profiler kept {n} records of {key} for "
+                             f"{reps} launches")
+    return total / n
+
+
+def _c_bytes(streams, sector: int = 1) -> int:
+    """Kernel C's byte bound over a launch: each stream's valid bytes, its
+    [NC, W] counts, its [W, pitch] rows and its totals. With sector=32,
+    each window's valid bytes count as the 32-byte sectors they fill: the
+    least the reads can move."""
+    total = 0
+    for ebufs, eptrs, Bmax in streams:
+        NC, W, CB = ebufs.shape
+        valid = (eptrs.clamp(max=CB).long() + sector - 1) // sector * sector
+        total += int(valid.sum()) + eptrs.numel() * 4 \
+            + W * ((Bmax + 15) // 16 * 16) + W * 4
+    return total
+
+
+def check_ragged(dev, errs: dict) -> None:
+    """Kernel C's one launch over the ragged mix (with a tail per stream)
+    against compact_streams_plain, the whole flat buffer byte for byte."""
+    import numpy as np
+    import torch
+    from slimfastq_tpu_torch.ops import compact_torch as CC
+    rng = np.random.default_rng(3)
+    streams = []
+    for NC, W, CB, cap, extra in RAGGED:
+        eptrs = rng.integers(0, cap + 1, size=(NC, W)).astype(np.int32)
+        eptrs[:, W // 3] = 0
+        ebufs = rng.integers(0, 256, size=(NC, W, CB)).astype(np.uint8)
+        streams.append((torch.from_numpy(ebufs).to(dev),
+                        torch.from_numpy(eptrs).to(dev),
+                        max(int(eptrs.sum(axis=0).max()) + extra, 1)))
+    tails = [torch.arange(ep.shape[1], dtype=torch.int32, device=dev) - 9
+             for _, ep, _ in streams]
+    _compare(errs, "compact_lanes_dev", "compact, the ragged mix in one "
+             "launch", CC.compact_streams_dev(streams, tails)[0],
+             CC.compact_streams_plain(streams, tails)[0])
+    print(f"compact: one launch over {len(streams)} ragged streams (W "
+          f"{sorted({s[0].shape[1] for s in streams})}, rows up to "
+          f"{max(s[2] for s in streams)} bytes) equals its plain version",
+          flush=True)
+
+
+def block_compaction(data: bytes, dev, level: int, errs: dict) -> dict:
+    """Kernel C on the pinned block's coded streams at `level` as
+    encode_block hands them over (pipeline_native._coder_jobs, Kernel E's
+    outputs and coder tails): the one launch held against
+    compact_streams_plain byte for byte, and again with QUAL coded at the
+    hard chunk size (encode_block's rerun), which must give QUAL's same
+    payload and totals; then the launch's device time (profiler kernel
+    records) and its wrapper-inclusive time (CUDA events around
+    compact_streams_dev) beside its byte bound, its plain version's time,
+    and at level 3 the same for QUAL alone (one stream a launch, as
+    Kernel C ran before it took a block's streams at once)."""
+    import numpy as np
+    from slimfastq_tpu_torch import native, pipeline_native as PN
+    from slimfastq_tpu_torch.config import config_for_level
+    from slimfastq_tpu_torch.ops import coder_torch, compact_torch as CC
+    from slimfastq_tpu_torch.ops import streams_torch as ST
+    cfg = config_for_level(level)
+    idx, n = native.fastq_index(data)
+    pre = PN.prepare_block_fast(np.frombuffer(data, dtype=np.uint8), idx, 0,
+                                n, cfg)
+    names, streams, tails = [], [], []
+    for name, kind, geom, idx_c, bit_c, _ in PN._coder_jobs(pre, cfg, dev):
+        CB = ST._chunk_bytes(geom.depth, hard=False)
+        ebufs, eptrs, low, emax = coder_torch.lane_encode(idx_c, bit_c, geom,
+                                                          CB)
+        if int(emax) > CB:
+            raise AssertionError(f"L{level} {name}: optimistic chunk buffer "
+                                 "overflowed")
+        if name == "QUAL":
+            hard = coder_torch.lane_encode(
+                idx_c, bit_c, geom, ST._chunk_bytes(geom.depth, hard=True))
+        names.append(name)
+        tails.append(low)
+        streams.append((ebufs, eptrs, max(int(eptrs.sum(dim=0).max()), 1)))
+    what = f"compact L{level} block ({len(streams)} streams)"
+    flat, layout = CC.compact_streams_dev(streams, tails)
+    _compare(errs, "compact_lanes_dev", what, flat,
+             CC.compact_streams_plain(streams, tails)[0])
+    q = names.index("QUAL")
+    hard_streams = list(streams)
+    hard_streams[q] = (hard[0], hard[1], streams[q][2])
+    hflat, hlayout = CC.compact_streams_dev(hard_streams, tails)
+    _compare(errs, "compact_lanes_dev", f"{what}, QUAL at the hard CB",
+             hflat, CC.compact_streams_plain(hard_streams, tails)[0])
+    _compare({}, "compact_lanes_dev", f"{what}: QUAL at the hard CB against "
+             "the optimistic CB", hlayout.views(hflat)[q][:2],
+             layout.views(flat)[q][:2])
+
+    def launch():
+        return CC.compact_streams_dev(streams, tails)
+    nbytes = _c_bytes(streams)
+    out = {"streams": names, "device_ms": _device_ms(launch, 20, C_KERNEL),
+           "wrapper_ms": _time_ms(launch, 20),
+           "plain_ms": _time_ms(lambda: CC.compact_streams_plain(
+               streams, tails), 3),
+           "bytes": nbytes, "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+           "sector_bound_ms": _c_bytes(streams, 32) / HBM_BYTES_PER_S * 1e3}
+    out["bound_fraction"] = out["bound_ms"] / out["device_ms"]
+    if level == 3:  # like for like with the one-launch-per-stream kernel
+        qs = streams[q]
+        qbound = _c_bytes([qs]) / HBM_BYTES_PER_S * 1e3
+        qdev = _device_ms(lambda: CC.compact_lanes_dev(*qs), 20, C_KERNEL)
+        out["qual_alone"] = {
+            "device_ms": qdev,
+            "wrapper_ms": _time_ms(lambda: CC.compact_lanes_dev(*qs), 20),
+            "bound_ms": qbound, "bound_fraction": qbound / qdev,
+            "shape": {"NC": int(qs[0].shape[0]), "W": int(qs[0].shape[1]),
+                      "CB": int(qs[0].shape[2]), "Bmax": qs[2]}}
+    print(json.dumps({f"compact_block_l{level}": out}), flush=True)
     return out
 
 
@@ -648,6 +802,7 @@ def main() -> int:
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
     from slimfastq_tpu_torch.ops import _cuda
+    from tools.compact_phase import phase
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
@@ -665,9 +820,17 @@ def main() -> int:
                 print(f"  {name}.cu ptxas: {line.strip()}", flush=True)
 
     plain, errs, plain4, errs4 = check_kernels(dev)
+    check_ragged(dev, errs)
     data = _pinned(READS)
     times = time_kernels(data, dev, errs)
     times4 = time_kernels_l4(data, dev, errs4)
+    comp = block_compaction(data, dev, 3, errs)
+    comp4 = block_compaction(data, dev, 4, errs4)
+    phases = {}
+    for level in (3, 4):
+        phases[level] = phase(data, level, dev)
+        print(json.dumps({f"compact_phase_l{level}": phases[level]}),
+              flush=True)
     bar_us = barrier_us(dev)
     print(json.dumps({"barrier_us": bar_us}), flush=True)
     launches = main_path(data, 3)
@@ -687,8 +850,8 @@ def main() -> int:
               "compact_lanes_dev": "slimfastq_tpu_torch/csrc/compact.cu"}
     shape = times["shape"]
     kernels = []
-    for name in ("lane_encode", "lane_decode", "compact_lanes_dev"):
-        ms, nbytes, *full_plain = times[name]
+    for name in ("lane_encode", "lane_decode"):
+        ms, nbytes = times[name]
         row = {
             "name": name, "route": "cuda", "source": source[name],
             "replaces": replaces[name], "launches": launches[name],
@@ -697,45 +860,35 @@ def main() -> int:
             "plain_shape": "W=1024 Sp=256 qual",
             "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
             "bound_by": "bytes", "library_ms": None, "shape": shape}
-        if full_plain:  # C's plain version is cheap at the full shape
-            row["plain_ms"] = full_plain[0]
-            row["plain_shape"] = (f"W={shape['W']} NC={shape['NC']} qual, "
-                                  "CUDA events")
+        direction = "encode" if name == "lane_encode" else "decode"
+        steps = times["bit_steps"]
+        lockstep_ms = steps * bar_us / 1e3
+        row.update({
+            "bit_steps": steps, "us_per_bit_step": ms * 1e3 / steps,
+            "barrier_us": bar_us,
+            "block_streams_ms": spans[direction]["streams_ms"],
+            "block_span_ms": spans[direction]["span_ms"],
+            "block_sum_ms": spans[direction]["sum_ms"]})
+        if name == "lane_encode":
+            # E's table evolves with the schedule alone: the function
+            # needs no barrier, so its bound stays the byte bound and
+            # this design's barrier floor stands beside it
+            row["lockstep_ms"] = lockstep_ms
         else:
-            direction = "encode" if name == "lane_encode" else "decode"
-            steps = times["bit_steps"]
-            lockstep_ms = steps * bar_us / 1e3
-            row.update({
-                "bit_steps": steps, "us_per_bit_step": ms * 1e3 / steps,
-                "barrier_us": bar_us,
-                "block_streams_ms": spans[direction]["streams_ms"],
-                "block_span_ms": spans[direction]["span_ms"],
-                "block_sum_ms": spans[direction]["sum_ms"]})
-            if name == "lane_encode":
-                # E's table evolves with the schedule alone: the function
-                # needs no barrier, so its bound stays the byte bound and
-                # this design's barrier floor stands beside it
-                row["lockstep_ms"] = lockstep_ms
-            else:
-                # D's law couples the lanes at every bit-step: one barrier
-                # per bit-step is the floor of the function
-                row.update({"bound_ms": lockstep_ms, "bound_by": "latency",
-                            "byte_bound_ms": row["bound_ms"]})
+            # D's law couples the lanes at every bit-step: one barrier
+            # per bit-step is the floor of the function
+            row.update({"bound_ms": lockstep_ms, "bound_by": "latency",
+                        "byte_bound_ms": row["bound_ms"]})
         # level 4: the pinned block's SEQ stream (the winning match trial,
         # order-11 table); the checks of phase 3 at level 4
-        ms4, nbytes4, *full_plain4 = times4[name]
+        ms4, nbytes4 = times4[name]
+        steps4 = times4["bit_steps"]
         l4 = {"launches": launches4[name], "max_abs_err": errs4[name],
               "ms": ms4, "plain_ms": plain4[name],
               "plain_shape": "W=1024 Sp=256 seq, match family",
               "bound_ms": nbytes4 / HBM_BYTES_PER_S * 1e3,
-              "bound_by": "bytes", "shape": times4["shape"]}
-        if full_plain4:
-            l4["plain_ms"] = full_plain4[0]
-            l4["plain_shape"] = "the shape above, CUDA events"
-        else:
-            steps4 = times4["bit_steps"]
-            l4.update({"bit_steps": steps4,
-                       "us_per_bit_step": ms4 * 1e3 / steps4})
+              "bound_by": "bytes", "shape": times4["shape"],
+              "bit_steps": steps4, "us_per_bit_step": ms4 * 1e3 / steps4}
         if name == "lane_encode":
             l4.update({"lockstep_ms": steps4 * bar_us / 1e3,
                        "block_streams_ms": spans4["streams_ms"]})
@@ -745,10 +898,33 @@ def main() -> int:
                        "byte_bound_ms": l4["bound_ms"]})
         row["l4"] = l4
         kernels.append(row)
+    # Kernel C: one launch per block; its device time (profiler) is `ms`
+    name = "compact_lanes_dev"
+    row = {"name": name, "route": "cuda", "source": source[name],
+           "replaces": replaces[name], "launches": launches[name],
+           "match": errs[name] == 0, "max_abs_err": errs[name]}
+    for lv, c, lc, err in ((3, comp, launches[name], errs[name]),
+                           (4, comp4, launches4[name], errs4[name])):
+        part = {"launches": lc, "max_abs_err": err, "ms": c["device_ms"],
+                "wrapper_ms": c["wrapper_ms"], "plain_ms": c["plain_ms"],
+                "plain_shape": "the same launch's streams, CUDA events",
+                "bound_ms": c["bound_ms"], "bound_by": "bytes",
+                "bound_fraction": c["bound_fraction"],
+                "sector_bound_ms": c["sector_bound_ms"], "library_ms": None,
+                "shape": f"one launch: the pinned L{lv} block's "
+                         f"{len(c['streams'])} coded streams",
+                "phase_ms": phases[lv]}
+        if lv == 3:
+            row.update(part, qual_alone=c["qual_alone"])
+        else:
+            row["l4"] = part
+    kernels.append(row)
     print(json.dumps({"earlier_ms": {
-        "note": "constants recorded before the shared-memory table law "
-                "(this script, H100 80GB HBM3, 700 W), not measured in this "
-                "run", **EARLIER_MS}}), flush=True)
+        "note": "recorded constants (this script, H100 80GB HBM3, 700 W), "
+                "not measured in this run: E, D and C before the "
+                "shared-memory table law, and C on QUAL alone when it took "
+                "one launch per stream (CUDA events around the wrapper)",
+        **EARLIER_MS}}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

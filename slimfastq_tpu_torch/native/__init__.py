@@ -241,12 +241,16 @@ def ragged_pack_rows(payload: np.ndarray, lens: np.ndarray) -> np.ndarray:
 
 def flush_append(pay: np.ndarray, totals: np.ndarray, low: np.ndarray,
                  counts: np.ndarray, maxlen: int) -> np.ndarray:
-    """Compacted payload [W, paylen] + per-lane totals -> padded payload
-    [W, maxlen] with 4 flush bytes appended per active lane (the coder
-    tail after device compaction, ops/streams_torch)."""
+    """Compacted payload [W, paylen] (its rows may sit at a wider pitch)
+    + per-lane totals -> padded payload [W, maxlen] with 4 flush bytes
+    appended per active lane (the coder tail after device compaction,
+    ops/streams_torch)."""
     W, paylen = pay.shape
+    if pay.strides[1] != 1 or pay.strides[0] < paylen:
+        pay = np.ascontiguousarray(pay)
+    pitch = pay.strides[0] if W > 1 else paylen
     out = np.empty((W, max(maxlen, 1)), dtype=np.uint8)
-    lib.flush_append(_p8(np.ascontiguousarray(pay)), W, paylen,
+    lib.flush_append(_p8(pay), W, pitch,
                      _pi64(np.ascontiguousarray(totals, dtype=np.int64)),
                      _pu32(np.ascontiguousarray(low, dtype=np.uint32)),
                      _pi64(np.ascontiguousarray(counts, dtype=np.int64)),

@@ -7,8 +7,9 @@ Byte-identical to the JAX package and its NumPy oracle. Per stream:
   symbol arrays, then every bit-step's table index and bit) -> Kernel E
   (the lockstep coder, ops/coder_torch) with chunk buffers sized
   optimistically, rerun with the hard worst-case size if any chunk
-  overflowed -> Kernel C (compaction, ops/compact_torch) -> the lanes'
-  flush bytes appended on the host (native.flush_append).
+  overflowed -> Kernel C (compaction, ops/compact_torch), one launch for
+  all of a block's streams -> one copy of the compacted bytes to the host
+  -> the lanes' flush bytes appended there (native.flush_append).
 * decode: acts/pos/reset derived as whole-array ops -> Kernel D.
 
 A block's streams are coded at once: ``encode_block`` launches Kernel E
@@ -289,9 +290,10 @@ def encode_block(jobs, device) -> dict:
     it goes; the launches before it run meanwhile). Kernel E of each runs
     on its own CUDA stream with optimistic chunk buffers; one host
     synchronisation reads every overflow check and compacted size; a
-    stream whose chunk overflowed is rerun with hard buffers; then Kernel
-    C and the flush bytes. Returns {name: (payload [W, maxlen] u8, lens
-    [W] int64)}."""
+    stream whose chunk overflowed is rerun with hard buffers; then one
+    Kernel C launch compacts every stream, one copy brings the payloads,
+    totals and coder tails to the host, and the flush bytes are appended
+    there. Returns {name: (payload [W, maxlen] u8, lens [W] int64)}."""
     ss = StreamSet(device)
     todo, outs = [], []
     for name, kind, geom, idx_c, bit_c, counts in jobs:
@@ -305,10 +307,9 @@ def encode_block(jobs, device) -> dict:
         return {}
     ss.join()
     # one synchronisation: each stream's emax and longest lane total
-    totals = [eptrs.sum(dim=0) for _, eptrs, _, _ in outs]
-    head = torch.stack([torch.stack([out[3], t.max()])
-                        for out, t in zip(outs, totals)]).cpu().tolist()
-    pays = []
+    head = torch.stack([torch.stack([out[3], out[1].sum(dim=0).max()])
+                        for out in outs]).cpu().tolist()
+    streams = []
     for k, ((name, geom, idx_c, bit_c, _, CB), (emax, tmax)) in enumerate(
             zip(todo, head)):
         if emax > CB:  # rare: rerun with the worst-case chunk size
@@ -318,16 +319,28 @@ def encode_block(jobs, device) -> dict:
             if int(outs[k][3]) > CB:
                 raise AssertionError("encode chunk overflow even with hard "
                                      "buffers")
-            totals[k] = outs[k][1].sum(dim=0)
-            tmax = int(totals[k].max())
-        ebufs, eptrs = outs[k][:2]
-        with trace(f"sfq.encode.{name}.compact"):
-            pays.append(compact_torch.compact_lanes_dev(ebufs, eptrs,
-                                                        max(tmax, 1))[0])
-    return {job[0]: _flush_append(pay.cpu().numpy(), t.cpu().numpy(),
-                                  out[2].cpu().numpy().view(np.uint32),
+            tmax = int(outs[k][1].sum(dim=0).max())
+        streams.append((outs[k][0], outs[k][1], max(tmax, 1)))
+    with trace("sfq.encode.compact"):
+        flat, layout = compact_torch.compact_streams_dev(
+            streams, [out[2] for out in outs])
+        host = _to_host(flat)
+    return {job[0]: _flush_append(pay.numpy(), tot.numpy(),
+                                  low.numpy().view(np.uint32),
                                   np.asarray(job[4]))
-            for job, out, t, pay in zip(todo, outs, totals, pays)}
+            for job, (pay, tot, low) in zip(todo, layout.views(host))}
+
+
+def _to_host(flat: torch.Tensor) -> torch.Tensor:
+    """A CUDA tensor's bytes on the host: one copy into pinned memory on
+    the calling stream, one synchronisation. The buffer is the caller's
+    alone (_flush_append copies out of it)."""
+    if flat.device.type == "cpu":
+        return flat
+    host = torch.empty(flat.shape, dtype=flat.dtype, pin_memory=True)
+    host.copy_(flat, non_blocking=True)
+    torch.cuda.current_stream(flat.device).synchronize()
+    return host
 
 
 def _empty_encode(W: int):

@@ -34,6 +34,20 @@ from slimfastq_tpu_torch.ops import streams_torch as ST
 torch.set_num_threads(1)
 
 
+def _jax_native():
+    """The JAX package's native library, loaded again where this process's
+    import found none: that package builds it at first import through one
+    temporary file shared by every process, so a worker that loses the
+    race of concurrent first builds keeps ``lib = None``; by test time the
+    racing builds have finished."""
+    if jnative.lib is None:
+        jnative._load()
+    if jnative.lib is None:
+        pytest.fail("the JAX package's native library (slimfastq_tpu/native/"
+                    "_host.so) did not build or load")
+    return jnative
+
+
 def _geom(level, kind, warm=True):
     cfg = config_for_level(level)
     g = {"qual": cfg.qual, "seq": cfg.seq, "byte": cfg.bytes_,
@@ -306,7 +320,7 @@ def test_block_streams_at_once_match_jax(order):
     cfg = tconfig.from_reference(asdict(jcfg))
     data = synth_fastq(70, read_len=40, seed=8, var_len=True, n_rate=0.02)
     buf = np.frombuffer(data, dtype=np.uint8)
-    jidx, n = jnative.fastq_index(data)
+    jidx, n = _jax_native().fastq_index(data)
     jblk = JPN.encode_block_fast(buf, jidx, 0, n, jcfg, SJ)
     tidx, _ = tnative.fastq_index(data)
     pre = TPN.prepare_block_fast(buf, tidx, 0, n, cfg)

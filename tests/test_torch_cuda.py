@@ -2,9 +2,11 @@
 byte for byte, on each table placement (shared memory, device memory),
 with and without the visit warm-up, at the collision counts where the
 format's count field wraps, and with the level-4 match-context family and
-q1-q2 delta; and a block (also a level-4 block with match trials) coded
+q1-q2 delta; a block (also a level-4 block with match trials) coded
 with its streams at once against the same block coded one stream at a
-time. Marked `cuda`: they skip without a card. This file imports
+time; and Kernel C's one launch over many streams against its plain
+version and against each stream compacted alone. Marked `cuda`: they
+skip without a card. This file imports
 neither JAX nor the JAX package, so it runs on a machine that has only
 PyTorch and a card:
 
@@ -211,19 +213,90 @@ def test_match_trial_block_at_once_equal_one_at_a_time(dev):
 
 
 def test_compact_kernel_ragged_chunks(dev):
-    """Kernel C on chunk counts past CB (an overflowed optimistic buffer)
-    and across several 256-chunk tiles of one lane."""
+    """Kernel C on chunk counts past CB (an overflowed optimistic buffer),
+    across several 128-chunk tiles of one lane, at W = 64 and at W = 100
+    (a lane group cut short), with rows longer than one shared-memory
+    stage (staged in segments) and cut at Bmax = 100."""
     rng = np.random.default_rng(2)
-    NC, W, CB = 700, 64, 32
-    eptrs = rng.integers(0, CB + 8, size=(NC, W)).astype(np.int32)
-    eptrs[:, 3] = 0
-    ebufs = rng.integers(0, 256, size=(NC, W, CB)).astype(np.uint8)
-    eb, ep = (torch.from_numpy(x).to(dev) for x in (ebufs, eptrs))
-    for Bmax in (int(eptrs.sum(axis=0).max()), 100):
-        k = CC.compact_lanes_dev(eb, ep, Bmax)
-        p = CC.compact_lanes_plain(eb, ep, Bmax)
-        for a, b in zip(k, p):
-            assert torch.equal(a.cpu(), b.cpu())
+    NC, CB = 1600, 32
+    for W in (64, 100):
+        eptrs = rng.integers(0, CB + 8, size=(NC, W)).astype(np.int32)
+        eptrs[:, 3] = 0
+        ebufs = rng.integers(0, 256, size=(NC, W, CB)).astype(np.uint8)
+        eb, ep = (torch.from_numpy(x).to(dev) for x in (ebufs, eptrs))
+        longest = int(eptrs.sum(axis=0).max())
+        assert longest > STAGE_BYTES
+        for Bmax in (longest, 100):
+            k = CC.compact_lanes_dev(eb, ep, Bmax)
+            p = CC.compact_lanes_plain(eb, ep, Bmax)
+            for a, b in zip(k, p):
+                assert torch.equal(a.cpu(), b.cpu())
+
+
+STAGE_BYTES = 27904  # csrc/compact.cu SEG_MAX: a lane row staged at once
+# (NC, W, CB, count cap, Bmax past the longest lane): W of 8, 64, 100 and
+# 1024; NC not a multiple of the 128-chunk tile; counts above CB; an
+# all-empty stream; rows longer than one stage
+RAGGED = [(300, 8, 32, 40, 5), (129, 64, 48, 48, 0), (77, 100, 16, 24, 3),
+          (800, 1024, 64, 4, 0), (5, 64, 16, 0, 1), (1600, 100, 32, 40, 9)]
+
+
+def _ragged_streams(dev, seed=3):
+    rng = np.random.default_rng(seed)
+    streams = []
+    for NC, W, CB, cap, extra in RAGGED:
+        eptrs = rng.integers(0, cap + 1, size=(NC, W)).astype(np.int32)
+        eptrs[:, W // 3] = 0  # a lane of zeros
+        ebufs = rng.integers(0, 256, size=(NC, W, CB)).astype(np.uint8)
+        Bmax = max(int(eptrs.sum(axis=0).max()) + extra, 1)
+        streams.append((torch.from_numpy(ebufs).to(dev),
+                        torch.from_numpy(eptrs).to(dev), Bmax))
+    assert max(b for _, _, b in streams) > STAGE_BYTES
+    return streams
+
+
+def test_compact_streams_kernel_matches_plain(dev):
+    """One launch over the ragged mix, with a tail per stream, against
+    compact_streams_plain: the whole flat buffer, byte for byte."""
+    from slimfastq_tpu_torch.ops import _cuda
+    streams = _ragged_streams(dev)
+    tails = [torch.arange(ep.shape[1], dtype=torch.int32, device=dev) - 9
+             for _, ep, _ in streams]
+    before = _cuda.launches["compact_lanes_dev"]
+    flat, layout = CC.compact_streams_dev(streams, tails)
+    assert _cuda.launches["compact_lanes_dev"] == before + 1
+    want, wlayout = CC.compact_streams_plain(streams, tails)
+    assert layout == wlayout
+    assert torch.equal(flat.cpu(), want.cpu())
+
+
+def test_block_streams_compacted_at_once_equal_alone(dev):
+    """A level-4 block's coded streams (QUAL, SEQ, the match trials' SEQ
+    and MATCH, the aux streams), as encode_block hands them to Kernel C:
+    compacted in one launch, each equal to the stream compacted alone."""
+    from slimfastq_tpu_torch import native
+    from slimfastq_tpu_torch.pipeline_native import _coder_jobs, \
+        prepare_block_fast
+    from slimfastq_tpu_torch.utils.synth import synth_fastq
+    cfg = config_for_level(4, block_records=4096)
+    data = synth_fastq(4096, read_len=100, seed=5, n_rate=0.001)
+    idx, n = native.fastq_index(data)
+    pre = prepare_block_fast(np.frombuffer(data, dtype=np.uint8), idx, 0, n,
+                             cfg)
+    streams = []
+    for name, kind, geom, idx_c, bit_c, _ in _coder_jobs(pre, cfg, dev):
+        CB = ST._chunk_bytes(geom.depth, hard=False)
+        ebufs, eptrs, _, emax = CT.lane_encode(idx_c, bit_c, geom, CB)
+        assert int(emax) <= CB
+        streams.append((ebufs, eptrs,
+                        max(int(eptrs.sum(dim=0).max()), 1)))
+    assert len(streams) > 7  # the trials' SEQ and MATCH beside the rest
+    flat, layout = CC.compact_streams_dev(streams)
+    for (ebufs, eptrs, Bmax), (pay, tot, _) in zip(streams,
+                                                   layout.views(flat)):
+        alone, atot = CC.compact_lanes_dev(ebufs, eptrs, Bmax)
+        assert torch.equal(pay.cpu(), alone.cpu())
+        assert torch.equal(tot.cpu(), atot.cpu())
 
 
 def test_main_path_round_trip_on_card(dev):

@@ -8,7 +8,6 @@ import numpy as np
 import pytest
 import torch
 
-from slimfastq_tpu import native as jnative
 from slimfastq_tpu.config import config_for_level
 from slimfastq_tpu.ops import pack_jax, streams_jax, streams_np
 from slimfastq_tpu.pipeline import _scatter_record_symbols, \
@@ -183,14 +182,14 @@ def _raw_block_matches_jax(level):
     cfg = config_for_level(level, lanes=16, aux_lanes=8)
     data = synth_fastq(48, read_len=40, seed=4, var_len=True, n_rate=0.01)
     buf = np.frombuffer(data, dtype=np.uint8)
-    idx, n = jnative.fastq_index(data)
+    idx, n = tnative.fastq_index(data)  # host.cpp: the same in both packages
     lengths = idx["seq_len"].astype(np.int64)
     W = cfg.lanes
     ll = np.zeros(((n + W - 1) // W) * W, dtype=np.int64)
     ll[:n] = lengths
     ll = ll.reshape(-1, W)
     counts = ll.sum(axis=0)
-    minq, maxq = jnative.minmax_ranges(buf, idx["qual_off"], lengths)
+    minq, maxq = tnative.minmax_ranges(buf, idx["qual_off"], lengths)
     qgeom = cfg.qual
     dpad = np.zeros(pack_jax.pad_flat(len(buf)), dtype=np.uint8)
     dpad[: len(buf)] = buf

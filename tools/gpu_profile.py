@@ -9,9 +9,10 @@ kernel (self device time summed over launches, and the launch count,
 copies included); the device busy share of the wall (the union of the
 device activities' intervals over the wall: a block's coder streams run
 at once on their own CUDA streams, so their times overlap) beside the sum
-of all device time; and, for the codec's trace spans (`sfq.*`), the host
-time and the device time of the work they enqueued, each summed over the
-span's calls.
+of all device time; Kernel C's device time and launches per block
+(encode), beside the coder kernels' rows; and, for the codec's trace
+spans (`sfq.*`), the host time and the device time of the work they
+enqueued, each summed over the span's calls.
 Needs a CUDA card.
 
 Usage: python3 tools/gpu_profile.py [reads [level]]
@@ -32,7 +33,7 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
 def _kernel_name(key: str) -> str:
     m = re.search(r"(lane_encode_kernel<[^>]*>|lane_decode_kernel<[^>]*>|"
                   r"lane_encode_kernel|lane_decode_kernel|"
-                  r"compact_lanes_kernel)", key)
+                  r"compact_streams_kernel|compact_lanes_kernel)", key)
     return m.group(1) if m else key[:80]
 
 
@@ -94,6 +95,7 @@ def main() -> int:
         print("gpu_profile: no CUDA device", file=sys.stderr)
         return 1
     from slimfastq_tpu_torch import api
+    from slimfastq_tpu_torch.config import config_for_level
     from slimfastq_tpu_torch.utils.synth import synth_fastq
     reads = int(sys.argv[1]) if len(sys.argv) > 1 else 65536
     level = int(sys.argv[2]) if len(sys.argv) > 2 else 3
@@ -105,6 +107,11 @@ def main() -> int:
     dec, rep_d = _profile(lambda: api.decode_fastq(enc))
     assert dec == data
     card = torch.cuda.get_device_name(0)
+    blocks = -(-reads // config_for_level(level).block_records)
+    c = [d for k, d in rep_e["device"].items() if k.startswith("compact_")]
+    rep_e["kernel_c"] = {
+        "device_ms_per_block": sum(d["device_ms"] for d in c) / blocks,
+        "launches_per_block": sum(d["count"] for d in c) / blocks}
     for direction, rep in (("encode", rep_e), ("decode", rep_d)):
         print(json.dumps({"direction": direction, "reads": reads,
                           "level": level,
