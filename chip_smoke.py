@@ -45,10 +45,30 @@ Phases (any failure exits non-zero; nothing is caught):
      with CUDA events; then encode and decode wall time over 4 blocks of
      the same generator, at each level.
 
+  5. the small-block window path on the same 4-block set at
+     block_records = 16,384 (the 4 blocks in one window): Kernels E and D over
+     ragged windows (blocks of different step counts, one active lane,
+     the L3 SEQ collision case, L4's match family) against their plain
+     versions and against one launch a block, and Kernel C's window
+     launch over 88 streams; the window's QUAL through E and D (and
+     against their plain versions on the first 64 steps of each block)
+     and its 28 streams through C timed on their own inputs, and its
+     coder span against its blocks' spans; the window path through
+     api.encode_fastq / decode_fastq at level 3 and 4 (the JAX package's
+     SHA-256, exact round trips, one C launch a window, E and D once a
+     stream group over several blocks; at L3 one 16k block's ratio
+     6.2698, at L4 MATCH_USED); walls with the window and one block at a
+     time; the window sweep, each window once ({1, 2, 4, 8} on 8 16k
+     blocks at L3; on the 4 64k blocks {1, 2, 4} at L3, {1, 4} at L4); in
+     a fresh process, the streaming encode (chunks that cut records), a
+     resumed truncated copy and the streaming decode, with peak host RSS.
+
 Prints `compact_block_l3`, `compact_block_l4`, `compact_phase_l3`,
-`compact_phase_l4`, `block`, `block_l4`, `wall`, `wall_l4`, `earlier_ms`
-(recorded constants) and `kernels` JSON lines, then the card's name and
-power limit and, as its last line, the `ok` JSON line.
+`compact_phase_l4`, `block`, `block_l4`, `wall`, `wall_l4`,
+`window_kernels`, `window_walls`, `window_sweep`, `streaming`,
+`earlier_ms` (recorded constants), `phase_s` (seconds a phase) and
+`kernels` JSON lines, then the card's name and power limit and, as its
+last line, the `ok` JSON line.
 """
 
 from __future__ import annotations
@@ -72,6 +92,20 @@ PINNED = {
         "31026796c476744a9da168b3b6132be07d3151b3c7020feeb8790e7a5322470f"),
 }
 WALL_BLOCKS = 4
+# The small-block window path: the same 4-block set (4 x 16,384 records,
+# the generator above with 65,536 reads) at block_records = 16,384, coded
+# in one window (the default takes all 4); size and SHA-256 of the JAX
+# package's container
+# (its api.encode_fastq(data, level=level, backend=streams_jax,
+# block_records=16384), which runs its own window path, on a CPU)
+WINDOW_RECORDS = 16384
+PINNED_16K = {
+    3: (2937850,
+        "0ccf54fbb501fc7fbfa80b09f5abdaac2b1a7a5068977ae17949f58b0072e725"),
+    4: (2510237,
+        "f93ec9b2a88d24dd733003164590c83eb97f5564da7aa508dc3a427b9a4bfb9c"),
+}
+STREAM_CHUNK = 3_000_001  # ~12,500 records: chunks cut records and blocks
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM published memory rate
 # Recorded constants, printed on a line of their own (this script, H100
 # 80GB HBM3, 700 W): each kernel's time at the timed shape before E and D
@@ -82,6 +116,9 @@ EARLIER_MS = {"before_smem_table_law": {"lane_encode": 142.01,
                                         "compact_lanes_dev": 0.0317},
               "one_launch_per_stream": {"compact_lanes_dev": 0.0325}}
 BARRIER_ITERS = 200000
+# The window forms' plain versions run on the first PLAIN_CHUNKS chunks of
+# CHUNK_STEPS symbol steps of each block of the 16k window
+CHUNK_STEPS, PLAIN_CHUNKS = 8, 8
 
 
 def _pinned(reads: int) -> bytes:
@@ -607,6 +644,7 @@ def main_path(data: bytes, level: int) -> dict:
     enc = api.encode_fastq(data, level=level, device="cuda")
     dec = api.decode_fastq(enc, device="cuda")
     launches = dict(_cuda.launches)
+    descs = dict(_cuda.descs)
     nbytes, want_sha = PINNED[level]
     if len(enc) != nbytes:
         raise AssertionError(f"L{level} container is {len(enc)} bytes, "
@@ -617,7 +655,8 @@ def main_path(data: bytes, level: int) -> dict:
                              "from the JAX package's")
     if dec != data:
         raise AssertionError(f"L{level} decode does not return the input")
-    idle = [k for k, v in launches.items() if v == 0]
+    idle = [k for k in ("lane_encode", "lane_decode", "compact_lanes_dev")
+            if launches[k] == 0]
     if idle:
         raise AssertionError(f"kernels not launched on the L{level} main "
                              f"path: {idle}")
@@ -628,8 +667,8 @@ def main_path(data: bytes, level: int) -> dict:
         raise AssertionError(f"L4 block flags {flags}: no MATCH_USED")
     print(f"main path L{level}: {len(data)} raw -> {len(enc)} bytes (ratio "
           f"{len(data) / len(enc):.4f}), SHA-256 equals the JAX package's, "
-          f"block flags {flags}, round trip exact, launches {launches}",
-          flush=True)
+          f"block flags {flags}, round trip exact, launches {launches} "
+          f"(descriptors {descs})", flush=True)
     return launches
 
 
@@ -775,10 +814,11 @@ def l4_spans(data: bytes, dev) -> dict:
     return out
 
 
-def wall(dev, level: int) -> None:
+def wall(data: bytes, dev, level: int) -> None:
+    """Encode and decode wall time of `data`, the 4-block set, at
+    `level`."""
     import torch
     from slimfastq_tpu_torch import api
-    data = _pinned(READS * WALL_BLOCKS)
     torch.cuda.synchronize()
     t = time.perf_counter()
     enc = api.encode_fastq(data, level=level, device=dev)
@@ -794,6 +834,498 @@ def wall(dev, level: int) -> None:
         "encode_s": t_enc, "decode_s": t_dec,
         "encode_GBps": len(data) / t_enc / 1e9,
         "decode_GBps": len(data) / t_dec / 1e9}}), flush=True)
+
+
+# ---------------------------------------------------------------------------
+# phase 5: the small-block window path (16,384-record blocks in windows)
+# ---------------------------------------------------------------------------
+
+def _window_stream(kind, rng, Sp: int, W: int, active, read_len: int = 32):
+    """(syms [Sp, W] u8, counts) of one block of a ragged window: reads of
+    `read_len` from step 0 in the first `active` lanes (all at one context
+    at each read start: the collision case) for seq/qual, ragged counts
+    for byte."""
+    import numpy as np
+    if kind == "byte":
+        return (rng.integers(0, 256, size=(Sp, W)).astype(np.uint8),
+                rng.integers(1, Sp + 1, size=W))
+    ll, counts = _reads_layout(W, Sp, read_len, W if active is None
+                               else active)
+    if kind == "seq":
+        syms = rng.integers(0, 4, size=(Sp, W))
+    else:
+        syms = np.clip(30 + np.cumsum(rng.integers(-2, 3, size=(Sp, W)),
+                                      axis=0), 0, 41)
+    return syms.astype(np.uint8), counts, ll
+
+
+# (level, kind, W, [(Sp, active lanes)], match family) of the ragged
+# windows: blocks of different step counts, a block with one active lane,
+# the level-3 SEQ collision case (1,024 and 700 lanes), level 4's match
+# family
+WINDOWS = [(3, "seq", 1024, [(128, None), (256, 700), (64, 1)], False),
+           (3, "qual", 1024, [(160, None), (64, 1), (128, 900)], False),
+           (4, "seq", 1024, [(128, None), (192, 700), (32, 1)], True),
+           (3, "byte", 64, [(128, None), (32, None), (256, None)], False)]
+
+
+def check_windows(dev, errs: dict) -> None:
+    """Kernels E and D over each ragged window in one launch (one CTA a
+    block) against their plain versions and against one launch per block,
+    byte for byte; D's output against the coded symbols; then Kernel C's
+    window launch over 88 streams (a window of 8 level-4 blocks with their
+    trials) against its plain version. Records each batched form's
+    largest difference in `errs`."""
+    import numpy as np
+    import torch
+    from slimfastq_tpu_torch.config import config_for_level
+    from slimfastq_tpu_torch.ops import coder_torch as CT
+    from slimfastq_tpu_torch.ops import compact_torch as CC
+    from slimfastq_tpu_torch.ops import streams_torch as ST
+    rng = np.random.default_rng(11)
+    for level, kind, W, blocks, match in WINDOWS:
+        cfg = config_for_level(level)
+        geom = {"seq": cfg.seq, "qual": cfg.qual, "byte": cfg.bytes_}[kind]
+        scheds, inputs = [], []
+        for Sp, active in blocks:
+            made = _window_stream(kind, rng, Sp, W, active)
+            syms, counts = made[0], made[1]
+            if kind == "byte":
+                pos = reset = torch.zeros((Sp, W), dtype=torch.int32,
+                                          device=dev)
+            else:
+                pos, reset = ST._pos_reset(torch.from_numpy(made[2]).to(dev),
+                                           Sp, int(counts.max()), W)
+            mflag = None
+            if match:
+                syms, mf = _match_layout(syms, pos, counts)
+                mflag = torch.from_numpy(mf).to(dev)
+            s = torch.from_numpy(syms.astype(np.int32)).to(dev)
+            c = torch.from_numpy(counts.astype(np.int32)).to(dev)
+            scheds.append(ST._schedule(kind, geom, s, pos, reset, c, mflag))
+            inputs.append((s, counts, c, pos, reset, mflag))
+        CB = ST._chunk_bytes(geom.depth, hard=False)
+        what = f"L{level} {kind} window of {len(blocks)}"
+        enc = CT.lane_encode_blocks(scheds, geom, CB)
+        _compare(errs, "lane_encode_blocks", f"{what}: E vs plain", enc,
+                 CT.lane_encode_blocks_plain(scheds, geom, CB))
+        _compare({}, "lane_encode_blocks", f"{what}: E vs one launch a "
+                 "block", enc, [CT.lane_encode(*sc, geom, CB)
+                                for sc in scheds])
+        items = []
+        for (s, counts, c, pos, reset, mflag), e in zip(inputs, enc):
+            if int(e[3]) > CB:
+                raise AssertionError(f"{what}: optimistic chunk buffer "
+                                     "overflowed")
+            Bmax = max(int(e[1].sum(dim=0).max()), 1)
+            pay, tot = CC.compact_lanes_dev(e[0], e[1], Bmax)
+            pay, lens = ST._flush_append(
+                pay.cpu().numpy(), tot.cpu().numpy().astype(np.int64),
+                e[2].cpu().numpy().view(np.uint32), counts)
+            items.append((ST._payload_tensor(pay, dev),
+                          torch.from_numpy(lens.astype(np.int32)).to(dev),
+                          ST._acts(c, s.shape[0]), pos, reset, mflag))
+        dec = CT.lane_decode_blocks(items, kind, geom)
+        _compare(errs, "lane_decode_blocks", f"{what}: D vs plain", dec,
+                 CT.lane_decode_blocks_plain(items, kind, geom))
+        _compare({}, "lane_decode_blocks", f"{what}: D vs one launch a "
+                 "block", dec, [CT.lane_decode(*it[:5], kind, geom, it[5])
+                                for it in items])
+        for d, (s, _, c, *_r) in zip(dec, inputs):
+            mask = torch.arange(s.shape[0], device=dev)[:, None] < c[None, :]
+            if not torch.equal(d[mask].int(), s[mask]):
+                raise AssertionError(f"{what}: decode does not invert "
+                                     "encode")
+    streams = []
+    for seed in range(15):
+        r = np.random.default_rng(seed)
+        for NC, W, CB, cap, extra in RAGGED[:6]:
+            eptrs = r.integers(0, cap + 1, size=(NC, W)).astype(np.int32)
+            ebufs = r.integers(0, 256, size=(NC, W, CB)).astype(np.uint8)
+            streams.append((torch.from_numpy(ebufs).to(dev),
+                            torch.from_numpy(eptrs).to(dev),
+                            max(int(eptrs.sum(axis=0).max()) + extra, 1)))
+    streams = streams[:88]
+    tails = [torch.arange(ep.shape[1], dtype=torch.int32, device=dev)
+             for _, ep, _ in streams]
+    _compare(errs, "compact_window", "Kernel C's window launch over 88 "
+             "streams", CC.compact_streams_dev(streams, tails)[0],
+             CC.compact_streams_plain(streams, tails)[0])
+    print(f"window kernels: E and D over {len(WINDOWS)} ragged windows "
+          f"equal their plain versions and one launch a block; Kernel C's "
+          f"window launch over {len(streams)} streams equals its plain "
+          f"version", flush=True)
+
+
+def _window_pres(data: bytes, level: int, block_records: int):
+    import numpy as np
+    from slimfastq_tpu_torch import native, pipeline_native as PN
+    from slimfastq_tpu_torch.config import config_for_level
+    cfg = config_for_level(level, block_records=block_records)
+    idx, n = native.fastq_index(data)
+    buf = np.frombuffer(data, dtype=np.uint8)
+    return cfg, [PN.prepare_block_fast(buf, idx, lo,
+                                       min(lo + block_records, n), cfg)
+                 for lo in range(0, n, block_records)]
+
+
+def time_window(data: bytes, dev, bar_us: float, errs: dict) -> dict:
+    """The batched launches on the 16k L3 window's own inputs
+    (pipeline_native._window_jobs, 4 blocks of 16,384 records): E over the
+    window's QUAL (the longest chain) timed with CUDA events beside one
+    launch a block; D over the same, its output against the packed
+    symbols; E and D against their plain versions on the first
+    PLAIN_CHUNKS chunks of each block of the same inputs (the plain
+    versions step in Python), both timed there; Kernel C's window launch
+    over every coded stream of the 4 blocks (28) against its plain
+    version, its device time (profiler records) and its wrapper time
+    beside its byte bound; then the window's coder span (every group's E
+    launched at once, as the main path launches them) against the sum of
+    its blocks' spans, each block's groups launched at once alone."""
+    import numpy as np
+    import torch
+    from slimfastq_tpu_torch import pipeline_native as PN
+    from slimfastq_tpu_torch.ops import coder_torch as CT
+    from slimfastq_tpu_torch.ops import compact_torch as CC
+    from slimfastq_tpu_torch.ops import streams_torch as ST
+    cfg, pres = _window_pres(data, 3, WINDOW_RECORDS)
+    groups = list(PN._window_jobs(pres, cfg, dev))
+    q = next(g for g in groups if g[0] == "QUAL")
+    geom = q[2]
+    scheds = [(m[1], m[2]) for m in q[3]]
+    CB = ST._chunk_bytes(geom.depth, hard=False)
+    enc = CT.lane_encode_blocks(scheds, geom, CB)
+    e_ms = _time_ms(lambda: CT.lane_encode_blocks(scheds, geom, CB), 3)
+    e_one = sum(_time_ms(lambda sc=sc: CT.lane_encode(*sc, geom, CB), 1)
+                for sc in scheds)
+    e_bytes = sum(2 * i.numel() * 4 + e[0].numel() + e[1].numel() * 4
+                  + e[2].numel() * 4 for (i, _), e in zip(scheds, enc))
+    items, syms_ref = [], []
+    for pre, e, (_, i, _, counts) in zip(pres, enc, q[3]):
+        Bmax = max(int(e[1].sum(dim=0).max()), 1)
+        pay, tot = CC.compact_lanes_dev(e[0], e[1], Bmax)
+        pay, lens = ST._flush_append(pay.cpu().numpy(),
+                                     tot.cpu().numpy().astype(np.int64),
+                                     e[2].cpu().numpy().view(np.uint32),
+                                     np.asarray(counts))
+        job = next(ST.seq_qual_jobs(*PN.seq_qual_args(pre, cfg), dev))
+        Sp = job.syms.shape[0]
+        items.append((torch.from_numpy(pay).to(dev),
+                      torch.from_numpy(lens.astype(np.int32)).to(dev),
+                      ST._acts(job.counts, Sp), job.pos, job.reset))
+        syms_ref.append(job.syms)
+    dec = CT.lane_decode_blocks(items, "qual", geom)
+    for d, s, it in zip(dec, syms_ref, items):
+        mask = it[2].bool()
+        if not torch.equal(d[mask].int(), s[mask]):
+            raise AssertionError("the window's QUAL decode does not return "
+                                 "its packed symbols")
+    # the plain versions on a prefix of every block: E on its first chunks,
+    # D on their steps (a prefix decodes exactly from the whole payload)
+    n_steps = CHUNK_STEPS * PLAIN_CHUNKS
+    pre_e = [(i[:PLAIN_CHUNKS], b[:PLAIN_CHUNKS]) for i, b in scheds]
+    pre_d = [(p, ln, *(x[:n_steps] for x in rest))
+             for p, ln, *rest in items]
+    plain, prefix_ms = {}, {}
+    for name, args, kernel, plain_fn in (
+            ("lane_encode_blocks", pre_e,
+             lambda a: CT.lane_encode_blocks(a, geom, CB),
+             lambda a: CT.lane_encode_blocks_plain(a, geom, CB)),
+            ("lane_decode_blocks", pre_d,
+             lambda a: CT.lane_decode_blocks(a, "qual", geom),
+             lambda a: CT.lane_decode_blocks_plain(a, "qual", geom))):
+        got = kernel(args)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        want = plain_fn(args)
+        torch.cuda.synchronize()
+        plain[name] = (time.perf_counter() - t) * 1e3
+        _compare(errs, name, f"{name}: the 16k L3 window's QUAL, the first "
+                 f"{n_steps} steps of each block", got, want)
+        prefix_ms[name] = _time_ms(lambda a=args, k=kernel: k(a), 3)
+    d_ms = _time_ms(lambda: CT.lane_decode_blocks(items, "qual", geom), 3)
+    d_one = sum(_time_ms(lambda it=it: CT.lane_decode(*it, "qual", geom), 1)
+                for it in items)
+    steps = max(i.shape[0] * i.shape[1] for i, _ in scheds)
+    # Kernel C over the window's coded streams, as encode_window hands them
+    streams, tails = [], []
+    for _, _, g, members in groups:
+        cb = ST._chunk_bytes(g.depth, hard=False)
+        for e in CT.lane_encode_blocks([(m[1], m[2]) for m in members], g,
+                                       cb):
+            if int(e[3]) > cb:
+                raise AssertionError("window: optimistic chunk buffer "
+                                     "overflowed")
+            streams.append((e[0], e[1], max(int(e[1].sum(dim=0).max()), 1)))
+            tails.append(e[2])
+    _compare(errs, "compact_window", f"Kernel C: the 16k L3 window's "
+             f"{len(streams)} streams",
+             CC.compact_streams_dev(streams, tails)[0],
+             CC.compact_streams_plain(streams, tails)[0])
+    c_bytes = _c_bytes(streams)
+
+    def run(gs):
+        ss = ST.StreamSet(dev)
+        outs = [ss.launch(lambda g=g: CT.lane_encode_blocks(
+            [(m[1], m[2]) for m in g[3]], g[2],
+            ST._chunk_bytes(g[2].depth, hard=False)))[0] for g in gs]
+        ss.join()
+        return outs
+    run(groups)
+    span, _ = _events_ms(lambda: run(groups))
+    block_spans = []
+    for b in range(len(pres)):
+        gs = [(n, k, g, [m for m in ms if m[0] == b])
+              for n, k, g, ms in groups]
+        gs = [g for g in gs if g[3]]
+        block_spans.append(_events_ms(lambda: run(gs))[0])
+    prefix = f"the first {n_steps} steps of each block, W = 1024"
+    out = {"blocks": len(pres), "groups": len(groups),
+           "lane_encode_blocks": {
+               "ms": e_ms, "one_launch_a_block_sum_ms": e_one,
+               "bytes": e_bytes,
+               "bound_ms": e_bytes / HBM_BYTES_PER_S * 1e3,
+               "bit_steps_per_block": steps,
+               "plain_ms": plain["lane_encode_blocks"],
+               "prefix_ms": prefix_ms["lane_encode_blocks"],
+               "plain_shape": prefix},
+           "lane_decode_blocks": {
+               "ms": d_ms, "one_launch_a_block_sum_ms": d_one,
+               "bound_ms": steps * bar_us / 1e3, "bound_by": "latency",
+               "plain_ms": plain["lane_decode_blocks"],
+               "prefix_ms": prefix_ms["lane_decode_blocks"],
+               "plain_shape": prefix},
+           "compact_window": {
+               "streams": len(streams),
+               "device_ms": _device_ms(lambda: CC.compact_streams_dev(
+                   streams, tails), 20, C_KERNEL),
+               "wrapper_ms": _time_ms(lambda: CC.compact_streams_dev(
+                   streams, tails), 20),
+               "plain_ms": _time_ms(lambda: CC.compact_streams_plain(
+                   streams, tails), 3),
+               "bytes": c_bytes,
+               "bound_ms": c_bytes / HBM_BYTES_PER_S * 1e3},
+           "coder_span": {"window_ms": span, "block_spans_ms": block_spans,
+                          "sum_ms": sum(block_spans)}}
+    print(json.dumps({"window_kernels": out}), flush=True)
+    return out
+
+
+def window_path(data: bytes, level: int) -> tuple:
+    """The 16k window path at `level` through api.encode_fastq /
+    decode_fastq (4 blocks of 16,384 records, one window by default),
+    the launch counts set to 0 just before and read just after: the
+    container's size and SHA-256 equal the JAX package's, the round trip
+    is exact, Kernel C runs once for the window and E and D once per
+    stream group, each launch over several blocks (at level 4 a block
+    takes a match trial). Returns (launches, descriptors) by kernel."""
+    import io
+    from slimfastq_tpu_torch import api, container
+    from slimfastq_tpu_torch.models import matcher as M
+    from slimfastq_tpu_torch.ops import _cuda
+    from slimfastq_tpu_torch.pipeline import MATCH_USED
+    _cuda.reset_launches()
+    enc = api.encode_fastq(data, level=level, device="cuda",
+                           block_records=WINDOW_RECORDS)
+    dec = api.decode_fastq(enc, device="cuda")
+    launches, descs = dict(_cuda.launches), dict(_cuda.descs)
+    nbytes, want_sha = PINNED_16K[level]
+    sha = hashlib.sha256(enc).hexdigest()
+    if (len(enc), sha) != (nbytes, want_sha):
+        raise AssertionError(f"16k L{level} container {len(enc)} bytes, "
+                             f"SHA-256 {sha}: not the JAX package's")
+    if dec != data:
+        raise AssertionError(f"16k L{level} decode does not return the "
+                             "input")
+    f = io.BytesIO(enc)
+    cfg = container.read_header(f)
+    flags = [blk.flags for blk in container.iter_blocks(f, cfg)]
+    if level == 3:
+        # BASELINE.md's 16k L3 ratio is bench.py's: one block of
+        # synth_fastq(16384) (a smaller genome than the 4-block set's)
+        one = _pinned(WINDOW_RECORDS)
+        ratio = len(one) / len(api.encode_fastq(
+            one, level=3, device="cuda", block_records=WINDOW_RECORDS))
+        if round(ratio, 4) != 6.2698:
+            raise AssertionError(f"one 16k block's L3 ratio {ratio}")
+    if level == 4 and not any(fl & MATCH_USED for fl in flags):
+        raise AssertionError(f"16k L4 block flags {flags}: no MATCH_USED")
+    # one E a stream name (7, and at level 4 each threshold's SEQ@t and
+    # MATCH@t); D: the 5 aux streams, QUAL and SEQ, at level 4 MATCH and
+    # SEQ's match-family launch; C once over the window's 28 or more
+    # streams
+    e_max, d_max = (7, 7) if level == 3 else (7 + 2 * len(M.THRESHOLDS), 9)
+    if launches["compact_lanes_dev"] != 1 \
+            or descs["compact_lanes_dev"] < 4 * 7 \
+            or launches["lane_encode"] > e_max \
+            or launches["lane_decode"] > d_max \
+            or any(descs[k] <= launches[k]
+                   for k in ("lane_encode", "lane_decode")):
+        raise AssertionError(f"16k L{level} window launches {launches}, "
+                             f"descriptors {descs}")
+    print(f"window path L{level}: 4 x {WINDOW_RECORDS} records, {len(data)} "
+          f"raw -> {len(enc)} bytes (ratio {len(data) / len(enc):.4f}), "
+          f"SHA-256 equals the JAX package's, block flags {flags}, round "
+          f"trip exact, launches {launches} (descriptors {descs})",
+          flush=True)
+    return launches, descs
+
+
+def _walls(data: bytes, level: int, block_records: int, window) -> tuple:
+    import torch
+    from slimfastq_tpu_torch import api
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    enc = api.encode_fastq(data, level=level, device="cuda",
+                           block_records=block_records, window=window)
+    t_enc = time.perf_counter() - t
+    t = time.perf_counter()
+    dec = api.decode_fastq(enc, device="cuda", window=window)
+    t_dec = time.perf_counter() - t
+    if dec != data:
+        raise AssertionError(f"window {window}: round trip is not exact")
+    return t_enc, t_dec, hashlib.sha256(enc).hexdigest()
+
+
+def window_walls(data: bytes) -> dict:
+    """Encode and decode walls of the 4 16k blocks with the window on (4)
+    and one block at a time, at level 3 and level 4, in turns."""
+    out = {}
+    for level in (3, 4):
+        runs = {4: [], 1: []}
+        for window in (4, 1, 1, 4):
+            t_enc, t_dec, sha = _walls(data, level, WINDOW_RECORDS, window)
+            if sha != PINNED_16K[level][1]:
+                raise AssertionError(f"window {window}: SHA-256 differs")
+            runs[window].append((t_enc, t_dec))
+        out[f"L{level}"] = {f"window_{w}": {"encode_s": [r[0] for r in v],
+                                             "decode_s": [r[1] for r in v]}
+                            for w, v in runs.items()}
+    print(json.dumps({"window_walls": out}), flush=True)
+    return out
+
+
+def window_sweep(data4: bytes) -> dict:
+    """Walls by window, each window once: level 3 with {1, 2, 4, 8} on 8
+    blocks of 16,384 records (the first 131,072 records of the 4-block
+    set), and on the 4-block set of 65,536-record blocks {1, 2, 4} at
+    level 3 and {1, 4} at level 4. The bytes never depend on the
+    window."""
+    import numpy as np
+    nl = np.flatnonzero(np.frombuffer(data4, dtype=np.uint8) == 10)
+    data16 = data4[: int(nl[4 * 8 * WINDOW_RECORDS - 1]) + 1]
+    out = {}
+    for data, records, level, windows in (
+            (data16, WINDOW_RECORDS, 3, (1, 2, 4, 8)),
+            (data4, READS, 3, (1, 2, 4)),
+            (data4, READS, 4, (1, 4))):
+        runs, shas = {}, set()
+        for w in windows:
+            t_enc, t_dec, sha = _walls(data, level, records, w)
+            runs[w] = {"encode_s": t_enc, "decode_s": t_dec}
+            shas.add(sha)
+        if len(shas) != 1:
+            raise AssertionError(f"{records}-record blocks: the bytes depend "
+                                 "on the window")
+        blocks = (data.count(b"\n") // 4 + records - 1) // records
+        out[f"L{level} {records}x{blocks}"] = runs
+    print(json.dumps({"window_sweep": out}), flush=True)
+    return out
+
+
+def _peak_rss_mb(fn):
+    """(fn(), the process's peak resident memory in MB while fn ran,
+    sampled every 2 ms from /proc/self/statm by a watcher thread)."""
+    import os
+    import threading
+    page = os.sysconf("SC_PAGE_SIZE")
+
+    def rss():
+        with open("/proc/self/statm") as f:
+            return int(f.read().split()[1]) * page
+    peak, done = [rss()], threading.Event()
+
+    def watch():
+        while not done.is_set():
+            peak[0] = max(peak[0], rss())
+            done.wait(0.002)
+    t = threading.Thread(target=watch)
+    t.start()
+    try:
+        out = fn()
+    finally:
+        done.set()
+        t.join()
+    return out, max(peak[0], rss()) / 1e6
+
+
+def _streaming_child(d: str) -> int:
+    """`chip_smoke.py --streaming-child DIR`, a fresh process: DIR/in.fq
+    through api.encode_file_streaming (chunks that cut records) into
+    DIR/out.sfq, then that output cut mid-way through its third block and
+    resumed (it must come back the same), then decode_file_streaming into
+    DIR/back.fq; prints one JSON line with the process's resident memory
+    once the card is up and its peak during each phase."""
+    import io
+    import os
+    import torch
+    from slimfastq_tpu_torch import api, container
+    from slimfastq_tpu_torch.ops import _cuda
+    torch.zeros(1, device="cuda")
+    _cuda.build()
+    src, dst, back = (os.path.join(d, n) for n in ("in.fq", "out.sfq",
+                                                    "back.fq"))
+    kw = dict(level=3, device="cuda", block_records=WINDOW_RECORDS,
+              chunk_bytes=STREAM_CHUNK)
+    out = {"base_rss_mb": _peak_rss_mb(lambda: None)[1]}
+    _, out["encode_peak_rss_mb"] = _peak_rss_mb(
+        lambda: api.encode_file_streaming(src, dst, **kw))
+    with open(dst, "rb") as f:
+        full = f.read()
+    offs = container.read_index(io.BytesIO(full))
+    with open(dst, "wb") as f:
+        f.write(full[: offs[2] + 1000])
+    _, out["resume_peak_rss_mb"] = _peak_rss_mb(
+        lambda: api.encode_file_streaming(src, dst, resume=True, **kw))
+    with open(dst, "rb") as f:
+        if f.read() != full:
+            raise AssertionError("the resumed container differs")
+    _, out["decode_peak_rss_mb"] = _peak_rss_mb(
+        lambda: api.decode_file_streaming(dst, back, device="cuda"))
+    print(json.dumps(out), flush=True)
+    return 0
+
+
+def streaming(data: bytes) -> dict:
+    """The 4 16k blocks through the streaming path in a fresh process
+    (_streaming_child, so its memory is its own): the streamed container
+    equals encode_fastq's (the pinned SHA-256), the resumed copy equals
+    it, and the streaming decode gives the input back."""
+    import os
+    import tempfile
+    with tempfile.TemporaryDirectory() as d:
+        with open(os.path.join(d, "in.fq"), "wb") as f:
+            f.write(data)
+        r = subprocess.run([sys.executable, os.path.abspath(__file__),
+                            "--streaming-child", d], capture_output=True,
+                           text=True, timeout=300)
+        if r.returncode:
+            raise AssertionError(f"streaming phase failed:\n"
+                                 f"{r.stdout[-2000:]}{r.stderr[-4000:]}")
+        out = json.loads(r.stdout.strip().splitlines()[-1])
+        with open(os.path.join(d, "out.sfq"), "rb") as f:
+            full = f.read()
+        if hashlib.sha256(full).hexdigest() != PINNED_16K[3][1]:
+            raise AssertionError("streaming encode differs from "
+                                 "encode_fastq's container")
+        with open(os.path.join(d, "back.fq"), "rb") as f:
+            if f.read() != data:
+                raise AssertionError("streaming decode does not return the "
+                                     "input")
+    out.update(chunk_bytes=STREAM_CHUNK, raw_bytes=len(data),
+               compressed_bytes=len(full))
+    print(json.dumps({"streaming": out}), flush=True)
+    return out
 
 
 def main() -> int:
@@ -819,11 +1351,25 @@ def main() -> int:
             if "registers" in line or "spill" in line:
                 print(f"  {name}.cu ptxas: {line.strip()}", flush=True)
 
+    # seconds each phase took, printed as the `phase_s` line
+    phase_s, last = {}, [time.perf_counter()]
+
+    def done(name: str) -> None:
+        now = time.perf_counter()
+        phase_s[name] = now - last[0]
+        last[0] = now
+
     plain, errs, plain4, errs4 = check_kernels(dev)
     check_ragged(dev, errs)
+    done("kernels_vs_plain")
+    check_windows(dev, errs)
+    done("windows_vs_plain")
     data = _pinned(READS)
+    data4 = _pinned(READS * WALL_BLOCKS)
+    done("make_data")
     times = time_kernels(data, dev, errs)
     times4 = time_kernels_l4(data, dev, errs4)
+    done("time_kernels")
     comp = block_compaction(data, dev, 3, errs)
     comp4 = block_compaction(data, dev, 4, errs4)
     phases = {}
@@ -833,12 +1379,26 @@ def main() -> int:
               flush=True)
     bar_us = barrier_us(dev)
     print(json.dumps({"barrier_us": bar_us}), flush=True)
+    done("compaction_and_barrier")
     launches = main_path(data, 3)
     spans = block_spans(data, dev)
-    wall(dev, 3)
+    wall(data4, dev, 3)
+    done("main_path_l3")
     launches4 = main_path(data, 4)
     spans4 = l4_spans(data, dev)
-    wall(dev, 4)
+    wall(data4, dev, 4)
+    done("main_path_l4")
+    # the small-block window path on the same 4-block set
+    win = time_window(data, dev, bar_us, errs)
+    done("window_kernels")
+    wlaunches = {level: window_path(data, level) for level in (3, 4)}
+    done("window_path")
+    window_walls(data)
+    done("window_walls")
+    window_sweep(data4)
+    done("window_sweep")
+    streaming(data)
+    done("streaming")
 
     replaces = {
         "lane_encode": "slimfastq_tpu/ops/streams_jax.py:298",
@@ -919,6 +1479,45 @@ def main() -> int:
         else:
             row["l4"] = part
     kernels.append(row)
+    # the window forms: one launch over the blocks of a window, on the 16k
+    # L3 window's own inputs (4 blocks of 16,384 records); launches (and
+    # the descriptors they took: blocks for E and D, streams for C) from
+    # the window path's run at level 3 and at level 4, counted under the
+    # kernel's one name
+    for name, key, base, replaced in (
+            ("lane_encode_blocks", "lane_encode_blocks", "lane_encode",
+             "slimfastq_tpu/parallel/mesh.py:43"),
+            ("lane_decode_blocks", "lane_decode_blocks", "lane_decode",
+             "slimfastq_tpu/parallel/mesh.py:74"),
+            ("compact_streams_dev", "compact_window", "compact_lanes_dev",
+             "slimfastq_tpu/ops/compact_pallas.py:40")):
+        w = win[key]
+        (l3, d3), (l4, d4) = wlaunches[3], wlaunches[4]
+        row = {"name": name, "form": "window", "counted_as": base,
+               "route": "cuda", "source": source[base],
+               "replaces": replaced, "launches": l3[base],
+               "descriptors": d3[base], "launches_l4": l4[base],
+               "descriptors_l4": d4[base],
+               "match": errs[key] == 0, "max_abs_err": errs[key],
+               "library_ms": None, "bound_ms": w["bound_ms"],
+               "bound_by": w.get("bound_by", "bytes")}
+        if key == "compact_window":
+            row.update(ms=w["device_ms"], wrapper_ms=w["wrapper_ms"],
+                       plain_ms=w["plain_ms"],
+                       plain_shape="the same launch's streams, CUDA events",
+                       shape=f"one launch: the 16k L3 window's "
+                             f"{w['streams']} coded streams")
+        else:
+            row.update(ms=w["ms"], plain_ms=w["plain_ms"],
+                       plain_shape=w["plain_shape"] + ", host clock",
+                       prefix_ms=w["prefix_ms"],
+                       one_launch_a_block_sum_ms=w[
+                           "one_launch_a_block_sum_ms"],
+                       shape="QUAL of the 16k L3 window: 4 blocks, W = "
+                             "1024",
+                       window_coder_span=win["coder_span"])
+        kernels.append(row)
+    print(json.dumps({"phase_s": phase_s}), flush=True)
     print(json.dumps({"earlier_ms": {
         "note": "recorded constants (this script, H100 80GB HBM3, 700 W), "
                 "not measured in this run: E, D and C before the "
@@ -934,4 +1533,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--streaming-child"]:
+        sys.exit(_streaming_child(sys.argv[2]))
     sys.exit(main())

@@ -5,8 +5,12 @@ caller passes ``device="cpu"``, which runs the kernels' plain PyTorch
 versions (the tests' setting). There is no silent fallback: asking for
 CUDA on a machine without a card raises.
 
-Not ported yet: window batching of small blocks and streaming/resume
-(later slices); see pipeline_native for the per-block limits.
+Small blocks are coded in windows (``_batch_window``): each stream's
+kernel launch takes every block of the window, so blocks that underfill
+the card share it. ``encode_file_streaming`` / ``decode_file_streaming``
+run the same pipelines over a file in bounded memory; the encode can be
+resumed after a crash. The bytes never depend on the window or on the
+streaming: every container equals the JAX package's.
 """
 
 from __future__ import annotations
@@ -20,14 +24,17 @@ import torch
 
 from . import container, native
 from .config import CodecConfig, config_for_level
-from .pipeline_native import (decode_block_device, decode_block_finish,
-                              encode_prepared_block, prepare_block_fast)
+from .pipeline_native import (decode_block_finish, decode_blocks_device,
+                              encode_prepared_blocks, prepare_block_fast)
 
 
 # blocks of host work kept in flight beside the device in the staged
 # encode/decode pipelines (2 overlaps host and device across block
 # boundaries)
 _PIPE_DEPTH = 2
+# the most blocks a window takes: a window's coded streams (11 a level-4
+# block with match trials) must fit one Kernel C launch (256 streams)
+MAX_WINDOW = 16
 
 
 def resolve_device(device=None) -> torch.device:
@@ -43,68 +50,126 @@ def resolve_device(device=None) -> torch.device:
     return dev
 
 
+def _batch_window(cfg: CodecConfig, window: int | None = None) -> int:
+    """Blocks a window codes at once. A block of W coder lanes runs one
+    CTA per stream, 7 to 11 of the card's 132 SMs, so blocks coded one at
+    a time leave most of the card idle; a window codes its blocks' CTAs
+    side by side. The default, up to 8 blocks and 262,144 records a
+    window, is the H100 window sweep's (PERF.md §6): at 16,384-record
+    blocks a window of 8 decoded faster than 4 and encoded as fast, and
+    at 65,536 a window of 4 gave the lowest walls of 1, 2 and 4 at levels
+    3 and 4 (the JAX package's min(8, 65536 // block_records) codes a
+    65,536-record block alone). ``window`` overrides it (1 codes every
+    block alone), up to MAX_WINDOW."""
+    if window is None:
+        window = min(8, 262144 // max(cfg.block_records, 1))
+    if int(window) > MAX_WINDOW:
+        raise ValueError(f"window {window} exceeds {MAX_WINDOW} blocks")
+    return max(1, int(window))
+
+
+def _encode_ranges(ranges, cfg: CodecConfig, dev, window, emit) -> list:
+    """Encode the record ranges (buf, idx, lo, hi) in order; emit(blk) for
+    each block, in order, on a one-worker writer; returns emit's results.
+
+    Three stages (prep || device || write): a prep pool keeps the next
+    window's blocks of host modelling (C++/NumPy, releases the GIL) in
+    flight ahead of the device, ``depth + window - 1`` in all; the main
+    thread codes each window on the device; the writer overlaps container
+    framing/CRC/IO with the next window's device work. FIFO submission to
+    the one-worker writer keeps block order, so the container equals the
+    serial one. Memory holds that many prepared blocks, whatever the
+    file's size."""
+    wb = _batch_window(cfg, window)
+    ahead = _PIPE_DEPTH + wb - 1
+    ranges = iter(ranges)
+    results = []
+    with native.pipeline_omp_cap(), \
+            ThreadPoolExecutor(max_workers=_PIPE_DEPTH) as prep_ex, \
+            ThreadPoolExecutor(max_workers=1) as write_ex:
+        pfuts: deque = deque()
+        wfuts: deque = deque()
+
+        def fill():
+            while len(pfuts) < ahead:
+                r = next(ranges, None)
+                if r is None:
+                    return
+                pfuts.append(prep_ex.submit(prepare_block_fast, *r, cfg))
+        fill()
+        while pfuts:
+            pres = []
+            while pfuts and len(pres) < wb:
+                pres.append(pfuts.popleft().result())
+                fill()
+            for blk in encode_prepared_blocks(pres, cfg, dev):
+                wfuts.append(write_ex.submit(emit, blk))
+            while len(wfuts) > wb + 1:  # surface write errors promptly
+                results.append(wfuts.popleft().result())
+        results.extend(wf.result() for wf in wfuts)
+    return results
+
+
 def encode_fastq(data: bytes, cfg: CodecConfig | None = None,
-                 level: int = 3, device=None, **overrides) -> bytes:
+                 level: int = 3, device=None, window: int | None = None,
+                 **overrides) -> bytes:
     dev = resolve_device(device)
     cfg = cfg or config_for_level(level, **overrides)
     out = io.BytesIO()
     container.write_header(out, cfg)
     buf = np.frombuffer(data, dtype=np.uint8)
     idx, n = native.fastq_index(data)
-    ranges = [(lo, min(lo + cfg.block_records, n))
-              for lo in range(0, max(n, 1), cfg.block_records)]
-    # three-stage pipeline (prep || device || write): a prep pool keeps
-    # _PIPE_DEPTH blocks of host modelling (C++/NumPy, releases the GIL)
-    # in flight ahead of the device; the main thread codes blocks on the
-    # device in order; a one-worker writer overlaps container framing/CRC
-    # with the next block's device work. FIFO submission to the one-worker
-    # writer keeps block order, so the container equals the serial one.
-    with native.pipeline_omp_cap(), \
-            ThreadPoolExecutor(max_workers=_PIPE_DEPTH) as prep_ex, \
-            ThreadPoolExecutor(max_workers=1) as write_ex:
-        pfuts = deque(prep_ex.submit(prepare_block_fast, buf, idx, *r, cfg)
-                      for r in ranges[:_PIPE_DEPTH])
-        nxt = len(pfuts)
-        wfuts = []
-        while pfuts:
-            pre = pfuts.popleft().result()
-            if nxt < len(ranges):
-                pfuts.append(prep_ex.submit(prepare_block_fast, buf, idx,
-                                            *ranges[nxt], cfg))
-                nxt += 1
-            blk = encode_prepared_block(pre, cfg, dev)
-            wfuts.append(write_ex.submit(container.write_block, out, blk))
-        offsets = [wf.result() for wf in wfuts]
+    ranges = ((buf, idx, lo, min(lo + cfg.block_records, n))
+              for lo in range(0, max(n, 1), cfg.block_records))
+    offsets = _encode_ranges(ranges, cfg, dev, window,
+                             lambda blk: container.write_block(out, blk))
     container.write_index(out, offsets)
     return out.getvalue()
 
 
-def decode_fastq(data: bytes, device=None) -> bytes:
-    dev = resolve_device(device)
-    f = io.BytesIO(data)
-    cfg = container.read_header(f)
-    parts = []
-    # three-stage pipeline (read || device || finish): a one-worker reader
-    # prefetches block k+1's container bytes while block k is on the
-    # device; up to _PIPE_DEPTH host finishes (ID chain decode +
-    # assembly, release the GIL) run behind the device, collected in order
+def _decode_blocks(f, cfg: CodecConfig, dev, window, emit) -> None:
+    """Decode the container blocks of ``f`` in order; emit(part) for each
+    block's FASTQ bytes, in order.
+
+    Three stages (read || device || finish): a one-worker reader
+    prefetches the next block's container bytes while a window is on the
+    device; up to _PIPE_DEPTH host finishes (ID chain decode + assembly,
+    release the GIL) run behind the device, collected in order. Blocks
+    are read one at a time (seek-based, container.iter_blocks), so memory
+    holds a window and the finishes in flight, whatever the container's
+    size."""
+    wb = _batch_window(cfg, window)
     with native.pipeline_omp_cap(), \
             ThreadPoolExecutor(max_workers=_PIPE_DEPTH) as fin_ex, \
             ThreadPoolExecutor(max_workers=1) as read_ex:
         gen = container.iter_blocks(f, cfg)
         rfut = read_ex.submit(next, gen, None)
         futs: deque = deque()
-        while True:
-            blk = rfut.result()
-            if blk is None:
-                break
-            rfut = read_ex.submit(next, gen, None)
-            inter = decode_block_device(blk, cfg, dev)
-            futs.append(fin_ex.submit(decode_block_finish, inter, cfg))
+        more = True
+        while more:
+            blocks = []
+            while len(blocks) < wb:
+                blk = rfut.result()
+                if blk is None:
+                    more = False
+                    break
+                rfut = read_ex.submit(next, gen, None)
+                blocks.append(blk)
+            for inter in decode_blocks_device(blocks, cfg, dev):
+                futs.append(fin_ex.submit(decode_block_finish, inter, cfg))
             while len(futs) > _PIPE_DEPTH:
-                parts.append(futs.popleft().result())
+                emit(futs.popleft().result())
         while futs:
-            parts.append(futs.popleft().result())
+            emit(futs.popleft().result())
+
+
+def decode_fastq(data: bytes, device=None,
+                 window: int | None = None) -> bytes:
+    dev = resolve_device(device)
+    f = io.BytesIO(data)
+    cfg = container.read_header(f)
+    parts = []
+    _decode_blocks(f, cfg, dev, window, parts.append)
     return b"".join(parts)
 
 
@@ -117,9 +182,89 @@ def encode_file(src: str, dst: str, level: int = 3, device=None,
         f.write(enc)
 
 
-def decode_file(src: str, dst: str, device=None) -> None:
+def _record_boundary(chunk: bytes) -> int:
+    """Largest prefix of `chunk` ending on a 4-line record boundary."""
+    nls = np.flatnonzero(np.frombuffer(chunk, dtype=np.uint8) == 10)
+    keep_nl = (len(nls) // 4) * 4
+    if keep_nl == 0:
+        return 0
+    return int(nls[keep_nl - 1]) + 1
+
+
+def iter_block_ranges_native(src: str, cfg: CodecConfig,
+                             chunk_bytes: int = 1 << 28):
+    """Yield (buf, idx, lo, hi) record ranges whose block boundaries are
+    identical to a whole-file encode, while reading `src` in bounded
+    chunks: whole leftover records carry over between chunks as bytes."""
+    carry = b""
     with open(src, "rb") as f:
-        data = f.read()
-    dec = decode_fastq(data, device=device)
-    with open(dst, "wb") as f:
-        f.write(dec)
+        while True:
+            chunk = carry + f.read(chunk_bytes)
+            if not chunk:
+                break
+            eof = len(chunk) < len(carry) + chunk_bytes
+            cut = len(chunk) if eof else _record_boundary(chunk)
+            data, carry = chunk[:cut], chunk[cut:]
+            if not data:
+                if eof:
+                    break
+                continue
+            buf = np.frombuffer(data, dtype=np.uint8)
+            idx, n = native.fastq_index(data)
+            full = (n // cfg.block_records) * cfg.block_records
+            limit = n if eof else full
+            for lo in range(0, limit, cfg.block_records):
+                yield buf, idx, lo, min(lo + cfg.block_records, limit)
+            if limit < n:
+                start = int(idx["id_off"][limit]) - 1
+                carry = data[start:] + carry
+            if eof:
+                break
+
+
+def encode_file_streaming(src: str, dst: str, level: int = 3, device=None,
+                          chunk_bytes: int = 1 << 28, resume: bool = False,
+                          **overrides) -> None:
+    """Stream a large (100GB-class) FASTQ through the encoder with bounded
+    memory: reads chunk_bytes at a time, encodes whole blocks (in windows,
+    as encode_fastq does), appends them via the resumable
+    container.Writer. With resume=True, continues an interrupted output
+    file after its last complete block.
+
+    Output is byte-identical to encode_fastq on the same data: block
+    boundaries land on block_records multiples, which this function
+    guarantees by carrying remainder records between chunks. Memory holds
+    one chunk and the pipeline's prepared blocks."""
+    dev = resolve_device(device)
+    cfg = config_for_level(level, **overrides)
+    skip_records = 0
+    if resume:
+        w, skip_records = container.Writer.resume(dst)
+        cfg = w.cfg
+    else:
+        w = container.Writer.create(dst, cfg)
+
+    def todo():
+        seen = 0
+        for buf, idx, lo, hi in iter_block_ranges_native(src, cfg,
+                                                         chunk_bytes):
+            seen += hi - lo
+            if seen > skip_records:  # else: already in the resumed output
+                yield buf, idx, lo, hi
+    _encode_ranges(todo(), cfg, dev, None, w.append)
+    w.close()
+
+
+def decode_file_streaming(src: str, dst: str, device=None) -> None:
+    """Bounded-memory decode of a 100GB-class container: blocks are read
+    (seek-based, via the index and the v2 length prefixes), decoded and
+    written in order, so memory holds a few blocks regardless of the
+    container's size."""
+    dev = resolve_device(device)
+    with open(src, "rb") as f, open(dst, "wb") as out:
+        cfg = container.read_header(f)
+        _decode_blocks(f, cfg, dev, None, out.write)
+
+
+def decode_file(src: str, dst: str, device=None) -> None:
+    decode_file_streaming(src, dst, device=device)

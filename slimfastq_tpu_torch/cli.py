@@ -7,9 +7,12 @@ Usage:
   sfq-torch -d in.sfq [-o out.fastq]                # decode
   sfq-torch -d in.sfq                               # decode to stdout
   cat in.fastq | sfq-torch - -o out.sfq             # stdin encode
+  sfq-torch --streaming in.fastq -o out.sfq         # bounded memory
+  sfq-torch --streaming --resume in.fastq -o out.sfq  # after a crash
+  sfq-torch -d --streaming in.sfq -o out.fastq      # bounded memory
 
 Containers are byte-identical to the JAX package's ``sfq``.
-``--streaming``, ``--sharded`` and ``--resume`` are not yet ported.
+``--sharded`` (multi-GPU) is not yet ported.
 """
 
 from __future__ import annotations
@@ -19,7 +22,8 @@ import os
 import sys
 
 from . import __version__
-from .api import decode_fastq, encode_fastq
+from .api import (decode_fastq, decode_file_streaming, encode_fastq,
+                  encode_file_streaming)
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -46,9 +50,14 @@ def build_parser() -> argparse.ArgumentParser:
                         "(encode only; default 65536)")
     p.add_argument("--device", choices=["cuda", "cpu"], default="cuda",
                    help="device of the coder (default: cuda)")
-    for flag in ("--streaming", "--sharded", "--resume"):
-        p.add_argument(flag, action="store_true",
-                       help="not yet ported in the torch port")
+    p.add_argument("--streaming", action="store_true",
+                   help="bounded-memory streaming encode/decode for huge "
+                        "files (encode is resumable: rerun with --resume "
+                        "after a crash)")
+    p.add_argument("--resume", action="store_true",
+                   help="with --streaming: continue an interrupted output")
+    p.add_argument("--sharded", action="store_true",
+                   help="multi-GPU: not yet ported in the torch port")
     p.add_argument("--version", action="version",
                    version=f"sfq-torch {__version__}")
     p.set_defaults(level=3)
@@ -71,13 +80,48 @@ def _stats(encoded: bytes, raw_len: int, out=None) -> None:
     print(f"  {'(hdrs)':<6} {rep['header_overhead_bytes']:>12}", file=out)
 
 
+def _streaming(args, overrides: dict) -> int:
+    """--streaming: file to file in bounded memory (encode resumable)."""
+    if args.input == "-" or not args.output:
+        print("sfq-torch: --streaming needs a file input and -o output",
+              file=sys.stderr)
+        return 2
+    if not os.path.exists(args.input):
+        print(f"sfq-torch: {args.input}: no such file", file=sys.stderr)
+        return 2
+    if os.path.exists(args.output) and not args.force and not (
+            args.resume and not args.decode):
+        print(f"sfq-torch: {args.output} exists (use -f to overwrite)",
+              file=sys.stderr)
+        return 2
+    try:
+        if args.decode:
+            decode_file_streaming(args.input, args.output,
+                                  device=args.device)
+        else:
+            encode_file_streaming(args.input, args.output, level=args.level,
+                                  device=args.device, resume=args.resume,
+                                  **overrides)
+    except (ValueError, RuntimeError, OSError) as e:
+        print(f"sfq-torch: {e}", file=sys.stderr)
+        return 1
+    return 0
+
+
 def main(argv: list[str] | None = None) -> int:
     args = build_parser().parse_args(argv)
-    for flag in ("streaming", "sharded", "resume"):
-        if getattr(args, flag):
-            print(f"sfq-torch: --{flag} is not yet ported in the torch port",
-                  file=sys.stderr)
-            return 2
+    if args.sharded:
+        print("sfq-torch: --sharded is not yet ported in the torch port",
+              file=sys.stderr)
+        return 2
+    if args.resume and not args.streaming:
+        print("sfq-torch: --resume needs --streaming", file=sys.stderr)
+        return 2
+    overrides = {}
+    if args.block_records:
+        overrides["block_records"] = args.block_records
+    if args.streaming:
+        return _streaming(args, overrides)
 
     if args.input == "-":
         data = sys.stdin.buffer.read()
@@ -88,9 +132,6 @@ def main(argv: list[str] | None = None) -> int:
         with open(args.input, "rb") as f:
             data = f.read()
 
-    overrides = {}
-    if args.block_records:
-        overrides["block_records"] = args.block_records
     try:
         if args.decode:
             result = decode_fastq(data, device=args.device)

@@ -21,8 +21,30 @@
 // Geometries with 0 < rate_lo < rate also count visits (format-v4
 // warm-up): the shift is min(rate, rate_lo + ceil_log2(min(vis,1024)+1)).
 //
-// Design: one CTA per stream, one thread per lane (W <= 1024, rounded up
-// to whole warps; the extra threads take part in barriers only).
+// Bound on the H100: both kernels are a serial chain of bit-steps on one
+// SM (QUAL at the 64k-record block: 6,400 steps x 6 bits = 38,400
+// bit-steps). Kernel D's law couples the lanes at every bit-step, so its
+// floor is bit-steps x one 1,024-thread barrier (barrier_loop below
+// measures it). Kernel E needs no such barrier: its table's evolution
+// depends only on the schedule, so the function itself is bound only by
+// its bytes; the barriers are this design's cost, not the function's. At
+// W = 1024 both run far above the barrier floor, bound by issuing ~200
+// instructions per lane and bit-step for 32 warps on the SM's 4
+// schedulers. A block's seven streams run as seven CTAs on their own CUDA
+// streams, so a block costs its longest chain, not the sum; a window's B
+// blocks run as B CTAs of one launch side by side (one SM each), so its
+// bound is one block's chain, not B of them. Next: a decoupled encode (p
+// of every decision by a per-entry scan, no barrier), QUAL's table in a
+// cluster's distributed shared memory, W > 1024.
+//
+// Design: one CTA per stream of one block, one thread per lane (W <= 1024,
+// rounded up to whole warps; the extra threads take part in barriers
+// only). A launch codes one stream of each block of a window (also
+// replacing parallel/mesh.py's vmap over blocks, mesh=None): CTA b reads
+// block b's pointers and step count from a descriptor in the launch's
+// __grid_constant__ parameters (CUDA >= 12.1 passes 32 KB), so blocks of
+// any lengths share a launch, each with its own steps, flush, fresh table
+// and overflow check (`emax`): its bytes are the one-block launch's.
 // * Table entries are 16 bits: p in bits 0-11 (always in [16, 4080]) and
 //   a saturating visit count in bits 12-15. The law reads the visit count
 //   only through the shift above, which stops changing at a count `vcap`
@@ -60,21 +82,6 @@
 //   D's step inputs one symbol-step ahead and its next payload byte.
 //   (A barrier does not wait for a thread's pending loads; only their use
 //   does.)
-//
-// Bound on the H100: both kernels are a serial chain of bit-steps on one
-// SM (QUAL at the 64k-record block: 6,400 steps x 6 bits = 38,400
-// bit-steps). Kernel D's law couples the lanes at every bit-step, so its
-// floor is bit-steps x one 1,024-thread barrier (barrier_loop below
-// measures it). Kernel E needs no such barrier: its table's evolution
-// depends only on the schedule, so the function itself is bound only by
-// its bytes; the barriers are this design's cost, not the function's. At
-// W = 1024 both run far above the barrier floor, bound by issuing ~200
-// instructions per lane and bit-step for 32 warps on the SM's 4
-// schedulers. A block's seven streams run as seven
-// CTAs on their own CUDA streams, so a block costs its longest chain, not
-// the sum. Next: a decoupled encode (p of every decision by a per-entry
-// scan, no barrier), QUAL's table in a cluster's distributed shared
-// memory, W > 1024.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -97,6 +104,7 @@ constexpr int VIS_SHIFT = PROB_BITS;  // entry bits 12-15: visit count
 constexpr int EMPTY = -1;
 constexpr unsigned FULL = 0xFFFFFFFFu;
 constexpr int SMEM_LIMIT = 232448;  // dynamic shared memory of one CTA
+constexpr int MAX_BLOCKS = 256;  // descriptors a launch: coder_torch's too
 
 enum Kind { QUAL = 0, SEQ = 1, BYTE = 2, FLAG = 3 };
 
@@ -239,27 +247,45 @@ __device__ __forceinline__ bool renorm_needed(uint32_t low, uint32_t rng,
   return *agree || rng < BOT;
 }
 
+// One block's stream for Kernel E: its schedule, its fresh device table
+// (null where the table lives in shared memory) and its outputs.
+struct EncDesc {
+  const int* idx_c;  // [NC, KD, W]
+  const int* bit_c;  // [NC, KD, W]
+  uint16_t* table;   // [table_size]
+  uint8_t* ebufs;    // [NC, W, CB]
+  int* eptrs;        // [NC, W]
+  uint32_t* low;     // [W]
+  int* emax;         // this block's largest chunk count
+  int NC;
+};
+
+struct EncParams {
+  EncDesc d[MAX_BLOCKS];
+  Geo geo;
+  int KD, W, nsl, CB;
+};
+
 template <bool SMEM, bool WARM>
 __global__ void __launch_bounds__(1024, 1)
-    lane_encode_kernel(const int* __restrict__ idx_c,
-                       const int* __restrict__ bit_c, int NC, int KD, int W,
-                       Geo geo, uint16_t* gtable, int nsl, int CB,
-                       uint8_t* __restrict__ ebufs, int* __restrict__ eptrs,
-                       uint32_t* __restrict__ low_out,
-                       int* __restrict__ emax) {
+    lane_encode_kernel(const __grid_constant__ EncParams p) {
   extern __shared__ __align__(16) unsigned char smem[];
+  const EncDesc& desc = p.d[blockIdx.x];
+  const Geo& geo = p.geo;
+  const int NC = desc.NC, KD = p.KD, W = p.W, CB = p.CB;
+  uint8_t* __restrict__ ebufs = desc.ebufs;
   const int w = threadIdx.x;
   const bool live = w < W;
   Lockstep<SMEM, WARM> L;
-  L.setup(smem, gtable, geo, nsl);
+  L.setup(smem, desc.table, geo, p.nsl);
   uint32_t low = 0, rng = 0xFFFFFFFFu;
   int emx = 0;
   const int steps = NC * KD;
   // the schedule of bit-step `at`; a ring of AHEAD slots in registers,
   // slot k reloaded AHEAD bit-steps on right after its use (the loop is
   // unrolled over the ring, so no register copy waits on a pending load)
-  const int* ip = idx_c + w;  // bit-step `at` of this lane, walked on
-  const int* bp = bit_c + w;
+  const int* ip = desc.idx_c + w;  // bit-step `at` of this lane, walked on
+  const int* bp = desc.bit_c + w;
   auto sched = [&](int at, int* i, bool* o) {
     *i = geo.sac_base;
     *o = false;
@@ -307,12 +333,12 @@ __global__ void __launch_bounds__(1024, 1)
         __syncthreads();
       }
     }
-    if (live) eptrs[(size_t)c * W + w] = eptr;
+    if (live) desc.eptrs[(size_t)c * W + w] = eptr;
     emx = max(emx, eptr);
   }
   if (live) {
-    low_out[w] = low;
-    atomicMax(emax, emx);
+    desc.low[w] = low;
+    atomicMax(desc.emax, emx);
   }
 }
 
@@ -332,27 +358,50 @@ __device__ __forceinline__ uint32_t qdelta_code(uint32_t a, uint32_t b) {
   return 3;
 }
 
+// One block's stream for Kernel D: its payload and step inputs, its
+// fresh device table (null where the table lives in shared memory) and
+// its symbols.
+struct DecDesc {
+  const uint8_t* payload;  // [W, Lb]
+  const int* lens;         // [W]
+  const int* acts;         // [Sp, W]
+  const int* poss;         // [Sp, W]
+  const int* resets;       // [Sp, W]
+  const uint8_t* mflags;   // [Sp, W], the MATCH instantiation only
+  uint16_t* table;         // [table_size]
+  uint8_t* syms;           // [Sp, W]
+  int Lb, Sp;
+};
+
+struct DecParams {
+  DecDesc d[MAX_BLOCKS];
+  Geo geo;
+  Ctx cx;
+  int W, nsl;
+};
+
 // MATCH: a format-v5 SEQ stream with the match-context family, whose
 // match-span flags `mflags` select the family's row (a separate
 // instantiation, so a stream without the family runs the code it ran
 // before the family existed).
 template <bool SMEM, bool WARM, bool MATCH>
 __global__ void __launch_bounds__(1024, 1)
-    lane_decode_kernel(const uint8_t* __restrict__ payload, int Lb,
-                       const int* __restrict__ lens,
-                       const int* __restrict__ acts,
-                       const int* __restrict__ poss,
-                       const int* __restrict__ resets,
-                       const uint8_t* __restrict__ mflags, int Sp, int W,
-                       Geo geo, uint16_t* gtable, int nsl, Ctx cx,
-                       uint8_t* __restrict__ syms) {
+    lane_decode_kernel(const __grid_constant__ DecParams p) {
   extern __shared__ __align__(16) unsigned char smem[];
+  const DecDesc& desc = p.d[blockIdx.x];
+  const Ctx& cx = p.cx;
+  const int W = p.W, Lb = desc.Lb, Sp = desc.Sp;
+  const int* __restrict__ acts = desc.acts;
+  const int* __restrict__ poss = desc.poss;
+  const int* __restrict__ resets = desc.resets;
+  const uint8_t* __restrict__ mflags = desc.mflags;
+  uint8_t* __restrict__ syms = desc.syms;
   const int w = threadIdx.x;
   const bool live = w < W;
   Lockstep<SMEM, WARM> L;
-  L.setup(smem, gtable, geo, nsl);
-  const uint8_t* row = payload + (size_t)(live ? w : 0) * Lb;
-  const int len = live ? lens[w] : 0;
+  L.setup(smem, desc.table, p.geo, p.nsl);
+  const uint8_t* row = desc.payload + (size_t)(live ? w : 0) * Lb;
+  const int len = live ? desc.lens[w] : 0;
   // payload byte q of this lane; 0 past its end (read_bytes)
   auto fetch = [&](int q) -> uint32_t {
     return q < len ? row[min(q, Lb - 1)] : 0u;
@@ -495,24 +544,29 @@ const char* error_string(int err) {
   return cudaGetErrorString((cudaError_t)err);
 }
 
-// table: the 16-bit device table (unused when smem_table); vcap: the
-// saturating visit count, 0 without warm-up.
-int lane_encode(const int* idx_c, const int* bit_c, int NC, int KD, int W,
-                uint16_t* table, int table_size, int sac_base, int rate,
-                int rate_lo, int vcap, int smem_table, int CB,
-                uint8_t* ebufs, int* eptrs, uint32_t* low, int* emax,
-                cudaStream_t stream) {
+// One launch over n blocks' descriptors (an array of EncDesc / DecDesc: a
+// parameter of a type in the anonymous namespace would take the entry's C
+// linkage away), one CTA each. vcap: the saturating visit count, 0 without
+// warm-up; smem_table: the tables live in shared memory (the descriptors'
+// `table` is then unused).
+int lane_encode(const void* descs, int n, int KD, int W, int table_size,
+                int sac_base, int rate, int rate_lo, int vcap, int smem_table,
+                int CB, cudaStream_t stream) {
   Shape sh;
-  if (!shape_of(W, smem_table, table_size, &sh))
+  if (n < 1 || n > MAX_BLOCKS || !shape_of(W, smem_table, table_size, &sh))
     return (int)cudaErrorInvalidValue;
-  const Geo g{table_size, sac_base, rate, rate_lo, vcap};
+  EncParams p = {};
+  for (int i = 0; i < n; ++i) p.d[i] = static_cast<const EncDesc*>(descs)[i];
+  p.geo = Geo{table_size, sac_base, rate, rate_lo, vcap};
+  p.KD = KD;
+  p.W = W;
+  p.nsl = sh.nsl;
+  p.CB = CB;
   auto go = [&](auto kern) -> int {
     const cudaError_t e = cudaFuncSetAttribute(
         kern, cudaFuncAttributeMaxDynamicSharedMemorySize, sh.bytes);
     if (e != cudaSuccess) return (int)e;
-    kern<<<1, sh.threads, sh.bytes, stream>>>(idx_c, bit_c, NC, KD, W, g,
-                                              table, sh.nsl, CB, ebufs,
-                                              eptrs, low, emax);
+    kern<<<n, sh.threads, sh.bytes, stream>>>(p);
     return (int)cudaGetLastError();
   };
   if (smem_table)
@@ -522,32 +576,31 @@ int lane_encode(const int* idx_c, const int* bit_c, int NC, int KD, int W,
               : go(lane_encode_kernel<false, false>);
 }
 
-// mflags: the [Sp, W] match-span flags of a format-v5 SEQ stream with the
-// match-context family, null for any other stream.
-int lane_decode(const uint8_t* payload, int Lb, const int* lens,
-                const int* acts, const int* poss, const int* resets,
-                const uint8_t* mflags, int Sp, int W, uint16_t* table,
-                int table_size, int sac_base, int rate, int rate_lo,
-                int vcap, int smem_table, int depth,
-                int kind, int num_ctx, int k0, int k1, int k2, int k3,
-                uint8_t* syms, cudaStream_t stream) {
+// match: the descriptors carry a format-v5 SEQ stream's [Sp, W] match-span
+// flags (the match-context family's instantiation).
+int lane_decode(const void* descs, int n, int W, int table_size,
+                int sac_base, int rate, int rate_lo, int vcap, int smem_table,
+                int depth, int kind, int num_ctx, int k0, int k1, int k2,
+                int k3, int match, cudaStream_t stream) {
   Shape sh;
-  if (!shape_of(W, smem_table, table_size, &sh))
+  if (n < 1 || n > MAX_BLOCKS || !shape_of(W, smem_table, table_size, &sh))
     return (int)cudaErrorInvalidValue;
-  const Geo g{table_size, sac_base, rate, rate_lo, vcap};
-  const Ctx cx{kind, depth, num_ctx, k0, k1, k2, k3};
+  DecParams p = {};
+  for (int i = 0; i < n; ++i) p.d[i] = static_cast<const DecDesc*>(descs)[i];
+  p.geo = Geo{table_size, sac_base, rate, rate_lo, vcap};
+  p.cx = Ctx{kind, depth, num_ctx, k0, k1, k2, k3};
+  p.W = W;
+  p.nsl = sh.nsl;
   auto go = [&](auto kern) -> int {
     const cudaError_t e = cudaFuncSetAttribute(
         kern, cudaFuncAttributeMaxDynamicSharedMemorySize, sh.bytes);
     if (e != cudaSuccess) return (int)e;
-    kern<<<1, sh.threads, sh.bytes, stream>>>(payload, Lb, lens, acts, poss,
-                                              resets, mflags, Sp, W, g,
-                                              table, sh.nsl, cx, syms);
+    kern<<<n, sh.threads, sh.bytes, stream>>>(p);
     return (int)cudaGetLastError();
   };
   // the match family's instantiation where the flags are given
-  auto pick = [&](auto plain, auto match) {
-    return mflags ? go(match) : go(plain);
+  auto pick = [&](auto plain, auto fam) {
+    return match ? go(fam) : go(plain);
   };
   if (smem_table)
     return vcap ? pick(lane_decode_kernel<true, true, false>,

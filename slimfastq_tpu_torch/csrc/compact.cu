@@ -16,8 +16,11 @@
 // kernel and its plain PyTorch version agree on every byte. The rows sit
 // at a pitch of Bmax rounded up to 16 bytes, zero past Bmax.
 //
-// Design: one launch compacts every coded stream of an encode block. The
-// streams' descriptors ride in a __grid_constant__ parameter block; the
+// Design: one launch compacts every coded stream of an encode block, or of
+// a window of blocks (the small-block window path codes a window's blocks
+// together). The streams' descriptors ride in a __grid_constant__
+// parameter block (kernel parameters rather than a descriptor array in
+// device memory: no upload and no allocation per launch); the
 // grid is (lane group, stream). A CTA owns 8 adjacent lanes of one stream
 // (a 1,024-lane stream spreads over 128 CTAs, so the block's launch fills
 // the card) and walks the chunks in tiles of 128. Each thread loads the
@@ -54,7 +57,10 @@ constexpr int CPITCH = LANES + 1;       // ints per count row, padded
 constexpr int CNT_BYTES = 2 * TILE * CPITCH * 4;  // double-buffered tile
 constexpr int SMEM_MAX = 232448;        // a CTA's shared memory on sm_90
 constexpr int SEG_MAX = (SMEM_MAX - CNT_BYTES) / LANES / 16 * 16;  // 27904
-constexpr int MAX_STREAMS = 16;  // an L4 block codes 11; compact_torch's too
+// descriptors a launch (compact_torch's MAX_STREAMS too): a window of 8 L4
+// blocks with their match trials codes 88 streams, 56 bytes each, past the
+// classic 4 KB of kernel parameters; CUDA >= 12.1 passes up to 32 KB
+constexpr int MAX_STREAMS = 256;
 constexpr unsigned FULL = 0xffffffffu;
 static_assert(THREADS / 32 == LANES, "warp j scans, zeroes and stores lane j");
 

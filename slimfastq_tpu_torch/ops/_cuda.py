@@ -8,7 +8,9 @@ Pointers and the CUDA stream pass as ``c_void_p``; every C entry returns
 
 Launch counts: every kernel wrapper adds one to ``launches[name]`` where
 it launches its kernel, and nowhere else, so a run can show which kernels
-its path went through.
+its path went through; ``descs[name]`` adds up the descriptors those
+launches took (blocks for Kernels E and D, streams for Kernel C), so a
+window's launches show how many blocks each carried.
 """
 
 from __future__ import annotations
@@ -29,14 +31,21 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 launches = {"lane_encode": 0, "lane_decode": 0, "compact_lanes_dev": 0}
+descs = dict.fromkeys(launches, 0)
 
 _libs: dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()
 
 
+def count(name: str, n: int) -> None:
+    """One launch of kernel ``name`` over ``n`` descriptors."""
+    launches[name] += 1
+    descs[name] += n
+
+
 def reset_launches() -> None:
     for k in launches:
-        launches[k] = 0
+        launches[k] = descs[k] = 0
 
 
 def _nvcc() -> str:

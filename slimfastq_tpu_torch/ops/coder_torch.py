@@ -17,6 +17,13 @@ compared output for output:
   match-span flags ``[Sp, W]`` u8; ``_build_decode(with_mflag=True)``) ->
   symbols ``[Sp, W]`` u8 (0 where a step is inactive).
 
+``lane_encode_blocks`` / ``lane_decode_blocks`` run one stream of each
+block of a window in one launch (one CTA a block; the JAX package's vmap
+over blocks, parallel/mesh.py with mesh=None): each block its own inputs
+and step count, its own fresh table and its own overflow check.
+``lane_encode`` / ``lane_decode`` are their one-block case; the plain
+versions of the window forms loop over the one-block plain versions.
+
 Both run the batch-synchronous, collision-capped table law (see
 ops/ranger.py) with the format-v4 visit-count warm-up when the geometry
 sets ``0 < rate_lo < rate``. On CUDA tensors the wrappers launch the
@@ -33,6 +40,8 @@ needs more than 4 bits.
 
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
 from . import _cuda
@@ -45,19 +54,35 @@ _PMASK = (1 << CNT_SHIFT) - 1
 
 _P, _I = _cuda.PTR, _cuda.INT
 _SIGS = {
-    # idx_c, bit_c, NC, KD, W, table, table_size, sac_base, rate, rate_lo,
-    # vcap, smem_table, CB, ebufs, eptrs, low, emax, stream
-    "lane_encode": [_P, _P, _I, _I, _I, _P, _I, _I, _I, _I, _I, _I, _I, _P,
-                    _P, _P, _P, _P],
-    # payload, Lb, lens, acts, poss, resets, mflags, Sp, W, table,
-    # table_size, sac_base, rate, rate_lo, vcap, smem_table, depth, kind,
-    # num_ctx, k0, k1, k2, k3, syms, stream
-    "lane_decode": [_P, _I, _P, _P, _P, _P, _P, _I, _I, _P, _I, _I, _I, _I,
-                    _I, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P],
+    # descs, n, KD, W, table_size, sac_base, rate, rate_lo, vcap,
+    # smem_table, CB, stream
+    "lane_encode": [_P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
+    # descs, n, W, table_size, sac_base, rate, rate_lo, vcap, smem_table,
+    # depth, kind, num_ctx, k0, k1, k2, k3, match, stream
+    "lane_decode": [_P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
+                    _I, _I, _I, _P],
     # iters, threads, out, stream
     "barrier_loop": [_I, _I, _P, _P],
 }
 MAX_LANES = 1024  # one CTA, one thread per lane
+MAX_BLOCKS = 256  # blocks a launch: csrc/coder.cu's MAX_BLOCKS
+
+
+class _EncDesc(ctypes.Structure):
+    """csrc/coder.cu's EncDesc: one block's stream for Kernel E."""
+    _fields_ = [("idx_c", ctypes.c_void_p), ("bit_c", ctypes.c_void_p),
+                ("table", ctypes.c_void_p), ("ebufs", ctypes.c_void_p),
+                ("eptrs", ctypes.c_void_p), ("low", ctypes.c_void_p),
+                ("emax", ctypes.c_void_p), ("NC", ctypes.c_int)]
+
+
+class _DecDesc(ctypes.Structure):
+    """csrc/coder.cu's DecDesc: one block's stream for Kernel D."""
+    _fields_ = [("payload", ctypes.c_void_p), ("lens", ctypes.c_void_p),
+                ("acts", ctypes.c_void_p), ("poss", ctypes.c_void_p),
+                ("resets", ctypes.c_void_p), ("mflags", ctypes.c_void_p),
+                ("table", ctypes.c_void_p), ("syms", ctypes.c_void_p),
+                ("Lb", ctypes.c_int), ("Sp", ctypes.c_int)]
 SMEM_LIMIT = 232448  # dynamic shared memory one CTA may use on the H100
 VIS_BITS = 4  # the kernels' 16-bit entries: 12-bit p, 4-bit visit count
 
@@ -118,10 +143,11 @@ def table_in_smem(geom, W: int) -> bool:
     return (table_bytes(geom) + 15) // 16 * 16 + hash_bytes(W) <= SMEM_LIMIT
 
 
-def _kernel_geom(geom, W: int, dev):
-    """The kernels' table arguments: (table tensor or None, vcap,
-    smem_table). Raises where the lanes or the geometry do not fit the
-    kernels (one CTA, the 16-bit entry)."""
+def _kernel_geom(geom, W: int, dev, B: int | None = None):
+    """The kernels' table arguments: (a fresh device table, [B,
+    table_size] for B blocks, or None, vcap, smem_table).
+    Raises where the lanes or the geometry do not fit the kernels (one
+    CTA, the 16-bit entry)."""
     if W > MAX_LANES:
         raise ValueError(f"W={W} lanes exceeds {MAX_LANES} (one CTA per "
                          "stream; a grid-wide barrier is needed for more)")
@@ -135,15 +161,16 @@ def _kernel_geom(geom, W: int, dev):
         # the kernels load a device table's entry one bit-step ahead,
         # which needs consecutive bit-steps on different tree levels
         raise ValueError("a depth-1 table must fit shared memory")
-    return device_table(geom, dev), cap, 0
+    return device_table(geom, dev, B), cap, 0
 
 
-def device_table(geom, dev) -> torch.Tensor:
+def device_table(geom, dev, B: int | None = None) -> torch.Tensor:
     """A fresh table of the kernels' 16-bit entries in device memory
-    (PROB_INIT, visit count 0; the sacrificial row at PROB_MAX)."""
-    table = torch.full((geom.table_size,), PROB_INIT, dtype=torch.int16,
-                       device=dev)
-    table[geom.sac_base:] = PROB_MAX
+    (PROB_INIT, visit count 0; the sacrificial row at PROB_MAX), or B of
+    them [B, table_size], one a block."""
+    shape = (geom.table_size,) if B is None else (B, geom.table_size)
+    table = torch.full(shape, PROB_INIT, dtype=torch.int16, device=dev)
+    table[..., geom.sac_base:] = PROB_MAX
     return table
 
 
@@ -390,88 +417,164 @@ def _kind_params(kind: str, geom):
     raise ValueError(kind)
 
 
-def lane_encode(idx_c: torch.Tensor, bit_c: torch.Tensor, geom, CB: int):
-    """Kernel E on CUDA tensors, its plain version on CPU tensors."""
-    if idx_c.dim() != 3 or idx_c.dtype != torch.int32 \
-            or bit_c.dtype != torch.int32 or bit_c.shape != idx_c.shape:
-        raise ValueError("idx_c and bit_c must be [NC, 8*depth, W] int32")
-    NC, KD, W = idx_c.shape
-    if KD != CHUNK_SYMS * geom.depth:
-        raise ValueError(f"schedule depth {KD} != {CHUNK_SYMS}*{geom.depth}")
-    if idx_c.device != bit_c.device:
-        raise ValueError("idx_c and bit_c must share a device")
-    if idx_c.device.type == "cpu":
-        return lane_encode_plain(idx_c, bit_c, geom, CB)
-    if idx_c.device.type != "cuda":
-        raise ValueError(f"unsupported device {idx_c.device}")
-    dev = idx_c.device
-    table, vcap, smem = _kernel_geom(geom, W, dev)
-    idx_c, bit_c = idx_c.contiguous(), bit_c.contiguous()
+def lane_encode_blocks_plain(scheds, geom, CB: int) -> list:
+    """Plain version of lane_encode_blocks: lane_encode_plain per block."""
+    return [lane_encode_plain(idx_c, bit_c, geom, CB)
+            for idx_c, bit_c in scheds]
+
+
+def lane_decode_blocks_plain(items, kind: str, geom) -> list:
+    """Plain version of lane_decode_blocks: lane_decode_plain per block."""
+    return [lane_decode_plain(*it[:5], kind, geom,
+                              it[5] if len(it) > 5 else None)
+            for it in items]
+
+
+def _window_device(tensors) -> torch.device:
+    dev = tensors[0].device
+    if any(t.device != dev for t in tensors):
+        raise ValueError("every input of a launch must share a device")
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {dev}")
+    return dev
+
+
+def lane_encode_blocks(scheds, geom, CB: int) -> list:
+    """Kernel E over a window: ``scheds`` holds each block's (idx_c,
+    bit_c) [NC_b, 8*depth, W] int32, one W and geometry for all. Returns
+    per block (ebufs, eptrs, low, emax) as lane_encode does, emax the
+    block's own. One launch (one CTA a block) on CUDA tensors, the plain
+    version on CPU tensors."""
+    if not 1 <= len(scheds) <= MAX_BLOCKS:
+        raise ValueError(f"one launch codes 1 to {MAX_BLOCKS} blocks, not "
+                         f"{len(scheds)}")
+    KD, W = CHUNK_SYMS * geom.depth, scheds[0][0].shape[-1]
+    for idx_c, bit_c in scheds:
+        if idx_c.dim() != 3 or idx_c.dtype != torch.int32 \
+                or bit_c.dtype != torch.int32 or bit_c.shape != idx_c.shape:
+            raise ValueError("idx_c and bit_c must be [NC, 8*depth, W] "
+                             "int32")
+        if idx_c.shape[1] != KD:
+            raise ValueError(f"schedule depth {idx_c.shape[1]} != "
+                             f"{CHUNK_SYMS}*{geom.depth}")
+        if idx_c.shape[2] != W:
+            raise ValueError("every block of a launch has the same lanes")
+    dev = _window_device([t for s in scheds for t in s])
+    if dev.type == "cpu":
+        return lane_encode_blocks_plain(scheds, geom, CB)
+    B = len(scheds)
+    table, vcap, smem = _kernel_geom(geom, W, dev, B)
+    scheds = [(i.contiguous(), b.contiguous()) for i, b in scheds]
     lib = _cuda.load("coder", _SIGS)
-    ebufs = torch.zeros((NC, W, CB), dtype=torch.uint8, device=dev)
-    eptrs = torch.empty((NC, W), dtype=torch.int32, device=dev)
-    low = torch.empty(W, dtype=torch.int32, device=dev)
-    emax = torch.zeros(1, dtype=torch.int32, device=dev)
+    NCs = [int(i.shape[0]) for i, _ in scheds]
+    # one allocation each for the window's chunk windows, counts and tails;
+    # every block's windows start 16-byte aligned (CB is a multiple of 16)
+    ebufs = torch.zeros(sum(NCs) * W * CB, dtype=torch.uint8, device=dev)
+    eptrs = torch.empty(sum(NCs) * W, dtype=torch.int32, device=dev)
+    low = torch.empty((B, W), dtype=torch.int32, device=dev)
+    emax = torch.zeros(B, dtype=torch.int32, device=dev)
+    descs, outs, at = (_EncDesc * B)(), [], 0
+    for b, ((idx_c, bit_c), NC) in enumerate(zip(scheds, NCs)):
+        eb = ebufs[at * W * CB: (at + NC) * W * CB].view(NC, W, CB)
+        ep = eptrs[at * W: (at + NC) * W].view(NC, W)
+        at += NC
+        d = descs[b]
+        d.idx_c, d.bit_c = idx_c.data_ptr(), bit_c.data_ptr()
+        d.table = None if table is None else table[b].data_ptr()
+        d.ebufs, d.eptrs, d.low = eb.data_ptr(), ep.data_ptr(), \
+            low[b].data_ptr()
+        d.emax, d.NC = emax[b:].data_ptr(), NC
+        outs.append((eb, ep, low[b], emax[b]))
     err = lib.lane_encode(
-        idx_c.data_ptr(), bit_c.data_ptr(), NC, KD, W,
-        None if table is None else table.data_ptr(), geom.table_size,
-        geom.sac_base, geom.rate, getattr(geom, "rate_lo", 0), vcap, smem,
-        CB, ebufs.data_ptr(), eptrs.data_ptr(), low.data_ptr(),
-        emax.data_ptr(), _cuda.stream_ptr(idx_c))
-    _cuda.launches["lane_encode"] += 1
+        ctypes.addressof(descs), B, KD, W, geom.table_size, geom.sac_base,
+        geom.rate, getattr(geom, "rate_lo", 0), vcap, smem, CB,
+        _cuda.stream_ptr(ebufs))
+    _cuda.count("lane_encode", B)
     _cuda.check(lib, err, "lane_encode")
-    return ebufs, eptrs, low, emax[0]
+    return outs
+
+
+def lane_encode(idx_c: torch.Tensor, bit_c: torch.Tensor, geom, CB: int):
+    """Kernel E on CUDA tensors, its plain version on CPU tensors: the
+    one-block case of lane_encode_blocks."""
+    return lane_encode_blocks([(idx_c, bit_c)], geom, CB)[0]
+
+
+def lane_decode_blocks(items, kind: str, geom) -> list:
+    """Kernel D over a window: ``items`` holds each block's (payload
+    [W, Lb_b] u8, lens [W] int32, acts, poss, resets [Sp_b, W] int32, and
+    for a format-v5 SEQ stream with the match-context family its mflag
+    [Sp_b, W] u8 or None), one W and geometry for all; the flags are
+    given for every block of a launch or for none. acts/poss/resets/mflag
+    may also come as the reference's [NC, 8, W]. Returns each block's
+    symbols [Sp_b, W] u8. One launch (one CTA a block) on CUDA tensors,
+    the plain version on CPU tensors."""
+    if not 1 <= len(items) <= MAX_BLOCKS:
+        raise ValueError(f"one launch codes 1 to {MAX_BLOCKS} blocks, not "
+                         f"{len(items)}")
+    W = items[0][0].shape[0]
+    checked, flagged = [], []
+    for it in items:
+        payload, lens, acts, poss, resets = it[:5]
+        mflag = it[5] if len(it) > 5 else None
+        if payload.dim() != 2 or payload.dtype != torch.uint8:
+            raise ValueError("payload must be [W, Lb] uint8")
+        if payload.shape[0] != W:
+            raise ValueError("every block of a launch has the same lanes")
+        if payload.shape[1] < 1:
+            raise ValueError("payload needs at least one column")
+        if lens.shape != (W,) or lens.dtype != torch.int32:
+            raise ValueError("lens must be [W] int32")
+        acts, poss, resets = (x.reshape(-1, W) for x in (acts, poss, resets))
+        if any(x.dtype != torch.int32 or x.shape != acts.shape
+               for x in (acts, poss, resets)):
+            raise ValueError("acts/poss/resets must be int32 of one shape")
+        if mflag is not None:
+            mflag = mflag.reshape(-1, W)
+            if mflag.dtype != torch.uint8 or mflag.shape != acts.shape:
+                raise ValueError("mflag must be uint8 of the shape of acts")
+        flagged.append(mflag is not None)
+        checked.append((payload, lens, acts, poss, resets, mflag))
+    if any(flagged) and not all(flagged):
+        raise ValueError("the match-span flags come for every block of a "
+                         "launch or for none")
+    dev = _window_device([t for it in checked for t in it if t is not None])
+    if dev.type == "cpu":
+        return lane_decode_blocks_plain(checked, kind, geom)
+    B = len(checked)
+    table, vcap, smem = _kernel_geom(geom, W, dev, B)
+    # the kernel takes the flags only where the geometry has the family
+    family = all(flagged) and kind == "seq" and bool(geom.match_bits)
+    lib = _cuda.load("coder", _SIGS)
+    descs, outs, keep = (_DecDesc * B)(), [], []
+    for b, (payload, lens, acts, poss, resets, mflag) in enumerate(checked):
+        ins = [x.contiguous() for x in (payload, lens, acts, poss, resets)]
+        mflag = mflag.contiguous() if family else None
+        keep += ins + [mflag]
+        syms = torch.empty(acts.shape, dtype=torch.uint8, device=dev)
+        d = descs[b]
+        d.payload, d.lens, d.acts, d.poss, d.resets = (
+            x.data_ptr() for x in ins)
+        d.mflags = None if mflag is None else mflag.data_ptr()
+        d.table = None if table is None else table[b].data_ptr()
+        d.syms, d.Lb, d.Sp = syms.data_ptr(), ins[0].shape[1], acts.shape[0]
+        outs.append(syms)
+    err = lib.lane_decode(
+        ctypes.addressof(descs), B, W, geom.table_size, geom.sac_base,
+        geom.rate, getattr(geom, "rate_lo", 0), vcap, smem, geom.depth,
+        KINDS[kind], geom.num_ctx, *_kind_params(kind, geom), int(family),
+        _cuda.stream_ptr(outs[0]))
+    _cuda.count("lane_decode", B)
+    _cuda.check(lib, err, "lane_decode")
+    return outs
 
 
 def lane_decode(payload: torch.Tensor, lens: torch.Tensor,
                 acts: torch.Tensor, poss: torch.Tensor, resets: torch.Tensor,
                 kind: str, geom, mflag: torch.Tensor | None = None):
-    """Kernel D on CUDA tensors, its plain version on CPU tensors.
-    acts/poss/resets (and mflag, the uint8 match-span flags of a format-v5
-    SEQ stream) may be [Sp, W] or the reference's [NC, 8, W]."""
-    if payload.dim() != 2 or payload.dtype != torch.uint8:
-        raise ValueError("payload must be [W, Lb] uint8")
-    W, Lb = payload.shape
-    if Lb < 1:
-        raise ValueError("payload needs at least one column")
-    if lens.shape != (W,) or lens.dtype != torch.int32:
-        raise ValueError("lens must be [W] int32")
-    acts, poss, resets = (x.reshape(-1, W) for x in (acts, poss, resets))
-    if any(x.dtype != torch.int32 or x.shape != acts.shape
-           for x in (acts, poss, resets)):
-        raise ValueError("acts/poss/resets must be int32 of one shape")
-    ins = [lens, acts, poss, resets]
-    if mflag is not None:
-        mflag = mflag.reshape(-1, W)
-        if mflag.dtype != torch.uint8 or mflag.shape != acts.shape:
-            raise ValueError("mflag must be uint8 of the shape of acts")
-        ins.append(mflag)
-    if any(x.device != payload.device for x in ins):
-        raise ValueError("decode inputs must share a device")
-    if payload.device.type == "cpu":
-        return lane_decode_plain(payload, lens, acts, poss, resets, kind,
-                                 geom, mflag)
-    if payload.device.type != "cuda":
-        raise ValueError(f"unsupported device {payload.device}")
-    dev = payload.device
-    table, vcap, smem = _kernel_geom(geom, W, dev)
-    Sp = acts.shape[0]
-    payload, lens = payload.contiguous(), lens.contiguous()
-    acts, poss, resets = (x.contiguous() for x in (acts, poss, resets))
-    # the kernel takes the flags only where the geometry has the family
-    family = mflag is not None and kind == "seq" and geom.match_bits
-    mflag = mflag.contiguous() if family else None
-    lib = _cuda.load("coder", _SIGS)
-    syms = torch.empty((Sp, W), dtype=torch.uint8, device=dev)
-    k = _kind_params(kind, geom)
-    err = lib.lane_decode(
-        payload.data_ptr(), Lb, lens.data_ptr(), acts.data_ptr(),
-        poss.data_ptr(), resets.data_ptr(),
-        None if mflag is None else mflag.data_ptr(), Sp, W,
-        None if table is None else table.data_ptr(), geom.table_size,
-        geom.sac_base, geom.rate, getattr(geom, "rate_lo", 0), vcap, smem,
-        geom.depth, KINDS[kind], geom.num_ctx, *k, syms.data_ptr(),
-        _cuda.stream_ptr(payload))
-    _cuda.launches["lane_decode"] += 1
-    _cuda.check(lib, err, "lane_decode")
-    return syms
+    """Kernel D on CUDA tensors, its plain version on CPU tensors: the
+    one-block case of lane_decode_blocks. acts/poss/resets (and mflag, the
+    uint8 match-span flags of a format-v5 SEQ stream) may be [Sp, W] or
+    the reference's [NC, 8, W]."""
+    return lane_decode_blocks([(payload, lens, acts, poss, resets, mflag)],
+                              kind, geom)[0]

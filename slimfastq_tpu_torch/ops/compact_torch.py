@@ -14,7 +14,9 @@ launch of Kernel C (csrc/compact.cu) on CUDA tensors, and runs
 ``compact_streams_plain`` on CPU tensors. Both fill one flat byte buffer
 (``FlatLayout``): every stream's rows, then its totals, then the coder
 tails the caller hands in, so one copy takes the whole block to the host.
-``compact_lanes_dev`` is the one-stream case.
+A window of blocks (the small-block window path) hands every stream of
+every block to one launch; ``compact_lanes_dev`` is the one-stream case.
+A launch takes up to MAX_STREAMS streams.
 """
 
 from __future__ import annotations
@@ -26,7 +28,7 @@ import torch
 
 from . import _cuda
 
-MAX_STREAMS = 16  # descriptors a launch: csrc/compact.cu's MAX_STREAMS
+MAX_STREAMS = 256  # descriptors a launch: csrc/compact.cu's MAX_STREAMS
 
 
 class _Desc(ctypes.Structure):
@@ -145,13 +147,14 @@ def compact_streams_plain(streams, tails=None):
 
 
 def compact_streams_dev(streams, tails=None):
-    """Compact a block's streams at once. streams: a list of (ebufs
-    [NC, W, CB] u8, eptrs [NC, W] i32, Bmax), each stream its own NC, W,
-    CB and Bmax; tails: None or one [W] int32 tensor a stream (the coder
+    """Compact a block's (or a window's) streams at once. streams: a list
+    of (ebufs [NC, W, CB] u8, eptrs [NC, W] i32, Bmax), each stream its
+    own NC, W, CB and Bmax; tails: None or one [W] int32 tensor a stream (the coder
     tails), carried into the flat buffer. Returns (flat u8, FlatLayout);
     ``layout.views(flat)`` gives each stream's (payload [W, Bmax],
     totals [W], tail). On CUDA tensors: one launch of Kernel C (CB must
-    be a multiple of 16); on CPU tensors: compact_streams_plain."""
+    be a multiple of 16), counted as ``compact_lanes_dev``; on CPU
+    tensors: compact_streams_plain."""
     dev, layout = _check(streams, tails)
     if dev.type == "cpu":
         return compact_streams_plain(streams, tails)
@@ -176,7 +179,7 @@ def compact_streams_dev(streams, tails=None):
     lib = _cuda.load("compact", _SIGS)
     err = lib.compact_streams(ctypes.addressof(descs), len(streams),
                               _cuda.stream_ptr(flat))
-    _cuda.launches["compact_lanes_dev"] += 1
+    _cuda.count("compact_lanes_dev", len(streams))
     _cuda.check(lib, err, "compact_streams")
     return flat, layout
 

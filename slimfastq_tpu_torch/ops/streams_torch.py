@@ -12,11 +12,20 @@ Byte-identical to the JAX package and its NumPy oracle. Per stream:
   -> the lanes' flush bytes appended there (native.flush_append).
 * decode: acts/pos/reset derived as whole-array ops -> Kernel D.
 
-A block's streams are coded at once: ``encode_block`` launches Kernel E
-of every stream on its own CUDA stream (``StreamSet``) and reads all the
-overflow checks back in one synchronisation; ``StreamSet.decode`` does the
-same for Kernel D, each stream's symbols read back when its caller needs
-them.
+A window of blocks' streams is coded at once: ``encode_window`` launches
+Kernel E once per stream (and geometry) over the window's blocks, each
+launch on its own CUDA stream (``StreamSet``), reads all the overflow
+checks back in one synchronisation, compacts every block's streams in one
+Kernel C launch and brings them to the host in one copy; ``encode_block``
+is its one-block case. ``StreamSet.decode_blocks`` does the same for
+Kernel D, each block's symbols read back when its caller needs them.
+
+The ``*_blocks`` entry points (``encode_stream_blocks``,
+``encode_seq_qual_raw_blocks``, ``decode_stream_blocks``,
+``decode_seq_qual_raw_blocks``) are the batched multi-block surface of
+the JAX package's streams_jax (its vmapped parallel/mesh.py kernels with
+mesh=None): per block, the outputs of the one-block entries. Blocks need
+not share a length: each block's CTA runs its own step count.
 
 ``encode_stream``/``decode_stream`` serve any kind with host-supplied
 pos/reset (the main path sends the aux kinds ``byte`` and ``flag``);
@@ -38,6 +47,7 @@ import numpy as np
 import torch
 
 from .. import native
+from ..pipeline import _lane_lengths_matrix
 from ..utils.stats import trace
 from . import coder_torch, compact_torch, pack_torch
 from .coder_torch import CHUNK_SYMS, _qdelta_code
@@ -188,6 +198,14 @@ def _flush_append(pay: np.ndarray, totals: np.ndarray, low: np.ndarray,
 _POOL: dict[int, list] = {}  # device index -> side CUDA streams
 
 
+def _tensors(out) -> list:
+    """The tensors of a launch's output (a tensor, or tuples and lists of
+    them)."""
+    if isinstance(out, torch.Tensor):
+        return [out]
+    return [t for x in out for t in _tensors(x)]
+
+
 class StreamSet:
     """A block's coder launches, each on its own CUDA stream from a
     per-device pool, so the block costs its longest chain and not the sum
@@ -215,7 +233,7 @@ class StreamSet:
     def launch(self, fn, *inputs, after=None):
         """fn() on the next stream of the pool, or behind the work of
         ``after``, a stream an earlier launch returned; returns its output
-        (a tensor or a tuple of them) and the stream."""
+        (a tensor, or tuples and lists of them) and the stream."""
         s = after or self._next()
         if s is None:
             return fn(), None
@@ -224,7 +242,7 @@ class StreamSet:
             out = fn()
         for t in inputs:
             t.record_stream(s)
-        self.outputs.extend(out if isinstance(out, tuple) else (out,))
+        self.outputs.extend(_tensors(out))
         return out, s
 
     def join(self) -> None:
@@ -243,25 +261,41 @@ class StreamSet:
                reset: np.ndarray | None = None) -> None:
         """Launch Kernel D on one host-modelled stream; ``symbols(name)``
         reads it back."""
-        W = payload.shape[0]
-        counts = np.asarray(counts)
-        Sp = pad_steps(num_steps)
-        if Sp == 0 or not (counts > 0).any():
-            self.decoded[name] = (None, None, num_steps, W)
-            return
-        dev = self.dev
-        args = (_payload_tensor(payload, dev), _to(lens, dev, torch.int32),
-                _acts(_to(counts, dev, torch.int32), Sp),
-                _pad2(pos, Sp, W, dev), _pad2(reset, Sp, W, dev))
-        with trace(f"sfq.decode.{name}.coder"):
-            syms, s = self.launch(lambda: coder_torch.lane_decode(
-                *args, kind, geom), *args)
-        self.decoded[name] = (syms, s, num_steps, W)
+        self.decode_blocks(name, [name], kind, geom,
+                           [(payload, lens, counts, num_steps, pos, reset)])
 
-    def symbols(self, name: str) -> np.ndarray:
-        """[num_steps, W] u8 symbols of a stream launched by ``decode``,
-        waiting for its stream only."""
-        syms, s, S, W = self.decoded[name]
+    def decode_blocks(self, name: str, keys: list, kind: str, geom,
+                      items: list) -> None:
+        """Launch Kernel D once on one host-modelled stream of several
+        blocks, each item a block's (payload, lens, counts, num_steps,
+        pos or None, reset or None); ``symbols(key)`` reads a block's
+        back."""
+        dev, live, args = self.dev, [], []
+        for key, (payload, lens, counts, num_steps, pos, reset) in zip(
+                keys, items):
+            W = payload.shape[0]
+            counts = np.asarray(counts)
+            Sp = pad_steps(num_steps)
+            if Sp == 0 or not (counts > 0).any():
+                self.decoded[key] = (None, None, num_steps, W)
+                continue
+            live.append((key, num_steps, W))
+            args.append((_payload_tensor(payload, dev),
+                         _to(lens, dev, torch.int32),
+                         _acts(_to(counts, dev, torch.int32), Sp),
+                         _pad2(pos, Sp, W, dev), _pad2(reset, Sp, W, dev)))
+        if not live:
+            return
+        with trace(f"sfq.decode.{name}.coder"):
+            syms, s = self.launch(lambda: coder_torch.lane_decode_blocks(
+                args, kind, geom), *_tensors(args))
+        for (key, S, W), sy in zip(live, syms):
+            self.decoded[key] = (sy, s, S, W)
+
+    def symbols(self, key) -> np.ndarray:
+        """[num_steps, W] u8 symbols of a stream launched by ``decode`` or
+        ``decode_blocks``, waiting for its stream only."""
+        syms, s, S, W = self.decoded[key]
         if syms is None:
             return np.zeros((S, W), dtype=np.uint8)
         with torch.cuda.stream(s) if s is not None else nullcontext():
@@ -284,51 +318,87 @@ def stream_schedule(kind: str, geom, syms: np.ndarray, counts: np.ndarray,
                          _to(counts, dev, torch.int32))
 
 
-def encode_block(jobs, device) -> dict:
-    """Code a block's streams at once. ``jobs`` yields (name, kind, geom,
-    idx_c, bit_c, counts) in turn (a generator may build each schedule as
-    it goes; the launches before it run meanwhile). Kernel E of each runs
-    on its own CUDA stream with optimistic chunk buffers; one host
-    synchronisation reads every overflow check and compacted size; a
-    stream whose chunk overflowed is rerun with hard buffers; then one
-    Kernel C launch compacts every stream, one copy brings the payloads,
+def by_geom(name: str, kind: str, entries) -> list:
+    """One stream of a window's blocks as encode_window groups: entries
+    (block, geom, idx_c, bit_c, counts) split by geometry (a Kernel E
+    launch takes one), in the order the geometries first come."""
+    groups: dict = {}
+    for b, geom, idx_c, bit_c, counts in entries:
+        groups.setdefault(geom, []).append((b, idx_c, bit_c, counts))
+    return [(name, kind, geom, members) for geom, members in groups.items()]
+
+
+def _heads(outs) -> list:
+    """[(emax, longest lane total)] of Kernel E outputs, one
+    synchronisation."""
+    return torch.stack([torch.stack([o[3], o[1].sum(dim=0).max()])
+                        for o in outs]).cpu().tolist()
+
+
+def encode_window(groups, device) -> dict:
+    """Code a window of blocks' streams at once. ``groups`` yields (name,
+    kind, geom, members), members a list of (block, idx_c, bit_c, counts
+    [W]) of the blocks whose stream codes a step (a generator may build
+    each group's schedules as it goes; the launches before it run
+    meanwhile). Kernel E runs once a group, over its blocks, on its own
+    CUDA stream with optimistic chunk buffers; one host synchronisation
+    reads every block's overflow check and longest lane; the blocks whose
+    chunk overflowed are rerun with hard buffers (the others keep their
+    bytes, which do not depend on the buffer size); then one Kernel C
+    launch compacts every block's streams, one copy brings the payloads,
     totals and coder tails to the host, and the flush bytes are appended
-    there. Returns {name: (payload [W, maxlen] u8, lens [W] int64)}."""
+    there. Returns {(block, name): (payload [W, maxlen] u8, lens [W]
+    int64)}."""
     ss = StreamSet(device)
-    todo, outs = [], []
-    for name, kind, geom, idx_c, bit_c, counts in jobs:
+    todo = []
+    for name, _kind, geom, members in groups:
         CB = _chunk_bytes(geom.depth, hard=False)
+        scheds = [(m[1], m[2]) for m in members]
         with trace(f"sfq.encode.{name}.coder"):
-            out, _ = ss.launch(lambda: coder_torch.lane_encode(
-                idx_c, bit_c, geom, CB), idx_c, bit_c)
-        todo.append((name, geom, idx_c, bit_c, counts, CB))
-        outs.append(out)
+            outs, _ = ss.launch(lambda: coder_torch.lane_encode_blocks(
+                scheds, geom, CB), *_tensors(scheds))
+        todo.append((name, geom, members, outs))
     if not todo:
         return {}
     ss.join()
-    # one synchronisation: each stream's emax and longest lane total
-    head = torch.stack([torch.stack([out[3], out[1].sum(dim=0).max()])
-                        for out in outs]).cpu().tolist()
-    streams = []
-    for k, ((name, geom, idx_c, bit_c, _, CB), (emax, tmax)) in enumerate(
-            zip(todo, head)):
-        if emax > CB:  # rare: rerun with the worst-case chunk size
+    heads = iter(_heads([o for *_, outs in todo for o in outs]))
+    streams, tails, keys = [], [], []
+    for name, geom, members, outs in todo:
+        head = [next(heads) for _ in outs]
+        CB = _chunk_bytes(geom.depth, hard=False)
+        over = [i for i, (emax, _) in enumerate(head) if emax > CB]
+        if over:  # rare: rerun with the worst-case chunk size
             CB = _chunk_bytes(geom.depth, hard=True)
             with trace(f"sfq.encode.{name}.coder"):
-                outs[k] = coder_torch.lane_encode(idx_c, bit_c, geom, CB)
-            if int(outs[k][3]) > CB:
-                raise AssertionError("encode chunk overflow even with hard "
-                                     "buffers")
-            tmax = int(outs[k][1].sum(dim=0).max())
-        streams.append((outs[k][0], outs[k][1], max(tmax, 1)))
+                redo = coder_torch.lane_encode_blocks(
+                    [members[i][1:3] for i in over], geom, CB)
+            for i, o, h in zip(over, redo, _heads(redo)):
+                if h[0] > CB:
+                    raise AssertionError("encode chunk overflow even with "
+                                         "hard buffers")
+                outs[i], head[i] = o, h
+        for (b, _, _, counts), o, (_, tmax) in zip(members, outs, head):
+            streams.append((o[0], o[1], max(tmax, 1)))
+            tails.append(o[2])
+            keys.append((b, name, counts))
     with trace("sfq.encode.compact"):
-        flat, layout = compact_torch.compact_streams_dev(
-            streams, [out[2] for out in outs])
+        flat, layout = compact_torch.compact_streams_dev(streams, tails)
         host = _to_host(flat)
-    return {job[0]: _flush_append(pay.numpy(), tot.numpy(),
-                                  low.numpy().view(np.uint32),
-                                  np.asarray(job[4]))
-            for job, (pay, tot, low) in zip(todo, layout.views(host))}
+    return {(b, name): _flush_append(pay.numpy(), tot.numpy(),
+                                     low.numpy().view(np.uint32),
+                                     np.asarray(counts))
+            for (b, name, counts), (pay, tot, low) in zip(
+                keys, layout.views(host))}
+
+
+def encode_block(jobs, device) -> dict:
+    """Code a block's streams at once: encode_window's one-block case.
+    ``jobs`` yields (name, kind, geom, idx_c, bit_c, counts) in turn.
+    Returns {name: (payload [W, maxlen] u8, lens [W] int64)}."""
+    coded = encode_window(
+        ((name, kind, geom, [(0, idx_c, bit_c, counts)])
+         for name, kind, geom, idx_c, bit_c, counts in jobs), device)
+    return {name: v for (_, name), v in coded.items()}
 
 
 def _to_host(flat: torch.Tensor) -> torch.Tensor:
@@ -447,6 +517,26 @@ def seq_qual_jobs(seq_geom, qual_geom, data: np.ndarray,
         del syms, mflag, idx_c, bit_c
 
 
+def seq_qual_groups(blocks, device, only: tuple = ("SEQ", "QUAL"),
+                    rename: dict | None = None):
+    """SEQ and QUAL of a window's blocks as encode_window groups: QUAL
+    over every block, then SEQ (each split by geometry). ``blocks``:
+    (block, the arguments of seq_qual_jobs up to the device, seq_mflag or
+    None); every block's lane pack runs as the group that first needs it
+    is built. ``rename`` maps a stream's name to its group's (a match
+    trial's SEQ@t)."""
+    gens = [(b, args[-1], seq_qual_jobs(*args, device, mflag, only))
+            for b, args, mflag in blocks]
+    for _ in only:
+        jobs = [(b, counts, next(gen)) for b, counts, gen in gens]
+        if not jobs:
+            return
+        j0 = jobs[0][2]
+        yield from by_geom((rename or {}).get(j0.name, j0.name), j0.kind,
+                           [(b, j.geom, j.idx_c, j.bit_c, counts)
+                            for b, counts, j in jobs])
+
+
 def encode_seq_qual_raw(seq_geom, qual_geom, data: np.ndarray,
                         seq_offs: np.ndarray, qual_offs: np.ndarray,
                         lengths: np.ndarray, W: int, seq_map: np.ndarray,
@@ -479,39 +569,138 @@ def decode_seq_qual_raw(seq_geom, qual_geom,
                         seq_mflag=None):
     """Decode SEQ and QUAL and unpack them on the device straight to
     record-major flat byte buffers (seq through seq_map, qual + bias).
-    Returns (seq_bytes, qual_bytes) of length ``total``. With
-    ``streams``, the two decodes join that block's other launches: on
-    return the calling stream waits for all of them. seq_mflag: for a
-    format-v5 block whose SEQ is e-transformed, a function that returns
-    its [S, W] match-span flags, called once QUAL's decode is launched."""
-    W = seq_payload.shape[0]
-    counts = np.asarray(counts)
-    Sp = pad_steps(S)
-    ss = streams or StreamSet(device)
-    if Sp == 0 or not (counts > 0).any() or total == 0:
-        return (np.zeros(total, dtype=np.uint8),
-                np.zeros(total, dtype=np.uint8))
+    Returns (seq_bytes, qual_bytes) of length ``total``. S is the steps,
+    counts.max() (the reference's signature). With ``streams``, the two
+    decodes join that block's other launches: on return the calling
+    stream waits for all of them. seq_mflag: for a format-v5 block whose
+    SEQ is e-transformed, a function that returns its [S, W] match-span
+    flags, called once QUAL's decode is launched. The one-block case of
+    decode_seq_qual_raw_blocks."""
+    return decode_seq_qual_raw_blocks(
+        [seq_geom], [seq_payload], [seq_lens], [qual_payload], [qual_lens],
+        [ll_mat], [counts], [rec_starts], [lengths], [total], [qual_geom],
+        [qual_bias], seq_map, device, streams, [seq_mflag])[0]
+
+
+def decode_seq_qual_raw_blocks(sgeoms, pay_s, lens_s, pay_q, lens_q,
+                               ll_list, counts_list, starts_list,
+                               lengths_list, totals, qgeoms, minqs,
+                               seq_map: np.ndarray, device,
+                               streams: StreamSet | None = None,
+                               seq_mflags=None) -> list:
+    """SEQ and QUAL of a window's blocks (per block as
+    decode_seq_qual_raw): Kernel D once for QUAL and once for SEQ over
+    the blocks, split only where the launch needs one value (the
+    geometry; for SEQ also whether the block's match-span flags select
+    the match family). seq_mflags: None or per block None or a function
+    that returns its flags, called once every QUAL decode is launched.
+    Returns per block (seq_bytes, qual_bytes)."""
     dev = torch.device(device)
-    pos, reset = _pos_reset(_lane_lens(ll_mat, W, dev), Sp, S, W)
-    acts = _acts(_to(counts, dev, torch.int32), Sp)
+    ss = streams or StreamSet(device)
+    out: list = [None] * len(pay_s)
+    live = {}
+    for b, counts in enumerate(counts_list):
+        counts, total = np.asarray(counts), int(totals[b])
+        S = int(counts.max()) if counts.size else 0
+        Sp = pad_steps(S)
+        if Sp == 0 or not (counts > 0).any() or total == 0:
+            out[b] = (np.zeros(total, dtype=np.uint8),
+                      np.zeros(total, dtype=np.uint8))
+            continue
+        W = pay_s[b].shape[0]
+        pos, reset = _pos_reset(_lane_lens(ll_list[b], W, dev), Sp, S, W)
+        live[b] = (Sp, W, _acts(_to(counts, dev, torch.int32), Sp), pos,
+                   reset)
     dec = {}
-    for name, kind, geom, payload, lens in (
-            ("QUAL", "qual", qual_geom, qual_payload, qual_lens),
-            ("SEQ", "seq", seq_geom, seq_payload, seq_lens)):
-        args = (_payload_tensor(payload, dev), _to(lens, dev, torch.int32),
-                acts, pos, reset)
-        mflag = None
-        if name == "SEQ" and seq_mflag is not None:
-            mf = seq_mflag()
-            mflag = torch.zeros((Sp, W), dtype=torch.uint8, device=dev)
-            mflag[: mf.shape[0]] = _to(mf, dev)
-            args += (mflag,)
-        with trace(f"sfq.decode.{name}.coder"):
-            dec[name], _ = ss.launch(lambda: coder_torch.lane_decode(
-                *args[:5], kind, geom, mflag=mflag), *args)
+    for name, kind, geoms, pays, lenses in (
+            ("QUAL", "qual", qgeoms, pay_q, lens_q),
+            ("SEQ", "seq", sgeoms, pay_s, lens_s)):
+        groups: dict = {}
+        for b, (Sp, W, acts, pos, reset) in live.items():
+            item = (_payload_tensor(pays[b], dev),
+                    _to(lenses[b], dev, torch.int32), acts, pos, reset)
+            if name == "SEQ" and seq_mflags and seq_mflags[b] is not None:
+                mf = seq_mflags[b]()
+                mflag = torch.zeros((Sp, W), dtype=torch.uint8, device=dev)
+                mflag[: mf.shape[0]] = _to(mf, dev)
+                item += (mflag,)
+            groups.setdefault((geoms[b], len(item)), []).append((b, item))
+        for (geom, _), members in groups.items():
+            items = [item for _, item in members]
+            with trace(f"sfq.decode.{name}.coder"):
+                syms, _ = ss.launch(lambda: coder_torch.lane_decode_blocks(
+                    items, kind, geom), *_tensors(items))
+            for (b, _), sy in zip(members, syms):
+                dec[b, name] = sy
     ss.join()
-    with trace("sfq.decode.unpack_pair"):
-        seq_flat, qual_flat = pack_torch.unpack_pair(
-            dec["SEQ"], dec["QUAL"], rec_starts, lengths, W, total, seq_map,
-            qual_bias)
-    return (seq_flat[:total].cpu().numpy(), qual_flat[:total].cpu().numpy())
+    for b, (_, W, *_rest) in live.items():
+        total = int(totals[b])
+        with trace("sfq.decode.unpack_pair"):
+            seq_flat, qual_flat = pack_torch.unpack_pair(
+                dec[b, "SEQ"], dec[b, "QUAL"], starts_list[b],
+                lengths_list[b], W, total, seq_map, minqs[b])
+        out[b] = (seq_flat[:total].cpu().numpy(),
+                  qual_flat[:total].cpu().numpy())
+    return out
+
+
+# ---------------------------------------------------------------------------
+# the batched multi-block surface (streams_jax.*_blocks)
+# ---------------------------------------------------------------------------
+
+def encode_stream_blocks(kind: str, geom, syms_list, counts_list, device,
+                         pos_list=None, reset_list=None) -> list:
+    """Many blocks' worth of one host-modelled stream: one Kernel E launch
+    over the blocks that code a step. Returns per block (payload, lens),
+    as encode_stream gives them."""
+    entries = []
+    for b, syms in enumerate(syms_list):
+        sched = stream_schedule(
+            kind, geom, syms, counts_list[b], device,
+            None if pos_list is None else pos_list[b],
+            None if reset_list is None else reset_list[b])
+        if sched is not None:
+            entries.append((b, geom, *sched, np.asarray(counts_list[b])))
+    coded = encode_window(by_geom(kind, kind, entries), device)
+    return [coded.get((b, kind)) or _empty_encode(syms.shape[1])
+            for b, syms in enumerate(syms_list)]
+
+
+def encode_seq_qual_raw_blocks(sgeoms, raw_list, counts_list, qgeoms,
+                               minqs, seq_map: np.ndarray,
+                               device) -> list:
+    """SEQ and QUAL of many blocks from their raw bytes: raw_list[b] =
+    (raw bytes zero-padded to a pack_torch.pad_flat length, seq offsets,
+    qual offsets, lengths) as pipeline_native.prepare_block_fast makes
+    them; sgeoms[b] is the block's effective SEQ geometry. One Kernel E
+    launch for QUAL and one for SEQ over the blocks that hold bases (more
+    where their geometries differ). Returns per block {"SEQ": (payload,
+    lens), "QUAL": ...}, as encode_seq_qual_raw gives them."""
+    W = len(counts_list[0]) if len(counts_list) else 0
+    blocks = []
+    for b, ((dpad, soffs, qoffs, lengths), counts) in enumerate(
+            zip(raw_list, counts_list)):
+        counts = np.asarray(counts)
+        if (counts > 0).any():
+            blocks.append((b, (sgeoms[b], qgeoms[b], dpad, soffs, qoffs,
+                               lengths, W, seq_map, minqs[b],
+                               _lane_lengths_matrix(lengths, W), counts),
+                           None))
+    coded = encode_window(seq_qual_groups(blocks, device), device)
+    return [{name: coded.get((b, name)) or _empty_encode(W)
+             for name in ("SEQ", "QUAL")} for b in range(len(raw_list))]
+
+
+def decode_stream_blocks(kind: str, geom, payload_list, lens_list,
+                         counts_list, steps_list, device, pos_list=None,
+                         reset_list=None) -> list:
+    """Many blocks of one host-modelled stream: one Kernel D launch over
+    the blocks that code a step. Returns per block its [steps, W] u8
+    symbols, as decode_stream gives them."""
+    ss = StreamSet(device)
+    keys = list(range(len(payload_list)))
+    ss.decode_blocks(kind, keys, kind, geom, [
+        (payload_list[b], lens_list[b], counts_list[b], steps_list[b],
+         None if pos_list is None else pos_list[b],
+         None if reset_list is None else reset_list[b]) for b in keys])
+    return [ss.symbols(b) for b in keys]

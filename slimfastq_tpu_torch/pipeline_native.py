@@ -8,6 +8,11 @@ bytes cross to the device once and the lane pack/unpack happens there; the
 aux streams (LEN, FLAG, IDD, IDX, SEQX and a v5 block's MATCH) are
 modelled on the host and coded on the device.
 
+A window of blocks (the small-block path: ``encode_prepared_blocks``,
+``decode_blocks_device``) is coded together: each stream's Kernel E or D
+launch takes every block of the window; the one-block entries are its
+one-block case.
+
 Format v5 long-range matches (level 4): the host matcher finds each read's
 reference read; per threshold of matcher.THRESHOLDS a trial rewrites the
 matched spans with e-transform letters and codes SEQ again with the
@@ -21,6 +26,7 @@ offsets are int32; the reference packs those on the host).
 from __future__ import annotations
 
 from dataclasses import replace
+from functools import partial
 
 import numpy as np
 
@@ -255,35 +261,54 @@ def _empty_stream(counts) -> EncodedStream:
                          np.zeros((len(c64), 0), dtype=np.uint8))
 
 
-def _coder_jobs(pre, cfg: CodecConfig, device):
-    """Every coded stream's (name, kind, geom, idx_c, bit_c, counts), its
-    schedule built on the device as the caller asks for it: QUAL and SEQ
-    first, the longest chains, then each match trial's SEQ and MATCH
-    (named SEQ@t and MATCH@t for its threshold t), then the aux streams."""
-    jobs, _, _, _, _, raw_args, v5 = pre
-    scounts = jobs["SEQ"][3]
-    if raw_args is not None and (scounts > 0).any():
-        for job in streams_torch.seq_qual_jobs(*seq_qual_args(pre, cfg),
-                                               device):
-            yield (job.name, job.kind, job.geom, job.idx_c, job.bit_c,
-                   scounts)
-        for t, alt, msyms, mcounts, mflag in (v5 or {}).get("trials", ()):
-            job = next(streams_torch.seq_qual_jobs(
-                *seq_qual_args(pre, cfg, alt), device, mflag, ("SEQ",)))
-            yield (f"SEQ@{t}", "seq", job.geom, job.idx_c, job.bit_c,
-                   scounts)
+def _window_jobs(pres, cfg: CodecConfig, device):
+    """Every coded stream of a window of prepared blocks as
+    streams_torch.encode_window groups, one Kernel E launch each, its
+    schedules built on the device as the caller asks for them: QUAL and
+    SEQ first, the longest chains, over the blocks that hold bases; then
+    per threshold each match trial's SEQ and MATCH (named SEQ@t and
+    MATCH@t) over the blocks with that trial; then each aux stream over
+    the blocks where it codes a step."""
+    raw = [b for b, pre in enumerate(pres)
+           if pre[5] is not None and (pre[0]["SEQ"][3] > 0).any()]
+    yield from streams_torch.seq_qual_groups(
+        [(b, seq_qual_args(pres[b], cfg), None) for b in raw], device)
+    for t in M.THRESHOLDS:
+        trials = [(b, tr) for b in raw
+                  for tr in (pres[b][6] or {}).get("trials", ())
+                  if tr[0] == t]
+        yield from streams_torch.seq_qual_groups(
+            [(b, seq_qual_args(pres[b], cfg, alt), mflag)
+             for b, (_, alt, _, _, mflag) in trials], device, ("SEQ",),
+            {"SEQ": f"SEQ@{t}"})
+        entries = []
+        for b, (_, _, msyms, mcounts, _) in trials:
             sched = streams_torch.stream_schedule("byte", cfg.bytes_, msyms,
                                                   mcounts, device)
             if sched is not None:
-                yield (f"MATCH@{t}", "byte", cfg.bytes_, *sched, mcounts)
+                entries.append((b, cfg.bytes_, *sched, mcounts))
+        yield from streams_torch.by_geom(f"MATCH@{t}", "byte", entries)
     for name in streams_for(cfg.fmt):
-        kind, geom, syms, counts, _pos, _reset = jobs[name]
-        if name in ("SEQ", "QUAL") or syms.shape[0] == 0:
-            continue  # SEQ/QUAL above; an all-empty stream codes nothing
-        sched = streams_torch.stream_schedule(kind, geom, syms, counts,
-                                              device)
-        if sched is not None:
-            yield (name, kind, geom, *sched, counts)
+        if name in ("SEQ", "QUAL"):
+            continue  # SEQ/QUAL above
+        entries = []
+        for b, pre in enumerate(pres):
+            kind, geom, syms, counts, _pos, _reset = pre[0][name]
+            if syms.shape[0] == 0:
+                continue  # an all-empty stream codes nothing
+            sched = streams_torch.stream_schedule(kind, geom, syms, counts,
+                                                  device)
+            if sched is not None:
+                entries.append((b, geom, *sched, counts))
+        yield from streams_torch.by_geom(name, pres[0][0][name][0], entries)
+
+
+def _coder_jobs(pre, cfg: CodecConfig, device):
+    """Every coded stream of one prepared block as (name, kind, geom,
+    idx_c, bit_c, counts), in _window_jobs' order."""
+    for name, kind, geom, members in _window_jobs([pre], cfg, device):
+        (_, idx_c, bit_c, counts), = members
+        yield name, kind, geom, idx_c, bit_c, counts
 
 
 def _coded_stream(coded: dict, name: str, counts) -> EncodedStream:
@@ -293,15 +318,31 @@ def _coded_stream(coded: dict, name: str, counts) -> EncodedStream:
     return EncodedStream(np.asarray(counts).astype(np.int64), lens, payload)
 
 
+def encode_prepared_blocks(pres, cfg: CodecConfig, device) -> list:
+    """Device half of a window's encode: code every stream of the
+    prepared blocks on ``device``, each stream once over the window
+    (streams_torch.encode_window), and assemble each EncodedBlock. A v5
+    block's match trials are coded beside the rest; the smallest SEQ +
+    MATCH total wins, the plain SEQ first and then the trials in
+    threshold order, a trial only when strictly smaller (flags bit0
+    records the choice). Every block's bytes are those of the block
+    coded alone."""
+    coded = streams_torch.encode_window(_window_jobs(pres, cfg, device),
+                                        device)
+    per = [{} for _ in pres]
+    for (b, name), v in coded.items():
+        per[b][name] = v
+    return [_assemble(pre, per[b], cfg) for b, pre in enumerate(pres)]
+
+
 def encode_prepared_block(pre, cfg: CodecConfig, device) -> EncodedBlock:
-    """Device half of a block encode: code every stream of a prepared
-    block on ``device``, all at once (streams_torch.encode_block), and
-    assemble the EncodedBlock. A v5 block's match trials are coded beside
-    the rest; the smallest SEQ + MATCH total wins, the plain SEQ first and
-    then the trials in threshold order, a trial only when strictly
-    smaller (flags bit0 records the choice)."""
-    jobs, n, minq, qual_depth, ll_mat, raw_args, v5 = pre
-    coded = streams_torch.encode_block(_coder_jobs(pre, cfg, device), device)
+    """Device half of a block encode: encode_prepared_blocks' one-block
+    case."""
+    return encode_prepared_blocks([pre], cfg, device)[0]
+
+
+def _assemble(pre, coded: dict, cfg: CodecConfig) -> EncodedBlock:
+    jobs, n, minq, qual_depth, _, _, v5 = pre
     streams = {name: _coded_stream(coded, name, jobs[name][3])
                for name in streams_for(cfg.fmt)}
     flags = 0
@@ -321,41 +362,51 @@ def encode_prepared_block(pre, cfg: CodecConfig, device) -> EncodedBlock:
                         seq_order=(v5 or {}).get("seq_order", 0))
 
 
-def decode_block_device(blk: EncodedBlock, cfg: CodecConfig, device):
-    """Device half of a block decode: entropy-decode all streams on
-    ``device`` and lane-unpack SEQ/QUAL to record-major byte buffers.
-    Returns an opaque intermediate for decode_block_finish (the host
-    half: ID chain decode, v5 match reconstruction, SEQX patch, FASTQ
-    assembly)."""
-    n = blk.num_records
-    W, Wa = cfg.lanes, cfg.aux_lanes
-    if n == 0:
-        return None
+def _aux_streams(cfg: CodecConfig) -> tuple:
+    """(name, kind, geom) of the streams a block decodes on the host's
+    behalf before SEQ and QUAL (MATCH only where MATCH_USED is set)."""
+    return (("LEN", "byte", cfg.bytes_), ("FLAG", "flag", cfg.flags),
+            ("IDD", "byte", cfg.bytes_), ("IDX", "byte", cfg.bytes_),
+            ("SEQX", "byte", cfg.bytes_), ("MATCH", "byte", cfg.bytes_))
 
-    # every stream's decode on its own CUDA stream: the aux streams first,
-    # then QUAL once LEN's lengths give its pos/reset, and SEQ once the
-    # MATCH stream of a block with MATCH_USED gives its match-span flags
+
+def decode_blocks_device(blocks, cfg: CodecConfig, device) -> list:
+    """Device half of a window's decode: entropy-decode every stream of
+    the blocks on ``device``, each stream with one Kernel D launch over
+    the window, and lane-unpack SEQ/QUAL to record-major byte buffers.
+    Returns per block an opaque intermediate for decode_block_finish (the
+    host half: ID chain decode, v5 match reconstruction, SEQX patch,
+    FASTQ assembly), None for a block without records."""
+    W, Wa = cfg.lanes, cfg.aux_lanes
+    live = [b for b, blk in enumerate(blocks) if blk.num_records]
+    match_used = {b: cfg.fmt >= 5 and bool(blocks[b].flags & MATCH_USED)
+                  for b in live}
+
+    # 1. the aux halves: every aux stream of the window's blocks in one
+    # launch on its own CUDA stream; then QUAL once LEN's lengths give its
+    # pos/reset, and SEQ once the MATCH stream of a block with MATCH_USED
+    # gives its match-span flags
     ss = streams_torch.StreamSet(device)
     counts = {}
-    rec_per_lane = (n - np.arange(Wa) + Wa - 1) // Wa
-    aux = [("LEN", "byte", cfg.bytes_, None),
-           ("FLAG", "flag", cfg.flags, 3 * rec_per_lane),
-           ("IDD", "byte", cfg.bytes_, None),
-           ("IDX", "byte", cfg.bytes_, None),
-           ("SEQX", "byte", cfg.bytes_, None)]
-    match_used = cfg.fmt >= 5 and bool(blk.flags & MATCH_USED)
-    if match_used:
-        aux.append(("MATCH", "byte", cfg.bytes_, None))
-    for name, kind, geom, c in aux:
-        es = blk.streams[name]
-        c = es.sym_counts if c is None else c
-        counts[name] = c
-        ss.decode(name, kind, geom, es.payload, es.lane_lens, c,
-                  int(np.asarray(c).max()) if len(c) else 0)
+    for name, kind, geom in _aux_streams(cfg):
+        keys, items = [], []
+        for b in live:
+            if name == "MATCH" and not match_used[b]:
+                continue
+            n, es = blocks[b].num_records, blocks[b].streams[name]
+            c = (3 * ((n - np.arange(Wa) + Wa - 1) // Wa) if name == "FLAG"
+                 else es.sym_counts)
+            counts[b, name] = c
+            keys.append((b, name))
+            items.append((es.payload, es.lane_lens, c,
+                          int(np.asarray(c).max()) if len(c) else 0, None,
+                          None))
+        if keys:
+            ss.decode_blocks(name, keys, kind, geom, items)
 
-    def lanes(name):
-        c = counts[name]
-        syms = ss.symbols(name)
+    def lanes(b, name):
+        c = counts[b, name]
+        syms = ss.symbols((b, name))
         if syms.size:  # one blocked transpose, then zero-copy row views
             rows = native.transpose_mat(np.ascontiguousarray(syms))
             return [rows[w, : c[w]] for w in range(len(c))]
@@ -363,52 +414,70 @@ def decode_block_device(blk: EncodedBlock, cfg: CodecConfig, device):
 
     prev_step = Wa if cfg.fmt >= 3 else 1  # delta baseline (frozen/fmt)
 
-    # 1. lengths (waits for LEN's stream only)
-    lengths = native.lens_decode(lanes("LEN"), n, Wa, prev_step)
+    # 2. lengths (each waits for LEN's stream only)
+    lengths = {b: native.lens_decode(lanes(b, "LEN"), blocks[b].num_records,
+                                     Wa, prev_step) for b in live}
 
-    # 2. seq + qual -> record-major flat byte buffers; on return every
-    # stream of the block has been decoded
-    seq_s = blk.streams["SEQ"]
-    qs = blk.streams["QUAL"]
-    qgeom = replace(cfg.qual, depth=blk.qual_depth,
-                    delta_bits=0 if (blk.flags & QUAL_NODELTA)
-                    else cfg.qual.delta_bits)
-    sgeom = (replace(cfg.seq, order=blk.seq_order)
-             if (cfg.fmt >= 5 and blk.seq_order) else cfg.seq)
-    rec_starts = np.zeros(n, dtype=np.int64)
-    rec_starts[1:] = np.cumsum(lengths[:-1])
-    total = int(lengths.sum())
-    if total >= _MAX_SPAN:
-        raise _span_too_large("block sequence data", total)
-    ll_mat = _lane_lengths_matrix(lengths, W)
-    scounts = ll_mat.sum(axis=0)
-    S = int(scounts.max()) if scounts.size else 0
-    m_arr = None
+    # 3. seq + qual -> record-major flat byte buffers; on return every
+    # stream of the window has been decoded
+    m_arrs: dict = {}
+    args, mflags, starts = [], [], []
+    for b in live:
+        blk = blocks[b]
+        n = blk.num_records
+        rec_starts = np.zeros(n, dtype=np.int64)
+        rec_starts[1:] = np.cumsum(lengths[b][:-1])
+        total = int(lengths[b].sum())
+        if total >= _MAX_SPAN:
+            raise _span_too_large("block sequence data", total)
+        ll_mat = _lane_lengths_matrix(lengths[b], W)
+        scounts = ll_mat.sum(axis=0)
+        sgeom = (replace(cfg.seq, order=blk.seq_order)
+                 if (cfg.fmt >= 5 and blk.seq_order) else cfg.seq)
+        qgeom = replace(cfg.qual, depth=blk.qual_depth,
+                        delta_bits=0 if (blk.flags & QUAL_NODELTA)
+                        else cfg.qual.delta_bits)
+        seq_s, qs = blk.streams["SEQ"], blk.streams["QUAL"]
+        # decode_seq_qual_raw_blocks' per-block arguments, in its order
+        args.append((sgeom, seq_s.payload, seq_s.lane_lens, qs.payload,
+                     qs.lane_lens, ll_mat, scounts, rec_starts, lengths[b],
+                     total, qgeom, blk.minq))
+        mflags.append(partial(_seq_mflag, b, lanes, lengths[b], W, Wa,
+                              int(scounts.max()) if scounts.size else 0,
+                              m_arrs) if match_used[b] else None)
+        starts.append(rec_starts)
+    seq_qual = streams_torch.decode_seq_qual_raw_blocks(
+        *(list(col) for col in zip(*args)) if args else [[]] * 12,
+        _CODE_TO_BASE_FULL, device, streams=ss, seq_mflags=mflags)
 
-    def seq_mflag():
-        """The parsed MATCH descriptors (record-sorted recs, refs,
-        orients, vs) -> SEQ's [S, W] match-span flags."""
-        nonlocal m_arr
-        m_lanes = lanes("MATCH")
-        with trace("sfq.decode.match_flags"):
-            m_arr = native.match_parse(m_lanes, Wa, n)
-            los, his = _match_span_bounds(m_arr, lengths)
-            return native.match_mflag(m_arr[0], los, his, lengths, W, S)
-    seq_bytes, qual_bytes = streams_torch.decode_seq_qual_raw(
-        sgeom, qgeom, seq_s.payload, seq_s.lane_lens, qs.payload, qs.lane_lens,
-        ll_mat, scounts, S, rec_starts, lengths, total, _CODE_TO_BASE_FULL,
-        blk.minq, device, streams=ss,
-        seq_mflag=seq_mflag if match_used else None)
+    # 4. flags (implicit counts: 3 per record), back to record order; ID
+    # delta/exception streams (chain decode is in the finish half) and
+    # seq exceptions (parsed + patched in C++ in the finish half)
+    inters: list = [None] * len(blocks)
+    for i, b in enumerate(live):
+        n = blocks[b].num_records
+        flags = native.flags_reorder(np.concatenate(lanes(b, "FLAG")), n, Wa)
+        idd_lanes, idx_lanes, sx_lanes = (lanes(b, k)
+                                          for k in ("IDD", "IDX", "SEQX"))
+        inters[b] = (n, prev_step, lengths[b], flags, idd_lanes, idx_lanes,
+                     sx_lanes, starts[i], *seq_qual[i], m_arrs.get(b))
+    return inters
 
-    # 3. flags (implicit counts: 3 per record), back to record order
-    flags = native.flags_reorder(np.concatenate(lanes("FLAG")), n, Wa)
 
-    # 4. ID delta/exception streams (chain decode is in the finish half)
-    # and seq exceptions (parsed + patched in C++ in the finish half)
-    idd_lanes, idx_lanes, sx_lanes = (lanes(k) for k in ("IDD", "IDX",
-                                                         "SEQX"))
-    return (n, prev_step, lengths, flags, idd_lanes, idx_lanes, sx_lanes,
-            rec_starts, seq_bytes, qual_bytes, m_arr)
+def _seq_mflag(b, lanes, lengths, W: int, Wa: int, S: int, m_arrs: dict):
+    """Block b's parsed MATCH descriptors (record-sorted recs, refs,
+    orients, vs), kept in m_arrs -> its SEQ [S, W] match-span flags."""
+    with trace("sfq.decode.match_flags"):
+        m_arrs[b] = m_arr = native.match_parse(lanes(b, "MATCH"), Wa,
+                                               len(lengths))
+        los, his = _match_span_bounds(m_arr, lengths)
+        return native.match_mflag(m_arr[0], los, his, lengths, W, S)
+
+
+def decode_block_device(blk: EncodedBlock, cfg: CodecConfig, device):
+    """Device half of a block decode: decode_blocks_device's one-block
+    case."""
+    return decode_blocks_device([blk], cfg, device)[0]
 
 
 def decode_block_finish(inter, cfg: CodecConfig) -> memoryview | bytes:

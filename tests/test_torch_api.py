@@ -108,6 +108,19 @@ def test_level4_without_matches():
     assert tapi.decode_fastq(enc_t, device="cpu") == data
 
 
+def test_level4_window_with_match_trials():
+    """Two blocks above MATCH_CHUNK records in one window, so the matcher
+    runs inside it and a block takes a match trial (MATCH_USED): equal to
+    the one-block-at-a-time container (which the tests above hold against
+    the JAX package's); decodes in a window."""
+    data = synth_fastq(2 * 1030, read_len=100, seed=5, n_rate=0.001)
+    kw = dict(level=4, block_records=1030)  # the full width: 1,024 lanes
+    bat = tapi.encode_fastq(data, device="cpu", **kw)
+    assert _block_flags(bat)[0] & MATCH_USED
+    assert bat == tapi.encode_fastq(data, device="cpu", window=1, **kw)
+    assert tapi.decode_fastq(bat, device="cpu") == data
+
+
 def test_cli_round_trip(tmp_path, capsys):
     """The CLI at its default geometry (1024 lanes) on a few reads."""
     data = synth_fastq(12, read_len=30, seed=5)
@@ -123,9 +136,12 @@ def test_cli_round_trip(tmp_path, capsys):
     assert back.read_bytes() == data
     assert tcli.main(["-d", str(out), "-o", str(back), "--device",
                       "cpu"]) == 2  # exists, no -f
-    for flag in ("--streaming", "--sharded", "--resume"):
-        assert tcli.main([str(src), "-o", str(out), flag, "-f"]) == 2
-        assert "not yet ported" in capsys.readouterr().err
+    assert tcli.main([str(src), "-o", str(out), "--sharded", "-f"]) == 2
+    assert "not yet ported" in capsys.readouterr().err
+    assert tcli.main([str(src), "-o", str(out), "--resume", "-f"]) == 2
+    assert "--resume needs --streaming" in capsys.readouterr().err
+    assert tcli.main([str(src), "--streaming", "--device", "cpu"]) == 2
+    assert "-o output" in capsys.readouterr().err
 
 
 def test_encode_decode_file(tmp_path):

@@ -4,8 +4,11 @@ with and without the visit warm-up, at the collision counts where the
 format's count field wraps, and with the level-4 match-context family and
 q1-q2 delta; a block (also a level-4 block with match trials) coded
 with its streams at once against the same block coded one stream at a
-time; and Kernel C's one launch over many streams against its plain
-version and against each stream compacted alone. Marked `cuda`: they
+time; Kernels E and D over a ragged window of blocks against their plain
+versions and against one launch per block; Kernel C's one launch over
+many streams (also a window's 88) against its plain version and against
+each stream compacted alone; and the small-block window path end to end.
+Marked `cuda`: they
 skip without a card. This file imports
 neither JAX nor the JAX package, so it runs on a machine that has only
 PyTorch and a card:
@@ -36,7 +39,7 @@ def dev():
     return torch.device("cuda")
 
 
-def _stream(kind, rng, dev, W, active=None, hi=64, match=False):
+def _stream(kind, rng, dev, W, active=None, hi=64, match=False, Sp=256):
     """(syms, counts, pos, reset, mflag) on the card: reads of 100 symbols
     that all start at step 0 for seq/qual in the first `active` lanes
     (every active lane at one context at each read start; the others
@@ -44,7 +47,6 @@ def _stream(kind, rng, dev, W, active=None, hi=64, match=False):
     lane is flagged over read positions [20, 90), whose symbols are
     e-transform letters (mostly 0) and all 0 at positions 18-23: at the
     span's first steps the active lanes share one match-family entry."""
-    Sp = 256
     if kind in ("seq", "qual"):
         ll = np.full((Sp // 100, W), 100, dtype=np.int64)
         ll[:, W if active is None else active:] = 0
@@ -300,16 +302,140 @@ def test_block_streams_compacted_at_once_equal_alone(dev):
 
 
 def test_main_path_round_trip_on_card(dev):
+    """Blocks coded one at a time (window 1, the 64k-record default's
+    case): the one-block launches only."""
     from slimfastq_tpu_torch import api
     from slimfastq_tpu_torch.ops import _cuda
     from slimfastq_tpu_torch.utils.synth import synth_fastq
     data = synth_fastq(3000, read_len=100, seed=3, var_len=True,
                        n_rate=0.01)
     _cuda.reset_launches()
-    enc = api.encode_fastq(data, block_records=1024)
-    assert api.decode_fastq(enc) == data
+    enc = api.encode_fastq(data, block_records=1024, window=1)
+    assert api.decode_fastq(enc, window=1) == data
     assert api.decode_fastq(enc, device="cpu") == data
-    assert all(v > 0 for v in _cuda.launches.values())
+    assert all(_cuda.launches[k] > 0 for k in _cuda.launches)
+    # every E and D launch carried one block
+    for k in ("lane_encode", "lane_decode"):
+        assert _cuda.descs[k] == _cuda.launches[k]
+
+
+# (level, kind, [(Sp, active lanes)], match-span flags) of ragged windows:
+# blocks of different step counts, one with a single active lane, the
+# level-3 SEQ collision case and level 4's match family
+WINDOWS = {
+    "seq-l3": (3, "seq", [(256, None), (512, 700), (128, 1), (384, None)],
+               False),
+    "qual-l3": (3, "qual", [(304, None), (104, 1), (512, 900)], False),
+    "seq-l4-match": (4, "seq", [(256, None), (400, 700), (200, 1)], True),
+    "byte": (3, "byte", [(256, None), (64, None), (512, None)], False),
+}
+
+
+@pytest.mark.parametrize("case", list(WINDOWS))
+def test_window_kernels_match_plain_and_single(dev, case):
+    """Kernel E and D over a ragged window (one CTA a block, each its own
+    step count and table) against their plain versions and against one
+    launch per block, byte for byte; Kernel C's window launch over the
+    window's outputs against its plain version."""
+    from slimfastq_tpu_torch.ops import _cuda
+    level, kind, blocks, match = WINDOWS[case]
+    geom = _geom(level, kind)
+    W = 64 if kind == "byte" else 1024
+    rng = np.random.default_rng(4)
+    streams = [_stream(kind, rng, dev, W, active, match=match, Sp=Sp)
+               for Sp, active in blocks]
+    scheds, counts = [], []
+    for syms, cnt, pos, reset, mflag in streams:
+        c = torch.from_numpy(cnt.astype(np.int32)).to(dev)
+        scheds.append(ST._schedule(kind, geom, syms, pos, reset, c, mflag))
+        counts.append(c)
+    CB = ST._chunk_bytes(geom.depth, False)
+    before = _cuda.launches["lane_encode"], _cuda.descs["lane_encode"]
+    ke = CT.lane_encode_blocks(scheds, geom, CB)
+    assert (_cuda.launches["lane_encode"], _cuda.descs["lane_encode"]) == (
+        before[0] + 1, before[1] + len(scheds))
+    pe = CT.lane_encode_blocks_plain(scheds, geom, CB)
+    for k, p, (i, b) in zip(ke, pe, scheds):
+        one = CT.lane_encode(i, b, geom, CB)
+        for x, y, z in zip(k, p, one):
+            assert torch.equal(x.cpu(), y.cpu())
+            assert torch.equal(x.cpu(), z.cpu())
+    comp = [(e[0], e[1], max(int(e[1].sum(dim=0).max()), 1)) for e in ke]
+    tails = [e[2] for e in ke]
+    assert torch.equal(CC.compact_streams_dev(comp, tails)[0].cpu(),
+                       CC.compact_streams_plain(comp, tails)[0].cpu())
+    items = []
+    for (syms, cnt, pos, reset, mflag), e, c in zip(streams, ke, counts):
+        assert int(e[3]) <= CB
+        pay, tot = CC.compact_lanes_dev(e[0], e[1], max(int(
+            e[1].sum(dim=0).max()), 1))
+        pay, lens = ST._flush_append(pay.cpu().numpy(),
+                                     tot.cpu().numpy().astype(np.int64),
+                                     e[2].cpu().numpy().view(np.uint32), cnt)
+        items.append((torch.from_numpy(pay).to(dev),
+                      torch.from_numpy(lens.astype(np.int32)).to(dev),
+                      ST._acts(c, syms.shape[0]), pos, reset, mflag))
+    kd = CT.lane_decode_blocks(items, kind, geom)
+    pd = CT.lane_decode_blocks_plain(items, kind, geom)
+    for k, p, it, (syms, *_), c in zip(kd, pd, items, streams, counts):
+        assert torch.equal(k.cpu(), p.cpu())
+        assert torch.equal(k.cpu(), CT.lane_decode(*it[:5], kind, geom,
+                                                   it[5]).cpu())
+        mask = torch.arange(syms.shape[0], device=dev)[:, None] < c[None, :]
+        assert torch.equal(k[mask].int(), syms[mask])
+
+
+def test_compact_window_88_streams(dev):
+    """Kernel C's window launch over 88 descriptors (a window of 8
+    level-4 blocks with match trials codes 88 streams), past the 4 KB of
+    classic kernel parameters, against its plain version."""
+    from slimfastq_tpu_torch.ops import _cuda
+    streams = []
+    for seed in range(15):
+        streams += _ragged_streams(dev, seed)[:6]
+    streams = streams[:88]
+    tails = [torch.arange(ep.shape[1], dtype=torch.int32, device=dev)
+             for _, ep, _ in streams]
+    before = (_cuda.launches["compact_lanes_dev"],
+              _cuda.descs["compact_lanes_dev"])
+    flat, _ = CC.compact_streams_dev(streams, tails)
+    assert (_cuda.launches["compact_lanes_dev"],
+            _cuda.descs["compact_lanes_dev"]) == (before[0] + 1,
+                                                   before[1] + 88)
+    assert torch.equal(flat.cpu(),
+                       CC.compact_streams_plain(streams, tails)[0].cpu())
+
+
+@pytest.mark.parametrize("level", [3, 4])
+def test_window_round_trip_on_card(dev, level):
+    """Four 2,048-record blocks coded as one window: the container equals
+    the one-block-at-a-time container, decodes exactly windowed and one
+    block at a time, and the window's E and D launches carry several
+    blocks and C runs once (at level 4 a block takes a match trial)."""
+    import io
+    from slimfastq_tpu_torch import api, container
+    from slimfastq_tpu_torch.ops import _cuda
+    from slimfastq_tpu_torch.pipeline import MATCH_USED
+    from slimfastq_tpu_torch.utils.synth import synth_fastq
+    data = synth_fastq(4 * 2048, read_len=100, seed=5, n_rate=0.001)
+    kw = dict(level=level, block_records=2048)
+    alone = api.encode_fastq(data, window=1, **kw)
+    _cuda.reset_launches()
+    enc = api.encode_fastq(data, **kw)
+    assert api.decode_fastq(enc) == data
+    # E and D launches carried several blocks; one C launch took the
+    # window's streams, 7 or more a block
+    for k in ("lane_encode", "lane_decode"):
+        assert _cuda.descs[k] > _cuda.launches[k] > 0, _cuda.descs
+    assert _cuda.launches["compact_lanes_dev"] == 1
+    assert _cuda.descs["compact_lanes_dev"] >= 4 * 7
+    assert enc == alone
+    assert api.decode_fastq(enc, window=1) == data
+    if level == 4:
+        f = io.BytesIO(enc)
+        cfg = container.read_header(f)
+        assert any(b.flags & MATCH_USED
+                   for b in container.iter_blocks(f, cfg))
 
 
 def test_wide_block_refused(dev):

@@ -73,9 +73,23 @@ torch.set_num_threads(1)
 import slimfastq_tpu_torch.api as api
 import slimfastq_tpu_torch.cli  # noqa: F401
 from slimfastq_tpu_torch.utils.synth import synth_fastq
+import slimfastq_tpu_torch.parallel.mesh  # noqa: F401
+import slimfastq_tpu_torch.parallel.sharded  # noqa: F401
 data = synth_fastq(6, read_len=20, seed=1)
 enc = api.encode_fastq(data, device="cpu", lanes=4, aux_lanes=4)
 assert api.decode_fastq(enc, device="cpu") == data
+# a window of three blocks, then the streaming encode and decode
+kw = dict(lanes=4, aux_lanes=4, block_records=2)
+win = api.encode_fastq(data, device="cpu", **kw)
+assert api.decode_fastq(win, device="cpu") == data
+import os, tempfile
+with tempfile.TemporaryDirectory() as d:
+    src, dst, back = (os.path.join(d, f) for f in ("a.fq", "a.sfq", "b.fq"))
+    open(src, "wb").write(data)
+    api.encode_file_streaming(src, dst, device="cpu", chunk_bytes=50, **kw)
+    assert open(dst, "rb").read() == win
+    api.decode_file_streaming(dst, back, device="cpu")
+    assert open(back, "rb").read() == data
 import chip_smoke
 if not torch.cuda.is_available():
     assert chip_smoke.main() == 1

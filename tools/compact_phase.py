@@ -8,8 +8,9 @@ the host, the flush bytes), and Kernel C's device time per block.
 The pinned block (65,536 reads x 100 bp, bench.py's generator) is prepared
 as the main path prepares it (pipeline_native.prepare_block_fast,
 _coder_jobs). Kernel E runs once per stream and its outputs are kept;
-encode_block then runs with coder_torch.lane_encode answering from them,
-so the call costs the phase after the join and nothing of E. Each call is
+encode_block then runs with E's wrapper (coder_torch.lane_encode_blocks,
+or lane_encode on a tree from before the window path) answering from
+them, so the call costs the phase after the join and nothing of E. Each call is
 timed with the host clock (it returns with the payloads on the host) and
 with CUDA events on the calling stream, and must give the payloads of the
 first, uncached call. Then, under torch.profiler, the mean device time
@@ -42,6 +43,15 @@ def _median_span(xs):
     return {"median": statistics.median(xs), "min": min(xs), "max": max(xs)}
 
 
+def _key(x):
+    """A call's arguments as a cache key: tensors by address."""
+    if hasattr(x, "data_ptr"):
+        return x.data_ptr()
+    if isinstance(x, (list, tuple)):
+        return tuple(_key(y) for y in x)
+    return x if isinstance(x, int) else id(x)
+
+
 def phase(data: bytes, level: int, dev, reps: int = REPS) -> dict:
     """The phase of the pinned block's encode at `level` on `dev` (ms)."""
     import numpy as np
@@ -58,15 +68,18 @@ def phase(data: bytes, level: int, dev, reps: int = REPS) -> dict:
                                 n, cfg)
     jobs = list(PN._coder_jobs(pre, cfg, dev))
     want = ST.encode_block(jobs, dev)
-    real, cache = coder_torch.lane_encode, {}
+    wrapper = ("lane_encode_blocks" if hasattr(coder_torch,
+                                               "lane_encode_blocks")
+               else "lane_encode")
+    real, cache = getattr(coder_torch, wrapper), {}
 
-    def cached(idx_c, bit_c, geom, CB):
-        key = (idx_c.data_ptr(), CB)
+    def cached(*args):
+        key = _key(args)
         if key not in cache:
-            cache[key] = real(idx_c, bit_c, geom, CB)
+            cache[key] = real(*args)
         return cache[key]
 
-    coder_torch.lane_encode = cached
+    setattr(coder_torch, wrapper, cached)
     try:
         ST.encode_block(jobs, dev)
         host, events = [], []
@@ -95,7 +108,7 @@ def phase(data: bytes, level: int, dev, reps: int = REPS) -> dict:
             torch.cuda.synchronize()
         launches = _cuda.launches["compact_lanes_dev"] / reps
     finally:
-        coder_torch.lane_encode = real
+        setattr(coder_torch, wrapper, real)
     c_ms = c_n = d2h_ms = d2h_n = 0
     spans = {}
     for e in prof.key_averages():

@@ -13,13 +13,18 @@ of all device time; Kernel C's device time and launches per block
 (encode), beside the coder kernels' rows; and, for the codec's trace
 spans (`sfq.*`), the host time and the device time of the work they
 enqueued, each summed over the span's calls.
-Needs a CUDA card.
+With --block-records (and --window) the same for smaller blocks coded
+in windows, e.g. the 16k window: 65,536 reads as 4 blocks of 16,384 in
+one window of 4 (Kernel C per block is then the window's launch divided
+by its blocks). Needs a CUDA card.
 
-Usage: python3 tools/gpu_profile.py [reads [level]]
+Usage: python3 tools/gpu_profile.py [reads [level]] [--block-records N]
+       [--window B]
 """
 
 from __future__ import annotations
 
+import argparse
 import json
 import os
 import re
@@ -97,24 +102,37 @@ def main() -> int:
     from slimfastq_tpu_torch import api
     from slimfastq_tpu_torch.config import config_for_level
     from slimfastq_tpu_torch.utils.synth import synth_fastq
-    reads = int(sys.argv[1]) if len(sys.argv) > 1 else 65536
-    level = int(sys.argv[2]) if len(sys.argv) > 2 else 3
+    p = argparse.ArgumentParser()
+    p.add_argument("reads", type=int, nargs="?", default=65536)
+    p.add_argument("level", type=int, nargs="?", default=3)
+    p.add_argument("--block-records", type=int, default=None)
+    p.add_argument("--window", type=int, default=None)
+    args = p.parse_args()
+    reads, level = args.reads, args.level
+    kw = {"level": level, "window": args.window}
+    if args.block_records:
+        kw["block_records"] = args.block_records
     data = synth_fastq(reads, read_len=100, seed=0, var_len=False,
                        n_rate=0.0005)
-    enc = api.encode_fastq(data, level=level)       # warm: build, allocate
-    assert api.decode_fastq(enc) == data
-    enc, rep_e = _profile(lambda: api.encode_fastq(data, level=level))
-    dec, rep_d = _profile(lambda: api.decode_fastq(enc))
+    enc = api.encode_fastq(data, **kw)       # warm: build, allocate
+    assert api.decode_fastq(enc, window=args.window) == data
+    enc, rep_e = _profile(lambda: api.encode_fastq(data, **kw))
+    dec, rep_d = _profile(lambda: api.decode_fastq(enc, window=args.window))
     assert dec == data
     card = torch.cuda.get_device_name(0)
-    blocks = -(-reads // config_for_level(level).block_records)
+    block_records = args.block_records or config_for_level(
+        level).block_records
+    blocks = -(-reads // block_records)
     c = [d for k, d in rep_e["device"].items() if k.startswith("compact_")]
     rep_e["kernel_c"] = {
         "device_ms_per_block": sum(d["device_ms"] for d in c) / blocks,
         "launches_per_block": sum(d["count"] for d in c) / blocks}
     for direction, rep in (("encode", rep_e), ("decode", rep_d)):
+        extra = ({} if args.block_records is None and args.window is None
+                 else {"block_records": block_records,
+                       "window": args.window})
         print(json.dumps({"direction": direction, "reads": reads,
-                          "level": level,
+                          "level": level, **extra,
                           "raw_bytes": len(data),
                           "compressed_bytes": len(enc), "card": card,
                           **rep}), flush=True)
