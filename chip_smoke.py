@@ -62,13 +62,23 @@ Phases (any failure exits non-zero; nothing is caught):
      blocks at L3; on the 4 64k blocks {1, 2, 4} at L3, {1, 4} at L4); in
      a fresh process, the streaming encode (chunks that cut records), a
      resumed truncated copy and the streaming decode, with peak host RSS.
+  6. long reads: one block of 65,536 x 16.5 kb reads (raw span past 2
+     GiB) through api.encode_fastq / decode_fastq at the defaults: SEQ
+     and QUAL packed and unpacked on the host, Kernel E in step slices;
+     exact round trip, walls, peak device memory, launches and slices,
+     the block's device bytes against the window budget; E over the long
+     QUAL's slices, D on its payload and C on its chunk buffers, timed
+     beside their bounds, E held against its plain version over 2
+     slices; then the pinned block forced through the host-pack path
+     (small slices) keeps its SHA-256 at level 3 and level 4, and its
+     QUAL in slices equals one launch.
 
 Prints `compact_block_l3`, `compact_block_l4`, `compact_phase_l3`,
 `compact_phase_l4`, `block`, `block_l4`, `wall`, `wall_l4`,
 `window_kernels`, `window_walls`, `window_sweep`, `streaming`,
-`earlier_ms` (recorded constants), `phase_s` (seconds a phase) and
-`kernels` JSON lines, then the card's name and power limit and, as its
-last line, the `ok` JSON line.
+`long_read`, `long_read_kernels`, `earlier_ms` (recorded constants),
+`phase_s` (seconds a phase) and `kernels` JSON lines, then the card's
+name and power limit and, as its last line, the `ok` JSON line.
 """
 
 from __future__ import annotations
@@ -106,6 +116,9 @@ PINNED_16K = {
         "f93ec9b2a88d24dd733003164590c83eb97f5564da7aa508dc3a427b9a4bfb9c"),
 }
 STREAM_CHUNK = 3_000_001  # ~12,500 records: chunks cut records and blocks
+# The long-read block: 65,536 reads of 16.5 kb (an ordinary PacBio HiFi
+# run's lengths), one 65,536-record block whose raw span passes 2 GiB
+LONG_READS, LONG_LEN = 65536, 16500
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM published memory rate
 # Recorded constants, printed on a line of their own (this script, H100
 # 80GB HBM3, 700 W): each kernel's time at the timed shape before E and D
@@ -1328,6 +1341,231 @@ def streaming(data: bytes) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 6: long reads, the host-pack path
+# ---------------------------------------------------------------------------
+
+def _long_read_kernels(pre, enc: bytes, dev, bar_us: float,
+                       errs: dict) -> dict:
+    """Kernels E, D and C on the long block's QUAL stream, from the main
+    path's own setup (pipeline_native.prepare_block_fast packs it on the
+    host; _sq_jobs gives its Slices): E over its step slices (CUDA events
+    around the slices with their schedules, less the schedules alone),
+    D once on the container's QUAL payload (events; its symbols held
+    against the host-packed ones), C on E's chunk buffers (events around
+    its wrapper); each beside its bound. E and its plain version over the
+    stream's first 2 chunks in 2 slices (`errs`)."""
+    import io
+    import numpy as np
+    import torch
+    from slimfastq_tpu_torch import container
+    from slimfastq_tpu_torch import pipeline_native as PN
+    from slimfastq_tpu_torch.config import config_for_level
+    from slimfastq_tpu_torch.ops import coder_torch as CT
+    from slimfastq_tpu_torch.ops import compact_torch as CC
+    from slimfastq_tpu_torch.ops import streams_torch as ST
+    cfg = config_for_level(3)
+    q = next(PN._sq_jobs(pre, cfg, dev, only=("QUAL",)))
+    sl = q.idx_c
+    if not isinstance(sl, ST.Slices):
+        raise AssertionError("the long block's QUAL is not sliced")
+    W, NC, depth = cfg.lanes, sl.NC, q.geom.depth
+    step = ST.slice_chunks(depth, W)
+    CB = ST._chunk_bytes(depth, hard=False)
+    out = {"W": W, "NC": NC, "depth": depth, "slices": -(-NC // step),
+           "bit_steps": NC * 8 * depth}
+    # E and its plain version over the first 2 chunks, 1 chunk a slice
+    head = ST.Slices(sl.kind, sl.geom, sl.syms[:16], sl.pos[:16],
+                     sl.reset[:16], sl.counts, None)
+    t = time.perf_counter()
+    carry = CT.EncCarry()
+    plain = (torch.zeros((2, W, CB), dtype=torch.uint8, device=dev),
+             torch.zeros((2, W), dtype=torch.int32, device=dev))
+    for c in (0, 1):
+        (_, _, low, emax), = CT.lane_encode_blocks_plain(
+            [head(c, c + 1)], q.geom, CB, [carry],
+            [(plain[0][c:c + 1], plain[1][c:c + 1])])
+    out["plain_ms_2_chunks"] = (time.perf_counter() - t) * 1e3
+    _compare(errs, "lane_encode_sliced", "sliced E vs plain, long QUAL",
+             CT.lane_encode_sliced(head, 2, 1, W, q.geom, CB, dev),
+             (*plain, low, emax))
+    def schedules():
+        for c0 in range(0, NC, step):
+            sl(c0, min(NC, c0 + step))
+    sched_ms, _ = _events_ms(schedules)
+    total_ms, (ebufs, eptrs, low, emax) = _events_ms(
+        lambda: CT.lane_encode_sliced(sl, NC, step, W, q.geom, CB, dev))
+    if int(emax) > CB:
+        raise AssertionError("long QUAL: optimistic chunk buffer overflowed")
+    e_bytes = 2 * NC * 8 * depth * W * 4 + ebufs.numel() + eptrs.numel() * 4 \
+        + 2 * W * 4
+    out["lane_encode"] = {
+        "ms": total_ms - sched_ms, "with_schedules_ms": total_ms,
+        "schedules_ms": sched_ms, "bytes": e_bytes,
+        "bound_ms": e_bytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
+        "lockstep_ms": NC * 8 * depth * bar_us / 1e3}
+    Bmax = int(eptrs.sum(dim=0).max())
+    streams = [(ebufs, eptrs, Bmax)]
+    c_bytes = _c_bytes(streams)
+    # CUDA events around the wrapper: the profiler kept no record of C
+    # after E's long run in one call on the H100
+    out["compact_lanes_dev"] = {
+        "ms": _time_ms(lambda: CC.compact_streams_dev(streams), 3),
+        "timed": "CUDA events around the wrapper",
+        "bytes": c_bytes, "bound_ms": c_bytes / HBM_BYTES_PER_S * 1e3,
+        "bound_by": "bytes", "NC": NC, "Bmax": Bmax}
+    del ebufs, eptrs, streams, sl, q
+    f = io.BytesIO(enc)
+    blk = next(container.iter_blocks(f, container.read_header(f)))
+    qs = blk.streams["QUAL"]
+    ll_mat, counts = pre[4], pre[0]["QUAL"][3]
+    S = int(counts.max())
+    Sp, pos, reset = ST._ll_inputs(ll_mat, S, W, dev)
+    item = (ST._payload_tensor(qs.payload, dev),
+            ST._to(qs.lane_lens, dev, torch.int32),
+            ST._acts(ST._to(counts, dev, torch.int32), Sp), pos, reset)
+    d_ms, (syms,) = _events_ms(lambda: CT.lane_decode_blocks(
+        [item], "qual", pre[0]["QUAL"][1]))
+    if not np.array_equal(syms[:S].cpu().numpy(), pre[0]["QUAL"][2]):
+        raise AssertionError("D on the long QUAL does not return its "
+                             "host-packed symbols")
+    steps = NC * 8 * depth
+    out["lane_decode"] = {
+        "ms": d_ms, "bound_ms": steps * bar_us / 1e3, "bound_by": "latency",
+        "byte_bound_ms": (qs.payload.size + 3 * Sp * W * 4 + Sp * W)
+        / HBM_BYTES_PER_S * 1e3, "us_per_bit_step": d_ms * 1e3 / steps}
+    out["lane_encode"]["us_per_bit_step"] = \
+        out["lane_encode"]["ms"] * 1e3 / steps
+    return out
+
+
+def long_read(dev, bar_us: float, errs: dict) -> dict:
+    """One block of 65,536 x 16.5 kb reads (LONG_READS x LONG_LEN: raw
+    span >= 2 GiB, so SEQ and QUAL pack on the host) through
+    api.encode_fastq / decode_fastq at the defaults (level 3, 65,536
+    records a block) on the card, the launch counts set to 0 just before
+    each direction and read just after: the round trip is exact, Kernel E
+    ran in more than one step slice, D and C ran. Prints the `long_read`
+    line: walls and GB/s, the ratio, peak device memory each way, E's
+    slices and launches, D's and C's launches, the block's device bytes
+    against the window budget; then the long QUAL's kernels
+    (_long_read_kernels)."""
+    import numpy as np
+    import torch
+    from slimfastq_tpu_torch import api, native
+    from slimfastq_tpu_torch import pipeline_native as PN
+    from slimfastq_tpu_torch.config import config_for_level
+    from slimfastq_tpu_torch.ops import _cuda
+    from slimfastq_tpu_torch.ops import streams_torch as ST
+    from slimfastq_tpu_torch.utils.synth import synth_fastq
+    t = time.perf_counter()
+    data = synth_fastq(LONG_READS, read_len=LONG_LEN, seed=0, var_len=False,
+                       n_rate=0.0005)
+    out = {"make_data_s": time.perf_counter() - t, "raw_bytes": len(data)}
+    idx, n = native.fastq_index(data)
+    out["span"] = PN.block_span(idx, 0, n)
+    if out["span"] < 1 << 31:
+        raise AssertionError(f"long block spans {out['span']} < 2^31 bytes")
+    # the block as the main path prepares it (host prep timed), its device
+    # bytes against the window budget: a second such block would take a
+    # window of its own
+    t = time.perf_counter()
+    pre = PN.prepare_block_fast(np.frombuffer(data, dtype=np.uint8), idx, 0,
+                                n, config_for_level(3))
+    out["host_prep_s"] = time.perf_counter() - t
+    torch.cuda.empty_cache()
+    budget = ST.device_budget(dev)
+    need = PN.device_bytes(pre, config_for_level(3))
+    out.update(device_budget=budget, block_device_bytes=need,
+               windows_of_two_such_blocks=ST.split_by_bytes([need, need],
+                                                            budget))
+    for way in ("encode", "decode"):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _cuda.reset_launches()
+        t = time.perf_counter()
+        if way == "encode":
+            enc = api.encode_fastq(data, device="cuda")
+        else:
+            dec = api.decode_fastq(enc, device="cuda")
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t
+        out[way] = {"wall_s": wall_s, "GB_per_s": len(data) / wall_s / 1e9,
+                    "peak_device_GB": torch.cuda.max_memory_allocated()
+                    / 1e9, "launches": dict(_cuda.launches),
+                    "descriptors": dict(_cuda.descs),
+                    "slices": dict(_cuda.slices)}
+    if dec != data:
+        raise AssertionError("long block: the round trip is not exact")
+    del dec
+    e, d = out["encode"], out["decode"]
+    if e["slices"]["lane_encode"] < 2 or e["launches"]["lane_encode"] < 3 \
+            or e["launches"]["compact_lanes_dev"] < 1 \
+            or d["launches"]["lane_decode"] < 2:
+        raise AssertionError(f"long block launches: encode {e}, decode {d}")
+    out["ratio"] = len(data) / len(enc)
+    out["compressed_bytes"] = len(enc)
+    print(json.dumps({"long_read": out}), flush=True)
+    del data
+    out["kernels"] = _long_read_kernels(pre, enc, dev, bar_us, errs)
+    print(json.dumps({"long_read_kernels": out["kernels"]}), flush=True)
+    return out
+
+
+def host_pack_pins(data: bytes, dev, errs: dict) -> None:
+    """The pinned 64k block through the host-pack path (the port's
+    _MAX_SPAN lowered to 1, step slices of 40 QUAL chunks): its container
+    keeps the JAX package's SHA-256 at level 3 and at level 4
+    (MATCH_USED) and decodes exactly through the host unpack; and the
+    pinned QUAL stream in step slices of 37 chunks gives the one launch's
+    bytes (`errs`)."""
+    import io
+    import numpy as np
+    from slimfastq_tpu_torch import api, container, native
+    from slimfastq_tpu_torch import pipeline_native as PN
+    from slimfastq_tpu_torch.config import config_for_level
+    from slimfastq_tpu_torch.ops import _cuda
+    from slimfastq_tpu_torch.ops import coder_torch as CT
+    from slimfastq_tpu_torch.ops import streams_torch as ST
+    from slimfastq_tpu_torch.pipeline import MATCH_USED
+    saved = PN._MAX_SPAN, ST.SLICE_BYTES
+    PN._MAX_SPAN, ST.SLICE_BYTES = 1, 40 * 2 * 4 * 8 * 6 * 1024
+    try:
+        for level in (3, 4):
+            _cuda.reset_launches()
+            enc = api.encode_fastq(data, level=level, device="cuda")
+            slices = _cuda.slices["lane_encode"]
+            sha = hashlib.sha256(enc).hexdigest()
+            if (len(enc), sha) != PINNED[level] or slices < 2:
+                raise AssertionError(f"host-pack L{level}: {len(enc)} bytes, "
+                                     f"SHA-256 {sha}, {slices} E slices")
+            f = io.BytesIO(enc)
+            flags = next(container.iter_blocks(f, container.read_header(
+                f))).flags
+            if level == 4 and not flags & MATCH_USED:
+                raise AssertionError("host-pack L4: no MATCH_USED")
+            if api.decode_fastq(enc, device="cuda") != data:
+                raise AssertionError(f"host-pack L{level}: the round trip "
+                                     "is not exact")
+            print(f"host-pack path L{level}: the pinned block's SHA-256, "
+                  f"{slices} E slices, flags {flags}, round trip exact",
+                  flush=True)
+    finally:
+        PN._MAX_SPAN, ST.SLICE_BYTES = saved
+    cfg = config_for_level(3)
+    idx, n = native.fastq_index(data)
+    pre = PN.prepare_block_fast(np.frombuffer(data, dtype=np.uint8), idx, 0,
+                                n, cfg)
+    q = next(PN._sq_jobs(pre, cfg, dev, only=("QUAL",)))
+    CB = ST._chunk_bytes(q.geom.depth, hard=False)
+    sl = ST.Slices(q.kind, q.geom, q.syms, q.pos, q.reset, q.counts, None)
+    _compare(errs, "lane_encode_sliced", "pinned QUAL: E in slices of 37 "
+             "chunks vs one launch",
+             CT.lane_encode_sliced(sl, sl.NC, 37, 1024, q.geom, CB, dev),
+             CT.lane_encode(q.idx_c, q.bit_c, q.geom, CB))
+    print("pinned QUAL: E in 22 slices equals one launch", flush=True)
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1399,6 +1637,11 @@ def main() -> int:
     done("window_sweep")
     streaming(data)
     done("streaming")
+    # long reads: the host-pack path and Kernel E in step slices
+    lr = long_read(dev, bar_us, errs)
+    done("long_read")
+    host_pack_pins(data, dev, errs)
+    done("host_pack_pins")
 
     replaces = {
         "lane_encode": "slimfastq_tpu/ops/streams_jax.py:298",
@@ -1457,6 +1700,11 @@ def main() -> int:
                        "bound_by": "latency",
                        "byte_bound_ms": l4["bound_ms"]})
         row["l4"] = l4
+        # the long-read block (one of 65,536 x 16.5 kb reads): launches in
+        # its main-path run, and the kernel on its QUAL stream
+        way = "encode" if name == "lane_encode" else "decode"
+        row["long_read"] = {"launches": lr[way]["launches"][name],
+                            **lr["kernels"][name]}
         kernels.append(row)
     # Kernel C: one launch per block; its device time (profiler) is `ms`
     name = "compact_lanes_dev"
@@ -1478,7 +1726,34 @@ def main() -> int:
             row.update(part, qual_alone=c["qual_alone"])
         else:
             row["l4"] = part
+    row["long_read"] = {"launches": lr["encode"]["launches"][name],
+                        "descriptors": lr["encode"]["descriptors"][name],
+                        "shape": "the long block's QUAL alone",
+                        **lr["kernels"][name]}
     kernels.append(row)
+    # Kernel E in step slices: the long block's QUAL (its slices timed
+    # with events, less their schedules); launches and slices from the
+    # long block's main-path encode
+    lk = lr["kernels"]
+    kernels.append({
+        "name": "lane_encode_sliced", "form": "step slices",
+        "counted_as": "lane_encode", "route": "cuda",
+        "source": source["lane_encode"],
+        "replaces": "slimfastq_tpu/ops/streams_jax.py:298",
+        "launches": lr["encode"]["launches"]["lane_encode"],
+        "slices": lr["encode"]["slices"]["lane_encode"],
+        "match": errs["lane_encode_sliced"] == 0,
+        "max_abs_err": errs["lane_encode_sliced"],
+        "ms": lk["lane_encode"]["ms"],
+        "with_schedules_ms": lk["lane_encode"]["with_schedules_ms"],
+        "plain_ms": lk["plain_ms_2_chunks"],
+        "plain_shape": "the long QUAL's first 2 chunks in 2 slices, host "
+                       "clock",
+        "bound_ms": lk["lane_encode"]["bound_ms"], "bound_by": "bytes",
+        "lockstep_ms": lk["lane_encode"]["lockstep_ms"],
+        "library_ms": None,
+        "shape": f"QUAL of the {LONG_READS} x {LONG_LEN} bp block: W = "
+                 f"{lk['W']}, NC = {lk['NC']}, {lk['slices']} slices"})
     # the window forms: one launch over the blocks of a window, on the 16k
     # L3 window's own inputs (4 blocks of 16,384 records); launches (and
     # the descriptors they took: blocks for E and D, streams for C) from

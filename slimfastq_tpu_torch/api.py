@@ -7,7 +7,11 @@ CUDA on a machine without a card raises.
 
 Small blocks are coded in windows (``_batch_window``): each stream's
 kernel launch takes every block of the window, so blocks that underfill
-the card share it. ``encode_file_streaming`` / ``decode_file_streaming``
+the card share it. A window also closes before the block that would take
+its SEQ/QUAL streams past the card's byte budget
+(streams_torch.device_budget), so long reads code a block at a time, and
+the blocks prepared ahead stay within _PREP_BYTES of raw bytes.
+``encode_file_streaming`` / ``decode_file_streaming``
 run the same pipelines over a file in bounded memory; the encode can be
 resumed after a crash. The bytes never depend on the window or on the
 streaming: every container equals the JAX package's.
@@ -24,7 +28,9 @@ import torch
 
 from . import container, native
 from .config import CodecConfig, config_for_level
-from .pipeline_native import (decode_block_finish, decode_blocks_device,
+from .ops import streams_torch
+from .pipeline_native import (block_span, decode_block_finish,
+                              decode_blocks_device, device_bytes,
                               encode_prepared_blocks, prepare_block_fast)
 
 
@@ -35,6 +41,11 @@ _PIPE_DEPTH = 2
 # the most blocks a window takes: a window's coded streams (11 a level-4
 # block with match trials) must fit one Kernel C launch (256 streams)
 MAX_WINDOW = 16
+# raw bytes of the blocks prepared ahead of the device (at least one): two
+# long-read blocks of 65,536 x 16.5 kb (2.2 GB each) in flight, as the
+# JAX package's depth of 2 keeps, where a count of blocks would hold a
+# window's worth; 64k x 100 bp blocks (16 MB) stay bounded by the count
+_PREP_BYTES = 6 << 30
 
 
 def resolve_device(device=None) -> torch.device:
@@ -74,36 +85,55 @@ def _encode_ranges(ranges, cfg: CodecConfig, dev, window, emit) -> list:
 
     Three stages (prep || device || write): a prep pool keeps the next
     window's blocks of host modelling (C++/NumPy, releases the GIL) in
-    flight ahead of the device, ``depth + window - 1`` in all; the main
-    thread codes each window on the device; the writer overlaps container
-    framing/CRC/IO with the next window's device work. FIFO submission to
-    the one-worker writer keeps block order, so the container equals the
-    serial one. Memory holds that many prepared blocks, whatever the
-    file's size."""
+    flight ahead of the device, ``depth + window - 1`` in all and within
+    _PREP_BYTES of raw bytes; the main thread codes each window on the
+    device, a window closing before the block that would pass the device
+    budget; the writer overlaps container framing/CRC/IO with the next
+    window's device work. FIFO submission to the one-worker writer keeps
+    block order, so the container equals the serial one. Memory holds
+    that many prepared blocks, whatever the file's size."""
     wb = _batch_window(cfg, window)
     ahead = _PIPE_DEPTH + wb - 1
+    budget = streams_torch.device_budget(dev)
     ranges = iter(ranges)
     results = []
     with native.pipeline_omp_cap(), \
             ThreadPoolExecutor(max_workers=_PIPE_DEPTH) as prep_ex, \
             ThreadPoolExecutor(max_workers=1) as write_ex:
-        pfuts: deque = deque()
+        pfuts: deque = deque()  # (future, raw bytes)
         wfuts: deque = deque()
+        nxt, held = None, 0  # the next range; raw bytes prepared ahead
 
         def fill():
+            nonlocal nxt, held
             while len(pfuts) < ahead:
-                r = next(ranges, None)
-                if r is None:
+                nxt = nxt or next(ranges, None)
+                if nxt is None:
                     return
-                pfuts.append(prep_ex.submit(prepare_block_fast, *r, cfg))
+                span = block_span(*nxt[1:])
+                if pfuts and held + span > _PREP_BYTES:
+                    return
+                pfuts.append((prep_ex.submit(prepare_block_fast, *nxt, cfg),
+                              span))
+                held += span
+                nxt = None
         fill()
         while pfuts:
-            pres = []
+            pres, used, spans = [], 0, 0
             while pfuts and len(pres) < wb:
-                pres.append(pfuts.popleft().result())
+                pre = pfuts[0][0].result()
+                need = device_bytes(pre, cfg)
+                if pres and used + need > budget:
+                    break
+                pres.append(pre)
+                used += need
+                spans += pfuts.popleft()[1]
                 fill()
             for blk in encode_prepared_blocks(pres, cfg, dev):
                 wfuts.append(write_ex.submit(emit, blk))
+            del pres
+            held -= spans
+            fill()
             while len(wfuts) > wb + 1:  # surface write errors promptly
                 results.append(wfuts.popleft().result())
         results.extend(wf.result() for wf in wfuts)

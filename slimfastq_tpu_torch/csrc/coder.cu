@@ -82,6 +82,16 @@
 //   D's step inputs one symbol-step ahead and its next payload byte.
 //   (A barrier does not wait for a thread's pending loads; only their use
 //   does.)
+// * Step slices (replacing the whole-stream schedule of the JAX package's
+//   `_build_schedule_ll` + `_build_encode` where a stream's schedule, 48
+//   bytes a QUAL symbol, would not fit the card: a 65,536-read block of
+//   16.5 kb reads needs 52 GB for QUAL alone): Kernel E takes a stream in
+//   launches of whole chunks, each schedule slice built just before its
+//   launch. A launch starts from the device table, low and range the one
+//   before left and ends with its last bit-step's commit (phase 1 of a
+//   next bit-step that belongs to the next launch), so the slices emit
+//   the one launch's bytes. A table in shared memory dies with its CTA:
+//   the wrapper refuses slices for it.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -180,8 +190,9 @@ struct Lockstep {
     }
   }
 
-  // phase 1 of bit-step s: commit step s-1, enter this step's entry
-  __device__ __forceinline__ void enter(int s, int i, bool live) {
+  // the owner of the last bit-step's slot stores its entry and clears
+  // the slot (phase 1 of the next bit-step, or after a launch's last one)
+  __device__ __forceinline__ void commit() {
     if (own) {
       const int at = b + slot;
       const int np = clampi(p + sum[at], PROB_MIN, PROB_MAX);
@@ -191,10 +202,15 @@ struct Lockstep {
       cnt[at] = 0;
       sum[at] = 0;
     }
+    own = false;
+  }
+
+  // phase 1 of bit-step s: commit step s-1, enter this step's entry
+  __device__ __forceinline__ void enter(int s, int i, bool live) {
+    commit();
     b = (s & 1) << nsl;
     idx = i;
     real = live && i < g.sac_base;
-    own = false;
     if (real) {
       slot = find(i);
       atomicAdd(cnt + b + slot, 1);
@@ -247,17 +263,24 @@ __device__ __forceinline__ bool renorm_needed(uint32_t low, uint32_t rng,
   return *agree || rng < BOT;
 }
 
-// One block's stream for Kernel E: its schedule, its fresh device table
-// (null where the table lives in shared memory) and its outputs.
+// One block's stream for Kernel E: its schedule, its device table (null
+// where the table lives in shared memory) and its outputs. A stream coded
+// in step slices takes one launch a slice: each codes chunks [c0, c1) of
+// the stream (the pointers are the slice's own), starts from the state the
+// slice before left in `table`, `low` and `rng` (`first`: the stream's
+// first slice, whose table is fresh, starts at low 0 and range 2^32 - 1)
+// and raises `emax`, which the slices share.
 struct EncDesc {
   const int* idx_c;  // [NC, KD, W]
   const int* bit_c;  // [NC, KD, W]
   uint16_t* table;   // [table_size]
   uint8_t* ebufs;    // [NC, W, CB]
   int* eptrs;        // [NC, W]
-  uint32_t* low;     // [W]
+  uint32_t* low;     // [W], in (unless first) and out
+  uint32_t* rng;     // [W], in (unless first) and out
   int* emax;         // this block's largest chunk count
   int NC;
+  int first;
 };
 
 struct EncParams {
@@ -279,6 +302,10 @@ __global__ void __launch_bounds__(1024, 1)
   Lockstep<SMEM, WARM> L;
   L.setup(smem, desc.table, geo, p.nsl);
   uint32_t low = 0, rng = 0xFFFFFFFFu;
+  if (live && !desc.first) {
+    low = desc.low[w];
+    rng = desc.rng[w];
+  }
   int emx = 0;
   const int steps = NC * KD;
   // the schedule of bit-step `at`; a ring of AHEAD slots in registers,
@@ -336,8 +363,12 @@ __global__ void __launch_bounds__(1024, 1)
     if (live) desc.eptrs[(size_t)c * W + w] = eptr;
     emx = max(emx, eptr);
   }
+  // the last bit-step's entries: a device table carries them to the next
+  // slice (the loop's last barrier ordered every delta before)
+  if (!SMEM) L.commit();
   if (live) {
     desc.low[w] = low;
+    desc.rng[w] = rng;
     atomicMax(desc.emax, emx);
   }
 }

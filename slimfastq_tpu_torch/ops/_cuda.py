@@ -10,7 +10,8 @@ Launch counts: every kernel wrapper adds one to ``launches[name]`` where
 it launches its kernel, and nowhere else, so a run can show which kernels
 its path went through; ``descs[name]`` adds up the descriptors those
 launches took (blocks for Kernels E and D, streams for Kernel C), so a
-window's launches show how many blocks each carried.
+window's launches show how many blocks each carried; ``slices[name]``
+the descriptors that were one step slice of a stream (Kernel E).
 """
 
 from __future__ import annotations
@@ -32,20 +33,23 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 launches = {"lane_encode": 0, "lane_decode": 0, "compact_lanes_dev": 0}
 descs = dict.fromkeys(launches, 0)
+slices = dict.fromkeys(launches, 0)
 
 _libs: dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()
 
 
-def count(name: str, n: int) -> None:
-    """One launch of kernel ``name`` over ``n`` descriptors."""
+def count(name: str, n: int, sliced: int = 0) -> None:
+    """One launch of kernel ``name`` over ``n`` descriptors, ``sliced``
+    of them step slices."""
     launches[name] += 1
     descs[name] += n
+    slices[name] += sliced
 
 
 def reset_launches() -> None:
     for k in launches:
-        launches[k] = descs[k] = 0
+        launches[k] = descs[k] = slices[k] = 0
 
 
 def _nvcc() -> str:

@@ -23,6 +23,12 @@ over blocks, parallel/mesh.py with mesh=None): each block its own inputs
 and step count, its own fresh table and its own overflow check.
 ``lane_encode`` / ``lane_decode`` are their one-block case; the plain
 versions of the window forms loop over the one-block plain versions.
+A stream too long for its whole schedule to sit on the device (long
+reads) runs Kernel E in step slices (``lane_encode_slices``, or
+``lane_encode_sliced`` to its end): one launch a slice of chunks, the
+table, low and range carried from one launch to the next in an
+``EncCarry`` (the plain version carries its own), so the slices emit the
+one launch's bytes.
 
 Both run the batch-synchronous, collision-capped table law (see
 ops/ranger.py) with the format-v4 visit-count warm-up when the geometry
@@ -69,11 +75,23 @@ MAX_BLOCKS = 256  # blocks a launch: csrc/coder.cu's MAX_BLOCKS
 
 
 class _EncDesc(ctypes.Structure):
-    """csrc/coder.cu's EncDesc: one block's stream for Kernel E."""
+    """csrc/coder.cu's EncDesc: one block's stream (or one step slice of
+    it) for Kernel E."""
     _fields_ = [("idx_c", ctypes.c_void_p), ("bit_c", ctypes.c_void_p),
                 ("table", ctypes.c_void_p), ("ebufs", ctypes.c_void_p),
                 ("eptrs", ctypes.c_void_p), ("low", ctypes.c_void_p),
-                ("emax", ctypes.c_void_p), ("NC", ctypes.c_int)]
+                ("rng", ctypes.c_void_p), ("emax", ctypes.c_void_p),
+                ("NC", ctypes.c_int), ("first", ctypes.c_int)]
+
+
+class EncCarry:
+    """Kernel E's state between the step slices of one stream: the table
+    (the kernel's 16-bit device table, or the plain version's _Law), low
+    and range, and the largest chunk count so far; all None before the
+    first slice."""
+
+    def __init__(self):
+        self.table = self.low = self.rng = self.emax = None
 
 
 class _DecDesc(ctypes.Structure):
@@ -143,9 +161,11 @@ def table_in_smem(geom, W: int) -> bool:
     return (table_bytes(geom) + 15) // 16 * 16 + hash_bytes(W) <= SMEM_LIMIT
 
 
-def _kernel_geom(geom, W: int, dev, B: int | None = None):
+def _kernel_geom(geom, W: int, dev, B: int | None = None,
+                 fresh: bool = True):
     """The kernels' table arguments: (a fresh device table, [B,
-    table_size] for B blocks, or None, vcap, smem_table).
+    table_size] for B blocks, or None, vcap, smem_table); no table
+    without ``fresh`` (step slices bring their own).
     Raises where the lanes or the geometry do not fit the kernels (one
     CTA, the 16-bit entry)."""
     if W > MAX_LANES:
@@ -161,7 +181,7 @@ def _kernel_geom(geom, W: int, dev, B: int | None = None):
         # the kernels load a device table's entry one bit-step ahead,
         # which needs consecutive bit-steps on different tree levels
         raise ValueError("a depth-1 table must fit shared memory")
-    return device_table(geom, dev, B), cap, 0
+    return (device_table(geom, dev, B) if fresh else None), cap, 0
 
 
 def device_table(geom, dev, B: int | None = None) -> torch.Tensor:
@@ -241,18 +261,26 @@ def _renorm(low, rng):
 
 
 def lane_encode_plain(idx_c: torch.Tensor, bit_c: torch.Tensor, geom,
-                      CB: int):
-    """Plain PyTorch version of Kernel E (same outputs)."""
+                      CB: int, carry: EncCarry | None = None, out=None):
+    """Plain PyTorch version of Kernel E (same outputs). carry: a step
+    slice of a stream, started from and leaving the carried state (emax
+    the largest chunk count so far); out: (ebufs, eptrs) to write the
+    slice's chunks into."""
     NC, KD, W = idx_c.shape
     dev = idx_c.device
-    law = _Law(geom, W, dev)
     real_all = (idx_c < geom.sac_base).int()
     marks_all = real_all << CNT_SHIFT
     one_all = bit_c != 0
-    low = torch.zeros(W, dtype=torch.int64, device=dev)
-    rng = torch.full((W,), MASK32, dtype=torch.int64, device=dev)
-    ebufs = torch.zeros((NC, W, CB), dtype=torch.uint8, device=dev)
-    eptrs = torch.zeros((NC, W), dtype=torch.int32, device=dev)
+    if carry is not None and carry.table is not None:
+        law, low, rng = carry.table, carry.low, carry.rng
+    else:
+        law = _Law(geom, W, dev)
+        low = torch.zeros(W, dtype=torch.int64, device=dev)
+        rng = torch.full((W,), MASK32, dtype=torch.int64, device=dev)
+    if out is None:
+        out = (torch.zeros((NC, W, CB), dtype=torch.uint8, device=dev),
+               torch.zeros((NC, W), dtype=torch.int32, device=dev))
+    ebufs, eptrs = out
     loff = torch.arange(W, device=dev) * CB
     sink = W * CB
     ebuf = torch.zeros(W * CB + 1, dtype=torch.uint8, device=dev)
@@ -276,7 +304,12 @@ def lane_encode_plain(idx_c: torch.Tensor, bit_c: torch.Tensor, geom,
             law.update(idx, real_all[c, i], marked, p, one)
         ebufs[c] = ebuf[:-1].reshape(W, CB)
         eptrs[c] = eptr.int()
-    return ebufs, eptrs, _u32_bits(low), eptrs.max()
+    emax = eptrs.max()
+    if carry is not None:
+        if carry.emax is not None:
+            emax = torch.maximum(emax, carry.emax)
+        carry.table, carry.low, carry.rng, carry.emax = law, low, rng, emax
+    return ebufs, eptrs, _u32_bits(low), emax
 
 
 def _ctx_init(kind: str, W: int, dev):
@@ -417,10 +450,14 @@ def _kind_params(kind: str, geom):
     raise ValueError(kind)
 
 
-def lane_encode_blocks_plain(scheds, geom, CB: int) -> list:
+def lane_encode_blocks_plain(scheds, geom, CB: int, carries=None,
+                             outs=None) -> list:
     """Plain version of lane_encode_blocks: lane_encode_plain per block."""
-    return [lane_encode_plain(idx_c, bit_c, geom, CB)
-            for idx_c, bit_c in scheds]
+    n = len(scheds)
+    return [lane_encode_plain(idx_c, bit_c, geom, CB,
+                              (carries or [None] * n)[b],
+                              (outs or [None] * n)[b])
+            for b, (idx_c, bit_c) in enumerate(scheds)]
 
 
 def lane_decode_blocks_plain(items, kind: str, geom) -> list:
@@ -439,16 +476,31 @@ def _window_device(tensors) -> torch.device:
     return dev
 
 
-def lane_encode_blocks(scheds, geom, CB: int) -> list:
+def lane_encode_blocks(scheds, geom, CB: int, carries=None,
+                       outs=None) -> list:
     """Kernel E over a window: ``scheds`` holds each block's (idx_c,
     bit_c) [NC_b, 8*depth, W] int32, one W and geometry for all. Returns
     per block (ebufs, eptrs, low, emax) as lane_encode does, emax the
     block's own. One launch (one CTA a block) on CUDA tensors, the plain
-    version on CPU tensors."""
+    version on CPU tensors.
+
+    Step slices: ``carries`` gives per block an EncCarry, and the launch
+    codes one slice of each block's stream from the carried state (fresh
+    before the first slice), leaving its own there (emax the largest
+    chunk count so far); ``outs`` gives per block the (ebufs [NC_b, W,
+    CB] u8, eptrs [NC_b, W] i32) to write into, the slice's rows of its
+    stream's buffers. Slices carry the table in device memory, so a
+    geometry whose table fits shared memory (table_in_smem) is refused."""
     if not 1 <= len(scheds) <= MAX_BLOCKS:
         raise ValueError(f"one launch codes 1 to {MAX_BLOCKS} blocks, not "
                          f"{len(scheds)}")
     KD, W = CHUNK_SYMS * geom.depth, scheds[0][0].shape[-1]
+    for extra in (carries, outs):
+        if extra is not None and len(extra) != len(scheds):
+            raise ValueError("one carry and one output pair a block")
+    if carries is not None and table_in_smem(geom, W):
+        raise ValueError("step slices carry the table in device memory; "
+                         "this geometry's table lives in shared memory")
     for idx_c, bit_c in scheds:
         if idx_c.dim() != 3 or idx_c.dtype != torch.int32 \
                 or bit_c.dtype != torch.int32 or bit_c.shape != idx_c.shape:
@@ -459,39 +511,99 @@ def lane_encode_blocks(scheds, geom, CB: int) -> list:
                              f"{CHUNK_SYMS}*{geom.depth}")
         if idx_c.shape[2] != W:
             raise ValueError("every block of a launch has the same lanes")
-    dev = _window_device([t for s in scheds for t in s])
+    NCs = [int(i.shape[0]) for i, _ in scheds]
+    if outs is not None:
+        for (eb, ep), NC in zip(outs, NCs):
+            if eb.shape != (NC, W, CB) or eb.dtype != torch.uint8 \
+                    or ep.shape != (NC, W) or ep.dtype != torch.int32:
+                raise ValueError("outs must be [NC, W, CB] uint8 and [NC, W] "
+                                 "int32 per block")
+    dev = _window_device([t for s in scheds for t in s]
+                         + [t for o in outs or () for t in o])
     if dev.type == "cpu":
-        return lane_encode_blocks_plain(scheds, geom, CB)
+        return lane_encode_blocks_plain(scheds, geom, CB, carries, outs)
     B = len(scheds)
-    table, vcap, smem = _kernel_geom(geom, W, dev, B)
+    table, vcap, smem = _kernel_geom(geom, W, dev, B, carries is None)
     scheds = [(i.contiguous(), b.contiguous()) for i, b in scheds]
     lib = _cuda.load("coder", _SIGS)
-    NCs = [int(i.shape[0]) for i, _ in scheds]
-    # one allocation each for the window's chunk windows, counts and tails;
-    # every block's windows start 16-byte aligned (CB is a multiple of 16)
-    ebufs = torch.zeros(sum(NCs) * W * CB, dtype=torch.uint8, device=dev)
-    eptrs = torch.empty(sum(NCs) * W, dtype=torch.int32, device=dev)
-    low = torch.empty((B, W), dtype=torch.int32, device=dev)
-    emax = torch.zeros(B, dtype=torch.int32, device=dev)
-    descs, outs, at = (_EncDesc * B)(), [], 0
-    for b, ((idx_c, bit_c), NC) in enumerate(zip(scheds, NCs)):
-        eb = ebufs[at * W * CB: (at + NC) * W * CB].view(NC, W, CB)
-        ep = eptrs[at * W: (at + NC) * W].view(NC, W)
-        at += NC
+    if outs is None:
+        # one allocation each for the window's chunk windows and counts;
+        # every block's windows start 16-byte aligned (CB is a multiple of
+        # 16)
+        ebufs = torch.zeros(sum(NCs) * W * CB, dtype=torch.uint8,
+                            device=dev)
+        eptrs = torch.empty(sum(NCs) * W, dtype=torch.int32, device=dev)
+        outs, at = [], 0
+        for NC in NCs:
+            outs.append((ebufs[at * W * CB: (at + NC) * W * CB].view(
+                NC, W, CB), eptrs[at * W: (at + NC) * W].view(NC, W)))
+            at += NC
+    if any(not (eb.is_contiguous() and ep.is_contiguous())
+           or eb.data_ptr() % 16 for eb, ep in outs):
+        raise ValueError("outs must be contiguous, ebufs 16-byte aligned")
+    if carries is None:
+        low = torch.empty((B, W), dtype=torch.int32, device=dev)
+        rng = torch.empty((B, W), dtype=torch.int32, device=dev)
+        emax = torch.zeros(B, dtype=torch.int32, device=dev)
+        states = [(None if table is None else table[b], low[b], rng[b],
+                   emax[b:b + 1], 1) for b in range(B)]
+    else:
+        states = []
+        for c in carries:
+            first = c.table is None
+            if first:
+                c.table = device_table(geom, dev)
+                c.low = torch.empty(W, dtype=torch.int32, device=dev)
+                c.rng = torch.empty(W, dtype=torch.int32, device=dev)
+                c.emax = torch.zeros(1, dtype=torch.int32, device=dev)
+            states.append((c.table, c.low, c.rng, c.emax, int(first)))
+    descs, res = (_EncDesc * B)(), []
+    for b, ((idx_c, bit_c), (eb, ep), (tab, lo, rg, em, first)) in \
+            enumerate(zip(scheds, outs, states)):
         d = descs[b]
         d.idx_c, d.bit_c = idx_c.data_ptr(), bit_c.data_ptr()
-        d.table = None if table is None else table[b].data_ptr()
-        d.ebufs, d.eptrs, d.low = eb.data_ptr(), ep.data_ptr(), \
-            low[b].data_ptr()
-        d.emax, d.NC = emax[b:].data_ptr(), NC
-        outs.append((eb, ep, low[b], emax[b]))
+        d.table = None if smem else tab.data_ptr()
+        d.ebufs, d.eptrs = eb.data_ptr(), ep.data_ptr()
+        d.low, d.rng, d.emax = lo.data_ptr(), rg.data_ptr(), em.data_ptr()
+        d.NC, d.first = NCs[b], first
+        res.append((eb, ep, lo, em[0]))
     err = lib.lane_encode(
         ctypes.addressof(descs), B, KD, W, geom.table_size, geom.sac_base,
         geom.rate, getattr(geom, "rate_lo", 0), vcap, smem, CB,
-        _cuda.stream_ptr(ebufs))
-    _cuda.count("lane_encode", B)
+        _cuda.stream_ptr(outs[0][0]))
+    _cuda.count("lane_encode", B, sliced=0 if carries is None else B)
     _cuda.check(lib, err, "lane_encode")
-    return outs
+    return res
+
+
+def lane_encode_slices(build, NC: int, step: int, W: int, geom, CB: int,
+                       dev):
+    """Kernel E over one stream in step slices of ``step`` chunks, one
+    launch a step of this generator: ``build(c0, c1)`` gives chunks
+    [c0, c1) of the stream's (idx_c, bit_c), built just before their
+    launch, so only one slice of the schedule is on the device at a time;
+    the coder state carries from one launch to the next (EncCarry). Yields
+    None after each launch but the last and, after the last, (ebufs [NC,
+    W, CB], eptrs, low, emax) of the whole stream with lane_encode's
+    bytes. A caller may interleave the slices of several streams."""
+    ebufs = torch.zeros((NC, W, CB), dtype=torch.uint8, device=dev)
+    eptrs = torch.zeros((NC, W), dtype=torch.int32, device=dev)
+    carry = EncCarry()
+    for c0 in range(0, NC, step):
+        c1 = min(NC, c0 + step)
+        (_, _, low, emax), = lane_encode_blocks(
+            [build(c0, c1)], geom, CB, [carry],
+            [(ebufs[c0:c1], eptrs[c0:c1])])
+        if c1 < NC:
+            yield None
+    yield ebufs, eptrs, low, emax
+
+
+def lane_encode_sliced(build, NC: int, step: int, W: int, geom, CB: int,
+                       dev) -> tuple:
+    """lane_encode_slices run to its end: (ebufs, eptrs, low, emax)."""
+    *_, out = lane_encode_slices(build, NC, step, W, geom, CB, dev)
+    return out
 
 
 def lane_encode(idx_c: torch.Tensor, bit_c: torch.Tensor, geom, CB: int):

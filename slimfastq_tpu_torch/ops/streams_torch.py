@@ -32,7 +32,13 @@ pos/reset (the main path sends the aux kinds ``byte`` and ``flag``);
 ``encode_seq_qual_raw``/``decode_seq_qual_raw`` carry SEQ and QUAL from
 raw block bytes: the lane pack/unpack (ops/pack_torch) and pos/reset
 derivation happen on the device, so the host ships only raw bytes, the
-per-lane record-length matrix and the compressed payloads.
+per-lane record-length matrix and the compressed payloads. A block of
+2 GiB and more packs its lanes on the host instead (``host_jobs``, and
+``decode_seq_qual_raw_blocks(host_unpack=...)``; ``encode_stream_ll`` /
+``decode_stream_ll`` are the one-stream forms, as in streams_jax). A
+stream whose schedule would pass SLICE_BYTES is coded in step slices
+(``Slices``), and ``device_budget`` / ``encode_bytes`` /
+``decode_bytes`` bound what a window holds on the device.
 
 Every entry takes an explicit ``device``; the CPU runs the kernels' plain
 versions.
@@ -62,6 +68,81 @@ def _chunk_bytes(depth: int, hard: bool) -> int:
     bits = CHUNK_SYMS * depth
     b = (3 * bits + 8) if hard else (bits + 16)
     return (b + 15) // 16 * 16
+
+
+# ---------------------------------------------------------------------------
+# device bytes: step slices and the window budget
+# ---------------------------------------------------------------------------
+
+# Schedule bytes of one Kernel E launch of a stream: a longer stream is
+# coded in step slices (Slices), its schedule built slice by slice. A
+# 65,536-record block of 100 bp reads (QUAL's schedule 315 MB) is one
+# slice; one of 16.5 kb reads (QUAL 52 GB, L3 SEQ 17 GB) is 25 + 9.
+SLICE_BYTES = 2 << 30
+# the device-byte budget of a window on the CPU (tests lower it)
+CPU_BUDGET = 64 << 30
+
+
+def _chunk_sched_bytes(depth: int, W: int) -> int:
+    """Schedule bytes of one chunk of a stream (idx_c + bit_c, int32)."""
+    return 2 * 4 * CHUNK_SYMS * depth * W
+
+
+def slice_chunks(depth: int, W: int) -> int:
+    """Chunks a step slice of a stream takes: SLICE_BYTES of schedule."""
+    return max(1, SLICE_BYTES // _chunk_sched_bytes(depth, W))
+
+
+def encode_bytes(Sp: int, W: int, depths, sym_bytes: int) -> int:
+    """Device bytes of a block's SEQ/QUAL encode over Sp steps of W
+    lanes, one tree depth a stream in ``depths`` (QUAL, SEQ, then each
+    match trial's SEQ): pos and reset; per stream its symbols
+    (``sym_bytes`` a step and lane: 4 packed on the device, 1 on the
+    host), its schedule or one step slice of it, and its chunk buffers
+    and counts at the optimistic size; a trial's match flags (1 byte)."""
+    NC = Sp // CHUNK_SYMS
+    total = (8 + max(len(depths) - 2, 0)) * Sp * W
+    for d in depths:
+        total += (sym_bytes * Sp * W
+                  + min(NC, slice_chunks(d, W)) * _chunk_sched_bytes(d, W)
+                  + NC * W * (_chunk_bytes(d, hard=False) + 4))
+    return total
+
+
+def decode_bytes(Sp: int, W: int) -> int:
+    """Device bytes of a block's SEQ/QUAL decode over Sp steps of W
+    lanes: acts, pos and reset (int32), both streams' symbols and the
+    match flags (u8)."""
+    return 16 * Sp * W
+
+
+def device_budget(device) -> int:
+    """Device bytes the SEQ/QUAL streams of a window may take (a window
+    closes before the block that would pass it; a block above it codes
+    alone): half of what the card has free, its caching allocator's idle
+    blocks included. The other half is headroom: a hard-chunk rerun
+    raises a stream's chunk buffers up to 2.5-fold (QUAL at depth 6: 160
+    against 64 bytes a chunk and lane), and the schedule's and the
+    unpack's temporaries come on top. On the CPU: CPU_BUDGET."""
+    dev = torch.device(device)
+    if dev.type != "cuda":
+        return CPU_BUDGET
+    free, _ = torch.cuda.mem_get_info(dev)
+    idle = torch.cuda.memory_reserved(dev) - torch.cuda.memory_allocated(dev)
+    return (free + idle) // 2
+
+
+def split_by_bytes(sizes, budget: int) -> list:
+    """Consecutive runs of indices into ``sizes`` whose sums stay within
+    ``budget`` (a run's first item may pass it alone)."""
+    runs, used = [], 0
+    for i, n in enumerate(sizes):
+        if not runs or used + n > budget:
+            runs.append([])
+            used = 0
+        runs[-1].append(i)
+        used += n
+    return runs
 
 
 # ---------------------------------------------------------------------------
@@ -122,32 +203,51 @@ def _ctx_precompute(kind: str, geom, syms, pos, reset, mflag=None):
     raise ValueError(kind)
 
 
-def _schedule(kind: str, geom, syms, pos, reset, counts, mflag=None):
-    """[Sp, W] symbols/pos/reset (int32) + counts [W] -> the encode
-    schedule idx_c, bit_c [NC, 8*depth, W] int32. Inactive steps code
-    symbol 0 in the sacrificial context num_ctx. mflag: [Sp, W] match-span
-    flags of a format-v5 SEQ trial."""
+def _halo(kind: str, geom) -> int:
+    """Steps before a step that its context reads (_ctx_precompute's
+    shifts)."""
+    return {"qual": 2, "seq": getattr(geom, "order", 0), "byte": 1,
+            "flag": getattr(geom, "hist_bits", 0)}[kind]
+
+
+def _schedule(kind: str, geom, syms, pos, reset, counts, mflag=None,
+              c0: int = 0, c1: int | None = None):
+    """[Sp, W] symbols (int32 or u8), pos/reset (int32) + counts [W] ->
+    the encode schedule idx_c, bit_c [NC, 8*depth, W] int32, or chunks
+    [c0, c1) of it (a step slice: its contexts read their history from
+    the steps before). Inactive steps code symbol 0 in the sacrificial
+    context num_ctx. mflag: [Sp, W] match-span flags of a format-v5 SEQ
+    trial."""
     Sp, W = syms.shape
     depth = geom.depth
-    steps = torch.arange(Sp, device=syms.device, dtype=torch.int32)
+    dev = syms.device
+    t0 = c0 * CHUNK_SYMS
+    t1 = Sp if c1 is None else c1 * CHUNK_SYMS
+    a = max(0, t0 - _halo(kind, geom))
+    ctx = _ctx_precompute(kind, geom, syms[a:t1].int(), pos[a:t1],
+                          reset[a:t1],
+                          None if mflag is None else mflag[a:t1])[t0 - a:]
+    steps = torch.arange(t0, t1, device=dev, dtype=torch.int32)
     active = steps[:, None] < counts[None, :]
-    ctx = torch.where(active, _ctx_precompute(kind, geom, syms, pos, reset,
-                                              mflag), geom.num_ctx)
-    sym = torch.where(active, syms, 0)
+    ctx = torch.where(active, ctx, geom.num_ctx)
+    sym = torch.where(active, syms[t0:t1].int(), 0)
     base = ctx * ((1 << depth) - 1)
-    idx = torch.stack([base + ((1 << j) | (sym >> (depth - j))) - 1
-                       for j in range(depth)], dim=1)
-    bit = torch.stack([(sym >> (depth - 1 - j)) & 1 for j in range(depth)],
-                      dim=1)
-    NC = Sp // CHUNK_SYMS
-    return (idx.reshape(NC, CHUNK_SYMS * depth, W).int(),
-            bit.reshape(NC, CHUNK_SYMS * depth, W).int())
+    idx = torch.empty((t1 - t0, depth, W), dtype=torch.int32, device=dev)
+    bit = torch.empty_like(idx)
+    for j in range(depth):
+        idx[:, j] = base + ((1 << j) | (sym >> (depth - j))) - 1
+        bit[:, j] = (sym >> (depth - 1 - j)) & 1
+    NC = (t1 - t0) // CHUNK_SYMS
+    return (idx.view(NC, CHUNK_SYMS * depth, W),
+            bit.view(NC, CHUNK_SYMS * depth, W))
 
 
 def _pos_reset(lane_lens: torch.Tensor, Sp: int, S: int, W: int):
     """pos/reset [Sp, W] int32 from the per-lane record-length matrix
-    [Rpl, W] (int64): a boundary scatter plus a running max of the last
-    read start."""
+    [Rpl, W] (int64): a boundary scatter of the reads' starts, and of each
+    start's distance from the lane's start before, whose running sum down
+    the steps is the last read start (int32 throughout: no [Sp, W] int64
+    temporary)."""
     dev = lane_lens.device
     starts = torch.zeros_like(lane_lens)
     if lane_lens.shape[0] > 1:
@@ -155,13 +255,18 @@ def _pos_reset(lane_lens: torch.Tensor, Sp: int, S: int, W: int):
     lanes = torch.arange(W, device=dev)
     valid = (lane_lens > 0) & (starts < S)
     flat = torch.where(valid, starts * W + lanes, Sp * W).reshape(-1)
+    # the latest valid start before each record (0 before the first)
+    seen = torch.cummax(torch.where(valid, starts, 0), dim=0).values
+    prev = torch.zeros_like(seen)
+    prev[1:] = seen[:-1]
     reset = torch.zeros(Sp * W + 1, dtype=torch.int32, device=dev)
     reset[flat] = 1
-    reset = reset[:-1].reshape(Sp, W)
+    last = torch.zeros(Sp * W + 1, dtype=torch.int32, device=dev)
+    last.index_add_(0, flat, torch.where(valid, starts - prev, 0).reshape(
+        -1).int())
+    pos = last[:-1].view(Sp, W).cumsum_(0)
     t_idx = torch.arange(Sp, dtype=torch.int32, device=dev)[:, None]
-    marks = torch.where(reset == 1, t_idx, -1)
-    last = torch.cummax(marks, dim=0).values
-    return (t_idx - last.clamp(min=0)).int(), reset
+    return pos.neg_().add_(t_idx), reset[:-1].view(Sp, W)
 
 
 def _to(x: np.ndarray, dev, dtype=None) -> torch.Tensor:
@@ -169,10 +274,10 @@ def _to(x: np.ndarray, dev, dtype=None) -> torch.Tensor:
     return t.to(device=dev, dtype=dtype or t.dtype)
 
 
-def _pad2(x, Sp: int, W: int, dev) -> torch.Tensor:
-    out = torch.zeros((Sp, W), dtype=torch.int32, device=dev)
+def _pad2(x, Sp: int, W: int, dev, dtype=torch.int32) -> torch.Tensor:
+    out = torch.zeros((Sp, W), dtype=dtype, device=dev)
     if x is not None and x.shape[0]:
-        out[: x.shape[0]] = _to(x, dev, torch.int32)
+        out[: x.shape[0]] = _to(x, dev, dtype)
     return out
 
 
@@ -200,10 +305,10 @@ _POOL: dict[int, list] = {}  # device index -> side CUDA streams
 
 def _tensors(out) -> list:
     """The tensors of a launch's output (a tensor, or tuples and lists of
-    them)."""
+    them, or None)."""
     if isinstance(out, torch.Tensor):
         return [out]
-    return [t for x in out for t in _tensors(x)]
+    return [t for x in out or () for t in _tensors(x)]
 
 
 class StreamSet:
@@ -247,13 +352,14 @@ class StreamSet:
 
     def join(self) -> None:
         """The calling stream waits for every launch so far; their outputs
-        are marked in use by it."""
+        are marked in use by it (and no longer held here)."""
         if self.main is None:
             return
         for s in self.used:
             self.main.wait_stream(s)
         for t in self.outputs:
             t.record_stream(self.main)
+        self.outputs.clear()
 
     def decode(self, name: str, kind: str, geom, payload: np.ndarray,
                lens: np.ndarray, counts: np.ndarray, num_steps: int,
@@ -335,13 +441,61 @@ def _heads(outs) -> list:
                         for o in outs]).cpu().tolist()
 
 
+def _encode_members(ss: StreamSet | None, members, geom, CB: int) -> list:
+    """Kernel E over a group's members (block, idx_c, bit_c, counts):
+    one launch over those whose schedule is built, on a stream of ``ss``
+    (the calling stream without one). Returns each member's (ebufs,
+    eptrs, low, emax), or for a Slices member its generator of launches
+    (Slices.encode), which _run_slices drives."""
+    outs = [m[1].encode(CB) if isinstance(m[1], Slices) else None
+            for m in members]
+    built = [i for i, m in enumerate(members)
+             if not isinstance(m[1], Slices)]
+    if built:
+        scheds = [(members[i][1], members[i][2]) for i in built]
+
+        def run():
+            return coder_torch.lane_encode_blocks(scheds, geom, CB)
+        res = run() if ss is None else ss.launch(run, *_tensors(scheds))[0]
+        for i, o in zip(built, res):
+            outs[i] = o
+    return outs
+
+
+def _run_slices(ss: StreamSet | None, groups) -> None:
+    """Drive the launches of every Slices member of ``groups`` ((members,
+    outs) pairs, outs as _encode_members gives them), the slices of all
+    the streams in turn (round robin), each stream on a CUDA stream of
+    its own (the calling stream without ``ss``): the host issues each
+    stream's first slices before a full launch queue can hold it up
+    behind another's. Each member's generator in ``outs`` becomes its
+    (ebufs, eptrs, low, emax)."""
+    live = [(outs, i, m[1], None) for members, outs in groups
+            for i, m in enumerate(members) if isinstance(m[1], Slices)]
+    while live:
+        nxt = []
+        for outs, i, sl, s in live:
+            if ss is None:
+                out = next(outs[i])
+            else:
+                out, s = ss.launch(lambda g=outs[i]: next(g), *sl.tensors(),
+                                   after=s)
+            if out is None:
+                nxt.append((outs, i, sl, s))
+            else:
+                outs[i] = out
+        live = nxt
+
+
 def encode_window(groups, device) -> dict:
     """Code a window of blocks' streams at once. ``groups`` yields (name,
     kind, geom, members), members a list of (block, idx_c, bit_c, counts
     [W]) of the blocks whose stream codes a step (a generator may build
     each group's schedules as it goes; the launches before it run
-    meanwhile). Kernel E runs once a group, over its blocks, on its own
-    CUDA stream with optimistic chunk buffers; one host synchronisation
+    meanwhile); a member whose idx_c is a Slices is coded in step slices
+    on a stream of its own. Kernel E runs once a group, over its blocks,
+    on its own CUDA stream with optimistic chunk buffers; one host
+    synchronisation
     reads every block's overflow check and longest lane; the blocks whose
     chunk overflowed are rerun with hard buffers (the others keep their
     bytes, which do not depend on the buffer size); then one Kernel C
@@ -353,13 +507,13 @@ def encode_window(groups, device) -> dict:
     todo = []
     for name, _kind, geom, members in groups:
         CB = _chunk_bytes(geom.depth, hard=False)
-        scheds = [(m[1], m[2]) for m in members]
         with trace(f"sfq.encode.{name}.coder"):
-            outs, _ = ss.launch(lambda: coder_torch.lane_encode_blocks(
-                scheds, geom, CB), *_tensors(scheds))
+            outs = _encode_members(ss, members, geom, CB)
         todo.append((name, geom, members, outs))
     if not todo:
         return {}
+    with trace("sfq.encode.slices"):
+        _run_slices(ss, [(members, outs) for *_, members, outs in todo])
     ss.join()
     heads = iter(_heads([o for *_, outs in todo for o in outs]))
     streams, tails, keys = [], [], []
@@ -369,9 +523,12 @@ def encode_window(groups, device) -> dict:
         over = [i for i, (emax, _) in enumerate(head) if emax > CB]
         if over:  # rare: rerun with the worst-case chunk size
             CB = _chunk_bytes(geom.depth, hard=True)
+            for i in over:
+                outs[i] = None  # the optimistic buffers go first
             with trace(f"sfq.encode.{name}.coder"):
-                redo = coder_torch.lane_encode_blocks(
-                    [members[i][1:3] for i in over], geom, CB)
+                again = [members[i] for i in over]
+                redo = _encode_members(None, again, geom, CB)
+                _run_slices(None, [(again, redo)])
             for i, o, h in zip(over, redo, _heads(redo)):
                 if h[0] > CB:
                     raise AssertionError("encode chunk overflow even with "
@@ -452,6 +609,59 @@ def decode_stream(kind: str, geom, payload: np.ndarray, lens: np.ndarray,
     return ss.symbols(kind)
 
 
+def _ll_inputs(lane_len_mat: np.ndarray, S: int, W: int, dev):
+    """(Sp, pos, reset [Sp, W] int32) of a per-read stream from its
+    per-lane record-length matrix, derived on the device."""
+    Sp = pad_steps(S)
+    return (Sp, *_pos_reset(_lane_lens(lane_len_mat, W, dev), Sp, S, W))
+
+
+def encode_stream_ll(kind: str, geom, syms: np.ndarray,
+                     lane_len_mat: np.ndarray, counts: np.ndarray, device,
+                     mflag: np.ndarray | None = None):
+    """encode_stream for a per-read stream (qual/seq): pos/reset are
+    derived on the device from the per-lane record-length matrix, so the
+    host ships only the [S, W] symbols (as bytes) and that matrix; the
+    schedule is built in step slices where the whole would pass
+    SLICE_BYTES. mflag: a format-v5 SEQ trial's [S, W] match-span flags.
+    Returns (payload [W, maxlen] u8, lens [W] int64)."""
+    S, W = syms.shape
+    counts = np.asarray(counts)
+    if pad_steps(S) == 0 or not (counts > 0).any():
+        return _empty_encode(W)
+    dev = torch.device(device)
+    Sp, pos, reset = _ll_inputs(lane_len_mat, S, W, dev)
+    job = _coder_job(kind, kind, geom, _pad2(syms, Sp, W, dev, torch.uint8),
+                     pos, reset, _to(counts, dev, torch.int32),
+                     None if mflag is None
+                     else _pad2(mflag, Sp, W, dev, torch.uint8))
+    return encode_block([(kind, kind, geom, job.idx_c, job.bit_c, counts)],
+                        device)[kind]
+
+
+def decode_stream_ll(kind: str, geom, payload: np.ndarray, lens: np.ndarray,
+                     lane_len_mat: np.ndarray, counts: np.ndarray,
+                     num_steps: int, device,
+                     mflag: np.ndarray | None = None) -> np.ndarray:
+    """decode_stream with acts/pos/reset derived on the device from the
+    per-lane record-length matrix: [num_steps, W] u8 symbols (0 past each
+    count). mflag: a format-v5 SEQ stream's [S, W] match-span flags."""
+    W = payload.shape[0]
+    counts = np.asarray(counts)
+    S = num_steps
+    if pad_steps(S) == 0 or not (counts > 0).any():
+        return np.zeros((S, W), dtype=np.uint8)
+    dev = torch.device(device)
+    Sp, pos, reset = _ll_inputs(lane_len_mat, S, W, dev)
+    item = (_payload_tensor(payload, dev), _to(lens, dev, torch.int32),
+            _acts(_to(counts, dev, torch.int32), Sp), pos, reset)
+    if mflag is not None:
+        item += (_pad2(mflag, Sp, W, dev, torch.uint8),)
+    with trace(f"sfq.decode.{kind}.coder"):
+        syms, = coder_torch.lane_decode_blocks([item], kind, geom)
+    return syms[:S].cpu().numpy()
+
+
 # ---------------------------------------------------------------------------
 # device-raw SEQ + QUAL
 # ---------------------------------------------------------------------------
@@ -463,10 +673,49 @@ def _lane_lens(ll_mat: np.ndarray, W: int, dev) -> torch.Tensor:
     return _to(ll, dev)
 
 
+class Slices(NamedTuple):
+    """A stream's encode schedule built one step slice at a time, as
+    Kernel E takes it (coder_torch.lane_encode_slices): a stream whose
+    whole schedule would pass SLICE_BYTES. Symbols (int32 or u8), pos and
+    reset [Sp, W], counts [W] int32 and match flags on the device; called
+    with (c0, c1), the schedule of chunks [c0, c1)."""
+    kind: str
+    geom: object
+    syms: torch.Tensor
+    pos: torch.Tensor
+    reset: torch.Tensor
+    counts: torch.Tensor
+    mflag: torch.Tensor | None
+
+    @property
+    def NC(self) -> int:
+        return self.syms.shape[0] // CHUNK_SYMS
+
+    def __call__(self, c0: int, c1: int):
+        with trace(f"sfq.encode.{self.kind}.schedule"):
+            return _schedule(self.kind, self.geom, self.syms, self.pos,
+                             self.reset, self.counts, self.mflag, c0, c1)
+
+    def encode(self, CB: int):
+        """Kernel E over the stream, one slice a step of this generator
+        (coder_torch.lane_encode_slices): (ebufs, eptrs, low, emax) as
+        lane_encode gives them, after the last."""
+        W = self.syms.shape[1]
+        return coder_torch.lane_encode_slices(
+            self, self.NC, slice_chunks(self.geom.depth, W), W, self.geom,
+            CB, self.syms.device)
+
+    def tensors(self) -> list:
+        return [t for t in (self.syms, self.pos, self.reset, self.counts,
+                            self.mflag) if t is not None]
+
+
 class CoderJob(NamedTuple):
-    """One device-raw stream's coder inputs on the device: lane symbols,
-    pos and reset [Sp, W] int32, counts [W] int32 and the encode
-    schedule idx_c, bit_c [NC, 8*depth, W] int32."""
+    """One SEQ/QUAL stream's coder inputs on the device: lane symbols
+    [Sp, W] (int32, or u8 where the host packed them), pos and reset
+    [Sp, W] int32, counts [W] int32 and the encode schedule idx_c, bit_c
+    [NC, 8*depth, W] int32; or, where the whole schedule would pass
+    SLICE_BYTES, idx_c a Slices and bit_c None."""
     name: str
     kind: str
     geom: object
@@ -474,8 +723,39 @@ class CoderJob(NamedTuple):
     pos: torch.Tensor
     reset: torch.Tensor
     counts: torch.Tensor
-    idx_c: torch.Tensor
-    bit_c: torch.Tensor
+    idx_c: object
+    bit_c: torch.Tensor | None
+
+
+def _coder_job(name: str, kind: str, geom, syms, pos, reset, counts_t,
+               mflag) -> CoderJob:
+    """A stream's CoderJob: its schedule built whole, or as Slices where
+    the whole would pass SLICE_BYTES (slices carry the table in device
+    memory: a table in shared memory takes the whole schedule)."""
+    Sp, W = syms.shape
+    if Sp // CHUNK_SYMS > slice_chunks(geom.depth, W) \
+            and not coder_torch.table_in_smem(geom, W):
+        return CoderJob(name, kind, geom, syms, pos, reset, counts_t,
+                        Slices(kind, geom, syms, pos, reset, counts_t,
+                               mflag), None)
+    with trace(f"sfq.encode.{kind}.schedule"):
+        idx_c, bit_c = _schedule(kind, geom, syms, pos, reset, counts_t,
+                                 mflag)
+    return CoderJob(name, kind, geom, syms, pos, reset, counts_t, idx_c,
+                    bit_c)
+
+
+def _jobs(streams, pos, reset, counts_t, Sp: int, W: int, dev, seq_mflag,
+          only: tuple):
+    """Each (name, kind, geom, symbols or a function that returns them) of
+    ``streams`` named in ``only`` as a CoderJob, in turn."""
+    for name, kind, geom, syms in streams:
+        if name not in only:
+            continue
+        mflag = (_pad2(seq_mflag, Sp, W, dev, torch.uint8)
+                 if name == "SEQ" and seq_mflag is not None else None)
+        yield _coder_job(name, kind, geom, syms() if callable(syms) else
+                         syms, pos, reset, counts_t, mflag)
 
 
 def seq_qual_jobs(seq_geom, qual_geom, data: np.ndarray,
@@ -502,31 +782,44 @@ def seq_qual_jobs(seq_geom, qual_geom, data: np.ndarray,
             qual_bias)
         pos, reset = _pos_reset(_lane_lens(ll_mat, W, dev), Sp, S, W)
         counts_t = _to(counts, dev, torch.int32)
-    for name, kind, geom, syms in (("QUAL", "qual", qual_geom, qual_syms),
-                                   ("SEQ", "seq", seq_geom, seq_syms)):
-        if name not in only:
-            continue
-        syms = syms.int()
-        mflag = (_pad2(seq_mflag, Sp, W, dev)
-                 if name == "SEQ" and seq_mflag is not None else None)
-        with trace(f"sfq.encode.{kind}.schedule"):
-            idx_c, bit_c = _schedule(kind, geom, syms, pos, reset, counts_t,
-                                     mflag)
-        yield CoderJob(name, kind, geom, syms, pos, reset, counts_t, idx_c,
-                       bit_c)
-        del syms, mflag, idx_c, bit_c
+    yield from _jobs((("QUAL", "qual", qual_geom, qual_syms.int),
+                      ("SEQ", "seq", seq_geom, seq_syms.int)),
+                     pos, reset, counts_t, Sp, W, dev, seq_mflag, only)
 
 
-def seq_qual_groups(blocks, device, only: tuple = ("SEQ", "QUAL"),
+def host_jobs(seq_geom, qual_geom, seq_syms: np.ndarray,
+              qual_syms: np.ndarray | None, ll_mat: np.ndarray,
+              counts: np.ndarray, device,
+              seq_mflag: np.ndarray | None = None,
+              only: tuple = ("SEQ", "QUAL")):
+    """seq_qual_jobs for lanes packed on the host (native.pack_lanes,
+    [S, W] u8; qual_syms may be None where only SEQ is coded), the path
+    of a block whose raw bytes reach 2 GiB: the symbols cross to the
+    device as bytes and stay bytes there; pos/reset are derived on the
+    device from the per-lane record-length matrix (the JAX package's
+    _build_schedule_ll). Some lane has symbols."""
+    counts = np.asarray(counts)
+    W = len(counts)
+    dev = torch.device(device)
+    Sp, pos, reset = _ll_inputs(ll_mat, int(counts.max()), W, dev)
+    counts_t = _to(counts, dev, torch.int32)
+    yield from _jobs(
+        (("QUAL", "qual", qual_geom,
+          lambda: _pad2(qual_syms, Sp, W, dev, torch.uint8)),
+         ("SEQ", "seq", seq_geom,
+          lambda: _pad2(seq_syms, Sp, W, dev, torch.uint8))),
+        pos, reset, counts_t, Sp, W, dev, seq_mflag, only)
+
+
+def seq_qual_groups(gens, only: tuple = ("SEQ", "QUAL"),
                     rename: dict | None = None):
     """SEQ and QUAL of a window's blocks as encode_window groups: QUAL
-    over every block, then SEQ (each split by geometry). ``blocks``:
-    (block, the arguments of seq_qual_jobs up to the device, seq_mflag or
-    None); every block's lane pack runs as the group that first needs it
-    is built. ``rename`` maps a stream's name to its group's (a match
-    trial's SEQ@t)."""
-    gens = [(b, args[-1], seq_qual_jobs(*args, device, mflag, only))
-            for b, args, mflag in blocks]
+    over every block, then SEQ (each split by geometry). ``gens``:
+    (block, counts [W], its seq_qual_jobs or host_jobs generator over
+    ``only``); every block's jobs are made as the group that first needs
+    them is built. ``rename`` maps a stream's name to its group's (a
+    match trial's SEQ@t)."""
+    gens = list(gens)
     for _ in only:
         jobs = [(b, counts, next(gen)) for b, counts, gen in gens]
         if not jobs:
@@ -587,13 +880,16 @@ def decode_seq_qual_raw_blocks(sgeoms, pay_s, lens_s, pay_q, lens_q,
                                lengths_list, totals, qgeoms, minqs,
                                seq_map: np.ndarray, device,
                                streams: StreamSet | None = None,
-                               seq_mflags=None) -> list:
+                               seq_mflags=None, host_unpack=None) -> list:
     """SEQ and QUAL of a window's blocks (per block as
     decode_seq_qual_raw): Kernel D once for QUAL and once for SEQ over
     the blocks, split only where the launch needs one value (the
     geometry; for SEQ also whether the block's match-span flags select
     the match family). seq_mflags: None or per block None or a function
     that returns its flags, called once every QUAL decode is launched.
+    host_unpack: None or per block whether its symbols come to the host
+    as [S, W] lanes and unpack there (native.unpack_lanes; a block of 2
+    GiB and more, whose device unpack would need [S, W] int64 indices).
     Returns per block (seq_bytes, qual_bytes)."""
     dev = torch.device(device)
     ss = streams or StreamSet(device)
@@ -610,13 +906,13 @@ def decode_seq_qual_raw_blocks(sgeoms, pay_s, lens_s, pay_q, lens_q,
         W = pay_s[b].shape[0]
         pos, reset = _pos_reset(_lane_lens(ll_list[b], W, dev), Sp, S, W)
         live[b] = (Sp, W, _acts(_to(counts, dev, torch.int32), Sp), pos,
-                   reset)
+                   reset, S)
     dec = {}
     for name, kind, geoms, pays, lenses in (
             ("QUAL", "qual", qgeoms, pay_q, lens_q),
             ("SEQ", "seq", sgeoms, pay_s, lens_s)):
         groups: dict = {}
-        for b, (Sp, W, acts, pos, reset) in live.items():
+        for b, (Sp, W, acts, pos, reset, _) in live.items():
             item = (_payload_tensor(pays[b], dev),
                     _to(lenses[b], dev, torch.int32), acts, pos, reset)
             if name == "SEQ" and seq_mflags and seq_mflags[b] is not None:
@@ -633,8 +929,18 @@ def decode_seq_qual_raw_blocks(sgeoms, pay_s, lens_s, pay_q, lens_q,
             for (b, _), sy in zip(members, syms):
                 dec[b, name] = sy
     ss.join()
-    for b, (_, W, *_rest) in live.items():
+    for b, (_, W, *_rest, S) in live.items():
         total = int(totals[b])
+        if host_unpack and host_unpack[b]:
+            with trace("sfq.decode.unpack_lanes"):
+                out[b] = (
+                    native.unpack_lanes(dec[b, "SEQ"][:S].cpu().numpy(),
+                                        lengths_list[b], W, starts_list[b],
+                                        total, map256=seq_map)[:total],
+                    native.unpack_lanes(dec[b, "QUAL"][:S].cpu().numpy(),
+                                        lengths_list[b], W, starts_list[b],
+                                        total, bias=minqs[b])[:total])
+            continue
         with trace("sfq.decode.unpack_pair"):
             seq_flat, qual_flat = pack_torch.unpack_pair(
                 dec[b, "SEQ"], dec[b, "QUAL"], starts_list[b],
@@ -677,16 +983,16 @@ def encode_seq_qual_raw_blocks(sgeoms, raw_list, counts_list, qgeoms,
     where their geometries differ). Returns per block {"SEQ": (payload,
     lens), "QUAL": ...}, as encode_seq_qual_raw gives them."""
     W = len(counts_list[0]) if len(counts_list) else 0
-    blocks = []
+    gens = []
     for b, ((dpad, soffs, qoffs, lengths), counts) in enumerate(
             zip(raw_list, counts_list)):
         counts = np.asarray(counts)
         if (counts > 0).any():
-            blocks.append((b, (sgeoms[b], qgeoms[b], dpad, soffs, qoffs,
-                               lengths, W, seq_map, minqs[b],
-                               _lane_lengths_matrix(lengths, W), counts),
-                           None))
-    coded = encode_window(seq_qual_groups(blocks, device), device)
+            gens.append((b, counts, seq_qual_jobs(
+                sgeoms[b], qgeoms[b], dpad, soffs, qoffs, lengths, W,
+                seq_map, minqs[b], _lane_lengths_matrix(lengths, W), counts,
+                device)))
+    coded = encode_window(seq_qual_groups(gens), device)
     return [{name: coded.get((b, name)) or _empty_encode(W)
              for name in ("SEQ", "QUAL")} for b in range(len(raw_list))]
 

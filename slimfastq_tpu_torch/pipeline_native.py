@@ -19,8 +19,13 @@ matched spans with e-transform letters and codes SEQ again with the
 match-context family, plus the MATCH descriptor stream; a trial that makes
 SEQ + MATCH strictly smaller wins and sets MATCH_USED.
 
-Not ported yet (raises): blocks whose raw byte span reaches 2 GiB (device
-offsets are int32; the reference packs those on the host).
+A block whose raw byte span reaches 2 GiB (long reads: 65,536 records of
+~16.4 kb and more) packs SEQ and QUAL into lanes on the host
+(native.pack_lanes) and unpacks them there on decode, as the JAX package
+does: the device pack would need [S, W] int64 indices. Its streams take
+the same coders, with pos/reset derived on the device and, where a
+stream's schedule would pass streams_torch.SLICE_BYTES, Kernel E in step
+slices. The byte budget of a window (api) codes such a block alone.
 """
 
 from __future__ import annotations
@@ -34,6 +39,7 @@ from . import native
 from .config import CodecConfig
 from .models import matcher as M
 from .ops import pack_torch, streams_torch
+from .ops.ranger import pad_steps
 from .pipeline import (MATCH_USED, QUAL_NODELTA, EncodedBlock, EncodedStream,
                        _BASE_TO_CODE, _CODE_TO_BASE, _lane_lengths_matrix,
                        streams_for)
@@ -46,7 +52,19 @@ _BASE_TO_CODE_DEV = np.where(_BASE_TO_CODE == 255, 0,
                              _BASE_TO_CODE).astype(np.uint8)
 _CODE_TO_BASE_FULL = _CODE_TO_BASE[np.arange(256) & 3].astype(np.uint8)
 
-_MAX_SPAN = 1 << 31  # int32 device offsets
+# raw bytes from which a block packs on the host (the JAX package's
+# int32-offset limit)
+_MAX_SPAN = 1 << 31
+
+
+def block_span(idx: dict, lo: int, hi: int) -> int:
+    """Raw bytes of records [lo, hi): '@' of the first to the end of the
+    last's quality line."""
+    if hi <= lo:
+        return 0
+    last = hi - 1
+    return int(idx["qual_off"][last] + idx["qual_len"][last]) \
+        - (int(idx["id_off"][lo]) - 1)
 
 
 def _lanes_to_mat(lanes_b, Wa: int):
@@ -63,19 +81,14 @@ def _lanes_to_mat(lanes_b, Wa: int):
     return native.transpose_mat(symsT), counts
 
 
-def _span_too_large(what: str, span: int) -> ValueError:
-    return ValueError(
-        f"{what} spans {span} bytes (>= 2 GiB): the host-pack path for such "
-        "blocks is not yet ported in the torch port; use a smaller "
-        "--block-records")
-
-
 def stream_jobs_fast(data: np.ndarray, idx: dict, lo: int, hi: int,
-                     cfg: CodecConfig):
+                     cfg: CodecConfig, host_pack: bool = False):
     """Every stream's (kind, geom, syms, counts, pos, reset) coding job,
     straight from the raw buffer + index arrays. SEQ and QUAL jobs carry
-    syms = pos = reset = None: their lane pack and pos/reset happen on
-    the device; the host only runs the non-ACGT census for SEQX.
+    pos = reset = None (derived on the device) and syms = None: their
+    lane pack happens on the device, the host only runs the non-ACGT
+    census for SEQX; with ``host_pack``, syms are their [S, W] u8 lanes,
+    packed on the host with the same census.
     Returns (jobs, n, minq, qual_depth, ll_mat, extra); extra["matches"]
     holds the matcher's (ref, orient, v, score) arrays, or None where no
     read matched."""
@@ -123,7 +136,14 @@ def stream_jobs_fast(data: np.ndarray, idx: dict, lo: int, hi: int,
     # --- SEQ + SEQX ---------------------------------------------------------
     ll_mat = _lane_lengths_matrix(lengths, W)
     scounts = ll_mat.sum(axis=0)
-    nbad, rec_bad = native.scan_bad(data, seq_off, lengths)
+    S = int(scounts.max()) if scounts.size else 0
+    sq = qs = None
+    if host_pack:
+        sq, _, nbad, rec_bad = native.pack_lanes(data, seq_off, lengths, W,
+                                                 S, map256=_BASE_TO_CODE,
+                                                 dtype=np.uint8)
+    else:
+        nbad, rec_bad = native.scan_bad(data, seq_off, lengths)
     if nbad:
         # rare path: run-length exception lane streams, emitted in C++;
         # only the records scan_bad flagged are rescanned
@@ -150,7 +170,7 @@ def stream_jobs_fast(data: np.ndarray, idx: dict, lo: int, hi: int,
                                               min(M.THRESHOLDS))
             if (m_arrs[0] >= 0).any():
                 extra["matches"] = m_arrs
-    jobs["SEQ"] = ("seq", sgeom, None, scounts, None, None)
+    jobs["SEQ"] = ("seq", sgeom, sq, scounts, None, None)
 
     # --- QUAL ---------------------------------------------------------------
     if n and int(lengths.sum()):
@@ -159,12 +179,15 @@ def stream_jobs_fast(data: np.ndarray, idx: dict, lo: int, hi: int,
         minq = maxq = 33
     qrange = maxq - minq + 1
     qual_depth = 6 if qrange <= 64 else (7 if qrange <= 128 else 8)
+    if host_pack:
+        qs = native.pack_lanes(data, qual_off, lengths, W, S, bias=minq,
+                               dtype=np.uint8)[0]
     qdelta = cfg.qual.delta_bits
     if cfg.fmt >= 5 and qdelta:
         qdelta = M.effective_qual_delta(qdelta, int(lengths.sum()))
         extra["qual_nodelta"] = qdelta == 0
     qgeom = replace(cfg.qual, depth=qual_depth, delta_bits=qdelta)
-    jobs["QUAL"] = ("qual", qgeom, None, scounts, None, None)
+    jobs["QUAL"] = ("qual", qgeom, qs, scounts, None, None)
 
     return jobs, n, minq, qual_depth, ll_mat, extra
 
@@ -180,15 +203,23 @@ def _match_span_bounds(m_arr, lengths):
     return los, his
 
 
-def _match_trials(matches, raw_args, W: int, Wa: int, S: int) -> list:
+def _match_trials(matches, raw_args, W: int, Wa: int, S: int,
+                  host=None) -> list:
     """The per-threshold SEQ alternatives of a block whose reads matched,
-    in threshold order: [(min_score, raw_args with the matched spans
-    rewritten, MATCH syms [S', Wa], MATCH counts, mflag [S, W])]. A
+    in threshold order: [(min_score, the block's SEQ with the matched
+    spans rewritten, MATCH syms [S', Wa], MATCH counts, mflag [S, W])]. A
     threshold that accepts no read has none, and so has one that accepts
     the same reads as the one before: its trial would code the same bytes,
-    which can never win the strict test against their twin."""
+    which can never win the strict test against their twin. The rewritten
+    SEQ is raw_args with its padded bytes rewritten (the device pack); or,
+    for a block packed on the host (raw_args None, host = (its raw bytes,
+    seq offsets into them, lengths)), the rewritten bytes' SEQ lanes
+    [S, W] u8, packed on the host."""
     refs, orients, vs, scores = matches
-    dpad, offs_s, offs_q, lengths = raw_args
+    if raw_args is not None:
+        dpad, offs_s, offs_q, lengths = raw_args
+    else:
+        raw, offs_s, lengths = host
     trials, prev = [], None
     for t in M.THRESHOLDS:
         acc = (refs >= 0) & (scores >= t)
@@ -203,47 +234,72 @@ def _match_trials(matches, raw_args, W: int, Wa: int, S: int) -> list:
         mflag = native.match_mflag(recs, los, his, lengths, W, S)
         # the spans rewritten with e-transform letters, refs read from the
         # unmodified bytes (the reference's _e_rewrite_letters)
-        dpad_e = dpad.copy()
-        native.match_apply_arrays(dpad_e, dpad, offs_s, lengths, matches, t)
-        trials.append((t, (dpad_e, offs_s, offs_q, lengths), msyms, mcounts,
-                       mflag))
+        if raw_args is not None:
+            dpad_e = dpad.copy()
+            native.match_apply_arrays(dpad_e, dpad, offs_s, lengths,
+                                      matches, t)
+            alt = (dpad_e, offs_s, offs_q, lengths)
+        else:
+            raw_e = raw.copy()
+            native.match_apply_arrays(raw_e, raw, offs_s, lengths, matches,
+                                      t)
+            alt = native.pack_lanes(raw_e, offs_s, lengths, W, S,
+                                    map256=_BASE_TO_CODE, dtype=np.uint8)[0]
+            del raw_e
+        trials.append((t, alt, msyms, mcounts, mflag))
     return trials
 
 
 def prepare_block_fast(data: np.ndarray, idx: dict, lo: int, hi: int,
                        cfg: CodecConfig):
     """Host-only half of a block encode (stream modelling + aux lane
-    matrices + the padded raw byte range + a v5 block's match trials).
-    The returned opaque tuple feeds encode_prepared_block — split so a
-    pipelined caller can prep block k+1 while block k is on the
-    device."""
+    matrices + the padded raw byte range, or SEQ/QUAL lanes packed on the
+    host where that range reaches _MAX_SPAN + a v5 block's match
+    trials). The returned opaque tuple feeds encode_prepared_block —
+    split so a pipelined caller can prep block k+1 while block k is on
+    the device."""
+    span = block_span(idx, lo, hi)
+    host = span >= _MAX_SPAN
     jobs, n, minq, qual_depth, ll_mat, extra = stream_jobs_fast(
-        data, idx, lo, hi, cfg)
-    raw_args = None
-    if n:
-        base = int(idx["id_off"][lo]) - 1  # the record's '@'
-        last = hi - 1
-        end = int(idx["qual_off"][last] + idx["qual_len"][last])
-        span = end - base
-        if span >= _MAX_SPAN:
-            raise _span_too_large("block", span)
+        data, idx, lo, hi, cfg, host_pack=host)
+    raw_args = host_args = None
+    sl = slice(lo, hi)
+    base = int(idx["id_off"][lo]) - 1 if n else 0  # the record's '@'
+    if n and not host:
         # the block's raw byte range ships to the device once, padded to
         # the shape bucket here, in the pipelined host half; offsets
         # become block-local
-        sl = slice(lo, hi)
         dpad = np.empty(pack_torch.pad_flat(span), dtype=np.uint8)
-        dpad[:span] = data[base:end]
+        dpad[:span] = data[base:base + span]
         dpad[span:] = 0
         raw_args = (dpad, idx["seq_off"][sl] - base,
                     idx["qual_off"][sl] - base,
                     idx["seq_len"][sl].astype(np.int64))
+    elif n:
+        host_args = (data[base:base + span], idx["seq_off"][sl] - base,
+                     idx["seq_len"][sl].astype(np.int64))
     v5 = None
     if cfg.fmt >= 5:
         matches = extra.pop("matches")
         v5 = {**extra, "trials": [] if matches is None else _match_trials(
             matches, raw_args, cfg.lanes, cfg.aux_lanes,
-            int(ll_mat.sum(0).max()))}
+            int(ll_mat.sum(0).max()), host_args)}
     return jobs, n, minq, qual_depth, ll_mat, raw_args, v5
+
+
+def device_bytes(pre, cfg: CodecConfig) -> int:
+    """Device bytes of a prepared block's SEQ/QUAL encode, its match
+    trials' SEQ included (streams_torch.encode_bytes): what a window's
+    byte budget counts."""
+    jobs, _, _, _, ll_mat, raw_args, v5 = pre
+    counts = jobs["SEQ"][3]
+    if not (counts > 0).any():
+        return 0
+    depths = [jobs["QUAL"][1].depth] + [jobs["SEQ"][1].depth] * (
+        1 + len((v5 or {}).get("trials", ())))
+    return streams_torch.encode_bytes(
+        pad_steps(int(counts.max())), cfg.lanes, depths,
+        4 if raw_args is not None else 1)
 
 
 def seq_qual_args(pre, cfg: CodecConfig, raw_args=None) -> tuple:
@@ -261,6 +317,21 @@ def _empty_stream(counts) -> EncodedStream:
                          np.zeros((len(c64), 0), dtype=np.uint8))
 
 
+def _sq_jobs(pre, cfg: CodecConfig, device, alt=None, mflag=None,
+             only: tuple = ("SEQ", "QUAL")):
+    """A prepared block's SEQ/QUAL coder jobs (streams_torch.seq_qual_jobs
+    from its raw bytes, or host_jobs from its host-packed lanes); alt and
+    mflag: a match trial's rewritten SEQ and flags."""
+    jobs = pre[0]
+    if pre[5] is not None:
+        return streams_torch.seq_qual_jobs(*seq_qual_args(pre, cfg, alt),
+                                           device, mflag, only)
+    return streams_torch.host_jobs(
+        jobs["SEQ"][1], jobs["QUAL"][1],
+        jobs["SEQ"][2] if alt is None else alt, jobs["QUAL"][2], pre[4],
+        jobs["SEQ"][3], device, mflag, only)
+
+
 def _window_jobs(pres, cfg: CodecConfig, device):
     """Every coded stream of a window of prepared blocks as
     streams_torch.encode_window groups, one Kernel E launch each, its
@@ -269,17 +340,18 @@ def _window_jobs(pres, cfg: CodecConfig, device):
     per threshold each match trial's SEQ and MATCH (named SEQ@t and
     MATCH@t) over the blocks with that trial; then each aux stream over
     the blocks where it codes a step."""
-    raw = [b for b, pre in enumerate(pres)
-           if pre[5] is not None and (pre[0]["SEQ"][3] > 0).any()]
+    based = [b for b, pre in enumerate(pres) if (pre[0]["SEQ"][3] > 0).any()]
     yield from streams_torch.seq_qual_groups(
-        [(b, seq_qual_args(pres[b], cfg), None) for b in raw], device)
+        (b, pres[b][0]["SEQ"][3], _sq_jobs(pres[b], cfg, device))
+        for b in based)
     for t in M.THRESHOLDS:
-        trials = [(b, tr) for b in raw
+        trials = [(b, tr) for b in based
                   for tr in (pres[b][6] or {}).get("trials", ())
                   if tr[0] == t]
         yield from streams_torch.seq_qual_groups(
-            [(b, seq_qual_args(pres[b], cfg, alt), mflag)
-             for b, (_, alt, _, _, mflag) in trials], device, ("SEQ",),
+            ((b, pres[b][0]["SEQ"][3],
+              _sq_jobs(pres[b], cfg, device, alt, mflag, ("SEQ",)))
+             for b, (_, alt, _, _, mflag) in trials), ("SEQ",),
             {"SEQ": f"SEQ@{t}"})
         entries = []
         for b, (_, _, msyms, mcounts, _) in trials:
@@ -418,20 +490,20 @@ def decode_blocks_device(blocks, cfg: CodecConfig, device) -> list:
     lengths = {b: native.lens_decode(lanes(b, "LEN"), blocks[b].num_records,
                                      Wa, prev_step) for b in live}
 
-    # 3. seq + qual -> record-major flat byte buffers; on return every
-    # stream of the window has been decoded
+    # 3. seq + qual -> record-major flat byte buffers, in runs of blocks
+    # within the device-byte budget (a window's run unless its blocks are
+    # long); on return every stream of the window has been decoded
     m_arrs: dict = {}
-    args, mflags, starts = [], [], []
+    args, mflags, starts, host, sizes = [], [], [], [], []
     for b in live:
         blk = blocks[b]
         n = blk.num_records
         rec_starts = np.zeros(n, dtype=np.int64)
         rec_starts[1:] = np.cumsum(lengths[b][:-1])
         total = int(lengths[b].sum())
-        if total >= _MAX_SPAN:
-            raise _span_too_large("block sequence data", total)
         ll_mat = _lane_lengths_matrix(lengths[b], W)
         scounts = ll_mat.sum(axis=0)
+        S = int(scounts.max()) if scounts.size else 0
         sgeom = (replace(cfg.seq, order=blk.seq_order)
                  if (cfg.fmt >= 5 and blk.seq_order) else cfg.seq)
         qgeom = replace(cfg.qual, depth=blk.qual_depth,
@@ -442,13 +514,21 @@ def decode_blocks_device(blocks, cfg: CodecConfig, device) -> list:
         args.append((sgeom, seq_s.payload, seq_s.lane_lens, qs.payload,
                      qs.lane_lens, ll_mat, scounts, rec_starts, lengths[b],
                      total, qgeom, blk.minq))
-        mflags.append(partial(_seq_mflag, b, lanes, lengths[b], W, Wa,
-                              int(scounts.max()) if scounts.size else 0,
+        mflags.append(partial(_seq_mflag, b, lanes, lengths[b], W, Wa, S,
                               m_arrs) if match_used[b] else None)
         starts.append(rec_starts)
-    seq_qual = streams_torch.decode_seq_qual_raw_blocks(
-        *(list(col) for col in zip(*args)) if args else [[]] * 12,
-        _CODE_TO_BASE_FULL, device, streams=ss, seq_mflags=mflags)
+        # seq + qual bytes, at most the raw span: such a block unpacks on
+        # the host, as it packed there
+        host.append(2 * total >= _MAX_SPAN)
+        sizes.append(streams_torch.decode_bytes(pad_steps(S), W))
+    seq_qual = []
+    for run in streams_torch.split_by_bytes(
+            sizes, streams_torch.device_budget(device)) if live else [[]]:
+        seq_qual += streams_torch.decode_seq_qual_raw_blocks(
+            *([args[i][k] for i in run] for k in range(12)),
+            _CODE_TO_BASE_FULL, device, streams=ss,
+            seq_mflags=[mflags[i] for i in run],
+            host_unpack=[host[i] for i in run])
 
     # 4. flags (implicit counts: 3 per record), back to record order; ID
     # delta/exception streams (chain decode is in the finish half) and

@@ -7,7 +7,9 @@ with its streams at once against the same block coded one stream at a
 time; Kernels E and D over a ragged window of blocks against their plain
 versions and against one launch per block; Kernel C's one launch over
 many streams (also a window's 88) against its plain version and against
-each stream compacted alone; and the small-block window path end to end.
+each stream compacted alone; the small-block window path end to end;
+Kernel E in step slices against one launch; and the host-pack path
+(forced on small blocks) against the main path's containers.
 Marked `cuda`: they
 skip without a card. This file imports
 neither JAX nor the JAX package, so it runs on a machine that has only
@@ -431,6 +433,87 @@ def test_window_round_trip_on_card(dev, level):
     assert _cuda.descs["compact_lanes_dev"] >= 4 * 7
     assert enc == alone
     assert api.decode_fastq(enc, window=1) == data
+    if level == 4:
+        f = io.BytesIO(enc)
+        cfg = container.read_header(f)
+        assert any(b.flags & MATCH_USED
+                   for b in container.iter_blocks(f, cfg))
+
+
+@pytest.mark.parametrize("case", ["qual-d6", "seq-collide-700",
+                                  "seq-l4-match-1024"])
+def test_sliced_encode_equals_unsliced(dev, case):
+    """Kernel E in step slices (1, 2, 3 and uneven; the table, low and
+    range carried from one launch to the next, each slice ending with its
+    last bit-step's commit) gives the one launch's bytes, chunk counts,
+    low and emax at W = 1024; lane_encode_sliced too; and its plain
+    version over the same slices gives them as well."""
+    from slimfastq_tpu_torch.ops import _cuda
+    level, kind, W, hard, active, depth, _, match = CASES[case]
+    geom = _geom(level, kind, depth)
+    rng = np.random.default_rng(4)
+    syms, counts, pos, reset, mflag = _stream(kind, rng, dev, W, active,
+                                              match=match, Sp=1024)
+    c = torch.from_numpy(counts.astype(np.int32)).to(dev)
+    CB = ST._chunk_bytes(geom.depth, hard)
+    want = CT.lane_encode(*ST._schedule(kind, geom, syms, pos, reset, c,
+                                        mflag), geom, CB)
+    sl = ST.Slices(kind, geom, syms, pos, reset, c, mflag)
+    NC = sl.NC
+    for bounds in ([0, NC], [0, NC // 2, NC], [0, 40, 80, NC],
+                   [0, 1, 7, 61, NC - 1, NC]):
+        carry = CT.EncCarry()
+        out = (torch.zeros((NC, W, CB), dtype=torch.uint8, device=dev),
+               torch.zeros((NC, W), dtype=torch.int32, device=dev))
+        before = _cuda.slices["lane_encode"]
+        for c0, c1 in zip(bounds, bounds[1:]):
+            (_, _, low, emax), = CT.lane_encode_blocks(
+                [sl(c0, c1)], geom, CB, [carry],
+                [(out[0][c0:c1], out[1][c0:c1])])
+        assert _cuda.slices["lane_encode"] == before + len(bounds) - 1
+        for got, exp in zip((*out, low, emax), want):
+            assert torch.equal(got, exp)
+    for got, exp in zip(CT.lane_encode_sliced(sl, NC, 37, W, geom, CB, dev),
+                        want):
+        assert torch.equal(got, exp)
+    # the plain version over slices, on the first 48 chunks
+    part = ST.Slices(kind, geom, syms[:384], pos[:384], reset[:384], c,
+                     None if mflag is None else mflag[:384])
+    k = CT.lane_encode_sliced(part, 48, 20, W, geom, CB, dev)
+    carry = CT.EncCarry()
+    p_out = (torch.zeros((48, W, CB), dtype=torch.uint8),
+             torch.zeros((48, W), dtype=torch.int32))
+    for c0 in (0, 20, 40):
+        c1 = min(48, c0 + 20)
+        (_, _, low, emax), = CT.lane_encode_blocks_plain(
+            [tuple(x.cpu() for x in part(c0, c1))], geom, CB, [carry],
+            [(p_out[0][c0:c1], p_out[1][c0:c1])])
+    for got, exp in zip(k, (*p_out, low, emax)):
+        assert torch.equal(got.cpu(), exp)
+
+
+@pytest.mark.parametrize("level", [3, 4])
+def test_host_pack_path_on_card(dev, level, monkeypatch):
+    """Every block forced through the host-pack path (the port's _MAX_SPAN
+    lowered to 1; step slices of 5 QUAL chunks): the containers of the
+    path on the card equal the main path's, and each decodes exactly
+    through the host unpack; Kernel E ran in slices."""
+    import io
+    from slimfastq_tpu_torch import api, container
+    from slimfastq_tpu_torch import pipeline_native as PN
+    from slimfastq_tpu_torch.ops import _cuda
+    from slimfastq_tpu_torch.pipeline import MATCH_USED
+    from slimfastq_tpu_torch.utils.synth import synth_fastq
+    data = synth_fastq(2 * 2048, read_len=100, seed=5, n_rate=0.001)
+    kw = dict(level=level, block_records=2048)
+    want = api.encode_fastq(data, **kw)
+    monkeypatch.setattr(PN, "_MAX_SPAN", 1)
+    monkeypatch.setattr(ST, "SLICE_BYTES", 5 * 2 * 4 * 8 * 6 * 1024)
+    _cuda.reset_launches()
+    enc = api.encode_fastq(data, **kw)
+    assert _cuda.slices["lane_encode"] > 0
+    assert enc == want
+    assert api.decode_fastq(enc) == data
     if level == 4:
         f = io.BytesIO(enc)
         cfg = container.read_header(f)

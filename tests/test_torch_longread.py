@@ -1,0 +1,243 @@
+"""Long-read blocks on the CPU (the kernels' plain versions): the pieces of
+the host-pack path, which a block whose raw bytes reach 2 GiB takes, held
+against the JAX package at small sizes.
+
+* encode_stream_ll / decode_stream_ll (pos/reset derived on the device
+  from the lane lengths, Kernel E in step slices) give streams_jax's
+  payloads and symbols (its test_ll_variants_match_oracle, ported);
+* Kernel E's plain version in 1, 2, 3 and uneven step slices, the coder
+  state carried from one to the next, gives the unsliced bytes, and each
+  schedule slice equals the whole schedule's rows;
+* the host pack (native.pack_lanes) gives pack_pair's symbols on an
+  N-rich block, and pos/reset the reference's layout;
+* the device-byte budget keeps today's windows and slices a long block.
+
+The containers of the forced path (the port's _MAX_SPAN lowered) are
+held against the JAX package's in tests/test_torch_longread_levels.py
+and _l4.py, the window budget and the sliced overflow rerun in
+tests/test_torch_longread_windows.py.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from slimfastq_tpu.config import config_for_level as jconfig_for_level
+from slimfastq_tpu.ops import streams_jax
+from slimfastq_tpu.pipeline import _scatter_record_symbols, _seq_symbol_layout
+from slimfastq_tpu_torch import native
+from slimfastq_tpu_torch import pipeline_native as TPN
+from slimfastq_tpu_torch.config import config_for_level
+from slimfastq_tpu_torch.ops import coder_torch as CT
+from slimfastq_tpu_torch.ops import pack_torch
+from slimfastq_tpu_torch.ops import streams_torch as ST
+from slimfastq_tpu_torch.ops.ranger import pad_steps
+from slimfastq_tpu_torch.pipeline import (_BASE_TO_CODE,
+                                          _lane_lengths_matrix)
+from slimfastq_tpu_torch.utils.synth import synth_fastq
+
+torch.set_num_threads(1)
+
+W = 16
+
+
+def _reads(seed: int, n: int = 100, hi: int = 60):
+    """(lengths, ll_mat, counts, S, per-read qual-like symbols) of n reads
+    of 0..hi-1 symbols at W lanes."""
+    rng = np.random.default_rng(seed)
+    lengths = rng.integers(0, hi, size=n).astype(np.int64)
+    ll_mat = _lane_lengths_matrix(lengths, W)
+    counts = ll_mat.sum(axis=0)
+    recs = [np.clip(30 + np.cumsum(rng.integers(-2, 3, size=L)), 0,
+                    63).astype(np.uint32) for L in lengths]
+    return lengths, ll_mat, counts, int(counts.max()), recs
+
+
+@pytest.mark.parametrize("kind", ["qual", "seq", "seq-mflag"])
+def test_ll_variants_match_jax(kind, monkeypatch):
+    """encode_stream_ll (in step slices: SLICE_BYTES lowered to 3 QUAL
+    chunks) and decode_stream_ll give the payloads and symbols of the JAX
+    package's streams_jax.encode_stream_ll / decode_stream_ll."""
+    monkeypatch.setattr(ST, "SLICE_BYTES", 3 * 2 * 4 * 8 * 6 * W)
+    level = 4 if kind == "seq-mflag" else 3
+    jcfg = jconfig_for_level(level, lanes=W, aux_lanes=8)
+    cfg = config_for_level(level, lanes=W, aux_lanes=8)
+    lengths, ll_mat, counts, S, recs = _reads(5)
+    mflag = None
+    if kind != "qual":
+        recs = [r & 3 for r in recs]
+        if kind == "seq-mflag":
+            rng = np.random.default_rng(6)
+            flags = [(rng.random(len(r)) < 0.4).astype(np.uint32)
+                     for r in recs]
+            mflag = _scatter_record_symbols(flags, W, S, counts).astype(
+                np.uint8)
+    syms = _scatter_record_symbols(recs, W, S, counts)
+    k = kind.split("-")[0]
+    jgeom, geom = (jcfg.qual, cfg.qual) if k == "qual" else (jcfg.seq,
+                                                             cfg.seq)
+    p_j, l_j = streams_jax.encode_stream_ll(k, jgeom, syms, ll_mat, counts,
+                                            mflag=mflag)
+    p_t, l_t = ST.encode_stream_ll(k, geom, syms, ll_mat, counts, "cpu",
+                                   mflag=mflag)
+    assert np.array_equal(l_t, l_j)
+    assert np.array_equal(p_t, p_j)
+    d_j = streams_jax.decode_stream_ll(k, jgeom, p_j, l_j, ll_mat, counts,
+                                       S, mflag=mflag)
+    d_t = ST.decode_stream_ll(k, geom, p_j, l_j, ll_mat, counts, S, "cpu",
+                              mflag=mflag)
+    assert np.array_equal(d_t, d_j)
+    mask = np.arange(S)[:, None] < counts[None, :]
+    assert np.array_equal(d_t[mask], syms[mask])
+
+
+def _sched_inputs(kind: str):
+    """(geom, syms, pos, reset, counts, mflag) of a ragged per-read stream
+    at W lanes on the CPU (level-3 QUAL / SEQ; seq-mflag: level-4 SEQ
+    with match-span flags), Sp = 256 steps."""
+    level = 4 if kind == "seq-mflag" else 3
+    cfg = config_for_level(level, lanes=W, aux_lanes=8)
+    lengths, ll_mat, counts, S, recs = _reads(7)
+    if kind != "qual":
+        recs = [r & 3 for r in recs]
+    Sp = pad_steps(S)
+    syms = ST._pad2(_scatter_record_symbols(recs, W, S, counts), Sp, W,
+                    "cpu")
+    pos, reset = ST._pos_reset(ST._lane_lens(ll_mat, W, "cpu"), Sp, S, W)
+    mflag = None
+    if kind == "seq-mflag":
+        rng = np.random.default_rng(8)
+        mflag = torch.from_numpy((rng.random((Sp, W)) < 0.4).astype(
+            np.uint8))
+    geom = cfg.qual if kind == "qual" else cfg.seq
+    return geom, syms, pos, reset, torch.from_numpy(counts).int(), mflag
+
+
+@pytest.mark.parametrize("split", ["1", "2", "3", "uneven"])
+@pytest.mark.parametrize("kind", ["qual", "seq", "seq-mflag"])
+def test_plain_encode_slices_give_unsliced_bytes(kind, split):
+    """Kernel E's plain version over step slices (the coder state carried
+    in an EncCarry, each slice's schedule built alone with its halo of
+    history) gives every byte, chunk count, final low and emax of the one
+    unsliced launch."""
+    geom, syms, pos, reset, counts, mflag = _sched_inputs(kind)
+    NC = syms.shape[0] // 8
+    whole = ST._schedule(geom_kind(kind), geom, syms, pos, reset, counts,
+                         mflag)
+    CB = ST._chunk_bytes(geom.depth, hard=False)
+    want = CT.lane_encode(*whole, geom, CB)
+    bounds = {"1": [0, NC], "2": [0, NC // 2, NC],
+              "3": [0, NC // 3, 2 * NC // 3, NC],
+              "uneven": [0, 1, 7, 20, NC - 1, NC]}[split]
+    ebufs = torch.zeros((NC, W, CB), dtype=torch.uint8)
+    eptrs = torch.zeros((NC, W), dtype=torch.int32)
+    carry = CT.EncCarry()
+    for c0, c1 in zip(bounds, bounds[1:]):
+        part = ST._schedule(geom_kind(kind), geom, syms, pos, reset, counts,
+                            mflag, c0, c1)
+        assert torch.equal(part[0], whole[0][c0:c1])
+        assert torch.equal(part[1], whole[1][c0:c1])
+        (_, _, low, emax), = CT.lane_encode_blocks(
+            [part], geom, CB, [carry], [(ebufs[c0:c1], eptrs[c0:c1])])
+    for got, exp in zip((ebufs, eptrs, low, emax), want):
+        assert torch.equal(got, exp)
+    if split == "3":  # lane_encode_sliced's fixed step, the same bytes
+        sl = ST.Slices(geom_kind(kind), geom, syms, pos, reset, counts,
+                       mflag)
+        got = CT.lane_encode_sliced(sl, NC, NC // 3, W, geom, CB, "cpu")
+        for g, exp in zip(got, want):
+            assert torch.equal(g, exp)
+
+
+def geom_kind(kind: str) -> str:
+    return kind.split("-")[0]
+
+
+def test_slices_refused_for_a_shared_memory_table():
+    """Step slices carry the table in device memory: the wrapper refuses
+    them for a geometry whose table lives in shared memory, and asks for
+    one carry and one output pair a block."""
+    cfg = config_for_level(3, lanes=W, aux_lanes=8)
+    z = torch.zeros((2, 8 * cfg.bytes_.depth, W), dtype=torch.int32)
+    assert CT.table_in_smem(cfg.bytes_, W)
+    with pytest.raises(ValueError, match="shared memory"):
+        CT.lane_encode_blocks([(z, z)], cfg.bytes_, 64, [CT.EncCarry()])
+    q = torch.zeros((2, 8 * cfg.qual.depth, W), dtype=torch.int32)
+    with pytest.raises(ValueError, match="one carry"):
+        CT.lane_encode_blocks([(q, q)], cfg.qual, 64, [])
+    with pytest.raises(ValueError, match="outs"):
+        CT.lane_encode_blocks([(q, q)], cfg.qual, 64, [CT.EncCarry()],
+                              [(torch.zeros((1, W, 64), dtype=torch.uint8),
+                                torch.zeros((1, W), dtype=torch.int32))])
+
+
+@pytest.mark.parametrize("lanes", [16, 128])
+def test_host_pack_matches_device_pack(lanes):
+    """On an N-rich block (n_rate 0.01) the host pack's SEQ lanes
+    (native.pack_lanes with the map's 255 for non-ACGT, written as 0) and
+    QUAL lanes (minus minq) equal pack_pair's with _BASE_TO_CODE_DEV, and
+    its non-ACGT census equals scan_bad's."""
+    data = synth_fastq(300, read_len=40, seed=2, var_len=True, n_rate=0.01)
+    idx, n = native.fastq_index(data)
+    buf = np.frombuffer(data, dtype=np.uint8)
+    lengths = idx["seq_len"].astype(np.int64)
+    ll_mat = _lane_lengths_matrix(lengths, lanes)
+    S = int(ll_mat.sum(axis=0).max())
+    minq, _ = native.minmax_ranges(buf, idx["qual_off"], lengths)
+    sq, _, nbad, rec_bad = native.pack_lanes(buf, idx["seq_off"], lengths,
+                                             lanes, S, map256=_BASE_TO_CODE,
+                                             dtype=np.uint8)
+    qs = native.pack_lanes(buf, idx["qual_off"], lengths, lanes, S,
+                           bias=minq, dtype=np.uint8)[0]
+    assert nbad > 0
+    nbad2, rec_bad2 = native.scan_bad(buf, idx["seq_off"], lengths)
+    assert nbad == nbad2 and np.array_equal(rec_bad, rec_bad2)
+    dpad = np.zeros(pack_torch.pad_flat(len(buf)), dtype=np.uint8)
+    dpad[: len(buf)] = buf
+    s_dev, q_dev = pack_torch.pack_pair(
+        torch.from_numpy(dpad), idx["seq_off"], idx["qual_off"], lengths,
+        lanes, pad_steps(S), TPN._BASE_TO_CODE_DEV, minq)
+    counts = ll_mat.sum(axis=0)
+    mask = np.arange(S)[:, None] < counts[None, :]
+    assert np.array_equal(s_dev[:S].numpy()[mask], sq[mask])
+    assert np.array_equal(q_dev[:S].numpy()[mask], qs[mask])
+
+
+def test_pos_reset_matches_reference_layout():
+    """streams_torch._pos_reset (int32 scatter + running sum, no [Sp, W]
+    int64 temporary) gives the reference layout's pos/reset, zero-length
+    reads included."""
+    rng = np.random.default_rng(3)
+    lengths = rng.integers(0, 30, size=200) * (rng.random(200) < 0.8)
+    lengths = lengths.astype(np.int64)
+    _, counts, S, pos, reset = _seq_symbol_layout(lengths, W)
+    ll_mat = _lane_lengths_matrix(lengths, W)
+    p, r = ST._pos_reset(ST._lane_lens(ll_mat, W, "cpu"), pad_steps(S), S,
+                         W)
+    mask = np.arange(S)[:, None] < counts[None, :]
+    assert np.array_equal(p[:S].numpy()[mask], pos[mask])
+    assert np.array_equal(r[:S].numpy()[mask], reset[mask])
+
+
+def test_budget_keeps_todays_windows_and_slices_long_reads():
+    """The byte rule at the main path's geometry (W = 1024): four 65,536
+    x 100 bp level-4 blocks with both match trials (a window of 4) and
+    eight 16,384 x 100 bp blocks (a window of 8) stay far below 40 GB,
+    half of an 80 GB card's free bytes, and each of their streams is one
+    slice, so their windows and launches do not change; a 65,536 x 16.5
+    kb block takes QUAL in 25 slices and level-3 SEQ in 9, and passes
+    that budget alone with a second such block."""
+    budget = 40 << 30
+    big = ST.encode_bytes(pad_steps(6400), 1024, [6, 2, 2, 2], 4)
+    small = ST.encode_bytes(pad_steps(1600), 1024, [6, 2, 2, 2], 4)
+    assert 4 * big < budget // 8 and 8 * small < budget // 8
+    for S in (6400, 1600):
+        for depth in (6, 2):
+            assert pad_steps(S) // 8 <= ST.slice_chunks(depth, 1024)
+    NC = pad_steps(65536 // 1024 * 16500) // 8
+    assert -(-NC // ST.slice_chunks(6, 1024)) == 25
+    assert -(-NC // ST.slice_chunks(2, 1024)) == 9
+    long_block = ST.encode_bytes(8 * NC, 1024, [6, 2], 1)
+    assert budget // 2 < long_block < budget < 2 * long_block
+    assert ST.split_by_bytes([3, 3, 5, 1, 9, 1], 6) == [[0, 1], [2, 3], [4],
+                                                        [5]]

@@ -1,0 +1,57 @@
+"""The host-pack path end to end on the CPU (the kernels' plain versions):
+with the port's pipeline_native._MAX_SPAN lowered to 1 every block packs
+SEQ and QUAL on the host and unpacks them there, as a block of 2 GiB and
+more does, and with streams_torch.SLICE_BYTES lowered its SEQ/QUAL
+streams code in step slices. The containers must equal the JAX package's
+at levels 2 and 3 (level 4: tests/test_torch_longread_l4.py) and each
+package must decode the other's."""
+
+import pytest
+import torch
+
+from slimfastq_tpu import api as japi
+from slimfastq_tpu.ops import streams_jax
+from slimfastq_tpu.utils.synth import synth_fastq
+from slimfastq_tpu_torch import api as tapi
+from slimfastq_tpu_torch import native
+from slimfastq_tpu_torch import pipeline_native as TPN
+from slimfastq_tpu_torch.ops import coder_torch as CT
+from slimfastq_tpu_torch.ops import streams_torch as ST
+
+torch.set_num_threads(1)
+
+
+@pytest.fixture
+def forced(monkeypatch):
+    """The host-pack path on every block, step slices of 3 QUAL chunks at
+    128 lanes; returns the calls of the path's pieces."""
+    monkeypatch.setattr(TPN, "_MAX_SPAN", 1)
+    monkeypatch.setattr(ST, "SLICE_BYTES", 3 * 2 * 4 * 8 * 6 * 128)
+    calls = {"host_jobs": 0, "lane_encode_slices": 0, "unpack_lanes": 0}
+    for mod, name in ((ST, "host_jobs"), (CT, "lane_encode_slices"),
+                      (native, "unpack_lanes")):
+        def spy(*args, _fn=getattr(mod, name), _name=name, **kw):
+            calls[_name] += 1
+            return _fn(*args, **kw)
+        monkeypatch.setattr(mod, name, spy)
+    return calls
+
+
+def _round_trip(data: bytes, level: int, calls: dict, **kw) -> bytes:
+    enc_t = tapi.encode_fastq(data, device="cpu", level=level, **kw)
+    enc_j = japi.encode_fastq(data, level=level, backend=streams_jax, **kw)
+    assert enc_t == enc_j
+    assert japi.decode_fastq(enc_t, backend=streams_jax) == data
+    assert tapi.decode_fastq(enc_j, device="cpu") == data
+    assert all(calls.values()), calls  # the path, its slices, its unpack
+    return enc_t
+
+
+@pytest.mark.parametrize("level", [2, 3])
+def test_host_pack_containers_identical_and_cross_decode(level, forced):
+    """Two blocks (200 and 30 records, variable lengths, N bases) at 128
+    lanes: the JAX package's container, and each decodes the other's."""
+    data = synth_fastq(230, read_len=50, seed=4, var_len=True, n_rate=0.01)
+    _round_trip(data, level, forced, lanes=128, aux_lanes=16,
+                block_records=200)
+

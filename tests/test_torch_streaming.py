@@ -3,11 +3,13 @@ versions): api.encode_file_streaming reads the input in chunks that cut
 records, and its container must equal the whole-file encode (the port's
 and the JAX package's) byte for byte; a truncated output resumed with
 resume=True must equal the full one; api.decode_file_streaming /
-decode_file read one block at a time and give the input back; and the
+decode_file read one block at a time and give the input back; the
+empty input's containers (whole-file and streamed) are pinned; and the
 CLI's --streaming, --streaming --resume and -d --streaming give the bytes
 of the plain commands."""
 
 import builtins
+import hashlib
 import io
 
 import pytest
@@ -95,6 +97,43 @@ def test_streaming_decode_reads_one_block_at_a_time(tmp_path, monkeypatch,
     tapi.decode_file(str(enc), str(tmp_path / "d.fastq"), device="cpu")
     assert (tmp_path / "d.fastq").read_bytes() == data
     assert 0 < max_read[0] < len(whole) // 2
+
+
+# SHA-256 of the empty input's containers at CFG, level 3: the whole-file
+# encode codes one empty block, the streaming encode no block (both
+# packages do so; the two decode to empty output)
+EMPTY_WHOLE = (392, "a38b5287b120d015d84a80c68642495e"
+                    "f933f0d4a7ac5c0044067c976560f853")
+EMPTY_STREAMED = (51, "a48abab79a02ded3a7516aa3c707bf46"
+                      "780bf936f379d7aca10fa40ce4807299")
+
+
+def _pinned(enc: bytes, pin: tuple, blocks: int) -> None:
+    assert (len(enc), hashlib.sha256(enc).hexdigest()) == pin
+    assert len(tcontainer.read_index(io.BytesIO(enc))) == blocks
+    assert tapi.decode_fastq(enc, device="cpu") == b""
+
+
+def test_empty_input_whole_file_container_pinned():
+    """encode_fastq of no records: one empty block, the JAX package's
+    container, pinned so that a change is deliberate."""
+    enc = tapi.encode_fastq(b"", device="cpu", level=3, **CFG)
+    assert enc == japi.encode_fastq(b"", level=3, backend=streams_jax, **CFG)
+    _pinned(enc, EMPTY_WHOLE, 1)
+
+
+def test_empty_input_streaming_container_pinned(tmp_path):
+    """encode_file_streaming of an empty file: no block (unlike the
+    whole-file encode), the JAX package's container, pinned."""
+    src = tmp_path / "empty.fastq"
+    src.write_bytes(b"")
+    tapi.encode_file_streaming(str(src), str(tmp_path / "t.sfq"), level=3,
+                               device="cpu", **CFG)
+    japi.encode_file_streaming(str(src), str(tmp_path / "j.sfq"), level=3,
+                               backend=streams_jax, **CFG)
+    enc = (tmp_path / "t.sfq").read_bytes()
+    assert enc == (tmp_path / "j.sfq").read_bytes()
+    _pinned(enc, EMPTY_STREAMED, 0)
 
 
 def test_cli_streaming_equals_plain(tmp_path, capsys):

@@ -16,10 +16,12 @@ enqueued, each summed over the span's calls.
 With --block-records (and --window) the same for smaller blocks coded
 in windows, e.g. the 16k window: 65,536 reads as 4 blocks of 16,384 in
 one window of 4 (Kernel C per block is then the window's launch divided
-by its blocks). Needs a CUDA card.
+by its blocks). With --read-len the reads' length, e.g. 16500 for the
+long-read block (65,536 reads, raw span past 2 GiB: the host-pack path,
+Kernel E in step slices). Needs a CUDA card.
 
 Usage: python3 tools/gpu_profile.py [reads [level]] [--block-records N]
-       [--window B]
+       [--window B] [--read-len L]
 """
 
 from __future__ import annotations
@@ -107,13 +109,14 @@ def main() -> int:
     p.add_argument("level", type=int, nargs="?", default=3)
     p.add_argument("--block-records", type=int, default=None)
     p.add_argument("--window", type=int, default=None)
+    p.add_argument("--read-len", type=int, default=100)
     args = p.parse_args()
     reads, level = args.reads, args.level
     kw = {"level": level, "window": args.window}
     if args.block_records:
         kw["block_records"] = args.block_records
-    data = synth_fastq(reads, read_len=100, seed=0, var_len=False,
-                       n_rate=0.0005)
+    data = synth_fastq(reads, read_len=args.read_len, seed=0,
+                       var_len=False, n_rate=0.0005)
     enc = api.encode_fastq(data, **kw)       # warm: build, allocate
     assert api.decode_fastq(enc, window=args.window) == data
     enc, rep_e = _profile(lambda: api.encode_fastq(data, **kw))
@@ -131,6 +134,8 @@ def main() -> int:
         extra = ({} if args.block_records is None and args.window is None
                  else {"block_records": block_records,
                        "window": args.window})
+        if args.read_len != 100:
+            extra["read_len"] = args.read_len
         print(json.dumps({"direction": direction, "reads": reads,
                           "level": level, **extra,
                           "raw_bytes": len(data),
