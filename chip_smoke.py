@@ -72,11 +72,23 @@ Phases (any failure exits non-zero; nothing is caught):
      slices; then the pinned block forced through the host-pack path
      (small slices) keeps its SHA-256 at level 3 and level 4, and its
      QUAL in slices equals one launch.
+  7. block sharding (parallel.sharded) on make_mesh() (every card) and on
+     a mesh naming cuda:0 twice (two shard threads): the pinned block
+     keeps both SHA-256 pins; the 4 x 64k set at level 3 and 4 gives
+     api.encode_fastq's container, its walls beside the single card's in
+     turns, each shard's launches; the 16k set through the streaming
+     sharded encode (with a resume) and decode; ragged_all_gather on
+     NCCL (world size 1, a fresh process) carrying the 4 blocks' shard
+     containers, merged into the whole container; level 1 (tables in
+     shared memory) with every SEQ and QUAL stream in step slices equals
+     the unforced container, its QUAL in slices equals one launch, and E
+     over 2 slices equals its plain version.
 
 Prints `compact_block_l3`, `compact_block_l4`, `compact_phase_l3`,
 `compact_phase_l4`, `block`, `block_l4`, `wall`, `wall_l4`,
 `window_kernels`, `window_walls`, `window_sweep`, `streaming`,
-`long_read`, `long_read_kernels`, `earlier_ms` (recorded constants),
+`long_read`, `long_read_kernels`, `sharded`, `sharded_streaming`,
+`gather_nccl`, `l1_slices`, `earlier_ms` (recorded constants),
 `phase_s` (seconds a phase) and `kernels` JSON lines, then the card's
 name and power limit and, as its last line, the `ok` JSON line.
 """
@@ -633,9 +645,8 @@ def barrier_us(dev) -> float:
     out = torch.zeros(1, dtype=torch.int32, device=dev)
 
     def run(iters):
-        _cuda.check(lib, lib.barrier_loop(iters, 1024, out.data_ptr(),
-                                          _cuda.stream_ptr(out)),
-                    "barrier_loop")
+        _cuda.check(lib, _cuda.launch(out, lib.barrier_loop, iters, 1024,
+                                      out.data_ptr()), "barrier_loop")
     full = _time_ms(lambda: run(BARRIER_ITERS), 3)
     empty = _time_ms(lambda: run(0), 3)
     return (full - empty) * 1e3 / BARRIER_ITERS
@@ -1566,6 +1577,304 @@ def host_pack_pins(data: bytes, dev, errs: dict) -> None:
     print("pinned QUAL: E in 22 slices equals one launch", flush=True)
 
 
+# ---------------------------------------------------------------------------
+# phase 7: block sharding over the node's cards, the gather, L1 slices
+# ---------------------------------------------------------------------------
+
+def _sharded_walls(data: bytes, level: int, mesh) -> tuple:
+    """(encode s, decode s, container, launches by shard) of `data`
+    through the sharded path on `mesh`, or through api.encode_fastq /
+    decode_fastq with mesh=None; the launch counts set to 0 just before
+    and read just after."""
+    import torch
+    from slimfastq_tpu_torch import api
+    from slimfastq_tpu_torch.config import config_for_level
+    from slimfastq_tpu_torch.ops import _cuda
+    from slimfastq_tpu_torch.parallel import sharded as SH
+    cfg = config_for_level(level)
+    torch.cuda.synchronize()
+    _cuda.reset_launches()
+    t = time.perf_counter()
+    enc = (api.encode_fastq(data, cfg=cfg, device="cuda") if mesh is None
+           else SH.encode_fastq_sharded(data, cfg, mesh=mesh))
+    t_enc = time.perf_counter() - t
+    t = time.perf_counter()
+    dec = (api.decode_fastq(enc, device="cuda") if mesh is None
+           else SH.decode_fastq_sharded(enc, mesh=mesh))
+    t_dec = time.perf_counter() - t
+    by_shard = {f"shard {i} on {d}": dict(v)
+                for (i, d), v in sorted(_cuda.by_shard.items())}
+    if dec != data:
+        raise AssertionError(f"sharded L{level}: the round trip is not exact")
+    if mesh is not None:
+        kinds = {"lane_encode", "lane_decode", "compact_lanes_dev"}
+        if len(by_shard) != min(mesh.size, data.count(b"\n") // 4 // READS
+                                or 1) \
+                or any(set(v) != kinds for v in by_shard.values()):
+            raise AssertionError(f"sharded L{level} on {mesh.size} shards: "
+                                 f"launches by shard {by_shard}")
+    return t_enc, t_dec, enc, by_shard
+
+
+def sharded(data: bytes, data4: bytes) -> dict:
+    """The sharded path (parallel.sharded.encode_fastq_sharded /
+    decode_fastq_sharded) on make_mesh() (every card) and on a mesh
+    naming cuda:0 twice (two shard threads on one card): the pinned block
+    keeps both SHA-256 pins; the 4 x 64k set at level 3 and 4 gives
+    api.encode_fastq's container, with the walls of the single card, the
+    mesh and the card twice in turns (single, mesh, twice, twice, mesh,
+    single; after one untimed pass on each mesh, the first use of its
+    cards) and each shard's launches. Returns (the `sharded` line, the
+    4 x 64k set's level-3 container)."""
+    from slimfastq_tpu_torch.parallel import mesh as M
+    meshes = {"make_mesh": M.make_mesh(),
+              "card_twice": M.make_mesh(devices=["cuda:0", "cuda:0"])}
+    out = {"mesh_sizes": {k: m.size for k, m in meshes.items()}}
+    wants = {}
+    for mesh in meshes.values():  # every card's first use, untimed
+        _sharded_walls(data4, 3, mesh)
+    for level in (3, 4):
+        for name, mesh in meshes.items():
+            _, _, enc, _ = _sharded_walls(data, level, mesh)
+            sha = hashlib.sha256(enc).hexdigest()
+            if (len(enc), sha) != PINNED[level]:
+                raise AssertionError(f"sharded L{level} on {name}: the "
+                                     f"pinned block gives {len(enc)} bytes, "
+                                     f"SHA-256 {sha}")
+        runs = {"single": [], "make_mesh": [], "card_twice": []}
+        want = None
+        for name in ("single", "make_mesh", "card_twice", "card_twice",
+                     "make_mesh", "single"):
+            t_enc, t_dec, enc, by_shard = _sharded_walls(
+                data4, level, meshes.get(name))
+            want = want or enc
+            if enc != want:
+                raise AssertionError(f"sharded L{level} on {name}: the "
+                                     "container differs from api's")
+            runs[name].append({"encode_s": t_enc, "decode_s": t_dec,
+                               "launches_by_shard": by_shard})
+        out[f"L{level}"] = {"raw_bytes": len(data4),
+                            "compressed_bytes": len(want), **runs}
+        wants[level] = want
+    print(json.dumps({"sharded": out}), flush=True)
+    return out, wants[3]
+
+
+def sharded_streaming(data: bytes) -> dict:
+    """The 16k set through encode_file_streaming_sharded on the card named
+    twice (chunks that cut records), a copy cut in its third block and
+    resumed, and decode_file_streaming_sharded: the pinned 16k container
+    (its SHA-256) and the input back; the launch counts set to 0 just
+    before and read just after."""
+    import io
+    import os
+    import tempfile
+    from slimfastq_tpu_torch import container
+    from slimfastq_tpu_torch.ops import _cuda
+    from slimfastq_tpu_torch.parallel import mesh as M
+    from slimfastq_tpu_torch.parallel import sharded as SH
+    mesh = M.make_mesh(devices=["cuda:0", "cuda:0"])
+    kw = dict(level=3, mesh=mesh, block_records=WINDOW_RECORDS,
+              chunk_bytes=STREAM_CHUNK)
+    out = {}
+    with tempfile.TemporaryDirectory() as d:
+        src, dst, back = (os.path.join(d, n) for n in ("in.fq", "o.sfq",
+                                                        "b.fq"))
+        with open(src, "wb") as f:
+            f.write(data)
+        _cuda.reset_launches()
+        t = time.perf_counter()
+        SH.encode_file_streaming_sharded(src, dst, **kw)
+        out["encode_s"] = time.perf_counter() - t
+        out["launches_by_shard"] = {f"shard {i} on {dv}": dict(v) for
+                                    (i, dv), v in _cuda.by_shard.items()}
+        with open(dst, "rb") as f:
+            full = f.read()
+        if hashlib.sha256(full).hexdigest() != PINNED_16K[3][1]:
+            raise AssertionError("sharded streaming encode differs from the "
+                                 "pinned 16k container")
+        if len(out["launches_by_shard"]) != 2:
+            raise AssertionError(f"sharded streaming: launches by shard "
+                                 f"{out['launches_by_shard']}")
+        offs = container.read_index(io.BytesIO(full))
+        with open(dst, "wb") as f:
+            f.write(full[: offs[2] + 1000])
+        t = time.perf_counter()
+        SH.encode_file_streaming_sharded(src, dst, resume=True, **kw)
+        out["resume_s"] = time.perf_counter() - t
+        with open(dst, "rb") as f:
+            if f.read() != full:
+                raise AssertionError("sharded streaming: the resumed "
+                                     "container differs")
+        t = time.perf_counter()
+        SH.decode_file_streaming_sharded(dst, back, mesh=mesh)
+        out["decode_s"] = time.perf_counter() - t
+        with open(back, "rb") as f:
+            if f.read() != data:
+                raise AssertionError("sharded streaming decode does not "
+                                     "return the input")
+    print(json.dumps({"sharded_streaming": out}), flush=True)
+    return out
+
+
+def _gather_child(d: str) -> int:
+    """`chip_smoke.py --gather-child DIR`, a fresh process: a process
+    group of world size 1 on NCCL over a localhost TCP store
+    (parallel.multihost.initialize); each DIR/shard{i}.sfq through
+    parallel.gather.ragged_all_gather (timed, host clock around the call,
+    which synchronises), merged (multihost.merge_containers) into
+    DIR/merged.sfq; the group destroyed after. Prints one JSON line."""
+    import glob
+    import os
+    import socket
+    import torch
+    import torch.distributed as dist
+    from slimfastq_tpu_torch.parallel import gather, multihost
+    os.environ.setdefault("NCCL_SOCKET_IFNAME", "lo")
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    multihost.initialize(f"127.0.0.1:{port}", 1, 0, backend="nccl")
+    try:
+        if dist.get_backend() != "nccl":
+            raise AssertionError("the process group is not on NCCL")
+        shards = []
+        for p in sorted(glob.glob(os.path.join(d, "shard*.sfq"))):
+            with open(p, "rb") as f:
+                shards.append(f.read())
+        gather.ragged_all_gather(shards[0])  # warm-up: NCCL's first call
+        parts, ms = [], []
+        for sb in shards:
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            parts += gather.ragged_all_gather(sb, return_parts=True)
+            ms.append((time.perf_counter() - t) * 1e3)
+        with open(os.path.join(d, "merged.sfq"), "wb") as f:
+            f.write(multihost.merge_containers([q.tobytes() for q in parts]))
+    finally:
+        dist.destroy_process_group()
+    print(json.dumps({"world_size": 1, "backend": "nccl",
+                      "shard_bytes": [len(sb) for sb in shards],
+                      "gather_ms": ms}), flush=True)
+    return 0
+
+
+def gather_nccl(data4: bytes, whole: bytes) -> dict:
+    """ragged_all_gather over NCCL (world size 1, in a fresh process:
+    _gather_child): the 4 x 64k set cut into 4 process shards
+    (multihost.process_block_ranges), each shard's container gathered and
+    merged: the whole container `whole`."""
+    import os
+    import tempfile
+    from slimfastq_tpu_torch import api, native
+    from slimfastq_tpu_torch.parallel import multihost
+    idx, n = native.fastq_index(data4)
+    with tempfile.TemporaryDirectory() as d:
+        for p in range(WALL_BLOCKS):
+            (lo, hi), = multihost.process_block_ranges(n, READS, WALL_BLOCKS,
+                                                       p)
+            start = int(idx["id_off"][lo]) - 1
+            end = int(idx["id_off"][hi]) - 1 if hi < n else len(data4)
+            with open(os.path.join(d, f"shard{p}.sfq"), "wb") as f:
+                f.write(api.encode_fastq(data4[start:end], level=3,
+                                         device="cuda"))
+        r = subprocess.run([sys.executable, os.path.abspath(__file__),
+                            "--gather-child", d], capture_output=True,
+                           text=True, timeout=240)
+        if r.returncode:
+            raise AssertionError(f"gather_nccl phase failed:\n"
+                                 f"{r.stdout[-2000:]}{r.stderr[-4000:]}")
+        out = json.loads(r.stdout.strip().splitlines()[-1])
+        with open(os.path.join(d, "merged.sfq"), "rb") as f:
+            if f.read() != whole:
+                raise AssertionError("gathered shards merge into another "
+                                     "container than the whole encode's")
+    print(json.dumps({"gather_nccl": out}), flush=True)
+    return out
+
+
+def l1_slices(data: bytes, dev, errs: dict) -> dict:
+    """Level 1, whose SEQ and QUAL tables live in shared memory: the
+    pinned block forced through the host-pack path with SLICE_BYTES
+    lowered (SEQ and QUAL both in step slices, 20 + 7 or more) equals the
+    unforced L1 container and round-trips, the launch counts set to 0
+    just before and read just after; its QUAL in slices of 37 chunks
+    equals one launch, and E over the first 2 chunks in 2 slices equals
+    its plain version (`errs`)."""
+    import numpy as np
+    import torch
+    from slimfastq_tpu_torch import api, native
+    from slimfastq_tpu_torch import pipeline_native as PN
+    from slimfastq_tpu_torch.config import config_for_level
+    from slimfastq_tpu_torch.ops import _cuda
+    from slimfastq_tpu_torch.ops import coder_torch as CT
+    from slimfastq_tpu_torch.ops import streams_torch as ST
+    cfg = config_for_level(1)
+    if not (CT.table_in_smem(cfg.qual, 1024)
+            and CT.table_in_smem(cfg.seq, 1024)):
+        raise AssertionError("L1 tables do not live in shared memory")
+    want = api.encode_fastq(data, cfg=cfg, device="cuda")
+    saved = PN._MAX_SPAN, ST.SLICE_BYTES, CT.lane_encode_slices
+    kinds = []
+
+    def spy(build, *args):
+        kinds.append(build.kind)
+        return saved[2](build, *args)
+    PN._MAX_SPAN, ST.SLICE_BYTES = 1, 40 * 2 * 4 * 8 * 6 * 1024
+    CT.lane_encode_slices = spy
+    try:
+        _cuda.reset_launches()
+        enc = api.encode_fastq(data, cfg=cfg, device="cuda")
+        slices = _cuda.slices["lane_encode"]
+        if enc != want or sorted(set(kinds)) != ["qual", "seq"] \
+                or slices < 20 + 7:
+            raise AssertionError(f"host-pack L1: {len(enc)} bytes (the "
+                                 f"unforced {len(want)}), {slices} E slices "
+                                 f"of {kinds}")
+        if api.decode_fastq(enc, device="cuda") != data:
+            raise AssertionError("host-pack L1: the round trip is not exact")
+    finally:
+        PN._MAX_SPAN, ST.SLICE_BYTES, CT.lane_encode_slices = saved
+    idx, n = native.fastq_index(data)
+    pre = PN.prepare_block_fast(np.frombuffer(data, dtype=np.uint8), idx, 0,
+                                n, cfg)
+    q = next(PN._sq_jobs(pre, cfg, dev, only=("QUAL",)))
+    CB = ST._chunk_bytes(q.geom.depth, hard=False)
+    sl = ST.Slices(q.kind, q.geom, q.syms, q.pos, q.reset, q.counts, None)
+    one_ms, one = _events_ms(lambda: CT.lane_encode(q.idx_c, q.bit_c, q.geom,
+                                                    CB))
+    sliced_ms, got = _events_ms(lambda: CT.lane_encode_sliced(
+        sl, sl.NC, 37, 1024, q.geom, CB, dev))
+    _compare(errs, "lane_encode_sliced", "L1 QUAL: E in slices of 37 chunks "
+             "(a shared-memory table) vs one launch", got, one)
+    part = ST.Slices(q.kind, q.geom, q.syms[:16], q.pos[:16], q.reset[:16],
+                     q.counts, None)
+    k = CT.lane_encode_sliced(part, 2, 1, 1024, q.geom, CB, dev)
+    carry = CT.EncCarry()
+    p_out = (torch.zeros((2, 1024, CB), dtype=torch.uint8),
+             torch.zeros((2, 1024), dtype=torch.int32))
+    for c0 in (0, 1):
+        (_, _, low, emax), = CT.lane_encode_blocks_plain(
+            [tuple(x.cpu() for x in part(c0, c0 + 1))], q.geom, CB, [carry],
+            [(p_out[0][c0:c0 + 1], p_out[1][c0:c0 + 1])])
+    _compare(errs, "lane_encode_sliced", "L1 QUAL: E over 2 chunks in 2 "
+             "slices vs its plain version", [x.cpu() for x in k],
+             (*p_out, low, emax))
+    out = {"unforced_bytes": len(want), "forced_slices": slices,
+           "qual_one_launch_ms": one_ms, "qual_37_chunk_slices_ms": sliced_ms,
+           "qual_NC": sl.NC, "table_bytes": CT.table_bytes(q.geom)}
+    print(json.dumps({"l1_slices": out}), flush=True)
+    return out
+
+
+def _by_shard(shard: dict, name: str) -> dict:
+    """Kernel `name`'s launches by shard in the level-3 sharded runs of
+    the 4 x 64k set (the first run on each mesh)."""
+    return {mesh: {k: v.get(name, 0) for k, v in
+                   shard["L3"][mesh][0]["launches_by_shard"].items()}
+            for mesh in ("make_mesh", "card_twice")}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1642,6 +1951,15 @@ def main() -> int:
     done("long_read")
     host_pack_pins(data, dev, errs)
     done("host_pack_pins")
+    # block sharding, the NCCL gather, level 1's slices
+    shard, whole = sharded(data, data4)
+    done("sharded")
+    sharded_streaming(data)
+    done("sharded_streaming")
+    gather_nccl(data4, whole)
+    done("gather_nccl")
+    l1 = l1_slices(data, dev, errs)
+    done("l1_slices")
 
     replaces = {
         "lane_encode": "slimfastq_tpu/ops/streams_jax.py:298",
@@ -1705,6 +2023,7 @@ def main() -> int:
         way = "encode" if name == "lane_encode" else "decode"
         row["long_read"] = {"launches": lr[way]["launches"][name],
                             **lr["kernels"][name]}
+        row["sharded_launches"] = _by_shard(shard, name)
         kernels.append(row)
     # Kernel C: one launch per block; its device time (profiler) is `ms`
     name = "compact_lanes_dev"
@@ -1730,6 +2049,7 @@ def main() -> int:
                         "descriptors": lr["encode"]["descriptors"][name],
                         "shape": "the long block's QUAL alone",
                         **lr["kernels"][name]}
+    row["sharded_launches"] = _by_shard(shard, name)
     kernels.append(row)
     # Kernel E in step slices: the long block's QUAL (its slices timed
     # with events, less their schedules); launches and slices from the
@@ -1753,7 +2073,8 @@ def main() -> int:
         "lockstep_ms": lk["lane_encode"]["lockstep_ms"],
         "library_ms": None,
         "shape": f"QUAL of the {LONG_READS} x {LONG_LEN} bp block: W = "
-                 f"{lk['W']}, NC = {lk['NC']}, {lk['slices']} slices"})
+                 f"{lk['W']}, NC = {lk['NC']}, {lk['slices']} slices",
+        "l1_shared_memory_table": l1})
     # the window forms: one launch over the blocks of a window, on the 16k
     # L3 window's own inputs (4 blocks of 16,384 records); launches (and
     # the descriptors they took: blocks for E and D, streams for C) from
@@ -1761,9 +2082,9 @@ def main() -> int:
     # kernel's one name
     for name, key, base, replaced in (
             ("lane_encode_blocks", "lane_encode_blocks", "lane_encode",
-             "slimfastq_tpu/parallel/mesh.py:43"),
+             "slimfastq_tpu/parallel/mesh.py:44"),
             ("lane_decode_blocks", "lane_decode_blocks", "lane_decode",
-             "slimfastq_tpu/parallel/mesh.py:74"),
+             "slimfastq_tpu/parallel/mesh.py:75"),
             ("compact_streams_dev", "compact_window", "compact_lanes_dev",
              "slimfastq_tpu/ops/compact_pallas.py:40")):
         w = win[key]
@@ -1810,4 +2131,6 @@ def main() -> int:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--streaming-child"]:
         sys.exit(_streaming_child(sys.argv[2]))
+    if sys.argv[1:2] == ["--gather-child"]:
+        sys.exit(_gather_child(sys.argv[2]))
     sys.exit(main())

@@ -13,8 +13,10 @@ its SEQ/QUAL streams past the card's byte budget
 the blocks prepared ahead stay within _PREP_BYTES of raw bytes.
 ``encode_file_streaming`` / ``decode_file_streaming``
 run the same pipelines over a file in bounded memory; the encode can be
-resumed after a crash. The bytes never depend on the window or on the
-streaming: every container equals the JAX package's.
+resumed after a crash. The pipelines code each window on a device step:
+one card (``Card``) here, or a mesh of cards (parallel.sharded, the
+``--sharded`` path). The bytes never depend on the window, the streaming
+or the mesh: every container equals the JAX package's.
 """
 
 from __future__ import annotations
@@ -29,6 +31,7 @@ import torch
 from . import container, native
 from .config import CodecConfig, config_for_level
 from .ops import streams_torch
+from .parallel.mesh import fits
 from .pipeline_native import (block_span, decode_block_finish,
                               decode_blocks_device, device_bytes,
                               encode_prepared_blocks, prepare_block_fast)
@@ -79,22 +82,44 @@ def _batch_window(cfg: CodecConfig, window: int | None = None) -> int:
     return max(1, int(window))
 
 
-def _encode_ranges(ranges, cfg: CodecConfig, dev, window, emit) -> list:
-    """Encode the record ranges (buf, idx, lo, hi) in order; emit(blk) for
-    each block, in order, on a one-worker writer; returns emit's results.
+class Card:
+    """One device as the pipelines' device step (parallel.sharded.Sharded
+    is a mesh's): the blocks a window takes, each shard's device-byte
+    budget (one shard here), and a window's encode and decode."""
+
+    def __init__(self, dev: torch.device):
+        self.dev = dev
+
+    def window(self, cfg: CodecConfig, window: int | None) -> int:
+        return _batch_window(cfg, window)
+
+    def budgets(self) -> list:
+        return [streams_torch.device_budget(self.dev)]
+
+    def encode(self, pres, cfg: CodecConfig) -> list:
+        return encode_prepared_blocks(pres, cfg, self.dev)
+
+    def decode(self, blocks, cfg: CodecConfig) -> list:
+        return decode_blocks_device(blocks, cfg, self.dev)
+
+
+def _encode_ranges(ranges, cfg: CodecConfig, step, window, emit) -> list:
+    """Encode the record ranges (buf, idx, lo, hi) in order on the device
+    step (a Card or a mesh's Sharded); emit(blk) for each block, in
+    order, on a one-worker writer; returns emit's results.
 
     Three stages (prep || device || write): a prep pool keeps the next
     window's blocks of host modelling (C++/NumPy, releases the GIL) in
     flight ahead of the device, ``depth + window - 1`` in all and within
     _PREP_BYTES of raw bytes; the main thread codes each window on the
-    device, a window closing before the block that would pass the device
-    budget; the writer overlaps container framing/CRC/IO with the next
-    window's device work. FIFO submission to the one-worker writer keeps
-    block order, so the container equals the serial one. Memory holds
-    that many prepared blocks, whatever the file's size."""
-    wb = _batch_window(cfg, window)
+    step, a window closing before the block that would take a shard past
+    its device budget; the writer overlaps container framing/CRC/IO with
+    the next window's device work. FIFO submission to the one-worker
+    writer keeps block order, so the container equals the serial one.
+    Memory holds that many prepared blocks, whatever the file's size."""
+    wb = step.window(cfg, window)
     ahead = _PIPE_DEPTH + wb - 1
-    budget = streams_torch.device_budget(dev)
+    budgets = step.budgets()
     ranges = iter(ranges)
     results = []
     with native.pipeline_omp_cap(), \
@@ -119,17 +144,17 @@ def _encode_ranges(ranges, cfg: CodecConfig, dev, window, emit) -> list:
                 nxt = None
         fill()
         while pfuts:
-            pres, used, spans = [], 0, 0
+            pres, sizes, spans = [], [], 0
             while pfuts and len(pres) < wb:
                 pre = pfuts[0][0].result()
                 need = device_bytes(pre, cfg)
-                if pres and used + need > budget:
+                if pres and not fits(sizes + [need], budgets):
                     break
                 pres.append(pre)
-                used += need
+                sizes.append(need)
                 spans += pfuts.popleft()[1]
                 fill()
-            for blk in encode_prepared_blocks(pres, cfg, dev):
+            for blk in step.encode(pres, cfg):
                 wfuts.append(write_ex.submit(emit, blk))
             del pres
             held -= spans
@@ -143,23 +168,28 @@ def _encode_ranges(ranges, cfg: CodecConfig, dev, window, emit) -> list:
 def encode_fastq(data: bytes, cfg: CodecConfig | None = None,
                  level: int = 3, device=None, window: int | None = None,
                  **overrides) -> bytes:
-    dev = resolve_device(device)
     cfg = cfg or config_for_level(level, **overrides)
+    return encode_fastq_on(data, cfg, Card(resolve_device(device)), window)
+
+
+def encode_fastq_on(data: bytes, cfg: CodecConfig, step, window) -> bytes:
+    """encode_fastq on a device step (a Card or a mesh's Sharded)."""
     out = io.BytesIO()
     container.write_header(out, cfg)
     buf = np.frombuffer(data, dtype=np.uint8)
     idx, n = native.fastq_index(data)
     ranges = ((buf, idx, lo, min(lo + cfg.block_records, n))
               for lo in range(0, max(n, 1), cfg.block_records))
-    offsets = _encode_ranges(ranges, cfg, dev, window,
+    offsets = _encode_ranges(ranges, cfg, step, window,
                              lambda blk: container.write_block(out, blk))
     container.write_index(out, offsets)
     return out.getvalue()
 
 
-def _decode_blocks(f, cfg: CodecConfig, dev, window, emit) -> None:
-    """Decode the container blocks of ``f`` in order; emit(part) for each
-    block's FASTQ bytes, in order.
+def _decode_blocks(f, cfg: CodecConfig, step, window, emit) -> None:
+    """Decode the container blocks of ``f`` in order on the device step (a
+    Card or a mesh's Sharded); emit(part) for each block's FASTQ bytes, in
+    order.
 
     Three stages (read || device || finish): a one-worker reader
     prefetches the next block's container bytes while a window is on the
@@ -168,7 +198,7 @@ def _decode_blocks(f, cfg: CodecConfig, dev, window, emit) -> None:
     are read one at a time (seek-based, container.iter_blocks), so memory
     holds a window and the finishes in flight, whatever the container's
     size."""
-    wb = _batch_window(cfg, window)
+    wb = step.window(cfg, window)
     with native.pipeline_omp_cap(), \
             ThreadPoolExecutor(max_workers=_PIPE_DEPTH) as fin_ex, \
             ThreadPoolExecutor(max_workers=1) as read_ex:
@@ -185,7 +215,7 @@ def _decode_blocks(f, cfg: CodecConfig, dev, window, emit) -> None:
                     break
                 rfut = read_ex.submit(next, gen, None)
                 blocks.append(blk)
-            for inter in decode_blocks_device(blocks, cfg, dev):
+            for inter in step.decode(blocks, cfg):
                 futs.append(fin_ex.submit(decode_block_finish, inter, cfg))
             while len(futs) > _PIPE_DEPTH:
                 emit(futs.popleft().result())
@@ -195,11 +225,15 @@ def _decode_blocks(f, cfg: CodecConfig, dev, window, emit) -> None:
 
 def decode_fastq(data: bytes, device=None,
                  window: int | None = None) -> bytes:
-    dev = resolve_device(device)
+    return decode_fastq_on(data, Card(resolve_device(device)), window)
+
+
+def decode_fastq_on(data: bytes, step, window) -> bytes:
+    """decode_fastq on a device step (a Card or a mesh's Sharded)."""
     f = io.BytesIO(data)
     cfg = container.read_header(f)
     parts = []
-    _decode_blocks(f, cfg, dev, window, parts.append)
+    _decode_blocks(f, cfg, step, window, parts.append)
     return b"".join(parts)
 
 
@@ -265,8 +299,14 @@ def encode_file_streaming(src: str, dst: str, level: int = 3, device=None,
     boundaries land on block_records multiples, which this function
     guarantees by carrying remainder records between chunks. Memory holds
     one chunk and the pipeline's prepared blocks."""
-    dev = resolve_device(device)
-    cfg = config_for_level(level, **overrides)
+    encode_file_on(src, dst, config_for_level(level, **overrides),
+                   Card(resolve_device(device)), chunk_bytes, resume, None)
+
+
+def encode_file_on(src: str, dst: str, cfg: CodecConfig, step,
+                   chunk_bytes: int, resume: bool, window) -> None:
+    """encode_file_streaming on a device step (a Card or a mesh's
+    Sharded); with ``resume`` the output's own config holds."""
     skip_records = 0
     if resume:
         w, skip_records = container.Writer.resume(dst)
@@ -281,7 +321,7 @@ def encode_file_streaming(src: str, dst: str, level: int = 3, device=None,
             seen += hi - lo
             if seen > skip_records:  # else: already in the resumed output
                 yield buf, idx, lo, hi
-    _encode_ranges(todo(), cfg, dev, None, w.append)
+    _encode_ranges(todo(), cfg, step, window, w.append)
     w.close()
 
 
@@ -290,10 +330,15 @@ def decode_file_streaming(src: str, dst: str, device=None) -> None:
     (seek-based, via the index and the v2 length prefixes), decoded and
     written in order, so memory holds a few blocks regardless of the
     container's size."""
-    dev = resolve_device(device)
+    decode_file_on(src, dst, Card(resolve_device(device)), None)
+
+
+def decode_file_on(src: str, dst: str, step, window) -> None:
+    """decode_file_streaming on a device step (a Card or a mesh's
+    Sharded)."""
     with open(src, "rb") as f, open(dst, "wb") as out:
         cfg = container.read_header(f)
-        _decode_blocks(f, cfg, dev, None, out.write)
+        _decode_blocks(f, cfg, step, window, out.write)
 
 
 def decode_file(src: str, dst: str, device=None) -> None:

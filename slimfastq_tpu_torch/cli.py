@@ -10,9 +10,12 @@ Usage:
   sfq-torch --streaming in.fastq -o out.sfq         # bounded memory
   sfq-torch --streaming --resume in.fastq -o out.sfq  # after a crash
   sfq-torch -d --streaming in.sfq -o out.fastq      # bounded memory
+  sfq-torch --sharded in.fastq -o out.sfq           # over all cards
+  sfq-torch --sharded --device cpu in.fastq -o out.sfq  # a CPU mesh
 
-Containers are byte-identical to the JAX package's ``sfq``.
-``--sharded`` (multi-GPU) is not yet ported.
+Containers are byte-identical to the JAX package's ``sfq``, with or
+without ``--sharded`` (which also combines with ``--streaming`` and
+``-d``).
 """
 
 from __future__ import annotations
@@ -24,6 +27,9 @@ import sys
 from . import __version__
 from .api import (decode_fastq, decode_file_streaming, encode_fastq,
                   encode_file_streaming)
+from .config import config_for_level
+from .parallel import sharded
+from .parallel.mesh import make_mesh
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -57,7 +63,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--resume", action="store_true",
                    help="with --streaming: continue an interrupted output")
     p.add_argument("--sharded", action="store_true",
-                   help="multi-GPU: not yet ported in the torch port")
+                   help="split each window's blocks over all the node's "
+                        "cards (with --device cpu: a one-entry CPU mesh)")
     p.add_argument("--version", action="version",
                    version=f"sfq-torch {__version__}")
     p.set_defaults(level=3)
@@ -95,9 +102,16 @@ def _streaming(args, overrides: dict) -> int:
               file=sys.stderr)
         return 2
     try:
-        if args.decode:
+        if args.decode and args.sharded:
+            sharded.decode_file_streaming_sharded(args.input, args.output,
+                                                  mesh=_mesh(args))
+        elif args.decode:
             decode_file_streaming(args.input, args.output,
                                   device=args.device)
+        elif args.sharded:
+            sharded.encode_file_streaming_sharded(
+                args.input, args.output, level=args.level, mesh=_mesh(args),
+                resume=args.resume, **overrides)
         else:
             encode_file_streaming(args.input, args.output, level=args.level,
                                   device=args.device, resume=args.resume,
@@ -108,12 +122,16 @@ def _streaming(args, overrides: dict) -> int:
     return 0
 
 
+def _mesh(args):
+    """--sharded's mesh: every card of the node, or with --device cpu a
+    one-entry CPU mesh (raises without a card, as the one-card path
+    does)."""
+    return make_mesh(devices=["cpu"]) if args.device == "cpu" \
+        else make_mesh()
+
+
 def main(argv: list[str] | None = None) -> int:
     args = build_parser().parse_args(argv)
-    if args.sharded:
-        print("sfq-torch: --sharded is not yet ported in the torch port",
-              file=sys.stderr)
-        return 2
     if args.resume and not args.streaming:
         print("sfq-torch: --resume needs --streaming", file=sys.stderr)
         return 2
@@ -133,8 +151,14 @@ def main(argv: list[str] | None = None) -> int:
             data = f.read()
 
     try:
-        if args.decode:
+        if args.decode and args.sharded:
+            result = sharded.decode_fastq_sharded(data, mesh=_mesh(args))
+        elif args.decode:
             result = decode_fastq(data, device=args.device)
+        elif args.sharded:
+            result = sharded.encode_fastq_sharded(
+                data, config_for_level(args.level, **overrides),
+                mesh=_mesh(args))
         else:
             result = encode_fastq(data, level=args.level,
                                   device=args.device, **overrides)

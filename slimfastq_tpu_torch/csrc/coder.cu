@@ -90,8 +90,13 @@
 //   launch. A launch starts from the device table, low and range the one
 //   before left and ends with its last bit-step's commit (phase 1 of a
 //   next bit-step that belongs to the next launch), so the slices emit
-//   the one launch's bytes. A table in shared memory dies with its CTA:
-//   the wrapper refuses slices for it.
+//   the one launch's bytes. A table that lives in shared memory (L1's
+//   SEQ and QUAL, L2's SEQ) is carried in device memory between slices:
+//   a slice that is not the stream's first loads it into shared memory,
+//   and every slice stores it back after its last commit (16-byte
+//   vectors, table_size * 2 bytes each way: 32 KB for L1 QUAL at depth
+//   6, 131,070 B for the byte kind). A launch without carries keeps its
+//   fresh table in shared memory and copies nothing.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -141,6 +146,18 @@ __host__ __device__ inline int hash_smem_bytes(int nsl) {
   return 3 * 2 * (1 << nsl) * 4;
 }
 
+// Copy n 16-bit table entries between shared and device memory, the
+// CTA's threads in turn: 16-byte vectors, then the tail (both tables
+// start 16-byte aligned).
+__device__ __forceinline__ void copy_entries(uint16_t* dst,
+                                             const uint16_t* src, int n) {
+  const int nv = n / 8;
+  const uint4* s = reinterpret_cast<const uint4*>(src);
+  uint4* d = reinterpret_cast<uint4*>(dst);
+  for (int i = threadIdx.x; i < nv; i += blockDim.x) d[i] = s[i];
+  for (int i = nv * 8 + threadIdx.x; i < n; i += blockDim.x) dst[i] = src[i];
+}
+
 // One lane's view of the table law across bit-steps.
 template <bool SMEM, bool WARM>
 struct Lockstep {
@@ -153,8 +170,11 @@ struct Lockstep {
   int ahead = 0;  // a device table's entry for the next bit-step
   bool real = false, own = false;
 
+  // gtable: the device table; where the table lives in shared memory, a
+  // step slice's carried table (null without carries), loaded there
+  // unless `fresh`
   __device__ void setup(unsigned char* smem, uint16_t* gtable, Geo geo,
-                        int ns_log2) {
+                        int ns_log2, bool fresh) {
     g = geo;
     nsl = ns_log2;
     table = SMEM ? reinterpret_cast<uint16_t*>(smem) : gtable;
@@ -167,9 +187,11 @@ struct Lockstep {
       cnt[i] = 0;
       sum[i] = 0;
     }
-    if (SMEM) {  // fresh table, the sacrificial row pinned at PROB_MAX
+    if (SMEM && fresh) {  // the sacrificial row pinned at PROB_MAX
       for (int i = threadIdx.x; i < g.table_size; i += blockDim.x)
         table[i] = (uint16_t)(i < g.sac_base ? PROB_INIT : PROB_MAX);
+    } else if (SMEM) {
+      copy_entries(table, gtable, g.table_size);
     }
     __syncthreads();
   }
@@ -263,13 +285,14 @@ __device__ __forceinline__ bool renorm_needed(uint32_t low, uint32_t rng,
   return *agree || rng < BOT;
 }
 
-// One block's stream for Kernel E: its schedule, its device table (null
-// where the table lives in shared memory) and its outputs. A stream coded
-// in step slices takes one launch a slice: each codes chunks [c0, c1) of
-// the stream (the pointers are the slice's own), starts from the state the
-// slice before left in `table`, `low` and `rng` (`first`: the stream's
-// first slice, whose table is fresh, starts at low 0 and range 2^32 - 1)
-// and raises `emax`, which the slices share.
+// One block's stream for Kernel E: its schedule, its device table (where
+// the table lives in shared memory: null, or a step slice's carried table)
+// and its outputs. A stream coded in step slices takes one launch a
+// slice: each codes chunks [c0, c1) of the stream (the pointers are the
+// slice's own), starts from the state the slice before left in `table`,
+// `low` and `rng` (`first`: the stream's first slice, whose table is
+// fresh, starts at low 0 and range 2^32 - 1) and raises `emax`, which the
+// slices share.
 struct EncDesc {
   const int* idx_c;  // [NC, KD, W]
   const int* bit_c;  // [NC, KD, W]
@@ -300,7 +323,7 @@ __global__ void __launch_bounds__(1024, 1)
   const int w = threadIdx.x;
   const bool live = w < W;
   Lockstep<SMEM, WARM> L;
-  L.setup(smem, desc.table, geo, p.nsl);
+  L.setup(smem, desc.table, geo, p.nsl, desc.first);
   uint32_t low = 0, rng = 0xFFFFFFFFu;
   if (live && !desc.first) {
     low = desc.low[w];
@@ -364,8 +387,14 @@ __global__ void __launch_bounds__(1024, 1)
     emx = max(emx, eptr);
   }
   // the last bit-step's entries: a device table carries them to the next
-  // slice (the loop's last barrier ordered every delta before)
-  if (!SMEM) L.commit();
+  // slice (the loop's last barrier ordered every delta before); a carried
+  // table in shared memory is stored back to device memory
+  const bool carried = SMEM && desc.table != nullptr;
+  if (!SMEM || carried) L.commit();
+  if (carried) {
+    __syncthreads();
+    copy_entries(desc.table, L.table, geo.table_size);
+  }
   if (live) {
     desc.low[w] = low;
     desc.rng[w] = rng;
@@ -430,7 +459,7 @@ __global__ void __launch_bounds__(1024, 1)
   const int w = threadIdx.x;
   const bool live = w < W;
   Lockstep<SMEM, WARM> L;
-  L.setup(smem, desc.table, p.geo, p.nsl);
+  L.setup(smem, desc.table, p.geo, p.nsl, true);
   const uint8_t* row = desc.payload + (size_t)(live ? w : 0) * Lb;
   const int len = live ? desc.lens[w] : 0;
   // payload byte q of this lane; 0 past its end (read_bytes)

@@ -5,13 +5,15 @@ with a plain ``extern "C"`` interface (``csrc/build/lib<name>.so``), loaded
 with ctypes. A library is rebuilt when its source is newer than it.
 Pointers and the CUDA stream pass as ``c_void_p``; every C entry returns
 ``cudaGetLastError()`` after its launch and ``check`` raises on non-zero.
+``launch`` calls an entry with its tensors' card current.
 
 Launch counts: every kernel wrapper adds one to ``launches[name]`` where
 it launches its kernel, and nowhere else, so a run can show which kernels
 its path went through; ``descs[name]`` adds up the descriptors those
 launches took (blocks for Kernels E and D, streams for Kernel C), so a
 window's launches show how many blocks each carried; ``slices[name]``
-the descriptors that were one step slice of a stream (Kernel E).
+the descriptors that were one step slice of a stream (Kernel E);
+``by_shard`` the launches of each shard of a mesh, by its device.
 """
 
 from __future__ import annotations
@@ -21,6 +23,7 @@ import os
 import shutil
 import subprocess
 import threading
+from contextlib import contextmanager
 
 import torch
 
@@ -34,22 +37,46 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 launches = {"lane_encode": 0, "lane_decode": 0, "compact_lanes_dev": 0}
 descs = dict.fromkeys(launches, 0)
 slices = dict.fromkeys(launches, 0)
+# launches by mesh shard: (shard, device) -> {name: launches}, where a
+# shard of parallel.mesh made them (as_shard)
+by_shard: dict = {}
 
 _libs: dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()
+_count_lock = threading.Lock()
+_where = threading.local()  # .shard: the mesh shard this thread codes
 
 
-def count(name: str, n: int, sliced: int = 0) -> None:
-    """One launch of kernel ``name`` over ``n`` descriptors, ``sliced``
-    of them step slices."""
-    launches[name] += 1
-    descs[name] += n
-    slices[name] += sliced
+def count(name: str, n: int, device, sliced: int = 0) -> None:
+    """One launch of kernel ``name`` on ``device`` over ``n``
+    descriptors, ``sliced`` of them step slices (the shards of a mesh
+    count from their own threads)."""
+    with _count_lock:
+        launches[name] += 1
+        descs[name] += n
+        slices[name] += sliced
+        shard = getattr(_where, "shard", None)
+        if shard is not None:
+            tally = by_shard.setdefault((shard, str(device)), {})
+            tally[name] = tally.get(name, 0) + 1
 
 
 def reset_launches() -> None:
-    for k in launches:
-        launches[k] = descs[k] = slices[k] = 0
+    with _count_lock:
+        for k in launches:
+            launches[k] = descs[k] = slices[k] = 0
+        by_shard.clear()
+
+
+@contextmanager
+def as_shard(i: int):
+    """Count this thread's launches as mesh shard i's too (by_shard)."""
+    prev = getattr(_where, "shard", None)
+    _where.shard = i
+    try:
+        yield
+    finally:
+        _where.shard = prev
 
 
 def _nvcc() -> str:
@@ -123,9 +150,14 @@ def check(lib: ctypes.CDLL, err: int, what: str) -> None:
                            f"({lib.error_string(err).decode()})")
 
 
-def stream_ptr(t: torch.Tensor) -> int:
-    """PyTorch's current stream on t's device, for a kernel launch."""
-    return torch.cuda.current_stream(t.device).cuda_stream
+def launch(t: torch.Tensor, entry, *args) -> int:
+    """entry(*args, stream) of a C wrapper on t's card, on PyTorch's
+    current stream there. The C wrappers launch (and set a kernel's
+    shared-memory attribute) on the calling thread's current device, so
+    t's card is made current for the call: a launch lands on its tensors'
+    card whatever thread makes it (the shard threads of a mesh)."""
+    with torch.cuda.device(t.device):
+        return entry(*args, torch.cuda.current_stream(t.device).cuda_stream)
 
 
 PTR = ctypes.c_void_p

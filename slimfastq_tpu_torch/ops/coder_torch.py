@@ -179,7 +179,9 @@ def _kernel_geom(geom, W: int, dev, B: int | None = None,
         return None, cap, 1
     if geom.depth < 2:
         # the kernels load a device table's entry one bit-step ahead,
-        # which needs consecutive bit-steps on different tree levels
+        # which needs consecutive bit-steps on different tree levels; no
+        # level reaches this: the one depth-1 kind, flag, has 2^hist_bits
+        # + 1 entries (5 at levels 1-4)
         raise ValueError("a depth-1 table must fit shared memory")
     return (device_table(geom, dev, B) if fresh else None), cap, 0
 
@@ -489,8 +491,9 @@ def lane_encode_blocks(scheds, geom, CB: int, carries=None,
     before the first slice), leaving its own there (emax the largest
     chunk count so far); ``outs`` gives per block the (ebufs [NC_b, W,
     CB] u8, eptrs [NC_b, W] i32) to write into, the slice's rows of its
-    stream's buffers. Slices carry the table in device memory, so a
-    geometry whose table fits shared memory (table_in_smem) is refused."""
+    stream's buffers. Slices carry the table in device memory; where it
+    lives in shared memory (table_in_smem), each slice loads it from
+    there (but the first) and stores it back."""
     if not 1 <= len(scheds) <= MAX_BLOCKS:
         raise ValueError(f"one launch codes 1 to {MAX_BLOCKS} blocks, not "
                          f"{len(scheds)}")
@@ -498,9 +501,6 @@ def lane_encode_blocks(scheds, geom, CB: int, carries=None,
     for extra in (carries, outs):
         if extra is not None and len(extra) != len(scheds):
             raise ValueError("one carry and one output pair a block")
-    if carries is not None and table_in_smem(geom, W):
-        raise ValueError("step slices carry the table in device memory; "
-                         "this geometry's table lives in shared memory")
     for idx_c, bit_c in scheds:
         if idx_c.dim() != 3 or idx_c.dtype != torch.int32 \
                 or bit_c.dtype != torch.int32 or bit_c.shape != idx_c.shape:
@@ -562,16 +562,16 @@ def lane_encode_blocks(scheds, geom, CB: int, carries=None,
             enumerate(zip(scheds, outs, states)):
         d = descs[b]
         d.idx_c, d.bit_c = idx_c.data_ptr(), bit_c.data_ptr()
-        d.table = None if smem else tab.data_ptr()
+        d.table = None if tab is None else tab.data_ptr()
         d.ebufs, d.eptrs = eb.data_ptr(), ep.data_ptr()
         d.low, d.rng, d.emax = lo.data_ptr(), rg.data_ptr(), em.data_ptr()
         d.NC, d.first = NCs[b], first
         res.append((eb, ep, lo, em[0]))
-    err = lib.lane_encode(
-        ctypes.addressof(descs), B, KD, W, geom.table_size, geom.sac_base,
-        geom.rate, getattr(geom, "rate_lo", 0), vcap, smem, CB,
-        _cuda.stream_ptr(outs[0][0]))
-    _cuda.count("lane_encode", B, sliced=0 if carries is None else B)
+    rate_lo = getattr(geom, "rate_lo", 0)
+    err = _cuda.launch(
+        outs[0][0], lib.lane_encode, ctypes.addressof(descs), B, KD, W,
+        geom.table_size, geom.sac_base, geom.rate, rate_lo, vcap, smem, CB)
+    _cuda.count("lane_encode", B, dev, sliced=0 if carries is None else B)
     _cuda.check(lib, err, "lane_encode")
     return res
 
@@ -671,12 +671,13 @@ def lane_decode_blocks(items, kind: str, geom) -> list:
         d.table = None if table is None else table[b].data_ptr()
         d.syms, d.Lb, d.Sp = syms.data_ptr(), ins[0].shape[1], acts.shape[0]
         outs.append(syms)
-    err = lib.lane_decode(
-        ctypes.addressof(descs), B, W, geom.table_size, geom.sac_base,
-        geom.rate, getattr(geom, "rate_lo", 0), vcap, smem, geom.depth,
-        KINDS[kind], geom.num_ctx, *_kind_params(kind, geom), int(family),
-        _cuda.stream_ptr(outs[0]))
-    _cuda.count("lane_decode", B)
+    rate_lo = getattr(geom, "rate_lo", 0)
+    err = _cuda.launch(
+        outs[0], lib.lane_decode, ctypes.addressof(descs), B, W,
+        geom.table_size, geom.sac_base, geom.rate, rate_lo, vcap, smem,
+        geom.depth, KINDS[kind], geom.num_ctx, *_kind_params(kind, geom),
+        int(family))
+    _cuda.count("lane_decode", B, dev)
     _cuda.check(lib, err, "lane_decode")
     return outs
 

@@ -177,9 +177,9 @@ def compact_streams_dev(streams, tails=None):
     if not any(W for _, _, _, W, _, _ in layout.parts):
         return flat, layout  # no stream has a lane: nothing to launch
     lib = _cuda.load("compact", _SIGS)
-    err = lib.compact_streams(ctypes.addressof(descs), len(streams),
-                              _cuda.stream_ptr(flat))
-    _cuda.count("compact_lanes_dev", len(streams))
+    err = _cuda.launch(flat, lib.compact_streams, ctypes.addressof(descs),
+                       len(streams))
+    _cuda.count("compact_lanes_dev", len(streams), flat.device)
     _cuda.check(lib, err, "compact_streams")
     return flat, layout
 

@@ -46,7 +46,8 @@ versions.
 
 from __future__ import annotations
 
-from contextlib import nullcontext
+import threading
+from contextlib import contextmanager, nullcontext
 from typing import NamedTuple
 
 import numpy as np
@@ -116,20 +117,39 @@ def decode_bytes(Sp: int, W: int) -> int:
     return 16 * Sp * W
 
 
+# per host thread: its side CUDA streams by device index (StreamSet) and
+# the share of a card it codes with (card_share)
+_LOCAL = threading.local()
+
+
+@contextmanager
+def card_share(n: int):
+    """device_budget on this thread gives 1/n of the card: n shards of a
+    mesh code on it at once."""
+    prev = getattr(_LOCAL, "share", 1)
+    _LOCAL.share = n
+    try:
+        yield
+    finally:
+        _LOCAL.share = prev
+
+
 def device_budget(device) -> int:
     """Device bytes the SEQ/QUAL streams of a window may take (a window
     closes before the block that would pass it; a block above it codes
     alone): half of what the card has free, its caching allocator's idle
-    blocks included. The other half is headroom: a hard-chunk rerun
-    raises a stream's chunk buffers up to 2.5-fold (QUAL at depth 6: 160
-    against 64 bytes a chunk and lane), and the schedule's and the
-    unpack's temporaries come on top. On the CPU: CPU_BUDGET."""
+    blocks included, over the shards that share the card (card_share).
+    The other half is headroom: a hard-chunk rerun raises a stream's
+    chunk buffers up to 2.5-fold (QUAL at depth 6: 160 against 64 bytes
+    a chunk and lane), and the schedule's and the unpack's temporaries
+    come on top. On the CPU: CPU_BUDGET, shared as well."""
     dev = torch.device(device)
+    share = getattr(_LOCAL, "share", 1)
     if dev.type != "cuda":
-        return CPU_BUDGET
+        return CPU_BUDGET // share
     free, _ = torch.cuda.mem_get_info(dev)
     idle = torch.cuda.memory_reserved(dev) - torch.cuda.memory_allocated(dev)
-    return (free + idle) // 2
+    return (free + idle) // 2 // share
 
 
 def split_by_bytes(sizes, budget: int) -> list:
@@ -300,8 +320,6 @@ def _flush_append(pay: np.ndarray, totals: np.ndarray, low: np.ndarray,
 # a block's streams at once
 # ---------------------------------------------------------------------------
 
-_POOL: dict[int, list] = {}  # device index -> side CUDA streams
-
 
 def _tensors(out) -> list:
     """The tensors of a launch's output (a tensor, or tuples and lists of
@@ -312,8 +330,9 @@ def _tensors(out) -> list:
 
 
 class StreamSet:
-    """A block's coder launches, each on its own CUDA stream from a
-    per-device pool, so the block costs its longest chain and not the sum
+    """A block's coder launches, each on its own CUDA stream from a pool
+    of the calling thread's on the device (a mesh's shards on one card
+    keep apart), so the block costs its longest chain and not the sum
     (on the CPU they run in order on the calling thread). A launch starts
     after the calling stream's work so far; ``join`` makes the calling
     stream wait for every launch."""
@@ -329,7 +348,9 @@ class StreamSet:
     def _next(self):
         if self.main is None:
             return None
-        pool = _POOL.setdefault(self.main.device_index, [])
+        if not hasattr(_LOCAL, "pools"):
+            _LOCAL.pools = {}
+        pool = _LOCAL.pools.setdefault(self.main.device_index, [])
         if len(pool) == len(self.used):
             pool.append(torch.cuda.Stream(self.dev))
         self.used.append(pool[len(self.used)])
@@ -730,11 +751,9 @@ class CoderJob(NamedTuple):
 def _coder_job(name: str, kind: str, geom, syms, pos, reset, counts_t,
                mflag) -> CoderJob:
     """A stream's CoderJob: its schedule built whole, or as Slices where
-    the whole would pass SLICE_BYTES (slices carry the table in device
-    memory: a table in shared memory takes the whole schedule)."""
+    the whole would pass SLICE_BYTES."""
     Sp, W = syms.shape
-    if Sp // CHUNK_SYMS > slice_chunks(geom.depth, W) \
-            and not coder_torch.table_in_smem(geom, W):
+    if Sp // CHUNK_SYMS > slice_chunks(geom.depth, W):
         return CoderJob(name, kind, geom, syms, pos, reset, counts_t,
                         Slices(kind, geom, syms, pos, reset, counts_t,
                                mflag), None)

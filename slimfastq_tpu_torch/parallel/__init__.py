@@ -1,17 +1,9 @@
 """Block parallelism of the port: the JAX package's parallel/ surface.
 
-Only its single-card form is ported (``mesh=None``): a window of blocks
-coded together on one card, each stream's kernel launch taking every
-block of the window. A mesh (multi-GPU) raises "multi-GPU not yet
-ported"; it never runs on one card in its place.
+``mesh``: the mesh of a node's cards and the stream-level window launches
+over it; ``sharded``: whole-file encode and decode with each window's
+blocks split over the mesh (``sfq-torch --sharded``); ``gather``: the
+ordered ragged gather of one payload per process over torch.distributed;
+``multihost``: the multi-process workflow (one process per host or card,
+each coding a contiguous run of blocks, shard containers merged).
 """
-
-from __future__ import annotations
-
-
-def single_card(mesh) -> None:
-    """Refuse a mesh: the port has only the single-card form."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "multi-GPU not yet ported in the torch port: pass mesh=None "
-            "for the single-card window path")

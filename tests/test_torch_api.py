@@ -136,8 +136,9 @@ def test_cli_round_trip(tmp_path, capsys):
     assert back.read_bytes() == data
     assert tcli.main(["-d", str(out), "-o", str(back), "--device",
                       "cpu"]) == 2  # exists, no -f
-    assert tcli.main([str(src), "-o", str(out), "--sharded", "-f"]) == 2
-    assert "not yet ported" in capsys.readouterr().err
+    if not torch.cuda.is_available():  # --sharded never falls back to CPU
+        assert tcli.main([str(src), "-o", str(out), "--sharded", "-f"]) == 1
+        assert "sfq-torch: no CUDA device" in capsys.readouterr().err
     assert tcli.main([str(src), "-o", str(out), "--resume", "-f"]) == 2
     assert "--resume needs --streaming" in capsys.readouterr().err
     assert tcli.main([str(src), "--streaming", "--device", "cpu"]) == 2

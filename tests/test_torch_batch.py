@@ -131,14 +131,36 @@ def test_stream_blocks_match_jax_mesh(kind):
 
 
 def test_mesh_refused():
-    """A mesh means multi-GPU, which is not ported: it raises and never
-    runs on one card instead."""
-    cfg = config_for_level(3)
-    with pytest.raises(NotImplementedError, match="multi-GPU"):
-        tmesh.encode_stream_blocks("byte", cfg.bytes_, object(), [], [],
-                                   device="cpu")
-    with pytest.raises(NotImplementedError, match="multi-GPU"):
-        tsharded.decode_blocks_sharded([], cfg, object(), "cpu")
+    """A mesh of CPU entries (three shards, one device named three times)
+    gives what mesh=None gives: the stream blocks of a ragged window and
+    a window of container blocks' FASTQ parts, in order. What is refused
+    is a CUDA mesh entry without a card: it raises, and never runs on the
+    CPU instead."""
+    from slimfastq_tpu_torch import api as tapi
+    cfg = config_for_level(3, lanes=16, aux_lanes=8, block_records=10)
+    mesh = tmesh.make_mesh(devices=["cpu"] * 3)
+    assert mesh.size == 3
+    syms, counts = _ragged_window(np.random.default_rng(7), "byte", 8,
+                                  [12, 40, 0, 5])
+    got = tmesh.encode_stream_blocks("byte", cfg.bytes_, mesh, syms, counts)
+    want = tmesh.encode_stream_blocks("byte", cfg.bytes_, None, syms, counts,
+                                      device="cpu")
+    for (p, lens), (pw, lw) in zip(got, want, strict=True):
+        assert np.array_equal(p, pw) and np.array_equal(lens, lw)
+    data = synth_fastq(35, read_len=20, seed=4, var_len=True)
+    enc = tapi.encode_fastq(data, cfg=cfg, device="cpu")
+    from slimfastq_tpu_torch import container
+    f = io.BytesIO(enc)
+    blocks = list(container.iter_blocks(f, container.read_header(f)))
+    assert len(blocks) == 4
+    parts = tsharded.decode_blocks_sharded(blocks, cfg, mesh)
+    assert [bytes(p) for p in parts] == [
+        bytes(p) for p in tsharded.decode_blocks_sharded(blocks, cfg, None,
+                                                         "cpu")]
+    assert b"".join(bytes(p) for p in parts) == data
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            tmesh.make_mesh(devices=["cuda:0"])
 
 
 def test_seq_qual_raw_blocks_match_jax_mesh():

@@ -8,8 +8,11 @@ time; Kernels E and D over a ragged window of blocks against their plain
 versions and against one launch per block; Kernel C's one launch over
 many streams (also a window's 88) against its plain version and against
 each stream compacted alone; the small-block window path end to end;
-Kernel E in step slices against one launch; and the host-pack path
-(forced on small blocks) against the main path's containers.
+Kernel E in step slices against one launch (also where the table lives
+in shared memory, level 1); the host-pack path (forced on small blocks)
+against the main path's containers; and the sharded path on a mesh of
+one card, of the card named twice, and (with two cards or more) of two
+cards, against the sequential containers.
 Marked `cuda`: they
 skip without a card. This file imports
 neither JAX nor the JAX package, so it runs on a machine that has only
@@ -441,16 +444,19 @@ def test_window_round_trip_on_card(dev, level):
 
 
 @pytest.mark.parametrize("case", ["qual-d6", "seq-collide-700",
-                                  "seq-l4-match-1024"])
+                                  "seq-l4-match-1024", "qual-l1", "seq-l1"])
 def test_sliced_encode_equals_unsliced(dev, case):
     """Kernel E in step slices (1, 2, 3 and uneven; the table, low and
     range carried from one launch to the next, each slice ending with its
-    last bit-step's commit) gives the one launch's bytes, chunk counts,
-    low and emax at W = 1024; lane_encode_sliced too; and its plain
-    version over the same slices gives them as well."""
+    last bit-step's commit; a table in shared memory loaded from and
+    stored to device memory at a slice's ends) gives the one launch's
+    bytes, chunk counts, low and emax at W = 1024; lane_encode_sliced
+    too; and its plain version over the same slices gives them as
+    well."""
     from slimfastq_tpu_torch.ops import _cuda
-    level, kind, W, hard, active, depth, _, match = CASES[case]
+    level, kind, W, hard, active, depth, smem, match = CASES[case]
     geom = _geom(level, kind, depth)
+    assert CT.table_in_smem(geom, W) == smem
     rng = np.random.default_rng(4)
     syms, counts, pos, reset, mflag = _stream(kind, rng, dev, W, active,
                                               match=match, Sp=1024)
@@ -519,6 +525,53 @@ def test_host_pack_path_on_card(dev, level, monkeypatch):
         cfg = container.read_header(f)
         assert any(b.flags & MATCH_USED
                    for b in container.iter_blocks(f, cfg))
+
+
+def _sharded_round_trip(devices, level: int = 3):
+    """Four 2,048-record blocks through the sharded path on a mesh of
+    ``devices`` (one window, split over the shards): the sequential
+    container, decoded exactly; returns each shard's launches by card
+    (_cuda.by_shard)."""
+    from slimfastq_tpu_torch import api
+    from slimfastq_tpu_torch.ops import _cuda
+    from slimfastq_tpu_torch.parallel import mesh as pmesh
+    from slimfastq_tpu_torch.parallel import sharded
+    from slimfastq_tpu_torch.utils.synth import synth_fastq
+    data = synth_fastq(4 * 2048, read_len=100, seed=5, n_rate=0.001)
+    cfg = config_for_level(level, block_records=2048)
+    want = api.encode_fastq(data, cfg=cfg)
+    mesh = pmesh.make_mesh(devices=devices)
+    _cuda.reset_launches()
+    assert sharded.encode_fastq_sharded(data, cfg, mesh=mesh) == want
+    assert sharded.decode_fastq_sharded(want, mesh=mesh) == data
+    return dict(_cuda.by_shard)
+
+
+@pytest.mark.parametrize("devices", [["cuda:0"], ["cuda:0", "cuda:0"]],
+                         ids=["one-card", "card-twice"])
+def test_sharded_path_on_card(dev, devices):
+    """The sharded path on a one-card mesh (one shard, on the calling
+    thread) and on a mesh naming the card twice (two shard threads, two
+    blocks each, each on its own CUDA stream): the sequential bytes; each
+    shard launched E, D and C on the card."""
+    by_shard = _sharded_round_trip(devices)
+    assert set(by_shard) == {(i, "cuda:0") for i in range(len(devices))}
+    for tally in by_shard.values():
+        assert set(tally) == {"lane_encode", "lane_decode",
+                              "compact_lanes_dev"}, tally
+
+
+def test_sharded_over_two_cards(dev):
+    """The four blocks sharded over cuda:0 and cuda:1 (runs only on a node
+    with two cards or more): the sequential bytes, and each shard's
+    launches made on its own card."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA cards")
+    by_shard = _sharded_round_trip(["cuda:0", "cuda:1"])
+    assert set(by_shard) == {(0, "cuda:0"), (1, "cuda:1")}
+    for tally in by_shard.values():
+        assert set(tally) == {"lane_encode", "lane_decode",
+                              "compact_lanes_dev"}, tally
 
 
 def test_wide_block_refused(dev):

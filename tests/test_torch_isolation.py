@@ -75,6 +75,8 @@ import slimfastq_tpu_torch.cli  # noqa: F401
 from slimfastq_tpu_torch.utils.synth import synth_fastq
 import slimfastq_tpu_torch.parallel.mesh  # noqa: F401
 import slimfastq_tpu_torch.parallel.sharded  # noqa: F401
+import slimfastq_tpu_torch.parallel.gather  # noqa: F401
+import slimfastq_tpu_torch.parallel.multihost  # noqa: F401
 data = synth_fastq(6, read_len=20, seed=1)
 enc = api.encode_fastq(data, device="cpu", lanes=4, aux_lanes=4)
 assert api.decode_fastq(enc, device="cpu") == data

@@ -7,7 +7,8 @@ against the JAX package at small sizes.
   payloads and symbols (its test_ll_variants_match_oracle, ported);
 * Kernel E's plain version in 1, 2, 3 and uneven step slices, the coder
   state carried from one to the next, gives the unsliced bytes, and each
-  schedule slice equals the whole schedule's rows;
+  schedule slice equals the whole schedule's rows, also for level 1's
+  QUAL and SEQ, whose tables the kernel keeps in shared memory;
 * the host pack (native.pack_lanes) gives pack_pair's symbols on an
   N-rich block, and pos/reset the reference's layout;
 * the device-byte budget keeps today's windows and slices a long block.
@@ -17,6 +18,8 @@ held against the JAX package's in tests/test_torch_longread_levels.py
 and _l4.py, the window budget and the sliced overflow rerun in
 tests/test_torch_longread_windows.py.
 """
+
+from dataclasses import replace
 
 import numpy as np
 import pytest
@@ -94,11 +97,12 @@ def test_ll_variants_match_jax(kind, monkeypatch):
 def _sched_inputs(kind: str):
     """(geom, syms, pos, reset, counts, mflag) of a ragged per-read stream
     at W lanes on the CPU (level-3 QUAL / SEQ; seq-mflag: level-4 SEQ
-    with match-span flags), Sp = 256 steps."""
-    level = 4 if kind == "seq-mflag" else 3
+    with match-span flags; qual-l1 / seq-l1: level 1's, whose tables fit
+    shared memory), Sp = 256 steps."""
+    level = {"seq-mflag": 4, "qual-l1": 1, "seq-l1": 1}.get(kind, 3)
     cfg = config_for_level(level, lanes=W, aux_lanes=8)
     lengths, ll_mat, counts, S, recs = _reads(7)
-    if kind != "qual":
+    if geom_kind(kind) != "qual":
         recs = [r & 3 for r in recs]
     Sp = pad_steps(S)
     syms = ST._pad2(_scatter_record_symbols(recs, W, S, counts), Sp, W,
@@ -109,18 +113,21 @@ def _sched_inputs(kind: str):
         rng = np.random.default_rng(8)
         mflag = torch.from_numpy((rng.random((Sp, W)) < 0.4).astype(
             np.uint8))
-    geom = cfg.qual if kind == "qual" else cfg.seq
+    geom = cfg.qual if geom_kind(kind) == "qual" else cfg.seq
     return geom, syms, pos, reset, torch.from_numpy(counts).int(), mflag
 
 
 @pytest.mark.parametrize("split", ["1", "2", "3", "uneven"])
-@pytest.mark.parametrize("kind", ["qual", "seq", "seq-mflag"])
+@pytest.mark.parametrize("kind", ["qual", "seq", "seq-mflag", "qual-l1",
+                                  "seq-l1"])
 def test_plain_encode_slices_give_unsliced_bytes(kind, split):
     """Kernel E's plain version over step slices (the coder state carried
     in an EncCarry, each slice's schedule built alone with its halo of
     history) gives every byte, chunk count, final low and emax of the one
-    unsliced launch."""
+    unsliced launch, also where the kernel keeps the table in shared
+    memory (level 1)."""
     geom, syms, pos, reset, counts, mflag = _sched_inputs(kind)
+    assert CT.table_in_smem(geom, W) == kind.endswith("-l1")
     NC = syms.shape[0] // 8
     whole = ST._schedule(geom_kind(kind), geom, syms, pos, reset, counts,
                          mflag)
@@ -154,14 +161,22 @@ def geom_kind(kind: str) -> str:
 
 
 def test_slices_refused_for_a_shared_memory_table():
-    """Step slices carry the table in device memory: the wrapper refuses
-    them for a geometry whose table lives in shared memory, and asks for
-    one carry and one output pair a block."""
+    """Step slices of a table that lives in shared memory are no longer
+    refused: the kernel carries it in device memory between slices (the
+    plain version carries its own). What the wrapper still refuses: a
+    depth-1 table that does not fit shared memory (no level has one), and
+    a launch without one carry and one output pair a block."""
     cfg = config_for_level(3, lanes=W, aux_lanes=8)
     z = torch.zeros((2, 8 * cfg.bytes_.depth, W), dtype=torch.int32)
     assert CT.table_in_smem(cfg.bytes_, W)
+    carry = CT.EncCarry()
+    (_, eptrs, _, _), = CT.lane_encode_blocks([(z, z)], cfg.bytes_, 64,
+                                              [carry])
+    assert eptrs.shape == (2, W) and carry.table is not None
+    wide = replace(cfg.flags, hist_bits=17)
+    assert not CT.table_in_smem(wide, W)
     with pytest.raises(ValueError, match="shared memory"):
-        CT.lane_encode_blocks([(z, z)], cfg.bytes_, 64, [CT.EncCarry()])
+        CT._kernel_geom(wide, W, torch.device("cpu"))
     q = torch.zeros((2, 8 * cfg.qual.depth, W), dtype=torch.int32)
     with pytest.raises(ValueError, match="one carry"):
         CT.lane_encode_blocks([(q, q)], cfg.qual, 64, [])

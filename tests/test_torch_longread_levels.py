@@ -3,8 +3,9 @@ with the port's pipeline_native._MAX_SPAN lowered to 1 every block packs
 SEQ and QUAL on the host and unpacks them there, as a block of 2 GiB and
 more does, and with streams_torch.SLICE_BYTES lowered its SEQ/QUAL
 streams code in step slices. The containers must equal the JAX package's
-at levels 2 and 3 (level 4: tests/test_torch_longread_l4.py) and each
-package must decode the other's."""
+at levels 1, 2 and 3 (level 4: tests/test_torch_longread_l4.py) and each
+package must decode the other's. Level 1 keeps both of those streams'
+tables in shared memory on the card, and slices them all the same."""
 
 import pytest
 import torch
@@ -15,6 +16,7 @@ from slimfastq_tpu.utils.synth import synth_fastq
 from slimfastq_tpu_torch import api as tapi
 from slimfastq_tpu_torch import native
 from slimfastq_tpu_torch import pipeline_native as TPN
+from slimfastq_tpu_torch.config import config_for_level
 from slimfastq_tpu_torch.ops import coder_torch as CT
 from slimfastq_tpu_torch.ops import streams_torch as ST
 
@@ -28,10 +30,13 @@ def forced(monkeypatch):
     monkeypatch.setattr(TPN, "_MAX_SPAN", 1)
     monkeypatch.setattr(ST, "SLICE_BYTES", 3 * 2 * 4 * 8 * 6 * 128)
     calls = {"host_jobs": 0, "lane_encode_slices": 0, "unpack_lanes": 0}
+    sliced = calls["sliced"] = set()  # the kinds coded in step slices
     for mod, name in ((ST, "host_jobs"), (CT, "lane_encode_slices"),
                       (native, "unpack_lanes")):
         def spy(*args, _fn=getattr(mod, name), _name=name, **kw):
             calls[_name] += 1
+            if _name == "lane_encode_slices":
+                sliced.add(args[0].kind)
             return _fn(*args, **kw)
         monkeypatch.setattr(mod, name, spy)
     return calls
@@ -47,11 +52,16 @@ def _round_trip(data: bytes, level: int, calls: dict, **kw) -> bytes:
     return enc_t
 
 
-@pytest.mark.parametrize("level", [2, 3])
+@pytest.mark.parametrize("level", [1, 2, 3])
 def test_host_pack_containers_identical_and_cross_decode(level, forced):
     """Two blocks (200 and 30 records, variable lengths, N bases) at 128
-    lanes: the JAX package's container, and each decodes the other's."""
+    lanes: the JAX package's container, and each decodes the other's;
+    SEQ and QUAL both code in step slices."""
     data = synth_fastq(230, read_len=50, seed=4, var_len=True, n_rate=0.01)
     _round_trip(data, level, forced, lanes=128, aux_lanes=16,
                 block_records=200)
+    assert forced["sliced"] == {"qual", "seq"}
+    if level == 1:
+        cfg = config_for_level(1)
+        assert all(CT.table_in_smem(g, 128) for g in (cfg.qual, cfg.seq))
 

@@ -160,6 +160,7 @@ def test_cli_streaming_equals_plain(tmp_path, capsys):
     assert tcli.main(["-d", str(stream), "-o", str(back), "--streaming",
                       "--device", "cpu"]) == 0
     assert back.read_bytes() == data
+    back.unlink()
     assert tcli.main(["-d", str(stream), "-o", str(back), "--streaming",
-                      "--sharded"]) == 2
-    assert "not yet ported" in capsys.readouterr().err
+                      "--sharded", "--device", "cpu"]) == 0
+    assert back.read_bytes() == data

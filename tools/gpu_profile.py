@@ -9,7 +9,8 @@ kernel (self device time summed over launches, and the launch count,
 copies included); the device busy share of the wall (the union of the
 device activities' intervals over the wall: a block's coder streams run
 at once on their own CUDA streams, so their times overlap) beside the sum
-of all device time; Kernel C's device time and launches per block
+of all device time; the peak device memory (torch's allocator);
+Kernel C's device time and launches per block
 (encode), beside the coder kernels' rows; and, for the codec's trace
 spans (`sfq.*`), the host time and the device time of the work they
 enqueued, each summed over the span's calls.
@@ -119,8 +120,12 @@ def main() -> int:
                        var_len=False, n_rate=0.0005)
     enc = api.encode_fastq(data, **kw)       # warm: build, allocate
     assert api.decode_fastq(enc, window=args.window) == data
+    torch.cuda.reset_peak_memory_stats()
     enc, rep_e = _profile(lambda: api.encode_fastq(data, **kw))
+    rep_e["peak_device_GB"] = torch.cuda.max_memory_allocated() / 1e9
+    torch.cuda.reset_peak_memory_stats()
     dec, rep_d = _profile(lambda: api.decode_fastq(enc, window=args.window))
+    rep_d["peak_device_GB"] = torch.cuda.max_memory_allocated() / 1e9
     assert dec == data
     card = torch.cuda.get_device_name(0)
     block_records = args.block_records or config_for_level(
