@@ -83,12 +83,25 @@ Phases (any failure exits non-zero; nothing is caught):
      shared memory) with every SEQ and QUAL stream in step slices equals
      the unforced container, its QUAL in slices equals one launch, and E
      over 2 slices equals its plain version.
+  8. the host-side reference paths: the pinned block through the
+     pure-Python pipeline (api.encode_fastq / decode_fastq with
+     use_native=False: every stream's Kernels E and C, or D, launched one
+     stream at a time) at level 3 and 4 keeps both SHA-256 pins and round
+     trips, with each direction's launches, host wall and device time
+     (torch.profiler); the level-3 block the same way through
+     encode_fastq_sharded / decode_fastq_sharded(use_native=False) on
+     make_mesh(); a 2,048-read input encoded on the card equals the NumPy
+     oracle's container (backend="oracle"), whose encode and decode
+     launch no kernel and allocate nothing on the card; and the
+     single-stream pack_device / unpack_device on the pinned block's QUAL
+     timed beside their byte bounds and held against the pair form.
 
 Prints `compact_block_l3`, `compact_block_l4`, `compact_phase_l3`,
 `compact_phase_l4`, `block`, `block_l4`, `wall`, `wall_l4`,
 `window_kernels`, `window_walls`, `window_sweep`, `streaming`,
 `long_read`, `long_read_kernels`, `sharded`, `sharded_streaming`,
-`gather_nccl`, `l1_slices`, `earlier_ms` (recorded constants),
+`gather_nccl`, `l1_slices`, `python_pipeline`, `python_pipeline_s`,
+`single_stream_pack`, `earlier_ms` (recorded constants),
 `phase_s` (seconds a phase) and `kernels` JSON lines, then the card's
 name and power limit and, as its last line, the `ok` JSON line.
 """
@@ -132,6 +145,11 @@ STREAM_CHUNK = 3_000_001  # ~12,500 records: chunks cut records and blocks
 # run's lengths), one 65,536-record block whose raw span passes 2 GiB
 LONG_READS, LONG_LEN = 65536, 16500
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM published memory rate
+# the host link of an H100 SXM card: PCIe 5.0 x16, 64 GB/s a direction
+# (nominal)
+PCIE_BYTES_PER_S = 64e9
+# the NumPy oracle's input: the pinned generator's first 2,048 reads
+ORACLE_READS = 2048
 # Recorded constants, printed on a line of their own (this script, H100
 # 80GB HBM3, 700 W): each kernel's time at the timed shape before E and D
 # moved their table law into shared memory, and Kernel C on QUAL alone
@@ -1753,9 +1771,21 @@ def _gather_child(d: str) -> int:
             f.write(multihost.merge_containers([q.tobytes() for q in parts]))
     finally:
         dist.destroy_process_group()
+    # the least time of a call: the padded row up to the card and each
+    # part down over the host link, the all_gather's copy (world size 1:
+    # one row read and written) at the card's memory rate
+    link = [2 * len(sb) for sb in shards]
+    copy = [2 * len(sb) for sb in shards]
+    bound = [a / PCIE_BYTES_PER_S * 1e3 + b / HBM_BYTES_PER_S * 1e3
+             for a, b in zip(link, copy)]
     print(json.dumps({"world_size": 1, "backend": "nccl",
                       "shard_bytes": [len(sb) for sb in shards],
-                      "gather_ms": ms}), flush=True)
+                      "gather_ms": ms, "bound_ms": bound,
+                      "bound_by": "bytes",
+                      "bound_rates": {"host_link_bytes_per_s":
+                                      PCIE_BYTES_PER_S,
+                                      "hbm_bytes_per_s": HBM_BYTES_PER_S}}),
+          flush=True)
     return 0
 
 
@@ -1867,6 +1897,174 @@ def l1_slices(data: bytes, dev, errs: dict) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 8: the host-side reference paths
+# ---------------------------------------------------------------------------
+
+# launches a direction of the pinned block through the pure-Python
+# pipeline, by level: every stream its own E and C (level 4: the plain SEQ
+# and both trials' SEQ and MATCH), D once a stream (level 4: MATCH too)
+PYTHON_LAUNCHES = {
+    3: ({"lane_encode": 7, "lane_decode": 0, "compact_lanes_dev": 7},
+        {"lane_encode": 0, "lane_decode": 7, "compact_lanes_dev": 0}),
+    4: ({"lane_encode": 11, "lane_decode": 0, "compact_lanes_dev": 11},
+        {"lane_encode": 0, "lane_decode": 8, "compact_lanes_dev": 0}),
+}
+
+
+def _profiled(fn) -> tuple:
+    """(fn(), {host wall ms, device busy ms (the union of the device
+    intervals), device ms summed, launches}) of one run under
+    torch.profiler, the launch counts set to 0 just before and read just
+    after."""
+    from slimfastq_tpu_torch.ops import _cuda
+    from tools.gpu_profile import _profile
+    _cuda.reset_launches()
+    out, rep = _profile(fn)
+    return out, {"host_ms": rep["wall_s"] * 1e3,
+                 "device_busy_ms": rep["device_busy_s"] * 1e3,
+                 "device_sum_ms": rep["device_sum_s"] * 1e3,
+                 "launches": dict(_cuda.launches)}
+
+
+def python_pipeline(data: bytes) -> dict:
+    """The pinned block through the pure-Python pipeline on the card
+    (use_native=False) at level 3 and 4, and at level 3 through the
+    sharded path on make_mesh(): both SHA-256 pins, exact round trips,
+    the launches of each direction as PYTHON_LAUNCHES says, level 4's
+    MATCH_USED; then the NumPy oracle (backend="oracle") against the card
+    on a 2,048-read input, with no launch and no device allocation."""
+    import io
+    import torch
+    from slimfastq_tpu_torch import api, container
+    from slimfastq_tpu_torch.config import config_for_level
+    from slimfastq_tpu_torch.ops import _cuda
+    from slimfastq_tpu_torch.parallel import mesh as M
+    from slimfastq_tpu_torch.parallel import sharded as SH
+    from slimfastq_tpu_torch.pipeline import MATCH_USED
+    out = {}
+    for level in (3, 4):
+        enc, e = _profiled(lambda: api.encode_fastq(
+            data, level=level, device="cuda", use_native=False))
+        dec, d = _profiled(lambda: api.decode_fastq(
+            enc, device="cuda", use_native=False))
+        if (len(enc), hashlib.sha256(enc).hexdigest()) != PINNED[level]:
+            raise AssertionError(f"use_native=False L{level}: the pinned "
+                                 f"block gives {len(enc)} bytes")
+        if dec != data:
+            raise AssertionError(f"use_native=False L{level}: the round "
+                                 "trip is not exact")
+        f = io.BytesIO(enc)
+        cfg = container.read_header(f)
+        flags = [blk.flags for blk in container.iter_blocks(f, cfg)]
+        if level == 4 and not flags[0] & MATCH_USED:
+            raise AssertionError(f"use_native=False L4: flags {flags}")
+        want_e, want_d = PYTHON_LAUNCHES[level]
+        if (e["launches"], d["launches"]) != (want_e, want_d):
+            raise AssertionError(f"use_native=False L{level}: launches "
+                                 f"{e['launches']} / {d['launches']}")
+        out[f"L{level}"] = {"encode": e, "decode": d, "flags": flags}
+    mesh = M.make_mesh()
+    enc, e = _profiled(lambda: SH.encode_fastq_sharded(
+        data, config_for_level(3), mesh=mesh, use_native=False))
+    dec, d = _profiled(lambda: SH.decode_fastq_sharded(
+        enc, mesh=mesh, use_native=False))
+    if (len(enc), hashlib.sha256(enc).hexdigest()) != PINNED[3] \
+            or dec != data:
+        raise AssertionError("use_native=False on make_mesh(): not the "
+                             "single card's container or round trip")
+    if not all(e["launches"][k] for k in ("lane_encode",
+                                          "compact_lanes_dev")) \
+            or not d["launches"]["lane_decode"]:
+        raise AssertionError(f"use_native=False on make_mesh(): launches "
+                             f"{e['launches']} / {d['launches']}")
+    out["L3_make_mesh"] = {"mesh_size": mesh.size, "encode": e,
+                           "decode": d}
+    small = _pinned(ORACLE_READS)
+    card = api.encode_fastq(small, level=3, device="cuda")
+    torch.cuda.synchronize()
+    _cuda.reset_launches()
+    allocs = torch.cuda.memory_stats().get("allocation.all.allocated", 0)
+    t = time.perf_counter()
+    enc = api.encode_fastq(small, level=3, backend="oracle")
+    t_enc = time.perf_counter() - t
+    t = time.perf_counter()
+    dec = api.decode_fastq(enc, backend="oracle")
+    t_dec = time.perf_counter() - t
+    untouched = (all(v == 0 for v in _cuda.launches.values()) and
+                 torch.cuda.memory_stats().get("allocation.all.allocated",
+                                               0) == allocs)
+    if enc != card or dec != small or not untouched:
+        raise AssertionError(f"oracle: container equal {enc == card}, "
+                             f"round trip {dec == small}, card untouched "
+                             f"{untouched}")
+    out["oracle"] = {"reads": ORACLE_READS, "compressed_bytes": len(enc),
+                     "encode_ms": t_enc * 1e3, "decode_ms": t_dec * 1e3,
+                     "launches": dict(_cuda.launches),
+                     "device_allocations": 0}
+    print(json.dumps({"python_pipeline": out}), flush=True)
+    return out
+
+
+def single_stream_pack(data: bytes, dev) -> dict:
+    """pack_device / unpack_device (ops/pack_torch, the JAX package's
+    single-stream pack_jax.py:75 / :93, which no path runs) on the pinned
+    block's QUAL (W = 1024): times by CUDA events beside each one's byte
+    bound (pack: the QUAL bytes and the two [Rpl, W] int64 index matrices
+    read, the [Sp, W] symbols written; unpack: the symbols and matrices
+    read, the [pad_flat(total)] buffer written); the packed symbols equal
+    pack_pair's QUAL and the unpack gives the QUAL bytes back."""
+    import numpy as np
+    import torch
+    from slimfastq_tpu_torch import native
+    from slimfastq_tpu_torch.ops import pack_torch
+    from slimfastq_tpu_torch.ops.ranger import pad_steps
+    from slimfastq_tpu_torch.pipeline_native import _BASE_TO_CODE_DEV
+    buf = np.frombuffer(data, dtype=np.uint8)
+    idx, n = native.fastq_index(data)
+    W = 1024
+    lengths = idx["seq_len"].astype(np.int64)
+    qoffs, soffs = idx["qual_off"].astype(np.int64), idx["seq_off"]
+    minq, _ = native.minmax_ranges(buf, idx["qual_off"], lengths)
+    Sp = pad_steps(int(np.bincount(np.arange(n) % W, weights=lengths,
+                                   minlength=W).max()))
+    dpad = np.zeros(pack_torch.pad_flat(len(buf)), dtype=np.uint8)
+    dpad[: len(buf)] = buf
+    d = torch.from_numpy(dpad).to(dev)
+    syms = pack_torch.pack_device(d, qoffs, lengths, W, Sp, bias=minq)
+    _, qual = pack_torch.pack_pair(d, soffs, qoffs, lengths, W, Sp,
+                                   _BASE_TO_CODE_DEV, minq)
+    counts = np.bincount(np.arange(n) % W, weights=lengths, minlength=W)
+    active = torch.from_numpy(np.arange(Sp)[:, None] < counts[None, :]).to(
+        dev)
+    if not torch.equal(syms[active], qual[active]):
+        raise AssertionError("pack_device differs from pack_pair's QUAL")
+    starts = np.zeros(n, dtype=np.int64)
+    starts[1:] = np.cumsum(lengths[:-1])
+    total = int(lengths.sum())
+    flat = pack_torch.unpack_device(syms, starts, lengths, W, total,
+                                    bias=minq)
+    want = np.concatenate([buf[o: o + L] for o, L in zip(qoffs, lengths)])
+    if not np.array_equal(flat[:total].cpu().numpy(), want):
+        raise AssertionError("unpack_device does not give QUAL back")
+    Rpl = -(-n // W)
+    mats = 2 * Rpl * W * 8
+    pack_bytes = total + mats + Sp * W
+    unpack_bytes = Sp * W + mats + pack_torch.pad_flat(total)
+    out = {"shape": f"the pinned block's QUAL: n = {n}, W = {W}, "
+                    f"Sp = {Sp}",
+           "pack_ms": _time_ms(lambda: pack_torch.pack_device(
+               d, qoffs, lengths, W, Sp, bias=minq), 20),
+           "pack_bound_ms": pack_bytes / HBM_BYTES_PER_S * 1e3,
+           "unpack_ms": _time_ms(lambda: pack_torch.unpack_device(
+               syms, starts, lengths, W, total, bias=minq), 20),
+           "unpack_bound_ms": unpack_bytes / HBM_BYTES_PER_S * 1e3,
+           "bound_by": "bytes", "pack_bytes": pack_bytes,
+           "unpack_bytes": unpack_bytes}
+    print(json.dumps({"single_stream_pack": out}), flush=True)
+    return out
+
+
 def _by_shard(shard: dict, name: str) -> dict:
     """Kernel `name`'s launches by shard in the level-3 sharded runs of
     the 4 x 64k set (the first run on each mesh)."""
@@ -1960,6 +2158,15 @@ def main() -> int:
     done("gather_nccl")
     l1 = l1_slices(data, dev, errs)
     done("l1_slices")
+    # the host-side reference paths: the pure-Python pipeline on the card
+    # and on make_mesh(), the NumPy oracle, the single-stream pack
+    t = time.perf_counter()
+    python_pipeline(data)
+    print(json.dumps({"python_pipeline_s": time.perf_counter() - t}),
+          flush=True)
+    done("python_pipeline")
+    single_stream_pack(data, dev)
+    done("single_stream_pack")
 
     replaces = {
         "lane_encode": "slimfastq_tpu/ops/streams_jax.py:298",

@@ -17,6 +17,16 @@ resumed after a crash. The pipelines code each window on a device step:
 one card (``Card``) here, or a mesh of cards (parallel.sharded, the
 ``--sharded`` path). The bytes never depend on the window, the streaming
 or the mesh: every container equals the JAX package's.
+
+Two host-side reference paths give the same bytes. ``backend="oracle"``
+codes every stream with the NumPy oracle (ops/streams_np, the normative
+bit format) in place of the card (``Oracle``): no device is touched, for
+small inputs and for bisecting a fault between the host and the kernels.
+``use_native=False`` runs the pure-Python pipeline (pipeline.encode_block
+/ decode_block, one block at a time) in place of the native one, its
+streams coded one at a time on the card (streams_torch.DeviceBackend:
+Kernels E and C, or D, per stream) or by the oracle. Neither is ever
+chosen for the caller.
 """
 
 from __future__ import annotations
@@ -30,11 +40,14 @@ import torch
 
 from . import container, native
 from .config import CodecConfig, config_for_level
-from .ops import streams_torch
+from .ops import streams_np, streams_torch
 from .parallel.mesh import fits
+from .pipeline import decode_block, encode_block
 from .pipeline_native import (block_span, decode_block_finish,
-                              decode_blocks_device, device_bytes,
+                              decode_block_oracle, decode_blocks_device,
+                              device_bytes, encode_prepared_block_oracle,
                               encode_prepared_blocks, prepare_block_fast)
+from .utils.fastq import FastqBatch, parse_fastq_bytes, serialize_fastq
 
 
 # blocks of host work kept in flight beside the device in the staged
@@ -84,8 +97,11 @@ def _batch_window(cfg: CodecConfig, window: int | None = None) -> int:
 
 class Card:
     """One device as the pipelines' device step (parallel.sharded.Sharded
-    is a mesh's): the blocks a window takes, each shard's device-byte
-    budget (one shard here), and a window's encode and decode."""
+    is a mesh's; Oracle the NumPy oracle's): whether its blocks pack
+    their lanes on the host, the blocks a window takes, each shard's
+    device-byte budget (one shard here), and a window's encode and
+    decode."""
+    host_pack = False
 
     def __init__(self, dev: torch.device):
         self.dev = dev
@@ -101,6 +117,46 @@ class Card:
 
     def decode(self, blocks, cfg: CodecConfig) -> list:
         return decode_blocks_device(blocks, cfg, self.dev)
+
+
+class Oracle:
+    """The NumPy oracle as the pipelines' device step (``backend=
+    "oracle"``): every block packed on the host and coded by
+    ops/streams_np, one block at a time; no device is touched. NumPy
+    steps every lane one bit at a time: for small inputs."""
+    host_pack = True
+
+    def window(self, cfg: CodecConfig, window: int | None) -> int:
+        return 1
+
+    def budgets(self) -> list:
+        return [streams_torch.CPU_BUDGET]
+
+    def encode(self, pres, cfg: CodecConfig) -> list:
+        return [encode_prepared_block_oracle(pre, cfg) for pre in pres]
+
+    def decode(self, blocks, cfg: CodecConfig) -> list:
+        return [decode_block_oracle(blk, cfg) for blk in blocks]
+
+
+def _check_backend(backend: str) -> None:
+    if backend not in ("torch", "oracle"):
+        raise ValueError(f"unknown backend {backend!r}: torch or oracle")
+
+
+def _step(backend: str, device):
+    """The native pipelines' device step: a Card on ``device``, or the
+    Oracle (``device`` unused)."""
+    _check_backend(backend)
+    return Oracle() if backend == "oracle" else Card(resolve_device(device))
+
+
+def _coder(backend: str, device):
+    """The pure-Python pipeline's per-stream coder: a DeviceBackend on
+    ``device``, or the NumPy oracle module (``device`` unused)."""
+    _check_backend(backend)
+    return streams_np if backend == "oracle" else \
+        streams_torch.DeviceBackend(resolve_device(device))
 
 
 def _encode_ranges(ranges, cfg: CodecConfig, step, window, emit) -> list:
@@ -138,8 +194,8 @@ def _encode_ranges(ranges, cfg: CodecConfig, step, window, emit) -> list:
                 span = block_span(*nxt[1:])
                 if pfuts and held + span > _PREP_BYTES:
                     return
-                pfuts.append((prep_ex.submit(prepare_block_fast, *nxt, cfg),
-                              span))
+                pfuts.append((prep_ex.submit(prepare_block_fast, *nxt, cfg,
+                                             step.host_pack), span))
                 held += span
                 nxt = None
         fill()
@@ -167,9 +223,30 @@ def _encode_ranges(ranges, cfg: CodecConfig, step, window, emit) -> list:
 
 def encode_fastq(data: bytes, cfg: CodecConfig | None = None,
                  level: int = 3, device=None, window: int | None = None,
+                 backend: str = "torch", use_native: bool = True,
                  **overrides) -> bytes:
     cfg = cfg or config_for_level(level, **overrides)
-    return encode_fastq_on(data, cfg, Card(resolve_device(device)), window)
+    if not use_native:
+        return encode_fastq_python(data, cfg, _coder(backend, device))
+    return encode_fastq_on(data, cfg, _step(backend, device), window)
+
+
+def _batch_slice(b: FastqBatch, lo: int, hi: int) -> FastqBatch:
+    return FastqBatch(b.ids[lo:hi], b.seqs[lo:hi], b.pluses[lo:hi],
+                      b.quals[lo:hi])
+
+
+def encode_fastq_python(data: bytes, cfg: CodecConfig, coder) -> bytes:
+    """encode_fastq on the pure-Python pipeline, one block at a time, each
+    stream coded by ``coder`` (the oracle module or a DeviceBackend)."""
+    out = io.BytesIO()
+    container.write_header(out, cfg)
+    batch = parse_fastq_bytes(data)
+    offsets = [container.write_block(out, encode_block(
+        _batch_slice(batch, lo, lo + cfg.block_records), cfg, backend=coder))
+        for lo in range(0, max(len(batch), 1), cfg.block_records)]
+    container.write_index(out, offsets)
+    return out.getvalue()
 
 
 def encode_fastq_on(data: bytes, cfg: CodecConfig, step, window) -> bytes:
@@ -223,9 +300,22 @@ def _decode_blocks(f, cfg: CodecConfig, step, window, emit) -> None:
             emit(futs.popleft().result())
 
 
-def decode_fastq(data: bytes, device=None,
-                 window: int | None = None) -> bytes:
-    return decode_fastq_on(data, Card(resolve_device(device)), window)
+def decode_fastq(data: bytes, device=None, window: int | None = None,
+                 backend: str = "torch", use_native: bool = True) -> bytes:
+    if not use_native:
+        coder = _coder(backend, device)
+        f = io.BytesIO(data)
+        parts = []
+        _decode_python(f, container.read_header(f), coder, parts.append)
+        return b"".join(parts)
+    return decode_fastq_on(data, _step(backend, device), window)
+
+
+def _decode_python(f, cfg: CodecConfig, coder, emit) -> None:
+    """The container blocks of ``f`` through the pure-Python pipeline, in
+    order, one at a time; emit(part) for each block's FASTQ bytes."""
+    for blk in container.iter_blocks(f, cfg):
+        emit(serialize_fastq(decode_block(blk, cfg, backend=coder)))
 
 
 def decode_fastq_on(data: bytes, step, window) -> bytes:
@@ -238,10 +328,12 @@ def decode_fastq_on(data: bytes, step, window) -> bytes:
 
 
 def encode_file(src: str, dst: str, level: int = 3, device=None,
+                backend: str = "torch", use_native: bool = True,
                 **overrides) -> None:
     with open(src, "rb") as f:
         data = f.read()
-    enc = encode_fastq(data, level=level, device=device, **overrides)
+    enc = encode_fastq(data, level=level, device=device, backend=backend,
+                       use_native=use_native, **overrides)
     with open(dst, "wb") as f:
         f.write(enc)
 
@@ -288,6 +380,7 @@ def iter_block_ranges_native(src: str, cfg: CodecConfig,
 
 def encode_file_streaming(src: str, dst: str, level: int = 3, device=None,
                           chunk_bytes: int = 1 << 28, resume: bool = False,
+                          backend: str = "torch", use_native: bool = True,
                           **overrides) -> None:
     """Stream a large (100GB-class) FASTQ through the encoder with bounded
     memory: reads chunk_bytes at a time, encodes whole blocks (in windows,
@@ -298,9 +391,69 @@ def encode_file_streaming(src: str, dst: str, level: int = 3, device=None,
     Output is byte-identical to encode_fastq on the same data: block
     boundaries land on block_records multiples, which this function
     guarantees by carrying remainder records between chunks. Memory holds
-    one chunk and the pipeline's prepared blocks."""
-    encode_file_on(src, dst, config_for_level(level, **overrides),
-                   Card(resolve_device(device)), chunk_bytes, resume, None)
+    one chunk and the pipeline's prepared blocks (use_native=False: one
+    chunk's parsed records and a block)."""
+    cfg = config_for_level(level, **overrides)
+    if not use_native:
+        encode_file_python(src, dst, cfg, _coder(backend, device),
+                           chunk_bytes, resume)
+        return
+    encode_file_on(src, dst, cfg, _step(backend, device), chunk_bytes, resume,
+                   None)
+
+
+def encode_file_python(src: str, dst: str, cfg: CodecConfig, coder,
+                       chunk_bytes: int, resume: bool) -> None:
+    """encode_file_streaming on the pure-Python pipeline: each chunk's
+    whole records parsed (parse_fastq_bytes), the records short of a
+    block carried to the next chunk, each block encoded and appended in
+    turn; with ``resume`` the blocks the output holds are skipped and its
+    own config holds."""
+    skip_records = 0
+    if resume:
+        w, skip_records = container.Writer.resume(dst)
+        cfg = w.cfg
+    else:
+        w = container.Writer.create(dst, cfg)
+    carry = b""                      # partial-record bytes
+    batch_carry: FastqBatch | None = None   # records short of a block
+    seen = 0
+    with open(src, "rb") as f:
+        while True:
+            chunk = carry + f.read(chunk_bytes)
+            if not chunk:
+                break
+            eof = len(chunk) < len(carry) + chunk_bytes
+            cut = len(chunk) if eof else _record_boundary(chunk)
+            data, carry = chunk[:cut], chunk[cut:]
+            if not data:
+                if eof:
+                    break
+                continue
+            batch = parse_fastq_bytes(data)
+            if batch_carry is not None:
+                batch = FastqBatch(batch_carry.ids + batch.ids,
+                                   batch_carry.seqs + batch.seqs,
+                                   batch_carry.pluses + batch.pluses,
+                                   batch_carry.quals + batch.quals)
+            n = len(batch)
+            full = (n // cfg.block_records) * cfg.block_records
+            limit = n if eof else full
+            for lo in range(0, limit, cfg.block_records):
+                hi = min(lo + cfg.block_records, limit)
+                if seen + hi <= skip_records:
+                    continue  # already in the resumed output
+                w.append(encode_block(_batch_slice(batch, lo, hi), cfg,
+                                      backend=coder))
+            seen += limit
+            batch_carry = _batch_slice(batch, limit, n) if limit < n else None
+            if eof:
+                break
+    # the records left when the input ends on a chunk's edge: the last
+    # block, unless the resumed output holds it already
+    if batch_carry is not None and seen + len(batch_carry) > skip_records:
+        w.append(encode_block(batch_carry, cfg, backend=coder))
+    w.close()
 
 
 def encode_file_on(src: str, dst: str, cfg: CodecConfig, step,
@@ -325,12 +478,19 @@ def encode_file_on(src: str, dst: str, cfg: CodecConfig, step,
     w.close()
 
 
-def decode_file_streaming(src: str, dst: str, device=None) -> None:
+def decode_file_streaming(src: str, dst: str, device=None,
+                          backend: str = "torch",
+                          use_native: bool = True) -> None:
     """Bounded-memory decode of a 100GB-class container: blocks are read
     (seek-based, via the index and the v2 length prefixes), decoded and
     written in order, so memory holds a few blocks regardless of the
     container's size."""
-    decode_file_on(src, dst, Card(resolve_device(device)), None)
+    if not use_native:
+        coder = _coder(backend, device)
+        with open(src, "rb") as f, open(dst, "wb") as out:
+            _decode_python(f, container.read_header(f), coder, out.write)
+        return
+    decode_file_on(src, dst, _step(backend, device), None)
 
 
 def decode_file_on(src: str, dst: str, step, window) -> None:
@@ -341,5 +501,7 @@ def decode_file_on(src: str, dst: str, step, window) -> None:
         _decode_blocks(f, cfg, step, window, out.write)
 
 
-def decode_file(src: str, dst: str, device=None) -> None:
-    decode_file_streaming(src, dst, device=device)
+def decode_file(src: str, dst: str, device=None, backend: str = "torch",
+                use_native: bool = True) -> None:
+    decode_file_streaming(src, dst, device=device, backend=backend,
+                          use_native=use_native)

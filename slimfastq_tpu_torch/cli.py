@@ -12,10 +12,14 @@ Usage:
   sfq-torch -d --streaming in.sfq -o out.fastq      # bounded memory
   sfq-torch --sharded in.fastq -o out.sfq           # over all cards
   sfq-torch --sharded --device cpu in.fastq -o out.sfq  # a CPU mesh
+  sfq-torch --backend oracle in.fastq -o out.sfq    # the NumPy oracle
 
 Containers are byte-identical to the JAX package's ``sfq``, with or
 without ``--sharded`` (which also combines with ``--streaming`` and
-``-d``).
+``-d``). ``--backend oracle`` codes every stream with the NumPy oracle
+(the normative bit format) instead of the card, and touches no device:
+slow, for small inputs and for bisecting a fault between the host and
+the kernels (``sfq --backend oracle`` gives the same bytes).
 """
 
 from __future__ import annotations
@@ -56,6 +60,11 @@ def build_parser() -> argparse.ArgumentParser:
                         "(encode only; default 65536)")
     p.add_argument("--device", choices=["cuda", "cpu"], default="cuda",
                    help="device of the coder (default: cuda)")
+    p.add_argument("--backend", choices=["torch", "oracle"],
+                   default="torch",
+                   help="coder: the kernels on --device (torch, the "
+                        "default) or the NumPy oracle on the host, which "
+                        "ignores --device")
     p.add_argument("--streaming", action="store_true",
                    help="bounded-memory streaming encode/decode for huge "
                         "files (encode is resumable: rerun with --resume "
@@ -107,7 +116,7 @@ def _streaming(args, overrides: dict) -> int:
                                                   mesh=_mesh(args))
         elif args.decode:
             decode_file_streaming(args.input, args.output,
-                                  device=args.device)
+                                  device=args.device, backend=args.backend)
         elif args.sharded:
             sharded.encode_file_streaming_sharded(
                 args.input, args.output, level=args.level, mesh=_mesh(args),
@@ -115,7 +124,7 @@ def _streaming(args, overrides: dict) -> int:
         else:
             encode_file_streaming(args.input, args.output, level=args.level,
                                   device=args.device, resume=args.resume,
-                                  **overrides)
+                                  backend=args.backend, **overrides)
     except (ValueError, RuntimeError, OSError) as e:
         print(f"sfq-torch: {e}", file=sys.stderr)
         return 1
@@ -134,6 +143,12 @@ def main(argv: list[str] | None = None) -> int:
     args = build_parser().parse_args(argv)
     if args.resume and not args.streaming:
         print("sfq-torch: --resume needs --streaming", file=sys.stderr)
+        return 2
+    if args.sharded and args.backend != "torch":
+        # the sharded path is the mesh of cards; running it under
+        # --backend oracle would defeat backend bisection
+        print("sfq-torch: --sharded requires the torch backend "
+              f"(got --backend {args.backend})", file=sys.stderr)
         return 2
     overrides = {}
     if args.block_records:
@@ -154,14 +169,16 @@ def main(argv: list[str] | None = None) -> int:
         if args.decode and args.sharded:
             result = sharded.decode_fastq_sharded(data, mesh=_mesh(args))
         elif args.decode:
-            result = decode_fastq(data, device=args.device)
+            result = decode_fastq(data, device=args.device,
+                                  backend=args.backend)
         elif args.sharded:
             result = sharded.encode_fastq_sharded(
                 data, config_for_level(args.level, **overrides),
                 mesh=_mesh(args))
         else:
             result = encode_fastq(data, level=args.level,
-                                  device=args.device, **overrides)
+                                  device=args.device, backend=args.backend,
+                                  **overrides)
     except (ValueError, RuntimeError) as e:
         print(f"sfq-torch: {e}", file=sys.stderr)
         return 1

@@ -1,6 +1,8 @@
-"""Device-side SEQ+QUAL lane pack/unpack: raw FASTQ bytes <-> [Sp, W] symbol
+"""Device-side lane pack/unpack: raw FASTQ bytes <-> [Sp, W] symbol
 matrices, as whole-array tensor ops (port of the JAX package's
-ops/pack_jax.py pair forms).
+ops/pack_jax.py: the SEQ+QUAL pair forms of the main path, and the
+single-stream ``pack_device`` / ``unpack_device``, which no path runs, as
+in the JAX package).
 
 Index math (O(Sp*W) whole-array ops, outside the coder loop):
 
@@ -19,7 +21,8 @@ Index math (O(Sp*W) whole-array ops, outside the coder loop):
 
 SEQ and QUAL share the lane layout (same lengths), so one index_add_ +
 cumsum serves both and one flat gather (pack) or scatter (unpack) moves
-their bytes.
+their bytes. A stream's bytes map through a 256-entry table or shift by a
+bias, wrapping modulo 256 (the JAX package's int32 -> u8 conversion).
 """
 
 from __future__ import annotations
@@ -64,6 +67,17 @@ def _adj_rows(adj_src: torch.Tensor, ll: torch.Tensor, Sp: int, W: int):
                         dim=0)
 
 
+def _map_or_bias(x: torch.Tensor, map256: np.ndarray | None,
+                 bias: int) -> torch.Tensor:
+    """u8 ``x`` through the 256-entry ``map256``, or plus ``bias``
+    modulo 256."""
+    if map256 is not None:
+        m = torch.from_numpy(np.ascontiguousarray(map256, dtype=np.uint8))
+        return m.to(x.device).index_select(0, x.reshape(-1).long()).reshape(
+            x.shape)
+    return ((x.int() + int(bias)) & 255).to(torch.uint8)
+
+
 def pack_pair(data: torch.Tensor, seq_offs: np.ndarray,
               qual_offs: np.ndarray, lengths: np.ndarray, W: int, Sp: int,
               seq_map: np.ndarray, qual_bias: int):
@@ -81,11 +95,8 @@ def pack_pair(data: torch.Tensor, seq_offs: np.ndarray,
     rows = torch.arange(Sp, device=dev)[:, None, None]
     idx = (rows + adj).clamp_(0, data.shape[0] - 1)
     raw = data.index_select(0, idx.reshape(-1)).reshape(Sp, W, 2)
-    smap = torch.from_numpy(np.ascontiguousarray(seq_map)).to(dev)
-    seq = smap.index_select(0, raw[:, :, 0].reshape(-1).long()).reshape(
-        Sp, W)
-    qual = ((raw[:, :, 1].int() - int(qual_bias)) & 255).to(torch.uint8)
-    return seq, qual
+    return (_map_or_bias(raw[:, :, 0], seq_map, 0),
+            _map_or_bias(raw[:, :, 1], None, -int(qual_bias)))
 
 
 def unpack_pair(seq_syms: torch.Tensor, qual_syms: torch.Tensor,
@@ -109,8 +120,49 @@ def unpack_pair(seq_syms: torch.Tensor, qual_syms: torch.Tensor,
     pair = torch.stack([seq_syms, qual_syms], dim=-1).reshape(-1, 2)
     flat = torch.zeros((Tp + 1, 2), dtype=torch.uint8, device=dev)
     flat.index_put_((idx.reshape(-1),), pair)
-    flat = flat[:-1]
-    smap = torch.from_numpy(np.ascontiguousarray(seq_map)).to(dev)
-    seq = smap.index_select(0, flat[:, 0].long())
-    qual = ((flat[:, 1].int() + int(qual_bias)) & 255).to(torch.uint8)
-    return seq, qual
+    return (_map_or_bias(flat[:-1, 0], seq_map, 0),
+            _map_or_bias(flat[:-1, 1], None, qual_bias))
+
+
+def pack_device(data: torch.Tensor, offs: np.ndarray, lengths: np.ndarray,
+                W: int, Sp: int, map256: np.ndarray | None = None,
+                bias: int = 0) -> torch.Tensor:
+    """One stream's lane pack: record-major bytes gathered into the
+    [Sp, W] u8 lane-major symbol matrix on data's device, through
+    ``map256`` or minus ``bias``. data: u8 [Dp] (a pad_flat length);
+    ``offs`` are relative to its start. Rows past a lane's count hold the
+    clamped gather's bytes, as in the JAX package."""
+    dev = data.device
+    n = len(offs)
+    Rpl = max((n + W - 1) // W, 1)
+    off_mat, ll_mat = _mats(offs, lengths, W, Rpl)
+    adj = _adj_rows(torch.from_numpy(off_mat).to(dev),
+                    torch.from_numpy(ll_mat).to(dev), Sp, W)
+    rows = torch.arange(Sp, device=dev)[:, None]
+    idx = (rows + adj).clamp_(0, data.shape[0] - 1)
+    raw = data.index_select(0, idx.reshape(-1)).reshape(Sp, W)
+    return _map_or_bias(raw, map256, -int(bias))
+
+
+def unpack_device(syms: torch.Tensor, out_offs: np.ndarray,
+                  lengths: np.ndarray, W: int, total: int,
+                  map256: np.ndarray | None = None,
+                  bias: int = 0) -> torch.Tensor:
+    """One stream's lane unpack: the [Sp, W] u8 symbols scattered back to
+    a record-major [pad_flat(total)] u8 buffer on their device (the first
+    ``total`` bytes are meaningful), through ``map256`` or plus
+    ``bias``."""
+    dev = syms.device
+    n = len(out_offs)
+    Sp = int(syms.shape[0])
+    Rpl = max((n + W - 1) // W, 1)
+    off_mat, ll_mat = _mats(out_offs, lengths, W, Rpl)
+    ll = torch.from_numpy(ll_mat).to(dev)
+    adj = _adj_rows(torch.from_numpy(off_mat).to(dev), ll, Sp, W)
+    Tp = pad_flat(total)
+    rows = torch.arange(Sp, device=dev)[:, None]
+    active = rows < ll.sum(dim=0)[None, :]
+    idx = torch.where(active, (rows + adj).clamp_(0, Tp - 1), Tp)
+    flat = torch.zeros(Tp + 1, dtype=torch.uint8, device=dev)
+    flat.index_put_((idx.reshape(-1),), syms.reshape(-1))
+    return _map_or_bias(flat[:-1], map256, bias)

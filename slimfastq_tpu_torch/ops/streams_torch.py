@@ -28,7 +28,9 @@ mesh=None): per block, the outputs of the one-block entries. Blocks need
 not share a length: each block's CTA runs its own step count.
 
 ``encode_stream``/``decode_stream`` serve any kind with host-supplied
-pos/reset (the main path sends the aux kinds ``byte`` and ``flag``);
+pos/reset and, for a format-v5 SEQ stream, match-span flags (the main
+path sends the aux kinds ``byte`` and ``flag``; the pure-Python pipeline
+sends every stream, through ``DeviceBackend``);
 ``encode_seq_qual_raw``/``decode_seq_qual_raw`` carry SEQ and QUAL from
 raw block bytes: the lane pack/unpack (ops/pack_torch) and pos/reset
 derivation happen on the device, so the host ships only raw bytes, the
@@ -290,7 +292,10 @@ def _pos_reset(lane_lens: torch.Tensor, Sp: int, S: int, W: int):
 
 
 def _to(x: np.ndarray, dev, dtype=None) -> torch.Tensor:
-    t = torch.from_numpy(np.ascontiguousarray(x))
+    x = np.ascontiguousarray(x)
+    if x.dtype == np.uint32:  # the pure-Python pipeline's symbols, pos,
+        x = x.view(np.int32)  # reset and flags: every value below 2^31
+    t = torch.from_numpy(x)
     return t.to(device=dev, dtype=dtype or t.dtype)
 
 
@@ -385,39 +390,46 @@ class StreamSet:
     def decode(self, name: str, kind: str, geom, payload: np.ndarray,
                lens: np.ndarray, counts: np.ndarray, num_steps: int,
                pos: np.ndarray | None = None,
-               reset: np.ndarray | None = None) -> None:
+               reset: np.ndarray | None = None,
+               mflag: np.ndarray | None = None) -> None:
         """Launch Kernel D on one host-modelled stream; ``symbols(name)``
         reads it back."""
-        self.decode_blocks(name, [name], kind, geom,
-                           [(payload, lens, counts, num_steps, pos, reset)])
+        self.decode_blocks(name, [name], kind, geom, [
+            (payload, lens, counts, num_steps, pos, reset, mflag)])
 
     def decode_blocks(self, name: str, keys: list, kind: str, geom,
                       items: list) -> None:
-        """Launch Kernel D once on one host-modelled stream of several
-        blocks, each item a block's (payload, lens, counts, num_steps,
-        pos or None, reset or None); ``symbols(key)`` reads a block's
-        back."""
-        dev, live, args = self.dev, [], []
-        for key, (payload, lens, counts, num_steps, pos, reset) in zip(
-                keys, items):
+        """Launch Kernel D on one host-modelled stream of several blocks,
+        each item a block's (payload, lens, counts, num_steps, pos or
+        None, reset or None[, mflag or None]): once over the blocks, or
+        twice where only some carry the match-span flags of a format-v5
+        SEQ stream (a launch takes them for every block or for none);
+        ``symbols(key)`` reads a block's back."""
+        dev, groups = self.dev, {}
+        for key, item in zip(keys, items):
+            payload, lens, counts, num_steps, pos, reset = item[:6]
+            mflag = item[6] if len(item) > 6 else None
             W = payload.shape[0]
             counts = np.asarray(counts)
             Sp = pad_steps(num_steps)
             if Sp == 0 or not (counts > 0).any():
                 self.decoded[key] = (None, None, num_steps, W)
                 continue
-            live.append((key, num_steps, W))
-            args.append((_payload_tensor(payload, dev),
-                         _to(lens, dev, torch.int32),
-                         _acts(_to(counts, dev, torch.int32), Sp),
-                         _pad2(pos, Sp, W, dev), _pad2(reset, Sp, W, dev)))
-        if not live:
-            return
-        with trace(f"sfq.decode.{name}.coder"):
-            syms, s = self.launch(lambda: coder_torch.lane_decode_blocks(
-                args, kind, geom), *_tensors(args))
-        for (key, S, W), sy in zip(live, syms):
-            self.decoded[key] = (sy, s, S, W)
+            arg = (_payload_tensor(payload, dev), _to(lens, dev, torch.int32),
+                   _acts(_to(counts, dev, torch.int32), Sp),
+                   _pad2(pos, Sp, W, dev), _pad2(reset, Sp, W, dev))
+            if mflag is not None:
+                arg += (_pad2(mflag, Sp, W, dev, torch.uint8),)
+            groups.setdefault(len(arg), []).append(((key, num_steps, W),
+                                                    arg))
+        for members in groups.values():
+            args = [arg for _, arg in members]
+            with trace(f"sfq.decode.{name}.coder"):
+                syms, s = self.launch(
+                    lambda: coder_torch.lane_decode_blocks(args, kind, geom),
+                    *_tensors(args))
+            for ((key, S, W), _), sy in zip(members, syms):
+                self.decoded[key] = (sy, s, S, W)
 
     def symbols(self, key) -> np.ndarray:
         """[num_steps, W] u8 symbols of a stream launched by ``decode`` or
@@ -431,9 +443,12 @@ class StreamSet:
 
 def stream_schedule(kind: str, geom, syms: np.ndarray, counts: np.ndarray,
                     device, pos: np.ndarray | None = None,
-                    reset: np.ndarray | None = None):
+                    reset: np.ndarray | None = None,
+                    mflag: np.ndarray | None = None):
     """The encode schedule (idx_c, bit_c) of a host-modelled [S, W] stream
-    on the device, or None where it codes no step."""
+    on the device, or None where it codes no step. pos/reset: host [S, W]
+    matrices of a per-read stream; mflag: a format-v5 SEQ stream's [S, W]
+    match-span flags."""
     S, W = syms.shape
     Sp = pad_steps(S)
     if Sp == 0 or not (np.asarray(counts) > 0).any():
@@ -442,7 +457,9 @@ def stream_schedule(kind: str, geom, syms: np.ndarray, counts: np.ndarray,
     with trace(f"sfq.encode.{kind}.schedule"):
         return _schedule(kind, geom, _pad2(syms, Sp, W, dev),
                          _pad2(pos, Sp, W, dev), _pad2(reset, Sp, W, dev),
-                         _to(counts, dev, torch.int32))
+                         _to(counts, dev, torch.int32),
+                         None if mflag is None
+                         else _pad2(mflag, Sp, W, dev, torch.uint8))
 
 
 def by_geom(name: str, kind: str, entries) -> list:
@@ -597,11 +614,15 @@ def _empty_encode(W: int):
 
 def encode_stream(kind: str, geom, syms: np.ndarray, counts: np.ndarray,
                   device, pos: np.ndarray | None = None,
-                  reset: np.ndarray | None = None):
+                  reset: np.ndarray | None = None,
+                  mflag: np.ndarray | None = None):
     """[S, W] symbols + per-lane counts -> (payload [W, maxlen] u8, lens
-    [W] int64). pos/reset: host [S, W] matrices for qual/seq."""
+    [W] int64): Kernels E and C, one launch each. pos/reset: host [S, W]
+    matrices for qual/seq; mflag: a format-v5 SEQ stream's [S, W]
+    match-span flags."""
     counts = np.asarray(counts)
-    sched = stream_schedule(kind, geom, syms, counts, device, pos, reset)
+    sched = stream_schedule(kind, geom, syms, counts, device, pos, reset,
+                            mflag)
     if sched is None:
         return _empty_encode(syms.shape[1])
     return encode_block([(kind, kind, geom, *sched, counts)], device)[kind]
@@ -623,10 +644,14 @@ def _acts(counts_t: torch.Tensor, Sp: int) -> torch.Tensor:
 def decode_stream(kind: str, geom, payload: np.ndarray, lens: np.ndarray,
                   counts: np.ndarray, num_steps: int, device,
                   pos: np.ndarray | None = None,
-                  reset: np.ndarray | None = None) -> np.ndarray:
-    """(payload, lens) -> [num_steps, W] u8 symbols (0 past each count)."""
+                  reset: np.ndarray | None = None,
+                  mflag: np.ndarray | None = None) -> np.ndarray:
+    """(payload, lens) -> [num_steps, W] u8 symbols (0 past each count):
+    one Kernel D launch. mflag: a format-v5 SEQ stream's [S, W]
+    match-span flags."""
     ss = StreamSet(device)
-    ss.decode(kind, kind, geom, payload, lens, counts, num_steps, pos, reset)
+    ss.decode(kind, kind, geom, payload, lens, counts, num_steps, pos, reset,
+              mflag)
     return ss.symbols(kind)
 
 
@@ -973,17 +998,22 @@ def decode_seq_qual_raw_blocks(sgeoms, pay_s, lens_s, pay_q, lens_q,
 # the batched multi-block surface (streams_jax.*_blocks)
 # ---------------------------------------------------------------------------
 
+def _nth(xs, b):
+    return None if xs is None else xs[b]
+
+
 def encode_stream_blocks(kind: str, geom, syms_list, counts_list, device,
-                         pos_list=None, reset_list=None) -> list:
+                         pos_list=None, reset_list=None,
+                         mflag_list=None) -> list:
     """Many blocks' worth of one host-modelled stream: one Kernel E launch
-    over the blocks that code a step. Returns per block (payload, lens),
-    as encode_stream gives them."""
+    over the blocks that code a step (mflag_list: per block a format-v5
+    SEQ stream's match-span flags or None), one Kernel C launch. Returns
+    per block (payload, lens), as encode_stream gives them."""
     entries = []
     for b, syms in enumerate(syms_list):
-        sched = stream_schedule(
-            kind, geom, syms, counts_list[b], device,
-            None if pos_list is None else pos_list[b],
-            None if reset_list is None else reset_list[b])
+        sched = stream_schedule(kind, geom, syms, counts_list[b], device,
+                                _nth(pos_list, b), _nth(reset_list, b),
+                                _nth(mflag_list, b))
         if sched is not None:
             entries.append((b, geom, *sched, np.asarray(counts_list[b])))
     coded = encode_window(by_geom(kind, kind, entries), device)
@@ -1018,14 +1048,51 @@ def encode_seq_qual_raw_blocks(sgeoms, raw_list, counts_list, qgeoms,
 
 def decode_stream_blocks(kind: str, geom, payload_list, lens_list,
                          counts_list, steps_list, device, pos_list=None,
-                         reset_list=None) -> list:
+                         reset_list=None, mflag_list=None) -> list:
     """Many blocks of one host-modelled stream: one Kernel D launch over
-    the blocks that code a step. Returns per block its [steps, W] u8
-    symbols, as decode_stream gives them."""
+    the blocks that code a step (two where only some carry match-span
+    flags in mflag_list). Returns per block its [steps, W] u8 symbols, as
+    decode_stream gives them."""
     ss = StreamSet(device)
     keys = list(range(len(payload_list)))
     ss.decode_blocks(kind, keys, kind, geom, [
         (payload_list[b], lens_list[b], counts_list[b], steps_list[b],
-         None if pos_list is None else pos_list[b],
-         None if reset_list is None else reset_list[b]) for b in keys])
+         _nth(pos_list, b), _nth(reset_list, b), _nth(mflag_list, b))
+        for b in keys])
     return [ss.symbols(b) for b in keys]
+
+
+class DeviceBackend:
+    """A device bound to the per-stream surface with the NumPy oracle's
+    signature (ops/streams_np: no ``device`` argument), the backend of the
+    pure-Python pipeline (pipeline.encode_block / decode_block): each
+    stream's Kernels E and C (encode) or D (decode) run on ``device``, one
+    stream at a time; the ``*_blocks`` forms take many blocks of one
+    stream in one launch."""
+
+    def __init__(self, device):
+        self.device = torch.device(device)
+
+    def encode_stream(self, kind: str, geom, syms, counts, pos=None,
+                      reset=None, mflag=None):
+        return encode_stream(kind, geom, syms, counts, self.device, pos,
+                             reset, mflag)
+
+    def decode_stream(self, kind: str, geom, payload, lens, counts,
+                      num_steps: int, pos=None, reset=None, mflag=None):
+        return decode_stream(kind, geom, payload, lens, counts, num_steps,
+                             self.device, pos, reset, mflag)
+
+    def encode_stream_blocks(self, kind: str, geom, syms_list, counts_list,
+                             pos_list=None, reset_list=None,
+                             mflag_list=None) -> list:
+        return encode_stream_blocks(kind, geom, syms_list, counts_list,
+                                    self.device, pos_list, reset_list,
+                                    mflag_list)
+
+    def decode_stream_blocks(self, kind: str, geom, payload_list, lens_list,
+                             counts_list, steps_list, pos_list=None,
+                             reset_list=None, mflag_list=None) -> list:
+        return decode_stream_blocks(kind, geom, payload_list, lens_list,
+                                    counts_list, steps_list, self.device,
+                                    pos_list, reset_list, mflag_list)

@@ -176,13 +176,15 @@ def _take(xs, idx):
 
 
 def encode_stream_blocks(kind: str, geom, mesh: Mesh | None, syms_list,
-                         counts_list, pos_list=None, reset_list=None, *,
-                         device=None) -> list:
-    """Per block (payload, lens) of one host-modelled stream."""
+                         counts_list, pos_list=None, reset_list=None,
+                         mflag_list=None, *, device=None) -> list:
+    """Per block (payload, lens) of one host-modelled stream (mflag_list:
+    per block a format-v5 SEQ stream's match-span flags or None)."""
     def run(idx, dev):
         return streams_torch.encode_stream_blocks(
             kind, geom, _take(syms_list, idx), _take(counts_list, idx), dev,
-            _take(pos_list, idx), _take(reset_list, idx))
+            _take(pos_list, idx), _take(reset_list, idx),
+            _take(mflag_list, idx))
     if mesh is None:
         return run(range(len(syms_list)), device)
     return map_blocks(mesh, len(syms_list), run)

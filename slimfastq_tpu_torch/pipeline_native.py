@@ -26,6 +26,12 @@ does: the device pack would need [S, W] int64 indices. Its streams take
 the same coders, with pos/reset derived on the device and, where a
 stream's schedule would pass streams_torch.SLICE_BYTES, Kernel E in step
 slices. The byte budget of a window (api) codes such a block alone.
+
+The NumPy oracle (``api.Oracle``, ``--backend oracle``) codes blocks
+prepared the same way with their lanes packed on the host
+(``prepare_block_fast(host_pack=True)``): every stream through
+ops/streams_np with host pos/reset (``encode_prepared_block_oracle``,
+``decode_block_oracle``), no device at all.
 """
 
 from __future__ import annotations
@@ -38,7 +44,7 @@ import numpy as np
 from . import native
 from .config import CodecConfig
 from .models import matcher as M
-from .ops import pack_torch, streams_torch
+from .ops import pack_torch, streams_np, streams_torch
 from .ops.ranger import pad_steps
 from .pipeline import (MATCH_USED, QUAL_NODELTA, EncodedBlock, EncodedStream,
                        _BASE_TO_CODE, _CODE_TO_BASE, _lane_lengths_matrix,
@@ -251,15 +257,15 @@ def _match_trials(matches, raw_args, W: int, Wa: int, S: int,
 
 
 def prepare_block_fast(data: np.ndarray, idx: dict, lo: int, hi: int,
-                       cfg: CodecConfig):
+                       cfg: CodecConfig, host_pack: bool = False):
     """Host-only half of a block encode (stream modelling + aux lane
     matrices + the padded raw byte range, or SEQ/QUAL lanes packed on the
-    host where that range reaches _MAX_SPAN + a v5 block's match
-    trials). The returned opaque tuple feeds encode_prepared_block —
-    split so a pipelined caller can prep block k+1 while block k is on
-    the device."""
+    host where that range reaches _MAX_SPAN or ``host_pack`` asks for
+    them + a v5 block's match trials). The returned opaque tuple feeds
+    encode_prepared_block (or encode_prepared_block_oracle) — split so a
+    pipelined caller can prep block k+1 while block k is on the device."""
     span = block_span(idx, lo, hi)
-    host = span >= _MAX_SPAN
+    host = host_pack or span >= _MAX_SPAN
     jobs, n, minq, qual_depth, ll_mat, extra = stream_jobs_fast(
         data, idx, lo, hi, cfg, host_pack=host)
     raw_args = host_args = None
@@ -552,6 +558,94 @@ def _seq_mflag(b, lanes, lengths, W: int, Wa: int, S: int, m_arrs: dict):
                                                len(lengths))
         los, his = _match_span_bounds(m_arr, lengths)
         return native.match_mflag(m_arr[0], los, his, lengths, W, S)
+
+
+def _pos_reset_host(ll_mat: np.ndarray):
+    """(S, pos, reset [S, W]) of a block's SEQ/QUAL lanes, on the host."""
+    S = int(ll_mat.sum(axis=0).max()) if ll_mat.size else 0
+    return (S, *streams_np.build_pos_reset(ll_mat, S))
+
+
+def encode_prepared_block_oracle(pre, cfg: CodecConfig) -> EncodedBlock:
+    """encode_prepared_block on the NumPy oracle: every stream of a block
+    prepared with ``host_pack`` coded by ops/streams_np, SEQ and QUAL
+    (and each match trial's SEQ) with host pos/reset, the aux streams and
+    MATCH without; the block assembled as on the device."""
+    jobs, _, _, _, ll_mat, raw_args, v5 = pre
+    if raw_args is not None:
+        raise ValueError("the oracle codes blocks packed on the host")
+    _, pos, reset = _pos_reset_host(ll_mat)
+    coded = {}
+    for name in streams_for(cfg.fmt):
+        kind, geom, syms, counts, _, _ = jobs[name]
+        if syms.shape[0]:  # else byte-identical to coding zero steps
+            per_read = name in ("SEQ", "QUAL")
+            coded[name] = streams_np.encode_stream(
+                kind, geom, syms, counts, pos=pos if per_read else None,
+                reset=reset if per_read else None)
+    kind, geom, _, counts, _, _ = jobs["SEQ"]
+    for t, alt, msyms, mcounts, mflag in (v5 or {}).get("trials", ()):
+        coded[f"SEQ@{t}"] = streams_np.encode_stream(
+            kind, geom, alt, counts, pos=pos, reset=reset, mflag=mflag)
+        coded[f"MATCH@{t}"] = streams_np.encode_stream(
+            "byte", cfg.bytes_, msyms, mcounts)
+    return _assemble(pre, coded, cfg)
+
+
+def decode_block_oracle(blk: EncodedBlock, cfg: CodecConfig):
+    """decode_block_device on the NumPy oracle: every stream of the block
+    decoded by ops/streams_np (SEQ and QUAL with host pos/reset, SEQ with
+    the match-span flags of a MATCH_USED block) and SEQ/QUAL unpacked on
+    the host; the intermediate for decode_block_finish, None for a block
+    without records."""
+    n = blk.num_records
+    if n == 0:
+        return None
+    W, Wa = cfg.lanes, cfg.aux_lanes
+
+    def lanes(name, kind="byte", geom=None, counts=None):
+        es = blk.streams[name]
+        c = es.sym_counts if counts is None else counts
+        S = int(np.asarray(c).max()) if len(c) else 0
+        syms = streams_np.decode_stream(kind, geom or cfg.bytes_,
+                                        es.payload, es.lane_lens, c, S)
+        return [syms[: c[w], w].astype(np.uint8) for w in range(len(c))]
+
+    prev_step = Wa if cfg.fmt >= 3 else 1  # delta baseline (frozen/fmt)
+    lengths = native.lens_decode(lanes("LEN"), n, Wa, prev_step)
+    fcounts = 3 * ((n - np.arange(Wa) + Wa - 1) // Wa)
+    flags = native.flags_reorder(
+        np.concatenate(lanes("FLAG", "flag", cfg.flags, fcounts)), n, Wa)
+    ll_mat = _lane_lengths_matrix(lengths, W)
+    S, pos, reset = _pos_reset_host(ll_mat)
+    rec_starts = np.zeros(n, dtype=np.int64)
+    rec_starts[1:] = np.cumsum(lengths[:-1])
+    total = int(lengths.sum())
+    m_arr = mflag = None
+    if cfg.fmt >= 5 and blk.flags & MATCH_USED:
+        m_arr = native.match_parse(lanes("MATCH"), Wa, n)
+        los, his = _match_span_bounds(m_arr, lengths)
+        mflag = native.match_mflag(m_arr[0], los, his, lengths, W, S)
+    sgeom = (replace(cfg.seq, order=blk.seq_order)
+             if (cfg.fmt >= 5 and blk.seq_order) else cfg.seq)
+    qgeom = replace(cfg.qual, depth=blk.qual_depth,
+                    delta_bits=0 if (blk.flags & QUAL_NODELTA)
+                    else cfg.qual.delta_bits)
+    scounts = ll_mat.sum(axis=0)
+    sq = {}
+    for name, kind, geom, m in (("SEQ", "seq", sgeom, mflag),
+                                ("QUAL", "qual", qgeom, None)):
+        es = blk.streams[name]
+        sq[name] = streams_np.decode_stream(
+            kind, geom, es.payload, es.lane_lens, scounts, S, pos=pos,
+            reset=reset, mflag=m).astype(np.uint8)
+    seq_bytes = native.unpack_lanes(sq["SEQ"], lengths, W, rec_starts, total,
+                                    map256=_CODE_TO_BASE_FULL)[:total]
+    qual_bytes = native.unpack_lanes(sq["QUAL"], lengths, W, rec_starts,
+                                     total, bias=blk.minq)[:total]
+    return (n, prev_step, lengths, flags, *(lanes(k) for k in
+                                            ("IDD", "IDX", "SEQX")),
+            rec_starts, seq_bytes, qual_bytes, m_arr)
 
 
 def decode_block_device(blk: EncodedBlock, cfg: CodecConfig, device):

@@ -12,7 +12,8 @@ Kernel E in step slices against one launch (also where the table lives
 in shared memory, level 1); the host-pack path (forced on small blocks)
 against the main path's containers; and the sharded path on a mesh of
 one card, of the card named twice, and (with two cards or more) of two
-cards, against the sequential containers.
+cards, against the sequential containers; the pure-Python pipeline
+(``use_native=False``) stream by stream on the card.
 Marked `cuda`: they
 skip without a card. This file imports
 neither JAX nor the JAX package, so it runs on a machine that has only
@@ -572,6 +573,35 @@ def test_sharded_over_two_cards(dev):
     for tally in by_shard.values():
         assert set(tally) == {"lane_encode", "lane_decode",
                               "compact_lanes_dev"}, tally
+
+
+@pytest.mark.parametrize("level", [3, 4])
+def test_python_pipeline_on_card(dev, level):
+    """use_native=False on the card: the pure-Python pipeline codes each
+    stream with its own Kernel E and C launches (decode: D), the
+    level-4 block's match trials and its MATCH_USED SEQ decode with the
+    match-span flags; the container equals the CPU plain path's and the
+    native path's, and decodes."""
+    import io
+    from slimfastq_tpu_torch import api, container
+    from slimfastq_tpu_torch.ops import _cuda
+    from slimfastq_tpu_torch.pipeline import MATCH_USED
+    from slimfastq_tpu_torch.utils.synth import synth_fastq
+    # test_torch_api.py's window case: block 0 takes a match trial at L4
+    data = synth_fastq(2 * 1030, read_len=100, seed=5, n_rate=0.001)
+    kw = dict(level=level, block_records=1030)
+    _cuda.reset_launches()
+    enc = api.encode_fastq(data, use_native=False, **kw)
+    assert api.decode_fastq(enc, use_native=False) == data
+    assert all(_cuda.launches[k] > 0 for k in
+               ("lane_encode", "lane_decode", "compact_lanes_dev"))
+    assert enc == api.encode_fastq(data, device="cpu", use_native=False,
+                                   **kw)
+    assert enc == api.encode_fastq(data, **kw)
+    f = io.BytesIO(enc)
+    cfg = container.read_header(f)
+    flags = [blk.flags for blk in container.iter_blocks(f, cfg)]
+    assert bool(flags[0] & MATCH_USED) == (level == 4)
 
 
 def test_wide_block_refused(dev):

@@ -1,6 +1,7 @@
-"""The port's SEQ+QUAL lane pack/unpack (slimfastq_tpu_torch.ops.pack_torch)
-against the JAX package's ops/pack_jax pair forms: every symbol of the
-[Sp, W] matrices and every byte of the record-major buffers equal."""
+"""The port's lane pack/unpack (slimfastq_tpu_torch.ops.pack_torch) against
+the JAX package's ops/pack_jax, the SEQ+QUAL pair forms and the
+single-stream pack_device / unpack_device: every symbol of the [Sp, W]
+matrices and every byte of the record-major buffers equal."""
 
 import numpy as np
 import pytest
@@ -105,3 +106,45 @@ def test_pad_flat_bucket():
     assert PT.pad_flat(0) == PJ.pad_flat(0) == 1 << 20
     for nbytes in (1, (1 << 20) + 1, 15609138):
         assert PT.pad_flat(nbytes) == PJ.pad_flat(nbytes)
+
+
+# the cases of tests/test_device_pack.py::test_pack_device_equals_host
+@pytest.mark.parametrize("n,W,maxlen", [(100, 8, 30), (257, 32, 50),
+                                        (64, 16, 1), (33, 8, 0)])
+@pytest.mark.parametrize("aux", ["bias", "map"])
+def test_single_stream_pack_matches_jax(n, W, maxlen, aux):
+    """pack_device / unpack_device against pack_jax's on ranges with
+    empty records, through a bias (wrapping below 0) or a 256-entry map:
+    the whole [Sp, W] matrix (rows past a lane's count included) and the
+    whole [pad_flat(total)] buffer equal."""
+    rng = np.random.default_rng(n)
+    lens = rng.integers(0, maxlen + 1, size=n).astype(np.int64)
+    total = int(lens.sum())
+    data = rng.integers(33, 120, size=total + 7).astype(np.uint8)
+    offs = np.zeros(n, dtype=np.int64)
+    offs[1:] = np.cumsum(lens[:-1])
+    offs += 7
+    counts = np.bincount(np.arange(n) % W, weights=lens,
+                         minlength=W).astype(np.int64)
+    Sp = max(R.pad_steps(int(counts.max())), 1)
+    dpad = np.zeros(PT.pad_flat(len(data)), dtype=np.uint8)
+    dpad[: len(data)] = data
+    if aux == "bias":
+        kw, back = dict(bias=40), dict(bias=-5)
+    else:
+        kw = dict(map256=_BASE_TO_CODE_DEV)
+        back = dict(map256=np.arange(256, dtype=np.uint8)[::-1].copy())
+    want = np.asarray(PJ.pack_device(jnp.asarray(dpad), offs.astype(np.int32),
+                                     lens.astype(np.int32), W, Sp, **kw))
+    got = PT.pack_device(torch.from_numpy(dpad), offs, lens, W, Sp, **kw)
+    assert got.dtype == torch.uint8 and got.shape == (Sp, W)
+    assert np.array_equal(got.numpy(), want)
+    starts = np.zeros(n, dtype=np.int64)
+    starts[1:] = np.cumsum(lens[:-1])
+    want = np.asarray(PJ.unpack_device(jnp.asarray(got.numpy()),
+                                       starts.astype(np.int32),
+                                       lens.astype(np.int32), W, total,
+                                       **back))
+    flat = PT.unpack_device(got, starts, lens, W, total, **back)
+    assert flat.shape == (PT.pad_flat(total),)
+    assert np.array_equal(flat.numpy(), want)
