@@ -95,13 +95,22 @@ Phases (any failure exits non-zero; nothing is caught):
      launch no kernel and allocate nothing on the card; and the
      single-stream pack_device / unpack_device on the pinned block's QUAL
      timed beside their byte bounds and held against the pair form.
+  9. the entry points (slimfastq_tpu_torch/entry.py): entry()'s flagship
+     step (the level-3 QUAL schedule, then Kernel E, launched once) on
+     the card equals its CPU run; dryrun_multichip over every card
+     round-trips its toy, production (W = 1024 / 64) and level-4 phases.
+ 10. the streaming run at scale (tools/bench_1gb_torch.py): 0.5 GB of
+     100 bp reads through the streaming CLI, encode and decode each in a
+     fresh process, two 256 MiB read chunks: exact round trip, walls,
+     GB/s, peak RSS above a CUDA-context base, ratio.
 
 Prints `compact_block_l3`, `compact_block_l4`, `compact_phase_l3`,
 `compact_phase_l4`, `block`, `block_l4`, `wall`, `wall_l4`,
 `window_kernels`, `window_walls`, `window_sweep`, `streaming`,
 `long_read`, `long_read_kernels`, `sharded`, `sharded_streaming`,
 `gather_nccl`, `l1_slices`, `python_pipeline`, `python_pipeline_s`,
-`single_stream_pack`, `earlier_ms` (recorded constants),
+`single_stream_pack`, `entry`, `streaming_scale`, `earlier_ms`
+(recorded constants),
 `phase_s` (seconds a phase) and `kernels` JSON lines, then the card's
 name and power limit and, as its last line, the `ok` JSON line.
 """
@@ -150,6 +159,8 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM published memory rate
 PCIE_BYTES_PER_S = 64e9
 # the NumPy oracle's input: the pinned generator's first 2,048 reads
 ORACLE_READS = 2048
+# the streaming run at scale: 0.5 GB of 100 bp reads, two 256 MiB chunks
+STREAM_SCALE_BYTES = 500_000_000
 # Recorded constants, printed on a line of their own (this script, H100
 # 80GB HBM3, 700 W): each kernel's time at the timed shape before E and D
 # moved their table law into shared memory, and Kernel C on QUAL alone
@@ -2065,6 +2076,72 @@ def single_stream_pack(data: bytes, dev) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 9: the entry points; phase 10: the streaming run at scale
+# ---------------------------------------------------------------------------
+
+def entry_phase() -> dict:
+    """The port's entry points (slimfastq_tpu_torch/entry.py): entry()'s
+    flagship step (the level-3 QUAL schedule, then Kernel E) on the card,
+    the launch counts set to 0 just before and read just after (Kernel E
+    once), equals the same fn on the CPU (its plain version) byte for
+    byte; then dryrun_multichip over every card round-trips its three
+    phases (toy L2, L3 at W = 1024 / 64, L4 with MATCH_USED), every
+    kernel launched. Prints the `entry` line."""
+    import torch
+    from slimfastq_tpu_torch import entry
+    from slimfastq_tpu_torch.ops import _cuda
+    fn, args = entry.entry()
+    fn(*args)  # warm
+    torch.cuda.synchronize()
+    _cuda.reset_launches()
+    t = time.perf_counter()
+    got = fn(*args)
+    torch.cuda.synchronize()
+    out = {"ms": (time.perf_counter() - t) * 1e3,
+           "launches": dict(_cuda.launches),
+           "shape": "L3 QUAL, S = 256, W = 128"}
+    fn_cpu, args_cpu = entry.entry(device="cpu")
+    t = time.perf_counter()
+    ref = fn_cpu(*args_cpu)
+    out["plain_ms"] = (time.perf_counter() - t) * 1e3
+    out["max_abs_err"] = max(
+        int((a.cpu().long() - b.long()).abs().max()) if a.numel() else 0
+        for a, b in zip(got, ref))
+    if out["max_abs_err"] or out["launches"]["lane_encode"] != 1:
+        raise AssertionError(f"entry() on the card: {out}")
+    n = torch.cuda.device_count()
+    _cuda.reset_launches()
+    t = time.perf_counter()
+    enc = entry.dryrun_multichip(n)
+    dry = {"n_devices": n, "s": time.perf_counter() - t,
+           "launches": dict(_cuda.launches),
+           "compressed_bytes": {k: len(v) for k, v in enc.items()}}
+    if not all(dry["launches"].values()):
+        raise AssertionError(f"dryrun_multichip: {dry}")
+    out["dryrun_multichip"] = dry
+    print(json.dumps({"entry": out}), flush=True)
+    return out
+
+
+def streaming_scale() -> dict:
+    """tools/bench_1gb_torch.py's streaming run at STREAM_SCALE_BYTES,
+    level 3: the CLI's streaming encode and decode, each in a fresh
+    process, over two 256 MiB read chunks; the round trip exact, walls,
+    GB/s, each process's peak RSS against the base of one that only
+    creates the CUDA context, the ratio. Prints the `streaming_scale`
+    line."""
+    import tempfile
+    from tools import bench_1gb_torch as B
+    with tempfile.TemporaryDirectory() as d:
+        out = B.streaming_scale([STREAM_SCALE_BYTES], d, level=3)
+    row = out["sizes"][0]
+    if row["chunks"] != 2 or not row["round_trip_exact"]:
+        raise AssertionError(f"streaming_scale: {row}")
+    print(json.dumps({"streaming_scale": out}), flush=True)
+    return out
+
+
 def _by_shard(shard: dict, name: str) -> dict:
     """Kernel `name`'s launches by shard in the level-3 sharded runs of
     the 4 x 64k set (the first run on each mesh)."""
@@ -2167,6 +2244,11 @@ def main() -> int:
     done("python_pipeline")
     single_stream_pack(data, dev)
     done("single_stream_pack")
+    # the entry points and the streaming run at scale
+    entry_phase()
+    done("entry")
+    streaming_scale()
+    done("streaming_scale")
 
     replaces = {
         "lane_encode": "slimfastq_tpu/ops/streams_jax.py:298",

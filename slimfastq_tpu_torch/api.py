@@ -32,6 +32,7 @@ chosen for the caller.
 from __future__ import annotations
 
 import io
+import os
 from collections import deque
 from concurrent.futures import ThreadPoolExecutor
 
@@ -50,10 +51,6 @@ from .pipeline_native import (block_span, decode_block_finish,
 from .utils.fastq import FastqBatch, parse_fastq_bytes, serialize_fastq
 
 
-# blocks of host work kept in flight beside the device in the staged
-# encode/decode pipelines (2 overlaps host and device across block
-# boundaries)
-_PIPE_DEPTH = 2
 # the most blocks a window takes: a window's coded streams (11 a level-4
 # block with match trials) must fit one Kernel C launch (256 streams)
 MAX_WINDOW = 16
@@ -62,6 +59,14 @@ MAX_WINDOW = 16
 # JAX package's depth of 2 keeps, where a count of blocks would hold a
 # window's worth; 64k x 100 bp blocks (16 MB) stay bounded by the count
 _PREP_BYTES = 6 << 30
+
+
+def _pipe_depth() -> int:
+    """Blocks of host work kept in flight beside the device in the staged
+    encode/decode pipelines, and the width of the pools that do it (2
+    overlaps host and device across block boundaries). SFQ_PIPE_DEPTH
+    sets it, as in the JAX package (read at each call)."""
+    return max(1, int(os.environ.get("SFQ_PIPE_DEPTH", "2")))
 
 
 def resolve_device(device=None) -> torch.device:
@@ -87,9 +92,12 @@ def _batch_window(cfg: CodecConfig, window: int | None = None) -> int:
     at 65,536 a window of 4 gave the lowest walls of 1, 2 and 4 at levels
     3 and 4 (the JAX package's min(8, 65536 // block_records) codes a
     65,536-record block alone). ``window`` overrides it (1 codes every
-    block alone), up to MAX_WINDOW."""
+    block alone), up to MAX_WINDOW; without it, SFQ_BATCH_BLOCKS does, as
+    in the JAX package (read at each call)."""
     if window is None:
-        window = min(8, 262144 // max(cfg.block_records, 1))
+        env = os.environ.get("SFQ_BATCH_BLOCKS")
+        window = (int(env) if env
+                  else min(8, 262144 // max(cfg.block_records, 1)))
     if int(window) > MAX_WINDOW:
         raise ValueError(f"window {window} exceeds {MAX_WINDOW} blocks")
     return max(1, int(window))
@@ -174,12 +182,13 @@ def _encode_ranges(ranges, cfg: CodecConfig, step, window, emit) -> list:
     writer keeps block order, so the container equals the serial one.
     Memory holds that many prepared blocks, whatever the file's size."""
     wb = step.window(cfg, window)
-    ahead = _PIPE_DEPTH + wb - 1
+    depth = _pipe_depth()
+    ahead = depth + wb - 1
     budgets = step.budgets()
     ranges = iter(ranges)
     results = []
     with native.pipeline_omp_cap(), \
-            ThreadPoolExecutor(max_workers=_PIPE_DEPTH) as prep_ex, \
+            ThreadPoolExecutor(max_workers=depth) as prep_ex, \
             ThreadPoolExecutor(max_workers=1) as write_ex:
         pfuts: deque = deque()  # (future, raw bytes)
         wfuts: deque = deque()
@@ -270,14 +279,15 @@ def _decode_blocks(f, cfg: CodecConfig, step, window, emit) -> None:
 
     Three stages (read || device || finish): a one-worker reader
     prefetches the next block's container bytes while a window is on the
-    device; up to _PIPE_DEPTH host finishes (ID chain decode + assembly,
+    device; up to _pipe_depth() host finishes (ID chain decode + assembly,
     release the GIL) run behind the device, collected in order. Blocks
     are read one at a time (seek-based, container.iter_blocks), so memory
     holds a window and the finishes in flight, whatever the container's
     size."""
     wb = step.window(cfg, window)
+    depth = _pipe_depth()
     with native.pipeline_omp_cap(), \
-            ThreadPoolExecutor(max_workers=_PIPE_DEPTH) as fin_ex, \
+            ThreadPoolExecutor(max_workers=depth) as fin_ex, \
             ThreadPoolExecutor(max_workers=1) as read_ex:
         gen = container.iter_blocks(f, cfg)
         rfut = read_ex.submit(next, gen, None)
@@ -294,7 +304,7 @@ def _decode_blocks(f, cfg: CodecConfig, step, window, emit) -> None:
                 blocks.append(blk)
             for inter in step.decode(blocks, cfg):
                 futs.append(fin_ex.submit(decode_block_finish, inter, cfg))
-            while len(futs) > _PIPE_DEPTH:
+            while len(futs) > depth:
                 emit(futs.popleft().result())
         while futs:
             emit(futs.popleft().result())
@@ -347,35 +357,54 @@ def _record_boundary(chunk: bytes) -> int:
     return int(nls[keep_nl - 1]) + 1
 
 
+_OFFSETS = ("id_off", "seq_off", "plus_off", "qual_off")
+
+
+def _own_block(data, idx: dict, lo: int, hi: int) -> tuple:
+    """Records [lo, hi) of a chunk as a range of their own: a copy of
+    their bytes and their index rebased to it, so the block holds no
+    reference to the chunk."""
+    base = int(idx["id_off"][lo]) - 1  # the record's '@'
+    buf = np.frombuffer(data, dtype=np.uint8)[
+        base:base + block_span(idx, lo, hi)].copy()
+    own = {k: v[lo:hi] - base if k in _OFFSETS else v[lo:hi].copy()
+           for k, v in idx.items()}
+    return buf, own, 0, hi - lo
+
+
 def iter_block_ranges_native(src: str, cfg: CodecConfig,
                              chunk_bytes: int = 1 << 28):
     """Yield (buf, idx, lo, hi) record ranges whose block boundaries are
     identical to a whole-file encode, while reading `src` in bounded
-    chunks: whole leftover records carry over between chunks as bytes."""
-    carry = b""
+    chunks. Each range is a block of its own (_own_block), so the blocks
+    prepared ahead never hold a chunk; the records short of a block at a
+    chunk's end are read again at the start of the next chunk, and a
+    chunk that holds no whole block is read again longer. Memory holds
+    one chunk and the blocks in flight, whatever the file's size."""
+    pos, want = 0, chunk_bytes
     with open(src, "rb") as f:
         while True:
-            chunk = carry + f.read(chunk_bytes)
+            f.seek(pos)
+            chunk = f.read(want)
             if not chunk:
                 break
-            eof = len(chunk) < len(carry) + chunk_bytes
+            eof = len(chunk) < want
             cut = len(chunk) if eof else _record_boundary(chunk)
-            data, carry = chunk[:cut], chunk[cut:]
-            if not data:
-                if eof:
-                    break
-                continue
-            buf = np.frombuffer(data, dtype=np.uint8)
-            idx, n = native.fastq_index(data)
+            data = memoryview(chunk)[:cut]
+            idx, n = native.fastq_index(data) if cut else ({}, 0)
             full = (n // cfg.block_records) * cfg.block_records
             limit = n if eof else full
             for lo in range(0, limit, cfg.block_records):
-                yield buf, idx, lo, min(lo + cfg.block_records, limit)
-            if limit < n:
-                start = int(idx["id_off"][limit]) - 1
-                carry = data[start:] + carry
+                yield _own_block(data, idx, lo,
+                                 min(lo + cfg.block_records, limit))
             if eof:
                 break
+            if limit:
+                pos += int(idx["id_off"][limit]) - 1 if limit < n else cut
+                want = chunk_bytes
+            else:
+                want += chunk_bytes
+            del chunk, data, idx  # the next chunk is read without them
 
 
 def encode_file_streaming(src: str, dst: str, level: int = 3, device=None,
@@ -390,9 +419,9 @@ def encode_file_streaming(src: str, dst: str, level: int = 3, device=None,
 
     Output is byte-identical to encode_fastq on the same data: block
     boundaries land on block_records multiples, which this function
-    guarantees by carrying remainder records between chunks. Memory holds
-    one chunk and the pipeline's prepared blocks (use_native=False: one
-    chunk's parsed records and a block)."""
+    guarantees by reading remainder records again with the next chunk.
+    Memory holds one chunk and the pipeline's prepared blocks
+    (use_native=False: one chunk's parsed records and a block)."""
     cfg = config_for_level(level, **overrides)
     if not use_native:
         encode_file_python(src, dst, cfg, _coder(backend, device),

@@ -71,6 +71,9 @@ def build_parser() -> argparse.ArgumentParser:
                         "after a crash)")
     p.add_argument("--resume", action="store_true",
                    help="with --streaming: continue an interrupted output")
+    p.add_argument("--chunk-bytes", type=int, default=1 << 28, metavar="N",
+                   help="with --streaming encode: input bytes read at a "
+                        "time (default 256 MiB)")
     p.add_argument("--sharded", action="store_true",
                    help="split each window's blocks over all the node's "
                         "cards (with --device cpu: a one-entry CPU mesh)")
@@ -120,11 +123,14 @@ def _streaming(args, overrides: dict) -> int:
         elif args.sharded:
             sharded.encode_file_streaming_sharded(
                 args.input, args.output, level=args.level, mesh=_mesh(args),
-                resume=args.resume, **overrides)
+                chunk_bytes=args.chunk_bytes, resume=args.resume,
+                **overrides)
         else:
             encode_file_streaming(args.input, args.output, level=args.level,
-                                  device=args.device, resume=args.resume,
-                                  backend=args.backend, **overrides)
+                                  device=args.device,
+                                  chunk_bytes=args.chunk_bytes,
+                                  resume=args.resume, backend=args.backend,
+                                  **overrides)
     except (ValueError, RuntimeError, OSError) as e:
         print(f"sfq-torch: {e}", file=sys.stderr)
         return 1
@@ -143,6 +149,9 @@ def main(argv: list[str] | None = None) -> int:
     args = build_parser().parse_args(argv)
     if args.resume and not args.streaming:
         print("sfq-torch: --resume needs --streaming", file=sys.stderr)
+        return 2
+    if args.chunk_bytes < 1:
+        print("sfq-torch: --chunk-bytes must be positive", file=sys.stderr)
         return 2
     if args.sharded and args.backend != "torch":
         # the sharded path is the mesh of cards; running it under

@@ -168,15 +168,22 @@ class pipeline_omp_cap:
     pipeline runs (2-3 Python threads each spawn their own libgomp
     team; full-width teams oversubscribe the cores and thrash —
     teams of cores/2 cut the decode wall and its variance). Restores the
-    previous width on exit so isolated stage calls keep full teams."""
+    previous width on exit so isolated stage calls keep full teams.
+    SFQ_PIPE_OMP_THREADS overrides the cap (0 = leave unchanged), as in
+    the JAX package."""
 
     def __enter__(self):
-        self._prev = int(lib.get_omp_threads())
-        lib.set_omp_threads(max(1, (os.cpu_count() or 4) // 2))
+        env = os.environ.get("SFQ_PIPE_OMP_THREADS")
+        cap = int(env) if env else max(1, (os.cpu_count() or 4) // 2)
+        self._prev = None
+        if cap > 0:
+            self._prev = int(lib.get_omp_threads())
+            lib.set_omp_threads(cap)
         return self
 
     def __exit__(self, *exc):
-        lib.set_omp_threads(self._prev)
+        if self._prev is not None:
+            lib.set_omp_threads(self._prev)
         return False
 
 

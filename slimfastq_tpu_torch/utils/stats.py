@@ -68,7 +68,18 @@ class Counters:
         }
 
 
+@contextmanager
 def trace(name: str):
     """torch.profiler annotation (near free when profiling is off) so
-    device traces show codec stages."""
-    return torch.profiler.record_function(name)
+    device traces show codec stages; once CUDA is initialised, also an
+    NVTX range of the same name, for a CUDA timeline tool. The body's
+    exceptions propagate."""
+    nvtx = torch.cuda.is_initialized()
+    if nvtx:
+        torch.cuda.nvtx.range_push(name)
+    try:
+        with torch.profiler.record_function(name):
+            yield
+    finally:
+        if nvtx:
+            torch.cuda.nvtx.range_pop()

@@ -13,7 +13,8 @@ in shared memory, level 1); the host-pack path (forced on small blocks)
 against the main path's containers; and the sharded path on a mesh of
 one card, of the card named twice, and (with two cards or more) of two
 cards, against the sequential containers; the pure-Python pipeline
-(``use_native=False``) stream by stream on the card.
+(``use_native=False``) stream by stream on the card; the entry points
+(``entry()`` against its CPU run, ``dryrun_multichip`` over every card).
 Marked `cuda`: they
 skip without a card. This file imports
 neither JAX nor the JAX package, so it runs on a machine that has only
@@ -613,3 +614,29 @@ def test_wide_block_refused(dev):
     z = torch.zeros((1, 16, 64), dtype=torch.int32, device=dev)
     with pytest.raises(ValueError, match="visit cap"):
         CT.lane_encode(z, z, warm, 16)
+
+
+def test_entry_on_card(dev):
+    """entry()'s flagship step on the card (Kernel E, launched once)
+    equals the same step on the CPU (its plain version), byte for byte."""
+    from slimfastq_tpu_torch import entry
+    from slimfastq_tpu_torch.ops import _cuda
+    fn, args = entry.entry()
+    assert all(a.is_cuda for a in args)
+    _cuda.reset_launches()
+    got = fn(*args)
+    assert _cuda.launches["lane_encode"] == 1
+    fn_cpu, args_cpu = entry.entry(device="cpu")
+    for a, b in zip(got, fn_cpu(*args_cpu)):
+        assert torch.equal(a.cpu(), b)
+
+
+def test_dryrun_multichip_on_cards(dev):
+    """dryrun_multichip over every card: its three phases round-trip,
+    every kernel launched."""
+    from slimfastq_tpu_torch import entry
+    from slimfastq_tpu_torch.ops import _cuda
+    _cuda.reset_launches()
+    out = entry.dryrun_multichip(torch.cuda.device_count())
+    assert list(out) == ["toy", "production", "match"]
+    assert all(_cuda.launches.values())

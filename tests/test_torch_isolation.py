@@ -1,6 +1,8 @@
-"""Isolation and drift guards of the port: slimfastq_tpu_torch and
-chip_smoke.py import neither JAX nor the JAX package, and the port's copy
-of the native host library stays byte-identical to the reference's."""
+"""Isolation and drift guards of the port: slimfastq_tpu_torch (its entry
+points, entry.py, included), chip_smoke.py and the port's tools
+(tools/*_torch.py) import neither JAX nor the JAX package, and the port's
+copy of the native host library stays byte-identical to the
+reference's."""
 
 import ast
 import os
@@ -14,6 +16,7 @@ torch.set_num_threads(1)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PORT = os.path.join(ROOT, "slimfastq_tpu_torch")
+TOOLS = ("bench_1gb_torch", "profile_wall_torch", "longread_l4_torch")
 
 
 def _refused(name: str) -> bool:
@@ -42,7 +45,9 @@ def _port_sources():
 
 def test_port_sources_import_no_jax():
     bad = [(os.path.relpath(p, ROOT), m)
-           for p in [*_port_sources(), os.path.join(ROOT, "chip_smoke.py")]
+           for p in [*_port_sources(), os.path.join(ROOT, "chip_smoke.py"),
+                     *(os.path.join(ROOT, "tools", t + ".py")
+                       for t in TOOLS)]
            for m in _imports(p) if _refused(m)]
     assert not bad, bad
 
@@ -93,8 +98,20 @@ with tempfile.TemporaryDirectory() as d:
     api.decode_file_streaming(dst, back, device="cpu")
     assert open(back, "rb").read() == data
 import chip_smoke
+import slimfastq_tpu_torch.entry as entry
+from tools import bench_1gb_torch, longread_l4_torch, profile_wall_torch
+fn, args = entry.entry(device="cpu")
+fn(*args)
 if not torch.cuda.is_available():
     assert chip_smoke.main() == 1
+    for call in (entry.entry, lambda: entry.dryrun_multichip(1)):
+        try:
+            call()
+            raise AssertionError("ran without a card")
+        except RuntimeError as e:
+            assert "no CUDA device" in str(e), e
+    for tool in (bench_1gb_torch, longread_l4_torch, profile_wall_torch):
+        assert tool.main() == 1
 bad = [m for m in sys.modules
        if m.split(".")[0] == "slimfastq_tpu" or m.startswith("jax")]
 assert not bad, bad

@@ -1,0 +1,200 @@
+#!/usr/bin/env python3
+"""Level 4 on the long-read block with the PyTorch/CUDA port
+(slimfastq_tpu_torch): one block of 65,536 reads of 16.5 kb (raw span past
+2 GiB: SEQ and QUAL packed on the host, Kernel E in step slices, the
+matcher over ~1.08 Gbase, the plain SEQ and both match trials coded)
+encoded twice and decoded once through api.encode_fastq / decode_fastq.
+
+Prints the arena line (`long_read_arena`), then one JSON line
+(`long_read_l4`): for each encode its wall, peak device memory, the
+matcher's host seconds (native.match_find_arrays; with SFQ_MATCH_STATS=1
+the library prints its phases to stderr), the block's device bytes beside
+the window's budget, Kernel E's launches and slices, the container's
+size and SHA-256; whether the two encodes' SHA-256 agree; the decode's
+wall and peak device memory and whether the round trip is exact; the
+ratio; and the matcher's candidate arena reckoned with NumPy from the
+sampling rule (arena_cursor) against the 27-bit block field of
+native/host.cpp's MIndex (a slot packs blk << 5 | cnt in 32 bits).
+
+Usage: python3 tools/longread_l4_torch.py [--reads N] [--read-len L]
+       [--level 4] [--device cpu]
+Runs on the card unless --device cpu is given; without a card it exits 1.
+"""
+
+from __future__ import annotations
+
+import argparse
+import hashlib
+import json
+import os
+import sys
+import time
+
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
+    __file__))))
+
+# the arena's first 27 bits address a candidate block (MIndex::insert:
+# s.bc = blk << 5 | cnt in a uint32)
+BLK_LIMIT = 1 << 27
+# arena entries a key takes: 4 on its first insert, 16 more on its fifth
+# (the 4-entry block grown once to MMAXC = 16, contiguous)
+FIRST_BLOCK, GROWN_BLOCK, GROW_AT = 4, 16, 5
+
+
+def sampled_keys(data: bytes, chunk: int = 1024):
+    """The forward K-mers the matcher inserts into its index, as uint32
+    arrays, one per chunk of ``chunk`` records: every position of every
+    read of at least K bases whose K-mer (2-bit codes, non-ACGT as 0,
+    MSB-first) is content-sampled (models/matcher.py's rule, which
+    native/host.cpp's match_find twins)."""
+    import numpy as np
+    from slimfastq_tpu_torch import native
+    from slimfastq_tpu_torch.models import matcher as M
+    idx, n = native.fastq_index(data)
+    buf = np.frombuffer(data, dtype=np.uint8)
+    offs, lens = idx["seq_off"][:n], idx["seq_len"][:n].astype(np.int64)
+    kmask = np.uint64((1 << (2 * M.K)) - 1)
+    for lo in range(0, n, chunk):
+        o, L = offs[lo:lo + chunk], lens[lo:lo + chunk]
+        keep = L >= M.K
+        o, L = o[keep], L[keep]
+        if not len(L):
+            continue
+        starts = np.zeros(len(L), dtype=np.int64)
+        starts[1:] = np.cumsum(L[:-1])
+        total = int(L.sum())
+        # the chunk's bases back to back, then each position's K-mer
+        at = np.repeat(o - starts, L) + np.arange(total)
+        c = M._B2C0[buf[at]].astype(np.uint64)
+        m = total - M.K + 1
+        km = np.zeros(m, dtype=np.uint64)
+        for j in range(M.K):
+            km = ((km << np.uint64(2)) | c[j:j + m]) & kmask
+        # a K-mer is a read's when it starts at most L - K into it
+        inread = np.arange(m) - np.repeat(starts, L)[:m] \
+            <= np.repeat(L - M.K, L)[:m]
+        hit = inread & ((M._mix64(km) & np.uint64(M.SAMPLE_MASK)) == 0)
+        yield km[hit].astype(np.uint32)
+
+
+def arena_cursor(data: bytes, chunk: int = 1024) -> dict:
+    """The matcher's final candidate-arena cursor on ``data`` as one
+    block: FIRST_BLOCK entries for each distinct sampled key plus
+    GROWN_BLOCK for each key sampled GROW_AT times or more, against
+    BLK_LIMIT."""
+    import numpy as np
+    keys = list(sampled_keys(data, chunk))
+    keys = np.concatenate(keys) if keys else np.zeros(0, dtype=np.uint32)
+    _, counts = np.unique(keys, return_counts=True)
+    grown = int((counts >= GROW_AT).sum())
+    cursor = FIRST_BLOCK * len(counts) + GROWN_BLOCK * grown
+    return {"sampled": int(len(keys)), "distinct_keys": int(len(counts)),
+            "keys_reaching_5": grown, "cursor": cursor,
+            "blk_limit": BLK_LIMIT, "passes_blk_limit": cursor > BLK_LIMIT}
+
+
+def run(data: bytes, level: int, device, encodes: int = 2,
+        **overrides) -> dict:
+    """``data`` encoded ``encodes`` times and decoded once on ``device``
+    (api.encode_fastq / decode_fastq at the defaults but the level and
+    the config ``overrides``), each direction timed on the host clock to
+    the device's synchronisation, with the counts and peaks the module
+    docstring lists."""
+    import torch
+    from slimfastq_tpu_torch import api, native
+    from slimfastq_tpu_torch.ops import _cuda
+    from slimfastq_tpu_torch.ops import streams_torch as ST
+    dev = api.resolve_device(device)
+    cuda = dev.type == "cuda"
+    acc = {"match_s": 0.0, "device_bytes": []}
+    real_find, real_bytes = native.match_find_arrays, api.device_bytes
+
+    def find(*a, **k):
+        t = time.perf_counter()
+        try:
+            return real_find(*a, **k)
+        finally:
+            acc["match_s"] += time.perf_counter() - t
+
+    def nbytes(*a, **k):
+        n = real_bytes(*a, **k)
+        acc["device_bytes"].append(n)
+        return n
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize(dev)
+
+    def timed(fn):
+        sync()
+        if cuda:
+            torch.cuda.reset_peak_memory_stats(dev)
+        _cuda.reset_launches()
+        t = time.perf_counter()
+        out = fn()
+        sync()
+        rec = {"wall_s": time.perf_counter() - t,
+               "launches": dict(_cuda.launches),
+               "slices": dict(_cuda.slices)}
+        rec["peak_device_GB"] = (torch.cuda.max_memory_allocated(dev) / 1e9
+                                 if cuda else None)
+        return out, rec
+
+    out = {"level": level, "raw_bytes": len(data), "encodes": []}
+    native.match_find_arrays, api.device_bytes = find, nbytes
+    try:
+        enc = None
+        for _ in range(encodes):
+            acc["match_s"], acc["device_bytes"] = 0.0, []
+            budget = ST.device_budget(dev)
+            e, rec = timed(lambda: api.encode_fastq(
+                data, level=level, device=device, **overrides))
+            rec.update(match_host_s=acc["match_s"], device_budget=budget,
+                       block_device_bytes=acc["device_bytes"],
+                       compressed_bytes=len(e),
+                       sha256=hashlib.sha256(e).hexdigest())
+            out["encodes"].append(rec)
+            enc = enc or e
+            del e
+    finally:
+        native.match_find_arrays, api.device_bytes = real_find, real_bytes
+    out["sha256_agree"] = len({r["sha256"] for r in out["encodes"]}) == 1
+    dec, out["decode"] = timed(lambda: api.decode_fastq(enc, device=device))
+    out["round_trip_exact"] = dec == data
+    out["ratio"] = len(data) / len(enc)
+    return out
+
+
+def main() -> int:
+    p = argparse.ArgumentParser()
+    p.add_argument("--reads", type=int, default=65536)
+    p.add_argument("--read-len", type=int, default=16500)
+    p.add_argument("--level", type=int, default=4)
+    p.add_argument("--device", default=None)
+    args = p.parse_args()
+    import torch
+    if args.device is None and not torch.cuda.is_available():
+        print("longread_l4_torch: no CUDA device", file=sys.stderr)
+        return 1
+    from slimfastq_tpu_torch.utils.synth import synth_fastq
+    t = time.perf_counter()
+    data = synth_fastq(args.reads, read_len=args.read_len, seed=0,
+                       var_len=False, n_rate=0.0005)
+    make_s = time.perf_counter() - t
+    t = time.perf_counter()
+    arena = arena_cursor(data)
+    arena["reckon_s"] = time.perf_counter() - t
+    card = torch.cuda.get_device_name(0) if args.device is None else "cpu"
+    head = {"reads": args.reads, "read_len": args.read_len, "card": card,
+            "make_data_s": make_s}
+    # the arena first: it stands whatever the coding does
+    print(json.dumps({"long_read_arena": {**head, **arena}}), flush=True)
+    os.environ.setdefault("SFQ_MATCH_STATS", "1")
+    out = run(data, args.level, args.device)
+    print(json.dumps({"long_read_l4": {**head, "arena": arena, **out}}),
+          flush=True)
+    return 0 if out["round_trip_exact"] else 1
+
+
+if __name__ == "__main__":
+    sys.exit(main())
