@@ -103,13 +103,21 @@ Phases (any failure exits non-zero; nothing is caught):
      100 bp reads through the streaming CLI, encode and decode each in a
      fresh process, two 256 MiB read chunks: exact round trip, walls,
      GB/s, peak RSS above a CUDA-context base, ratio.
+ 11. the native matcher's faults, in a fresh process under a 120 s limit:
+     2,048 reads of 16 bp, each a distinct 16-mer that the default mask
+     samples (16 times the keys the matcher's index is first sized for),
+     through api.encode_fastq(level=4) / decode_fastq on the card
+     (Kernels E, C and D launched): the container equals the NumPy
+     oracle's, the round trip is exact, and match_find's milliseconds
+     are printed.
 
 Prints `compact_block_l3`, `compact_block_l4`, `compact_phase_l3`,
 `compact_phase_l4`, `block`, `block_l4`, `wall`, `wall_l4`,
 `window_kernels`, `window_walls`, `window_sweep`, `streaming`,
 `long_read`, `long_read_kernels`, `sharded`, `sharded_streaming`,
 `gather_nccl`, `l1_slices`, `python_pipeline`, `python_pipeline_s`,
-`single_stream_pack`, `entry`, `streaming_scale`, `earlier_ms`
+`single_stream_pack`, `entry`, `streaming_scale`, `matcher_faults`,
+`earlier_ms`
 (recorded constants),
 `phase_s` (seconds a phase) and `kernels` JSON lines, then the card's
 name and power limit and, as its last line, the `ok` JSON line.
@@ -161,6 +169,8 @@ PCIE_BYTES_PER_S = 64e9
 ORACLE_READS = 2048
 # the streaming run at scale: 0.5 GB of 100 bp reads, two 256 MiB chunks
 STREAM_SCALE_BYTES = 500_000_000
+# the native matcher's faults: reads of 16 bp, one sampled 16-mer each
+FAULT_READS, FAULT_LIMIT_S = 2048, 120
 # Recorded constants, printed on a line of their own (this script, H100
 # 80GB HBM3, 700 W): each kernel's time at the timed shape before E and D
 # moved their table law into shared memory, and Kernel C on QUAL alone
@@ -2142,6 +2152,129 @@ def streaming_scale() -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 11: the native matcher's faults
+# ---------------------------------------------------------------------------
+
+def sampled_kmer_fastq(n: int, seed: int = 0) -> bytes:
+    """n reads of 16 bp, each a distinct 16-mer k with mix64(k) & 15 == 0
+    (the default sampling mask takes it): every read is one key of the
+    matcher's index, 16 times the keys its first sizing expects."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    k = rng.integers(0, 1 << 32, size=64 * n, dtype=np.uint64)
+    x = k.copy()  # splitmix64's finalizer
+    x ^= x >> np.uint64(30)
+    x *= np.uint64(0xBF58476D1CE4E5B9)
+    x ^= x >> np.uint64(27)
+    x *= np.uint64(0x94D049BB133111EB)
+    x ^= x >> np.uint64(31)
+    k = k[(x & np.uint64(15)) == 0]
+    _, first = np.unique(k, return_index=True)
+    k = k[np.sort(first)][:n]
+    shifts = np.uint64(2) * np.arange(15, -1, -1, dtype=np.uint64)
+    codes = ((k[:, None] >> shifts) & np.uint64(3)).astype(np.uint8)
+    seq = np.frombuffer(b"ACGT", dtype=np.uint8)[codes]
+    qual = rng.integers(35, 74, size=(n, 16), dtype=np.uint8)
+    return b"".join(b"@s%d\n%s\n+\n%s\n" % (i, seq[i].tobytes(),
+                                             qual[i].tobytes())
+                    for i in range(n))
+
+
+def _matcher_child(d: str) -> int:
+    """`chip_smoke.py --matcher-child DIR`, a fresh process: DIR/in.fq
+    through api.encode_fastq(level=4) on the card, the launch counts set
+    to 0 just before and read just after, native.match_find_arrays timed
+    on the host clock; api.decode_fastq on the card the same way; the
+    NumPy oracle's container (backend="oracle"). Writes DIR/card.sfq and
+    DIR/oracle.sfq and prints one JSON line."""
+    import os
+    import torch
+    from slimfastq_tpu_torch import api, native
+    from slimfastq_tpu_torch.ops import _cuda
+    torch.zeros(1, device="cuda")
+    _cuda.build()
+    with open(os.path.join(d, "in.fq"), "rb") as f:
+        data = f.read()
+    find_ms, real_find = [], native.match_find_arrays
+
+    def find(*a, **k):
+        t = time.perf_counter()
+        try:
+            return real_find(*a, **k)
+        finally:
+            find_ms.append((time.perf_counter() - t) * 1e3)
+    out = {}
+    native.match_find_arrays = find
+    try:
+        _cuda.reset_launches()
+        t = time.perf_counter()
+        enc = api.encode_fastq(data, level=4, device="cuda")
+        torch.cuda.synchronize()
+        out["encode_ms"] = (time.perf_counter() - t) * 1e3
+        out["encode_launches"] = dict(_cuda.launches)
+    finally:
+        native.match_find_arrays = real_find
+    out["match_find_ms"] = find_ms
+    _cuda.reset_launches()
+    t = time.perf_counter()
+    dec = api.decode_fastq(enc, device="cuda")
+    torch.cuda.synchronize()
+    out["decode_ms"] = (time.perf_counter() - t) * 1e3
+    out["decode_launches"] = dict(_cuda.launches)
+    out["round_trip_exact"] = dec == data
+    t = time.perf_counter()
+    oracle = api.encode_fastq(data, level=4, backend="oracle")
+    out["oracle_encode_ms"] = (time.perf_counter() - t) * 1e3
+    for name, blob in (("card.sfq", enc), ("oracle.sfq", oracle)):
+        with open(os.path.join(d, name), "wb") as f:
+            f.write(blob)
+    print(json.dumps(out), flush=True)
+    return 0
+
+
+def matcher_faults() -> dict:
+    """FAULT_READS reads that fill the native matcher's first index table
+    (sampled_kmer_fastq) through the level-4 main path on the card in a
+    fresh process (_matcher_child) under FAULT_LIMIT_S: it returns, the
+    matcher ran once, Kernels E and C (encode) and D (decode) launched,
+    the container equals the oracle's byte for byte and the round trip is
+    exact. Prints the `matcher_faults` line, match_find's milliseconds in
+    it."""
+    import os
+    import tempfile
+    data = sampled_kmer_fastq(FAULT_READS)
+    with tempfile.TemporaryDirectory() as d:
+        with open(os.path.join(d, "in.fq"), "wb") as f:
+            f.write(data)
+        try:
+            r = subprocess.run([sys.executable, os.path.abspath(__file__),
+                                "--matcher-child", d], capture_output=True,
+                               text=True, timeout=FAULT_LIMIT_S)
+        except subprocess.TimeoutExpired:
+            raise AssertionError(f"matcher_faults: the level-4 encode did "
+                                 f"not end within {FAULT_LIMIT_S} s")
+        if r.returncode:
+            raise AssertionError(f"matcher_faults phase failed:\n"
+                                 f"{r.stdout[-2000:]}{r.stderr[-4000:]}")
+        out = json.loads(r.stdout.strip().splitlines()[-1])
+        with open(os.path.join(d, "card.sfq"), "rb") as f:
+            card = f.read()
+        with open(os.path.join(d, "oracle.sfq"), "rb") as f:
+            oracle = f.read()
+    e, dl = out["encode_launches"], out["decode_launches"]
+    out.update(reads=FAULT_READS, raw_bytes=len(data),
+               compressed_bytes=len(card), equals_oracle=card == oracle,
+               sha256=hashlib.sha256(card).hexdigest())
+    if not (out["equals_oracle"] and out["round_trip_exact"]
+            and len(out["match_find_ms"]) == 1
+            and e.get("lane_encode") and e.get("compact_lanes_dev")
+            and dl.get("lane_decode")):
+        raise AssertionError(f"matcher_faults: {out}")
+    print(json.dumps({"matcher_faults": out}), flush=True)
+    return out
+
+
 def _by_shard(shard: dict, name: str) -> dict:
     """Kernel `name`'s launches by shard in the level-3 sharded runs of
     the 4 x 64k set (the first run on each mesh)."""
@@ -2249,6 +2382,9 @@ def main() -> int:
     done("entry")
     streaming_scale()
     done("streaming_scale")
+    # the native matcher's faults, on the level-4 main path
+    matcher_faults()
+    done("matcher_faults")
 
     replaces = {
         "lane_encode": "slimfastq_tpu/ops/streams_jax.py:298",
@@ -2422,4 +2558,6 @@ if __name__ == "__main__":
         sys.exit(_streaming_child(sys.argv[2]))
     if sys.argv[1:2] == ["--gather-child"]:
         sys.exit(_gather_child(sys.argv[2]))
+    if sys.argv[1:2] == ["--matcher-child"]:
+        sys.exit(_matcher_child(sys.argv[2]))
     sys.exit(main())

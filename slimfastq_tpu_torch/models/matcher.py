@@ -36,7 +36,7 @@ reproduce it bit-for-bit; tests pin equality):
   * K = 16-base k-mers packed 2 bits MSB-first; a position is *sampled*
     iff splitmix64_mix(kmer) & SAMPLE_MASK == 0 (content-keyed sampling:
     index and query sample identical positions, so arbitrary shifts are
-    found). SAMPLE_MASK is an encoder knob (see its comment below).
+    found). The mask is an encoder knob (see sample_mask below).
   * Reads are processed in chunks of MATCH_CHUNK records; candidates come
     only from earlier chunks (lets the C++ matcher parallelise queries
     within a chunk; decode does not care).
@@ -78,14 +78,6 @@ import numpy as np
 from ..utils.bits import get_varint, put_varint
 
 K = 16
-# sample iff mix(kmer) & SAMPLE_MASK == 0 (content-keyed: index and
-# query sample identical positions). ENCODER policy, not bit format —
-# decode reads explicit descriptors. Default 15 (1/16) since round 5:
-# vs 7 (1/8) it costs +0.16..0.23% container size on the probe corpora
-# and cuts match_find ~38% (tools/probe_sample_mask.py re-measures).
-# The env override exists for that probe tool; the C++ twin reads the
-# same variable, so oracle/native equality holds under any setting.
-SAMPLE_MASK = int(os.environ.get("SFQ_MATCH_SAMPLE_MASK", "15"))
 MAX_CAND = 16
 MM_PENALTY = 8
 MATCH_CHUNK = 1024
@@ -96,6 +88,19 @@ U64 = np.uint64
 _B2C0 = np.zeros(256, dtype=np.uint8)   # non-ACGT -> 0 (coded codes)
 for _i, _b in enumerate(b"ACGT"):
     _B2C0[_b] = _i
+
+
+def sample_mask() -> int:
+    """The sampling mask: a position is sampled iff mix(kmer) & mask == 0
+    (content-keyed: index and query sample identical positions). ENCODER
+    policy, not bit format — decode reads explicit descriptors. Default
+    15 (1/16) since round 5: vs 7 (1/8) it costs +0.16..0.23% container
+    size on the probe corpora and cuts match_find ~38%
+    (tools/probe_sample_mask.py re-measures). SFQ_MATCH_SAMPLE_MASK
+    overrides it for that probe; it is read here, at each call, and by
+    nothing else: the oracle (find_matches) and the native twin's wrapper
+    (native.match_find_arrays) both take the mask from here."""
+    return int(os.environ.get("SFQ_MATCH_SAMPLE_MASK", "15"))
 
 
 def _mix64(x: np.ndarray) -> np.ndarray:
@@ -127,11 +132,14 @@ def _kmers(c: np.ndarray) -> np.ndarray:
     return out
 
 
-def _sampled(km: np.ndarray) -> np.ndarray:
-    """Positions whose kmer is content-sampled."""
+def _sampled(km: np.ndarray, mask: int | None = None) -> np.ndarray:
+    """Positions whose kmer is content-sampled under ``mask``
+    (sample_mask() when None)."""
     if km.size == 0:
         return np.empty(0, dtype=np.int64)
-    return np.flatnonzero((_mix64(km) & U64(SAMPLE_MASK)) == U64(0))
+    if mask is None:
+        mask = sample_mask()
+    return np.flatnonzero((_mix64(km) & U64(mask)) == U64(0))
 
 
 def span_bounds(orient: int, v: int, L: int, Lref: int) -> tuple[int, int]:
@@ -164,6 +172,7 @@ def find_matches(codes: list[np.ndarray]) -> list[tuple[int, int, int, int]
     index: dict[int, list[tuple[int, int]]] = {}
     out: list[tuple[int, int, int, int] | None] = [None] * n
     min_score = min(THRESHOLDS)
+    mask = sample_mask()
 
     for g_lo in range(0, n, MATCH_CHUNK):
         g_hi = min(g_lo + MATCH_CHUNK, n)
@@ -178,7 +187,7 @@ def find_matches(codes: list[np.ndarray]) -> list[tuple[int, int, int, int]
                     # (arr = rc(c)) this is exactly the frozen fwd-coords
                     # rule: c[i] = 3-arr[L-1-i] ~= 3-c_ref[(L-1+v)-i]
                     km = _kmers(arr)
-                    for p in _sampled(km):
+                    for p in _sampled(km, mask):
                         for (ref, q) in index.get(int(km[p]), ()):
                             v = int(q - p)
                             key = (ref, orient, v)
@@ -204,7 +213,7 @@ def find_matches(codes: list[np.ndarray]) -> list[tuple[int, int, int, int]
         # index this chunk's forward kmers
         for r in range(g_lo, g_hi):
             km = _kmers(codes[r])
-            for p in _sampled(km):
+            for p in _sampled(km, mask):
                 lst = index.setdefault(int(km[p]), [])
                 if len(lst) < MAX_CAND:
                     lst.append((r, int(p)))

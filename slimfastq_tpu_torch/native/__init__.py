@@ -13,6 +13,8 @@ import subprocess
 
 import numpy as np
 
+from ..models.matcher import sample_mask
+
 _DIR = os.path.dirname(os.path.abspath(__file__))
 _SRC = os.path.join(_DIR, "host.cpp")
 _SO = os.path.join(_DIR, "_host.so")
@@ -118,7 +120,7 @@ def _load():
     lib.seqx_apply.restype = i64
     lib.seqx_apply.argtypes = [pp8, pi64, i64, i64, i64, pi64, pi64, p8]
     lib.match_find.restype = i64
-    lib.match_find.argtypes = [p8, pi64, pi64, i64, i64, pi64, p8,
+    lib.match_find.argtypes = [p8, pi64, pi64, i64, i64, i64, pi64, p8,
                                pi64, pi64]
     lib.match_apply.restype = None
     lib.match_apply.argtypes = [p8, p8, pi64, pi64, i64, pi64, p8,
@@ -164,13 +166,14 @@ def available() -> bool:
 
 
 class pipeline_omp_cap:
-    """Context manager: cap OpenMP team size while the 3-stage block
-    pipeline runs (2-3 Python threads each spawn their own libgomp
-    team; full-width teams oversubscribe the cores and thrash —
-    teams of cores/2 cut the decode wall and its variance). Restores the
-    previous width on exit so isolated stage calls keep full teams.
-    SFQ_PIPE_OMP_THREADS overrides the cap (0 = leave unchanged), as in
-    the JAX package."""
+    """Context manager: cap the OpenMP team size of the CALLING thread
+    while the 3-stage block pipeline runs (teams of cores/2 cut the
+    decode wall and its variance). An OpenMP thread count is per calling
+    thread (measured: tests/test_torch_tools.py), so the cap reaches only
+    the regions this thread starts; the prep pool's threads keep full
+    teams. Restores the previous width on exit so isolated stage calls
+    keep full teams. SFQ_PIPE_OMP_THREADS overrides the cap (0 = leave
+    unchanged), as in the JAX package."""
 
     def __enter__(self):
         env = os.environ.get("SFQ_PIPE_OMP_THREADS")
@@ -575,19 +578,31 @@ def flags_reorder(grouped: np.ndarray, n: int, wa: int) -> np.ndarray:
 def match_find_arrays(data: np.ndarray, seq_off: np.ndarray,
                       seq_len: np.ndarray, min_score: int):
     """Format v5 long-range matcher (C++ twin of models/matcher.py
-    find_matches; equality pinned by tests/test_match.py). Returns
-    (ref, orient, v, score) int64/uint8 arrays with ref < 0 for
-    unmatched reads — the production-path representation (the per-read
-    tuple list of match_find cost ~50 ms/64k block in Python object
-    churn; measured round 5)."""
+    find_matches, sampling under the same matcher.sample_mask(); equality
+    pinned by tests/test_torch_matcher.py). Returns (ref, orient, v,
+    score) int64/uint8 arrays with ref < 0 for unmatched reads — the
+    production-path representation (the per-read tuple list of
+    match_find cost ~50 ms/64k block in Python object churn; measured
+    round 5). Raises MemoryError when the library cannot allocate, and
+    OverflowError when the candidate arena would pass the 2^29 entries a
+    slot can address; there is no fallback."""
     n = len(seq_off)
     ref = np.empty(n, dtype=np.int64)
     orient = np.empty(n, dtype=np.uint8)
     v = np.empty(n, dtype=np.int64)
     score = np.empty(n, dtype=np.int64)
-    lib.match_find(_p8(data), _pi64(np.ascontiguousarray(seq_off)),
-                   _pi64(np.ascontiguousarray(seq_len)), n, min_score,
-                   _pi64(ref), _p8(orient), _pi64(v), _pi64(score))
+    r = lib.match_find(_p8(data), _pi64(np.ascontiguousarray(seq_off)),
+                       _pi64(np.ascontiguousarray(seq_len)), n, min_score,
+                       sample_mask(), _pi64(ref), _p8(orient), _pi64(v),
+                       _pi64(score))
+    if r == -1:
+        raise MemoryError("match_find: the candidate arena's realloc "
+                          "failed")
+    if r == -3:
+        raise MemoryError("match_find: out of memory")
+    if r == -2:
+        raise OverflowError("match_find: the candidate arena passes the "
+                            "2^29 entries a slot's block field holds")
     return ref, orient, v, score
 
 

@@ -1579,19 +1579,13 @@ void minmax_ranges(const uint8_t* src, const int64_t* offs,
 // ---------------------------------------------------------------------------
 
 static const int MK = 16;            // k-mer length
-// sample iff mix & MSAMPLE == 0. Default 15 (1/16, round 5 — measured
-// +0.16..0.23% container for -38% match_find vs 1/8) — ENCODER policy,
-// not bit format (decode reads explicit descriptors).
-// SFQ_MATCH_SAMPLE_MASK overrides for ratio/speed probes
-// (tools/probe_sample_mask.py); models/matcher.py reads the same
-// variable so oracle/native equality holds under any setting.
-static uint64_t MSAMPLE = 15;
-static struct MSampleEnv {
-    MSampleEnv() {
-        const char* e = std::getenv("SFQ_MATCH_SAMPLE_MASK");
-        if (e) MSAMPLE = (uint64_t)strtoull(e, nullptr, 10);
-    }
-} _msample_env;
+// A position is sampled iff mix & mask == 0, `mask` being match_find's
+// `sample_mask` argument: models/matcher.sample_mask() reads
+// SFQ_MATCH_SAMPLE_MASK when it is called (default 15: 1/16, round 5 —
+// measured +0.16..0.23% container for -38% match_find vs 1/8) and both
+// the oracle and this twin's caller take it from there, so the two
+// cannot sample differently. ENCODER policy, not bit format (decode
+// reads explicit descriptors).
 static const int MMAXC = 16;         // index entries per kmer
 static const int MPEN = 8;           // mismatch penalty
 static const int64_t MCHUNK = 1024;  // index chunk (records)
@@ -1624,7 +1618,7 @@ static const char M_C2B[4] = {'A', 'C', 'G', 'T'};
 // 16, so order of arrival matters).
 struct MEntry { int32_t ref; int32_t pos; };
 // 8-byte slot (round 5): a K=16 kmer is exactly 2K=32 bits, so the key
-// needs no u64; blk/cnt pack into the second word (bc = blk << 5 | cnt,
+// needs no u64; blk/cnt pack into the second word (bc = unit << 5 | cnt,
 // bc == 0 <=> empty since occupied slots have cnt >= 1). Halving the
 // slot size halves the probe-phase cache footprint of the ~16-32 MB
 // table — the query walk is miss-bound, not compute-bound (measured:
@@ -1632,6 +1626,12 @@ struct MEntry { int32_t ref; int32_t pos; };
 // order are unchanged, so the candidate sets — and the frozen
 // selection — are bit-identical.
 struct MSlot { uint32_t key; uint32_t bc; };
+// Candidate blocks start on multiples of MUNIT entries (the cursor
+// steps by 4 and by MMAXC), so the 27-bit field counts MUNIT-entry
+// units: it holds a block start below MARENA_MAX = 2^29 entries, and an
+// insert that would take the cursor past that fails instead of wrapping.
+static const int64_t MUNIT = 4;
+static const int64_t MARENA_MAX = (int64_t)MUNIT << 27;
 
 struct MIndex {
     std::vector<MSlot> slots;
@@ -1642,22 +1642,51 @@ struct MIndex {
     MEntry* arena = nullptr;
     int64_t acap = 0, asize = 0;
     uint64_t mask;
+    int64_t used = 0;  // occupied slots
     ~MIndex() { free(arena); }
-    void init(size_t expected) {
+    bool init(size_t expected) {
         size_t cap = 64;
         while (cap < expected * 2) cap <<= 1;
         slots.assign(cap, MSlot{0, 0});
-        grow((int64_t)(expected * 5 + 64));
         mask = cap - 1;
+        return grow((int64_t)(expected * 5 + 64));
     }
-    void grow(int64_t need) {
-        if (need <= acap) return;
+    // false when realloc fails: the old block stays (the destructor
+    // frees it) and the caller stops
+    bool grow(int64_t need) {
+        if (need <= acap) return true;
         int64_t nc = acap * 2 > need ? acap * 2 : need;
-        arena = (MEntry*)realloc(arena, (size_t)nc * sizeof(MEntry));
+        MEntry* p = (MEntry*)realloc(arena, (size_t)nc * sizeof(MEntry));
+        if (!p) return false;
+        arena = p;
         acap = nc;
+        return true;
+    }
+    // Room for `add` more keys at a load of at most 1/2 (linear probing
+    // has no fullness check: a full table spins). Otherwise rehash into a
+    // table of twice the size, or more: each occupied slot's (key, bc)
+    // moves to its home under the new mask. The arena does not move, so
+    // every key keeps its candidates in their order.
+    void reserve(int64_t add) {
+        size_t cap = (size_t)mask + 1;
+        size_t need = (size_t)(used + add) * 2;
+        if (need <= cap) return;
+        while (cap < need) cap <<= 1;
+        std::vector<MSlot> old(cap, MSlot{0, 0});
+        old.swap(slots);
+        mask = cap - 1;
+        for (const MSlot& s : old) {
+            if (s.bc == 0) continue;
+            uint64_t i = home(s.key, mask);
+            while (slots[i].bc != 0) i = (i + 1) & mask;
+            slots[i] = s;
+        }
     }
     static inline uint64_t home(uint32_t key, uint64_t mask_) {
         return (mix64(key) >> 3) & mask_;
+    }
+    static inline int64_t block(uint32_t bc) {
+        return (int64_t)(bc >> 5) * MUNIT;
     }
     // find starting from the precomputed home slot (callers prefetch it)
     const MSlot* find_from(uint64_t i, uint32_t key) const {
@@ -1674,34 +1703,38 @@ struct MIndex {
     // arena LAYOUT then depends on thread interleaving, but nothing
     // observable does: per-key entry order (the frozen part) is fixed
     // by who inserts the key's entries — one thread per region — and
-    // candidate blocks stay contiguous per key.
-    void insert(uint32_t key, int32_t ref, int32_t pos,
-                std::atomic<int64_t>& cur) {
+    // candidate blocks stay contiguous per key. Returns 1 when the key
+    // took a free slot, 0 when it had one, -1 (nothing written) when
+    // its block would end past MARENA_MAX.
+    int insert(uint32_t key, int32_t ref, int32_t pos,
+               std::atomic<int64_t>& cur) {
         uint64_t i = home(key, mask);
         for (;;) {
             MSlot& s = slots[i];
             if (s.bc != 0 && s.key == key) {
                 int32_t cnt = (int32_t)(s.bc & 31);
-                int32_t blk = (int32_t)(s.bc >> 5);
-                if (cnt >= MMAXC) return;
+                int64_t blk = block(s.bc);
+                if (cnt >= MMAXC) return 0;
                 if (cnt == 4) {  // grow 4 -> MMAXC, stay contiguous
-                    int32_t nb = (int32_t)cur.fetch_add(
+                    int64_t nb = cur.fetch_add(
                         MMAXC, std::memory_order_relaxed);
+                    if (nb + MMAXC > MARENA_MAX) return -1;
                     for (int j = 0; j < 4; j++)
                         arena[nb + j] = arena[blk + j];
                     blk = nb;
                 }
                 arena[blk + cnt] = MEntry{ref, pos};
-                s.bc = ((uint32_t)blk << 5) | (uint32_t)(cnt + 1);
-                return;
+                s.bc = ((uint32_t)(blk / MUNIT) << 5)
+                       | (uint32_t)(cnt + 1);
+                return 0;
             }
             if (s.bc == 0) {
-                int32_t b = (int32_t)cur.fetch_add(
-                    4, std::memory_order_relaxed);
+                int64_t b = cur.fetch_add(4, std::memory_order_relaxed);
+                if (b + 4 > MARENA_MAX) return -1;
                 arena[b] = MEntry{ref, pos};
                 s.key = key;
-                s.bc = ((uint32_t)b << 5) | 1u;
-                return;
+                s.bc = ((uint32_t)(b / MUNIT) << 5) | 1u;
+                return 1;
             }
             i = (i + 1) & mask;
         }
@@ -1783,15 +1816,16 @@ static inline int64_t m_score_mm(const uint8_t* a, const uint8_t* b,
     return mm;
 }
 
-extern "C" {
+// match_find's failures (it returns the matched count, >= 0, otherwise)
+static const int64_t MF_ARENA_ALLOC = -1;   // the candidate arena's realloc
+static const int64_t MF_ARENA_FIELD = -2;   // the arena passes MARENA_MAX
+static const int64_t MF_BAD_ALLOC = -3;     // another allocation
 
-// Best match per read. Outputs ref=-1 when no candidate reaches
-// min_score. Deterministic and OpenMP-safe (queries are read-only per
-// chunk; insertion is serial between chunks). Returns matched count.
-int64_t match_find(const uint8_t* data, const int64_t* seq_off,
-                   const int64_t* seq_len, int64_t n, int64_t min_score,
-                   int64_t* out_ref, uint8_t* out_orient, int64_t* out_v,
-                   int64_t* out_score) {
+static int64_t match_find_impl(const uint8_t* data, const int64_t* seq_off,
+                               const int64_t* seq_len, int64_t n,
+                               int64_t min_score, uint64_t smask,
+                               int64_t* out_ref, uint8_t* out_orient,
+                               int64_t* out_v, int64_t* out_score) {
     m_b2c0_init();
     // SFQ_MATCH_STATS=1: phase wall-time breakdown to stderr (probe tool
     // for the round-5 "put the matcher on the TPU or make it cheap" work)
@@ -1815,7 +1849,8 @@ int64_t match_find(const uint8_t* data, const int64_t* seq_off,
     for (int64_t r = 0; r < n; r++)
         if (seq_len[r] >= MK) total_kmers += seq_len[r] - MK + 1;
     MIndex index;
-    index.init((size_t)(total_kmers / (MSAMPLE + 1) + 64));
+    if (!index.init((size_t)(total_kmers / (smask + 1) + 64)))
+        return MF_ARENA_ALLOC;
     t_arena = now() - t0;
 
     for (int64_t r = 0; r < n; r++) out_ref[r] = -1;
@@ -1848,7 +1883,7 @@ int64_t match_find(const uint8_t* data, const int64_t* seq_off,
             for (int j = 0; j < MK; j++) acc = (acc << 2) | c[j];
             for (int64_t p = 0; p <= L - MK; p++) {
                 if (p) acc = ((acc << 2) | c[p + MK - 1]) & kmask;
-                if ((mix64(acc) & MSAMPLE) == 0)
+                if ((mix64(acc) & smask) == 0)
                     sv.emplace_back((int32_t)p, (uint32_t)acc);
             }
         }
@@ -1888,7 +1923,7 @@ int64_t match_find(const uint8_t* data, const int64_t* seq_off,
                         for (int64_t p = 0; p <= L - MK; p++) {
                             if (p) acc = ((acc << 2) | arr[p + MK - 1])
                                        & kmask;
-                            if ((mix64(acc) & MSAMPLE) == 0)
+                            if ((mix64(acc) & smask) == 0)
                                 rcs.emplace_back((int32_t)p,
                                                  (uint32_t)acc);
                         }
@@ -1906,7 +1941,7 @@ int64_t match_find(const uint8_t* data, const int64_t* seq_off,
                     auto probe = [&](const MSlot* slot, int64_t p,
                                      int orient, const uint8_t* arr) {
                         const MEntry* blk =
-                            index.arena + (slot->bc >> 5);
+                            index.arena + MIndex::block(slot->bc);
                         int32_t cnt = (int32_t)(slot->bc & 31);
                         // Chain refs are non-decreasing (inserted chunk
                         // by chunk in record order), so walk BACKWARD:
@@ -2002,7 +2037,7 @@ int64_t match_find(const uint8_t* data, const int64_t* seq_off,
                         slotp[i] = s;
                         if (s) {
                             const MEntry* b = index.arena
-                                + (s->bc >> 5);
+                                + MIndex::block(s->bc);
                             __builtin_prefetch(b);
                             if ((s->bc & 31) > 8)
                                 __builtin_prefetch(b + 8);
@@ -2046,6 +2081,10 @@ int64_t match_find(const uint8_t* data, const int64_t* seq_off,
         for (int64_t r = g_lo; r < g_hi; r++)
             for (const auto& pk : samp[(size_t)(r - g_lo)])
                 ins.push_back(MIns{pk.second, (int32_t)r, pk.first});
+        // each insert takes at most one free slot: the table is grown
+        // first if they could pass half of it (homes and tbits below
+        // come from the mask it then has)
+        index.reserve((int64_t)ins.size());
         int tbits = 0;
         while ((index.mask >> tbits) >= 256) tbits++;
         uint32_t bcount[257] = {0};
@@ -2058,21 +2097,25 @@ int64_t match_find(const uint8_t* data, const int64_t* seq_off,
                 = e;
         // Parallel insert (round 5): the radix buckets are disjoint
         // table regions, processed even-indexed then odd-indexed so a
-        // linear-probe run spilling past a region edge (load <= 0.5
-        // keeps runs to a few dozen slots; regions are thousands) can
-        // never reach a concurrently-active region. The frozen per-key
-        // entry order is preserved: a key's inserts all land in its
-        // home bucket (stable partition) and one thread owns a bucket.
-        // Tiny tables (regions too small for the spill argument) take
-        // the serial path.
+        // linear-probe run spilling past a region edge (load <= 0.5,
+        // kept by reserve(), keeps runs to a few dozen slots) can never
+        // reach a concurrently-active region. The frozen per-key entry
+        // order is preserved: a key's inserts all land in its home
+        // bucket (stable partition) and one thread owns a bucket.
+        // Tables whose regions hold fewer than 1,024 slots (too small
+        // for the spill argument) take the serial path.
         // NB: `arena` in this scope is the CODES arena; the candidate
         // arena is index.arena (sized here with worst-case slack for
-        // this chunk: one allocation of <= 16 entries per insert, then
-        // trimmed to the cursor)
+        // this chunk: one allocation of <= 16 entries per insert, never
+        // past MARENA_MAX, then trimmed to the cursor)
         std::atomic<int64_t> acur(index.asize);
-        index.grow(index.asize + 16 * (int64_t)ins2.size());
-        if (index.mask + 1 >= (1 << 14)) {
-#pragma omp parallel
+        int64_t need = index.asize + 16 * (int64_t)ins2.size();
+        if (!index.grow(need < MARENA_MAX ? need : MARENA_MAX))
+            return MF_ARENA_ALLOC;
+        int64_t added = 0;
+        int past = 0;
+        if (index.mask + 1 >= ((uint64_t)1 << 18)) {
+#pragma omp parallel reduction(+ : added) reduction(| : past)
             for (int phase = 0; phase < 2; phase++) {
                 // one parallel region, two worksharing loops: the
                 // implicit barrier after each `omp for` separates the
@@ -2086,16 +2129,23 @@ int64_t match_find(const uint8_t* data, const int64_t* seq_off,
                             __builtin_prefetch(&index.slots[
                                 (mix64(ins2[i + 8].key) >> 3)
                                 & index.mask], 1);
-                        index.insert(ins2[i].key, ins2[i].ref,
-                                     ins2[i].pos, acur);
+                        int k = index.insert(ins2[i].key, ins2[i].ref,
+                                             ins2[i].pos, acur);
+                        if (k < 0) past = 1;
+                        else added += k;
                     }
                 }
             }
         } else {
-            for (size_t i = 0; i < ins2.size(); i++)
-                index.insert(ins2[i].key, ins2[i].ref, ins2[i].pos,
-                             acur);
+            for (size_t i = 0; i < ins2.size(); i++) {
+                int k = index.insert(ins2[i].key, ins2[i].ref,
+                                     ins2[i].pos, acur);
+                if (k < 0) past = 1;
+                else added += k;
+            }
         }
+        if (past) return MF_ARENA_FIELD;
+        index.used += added;
         index.asize = acur.load();
         t_insert += now() - t0;
     }
@@ -2108,6 +2158,27 @@ int64_t match_find(const uint8_t* data, const int64_t* seq_off,
                 t_insert * 1e3, (long long)n_probe, (long long)n_cand,
                 (long long)n_scored, (long long)matched);
     return matched;
+}
+
+extern "C" {
+
+// Best match per read. Outputs ref=-1 when no candidate reaches
+// min_score. Deterministic and OpenMP-safe (queries are read-only per
+// chunk; insertion is serial between chunks). A position is sampled iff
+// mix64(kmer) & sample_mask == 0. Returns the matched count, or a
+// negative MF_* code when an allocation fails or the candidate arena
+// would pass what a slot's block field holds.
+int64_t match_find(const uint8_t* data, const int64_t* seq_off,
+                   const int64_t* seq_len, int64_t n, int64_t min_score,
+                   int64_t sample_mask, int64_t* out_ref,
+                   uint8_t* out_orient, int64_t* out_v, int64_t* out_score) {
+    try {
+        return match_find_impl(data, seq_off, seq_len, n, min_score,
+                               (uint64_t)sample_mask, out_ref, out_orient,
+                               out_v, out_score);
+    } catch (const std::bad_alloc&) {
+        return MF_BAD_ALLOC;
+    }
 }
 
 // Emit the per-aux-lane MATCH descriptor streams (frozen v5 layout —

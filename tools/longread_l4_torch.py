@@ -13,8 +13,9 @@ the window's budget, Kernel E's launches and slices, the container's
 size and SHA-256; whether the two encodes' SHA-256 agree; the decode's
 wall and peak device memory and whether the round trip is exact; the
 ratio; and the matcher's candidate arena reckoned with NumPy from the
-sampling rule (arena_cursor) against the 27-bit block field of
-native/host.cpp's MIndex (a slot packs blk << 5 | cnt in 32 bits).
+sampling rule (arena_cursor) against what the 27-bit block field of
+native/host.cpp's MIndex holds (a slot packs blk / 4 << 5 | cnt in 32
+bits: 2^29 entries; match_find raises past it).
 
 Usage: python3 tools/longread_l4_torch.py [--reads N] [--read-len L]
        [--level 4] [--device cpu]
@@ -33,9 +34,10 @@ import time
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))))
 
-# the arena's first 27 bits address a candidate block (MIndex::insert:
-# s.bc = blk << 5 | cnt in a uint32)
-BLK_LIMIT = 1 << 27
+# a slot's 27-bit field addresses a candidate block in 4-entry units
+# (MIndex::insert: s.bc = blk / 4 << 5 | cnt in a uint32), so the arena
+# holds 2^29 entries
+BLK_LIMIT = 1 << 29
 # arena entries a key takes: 4 on its first insert, 16 more on its fifth
 # (the 4-entry block grown once to MMAXC = 16, contiguous)
 FIRST_BLOCK, GROWN_BLOCK, GROW_AT = 4, 16, 5
@@ -73,7 +75,7 @@ def sampled_keys(data: bytes, chunk: int = 1024):
         # a K-mer is a read's when it starts at most L - K into it
         inread = np.arange(m) - np.repeat(starts, L)[:m] \
             <= np.repeat(L - M.K, L)[:m]
-        hit = inread & ((M._mix64(km) & np.uint64(M.SAMPLE_MASK)) == 0)
+        hit = inread & ((M._mix64(km) & np.uint64(M.sample_mask())) == 0)
         yield km[hit].astype(np.uint32)
 
 
