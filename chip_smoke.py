@@ -8,9 +8,10 @@ Run from the root of a checkout on a machine with a CUDA card:
 Phases (any failure exits non-zero; nothing is caught):
   1. the card's name and power limit, the torch/CUDA versions;
   2. build the CUDA kernels from csrc/ (one nvcc per source, in parallel);
-  3. kernels: each of Kernel E (lane_encode), D (lane_decode) and C
-     (compact_lanes_dev, one stream) against its plain PyTorch version on
-     the card, byte for byte, at W = 1024, Sp = 256 with the level-3 SEQ
+  3. kernels: each of Kernel E (lane_encode, coding from the symbols), D
+     (lane_decode) and C (compact_lanes_dev, one stream) against its plain
+     PyTorch version on the card, byte for byte, at W = 1024, Sp = 256
+     with the level-3 SEQ
      (all lanes at context 0 at every read start: the collision case,
      with 1,024 and with 700 active lanes, where the format's count field
      wraps) and QUAL geometries, at the aux width W = 64 with the byte and
@@ -20,9 +21,15 @@ Phases (any failure exits non-zero; nothing is caught):
      ragged mix of streams (W of 8 to 1,024, counts above CB, an empty
      stream, rows longer than one shared-memory stage); then E and D
      timed with CUDA events on the main path's own inputs (the pinned 64k
-     x 100 bp block's QUAL stream: W = 1024, Sp = 6400, NC = 800; and its
-     level-4 SEQ stream as the winning match trial codes it), where D's
-     output is held against the packed symbols, with the host's time for
+     x 100 bp block's QUAL stream: W = 1024, Sp = 6400, NC = 800, where E
+     is also held against its plain version; and its level-4 SEQ stream
+     as the winning match trial codes it), where D's output is held
+     against the packed symbols; Kernel L (lane_layout: pack mode, SEQ,
+     QUAL, pos and reset in one launch; step-input mode, pos and reset)
+     and Kernel U (lane_unpack) on the pinned block's own inputs
+     against their plain versions (the tensor-op chains they replaced),
+     timed (profiler records) beside them and their byte bounds, L then U
+     giving the block's qualities back; with the host's time for
      the level-4 matcher and trials; Kernel C's one launch over the pinned
      block's coded streams (7 at level 3, 11 at level 4, as encode_block
      hands them over; again with QUAL at the hard chunk size) against its
@@ -36,8 +43,10 @@ Phases (any failure exits non-zero; nothing is caught):
   4. main path, level 3 then level 4: the pinned block through
      api.encode_fastq / decode_fastq on the card: container size and
      SHA-256 equal the JAX package's, the round trip is exact, every
-     kernel's launch count moved (at level 4 the block takes a match
-     trial); at level 3 the block's seven E and seven D launches, on the
+     kernel's launch count moved, at level 3 exactly 1 L / 7 E / 1 C to
+     encode and 1 L / 7 D / 1 U to decode (at level 4 the block takes a
+     match trial, one L launch a trial); at level 3 the block's seven E
+     and seven D launches, on the
      main path's inputs, timed alone and launched at once through the main
      path's StreamSet (the block's coder span, first launch to join,
      beside the sum); at level 4 its E launches (with the trials' SEQ and
@@ -64,14 +73,14 @@ Phases (any failure exits non-zero; nothing is caught):
      resumed truncated copy and the streaming decode, with peak host RSS.
   6. long reads: one block of 65,536 x 16.5 kb reads (raw span past 2
      GiB) through api.encode_fastq / decode_fastq at the defaults: SEQ
-     and QUAL packed and unpacked on the host, Kernel E in step slices;
-     exact round trip, walls, peak device memory, launches and slices,
-     the block's device bytes against the window budget; E over the long
-     QUAL's slices, D on its payload and C on its chunk buffers, timed
-     beside their bounds, E held against its plain version over 2
-     slices; then the pinned block forced through the host-pack path
-     (small slices) keeps its SHA-256 at level 3 and level 4, and its
-     QUAL in slices equals one launch.
+     and QUAL packed and unpacked on the host, Kernel E once a stream;
+     exact round trip, walls, peak device memory, launches, the block's
+     device bytes against the window budget; E over the long QUAL in one
+     launch, D on its payload, C on its chunk buffers and L's step
+     inputs over the block, timed beside their bounds, E held against its
+     plain version on the first 2 chunks, L against its plain version;
+     then the pinned block forced through the host-pack path keeps its
+     SHA-256 at level 3 and level 4.
   7. block sharding (parallel.sharded) on make_mesh() (every card) and on
      a mesh naming cuda:0 twice (two shard threads): the pinned block
      keeps both SHA-256 pins; the 4 x 64k set at level 3 and 4 gives
@@ -80,9 +89,9 @@ Phases (any failure exits non-zero; nothing is caught):
      sharded encode (with a resume) and decode; ragged_all_gather on
      NCCL (world size 1, a fresh process) carrying the 4 blocks' shard
      containers, merged into the whole container; level 1 (tables in
-     shared memory) with every SEQ and QUAL stream in step slices equals
-     the unforced container, its QUAL in slices equals one launch, and E
-     over 2 slices equals its plain version.
+     shared memory) forced through the host-pack path equals the unforced
+     container, one E launch a SEQ/QUAL stream, and E on its QUAL's first
+     2 chunks equals its plain version.
   8. the host-side reference paths: the pinned block through the
      pure-Python pipeline (api.encode_fastq / decode_fastq with
      use_native=False: every stream's Kernels E and C, or D, launched one
@@ -96,7 +105,7 @@ Phases (any failure exits non-zero; nothing is caught):
      single-stream pack_device / unpack_device on the pinned block's QUAL
      timed beside their byte bounds and held against the pair form.
   9. the entry points (slimfastq_tpu_torch/entry.py): entry()'s flagship
-     step (the level-3 QUAL schedule, then Kernel E, launched once) on
+     step (Kernel E on level-3 QUAL symbols, launched once) on
      the card equals its CPU run; dryrun_multichip over every card
      round-trips its toy, production (W = 1024 / 64) and level-4 phases.
  10. the streaming run at scale (tools/bench_1gb_torch.py): 0.5 GB of
@@ -115,7 +124,7 @@ Prints `compact_block_l3`, `compact_block_l4`, `compact_phase_l3`,
 `compact_phase_l4`, `block`, `block_l4`, `wall`, `wall_l4`,
 `window_kernels`, `window_walls`, `window_sweep`, `streaming`,
 `long_read`, `long_read_kernels`, `sharded`, `sharded_streaming`,
-`gather_nccl`, `l1_slices`, `python_pipeline`, `python_pipeline_s`,
+`gather_nccl`, `level1`, `python_pipeline`, `python_pipeline_s`,
 `single_stream_pack`, `entry`, `streaming_scale`, `matcher_faults`,
 `earlier_ms`
 (recorded constants),
@@ -264,15 +273,15 @@ def _check_stream(kind, geom, syms_np, counts_np, pos, reset, dev, plain,
     from slimfastq_tpu_torch.ops import coder_torch, compact_torch
     from slimfastq_tpu_torch.ops import streams_torch as ST
     Sp, W = syms_np.shape
-    syms = torch.from_numpy(syms_np.astype(np.int32)).to(dev)
+    syms = torch.from_numpy(syms_np.astype(np.uint8)).to(dev)
     counts = torch.from_numpy(counts_np.astype(np.int32)).to(dev)
     mflag = None if mflag_np is None else torch.from_numpy(mflag_np).to(dev)
-    idx_c, bit_c = ST._schedule(kind, geom, syms, pos, reset, counts, mflag)
+    item = coder_torch.EncIn(syms, pos, reset, counts, mflag)
     CB = ST._chunk_bytes(geom.depth, hard=False)
-    enc_k = coder_torch.lane_encode(idx_c, bit_c, geom, CB)
+    enc_k = coder_torch.lane_encode_blocks([item], kind, geom, CB)[0]
     torch.cuda.synchronize()
     t = time.perf_counter()
-    enc_p = coder_torch.lane_encode_plain(idx_c, bit_c, geom, CB)
+    enc_p = coder_torch.lane_encode_blocks_plain([item], kind, geom, CB)[0]
     torch.cuda.synchronize()
     plain["lane_encode"] = (time.perf_counter() - t) * 1e3
     _compare(errs, "lane_encode", f"lane_encode {kind} W={W}", enc_k,
@@ -294,8 +303,8 @@ def _check_stream(kind, geom, syms_np, counts_np, pos, reset, dev, plain,
                                  low.cpu().numpy().view(np.uint32),
                                  counts_np)
     args = (torch.from_numpy(pay).to(dev),
-            torch.from_numpy(lens.astype(np.int32)).to(dev),
-            ST._acts(counts, Sp), pos, reset)
+            torch.from_numpy(lens.astype(np.int32)).to(dev), counts, pos,
+            reset)
     dec_k = coder_torch.lane_decode(*args, kind, geom, mflag)
     torch.cuda.synchronize()
     t = time.perf_counter()
@@ -305,7 +314,8 @@ def _check_stream(kind, geom, syms_np, counts_np, pos, reset, dev, plain,
     _compare(errs, "lane_decode", f"lane_decode {kind} W={W}", dec_k,
              dec_p)
     mask = np.arange(Sp)[:, None] < counts_np[None, :]
-    if not np.array_equal(dec_k.cpu().numpy()[mask], syms_np[mask]):
+    if not np.array_equal(dec_k.cpu().numpy()[mask],
+                          syms_np.astype(np.uint8)[mask]):
         raise AssertionError(f"{kind}: decode does not invert encode")
 
 
@@ -367,12 +377,17 @@ def check_kernels(dev):
 # ---------------------------------------------------------------------------
 
 def time_kernels(data: bytes, dev, errs: dict) -> dict:
-    """Device times (ms) and byte bounds of E and D on the pinned block's
-    QUAL stream (the longest serial chain of the block), whose inputs come
-    from the main path's own setup (pipeline_native.prepare_block_fast,
-    streams_torch.seq_qual_jobs). At this size C (one stream) is also held
-    against its plain version (recorded in `errs`) and D's output against
-    the packed QUAL symbols."""
+    """Device times (ms) and byte bounds of E, D, L and U on the pinned
+    block's own inputs (pipeline_native.prepare_block_fast,
+    streams_torch.seq_qual_jobs): E and D on its QUAL stream (the longest
+    serial chain of the block), E held against its plain version at this
+    full shape (`errs`; the plain version's host time recorded); Kernel
+    L's pack mode (SEQ, QUAL, pos, reset) and step-input mode (pos,
+    reset) and Kernel U (both streams back to their record-major
+    bytes) held against their plain versions and timed beside them (the
+    tensor-op chains the kernels replace, on the card). At this size C
+    (one stream) is also held against its plain version and D's output
+    against the packed QUAL symbols."""
     import numpy as np
     import torch
     from slimfastq_tpu_torch import native
@@ -385,20 +400,30 @@ def time_kernels(data: bytes, dev, errs: dict) -> dict:
     idx, n = native.fastq_index(data)
     pre = prepare_block_fast(np.frombuffer(data, dtype=np.uint8), idx, 0, n,
                              cfg)
-    q = next(j for j in ST.seq_qual_jobs(*seq_qual_args(pre, cfg), dev)
-             if j.name == "QUAL")
+    args = seq_qual_args(pre, cfg)
+    q = next(j for j in ST.seq_qual_jobs(*args, dev) if j.name == "QUAL")
     Sp, W = q.syms.shape
-    NC, KD, _ = q.idx_c.shape
+    NC, KD = q.item.NC, 8 * q.geom.depth
     out = {"shape": {"W": W, "Sp": Sp, "NC": NC, "depth": q.geom.depth},
            "bit_steps": NC * KD}
     CB = ST._chunk_bytes(q.geom.depth, hard=False)
-    ebufs, eptrs, low, emax = coder_torch.lane_encode(q.idx_c, q.bit_c,
-                                                      q.geom, CB)
+
+    def enc():
+        return coder_torch.lane_encode_blocks([q.item], "qual", q.geom, CB)[0]
+    ebufs, eptrs, low, emax = enc()
     if int(emax) > CB:
         raise AssertionError("QUAL: optimistic chunk buffer overflowed")
-    e_ms = _time_ms(lambda: coder_torch.lane_encode(q.idx_c, q.bit_c, q.geom,
-                                                    CB), 3)
-    e_bytes = 2 * q.idx_c.numel() * 4 + ebufs.numel() + eptrs.numel() * 4 \
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    plain = coder_torch.lane_encode_blocks_plain([q.item], "qual", q.geom,
+                                                 CB)[0]
+    torch.cuda.synchronize()
+    out["lane_encode_plain_full_ms"] = (time.perf_counter() - t) * 1e3
+    _compare(errs, "lane_encode", f"lane_encode qual at the pinned block's "
+             f"shape (Sp={Sp}, W={W})", (ebufs, eptrs, low, emax), plain)
+    del plain
+    e_ms = _time_ms(enc, 3)
+    e_bytes = 9 * Sp * W + W * 4 + ebufs.numel() + eptrs.numel() * 4 \
         + W * 4
     totals = eptrs.sum(dim=0)
     Bmax = int(totals.max())
@@ -409,24 +434,106 @@ def time_kernels(data: bytes, dev, errs: dict) -> dict:
                                  totals.cpu().numpy().astype(np.int64),
                                  low.cpu().numpy().view(np.uint32),
                                  q.counts.cpu().numpy())
-    acts = ST._acts(q.counts, Sp)
     dargs = (torch.from_numpy(pay).to(dev),
-             torch.from_numpy(lens.astype(np.int32)).to(dev), acts, q.pos,
-             q.reset)
+             torch.from_numpy(lens.astype(np.int32)).to(dev), q.counts,
+             q.pos, q.reset)
     dec = coder_torch.lane_decode(*dargs, "qual", q.geom)
-    mask = acts.bool()
-    if not torch.equal(dec[mask].int(), q.syms[mask]):
+    mask = torch.arange(Sp, device=dev)[:, None] < q.counts[None, :]
+    if not torch.equal(dec[mask], q.syms[mask]):
         raise AssertionError("lane_decode of the pinned block's QUAL stream "
                              "does not return its packed symbols")
     d_ms = _time_ms(lambda: coder_torch.lane_decode(*dargs, "qual", q.geom),
                     3)
-    d_bytes = pay.size + W * 4 + 3 * Sp * W * 4 + Sp * W
+    d_bytes = pay.size + 2 * W * 4 + 2 * Sp * W * 4 + Sp * W
     out["lane_encode"] = (e_ms, e_bytes)
     out["lane_decode"] = (d_ms, d_bytes)
-    print(f"kernels at the main path's shape: compact equals its plain "
-          f"version (NC={NC}, W={W}), decode returns the packed QUAL "
-          f"symbols", flush=True)
+    out.update(lanes(args, dev, errs))
+    print(f"kernels at the main path's shape: E equals its plain version "
+          f"({out['lane_encode_plain_full_ms']:.0f} ms plain), compact "
+          f"equals its plain version (NC={NC}, W={W}), decode returns the "
+          f"packed QUAL symbols; L (pack and step inputs) and U equal their "
+          f"plain versions", flush=True)
     return out
+
+
+def lanes(args, dev, errs: dict) -> dict:
+    """Kernel L (pack mode, step-input mode) and Kernel U on a block's own
+    inputs (seq_qual_args), each against its plain version (L's pack on
+    the active rows; the kernel writes 0 past a lane's count) and timed
+    (CUDA events) beside it, the plain version being the tensor-op chain
+    the kernel replaced; U's QUAL bytes must be the block's qualities.
+    Bytes: what the function must move (the records' bases and
+    qualities, offsets, lengths in; the rows out), at 3.35 TB/s."""
+    import numpy as np
+    import torch
+    from slimfastq_tpu_torch.ops import pack_torch as PT
+    from slimfastq_tpu_torch.ops import streams_torch as ST
+    from slimfastq_tpu_torch.ops.ranger import pad_steps
+    from slimfastq_tpu_torch.pipeline_native import _CODE_TO_BASE_FULL
+    (_, _, dpad, soffs, qoffs, lengths, W, seq_map, minq, ll_mat,
+     counts) = args
+    n, total = len(lengths), int(lengths.sum())
+    S = int(counts.max())
+    Sp = pad_steps(S)
+    d = ST._to(dpad, dev)
+    counts_t = ST._to(counts, dev, torch.int32)
+    active = torch.arange(Sp, device=dev)[:, None] < counts_t[None, :]
+
+    def pack():
+        return PT.lane_layout(d, soffs, qoffs, lengths, ll_mat, W, Sp, S,
+                              seq_map, minq)
+
+    def pack_plain():
+        return (*PT.pack_pair_plain(d, soffs, qoffs, lengths, W, Sp,
+                                    seq_map, minq),
+                *PT._pos_reset(ST._lane_lens(ll_mat, W, dev), Sp, S, W))
+    k, p = pack(), pack_plain()
+    _compare(errs, "lane_layout", "L pack mode vs plain (active rows)",
+             [x[active] for x in k[:2]], [x[active] for x in p[:2]])
+    _compare(errs, "lane_layout", "L pack mode's pos/reset vs plain",
+             k[2:], p[2:])
+    if k[0][~active].any() or k[1][~active].any():
+        raise AssertionError("L pack mode wrote a row past a lane's count")
+
+    def steps():
+        return PT.step_inputs(ll_mat, Sp, S, W, dev)
+
+    def steps_plain():
+        return PT._pos_reset(ST._lane_lens(ll_mat, W, dev), Sp, S, W)
+    _compare(errs, "lane_layout", "L step-input mode vs plain", steps(),
+             steps_plain())
+    starts = np.zeros(n, dtype=np.int64)
+    starts[1:] = np.cumsum(lengths[:-1])
+
+    def unpack():
+        return PT.unpack_pair(k[0], k[1], starts, lengths, W, total,
+                              _CODE_TO_BASE_FULL, minq)
+
+    def unpack_plain():
+        return PT.unpack_pair_plain(k[0], k[1], starts, lengths, W, total,
+                                    _CODE_TO_BASE_FULL, minq)
+    u = unpack()
+    _compare(errs, "lane_unpack", "U vs plain", u,
+             [x[:total] for x in unpack_plain()])
+    want_q = np.concatenate([dpad[o: o + L] for o, L in zip(qoffs, lengths)])
+    if not np.array_equal(u[1].cpu().numpy(), want_q):
+        raise AssertionError("L then U does not give the block's qualities")
+    rec = 16 * n + 4 * ll_mat.size  # offsets (2 x int64), lengths (int32)
+    nbytes = {"pack": 2 * total + rec + 256 + 10 * Sp * W,
+              "steps": 4 * ll_mat.size + 8 * Sp * W,
+              "unpack": 2 * total + 8 * n + 4 * n + 256 + 2 * total}
+    out = {}
+    for f, fn, fp, key in (
+            ("pack", pack, pack_plain, "lane_layout_kernel"),
+            ("steps", steps, steps_plain, "lane_layout_kernel"),
+            ("unpack", unpack, unpack_plain, "lane_unpack_kernel")):
+        out[f] = {"ms": _device_ms(fn, 20, key),
+                  "wrapper_ms": _time_ms(fn, 20),
+                  "plain_ms": _time_ms(fp, 3), "bytes": nbytes[f],
+                  "bound_ms": nbytes[f] / HBM_BYTES_PER_S * 1e3,
+                  "bound_by": "bytes"}
+    return {"lane_layout": {**out["pack"], "step_inputs": out["steps"]},
+            "lane_unpack": out["unpack"]}
 
 
 def time_kernels_l4(data: bytes, dev, errs4: dict) -> dict:
@@ -473,28 +580,28 @@ def time_kernels_l4(data: bytes, dev, errs4: dict) -> dict:
     for t_, alt, _, _, mflag in pre[6]["trials"]:
         job = next(ST.seq_qual_jobs(*PN.seq_qual_args(pre, cfg, alt), dev,
                                     mflag, ("SEQ",)))
-        pay, _ = ST.encode_block([("SEQ", "seq", job.geom, job.idx_c,
-                                    job.bit_c, pre[0]["SEQ"][3])],
-                                 dev)["SEQ"]
+        pay, _ = ST.encode_block([("SEQ", "seq", job.geom, job.item,
+                                   pre[0]["SEQ"][3])], dev)["SEQ"]
         if np.array_equal(pay, blk.streams["SEQ"].payload):
             break
     else:
         raise AssertionError("no trial gives the block's SEQ stream")
     host["winner"] = t_
     Sp, W = job.syms.shape
-    NC, KD, _ = job.idx_c.shape
+    NC, KD = job.item.NC, 8 * job.geom.depth
     out = {"shape": {"W": W, "Sp": Sp, "NC": NC, "depth": job.geom.depth,
                      "order": job.geom.order,
                      "table_entries": job.geom.table_size},
            "bit_steps": NC * KD, "host": host}
     CB = ST._chunk_bytes(job.geom.depth, hard=False)
-    ebufs, eptrs, low, emax = coder_torch.lane_encode(job.idx_c, job.bit_c,
-                                                      job.geom, CB)
+    def enc():
+        return coder_torch.lane_encode_blocks([job.item], "seq", job.geom,
+                                              CB)[0]
+    ebufs, eptrs, low, emax = enc()
     if int(emax) > CB:
         raise AssertionError("L4 SEQ: optimistic chunk buffer overflowed")
-    e_ms = _time_ms(lambda: coder_torch.lane_encode(
-        job.idx_c, job.bit_c, job.geom, CB), 3)
-    e_bytes = 2 * job.idx_c.numel() * 4 + ebufs.numel() + eptrs.numel() * 4 \
+    e_ms = _time_ms(enc, 3)
+    e_bytes = 10 * Sp * W + W * 4 + ebufs.numel() + eptrs.numel() * 4 \
         + W * 4
     totals = eptrs.sum(dim=0)
     Bmax = int(totals.max())
@@ -505,15 +612,15 @@ def time_kernels_l4(data: bytes, dev, errs4: dict) -> dict:
     mf[: mflag.shape[0]] = torch.from_numpy(mflag).to(dev)
     dargs = (ST._payload_tensor(blk.streams["SEQ"].payload, dev),
              ST._to(blk.streams["SEQ"].lane_lens, dev, torch.int32),
-             ST._acts(job.counts, Sp), job.pos, job.reset)
+             job.counts, job.pos, job.reset)
     dec = coder_torch.lane_decode(*dargs, "seq", job.geom, mf)
-    mask = dargs[2].bool()
-    if not torch.equal(dec[mask].int(), job.syms[mask]):
+    mask = torch.arange(Sp, device=dev)[:, None] < job.counts[None, :]
+    if not torch.equal(dec[mask], job.syms[mask]):
         raise AssertionError("lane_decode of the pinned block's L4 SEQ "
                              "stream does not return its trial symbols")
     d_ms = _time_ms(lambda: coder_torch.lane_decode(*dargs, "seq", job.geom,
                                                     mf), 3)
-    d_bytes = dargs[0].numel() + W * 4 + 3 * Sp * W * 4 + 2 * Sp * W
+    d_bytes = dargs[0].numel() + 2 * W * 4 + 2 * Sp * W * 4 + 2 * Sp * W
     out["lane_encode"] = (e_ms, e_bytes)
     out["lane_decode"] = (d_ms, d_bytes)
     print(f"L4 kernels at the main path's shape: the block keeps trial "
@@ -623,16 +730,16 @@ def block_compaction(data: bytes, dev, level: int, errs: dict) -> dict:
     pre = PN.prepare_block_fast(np.frombuffer(data, dtype=np.uint8), idx, 0,
                                 n, cfg)
     names, streams, tails = [], [], []
-    for name, kind, geom, idx_c, bit_c, _ in PN._coder_jobs(pre, cfg, dev):
+    for name, kind, geom, item, _ in PN._coder_jobs(pre, cfg, dev):
         CB = ST._chunk_bytes(geom.depth, hard=False)
-        ebufs, eptrs, low, emax = coder_torch.lane_encode(idx_c, bit_c, geom,
-                                                          CB)
+        ebufs, eptrs, low, emax = coder_torch.lane_encode_blocks(
+            [item], kind, geom, CB)[0]
         if int(emax) > CB:
             raise AssertionError(f"L{level} {name}: optimistic chunk buffer "
                                  "overflowed")
         if name == "QUAL":
-            hard = coder_torch.lane_encode(
-                idx_c, bit_c, geom, ST._chunk_bytes(geom.depth, hard=True))
+            hard = coder_torch.lane_encode_blocks(
+                [item], kind, geom, ST._chunk_bytes(geom.depth, hard=True))[0]
         names.append(name)
         tails.append(low)
         streams.append((ebufs, eptrs, max(int(eptrs.sum(dim=0).max()), 1)))
@@ -695,19 +802,35 @@ def barrier_us(dev) -> float:
 # phase 4: the main path
 # ---------------------------------------------------------------------------
 
+# launches a direction of the pinned 64k block on the main path at level
+# 3: Kernel L packs SEQ and QUAL with pos/reset (encode) or makes the step
+# inputs (decode), E or D codes the 7 streams, C compacts them, U unpacks
+MAIN_LAUNCHES_L3 = (
+    {"lane_encode": 7, "lane_decode": 0, "compact_lanes_dev": 1,
+     "lane_layout": 1, "lane_unpack": 0},
+    {"lane_encode": 0, "lane_decode": 7, "compact_lanes_dev": 0,
+     "lane_layout": 1, "lane_unpack": 1})
+
+
 def main_path(data: bytes, level: int) -> dict:
     """The pinned block through api.encode_fastq / decode_fastq at
-    `level`, the launch counts set to 0 just before and read just after.
-    At level 4 the block must take a match trial (MATCH_USED)."""
+    `level`, the launch counts set to 0 just before each direction and
+    read just after: at level 3 exactly MAIN_LAUNCHES_L3 (no schedule,
+    pack or pos/reset tensor op is left to launch), at level 4 every
+    kernel, one L launch for the block and one a match trial, and the
+    block must take a match trial (MATCH_USED). Returns the launches of
+    both directions summed."""
     import io
     from slimfastq_tpu_torch import api, container
     from slimfastq_tpu_torch.ops import _cuda
     from slimfastq_tpu_torch.pipeline import MATCH_USED
     _cuda.reset_launches()
     enc = api.encode_fastq(data, level=level, device="cuda")
+    enc_launches = dict(_cuda.launches)
+    _cuda.reset_launches()
     dec = api.decode_fastq(enc, device="cuda")
-    launches = dict(_cuda.launches)
-    descs = dict(_cuda.descs)
+    dec_launches = dict(_cuda.launches)
+    launches = {k: enc_launches[k] + dec_launches[k] for k in enc_launches}
     nbytes, want_sha = PINNED[level]
     if len(enc) != nbytes:
         raise AssertionError(f"L{level} container is {len(enc)} bytes, "
@@ -718,11 +841,20 @@ def main_path(data: bytes, level: int) -> dict:
                              "from the JAX package's")
     if dec != data:
         raise AssertionError(f"L{level} decode does not return the input")
-    idle = [k for k in ("lane_encode", "lane_decode", "compact_lanes_dev")
-            if launches[k] == 0]
+    idle = [k for k in launches if launches[k] == 0]
     if idle:
         raise AssertionError(f"kernels not launched on the L{level} main "
                              f"path: {idle}")
+    if level == 3 and (enc_launches, dec_launches) != MAIN_LAUNCHES_L3:
+        raise AssertionError(f"L3 launches: encode {enc_launches}, decode "
+                             f"{dec_launches}, expected {MAIN_LAUNCHES_L3}")
+    # at level 4 each trial codes SEQ@t and MATCH@t beside the 7 streams
+    if level == 4 and (enc_launches["lane_layout"]
+                       != (enc_launches["lane_encode"] - 7) // 2 + 1
+                       or dec_launches["lane_layout"] != 1
+                       or dec_launches["lane_unpack"] != 1):
+        raise AssertionError(f"L4 launches: encode {enc_launches}, decode "
+                             f"{dec_launches}")
     f = io.BytesIO(enc)
     cfg = container.read_header(f)
     flags = [blk.flags for blk in container.iter_blocks(f, cfg)]
@@ -730,8 +862,8 @@ def main_path(data: bytes, level: int) -> dict:
         raise AssertionError(f"L4 block flags {flags}: no MATCH_USED")
     print(f"main path L{level}: {len(data)} raw -> {len(enc)} bytes (ratio "
           f"{len(data) / len(enc):.4f}), SHA-256 equals the JAX package's, "
-          f"block flags {flags}, round trip exact, launches {launches} "
-          f"(descriptors {descs})", flush=True)
+          f"block flags {flags}, round trip exact, launches encode "
+          f"{enc_launches}, decode {dec_launches}", flush=True)
     return launches
 
 
@@ -760,8 +892,8 @@ def block_spans(data: bytes, dev) -> dict:
     decodes start together, so the decode span leaves out that host step.
     `device_half_ms` times the main path's own device halves
     (pipeline_native.encode_prepared_block, decode_block_device) with
-    events on the calling stream: schedules, packing, compaction and the
-    host's reads and flush included. The launches at once must give what
+    events on the calling stream: the lane layout, compaction, the unpack
+    and the host's reads and flush included. The launches at once must give what
     the launches alone give."""
     import numpy as np
     import torch
@@ -779,11 +911,12 @@ def block_spans(data: bytes, dev) -> dict:
     enc_ms, blk = _events_ms(lambda: PN.encode_prepared_block(pre, cfg, dev))
     dec_ms, _ = _events_ms(lambda: PN.decode_block_device(blk, cfg, dev))
     launches = {"encode": {}, "decode": {}}
-    for name, kind, geom, idx_c, bit_c, _counts in jobs:
+    for name, kind, geom, item, _counts in jobs:
         CB = ST._chunk_bytes(geom.depth, hard=False)
         launches["encode"][name] = (
-            lambda idx_c=idx_c, bit_c=bit_c, geom=geom, CB=CB:
-            coder_torch.lane_encode(idx_c, bit_c, geom, CB), (idx_c, bit_c))
+            lambda item=item, kind=kind, geom=geom, CB=CB:
+            coder_torch.lane_encode_blocks([item], kind, geom, CB)[0],
+            item.tensors())
         es = blk.streams[name]
         W = es.payload.shape[0]
         counts = ST._to(es.sym_counts, dev, torch.int32)
@@ -795,8 +928,7 @@ def block_spans(data: bytes, dev) -> dict:
         else:
             pos = reset = ST._pad2(None, Sp, W, dev)
         args = (ST._payload_tensor(es.payload, dev),
-                ST._to(es.lane_lens, dev, torch.int32), ST._acts(counts, Sp),
-                pos, reset)
+                ST._to(es.lane_lens, dev, torch.int32), counts, pos, reset)
         launches["decode"][name] = (
             lambda args=args, kind=kind, geom=geom:
             coder_torch.lane_decode(*args, kind, geom), args)
@@ -844,12 +976,12 @@ def l4_spans(data: bytes, dev) -> dict:
     enc_ms, blk = _events_ms(lambda: PN.encode_prepared_block(pre, cfg, dev))
     dec_ms, _ = _events_ms(lambda: PN.decode_block_device(blk, cfg, dev))
     fns = {}
-    for name, kind, geom, idx_c, bit_c, _counts in PN._coder_jobs(pre, cfg,
-                                                                  dev):
+    for name, kind, geom, item, _counts in PN._coder_jobs(pre, cfg, dev):
         CB = ST._chunk_bytes(geom.depth, hard=False)
-        fns[name] = (lambda idx_c=idx_c, bit_c=bit_c, geom=geom, CB=CB:
-                     coder_torch.lane_encode(idx_c, bit_c, geom, CB),
-                     (idx_c, bit_c))
+        fns[name] = (lambda item=item, kind=kind, geom=geom, CB=CB:
+                     coder_torch.lane_encode_blocks([item], kind, geom,
+                                                    CB)[0],
+                     item.tensors())
     alone = {k: _time_ms(fn, 1) for k, (fn, _) in fns.items()}
 
     def launch(serial: bool):
@@ -963,18 +1095,18 @@ def check_windows(dev, errs: dict) -> None:
             if match:
                 syms, mf = _match_layout(syms, pos, counts)
                 mflag = torch.from_numpy(mf).to(dev)
-            s = torch.from_numpy(syms.astype(np.int32)).to(dev)
+            s = torch.from_numpy(syms.astype(np.uint8)).to(dev)
             c = torch.from_numpy(counts.astype(np.int32)).to(dev)
-            scheds.append(ST._schedule(kind, geom, s, pos, reset, c, mflag))
+            scheds.append(CT.EncIn(s, pos, reset, c, mflag))
             inputs.append((s, counts, c, pos, reset, mflag))
         CB = ST._chunk_bytes(geom.depth, hard=False)
         what = f"L{level} {kind} window of {len(blocks)}"
-        enc = CT.lane_encode_blocks(scheds, geom, CB)
+        enc = CT.lane_encode_blocks(scheds, kind, geom, CB)
         _compare(errs, "lane_encode_blocks", f"{what}: E vs plain", enc,
-                 CT.lane_encode_blocks_plain(scheds, geom, CB))
+                 CT.lane_encode_blocks_plain(scheds, kind, geom, CB))
         _compare({}, "lane_encode_blocks", f"{what}: E vs one launch a "
-                 "block", enc, [CT.lane_encode(*sc, geom, CB)
-                                for sc in scheds])
+                 "block", enc, [CT.lane_encode_blocks([it], kind, geom, CB)[0]
+                                for it in scheds])
         items = []
         for (s, counts, c, pos, reset, mflag), e in zip(inputs, enc):
             if int(e[3]) > CB:
@@ -987,7 +1119,7 @@ def check_windows(dev, errs: dict) -> None:
                 e[2].cpu().numpy().view(np.uint32), counts)
             items.append((ST._payload_tensor(pay, dev),
                           torch.from_numpy(lens.astype(np.int32)).to(dev),
-                          ST._acts(c, s.shape[0]), pos, reset, mflag))
+                          c, pos, reset, mflag))
         dec = CT.lane_decode_blocks(items, kind, geom)
         _compare(errs, "lane_decode_blocks", f"{what}: D vs plain", dec,
                  CT.lane_decode_blocks_plain(items, kind, geom))
@@ -996,7 +1128,7 @@ def check_windows(dev, errs: dict) -> None:
                                 for it in items])
         for d, (s, _, c, *_r) in zip(dec, inputs):
             mask = torch.arange(s.shape[0], device=dev)[:, None] < c[None, :]
-            if not torch.equal(d[mask].int(), s[mask]):
+            if not torch.equal(d[mask], s[mask]):
                 raise AssertionError(f"{what}: decode does not invert "
                                      "encode")
     streams = []
@@ -1055,16 +1187,17 @@ def time_window(data: bytes, dev, bar_us: float, errs: dict) -> dict:
     groups = list(PN._window_jobs(pres, cfg, dev))
     q = next(g for g in groups if g[0] == "QUAL")
     geom = q[2]
-    scheds = [(m[1], m[2]) for m in q[3]]
+    scheds = [m[1] for m in q[3]]
     CB = ST._chunk_bytes(geom.depth, hard=False)
-    enc = CT.lane_encode_blocks(scheds, geom, CB)
-    e_ms = _time_ms(lambda: CT.lane_encode_blocks(scheds, geom, CB), 3)
-    e_one = sum(_time_ms(lambda sc=sc: CT.lane_encode(*sc, geom, CB), 1)
-                for sc in scheds)
-    e_bytes = sum(2 * i.numel() * 4 + e[0].numel() + e[1].numel() * 4
-                  + e[2].numel() * 4 for (i, _), e in zip(scheds, enc))
+    enc = CT.lane_encode_blocks(scheds, "qual", geom, CB)
+    e_ms = _time_ms(lambda: CT.lane_encode_blocks(scheds, "qual", geom, CB),
+                    3)
+    e_one = sum(_time_ms(lambda it=it: CT.lane_encode_blocks(
+        [it], "qual", geom, CB), 1) for it in scheds)
+    e_bytes = sum(9 * it.syms.numel() + e[0].numel() + e[1].numel() * 4
+                  + e[2].numel() * 8 for it, e in zip(scheds, enc))
     items, syms_ref = [], []
-    for pre, e, (_, i, _, counts) in zip(pres, enc, q[3]):
+    for pre, e, (_, _, counts) in zip(pres, enc, q[3]):
         Bmax = max(int(e[1].sum(dim=0).max()), 1)
         pay, tot = CC.compact_lanes_dev(e[0], e[1], Bmax)
         pay, lens = ST._flush_append(pay.cpu().numpy(),
@@ -1075,25 +1208,26 @@ def time_window(data: bytes, dev, bar_us: float, errs: dict) -> dict:
         Sp = job.syms.shape[0]
         items.append((torch.from_numpy(pay).to(dev),
                       torch.from_numpy(lens.astype(np.int32)).to(dev),
-                      ST._acts(job.counts, Sp), job.pos, job.reset))
+                      job.counts, job.pos, job.reset))
         syms_ref.append(job.syms)
     dec = CT.lane_decode_blocks(items, "qual", geom)
     for d, s, it in zip(dec, syms_ref, items):
-        mask = it[2].bool()
-        if not torch.equal(d[mask].int(), s[mask]):
+        mask = torch.arange(s.shape[0], device=dev)[:, None] < it[2][None, :]
+        if not torch.equal(d[mask], s[mask]):
             raise AssertionError("the window's QUAL decode does not return "
                                  "its packed symbols")
     # the plain versions on a prefix of every block: E on its first chunks,
     # D on their steps (a prefix decodes exactly from the whole payload)
     n_steps = CHUNK_STEPS * PLAIN_CHUNKS
-    pre_e = [(i[:PLAIN_CHUNKS], b[:PLAIN_CHUNKS]) for i, b in scheds]
-    pre_d = [(p, ln, *(x[:n_steps] for x in rest))
-             for p, ln, *rest in items]
+    pre_e = [CT.EncIn(*(x[:n_steps] for x in it[:3]), it.counts)
+             for it in scheds]
+    pre_d = [(p, ln, c, *(x[:n_steps] for x in rest))
+             for p, ln, c, *rest in items]
     plain, prefix_ms = {}, {}
     for name, args, kernel, plain_fn in (
             ("lane_encode_blocks", pre_e,
-             lambda a: CT.lane_encode_blocks(a, geom, CB),
-             lambda a: CT.lane_encode_blocks_plain(a, geom, CB)),
+             lambda a: CT.lane_encode_blocks(a, "qual", geom, CB),
+             lambda a: CT.lane_encode_blocks_plain(a, "qual", geom, CB)),
             ("lane_decode_blocks", pre_d,
              lambda a: CT.lane_decode_blocks(a, "qual", geom),
              lambda a: CT.lane_decode_blocks_plain(a, "qual", geom))):
@@ -1109,13 +1243,12 @@ def time_window(data: bytes, dev, bar_us: float, errs: dict) -> dict:
     d_ms = _time_ms(lambda: CT.lane_decode_blocks(items, "qual", geom), 3)
     d_one = sum(_time_ms(lambda it=it: CT.lane_decode(*it, "qual", geom), 1)
                 for it in items)
-    steps = max(i.shape[0] * i.shape[1] for i, _ in scheds)
+    steps = max(it.NC * 8 * geom.depth for it in scheds)
     # Kernel C over the window's coded streams, as encode_window hands them
     streams, tails = [], []
-    for _, _, g, members in groups:
+    for _, kind, g, members in groups:
         cb = ST._chunk_bytes(g.depth, hard=False)
-        for e in CT.lane_encode_blocks([(m[1], m[2]) for m in members], g,
-                                       cb):
+        for e in CT.lane_encode_blocks([m[1] for m in members], kind, g, cb):
             if int(e[3]) > cb:
                 raise AssertionError("window: optimistic chunk buffer "
                                      "overflowed")
@@ -1130,7 +1263,7 @@ def time_window(data: bytes, dev, bar_us: float, errs: dict) -> dict:
     def run(gs):
         ss = ST.StreamSet(dev)
         outs = [ss.launch(lambda g=g: CT.lane_encode_blocks(
-            [(m[1], m[2]) for m in g[3]], g[2],
+            [m[1] for m in g[3]], g[1], g[2],
             ST._chunk_bytes(g[2].depth, hard=False)))[0] for g in gs]
         ss.join()
         return outs
@@ -1397,14 +1530,15 @@ def streaming(data: bytes) -> dict:
 
 def _long_read_kernels(pre, enc: bytes, dev, bar_us: float,
                        errs: dict) -> dict:
-    """Kernels E, D and C on the long block's QUAL stream, from the main
+    """Kernels E, D, C and L on the long block's QUAL stream, from the main
     path's own setup (pipeline_native.prepare_block_fast packs it on the
-    host; _sq_jobs gives its Slices): E over its step slices (CUDA events
-    around the slices with their schedules, less the schedules alone),
-    D once on the container's QUAL payload (events; its symbols held
-    against the host-packed ones), C on E's chunk buffers (events around
-    its wrapper); each beside its bound. E and its plain version over the
-    stream's first 2 chunks in 2 slices (`errs`)."""
+    host; _sq_jobs gives its inputs, pos/reset from Kernel L): E over the
+    whole stream in one launch (CUDA events), D once on the container's
+    QUAL payload (events; its symbols held against the host-packed ones),
+    C on E's chunk buffers (events around its wrapper), L's step-input
+    mode over the whole block (events; held against its plain version,
+    _pos_reset); each beside its bound. E and its plain version over the
+    stream's first 2 chunks, in `errs`."""
     import io
     import numpy as np
     import torch
@@ -1413,47 +1547,35 @@ def _long_read_kernels(pre, enc: bytes, dev, bar_us: float,
     from slimfastq_tpu_torch.config import config_for_level
     from slimfastq_tpu_torch.ops import coder_torch as CT
     from slimfastq_tpu_torch.ops import compact_torch as CC
+    from slimfastq_tpu_torch.ops import pack_torch as PT
     from slimfastq_tpu_torch.ops import streams_torch as ST
     cfg = config_for_level(3)
     q = next(PN._sq_jobs(pre, cfg, dev, only=("QUAL",)))
-    sl = q.idx_c
-    if not isinstance(sl, ST.Slices):
-        raise AssertionError("the long block's QUAL is not sliced")
-    W, NC, depth = cfg.lanes, sl.NC, q.geom.depth
-    step = ST.slice_chunks(depth, W)
+    item = q.item
+    W, NC, depth = cfg.lanes, item.NC, q.geom.depth
     CB = ST._chunk_bytes(depth, hard=False)
-    out = {"W": W, "NC": NC, "depth": depth, "slices": -(-NC // step),
-           "bit_steps": NC * 8 * depth}
-    # E and its plain version over the first 2 chunks, 1 chunk a slice
-    head = ST.Slices(sl.kind, sl.geom, sl.syms[:16], sl.pos[:16],
-                     sl.reset[:16], sl.counts, None)
+    out = {"W": W, "NC": NC, "depth": depth, "bit_steps": NC * 8 * depth}
+    # E and its plain version on the first 2 chunks (the plain version
+    # takes ~1 s a chunk at W = 1024)
+    head = CT.EncIn(item.syms[:16], item.pos[:16], item.reset[:16],
+                    item.counts)
     t = time.perf_counter()
-    carry = CT.EncCarry()
-    plain = (torch.zeros((2, W, CB), dtype=torch.uint8, device=dev),
-             torch.zeros((2, W), dtype=torch.int32, device=dev))
-    for c in (0, 1):
-        (_, _, low, emax), = CT.lane_encode_blocks_plain(
-            [head(c, c + 1)], q.geom, CB, [carry],
-            [(plain[0][c:c + 1], plain[1][c:c + 1])])
+    plain = CT.lane_encode_blocks_plain([head], "qual", q.geom, CB)[0]
     out["plain_ms_2_chunks"] = (time.perf_counter() - t) * 1e3
-    _compare(errs, "lane_encode_sliced", "sliced E vs plain, long QUAL",
-             CT.lane_encode_sliced(head, 2, 1, W, q.geom, CB, dev),
-             (*plain, low, emax))
-    def schedules():
-        for c0 in range(0, NC, step):
-            sl(c0, min(NC, c0 + step))
-    sched_ms, _ = _events_ms(schedules)
+    _compare(errs, "lane_encode", "E vs plain, long QUAL, first 2 chunks",
+             CT.lane_encode_blocks([head], "qual", q.geom, CB)[0], plain)
+    del plain
     total_ms, (ebufs, eptrs, low, emax) = _events_ms(
-        lambda: CT.lane_encode_sliced(sl, NC, step, W, q.geom, CB, dev))
+        lambda: CT.lane_encode_blocks([item], "qual", q.geom, CB)[0])
     if int(emax) > CB:
         raise AssertionError("long QUAL: optimistic chunk buffer overflowed")
-    e_bytes = 2 * NC * 8 * depth * W * 4 + ebufs.numel() + eptrs.numel() * 4 \
-        + 2 * W * 4
+    Sp = item.syms.shape[0]
+    e_bytes = 9 * Sp * W + ebufs.numel() + eptrs.numel() * 4 + 2 * W * 4
     out["lane_encode"] = {
-        "ms": total_ms - sched_ms, "with_schedules_ms": total_ms,
-        "schedules_ms": sched_ms, "bytes": e_bytes,
+        "ms": total_ms, "bytes": e_bytes,
         "bound_ms": e_bytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
-        "lockstep_ms": NC * 8 * depth * bar_us / 1e3}
+        "lockstep_ms": NC * 8 * depth * bar_us / 1e3,
+        "plain_ms_2_chunks": out["plain_ms_2_chunks"]}
     Bmax = int(eptrs.sum(dim=0).max())
     streams = [(ebufs, eptrs, Bmax)]
     c_bytes = _c_bytes(streams)
@@ -1464,16 +1586,28 @@ def _long_read_kernels(pre, enc: bytes, dev, bar_us: float,
         "timed": "CUDA events around the wrapper",
         "bytes": c_bytes, "bound_ms": c_bytes / HBM_BYTES_PER_S * 1e3,
         "bound_by": "bytes", "NC": NC, "Bmax": Bmax}
-    del ebufs, eptrs, streams, sl, q
+    del ebufs, eptrs, streams, item, head, q
     f = io.BytesIO(enc)
     blk = next(container.iter_blocks(f, container.read_header(f)))
     qs = blk.streams["QUAL"]
     ll_mat, counts = pre[4], pre[0]["QUAL"][3]
     S = int(counts.max())
-    Sp, pos, reset = ST._ll_inputs(ll_mat, S, W, dev)
+    # L's step-input mode over the whole block against its plain version
+    torch.cuda.empty_cache()
+    l_ms, (pos, reset) = _events_ms(
+        lambda: PT.step_inputs(ll_mat, Sp, S, W, dev))
+    ppos, preset = PT._pos_reset(ST._lane_lens(ll_mat, W, dev), Sp, S, W)
+    _compare(errs, "lane_layout", "L step inputs vs plain, long block",
+             (pos, reset), (ppos, preset))
+    del ppos, preset
+    l_bytes = ll_mat.size * 4 + 8 * Sp * W
+    out["lane_layout"] = {"ms": l_ms, "mode": "step inputs (decode)",
+                          "bytes": l_bytes,
+                          "bound_ms": l_bytes / HBM_BYTES_PER_S * 1e3,
+                          "bound_by": "bytes"}
     item = (ST._payload_tensor(qs.payload, dev),
             ST._to(qs.lane_lens, dev, torch.int32),
-            ST._acts(ST._to(counts, dev, torch.int32), Sp), pos, reset)
+            ST._to(counts, dev, torch.int32), pos, reset)
     d_ms, (syms,) = _events_ms(lambda: CT.lane_decode_blocks(
         [item], "qual", pre[0]["QUAL"][1]))
     if not np.array_equal(syms[:S].cpu().numpy(), pre[0]["QUAL"][2]):
@@ -1482,8 +1616,9 @@ def _long_read_kernels(pre, enc: bytes, dev, bar_us: float,
     steps = NC * 8 * depth
     out["lane_decode"] = {
         "ms": d_ms, "bound_ms": steps * bar_us / 1e3, "bound_by": "latency",
-        "byte_bound_ms": (qs.payload.size + 3 * Sp * W * 4 + Sp * W)
-        / HBM_BYTES_PER_S * 1e3, "us_per_bit_step": d_ms * 1e3 / steps}
+        "byte_bound_ms": (qs.payload.size + 2 * Sp * W * 4 + Sp * W
+                          + 2 * W * 4) / HBM_BYTES_PER_S * 1e3,
+        "us_per_bit_step": d_ms * 1e3 / steps}
     out["lane_encode"]["us_per_bit_step"] = \
         out["lane_encode"]["ms"] * 1e3 / steps
     return out
@@ -1495,11 +1630,10 @@ def long_read(dev, bar_us: float, errs: dict) -> dict:
     api.encode_fastq / decode_fastq at the defaults (level 3, 65,536
     records a block) on the card, the launch counts set to 0 just before
     each direction and read just after: the round trip is exact, Kernel E
-    ran in more than one step slice, D and C ran. Prints the `long_read`
-    line: walls and GB/s, the ratio, peak device memory each way, E's
-    slices and launches, D's and C's launches, the block's device bytes
-    against the window budget; then the long QUAL's kernels
-    (_long_read_kernels)."""
+    coded each of the 7 streams in one launch, D, C and L ran, U did not.
+    Prints the `long_read` line: walls and GB/s, the ratio, peak device
+    memory each way, the launches, the block's device bytes against the
+    window budget; then the long QUAL's kernels (_long_read_kernels)."""
     import numpy as np
     import torch
     from slimfastq_tpu_torch import api, native
@@ -1543,15 +1677,19 @@ def long_read(dev, bar_us: float, errs: dict) -> dict:
         out[way] = {"wall_s": wall_s, "GB_per_s": len(data) / wall_s / 1e9,
                     "peak_device_GB": torch.cuda.max_memory_allocated()
                     / 1e9, "launches": dict(_cuda.launches),
-                    "descriptors": dict(_cuda.descs),
-                    "slices": dict(_cuda.slices)}
+                    "descriptors": dict(_cuda.descs)}
     if dec != data:
         raise AssertionError("long block: the round trip is not exact")
     del dec
     e, d = out["encode"], out["decode"]
-    if e["slices"]["lane_encode"] < 2 or e["launches"]["lane_encode"] < 3 \
+    # the host packs and unpacks: Kernel L makes pos/reset, U does not
+    # run; each stream one E launch (an overflowed one a second)
+    if not 7 <= e["descriptors"]["lane_encode"] <= 14 \
             or e["launches"]["compact_lanes_dev"] < 1 \
-            or d["launches"]["lane_decode"] < 2:
+            or d["launches"]["lane_decode"] < 2 \
+            or e["launches"]["lane_layout"] != 1 \
+            or d["launches"]["lane_layout"] != 1 \
+            or d["launches"]["lane_unpack"] != 0:
         raise AssertionError(f"long block launches: encode {e}, decode {d}")
     out["ratio"] = len(data) / len(enc)
     out["compressed_bytes"] = len(enc)
@@ -1562,33 +1700,27 @@ def long_read(dev, bar_us: float, errs: dict) -> dict:
     return out
 
 
-def host_pack_pins(data: bytes, dev, errs: dict) -> None:
+def host_pack_pins(data: bytes) -> None:
     """The pinned 64k block through the host-pack path (the port's
-    _MAX_SPAN lowered to 1, step slices of 40 QUAL chunks): its container
-    keeps the JAX package's SHA-256 at level 3 and at level 4
-    (MATCH_USED) and decodes exactly through the host unpack; and the
-    pinned QUAL stream in step slices of 37 chunks gives the one launch's
-    bytes (`errs`)."""
+    _MAX_SPAN lowered to 1): its container keeps the JAX package's
+    SHA-256 at level 3 and at level 4 (MATCH_USED) and decodes exactly
+    through the host unpack; Kernel E codes each stream in one launch."""
     import io
-    import numpy as np
-    from slimfastq_tpu_torch import api, container, native
+    from slimfastq_tpu_torch import api, container
     from slimfastq_tpu_torch import pipeline_native as PN
-    from slimfastq_tpu_torch.config import config_for_level
     from slimfastq_tpu_torch.ops import _cuda
-    from slimfastq_tpu_torch.ops import coder_torch as CT
-    from slimfastq_tpu_torch.ops import streams_torch as ST
     from slimfastq_tpu_torch.pipeline import MATCH_USED
-    saved = PN._MAX_SPAN, ST.SLICE_BYTES
-    PN._MAX_SPAN, ST.SLICE_BYTES = 1, 40 * 2 * 4 * 8 * 6 * 1024
+    saved = PN._MAX_SPAN
+    PN._MAX_SPAN = 1
     try:
         for level in (3, 4):
             _cuda.reset_launches()
             enc = api.encode_fastq(data, level=level, device="cuda")
-            slices = _cuda.slices["lane_encode"]
+            n_e = _cuda.launches["lane_encode"]
             sha = hashlib.sha256(enc).hexdigest()
-            if (len(enc), sha) != PINNED[level] or slices < 2:
+            if (len(enc), sha) != PINNED[level] or n_e < 2:
                 raise AssertionError(f"host-pack L{level}: {len(enc)} bytes, "
-                                     f"SHA-256 {sha}, {slices} E slices")
+                                     f"SHA-256 {sha}, {n_e} E launches")
             f = io.BytesIO(enc)
             flags = next(container.iter_blocks(f, container.read_header(
                 f))).flags
@@ -1598,26 +1730,14 @@ def host_pack_pins(data: bytes, dev, errs: dict) -> None:
                 raise AssertionError(f"host-pack L{level}: the round trip "
                                      "is not exact")
             print(f"host-pack path L{level}: the pinned block's SHA-256, "
-                  f"{slices} E slices, flags {flags}, round trip exact",
+                  f"{n_e} E launches, flags {flags}, round trip exact",
                   flush=True)
     finally:
-        PN._MAX_SPAN, ST.SLICE_BYTES = saved
-    cfg = config_for_level(3)
-    idx, n = native.fastq_index(data)
-    pre = PN.prepare_block_fast(np.frombuffer(data, dtype=np.uint8), idx, 0,
-                                n, cfg)
-    q = next(PN._sq_jobs(pre, cfg, dev, only=("QUAL",)))
-    CB = ST._chunk_bytes(q.geom.depth, hard=False)
-    sl = ST.Slices(q.kind, q.geom, q.syms, q.pos, q.reset, q.counts, None)
-    _compare(errs, "lane_encode_sliced", "pinned QUAL: E in slices of 37 "
-             "chunks vs one launch",
-             CT.lane_encode_sliced(sl, sl.NC, 37, 1024, q.geom, CB, dev),
-             CT.lane_encode(q.idx_c, q.bit_c, q.geom, CB))
-    print("pinned QUAL: E in 22 slices equals one launch", flush=True)
+        PN._MAX_SPAN = saved
 
 
 # ---------------------------------------------------------------------------
-# phase 7: block sharding over the node's cards, the gather, L1 slices
+# phase 7: block sharding over the node's cards, the gather, level 1
 # ---------------------------------------------------------------------------
 
 def _sharded_walls(data: bytes, level: int, mesh) -> tuple:
@@ -1646,7 +1766,7 @@ def _sharded_walls(data: bytes, level: int, mesh) -> tuple:
     if dec != data:
         raise AssertionError(f"sharded L{level}: the round trip is not exact")
     if mesh is not None:
-        kinds = {"lane_encode", "lane_decode", "compact_lanes_dev"}
+        kinds = set(_cuda.launches)  # E, D, C, L and U on every shard
         if len(by_shard) != min(mesh.size, data.count(b"\n") // 4 // READS
                                 or 1) \
                 or any(set(v) != kinds for v in by_shard.values()):
@@ -1844,16 +1964,14 @@ def gather_nccl(data4: bytes, whole: bytes) -> dict:
     return out
 
 
-def l1_slices(data: bytes, dev, errs: dict) -> dict:
+def level1(data: bytes, dev, errs: dict) -> dict:
     """Level 1, whose SEQ and QUAL tables live in shared memory: the
-    pinned block forced through the host-pack path with SLICE_BYTES
-    lowered (SEQ and QUAL both in step slices, 20 + 7 or more) equals the
-    unforced L1 container and round-trips, the launch counts set to 0
-    just before and read just after; its QUAL in slices of 37 chunks
-    equals one launch, and E over the first 2 chunks in 2 slices equals
-    its plain version (`errs`)."""
+    pinned block forced through the host-pack path equals the unforced
+    L1 container and round-trips, the launch counts set to 0 just before
+    and read just after (each SEQ/QUAL stream one E launch); its QUAL
+    through E in one launch, timed (CUDA events), and E over the first 2
+    chunks against its plain version (`errs`)."""
     import numpy as np
-    import torch
     from slimfastq_tpu_torch import api, native
     from slimfastq_tpu_torch import pipeline_native as PN
     from slimfastq_tpu_torch.config import config_for_level
@@ -1865,56 +1983,41 @@ def l1_slices(data: bytes, dev, errs: dict) -> dict:
             and CT.table_in_smem(cfg.seq, 1024)):
         raise AssertionError("L1 tables do not live in shared memory")
     want = api.encode_fastq(data, cfg=cfg, device="cuda")
-    saved = PN._MAX_SPAN, ST.SLICE_BYTES, CT.lane_encode_slices
-    kinds = []
+    saved, kinds = (PN._MAX_SPAN, CT.lane_encode_blocks), []
 
-    def spy(build, *args):
-        kinds.append(build.kind)
-        return saved[2](build, *args)
-    PN._MAX_SPAN, ST.SLICE_BYTES = 1, 40 * 2 * 4 * 8 * 6 * 1024
-    CT.lane_encode_slices = spy
+    def spy(items, kind, *args):
+        kinds.extend([kind] * len(items))
+        return saved[1](items, kind, *args)
+    PN._MAX_SPAN, CT.lane_encode_blocks = 1, spy
     try:
         _cuda.reset_launches()
         enc = api.encode_fastq(data, cfg=cfg, device="cuda")
-        slices = _cuda.slices["lane_encode"]
-        if enc != want or sorted(set(kinds)) != ["qual", "seq"] \
-                or slices < 20 + 7:
+        n_e = _cuda.launches["lane_encode"]
+        if enc != want or kinds.count("qual") != 1 \
+                or kinds.count("seq") != 1:
             raise AssertionError(f"host-pack L1: {len(enc)} bytes (the "
-                                 f"unforced {len(want)}), {slices} E slices "
+                                 f"unforced {len(want)}), {n_e} E launches "
                                  f"of {kinds}")
         if api.decode_fastq(enc, device="cuda") != data:
             raise AssertionError("host-pack L1: the round trip is not exact")
     finally:
-        PN._MAX_SPAN, ST.SLICE_BYTES, CT.lane_encode_slices = saved
+        PN._MAX_SPAN, CT.lane_encode_blocks = saved
     idx, n = native.fastq_index(data)
     pre = PN.prepare_block_fast(np.frombuffer(data, dtype=np.uint8), idx, 0,
                                 n, cfg)
     q = next(PN._sq_jobs(pre, cfg, dev, only=("QUAL",)))
     CB = ST._chunk_bytes(q.geom.depth, hard=False)
-    sl = ST.Slices(q.kind, q.geom, q.syms, q.pos, q.reset, q.counts, None)
-    one_ms, one = _events_ms(lambda: CT.lane_encode(q.idx_c, q.bit_c, q.geom,
-                                                    CB))
-    sliced_ms, got = _events_ms(lambda: CT.lane_encode_sliced(
-        sl, sl.NC, 37, 1024, q.geom, CB, dev))
-    _compare(errs, "lane_encode_sliced", "L1 QUAL: E in slices of 37 chunks "
-             "(a shared-memory table) vs one launch", got, one)
-    part = ST.Slices(q.kind, q.geom, q.syms[:16], q.pos[:16], q.reset[:16],
-                     q.counts, None)
-    k = CT.lane_encode_sliced(part, 2, 1, 1024, q.geom, CB, dev)
-    carry = CT.EncCarry()
-    p_out = (torch.zeros((2, 1024, CB), dtype=torch.uint8),
-             torch.zeros((2, 1024), dtype=torch.int32))
-    for c0 in (0, 1):
-        (_, _, low, emax), = CT.lane_encode_blocks_plain(
-            [tuple(x.cpu() for x in part(c0, c0 + 1))], q.geom, CB, [carry],
-            [(p_out[0][c0:c0 + 1], p_out[1][c0:c0 + 1])])
-    _compare(errs, "lane_encode_sliced", "L1 QUAL: E over 2 chunks in 2 "
-             "slices vs its plain version", [x.cpu() for x in k],
-             (*p_out, low, emax))
-    out = {"unforced_bytes": len(want), "forced_slices": slices,
-           "qual_one_launch_ms": one_ms, "qual_37_chunk_slices_ms": sliced_ms,
-           "qual_NC": sl.NC, "table_bytes": CT.table_bytes(q.geom)}
-    print(json.dumps({"l1_slices": out}), flush=True)
+    one_ms, _ = _events_ms(lambda: CT.lane_encode_blocks(
+        [q.item], "qual", q.geom, CB)[0])
+    part = CT.EncIn(q.syms[:16], q.pos[:16], q.reset[:16], q.counts)
+    _compare(errs, "lane_encode", "L1 QUAL (a shared-memory table): E over "
+             "2 chunks vs its plain version",
+             CT.lane_encode_blocks([part], "qual", q.geom, CB)[0],
+             CT.lane_encode_blocks_plain([part], "qual", q.geom, CB)[0])
+    out = {"unforced_bytes": len(want), "forced_e_launches": n_e,
+           "qual_one_launch_ms": one_ms, "qual_NC": q.item.NC,
+           "table_bytes": CT.table_bytes(q.geom)}
+    print(json.dumps({"level1": out}), flush=True)
     return out
 
 
@@ -1926,10 +2029,14 @@ def l1_slices(data: bytes, dev, errs: dict) -> dict:
 # pipeline, by level: every stream its own E and C (level 4: the plain SEQ
 # and both trials' SEQ and MATCH), D once a stream (level 4: MATCH too)
 PYTHON_LAUNCHES = {
-    3: ({"lane_encode": 7, "lane_decode": 0, "compact_lanes_dev": 7},
-        {"lane_encode": 0, "lane_decode": 7, "compact_lanes_dev": 0}),
-    4: ({"lane_encode": 11, "lane_decode": 0, "compact_lanes_dev": 11},
-        {"lane_encode": 0, "lane_decode": 8, "compact_lanes_dev": 0}),
+    3: ({"lane_encode": 7, "lane_decode": 0, "compact_lanes_dev": 7,
+         "lane_layout": 0, "lane_unpack": 0},
+        {"lane_encode": 0, "lane_decode": 7, "compact_lanes_dev": 0,
+         "lane_layout": 0, "lane_unpack": 0}),
+    4: ({"lane_encode": 11, "lane_decode": 0, "compact_lanes_dev": 11,
+         "lane_layout": 0, "lane_unpack": 0},
+        {"lane_encode": 0, "lane_decode": 8, "compact_lanes_dev": 0,
+         "lane_layout": 0, "lane_unpack": 0}),
 }
 
 
@@ -2034,7 +2141,8 @@ def single_stream_pack(data: bytes, dev) -> dict:
     bound (pack: the QUAL bytes and the two [Rpl, W] int64 index matrices
     read, the [Sp, W] symbols written; unpack: the symbols and matrices
     read, the [pad_flat(total)] buffer written); the packed symbols equal
-    pack_pair's QUAL and the unpack gives the QUAL bytes back."""
+    Kernel L's QUAL (pack mode) and the unpack gives the QUAL bytes
+    back."""
     import numpy as np
     import torch
     from slimfastq_tpu_torch import native
@@ -2053,13 +2161,17 @@ def single_stream_pack(data: bytes, dev) -> dict:
     dpad[: len(buf)] = buf
     d = torch.from_numpy(dpad).to(dev)
     syms = pack_torch.pack_device(d, qoffs, lengths, W, Sp, bias=minq)
-    _, qual = pack_torch.pack_pair(d, soffs, qoffs, lengths, W, Sp,
-                                   _BASE_TO_CODE_DEV, minq)
-    counts = np.bincount(np.arange(n) % W, weights=lengths, minlength=W)
+    ll_mat = np.zeros(-(-n // W) * W, dtype=np.int64)
+    ll_mat[:n] = lengths
+    ll_mat = ll_mat.reshape(-1, W)
+    counts = ll_mat.sum(axis=0)
+    _, qual, _, _ = pack_torch.lane_layout(d, soffs, qoffs, lengths, ll_mat,
+                                           W, Sp, int(counts.max()),
+                                           _BASE_TO_CODE_DEV, minq)
     active = torch.from_numpy(np.arange(Sp)[:, None] < counts[None, :]).to(
         dev)
     if not torch.equal(syms[active], qual[active]):
-        raise AssertionError("pack_device differs from pack_pair's QUAL")
+        raise AssertionError("pack_device differs from Kernel L's QUAL")
     starts = np.zeros(n, dtype=np.int64)
     starts[1:] = np.cumsum(lengths[:-1])
     total = int(lengths.sum())
@@ -2092,7 +2204,7 @@ def single_stream_pack(data: bytes, dev) -> dict:
 
 def entry_phase() -> dict:
     """The port's entry points (slimfastq_tpu_torch/entry.py): entry()'s
-    flagship step (the level-3 QUAL schedule, then Kernel E) on the card,
+    flagship step (Kernel E on level-3 QUAL symbols) on the card,
     the launch counts set to 0 just before and read just after (Kernel E
     once), equals the same fn on the CPU (its plain version) byte for
     byte; then dryrun_multichip over every card round-trips its three
@@ -2354,20 +2466,20 @@ def main() -> int:
     done("window_sweep")
     streaming(data)
     done("streaming")
-    # long reads: the host-pack path and Kernel E in step slices
+    # long reads: the host-pack path, Kernel E once a stream
     lr = long_read(dev, bar_us, errs)
     done("long_read")
-    host_pack_pins(data, dev, errs)
+    host_pack_pins(data)
     done("host_pack_pins")
-    # block sharding, the NCCL gather, level 1's slices
+    # block sharding, the NCCL gather, level 1's shared-memory tables
     shard, whole = sharded(data, data4)
     done("sharded")
     sharded_streaming(data)
     done("sharded_streaming")
     gather_nccl(data4, whole)
     done("gather_nccl")
-    l1 = l1_slices(data, dev, errs)
-    done("l1_slices")
+    l1 = level1(data, dev, errs)
+    done("level1")
     # the host-side reference paths: the pure-Python pipeline on the card
     # and on make_mesh(), the NumPy oracle, the single-stream pack
     t = time.perf_counter()
@@ -2390,17 +2502,27 @@ def main() -> int:
         "lane_encode": "slimfastq_tpu/ops/streams_jax.py:298",
         "lane_decode": "slimfastq_tpu/ops/streams_jax.py:450",
         "compact_lanes_dev": "slimfastq_tpu/ops/compact_pallas.py:40",
+        "lane_layout": "slimfastq_tpu/ops/pack_jax.py:134",
+        "lane_unpack": "slimfastq_tpu/ops/pack_jax.py:152",
     }
+    # the device programs each kernel took in beside the one it replaces
+    also = {"lane_encode": ["slimfastq_tpu/ops/streams_jax.py:91",
+                            "slimfastq_tpu/ops/streams_jax.py:207",
+                            "slimfastq_tpu/ops/streams_jax.py:262"],
+            "lane_layout": ["slimfastq_tpu/ops/streams_jax.py:241"]}
     source = {"lane_encode": "slimfastq_tpu_torch/csrc/coder.cu",
               "lane_decode": "slimfastq_tpu_torch/csrc/coder.cu",
-              "compact_lanes_dev": "slimfastq_tpu_torch/csrc/compact.cu"}
+              "compact_lanes_dev": "slimfastq_tpu_torch/csrc/compact.cu",
+              "lane_layout": "slimfastq_tpu_torch/csrc/lanes.cu",
+              "lane_unpack": "slimfastq_tpu_torch/csrc/lanes.cu"}
     shape = times["shape"]
     kernels = []
     for name in ("lane_encode", "lane_decode"):
         ms, nbytes = times[name]
         row = {
             "name": name, "route": "cuda", "source": source[name],
-            "replaces": replaces[name], "launches": launches[name],
+            "replaces": replaces[name], "also_replaces": also.get(name, []),
+            "launches": launches[name],
             "match": errs[name] == 0, "max_abs_err": errs[name],
             "ms": ms, "plain_ms": plain[name],
             "plain_shape": "W=1024 Sp=256 qual",
@@ -2416,10 +2538,12 @@ def main() -> int:
             "block_span_ms": spans[direction]["span_ms"],
             "block_sum_ms": spans[direction]["sum_ms"]})
         if name == "lane_encode":
-            # E's table evolves with the schedule alone: the function
+            # E's table evolves with its inputs alone: the function
             # needs no barrier, so its bound stays the byte bound and
-            # this design's barrier floor stands beside it
-            row["lockstep_ms"] = lockstep_ms
+            # this design's barrier floor stands beside it; its plain
+            # version also ran at the pinned block's full shape
+            row.update(lockstep_ms=lockstep_ms,
+                       plain_full_shape_ms=times["lane_encode_plain_full_ms"])
         else:
             # D's law couples the lanes at every bit-step: one barrier
             # per bit-step is the floor of the function
@@ -2448,6 +2572,8 @@ def main() -> int:
         way = "encode" if name == "lane_encode" else "decode"
         row["long_read"] = {"launches": lr[way]["launches"][name],
                             **lr["kernels"][name]}
+        if name == "lane_encode":
+            row["l1_shared_memory_table"] = l1
         row["sharded_launches"] = _by_shard(shard, name)
         kernels.append(row)
     # Kernel C: one launch per block; its device time (profiler) is `ms`
@@ -2476,30 +2602,32 @@ def main() -> int:
                         **lr["kernels"][name]}
     row["sharded_launches"] = _by_shard(shard, name)
     kernels.append(row)
-    # Kernel E in step slices: the long block's QUAL (its slices timed
-    # with events, less their schedules); launches and slices from the
-    # long block's main-path encode
-    lk = lr["kernels"]
-    kernels.append({
-        "name": "lane_encode_sliced", "form": "step slices",
-        "counted_as": "lane_encode", "route": "cuda",
-        "source": source["lane_encode"],
-        "replaces": "slimfastq_tpu/ops/streams_jax.py:298",
-        "launches": lr["encode"]["launches"]["lane_encode"],
-        "slices": lr["encode"]["slices"]["lane_encode"],
-        "match": errs["lane_encode_sliced"] == 0,
-        "max_abs_err": errs["lane_encode_sliced"],
-        "ms": lk["lane_encode"]["ms"],
-        "with_schedules_ms": lk["lane_encode"]["with_schedules_ms"],
-        "plain_ms": lk["plain_ms_2_chunks"],
-        "plain_shape": "the long QUAL's first 2 chunks in 2 slices, host "
-                       "clock",
-        "bound_ms": lk["lane_encode"]["bound_ms"], "bound_by": "bytes",
-        "lockstep_ms": lk["lane_encode"]["lockstep_ms"],
-        "library_ms": None,
-        "shape": f"QUAL of the {LONG_READS} x {LONG_LEN} bp block: W = "
-                 f"{lk['W']}, NC = {lk['NC']}, {lk['slices']} slices",
-        "l1_shared_memory_table": l1})
+    # Kernels L and U on the pinned block's own inputs (profiler records;
+    # the plain versions are the tensor-op chains they replaced, on the
+    # card, CUDA events); launches from the main path's run at L3 and L4
+    for name in ("lane_layout", "lane_unpack"):
+        t3 = times[name]
+        row = {"name": name, "route": "cuda", "source": source[name],
+               "replaces": replaces[name],
+               "also_replaces": also.get(name, []),
+               "launches": launches[name], "launches_l4": launches4[name],
+               "match": errs[name] == 0, "max_abs_err": errs[name],
+               "ms": t3["ms"], "wrapper_ms": t3["wrapper_ms"],
+               "plain_ms": t3["plain_ms"],
+               "plain_shape": "the replaced tensor-op chain on the same "
+                              "inputs, CUDA events",
+               "bound_ms": t3["bound_ms"], "bound_by": "bytes",
+               "bytes": t3["bytes"], "library_ms": None,
+               "shape": f"the pinned 64k L3 block: W = {shape['W']}, Sp = "
+                        f"{shape['Sp']}",
+               "sharded_launches": _by_shard(shard, name)}
+        if name == "lane_layout":
+            row.update(mode="pack (SEQ, QUAL, pos, reset)",
+                       step_inputs=t3["step_inputs"],
+                       long_read={"launches": lr["encode"]["launches"][name]
+                                  + lr["decode"]["launches"][name],
+                                  **lr["kernels"][name]})
+        kernels.append(row)
     # the window forms: one launch over the blocks of a window, on the 16k
     # L3 window's own inputs (4 blocks of 16,384 records); launches (and
     # the descriptors they took: blocks for E and D, streams for C) from

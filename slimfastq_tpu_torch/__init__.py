@@ -1,9 +1,10 @@
 """slimfastq_tpu_torch: the lossless FASTQ codec on PyTorch and CUDA.
 
 A port of the JAX package ``slimfastq_tpu`` (which stays the reference):
-the same container format, byte for byte, with the lane coder and the
-emission compaction as hand-written CUDA kernels (csrc/) and the
-whole-array schedule, pack and unpack math as PyTorch tensor ops. Entry
+the same container format, byte for byte, with the lane coder (its
+contexts built online from the symbols), the emission compaction, the
+lane layout (pack with pos/reset) and the unpack as hand-written CUDA
+kernels (csrc/), and their plain PyTorch versions on the CPU. Entry
 points run on CUDA unless the caller passes ``device="cpu"``.
 """
 

@@ -372,23 +372,40 @@ def _own_block(data, idx: dict, lo: int, hi: int) -> tuple:
     return buf, own, 0, hi - lo
 
 
+def _read_full(f, buf, at: int) -> int:
+    """Fill ``buf[at:]`` from ``f`` until it is full or the input ends (a
+    pipe returns what it holds a read); returns the bytes read."""
+    view, n = memoryview(buf), 0
+    while at + n < len(buf):
+        got = f.readinto(view[at + n:])
+        if not got:
+            break
+        n += got
+    return n
+
+
 def iter_block_ranges_native(src: str, cfg: CodecConfig,
                              chunk_bytes: int = 1 << 28):
     """Yield (buf, idx, lo, hi) record ranges whose block boundaries are
-    identical to a whole-file encode, while reading `src` in bounded
-    chunks. Each range is a block of its own (_own_block), so the blocks
-    prepared ahead never hold a chunk; the records short of a block at a
-    chunk's end are read again at the start of the next chunk, and a
-    chunk that holds no whole block is read again longer. Memory holds
-    one chunk and the blocks in flight, whatever the file's size."""
-    pos, want = 0, chunk_bytes
+    identical to a whole-file encode, while reading `src` in order in
+    bounded chunks, so a pipe serves as well as a file (nothing seeks).
+    Each range is a block of its own (_own_block), so the blocks prepared
+    ahead never hold a chunk; the records short of a block at a chunk's
+    end (and a record the chunk cuts) carry to the next chunk as a copy of
+    their own, less than a block, and a chunk that holds no whole block
+    grows by the next read. Memory holds one chunk and the blocks in
+    flight, whatever the input's size."""
+    carry = b""
     with open(src, "rb") as f:
         while True:
-            f.seek(pos)
-            chunk = f.read(want)
+            chunk = bytearray(len(carry) + chunk_bytes)
+            chunk[:len(carry)] = carry
+            got = _read_full(f, chunk, len(carry))
+            eof = got < chunk_bytes
+            if eof:
+                del chunk[len(carry) + got:]
             if not chunk:
                 break
-            eof = len(chunk) < want
             cut = len(chunk) if eof else _record_boundary(chunk)
             data = memoryview(chunk)[:cut]
             idx, n = native.fastq_index(data) if cut else ({}, 0)
@@ -399,11 +416,8 @@ def iter_block_ranges_native(src: str, cfg: CodecConfig,
                                  min(lo + cfg.block_records, limit))
             if eof:
                 break
-            if limit:
-                pos += int(idx["id_off"][limit]) - 1 if limit < n else cut
-                want = chunk_bytes
-            else:
-                want += chunk_bytes
+            rest = int(idx["id_off"][limit]) - 1 if limit < n else cut
+            carry = bytes(memoryview(chunk)[rest:])
             del chunk, data, idx  # the next chunk is read without them
 
 

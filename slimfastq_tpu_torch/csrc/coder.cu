@@ -1,13 +1,25 @@
 // Lockstep lane coder: Kernel E (lane_encode) and Kernel D (lane_decode).
 //
 // Replaces: slimfastq_tpu/ops/streams_jax.py `_build_encode` (the encode
-// coder scan) and `_build_decode` (the decode coder scan), both with and
-// without `with_mflag` (format v5: a SEQ stream whose steps inside a match
-// span code in the match-context family; Kernel E needs no change for it,
-// since its schedule already carries each step's context). Those are plain
-// XLA programs, not Pallas, but they carry the whole coding loop; in eager
-// PyTorch the same loop would be ~30 tensor ops per bit-step, i.e. over a
-// million launches per stream per 64k-record block.
+// coder scan) together with the schedule it reads, `_ctx_precompute` +
+// `_build_schedule` / `_build_schedule_ll` (every bit-step's table index
+// and bit, [NC, 8*depth, W] int32 each: 48 bytes a QUAL symbol), and
+// `_build_decode` (the decode coder scan), both with and without
+// `with_mflag` (format v5: a SEQ stream whose steps inside a match span
+// code in the match-context family). Those are plain XLA programs, not
+// Pallas, but they carry the whole coding loop; in eager PyTorch the same
+// loop would be ~30 tensor ops per bit-step, i.e. over a million launches
+// per stream per 64k-record block.
+//
+// Both kernels build each symbol-step's context row online from the same
+// per-lane state (CtxState: the reference's _ctx_step / _ctx_advance), so
+// E and D cannot drift apart: D from the symbols it decodes, E from the
+// symbols it is given ([Sp, W] u8, with pos/reset [Sp, W] int32, the lane
+// counts and a trial's match flags), which are known ahead, so nothing
+// serialises on them. Bit j of a symbol takes entry
+// row + ((1 << j) | (sym >> (depth - j))) - 1 and codes bit
+// (sym >> (depth - 1 - j)) & 1; a step at or past its lane's count codes
+// symbol 0 in the sacrificial row num_ctx.
 //
 // Contract (byte-identical to the JAX package and its NumPy oracle,
 // ranger_np.py): W lanes advance in lockstep, one binary decision per lane
@@ -26,7 +38,7 @@
 // bit-steps). Kernel D's law couples the lanes at every bit-step, so its
 // floor is bit-steps x one 1,024-thread barrier (barrier_loop below
 // measures it). Kernel E needs no such barrier: its table's evolution
-// depends only on the schedule, so the function itself is bound only by
+// depends only on its inputs, so the function itself is bound only by
 // its bytes; the barriers are this design's cost, not the function's. At
 // W = 1024 both run far above the barrier floor, bound by issuing ~200
 // instructions per lane and bit-step for 32 warps on the SM's 4
@@ -76,27 +88,12 @@
 //   This equals the format's marker arithmetic: today's entry is
 //   clamp(p + sum(d - MARK) + sum(MARK)) = clamp(p + sum(d)), int32
 //   addition commutes, and colliding lanes store one value.
-// * Loads ahead of their use: Kernel E's schedule four bit-steps ahead
-//   (a register ring over an unrolled loop: a register copy would wait on
-//   the pending load), a device table's entry one bit-step ahead, Kernel
-//   D's step inputs one symbol-step ahead and its next payload byte.
-//   (A barrier does not wait for a thread's pending loads; only their use
+// * Loads ahead of their use: E's and D's step inputs one symbol-step
+//   ahead, a device table's entry one bit-step ahead (the next entry is
+//   known early: E's symbols are inputs, D's next row follows from the
+//   decoded symbol before its last barrier) and D's next payload byte. (A
+//   barrier does not wait for a thread's pending loads; only their use
 //   does.)
-// * Step slices (replacing the whole-stream schedule of the JAX package's
-//   `_build_schedule_ll` + `_build_encode` where a stream's schedule, 48
-//   bytes a QUAL symbol, would not fit the card: a 65,536-read block of
-//   16.5 kb reads needs 52 GB for QUAL alone): Kernel E takes a stream in
-//   launches of whole chunks, each schedule slice built just before its
-//   launch. A launch starts from the device table, low and range the one
-//   before left and ends with its last bit-step's commit (phase 1 of a
-//   next bit-step that belongs to the next launch), so the slices emit
-//   the one launch's bytes. A table that lives in shared memory (L1's
-//   SEQ and QUAL, L2's SEQ) is carried in device memory between slices:
-//   a slice that is not the stream's first loads it into shared memory,
-//   and every slice stores it back after its last commit (16-byte
-//   vectors, table_size * 2 bytes each way: 32 KB for L1 QUAL at depth
-//   6, 131,070 B for the byte kind). A launch without carries keeps its
-//   fresh table in shared memory and copies nothing.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -113,7 +110,7 @@ constexpr int PROB_MAX = PROB_ONE - PROB_MIN;
 constexpr int CAP_LOG2 = 4;
 constexpr int CNT_BITS = 10;  // the format's collision-count field
 constexpr int RENORM_ITERS = 4;
-constexpr int AHEAD = 4;  // Kernel E's schedule prefetch, in bit-steps
+constexpr int CHUNK_SYMS = 8;  // symbol-steps of an emission chunk
 constexpr int P_MASK = PROB_ONE - 1;  // entry bits 0-11: p
 constexpr int VIS_SHIFT = PROB_BITS;  // entry bits 12-15: visit count
 constexpr int EMPTY = -1;
@@ -146,18 +143,6 @@ __host__ __device__ inline int hash_smem_bytes(int nsl) {
   return 3 * 2 * (1 << nsl) * 4;
 }
 
-// Copy n 16-bit table entries between shared and device memory, the
-// CTA's threads in turn: 16-byte vectors, then the tail (both tables
-// start 16-byte aligned).
-__device__ __forceinline__ void copy_entries(uint16_t* dst,
-                                             const uint16_t* src, int n) {
-  const int nv = n / 8;
-  const uint4* s = reinterpret_cast<const uint4*>(src);
-  uint4* d = reinterpret_cast<uint4*>(dst);
-  for (int i = threadIdx.x; i < nv; i += blockDim.x) d[i] = s[i];
-  for (int i = nv * 8 + threadIdx.x; i < n; i += blockDim.x) dst[i] = src[i];
-}
-
 // One lane's view of the table law across bit-steps.
 template <bool SMEM, bool WARM>
 struct Lockstep {
@@ -170,11 +155,10 @@ struct Lockstep {
   int ahead = 0;  // a device table's entry for the next bit-step
   bool real = false, own = false;
 
-  // gtable: the device table; where the table lives in shared memory, a
-  // step slice's carried table (null without carries), loaded there
-  // unless `fresh`
+  // gtable: the device table (unused where the table lives in shared
+  // memory)
   __device__ void setup(unsigned char* smem, uint16_t* gtable, Geo geo,
-                        int ns_log2, bool fresh) {
+                        int ns_log2) {
     g = geo;
     nsl = ns_log2;
     table = SMEM ? reinterpret_cast<uint16_t*>(smem) : gtable;
@@ -187,11 +171,9 @@ struct Lockstep {
       cnt[i] = 0;
       sum[i] = 0;
     }
-    if (SMEM && fresh) {  // the sacrificial row pinned at PROB_MAX
+    if (SMEM) {  // the sacrificial row pinned at PROB_MAX
       for (int i = threadIdx.x; i < g.table_size; i += blockDim.x)
         table[i] = (uint16_t)(i < g.sac_base ? PROB_INIT : PROB_MAX);
-    } else if (SMEM) {
-      copy_entries(table, gtable, g.table_size);
     }
     __syncthreads();
   }
@@ -213,7 +195,7 @@ struct Lockstep {
   }
 
   // the owner of the last bit-step's slot stores its entry and clears
-  // the slot (phase 1 of the next bit-step, or after a launch's last one)
+  // the slot (phase 1 of the next bit-step)
   __device__ __forceinline__ void commit() {
     if (own) {
       const int at = b + slot;
@@ -285,31 +267,107 @@ __device__ __forceinline__ bool renorm_needed(uint32_t low, uint32_t rng,
   return *agree || rng < BOT;
 }
 
-// One block's stream for Kernel E: its schedule, its device table (where
-// the table lives in shared memory: null, or a step slice's carried table)
-// and its outputs. A stream coded in step slices takes one launch a
-// slice: each codes chunks [c0, c1) of the stream (the pointers are the
-// slice's own), starts from the state the slice before left in `table`,
-// `low` and `rng` (`first`: the stream's first slice, whose table is
-// fresh, starts at low 0 and range 2^32 - 1) and raises `emax`, which the
-// slices share.
+// Online context of one symbol-step (streams_jax._ctx_step/_ctx_advance),
+// the one function Kernels E and D both build their rows with.
+struct Ctx {
+  int kind, depth, num_ctx;
+  int k0, k1, k2, k3;  // qual: q2_bits, delta_bits, pos_bits, pos_shift;
+                       // seq: order, match_bits, tree_ctx; byte: order;
+                       // flag: hist_bits
+};
+
+__device__ __forceinline__ uint32_t qdelta_code(uint32_t a, uint32_t b) {
+  const int d = (int)a - (int)b;
+  if (d == 0) return 0;
+  if (d > 0 && d <= 3) return 1;
+  if (d < 0 && d >= -3) return 2;
+  return 3;
+}
+
+// A lane's context state: qual (a, b), the two symbols before; seq h, the
+// order-k history; byte the symbol before; flag the hist_bits history.
+struct CtxState {
+  uint32_t sa = 0, sb = 0;
+
+  // the first table entry of a symbol-step: its context row times the
+  // tree's nodes (the sacrificial row num_ctx where the step is not
+  // active); a read start (rs) clears the history first. mf: the step lies
+  // in a match span of a format-v5 SEQ stream coded with the family.
+  __device__ __forceinline__ int row(const Ctx& cx, bool act, bool rs,
+                                     uint32_t pos, bool mf) {
+    uint32_t ctx;
+    if (cx.kind == QUAL) {
+      if (rs) sa = sb = 0;
+      ctx = sa;
+      int shift = cx.depth;
+      if (cx.k0) {
+        ctx |= (sb >> (cx.depth - cx.k0)) << shift;
+        shift += cx.k0;
+      }
+      if (cx.k1) {
+        ctx |= qdelta_code(sa, sb) << shift;
+        shift += cx.k1;
+      }
+      if (cx.k2) ctx |= min(pos >> cx.k3, (1u << cx.k2) - 1) << shift;
+    } else if (cx.kind == SEQ) {
+      if (rs) sa = 0;
+      if (mf) {  // the match family: tree_ctx + low bits of h
+        ctx = (uint32_t)cx.k2 + (sa & ((1u << cx.k1) - 1));
+      } else {
+        const int j = min((int)pos, cx.k0);
+        ctx = sa + ((1u << (2 * j)) - 1) / 3;
+      }
+    } else if (cx.kind == BYTE) {
+      ctx = cx.k0 ? sa : 0;
+    } else {
+      ctx = sa;
+    }
+    return (act ? (int)ctx : cx.num_ctx) * ((1 << cx.depth) - 1);
+  }
+
+  // the step's symbol enters the history (0 where the step is not active)
+  __device__ __forceinline__ void advance(const Ctx& cx, uint32_t sym) {
+    if (cx.kind == QUAL) {
+      sb = sa;
+      sa = sym;
+    } else if (cx.kind == SEQ) {
+      sa = ((sa << 2) | sym) & ((1u << (2 * cx.k0)) - 1);
+    } else if (cx.kind == BYTE) {
+      sa = sym;
+    } else {
+      sa = ((sa << 1) | sym) & ((1u << cx.k0) - 1);
+    }
+  }
+};
+
+// One symbol-step's inputs of a lane.
+struct StepIn {
+  uint32_t sym, pos;
+  bool act, rs, mf;
+};
+
+// One block's stream for Kernel E: its symbols and step inputs, its fresh
+// device table (null where the table lives in shared memory) and its
+// outputs.
 struct EncDesc {
-  const int* idx_c;  // [NC, KD, W]
-  const int* bit_c;  // [NC, KD, W]
-  uint16_t* table;   // [table_size]
-  uint8_t* ebufs;    // [NC, W, CB]
-  int* eptrs;        // [NC, W]
-  uint32_t* low;     // [W], in (unless first) and out
-  uint32_t* rng;     // [W], in (unless first) and out
-  int* emax;         // this block's largest chunk count
+  const uint8_t* syms;    // [Sp, W]
+  const int* poss;        // [Sp, W]; null for the byte and flag kinds
+  const int* resets;      // [Sp, W]; null for the byte and flag kinds
+  const int* counts;      // [W]
+  const uint8_t* mflags;  // [Sp, W]; null without the match family
+  uint16_t* table;        // [table_size]
+  uint8_t* ebufs;         // [NC, W, CB]
+  int* eptrs;             // [NC, W]
+  uint32_t* low;          // [W]: the coder's final low
+  int* emax;              // this block's largest chunk count
   int NC;
-  int first;
 };
 
 struct EncParams {
   EncDesc d[MAX_BLOCKS];
   Geo geo;
-  int KD, W, nsl, CB;
+  Ctx cx;
+  int W, nsl, CB;
 };
 
 template <bool SMEM, bool WARM>
@@ -318,49 +376,51 @@ __global__ void __launch_bounds__(1024, 1)
   extern __shared__ __align__(16) unsigned char smem[];
   const EncDesc& desc = p.d[blockIdx.x];
   const Geo& geo = p.geo;
-  const int NC = desc.NC, KD = p.KD, W = p.W, CB = p.CB;
+  const Ctx& cx = p.cx;
+  const int NC = desc.NC, W = p.W, CB = p.CB, depth = cx.depth;
   uint8_t* __restrict__ ebufs = desc.ebufs;
   const int w = threadIdx.x;
   const bool live = w < W;
   Lockstep<SMEM, WARM> L;
-  L.setup(smem, desc.table, geo, p.nsl, desc.first);
+  L.setup(smem, desc.table, geo, p.nsl);
   uint32_t low = 0, rng = 0xFFFFFFFFu;
-  if (live && !desc.first) {
-    low = desc.low[w];
-    rng = desc.rng[w];
-  }
-  int emx = 0;
-  const int steps = NC * KD;
-  // the schedule of bit-step `at`; a ring of AHEAD slots in registers,
-  // slot k reloaded AHEAD bit-steps on right after its use (the loop is
-  // unrolled over the ring, so no register copy waits on a pending load)
-  const int* ip = desc.idx_c + w;  // bit-step `at` of this lane, walked on
-  const int* bp = desc.bit_c + w;
-  auto sched = [&](int at, int* i, bool* o) {
-    *i = geo.sac_base;
-    *o = false;
-    if (live && at < steps) {
-      *i = *ip;
-      *o = *bp != 0;
+  const int cnt = live ? desc.counts[w] : 0;
+  const int Sp = NC * CHUNK_SYMS;
+  // symbol-step t's inputs (none past the stream: the sacrificial row)
+  auto inputs = [&](int t, StepIn* x) {
+    x->sym = x->pos = 0;
+    x->act = x->rs = x->mf = false;
+    if (live && t < Sp) {
+      const size_t at = (size_t)t * W + w;
+      x->act = t < cnt;
+      x->sym = desc.syms[at];
+      if (desc.resets != nullptr) {
+        x->rs = desc.resets[at] != 0;
+        x->pos = (uint32_t)desc.poss[at];
+      }
+      if (desc.mflags != nullptr) x->mf = desc.mflags[at] == 1;
     }
-    ip += W;
-    bp += W;
   };
-  int ri[AHEAD];
-  bool ro[AHEAD];
-#pragma unroll
-  for (int k = 0; k < AHEAD; ++k) sched(k, &ri[k], &ro[k]);
-  L.fetch(ri[0], live);
-  int s = 0;
+  CtxState st;
+  StepIn cur, nxt;
+  inputs(0, &cur);
+  inputs(1, &nxt);
+  // the symbol coded (0 where the step is not active) and its first entry
+  uint32_t sym = cur.act ? cur.sym : 0u;
+  int base = st.row(cx, cur.act, cur.rs, cur.pos, cur.mf);
+  // bit j of the symbol: its table entry (its value: bit depth-1-j)
+  auto entry = [&](int j) {
+    return base + (int)((1u << j) | (sym >> (depth - j))) - 1;
+  };
+  L.fetch(entry(0), live);
+  int emx = 0, s = 0, t = 0;
   for (int c = 0; c < NC; ++c) {
     uint8_t* eb = ebufs + ((size_t)c * W + w) * CB;
     int eptr = 0;
-    for (int i = 0; i < KD; i += AHEAD) {  // KD = 8 * depth
-#pragma unroll
-      for (int k = 0; k < AHEAD; ++k, ++s) {
-        const bool one = ro[k];
-        L.enter(s, ri[k], live);
-        sched(s + AHEAD, &ri[k], &ro[k]);
+    for (int k = 0; k < CHUNK_SYMS; ++k) {
+      for (int j = 0; j < depth; ++j, ++s) {
+        const bool one = (sym >> (depth - 1 - j)) & 1u;
+        L.enter(s, entry(j), live);
         __syncthreads();
         const uint32_t split = (rng >> PROB_BITS) * L.prob();
         if (one) {
@@ -379,43 +439,26 @@ __global__ void __launch_bounds__(1024, 1)
           rng <<= 8;
         }
         L.update(one);
-        L.fetch(ri[(k + 1) % AHEAD], live);
+        if (j + 1 == depth) {  // the next symbol-step: its row and symbol
+          st.advance(cx, sym);
+          cur = nxt;
+          inputs(++t + 1, &nxt);
+          sym = cur.act ? cur.sym : 0u;
+          base = st.row(cx, cur.act, cur.rs, cur.pos, cur.mf);
+          L.fetch(entry(0), live);
+        } else {
+          L.fetch(entry(j + 1), live);
+        }
         __syncthreads();
       }
     }
     if (live) desc.eptrs[(size_t)c * W + w] = eptr;
     emx = max(emx, eptr);
   }
-  // the last bit-step's entries: a device table carries them to the next
-  // slice (the loop's last barrier ordered every delta before); a carried
-  // table in shared memory is stored back to device memory
-  const bool carried = SMEM && desc.table != nullptr;
-  if (!SMEM || carried) L.commit();
-  if (carried) {
-    __syncthreads();
-    copy_entries(desc.table, L.table, geo.table_size);
-  }
   if (live) {
     desc.low[w] = low;
-    desc.rng[w] = rng;
     atomicMax(desc.emax, emx);
   }
-}
-
-// Online context of one symbol-step (streams_jax._ctx_step/_ctx_advance).
-struct Ctx {
-  int kind, depth, num_ctx;
-  int k0, k1, k2, k3;  // qual: q2_bits, delta_bits, pos_bits, pos_shift;
-                       // seq: order, match_bits, tree_ctx; byte: order;
-                       // flag: hist_bits
-};
-
-__device__ __forceinline__ uint32_t qdelta_code(uint32_t a, uint32_t b) {
-  const int d = (int)a - (int)b;
-  if (d == 0) return 0;
-  if (d > 0 && d <= 3) return 1;
-  if (d < 0 && d >= -3) return 2;
-  return 3;
 }
 
 // One block's stream for Kernel D: its payload and step inputs, its
@@ -424,7 +467,7 @@ __device__ __forceinline__ uint32_t qdelta_code(uint32_t a, uint32_t b) {
 struct DecDesc {
   const uint8_t* payload;  // [W, Lb]
   const int* lens;         // [W]
-  const int* acts;         // [Sp, W]
+  const int* counts;       // [W]
   const int* poss;         // [Sp, W]
   const int* resets;       // [Sp, W]
   const uint8_t* mflags;   // [Sp, W], the MATCH instantiation only
@@ -451,7 +494,6 @@ __global__ void __launch_bounds__(1024, 1)
   const DecDesc& desc = p.d[blockIdx.x];
   const Ctx& cx = p.cx;
   const int W = p.W, Lb = desc.Lb, Sp = desc.Sp;
-  const int* __restrict__ acts = desc.acts;
   const int* __restrict__ poss = desc.poss;
   const int* __restrict__ resets = desc.resets;
   const uint8_t* __restrict__ mflags = desc.mflags;
@@ -459,9 +501,10 @@ __global__ void __launch_bounds__(1024, 1)
   const int w = threadIdx.x;
   const bool live = w < W;
   Lockstep<SMEM, WARM> L;
-  L.setup(smem, desc.table, p.geo, p.nsl, true);
+  L.setup(smem, desc.table, p.geo, p.nsl);
   const uint8_t* row = desc.payload + (size_t)(live ? w : 0) * Lb;
   const int len = live ? desc.lens[w] : 0;
+  const int cnt = live ? desc.counts[w] : 0;
   // payload byte q of this lane; 0 past its end (read_bytes)
   auto fetch = [&](int q) -> uint32_t {
     return q < len ? row[min(q, Lb - 1)] : 0u;
@@ -470,56 +513,24 @@ __global__ void __launch_bounds__(1024, 1)
   uint32_t low = 0, rng = 0xFFFFFFFFu, code = 0;
   for (int r = 0; r < 4; ++r) code = (code << 8) | fetch(ptr++);
   uint32_t nb = fetch(ptr);  // the next byte, loaded ahead of its use
-  uint32_t sa = 0, sb = 0;  // qual: (a, b); seq: h; byte: prev; flag: hist
-  const int nodes = (1 << cx.depth) - 1;
+  CtxState st;
   // this symbol-step's inputs, then the next one's, loaded ahead
   auto inputs = [&](int t, bool* act, bool* rs, uint32_t* pos, bool* mf) {
     *act = *rs = *mf = false;
     *pos = 0;
     if (live && t < Sp) {
       const size_t at = (size_t)t * W + w;
-      *act = acts[at] != 0;
+      *act = t < cnt;
       *rs = resets[at] != 0;
       *pos = (uint32_t)poss[at];
       if (MATCH) *mf = mflags[at] == 1;
     }
   };
-  // the first table entry of symbol-step t: its context row
-  auto row_of = [&](bool act, bool rs, uint32_t pos, bool mf) -> int {
-    uint32_t ctx;
-    if (cx.kind == QUAL) {
-      if (rs) sa = sb = 0;
-      ctx = sa;
-      int shift = cx.depth;
-      if (cx.k0) {
-        ctx |= (sb >> (cx.depth - cx.k0)) << shift;
-        shift += cx.k0;
-      }
-      if (cx.k1) {
-        ctx |= qdelta_code(sa, sb) << shift;
-        shift += cx.k1;
-      }
-      if (cx.k2) ctx |= min(pos >> cx.k3, (1u << cx.k2) - 1) << shift;
-    } else if (cx.kind == SEQ) {
-      if (rs) sa = 0;
-      if (MATCH && mf) {  // the match family: tree_ctx + low bits of h
-        ctx = (uint32_t)cx.k2 + (sa & ((1u << cx.k1) - 1));
-      } else {
-        const int j = min((int)pos, cx.k0);
-        ctx = sa + ((1u << (2 * j)) - 1) / 3;
-      }
-    } else if (cx.kind == BYTE) {
-      ctx = cx.k0 ? sa : 0;
-    } else {
-      ctx = sa;
-    }
-    return (act ? (int)ctx : cx.num_ctx) * nodes;
-  };
   bool act, rs, mf, nact, nrs, nmf;
   uint32_t pos, npos;
   inputs(0, &act, &rs, &pos, &mf);
   inputs(1, &nact, &nrs, &npos, &nmf);
-  int base = row_of(act, rs, pos, mf), node = 1, d = 0, t = 0;
+  int base = st.row(cx, act, rs, pos, mf), node = 1, d = 0, t = 0;
   L.fetch(base, live);
   for (int s = 0; s < Sp * cx.depth; ++s) {
     L.enter(s, base + node - 1, live);
@@ -545,23 +556,14 @@ __global__ void __launch_bounds__(1024, 1)
     node = 2 * node + one;
     if (++d == cx.depth) {  // the symbol is complete
       const uint32_t sym = act ? (uint32_t)(node - (1 << cx.depth)) : 0u;
-      if (cx.kind == QUAL) {
-        sb = sa;
-        sa = sym;
-      } else if (cx.kind == SEQ) {
-        sa = ((sa << 2) | sym) & ((1u << (2 * cx.k0)) - 1);
-      } else if (cx.kind == BYTE) {
-        sa = sym;
-      } else {
-        sa = ((sa << 1) | sym) & ((1u << cx.k0) - 1);
-      }
+      st.advance(cx, sym);
       if (live) syms[(size_t)t * W + w] = (uint8_t)sym;
       act = nact;
       rs = nrs;
       pos = npos;
       mf = nmf;
       inputs(++t + 1, &nact, &nrs, &npos, &nmf);
-      base = row_of(act, rs, pos, mf);
+      base = st.row(cx, act, rs, pos, mf);
       node = 1;
       d = 0;
     }
@@ -609,16 +611,17 @@ const char* error_string(int err) {
 // linkage away), one CTA each. vcap: the saturating visit count, 0 without
 // warm-up; smem_table: the tables live in shared memory (the descriptors'
 // `table` is then unused).
-int lane_encode(const void* descs, int n, int KD, int W, int table_size,
+int lane_encode(const void* descs, int n, int W, int table_size,
                 int sac_base, int rate, int rate_lo, int vcap, int smem_table,
-                int CB, cudaStream_t stream) {
+                int CB, int depth, int kind, int num_ctx, int k0, int k1,
+                int k2, int k3, cudaStream_t stream) {
   Shape sh;
   if (n < 1 || n > MAX_BLOCKS || !shape_of(W, smem_table, table_size, &sh))
     return (int)cudaErrorInvalidValue;
   EncParams p = {};
   for (int i = 0; i < n; ++i) p.d[i] = static_cast<const EncDesc*>(descs)[i];
   p.geo = Geo{table_size, sac_base, rate, rate_lo, vcap};
-  p.KD = KD;
+  p.cx = Ctx{kind, depth, num_ctx, k0, k1, k2, k3};
   p.W = W;
   p.nsl = sh.nsl;
   p.CB = CB;

@@ -3,9 +3,9 @@ run (the JAX package's __graft_entry__.py, on PyTorch and the port's
 kernels).
 
 ``entry()`` returns the flagship step, the lane-interleaved adaptive range
-coder's encode of one quality stream at level-3 geometry: the schedule
-(ops/streams_torch._schedule) followed by Kernel E
-(ops/coder_torch.lane_encode), with example inputs on the device.
+coder's encode of one quality stream at level-3 geometry: Kernel E
+(ops/coder_torch.lane_encode) on the stream's symbols, pos, reset and
+counts, with example inputs on the device.
 ``dryrun_multichip(n)`` runs three bit-exact sharded round trips over a
 mesh of n devices: a toy level-2 run, level 3 at production geometry
 (W = 1024 / 64) and level 4 with the long-range matcher engaged.
@@ -41,15 +41,14 @@ def entry(device=None):
     geom = config_for_level(3).qual
     CB = streams_torch._chunk_bytes(geom.depth, hard=False)
     rng = np.random.default_rng(0)
-    syms = rng.integers(0, 40, size=(S, W)).astype(np.int32)
+    syms = rng.integers(0, 40, size=(S, W)).astype(np.uint8)
     counts = np.full(W, S, dtype=np.int32)
     pos = np.tile((np.arange(S, dtype=np.int32) % 100)[:, None], (1, W))
     reset = (pos == 0).astype(np.int32)
 
     def fn(syms, pos, reset, counts):
-        idx_c, bit_c = streams_torch._schedule("qual", geom, syms, pos,
-                                               reset, counts)
-        return coder_torch.lane_encode(idx_c, bit_c, geom, CB)
+        return coder_torch.lane_encode(syms, pos, reset, counts, "qual", geom,
+                                       CB)
 
     args = tuple(torch.from_numpy(a).to(dev)
                  for a in (syms, pos, reset, counts))

@@ -11,9 +11,8 @@ Launch counts: every kernel wrapper adds one to ``launches[name]`` where
 it launches its kernel, and nowhere else, so a run can show which kernels
 its path went through; ``descs[name]`` adds up the descriptors those
 launches took (blocks for Kernels E and D, streams for Kernel C), so a
-window's launches show how many blocks each carried; ``slices[name]``
-the descriptors that were one step slice of a stream (Kernel E);
-``by_shard`` the launches of each shard of a mesh, by its device.
+window's launches show how many blocks each carried; ``by_shard`` the
+launches of each shard of a mesh, by its device.
 """
 
 from __future__ import annotations
@@ -30,13 +29,13 @@ import torch
 CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))), "csrc")
 BUILD = os.path.join(CSRC, "build")
-SOURCES = ("coder", "compact")
+SOURCES = ("coder", "compact", "lanes")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
-launches = {"lane_encode": 0, "lane_decode": 0, "compact_lanes_dev": 0}
+launches = {"lane_encode": 0, "lane_decode": 0, "compact_lanes_dev": 0,
+            "lane_layout": 0, "lane_unpack": 0}
 descs = dict.fromkeys(launches, 0)
-slices = dict.fromkeys(launches, 0)
 # launches by mesh shard: (shard, device) -> {name: launches}, where a
 # shard of parallel.mesh made them (as_shard)
 by_shard: dict = {}
@@ -47,14 +46,12 @@ _count_lock = threading.Lock()
 _where = threading.local()  # .shard: the mesh shard this thread codes
 
 
-def count(name: str, n: int, device, sliced: int = 0) -> None:
+def count(name: str, n: int, device) -> None:
     """One launch of kernel ``name`` on ``device`` over ``n``
-    descriptors, ``sliced`` of them step slices (the shards of a mesh
-    count from their own threads)."""
+    descriptors (the shards of a mesh count from their own threads)."""
     with _count_lock:
         launches[name] += 1
         descs[name] += n
-        slices[name] += sliced
         shard = getattr(_where, "shard", None)
         if shard is not None:
             tally = by_shard.setdefault((shard, str(device)), {})
@@ -64,7 +61,7 @@ def count(name: str, n: int, device, sliced: int = 0) -> None:
 def reset_launches() -> None:
     with _count_lock:
         for k in launches:
-            launches[k] = descs[k] = slices[k] = 0
+            launches[k] = descs[k] = 0
         by_shard.clear()
 
 

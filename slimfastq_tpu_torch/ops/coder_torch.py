@@ -1,19 +1,26 @@
 """The lockstep lane coder: Kernel E (encode) and Kernel D (decode).
 
-Ports of the JAX package's ``ops/streams_jax.py`` ``_build_encode`` and
-``_build_decode``, with the same inputs and outputs so the two can be
-compared output for output:
+Ports of the JAX package's ``ops/streams_jax.py`` ``_build_encode`` (with
+the schedule it reads, ``_ctx_precompute`` + ``_build_schedule``) and
+``_build_decode``:
 
-* ``lane_encode(idx_c, bit_c, geom, CB)``: the encode schedule (table
-  index and bit of every bit-step, ``[NC, 8*depth, W]`` int32) ->
-  ``ebufs [NC, W, CB]`` u8 (each chunk's renorm bytes), ``eptrs [NC, W]``
-  i32 (bytes each lane emitted per chunk, counted past CB so the caller
-  sees an overflow), ``low [W]`` (the final coder low, u32 bits held in
-  int32) and ``emax`` (max of eptrs, a 0-d int32 tensor).
-* ``lane_decode(payload, lens, acts, poss, resets, kind, geom, mflag)``:
-  per-lane payload bytes ``[W, Lb]`` u8 with lengths ``[W]`` and the
-  per-step active/position/read-start matrices ``[Sp, W]`` int32 (and, for
-  a format-v5 SEQ stream coded with the match-context family, its
+* ``lane_encode(syms, pos, reset, counts, kind, geom, CB, mflag)``: a
+  stream's symbols ``[Sp, W]`` u8 with its per-step pos and reset
+  ``[Sp, W]`` int32 (read by the qual and seq kinds), its lane counts
+  ``[W]`` int32 and, for a format-v5 SEQ trial, its match-span flags
+  ``[Sp, W]`` u8 -> ``ebufs [NC, W, CB]`` u8 (each chunk's renorm
+  bytes), ``eptrs [NC, W]`` i32 (bytes each lane emitted per chunk,
+  counted past CB so the caller sees an overflow), ``low [W]`` (the final
+  coder low, u32 bits held in int32) and ``emax`` (max of eptrs, a 0-d
+  int32 tensor). Each step's context row is built online from the
+  symbols before it, as Kernel D builds it from the symbols it decodes
+  (``_ctx_step`` / ``_ctx_advance``); the JAX package's closed-form
+  schedule gives the same rows (streams_torch._schedule, its plain copy).
+* ``lane_decode(payload, lens, counts, poss, resets, kind, geom, mflag)``:
+  per-lane payload bytes ``[W, Lb]`` u8 with lengths ``[W]``, the lane
+  counts ``[W]`` int32 (a step is active below its lane's count) and the
+  per-step position/read-start matrices ``[Sp, W]`` int32 (and, for a
+  format-v5 SEQ stream coded with the match-context family, its
   match-span flags ``[Sp, W]`` u8; ``_build_decode(with_mflag=True)``) ->
   symbols ``[Sp, W]`` u8 (0 where a step is inactive).
 
@@ -23,12 +30,6 @@ over blocks, parallel/mesh.py with mesh=None): each block its own inputs
 and step count, its own fresh table and its own overflow check.
 ``lane_encode`` / ``lane_decode`` are their one-block case; the plain
 versions of the window forms loop over the one-block plain versions.
-A stream too long for its whole schedule to sit on the device (long
-reads) runs Kernel E in step slices (``lane_encode_slices``, or
-``lane_encode_sliced`` to its end): one launch a slice of chunks, the
-table, low and range carried from one launch to the next in an
-``EncCarry`` (the plain version carries its own), so the slices emit the
-one launch's bytes.
 
 Both run the batch-synchronous, collision-capped table law (see
 ops/ranger.py) with the format-v4 visit-count warm-up when the geometry
@@ -47,6 +48,7 @@ needs more than 4 bits.
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
@@ -60,9 +62,10 @@ _PMASK = (1 << CNT_SHIFT) - 1
 
 _P, _I = _cuda.PTR, _cuda.INT
 _SIGS = {
-    # descs, n, KD, W, table_size, sac_base, rate, rate_lo, vcap,
-    # smem_table, CB, stream
-    "lane_encode": [_P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
+    # descs, n, W, table_size, sac_base, rate, rate_lo, vcap, smem_table,
+    # CB, depth, kind, num_ctx, k0, k1, k2, k3, stream
+    "lane_encode": [_P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
+                    _I, _I, _I, _P],
     # descs, n, W, table_size, sac_base, rate, rate_lo, vcap, smem_table,
     # depth, kind, num_ctx, k0, k1, k2, k3, match, stream
     "lane_decode": [_P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
@@ -75,29 +78,39 @@ MAX_BLOCKS = 256  # blocks a launch: csrc/coder.cu's MAX_BLOCKS
 
 
 class _EncDesc(ctypes.Structure):
-    """csrc/coder.cu's EncDesc: one block's stream (or one step slice of
-    it) for Kernel E."""
-    _fields_ = [("idx_c", ctypes.c_void_p), ("bit_c", ctypes.c_void_p),
-                ("table", ctypes.c_void_p), ("ebufs", ctypes.c_void_p),
-                ("eptrs", ctypes.c_void_p), ("low", ctypes.c_void_p),
-                ("rng", ctypes.c_void_p), ("emax", ctypes.c_void_p),
-                ("NC", ctypes.c_int), ("first", ctypes.c_int)]
+    """csrc/coder.cu's EncDesc: one block's stream for Kernel E."""
+    _fields_ = [("syms", ctypes.c_void_p), ("poss", ctypes.c_void_p),
+                ("resets", ctypes.c_void_p), ("counts", ctypes.c_void_p),
+                ("mflags", ctypes.c_void_p), ("table", ctypes.c_void_p),
+                ("ebufs", ctypes.c_void_p), ("eptrs", ctypes.c_void_p),
+                ("low", ctypes.c_void_p), ("emax", ctypes.c_void_p),
+                ("NC", ctypes.c_int)]
 
 
-class EncCarry:
-    """Kernel E's state between the step slices of one stream: the table
-    (the kernel's 16-bit device table, or the plain version's _Law), low
-    and range, and the largest chunk count so far; all None before the
-    first slice."""
+class EncIn(NamedTuple):
+    """Kernel E's inputs of one block's stream, on one device: symbols
+    [Sp, W] u8 (Sp a multiple of CHUNK_SYMS), pos and reset [Sp, W] int32
+    (read by the qual and seq kinds; None for byte and flag), the lane
+    counts [W] int32 and a format-v5 SEQ trial's match-span flags [Sp, W]
+    u8 or None."""
+    syms: torch.Tensor
+    pos: torch.Tensor | None
+    reset: torch.Tensor | None
+    counts: torch.Tensor
+    mflag: torch.Tensor | None = None
 
-    def __init__(self):
-        self.table = self.low = self.rng = self.emax = None
+    @property
+    def NC(self) -> int:
+        return self.syms.shape[0] // CHUNK_SYMS
+
+    def tensors(self) -> list:
+        return [t for t in self if t is not None]
 
 
 class _DecDesc(ctypes.Structure):
     """csrc/coder.cu's DecDesc: one block's stream for Kernel D."""
     _fields_ = [("payload", ctypes.c_void_p), ("lens", ctypes.c_void_p),
-                ("acts", ctypes.c_void_p), ("poss", ctypes.c_void_p),
+                ("counts", ctypes.c_void_p), ("poss", ctypes.c_void_p),
                 ("resets", ctypes.c_void_p), ("mflags", ctypes.c_void_p),
                 ("table", ctypes.c_void_p), ("syms", ctypes.c_void_p),
                 ("Lb", ctypes.c_int), ("Sp", ctypes.c_int)]
@@ -161,11 +174,9 @@ def table_in_smem(geom, W: int) -> bool:
     return (table_bytes(geom) + 15) // 16 * 16 + hash_bytes(W) <= SMEM_LIMIT
 
 
-def _kernel_geom(geom, W: int, dev, B: int | None = None,
-                 fresh: bool = True):
+def _kernel_geom(geom, W: int, dev, B: int | None = None):
     """The kernels' table arguments: (a fresh device table, [B,
-    table_size] for B blocks, or None, vcap, smem_table); no table
-    without ``fresh`` (step slices bring their own).
+    table_size] for B blocks, or None, vcap, smem_table).
     Raises where the lanes or the geometry do not fit the kernels (one
     CTA, the 16-bit entry)."""
     if W > MAX_LANES:
@@ -183,7 +194,7 @@ def _kernel_geom(geom, W: int, dev, B: int | None = None,
         # level reaches this: the one depth-1 kind, flag, has 2^hist_bits
         # + 1 entries (5 at levels 1-4)
         raise ValueError("a depth-1 table must fit shared memory")
-    return (device_table(geom, dev, B) if fresh else None), cap, 0
+    return device_table(geom, dev, B), cap, 0
 
 
 def device_table(geom, dev, B: int | None = None) -> torch.Tensor:
@@ -263,26 +274,19 @@ def _renorm(low, rng):
 
 
 def lane_encode_plain(idx_c: torch.Tensor, bit_c: torch.Tensor, geom,
-                      CB: int, carry: EncCarry | None = None, out=None):
-    """Plain PyTorch version of Kernel E (same outputs). carry: a step
-    slice of a stream, started from and leaving the carried state (emax
-    the largest chunk count so far); out: (ebufs, eptrs) to write the
-    slice's chunks into."""
+                      CB: int):
+    """Plain PyTorch version of Kernel E's coder (same outputs), from the
+    schedule its contexts give (online_schedule)."""
     NC, KD, W = idx_c.shape
     dev = idx_c.device
     real_all = (idx_c < geom.sac_base).int()
     marks_all = real_all << CNT_SHIFT
     one_all = bit_c != 0
-    if carry is not None and carry.table is not None:
-        law, low, rng = carry.table, carry.low, carry.rng
-    else:
-        law = _Law(geom, W, dev)
-        low = torch.zeros(W, dtype=torch.int64, device=dev)
-        rng = torch.full((W,), MASK32, dtype=torch.int64, device=dev)
-    if out is None:
-        out = (torch.zeros((NC, W, CB), dtype=torch.uint8, device=dev),
-               torch.zeros((NC, W), dtype=torch.int32, device=dev))
-    ebufs, eptrs = out
+    law = _Law(geom, W, dev)
+    low = torch.zeros(W, dtype=torch.int64, device=dev)
+    rng = torch.full((W,), MASK32, dtype=torch.int64, device=dev)
+    ebufs = torch.zeros((NC, W, CB), dtype=torch.uint8, device=dev)
+    eptrs = torch.zeros((NC, W), dtype=torch.int32, device=dev)
     loff = torch.arange(W, device=dev) * CB
     sink = W * CB
     ebuf = torch.zeros(W * CB + 1, dtype=torch.uint8, device=dev)
@@ -306,12 +310,7 @@ def lane_encode_plain(idx_c: torch.Tensor, bit_c: torch.Tensor, geom,
             law.update(idx, real_all[c, i], marked, p, one)
         ebufs[c] = ebuf[:-1].reshape(W, CB)
         eptrs[c] = eptr.int()
-    emax = eptrs.max()
-    if carry is not None:
-        if carry.emax is not None:
-            emax = torch.maximum(emax, carry.emax)
-        carry.table, carry.low, carry.rng, carry.emax = law, low, rng, emax
-    return ebufs, eptrs, _u32_bits(low), emax
+    return ebufs, eptrs, _u32_bits(low), eptrs.max()
 
 
 def _ctx_init(kind: str, W: int, dev):
@@ -374,17 +373,18 @@ def _ctx_advance(kind: str, geom, cst, sym):
 
 
 def lane_decode_plain(payload: torch.Tensor, lens: torch.Tensor,
-                      acts: torch.Tensor, poss: torch.Tensor,
+                      counts: torch.Tensor, poss: torch.Tensor,
                       resets: torch.Tensor, kind: str, geom, mflag=None):
     """Plain PyTorch version of Kernel D (same output)."""
     W, Lb = payload.shape
-    Sp = acts.shape[0]
+    Sp = poss.shape[0]
     dev = payload.device
     law = _Law(geom, W, dev)
     pay = payload.reshape(-1)
     rowoff = torch.arange(W, device=dev) * Lb
     lens64 = lens.long()
-    act_all = acts != 0
+    steps = torch.arange(Sp, device=dev)[:, None]
+    act_all = steps < counts.long()[None, :]
     # an active step's context is a real one, an inactive step codes in
     # the sacrificial row: `real` is `act`
     real_all = act_all.int()
@@ -452,14 +452,60 @@ def _kind_params(kind: str, geom):
     raise ValueError(kind)
 
 
-def lane_encode_blocks_plain(scheds, geom, CB: int, carries=None,
-                             outs=None) -> list:
-    """Plain version of lane_encode_blocks: lane_encode_plain per block."""
-    n = len(scheds)
-    return [lane_encode_plain(idx_c, bit_c, geom, CB,
-                              (carries or [None] * n)[b],
-                              (outs or [None] * n)[b])
-            for b, (idx_c, bit_c) in enumerate(scheds)]
+def _per_read(kind: str) -> bool:
+    """The kinds whose contexts read pos and reset."""
+    return kind in ("qual", "seq")
+
+
+def online_schedule(kind: str, geom, item: EncIn):
+    """The encode schedule Kernel E codes, built online as it builds it:
+    each step's context row from the carried state (_ctx_step /
+    _ctx_advance, Kernel D's rules). Returns idx_c, bit_c [NC, 8*depth,
+    W] int32: bit j of a step's symbol takes entry row + ((1 << j) |
+    (sym >> (depth - j))) - 1 and bit (sym >> (depth - 1 - j)) & 1; a step
+    at or past its lane's count codes symbol 0 in the sacrificial row
+    num_ctx."""
+    syms, pos, reset, counts, mflag = item
+    Sp, W = syms.shape
+    dev = syms.device
+    zero = torch.zeros(W, dtype=torch.int64, device=dev)
+    cnt = counts.long()
+    per_read = _per_read(kind)
+
+    def step(t, cst):
+        act = t < cnt
+        ctx, cst = _ctx_step(kind, geom, cst,
+                             pos[t].long() if per_read else zero,
+                             reset[t] != 0 if per_read else zero != 0,
+                             None if mflag is None else mflag[t])
+        sym = torch.where(act, syms[t].long(), 0)
+        return (torch.where(act, ctx, geom.num_ctx), sym,
+                _ctx_advance(kind, geom, cst, sym))
+
+    cst = _ctx_init(kind, W, dev)
+    ctxs, sel = [], []
+    for t in range(Sp):
+        ctx, sym, cst = step(t, cst)
+        ctxs.append(ctx)
+        sel.append(sym)
+    depth = geom.depth
+    base = torch.stack(ctxs) * ((1 << depth) - 1)
+    sym = torch.stack(sel)
+    idx = torch.empty((Sp, depth, W), dtype=torch.int32, device=dev)
+    bit = torch.empty_like(idx)
+    for j in range(depth):
+        idx[:, j] = base + ((1 << j) | (sym >> (depth - j))) - 1
+        bit[:, j] = (sym >> (depth - 1 - j)) & 1
+    NC = Sp // CHUNK_SYMS
+    return (idx.view(NC, CHUNK_SYMS * depth, W),
+            bit.view(NC, CHUNK_SYMS * depth, W))
+
+
+def lane_encode_blocks_plain(items, kind: str, geom, CB: int) -> list:
+    """Plain version of lane_encode_blocks: per block, its schedule built
+    online (online_schedule), then lane_encode_plain."""
+    return [lane_encode_plain(*online_schedule(kind, geom, item), geom, CB)
+            for item in items]
 
 
 def lane_decode_blocks_plain(items, kind: str, geom) -> list:
@@ -478,156 +524,116 @@ def _window_device(tensors) -> torch.device:
     return dev
 
 
-def lane_encode_blocks(scheds, geom, CB: int, carries=None,
-                       outs=None) -> list:
-    """Kernel E over a window: ``scheds`` holds each block's (idx_c,
-    bit_c) [NC_b, 8*depth, W] int32, one W and geometry for all. Returns
-    per block (ebufs, eptrs, low, emax) as lane_encode does, emax the
-    block's own. One launch (one CTA a block) on CUDA tensors, the plain
-    version on CPU tensors.
-
-    Step slices: ``carries`` gives per block an EncCarry, and the launch
-    codes one slice of each block's stream from the carried state (fresh
-    before the first slice), leaving its own there (emax the largest
-    chunk count so far); ``outs`` gives per block the (ebufs [NC_b, W,
-    CB] u8, eptrs [NC_b, W] i32) to write into, the slice's rows of its
-    stream's buffers. Slices carry the table in device memory; where it
-    lives in shared memory (table_in_smem), each slice loads it from
-    there (but the first) and stores it back."""
-    if not 1 <= len(scheds) <= MAX_BLOCKS:
-        raise ValueError(f"one launch codes 1 to {MAX_BLOCKS} blocks, not "
-                         f"{len(scheds)}")
-    KD, W = CHUNK_SYMS * geom.depth, scheds[0][0].shape[-1]
-    for extra in (carries, outs):
-        if extra is not None and len(extra) != len(scheds):
-            raise ValueError("one carry and one output pair a block")
-    for idx_c, bit_c in scheds:
-        if idx_c.dim() != 3 or idx_c.dtype != torch.int32 \
-                or bit_c.dtype != torch.int32 or bit_c.shape != idx_c.shape:
-            raise ValueError("idx_c and bit_c must be [NC, 8*depth, W] "
-                             "int32")
-        if idx_c.shape[1] != KD:
-            raise ValueError(f"schedule depth {idx_c.shape[1]} != "
-                             f"{CHUNK_SYMS}*{geom.depth}")
-        if idx_c.shape[2] != W:
+def _check_items(items, kind: str, geom) -> tuple:
+    """(W, each item as Kernel E reads it) of a launch's EncIn items:
+    symbols u8 [Sp, W] with Sp a multiple of CHUNK_SYMS; pos and reset
+    int32 [Sp, W] for the qual and seq kinds (dropped for byte and flag);
+    counts int32 [W]; match flags u8 [Sp, W] where the geometry has the
+    match family (dropped elsewhere, as the closed form ignores them)."""
+    W = items[0].syms.shape[-1]
+    family = kind == "seq" and bool(getattr(geom, "match_bits", 0))
+    checked = []
+    for it in items:
+        syms, pos, reset, counts, mflag = it
+        if syms.dim() != 2 or syms.dtype != torch.uint8:
+            raise ValueError("symbols must be [Sp, W] uint8")
+        Sp = syms.shape[0]
+        if syms.shape[1] != W:
             raise ValueError("every block of a launch has the same lanes")
-    NCs = [int(i.shape[0]) for i, _ in scheds]
-    if outs is not None:
-        for (eb, ep), NC in zip(outs, NCs):
-            if eb.shape != (NC, W, CB) or eb.dtype != torch.uint8 \
-                    or ep.shape != (NC, W) or ep.dtype != torch.int32:
-                raise ValueError("outs must be [NC, W, CB] uint8 and [NC, W] "
-                                 "int32 per block")
-    dev = _window_device([t for s in scheds for t in s]
-                         + [t for o in outs or () for t in o])
+        if Sp % CHUNK_SYMS:
+            raise ValueError(f"steps {Sp} not a multiple of {CHUNK_SYMS}")
+        if counts.shape != (W,) or counts.dtype != torch.int32:
+            raise ValueError("counts must be [W] int32")
+        if _per_read(kind):
+            if pos is None or reset is None or any(
+                    x.dtype != torch.int32 or x.shape != syms.shape
+                    for x in (pos, reset)):
+                raise ValueError("pos and reset must be [Sp, W] int32")
+        else:
+            pos = reset = None
+        if mflag is not None and (mflag.dtype != torch.uint8
+                                  or mflag.shape != syms.shape):
+            raise ValueError("mflag must be [Sp, W] uint8")
+        checked.append(EncIn(syms, pos, reset, counts,
+                             mflag if family else None))
+    return W, checked
+
+
+def lane_encode_blocks(items, kind: str, geom, CB: int) -> list:
+    """Kernel E over a window: ``items`` holds each block's EncIn of one
+    stream (one W, kind and geometry for all). Returns per block (ebufs
+    [NC, W, CB] u8, eptrs [NC, W] i32, low [W], emax) as lane_encode
+    does, emax the block's own. One launch (one CTA a block) on CUDA
+    tensors, the plain version on CPU tensors."""
+    if not 1 <= len(items) <= MAX_BLOCKS:
+        raise ValueError(f"one launch codes 1 to {MAX_BLOCKS} blocks, not "
+                         f"{len(items)}")
+    W, items = _check_items(items, kind, geom)
+    dev = _window_device([t for it in items for t in it.tensors()])
     if dev.type == "cpu":
-        return lane_encode_blocks_plain(scheds, geom, CB, carries, outs)
-    B = len(scheds)
-    table, vcap, smem = _kernel_geom(geom, W, dev, B, carries is None)
-    scheds = [(i.contiguous(), b.contiguous()) for i, b in scheds]
+        return lane_encode_blocks_plain(items, kind, geom, CB)
+    B = len(items)
+    table, vcap, smem = _kernel_geom(geom, W, dev, B)
+    items = [EncIn(*(None if x is None else x.contiguous() for x in it))
+             for it in items]
     lib = _cuda.load("coder", _SIGS)
-    if outs is None:
-        # one allocation each for the window's chunk windows and counts;
-        # every block's windows start 16-byte aligned (CB is a multiple of
-        # 16)
-        ebufs = torch.zeros(sum(NCs) * W * CB, dtype=torch.uint8,
-                            device=dev)
-        eptrs = torch.empty(sum(NCs) * W, dtype=torch.int32, device=dev)
-        outs, at = [], 0
-        for NC in NCs:
-            outs.append((ebufs[at * W * CB: (at + NC) * W * CB].view(
-                NC, W, CB), eptrs[at * W: (at + NC) * W].view(NC, W)))
-            at += NC
-    if any(not (eb.is_contiguous() and ep.is_contiguous())
-           or eb.data_ptr() % 16 for eb, ep in outs):
-        raise ValueError("outs must be contiguous, ebufs 16-byte aligned")
-    if carries is None:
-        low = torch.empty((B, W), dtype=torch.int32, device=dev)
-        rng = torch.empty((B, W), dtype=torch.int32, device=dev)
-        emax = torch.zeros(B, dtype=torch.int32, device=dev)
-        states = [(None if table is None else table[b], low[b], rng[b],
-                   emax[b:b + 1], 1) for b in range(B)]
-    else:
-        states = []
-        for c in carries:
-            first = c.table is None
-            if first:
-                c.table = device_table(geom, dev)
-                c.low = torch.empty(W, dtype=torch.int32, device=dev)
-                c.rng = torch.empty(W, dtype=torch.int32, device=dev)
-                c.emax = torch.zeros(1, dtype=torch.int32, device=dev)
-            states.append((c.table, c.low, c.rng, c.emax, int(first)))
-    descs, res = (_EncDesc * B)(), []
-    for b, ((idx_c, bit_c), (eb, ep), (tab, lo, rg, em, first)) in \
-            enumerate(zip(scheds, outs, states)):
+    # one allocation each for the window's chunk windows and counts; every
+    # block's windows start 16-byte aligned (CB is a multiple of 16)
+    NCs = [it.NC for it in items]
+    ebufs = torch.zeros(sum(NCs) * W * CB, dtype=torch.uint8, device=dev)
+    eptrs = torch.empty(sum(NCs) * W, dtype=torch.int32, device=dev)
+    low = torch.empty((B, W), dtype=torch.int32, device=dev)
+    emax = torch.zeros(B, dtype=torch.int32, device=dev)
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+    descs, res, at = (_EncDesc * B)(), [], 0
+    for b, (it, NC) in enumerate(zip(items, NCs)):
+        eb = ebufs[at * W * CB: (at + NC) * W * CB].view(NC, W, CB)
+        ep = eptrs[at * W: (at + NC) * W].view(NC, W)
+        at += NC
         d = descs[b]
-        d.idx_c, d.bit_c = idx_c.data_ptr(), bit_c.data_ptr()
-        d.table = None if tab is None else tab.data_ptr()
+        d.syms, d.poss, d.resets, d.counts, d.mflags = (ptr(x) for x in it)
+        d.table = None if table is None else table[b].data_ptr()
         d.ebufs, d.eptrs = eb.data_ptr(), ep.data_ptr()
-        d.low, d.rng, d.emax = lo.data_ptr(), rg.data_ptr(), em.data_ptr()
-        d.NC, d.first = NCs[b], first
-        res.append((eb, ep, lo, em[0]))
+        d.low, d.emax = low[b].data_ptr(), emax[b:b + 1].data_ptr()
+        d.NC = NC
+        res.append((eb, ep, low[b], emax[b]))
     rate_lo = getattr(geom, "rate_lo", 0)
     err = _cuda.launch(
-        outs[0][0], lib.lane_encode, ctypes.addressof(descs), B, KD, W,
-        geom.table_size, geom.sac_base, geom.rate, rate_lo, vcap, smem, CB)
-    _cuda.count("lane_encode", B, dev, sliced=0 if carries is None else B)
+        ebufs, lib.lane_encode, ctypes.addressof(descs), B, W,
+        geom.table_size, geom.sac_base, geom.rate, rate_lo, vcap, smem, CB,
+        geom.depth, KINDS[kind], geom.num_ctx, *_kind_params(kind, geom))
+    _cuda.count("lane_encode", B, dev)
     _cuda.check(lib, err, "lane_encode")
     return res
 
 
-def lane_encode_slices(build, NC: int, step: int, W: int, geom, CB: int,
-                       dev):
-    """Kernel E over one stream in step slices of ``step`` chunks, one
-    launch a step of this generator: ``build(c0, c1)`` gives chunks
-    [c0, c1) of the stream's (idx_c, bit_c), built just before their
-    launch, so only one slice of the schedule is on the device at a time;
-    the coder state carries from one launch to the next (EncCarry). Yields
-    None after each launch but the last and, after the last, (ebufs [NC,
-    W, CB], eptrs, low, emax) of the whole stream with lane_encode's
-    bytes. A caller may interleave the slices of several streams."""
-    ebufs = torch.zeros((NC, W, CB), dtype=torch.uint8, device=dev)
-    eptrs = torch.zeros((NC, W), dtype=torch.int32, device=dev)
-    carry = EncCarry()
-    for c0 in range(0, NC, step):
-        c1 = min(NC, c0 + step)
-        (_, _, low, emax), = lane_encode_blocks(
-            [build(c0, c1)], geom, CB, [carry],
-            [(ebufs[c0:c1], eptrs[c0:c1])])
-        if c1 < NC:
-            yield None
-    yield ebufs, eptrs, low, emax
-
-
-def lane_encode_sliced(build, NC: int, step: int, W: int, geom, CB: int,
-                       dev) -> tuple:
-    """lane_encode_slices run to its end: (ebufs, eptrs, low, emax)."""
-    *_, out = lane_encode_slices(build, NC, step, W, geom, CB, dev)
-    return out
-
-
-def lane_encode(idx_c: torch.Tensor, bit_c: torch.Tensor, geom, CB: int):
+def lane_encode(syms: torch.Tensor, pos: torch.Tensor | None,
+                reset: torch.Tensor | None, counts: torch.Tensor, kind: str,
+                geom, CB: int, mflag: torch.Tensor | None = None):
     """Kernel E on CUDA tensors, its plain version on CPU tensors: the
     one-block case of lane_encode_blocks."""
-    return lane_encode_blocks([(idx_c, bit_c)], geom, CB)[0]
+    return lane_encode_blocks([EncIn(syms, pos, reset, counts, mflag)],
+                              kind, geom, CB)[0]
 
 
 def lane_decode_blocks(items, kind: str, geom) -> list:
     """Kernel D over a window: ``items`` holds each block's (payload
-    [W, Lb_b] u8, lens [W] int32, acts, poss, resets [Sp_b, W] int32, and
-    for a format-v5 SEQ stream with the match-context family its mflag
-    [Sp_b, W] u8 or None), one W and geometry for all; the flags are
-    given for every block of a launch or for none. acts/poss/resets/mflag
-    may also come as the reference's [NC, 8, W]. Returns each block's
-    symbols [Sp_b, W] u8. One launch (one CTA a block) on CUDA tensors,
-    the plain version on CPU tensors."""
+    [W, Lb_b] u8, lens [W] int32, counts [W] int32, poss, resets [Sp_b,
+    W] int32, and for a format-v5 SEQ stream with the match-context
+    family its mflag [Sp_b, W] u8 or None), one W and geometry for all;
+    the flags are given for every block of a launch or for none.
+    poss/resets/mflag may also come as the reference's [NC, 8, W].
+    Returns each block's symbols [Sp_b, W] u8. One launch (one CTA a
+    block) on CUDA tensors, the plain version on CPU tensors."""
     if not 1 <= len(items) <= MAX_BLOCKS:
         raise ValueError(f"one launch codes 1 to {MAX_BLOCKS} blocks, not "
                          f"{len(items)}")
     W = items[0][0].shape[0]
     checked, flagged = [], []
     for it in items:
-        payload, lens, acts, poss, resets = it[:5]
+        payload, lens, counts, poss, resets = it[:5]
         mflag = it[5] if len(it) > 5 else None
         if payload.dim() != 2 or payload.dtype != torch.uint8:
             raise ValueError("payload must be [W, Lb] uint8")
@@ -635,18 +641,19 @@ def lane_decode_blocks(items, kind: str, geom) -> list:
             raise ValueError("every block of a launch has the same lanes")
         if payload.shape[1] < 1:
             raise ValueError("payload needs at least one column")
-        if lens.shape != (W,) or lens.dtype != torch.int32:
-            raise ValueError("lens must be [W] int32")
-        acts, poss, resets = (x.reshape(-1, W) for x in (acts, poss, resets))
-        if any(x.dtype != torch.int32 or x.shape != acts.shape
-               for x in (acts, poss, resets)):
-            raise ValueError("acts/poss/resets must be int32 of one shape")
+        for x, what in ((lens, "lens"), (counts, "counts")):
+            if x.shape != (W,) or x.dtype != torch.int32:
+                raise ValueError(f"{what} must be [W] int32")
+        poss, resets = (x.reshape(-1, W) for x in (poss, resets))
+        if any(x.dtype != torch.int32 or x.shape != poss.shape
+               for x in (poss, resets)):
+            raise ValueError("poss/resets must be int32 of one shape")
         if mflag is not None:
             mflag = mflag.reshape(-1, W)
-            if mflag.dtype != torch.uint8 or mflag.shape != acts.shape:
-                raise ValueError("mflag must be uint8 of the shape of acts")
+            if mflag.dtype != torch.uint8 or mflag.shape != poss.shape:
+                raise ValueError("mflag must be uint8 of the shape of poss")
         flagged.append(mflag is not None)
-        checked.append((payload, lens, acts, poss, resets, mflag))
+        checked.append((payload, lens, counts, poss, resets, mflag))
     if any(flagged) and not all(flagged):
         raise ValueError("the match-span flags come for every block of a "
                          "launch or for none")
@@ -659,17 +666,18 @@ def lane_decode_blocks(items, kind: str, geom) -> list:
     family = all(flagged) and kind == "seq" and bool(geom.match_bits)
     lib = _cuda.load("coder", _SIGS)
     descs, outs, keep = (_DecDesc * B)(), [], []
-    for b, (payload, lens, acts, poss, resets, mflag) in enumerate(checked):
-        ins = [x.contiguous() for x in (payload, lens, acts, poss, resets)]
+    for b, (payload, lens, counts, poss, resets, mflag) in \
+            enumerate(checked):
+        ins = [x.contiguous() for x in (payload, lens, counts, poss, resets)]
         mflag = mflag.contiguous() if family else None
         keep += ins + [mflag]
-        syms = torch.empty(acts.shape, dtype=torch.uint8, device=dev)
+        syms = torch.empty(poss.shape, dtype=torch.uint8, device=dev)
         d = descs[b]
-        d.payload, d.lens, d.acts, d.poss, d.resets = (
+        d.payload, d.lens, d.counts, d.poss, d.resets = (
             x.data_ptr() for x in ins)
         d.mflags = None if mflag is None else mflag.data_ptr()
         d.table = None if table is None else table[b].data_ptr()
-        d.syms, d.Lb, d.Sp = syms.data_ptr(), ins[0].shape[1], acts.shape[0]
+        d.syms, d.Lb, d.Sp = syms.data_ptr(), ins[0].shape[1], poss.shape[0]
         outs.append(syms)
     rate_lo = getattr(geom, "rate_lo", 0)
     err = _cuda.launch(
@@ -683,11 +691,12 @@ def lane_decode_blocks(items, kind: str, geom) -> list:
 
 
 def lane_decode(payload: torch.Tensor, lens: torch.Tensor,
-                acts: torch.Tensor, poss: torch.Tensor, resets: torch.Tensor,
-                kind: str, geom, mflag: torch.Tensor | None = None):
+                counts: torch.Tensor, poss: torch.Tensor,
+                resets: torch.Tensor, kind: str, geom,
+                mflag: torch.Tensor | None = None):
     """Kernel D on CUDA tensors, its plain version on CPU tensors: the
-    one-block case of lane_decode_blocks. acts/poss/resets (and mflag, the
+    one-block case of lane_decode_blocks. poss/resets (and mflag, the
     uint8 match-span flags of a format-v5 SEQ stream) may be [Sp, W] or
     the reference's [NC, 8, W]."""
-    return lane_decode_blocks([(payload, lens, acts, poss, resets, mflag)],
+    return lane_decode_blocks([(payload, lens, counts, poss, resets, mflag)],
                               kind, geom)[0]

@@ -3,14 +3,14 @@ package's ops/streams_jax.py, main-path surface).
 
 Byte-identical to the JAX package and its NumPy oracle. Per stream:
 
-* encode: the whole-array schedule (contexts in closed form from shifted
-  symbol arrays, then every bit-step's table index and bit) -> Kernel E
-  (the lockstep coder, ops/coder_torch) with chunk buffers sized
-  optimistically, rerun with the hard worst-case size if any chunk
-  overflowed -> Kernel C (compaction, ops/compact_torch), one launch for
-  all of a block's streams -> one copy of the compacted bytes to the host
-  -> the lanes' flush bytes appended there (native.flush_append).
-* decode: acts/pos/reset derived as whole-array ops -> Kernel D.
+* encode: the stream's symbols (u8), pos/reset and counts -> Kernel E
+  (the lockstep coder, ops/coder_torch), which builds every step's
+  context row and bits itself, with chunk buffers sized optimistically,
+  rerun with the hard worst-case size if any chunk overflowed -> Kernel C
+  (compaction, ops/compact_torch), one launch for all of a block's
+  streams -> one copy of the compacted bytes to the host -> the lanes'
+  flush bytes appended there (native.flush_append).
+* decode: the lane counts and pos/reset -> Kernel D.
 
 A window of blocks' streams is coded at once: ``encode_window`` launches
 Kernel E once per stream (and geometry) over the window's blocks, each
@@ -32,15 +32,16 @@ pos/reset and, for a format-v5 SEQ stream, match-span flags (the main
 path sends the aux kinds ``byte`` and ``flag``; the pure-Python pipeline
 sends every stream, through ``DeviceBackend``);
 ``encode_seq_qual_raw``/``decode_seq_qual_raw`` carry SEQ and QUAL from
-raw block bytes: the lane pack/unpack (ops/pack_torch) and pos/reset
-derivation happen on the device, so the host ships only raw bytes, the
-per-lane record-length matrix and the compressed payloads. A block of
-2 GiB and more packs its lanes on the host instead (``host_jobs``, and
-``decode_seq_qual_raw_blocks(host_unpack=...)``; ``encode_stream_ll`` /
-``decode_stream_ll`` are the one-stream forms, as in streams_jax). A
-stream whose schedule would pass SLICE_BYTES is coded in step slices
-(``Slices``), and ``device_budget`` / ``encode_bytes`` /
-``decode_bytes`` bound what a window holds on the device.
+raw block bytes: the lane pack with pos/reset (Kernel L) and the unpack
+(Kernel U, ops/pack_torch) happen on the device, so the host ships only
+raw bytes, the per-lane record-length matrix and the compressed payloads.
+A block of 2 GiB and more packs its lanes on the host instead
+(``host_jobs``, and ``decode_seq_qual_raw_blocks(host_unpack=...)``;
+``encode_stream_ll`` / ``decode_stream_ll`` are the one-stream forms, as
+in streams_jax), with pos/reset from Kernel L's step-input mode. Kernel
+E codes each stream in one launch, and ``device_budget`` /
+``encode_bytes`` / ``decode_bytes`` bound what a window holds on the
+device.
 
 Every entry takes an explicit ``device``; the CPU runs the kernels' plain
 versions.
@@ -59,7 +60,8 @@ from .. import native
 from ..pipeline import _lane_lengths_matrix
 from ..utils.stats import trace
 from . import coder_torch, compact_torch, pack_torch
-from .coder_torch import CHUNK_SYMS, _qdelta_code
+from .coder_torch import CHUNK_SYMS, EncIn, _per_read, _qdelta_code
+from .pack_torch import _pos_reset
 from .ranger import FLUSH_BYTES, pad_steps
 
 
@@ -74,49 +76,31 @@ def _chunk_bytes(depth: int, hard: bool) -> int:
 
 
 # ---------------------------------------------------------------------------
-# device bytes: step slices and the window budget
+# device bytes: the window budget
 # ---------------------------------------------------------------------------
 
-# Schedule bytes of one Kernel E launch of a stream: a longer stream is
-# coded in step slices (Slices), its schedule built slice by slice. A
-# 65,536-record block of 100 bp reads (QUAL's schedule 315 MB) is one
-# slice; one of 16.5 kb reads (QUAL 52 GB, L3 SEQ 17 GB) is 25 + 9.
-SLICE_BYTES = 2 << 30
 # the device-byte budget of a window on the CPU (tests lower it)
 CPU_BUDGET = 64 << 30
 
 
-def _chunk_sched_bytes(depth: int, W: int) -> int:
-    """Schedule bytes of one chunk of a stream (idx_c + bit_c, int32)."""
-    return 2 * 4 * CHUNK_SYMS * depth * W
-
-
-def slice_chunks(depth: int, W: int) -> int:
-    """Chunks a step slice of a stream takes: SLICE_BYTES of schedule."""
-    return max(1, SLICE_BYTES // _chunk_sched_bytes(depth, W))
-
-
-def encode_bytes(Sp: int, W: int, depths, sym_bytes: int) -> int:
+def encode_bytes(Sp: int, W: int, depths) -> int:
     """Device bytes of a block's SEQ/QUAL encode over Sp steps of W
     lanes, one tree depth a stream in ``depths`` (QUAL, SEQ, then each
-    match trial's SEQ): pos and reset; per stream its symbols
-    (``sym_bytes`` a step and lane: 4 packed on the device, 1 on the
-    host), its schedule or one step slice of it, and its chunk buffers
-    and counts at the optimistic size; a trial's match flags (1 byte)."""
+    match trial's SEQ): what Kernel E reads, pos and reset (int32) and
+    per stream its symbols (u8); a trial's match flags (u8); and per
+    stream its chunk buffers and counts at the optimistic size."""
     NC = Sp // CHUNK_SYMS
     total = (8 + max(len(depths) - 2, 0)) * Sp * W
     for d in depths:
-        total += (sym_bytes * Sp * W
-                  + min(NC, slice_chunks(d, W)) * _chunk_sched_bytes(d, W)
-                  + NC * W * (_chunk_bytes(d, hard=False) + 4))
+        total += Sp * W + NC * W * (_chunk_bytes(d, hard=False) + 4)
     return total
 
 
 def decode_bytes(Sp: int, W: int) -> int:
     """Device bytes of a block's SEQ/QUAL decode over Sp steps of W
-    lanes: acts, pos and reset (int32), both streams' symbols and the
-    match flags (u8)."""
-    return 16 * Sp * W
+    lanes: pos and reset (int32), both streams' symbols and the match
+    flags (u8)."""
+    return 12 * Sp * W
 
 
 # per host thread: its side CUDA streams by device index (StreamSet) and
@@ -143,8 +127,8 @@ def device_budget(device) -> int:
     blocks included, over the shards that share the card (card_share).
     The other half is headroom: a hard-chunk rerun raises a stream's
     chunk buffers up to 2.5-fold (QUAL at depth 6: 160 against 64 bytes
-    a chunk and lane), and the schedule's and the unpack's temporaries
-    come on top. On the CPU: CPU_BUDGET, shared as well."""
+    a chunk and lane), and Kernel C's and the unpack's outputs come on
+    top. On the CPU: CPU_BUDGET, shared as well."""
     dev = torch.device(device)
     share = getattr(_LOCAL, "share", 1)
     if dev.type != "cuda":
@@ -168,7 +152,9 @@ def split_by_bytes(sizes, budget: int) -> list:
 
 
 # ---------------------------------------------------------------------------
-# schedule: closed-form contexts + per-bit-step table index and bit
+# the schedule in closed form: the plain version of the JAX package's
+# _build_schedule (Kernel E builds its rows online, coder_torch.
+# online_schedule its plain version; the tests hold the two equal)
 # ---------------------------------------------------------------------------
 
 def _shift_t(x: torch.Tensor, n: int) -> torch.Tensor:
@@ -225,70 +211,28 @@ def _ctx_precompute(kind: str, geom, syms, pos, reset, mflag=None):
     raise ValueError(kind)
 
 
-def _halo(kind: str, geom) -> int:
-    """Steps before a step that its context reads (_ctx_precompute's
-    shifts)."""
-    return {"qual": 2, "seq": getattr(geom, "order", 0), "byte": 1,
-            "flag": getattr(geom, "hist_bits", 0)}[kind]
-
-
-def _schedule(kind: str, geom, syms, pos, reset, counts, mflag=None,
-              c0: int = 0, c1: int | None = None):
+def _schedule(kind: str, geom, syms, pos, reset, counts, mflag=None):
     """[Sp, W] symbols (int32 or u8), pos/reset (int32) + counts [W] ->
-    the encode schedule idx_c, bit_c [NC, 8*depth, W] int32, or chunks
-    [c0, c1) of it (a step slice: its contexts read their history from
-    the steps before). Inactive steps code symbol 0 in the sacrificial
-    context num_ctx. mflag: [Sp, W] match-span flags of a format-v5 SEQ
-    trial."""
+    the encode schedule idx_c, bit_c [NC, 8*depth, W] int32. Inactive
+    steps code symbol 0 in the sacrificial context num_ctx. mflag: [Sp, W]
+    match-span flags of a format-v5 SEQ trial."""
     Sp, W = syms.shape
     depth = geom.depth
     dev = syms.device
-    t0 = c0 * CHUNK_SYMS
-    t1 = Sp if c1 is None else c1 * CHUNK_SYMS
-    a = max(0, t0 - _halo(kind, geom))
-    ctx = _ctx_precompute(kind, geom, syms[a:t1].int(), pos[a:t1],
-                          reset[a:t1],
-                          None if mflag is None else mflag[a:t1])[t0 - a:]
-    steps = torch.arange(t0, t1, device=dev, dtype=torch.int32)
+    ctx = _ctx_precompute(kind, geom, syms.int(), pos, reset, mflag)
+    steps = torch.arange(Sp, device=dev, dtype=torch.int32)
     active = steps[:, None] < counts[None, :]
     ctx = torch.where(active, ctx, geom.num_ctx)
-    sym = torch.where(active, syms[t0:t1].int(), 0)
+    sym = torch.where(active, syms.int(), 0)
     base = ctx * ((1 << depth) - 1)
-    idx = torch.empty((t1 - t0, depth, W), dtype=torch.int32, device=dev)
+    idx = torch.empty((Sp, depth, W), dtype=torch.int32, device=dev)
     bit = torch.empty_like(idx)
     for j in range(depth):
         idx[:, j] = base + ((1 << j) | (sym >> (depth - j))) - 1
         bit[:, j] = (sym >> (depth - 1 - j)) & 1
-    NC = (t1 - t0) // CHUNK_SYMS
+    NC = Sp // CHUNK_SYMS
     return (idx.view(NC, CHUNK_SYMS * depth, W),
             bit.view(NC, CHUNK_SYMS * depth, W))
-
-
-def _pos_reset(lane_lens: torch.Tensor, Sp: int, S: int, W: int):
-    """pos/reset [Sp, W] int32 from the per-lane record-length matrix
-    [Rpl, W] (int64): a boundary scatter of the reads' starts, and of each
-    start's distance from the lane's start before, whose running sum down
-    the steps is the last read start (int32 throughout: no [Sp, W] int64
-    temporary)."""
-    dev = lane_lens.device
-    starts = torch.zeros_like(lane_lens)
-    if lane_lens.shape[0] > 1:
-        starts[1:] = torch.cumsum(lane_lens[:-1], dim=0)
-    lanes = torch.arange(W, device=dev)
-    valid = (lane_lens > 0) & (starts < S)
-    flat = torch.where(valid, starts * W + lanes, Sp * W).reshape(-1)
-    # the latest valid start before each record (0 before the first)
-    seen = torch.cummax(torch.where(valid, starts, 0), dim=0).values
-    prev = torch.zeros_like(seen)
-    prev[1:] = seen[:-1]
-    reset = torch.zeros(Sp * W + 1, dtype=torch.int32, device=dev)
-    reset[flat] = 1
-    last = torch.zeros(Sp * W + 1, dtype=torch.int32, device=dev)
-    last.index_add_(0, flat, torch.where(valid, starts - prev, 0).reshape(
-        -1).int())
-    pos = last[:-1].view(Sp, W).cumsum_(0)
-    t_idx = torch.arange(Sp, dtype=torch.int32, device=dev)[:, None]
-    return pos.neg_().add_(t_idx), reset[:-1].view(Sp, W)
 
 
 def _to(x: np.ndarray, dev, dtype=None) -> torch.Tensor:
@@ -416,7 +360,7 @@ class StreamSet:
                 self.decoded[key] = (None, None, num_steps, W)
                 continue
             arg = (_payload_tensor(payload, dev), _to(lens, dev, torch.int32),
-                   _acts(_to(counts, dev, torch.int32), Sp),
+                   _to(counts, dev, torch.int32),
                    _pad2(pos, Sp, W, dev), _pad2(reset, Sp, W, dev))
             if mflag is not None:
                 arg += (_pad2(mflag, Sp, W, dev, torch.uint8),)
@@ -441,34 +385,35 @@ class StreamSet:
             return syms[:S].cpu().numpy()
 
 
-def stream_schedule(kind: str, geom, syms: np.ndarray, counts: np.ndarray,
-                    device, pos: np.ndarray | None = None,
-                    reset: np.ndarray | None = None,
-                    mflag: np.ndarray | None = None):
-    """The encode schedule (idx_c, bit_c) of a host-modelled [S, W] stream
-    on the device, or None where it codes no step. pos/reset: host [S, W]
-    matrices of a per-read stream; mflag: a format-v5 SEQ stream's [S, W]
-    match-span flags."""
+def stream_inputs(kind: str, geom, syms: np.ndarray, counts: np.ndarray,
+                  device, pos: np.ndarray | None = None,
+                  reset: np.ndarray | None = None,
+                  mflag: np.ndarray | None = None) -> EncIn | None:
+    """Kernel E's inputs (coder_torch.EncIn) of a host-modelled [S, W]
+    stream on the device, or None where it codes no step. pos/reset: host
+    [S, W] matrices of a per-read stream (qual, seq); mflag: a format-v5
+    SEQ stream's [S, W] match-span flags."""
     S, W = syms.shape
     Sp = pad_steps(S)
     if Sp == 0 or not (np.asarray(counts) > 0).any():
         return None
     dev = torch.device(device)
-    with trace(f"sfq.encode.{kind}.schedule"):
-        return _schedule(kind, geom, _pad2(syms, Sp, W, dev),
-                         _pad2(pos, Sp, W, dev), _pad2(reset, Sp, W, dev),
-                         _to(counts, dev, torch.int32),
-                         None if mflag is None
-                         else _pad2(mflag, Sp, W, dev, torch.uint8))
+    per_read = _per_read(kind)
+    return EncIn(_pad2(syms, Sp, W, dev, torch.uint8),
+                 _pad2(pos, Sp, W, dev) if per_read else None,
+                 _pad2(reset, Sp, W, dev) if per_read else None,
+                 _to(counts, dev, torch.int32),
+                 None if mflag is None
+                 else _pad2(mflag, Sp, W, dev, torch.uint8))
 
 
 def by_geom(name: str, kind: str, entries) -> list:
     """One stream of a window's blocks as encode_window groups: entries
-    (block, geom, idx_c, bit_c, counts) split by geometry (a Kernel E
-    launch takes one), in the order the geometries first come."""
+    (block, geom, EncIn, counts) split by geometry (a Kernel E launch
+    takes one), in the order the geometries first come."""
     groups: dict = {}
-    for b, geom, idx_c, bit_c, counts in entries:
-        groups.setdefault(geom, []).append((b, idx_c, bit_c, counts))
+    for b, geom, item, counts in entries:
+        groups.setdefault(geom, []).append((b, item, counts))
     return [(name, kind, geom, members) for geom, members in groups.items()]
 
 
@@ -479,83 +424,45 @@ def _heads(outs) -> list:
                         for o in outs]).cpu().tolist()
 
 
-def _encode_members(ss: StreamSet | None, members, geom, CB: int) -> list:
-    """Kernel E over a group's members (block, idx_c, bit_c, counts):
-    one launch over those whose schedule is built, on a stream of ``ss``
-    (the calling stream without one). Returns each member's (ebufs,
-    eptrs, low, emax), or for a Slices member its generator of launches
-    (Slices.encode), which _run_slices drives."""
-    outs = [m[1].encode(CB) if isinstance(m[1], Slices) else None
-            for m in members]
-    built = [i for i, m in enumerate(members)
-             if not isinstance(m[1], Slices)]
-    if built:
-        scheds = [(members[i][1], members[i][2]) for i in built]
+def _encode_members(ss: StreamSet | None, members, kind: str, geom,
+                    CB: int) -> list:
+    """Kernel E over a group's members (block, EncIn, counts): one launch,
+    on a stream of ``ss`` (the calling stream without one). Returns each
+    member's (ebufs, eptrs, low, emax)."""
+    items = [m[1] for m in members]
 
-        def run():
-            return coder_torch.lane_encode_blocks(scheds, geom, CB)
-        res = run() if ss is None else ss.launch(run, *_tensors(scheds))[0]
-        for i, o in zip(built, res):
-            outs[i] = o
-    return outs
-
-
-def _run_slices(ss: StreamSet | None, groups) -> None:
-    """Drive the launches of every Slices member of ``groups`` ((members,
-    outs) pairs, outs as _encode_members gives them), the slices of all
-    the streams in turn (round robin), each stream on a CUDA stream of
-    its own (the calling stream without ``ss``): the host issues each
-    stream's first slices before a full launch queue can hold it up
-    behind another's. Each member's generator in ``outs`` becomes its
-    (ebufs, eptrs, low, emax)."""
-    live = [(outs, i, m[1], None) for members, outs in groups
-            for i, m in enumerate(members) if isinstance(m[1], Slices)]
-    while live:
-        nxt = []
-        for outs, i, sl, s in live:
-            if ss is None:
-                out = next(outs[i])
-            else:
-                out, s = ss.launch(lambda g=outs[i]: next(g), *sl.tensors(),
-                                   after=s)
-            if out is None:
-                nxt.append((outs, i, sl, s))
-            else:
-                outs[i] = out
-        live = nxt
+    def run():
+        return coder_torch.lane_encode_blocks(items, kind, geom, CB)
+    return run() if ss is None else ss.launch(run, *_tensors(items))[0]
 
 
 def encode_window(groups, device) -> dict:
     """Code a window of blocks' streams at once. ``groups`` yields (name,
-    kind, geom, members), members a list of (block, idx_c, bit_c, counts
-    [W]) of the blocks whose stream codes a step (a generator may build
-    each group's schedules as it goes; the launches before it run
-    meanwhile); a member whose idx_c is a Slices is coded in step slices
-    on a stream of its own. Kernel E runs once a group, over its blocks,
-    on its own CUDA stream with optimistic chunk buffers; one host
-    synchronisation
-    reads every block's overflow check and longest lane; the blocks whose
-    chunk overflowed are rerun with hard buffers (the others keep their
-    bytes, which do not depend on the buffer size); then one Kernel C
-    launch compacts every block's streams, one copy brings the payloads,
-    totals and coder tails to the host, and the flush bytes are appended
-    there. Returns {(block, name): (payload [W, maxlen] u8, lens [W]
-    int64)}."""
+    kind, geom, members), members a list of (block, EncIn, counts [W]) of
+    the blocks whose stream codes a step (a generator may make each
+    group's inputs as it goes; the launches before it run meanwhile).
+    Kernel E runs once a group, over its
+    blocks, on its own CUDA stream with optimistic chunk buffers; one host
+    synchronisation reads every block's overflow check and longest lane;
+    the blocks whose chunk overflowed are rerun with hard buffers (the
+    others keep their bytes, which do not depend on the buffer size);
+    then one Kernel C launch compacts every block's streams, one copy
+    brings the payloads, totals and coder tails to the host, and the
+    flush bytes are appended there. Returns {(block, name): (payload [W,
+    maxlen] u8, lens [W] int64)}."""
     ss = StreamSet(device)
     todo = []
-    for name, _kind, geom, members in groups:
+    for name, kind, geom, members in groups:
         CB = _chunk_bytes(geom.depth, hard=False)
         with trace(f"sfq.encode.{name}.coder"):
-            outs = _encode_members(ss, members, geom, CB)
-        todo.append((name, geom, members, outs))
+            outs = _encode_members(ss, members, kind, geom, CB)
+        todo.append((name, kind, geom, members, outs))
     if not todo:
         return {}
-    with trace("sfq.encode.slices"):
-        _run_slices(ss, [(members, outs) for *_, members, outs in todo])
     ss.join()
     heads = iter(_heads([o for *_, outs in todo for o in outs]))
     streams, tails, keys = [], [], []
-    for name, geom, members, outs in todo:
+    for name, kind, geom, members, outs in todo:
         head = [next(heads) for _ in outs]
         CB = _chunk_bytes(geom.depth, hard=False)
         over = [i for i, (emax, _) in enumerate(head) if emax > CB]
@@ -565,14 +472,13 @@ def encode_window(groups, device) -> dict:
                 outs[i] = None  # the optimistic buffers go first
             with trace(f"sfq.encode.{name}.coder"):
                 again = [members[i] for i in over]
-                redo = _encode_members(None, again, geom, CB)
-                _run_slices(None, [(again, redo)])
+                redo = _encode_members(None, again, kind, geom, CB)
             for i, o, h in zip(over, redo, _heads(redo)):
                 if h[0] > CB:
                     raise AssertionError("encode chunk overflow even with "
                                          "hard buffers")
                 outs[i], head[i] = o, h
-        for (b, _, _, counts), o, (_, tmax) in zip(members, outs, head):
+        for (b, _, counts), o, (_, tmax) in zip(members, outs, head):
             streams.append((o[0], o[1], max(tmax, 1)))
             tails.append(o[2])
             keys.append((b, name, counts))
@@ -588,11 +494,11 @@ def encode_window(groups, device) -> dict:
 
 def encode_block(jobs, device) -> dict:
     """Code a block's streams at once: encode_window's one-block case.
-    ``jobs`` yields (name, kind, geom, idx_c, bit_c, counts) in turn.
-    Returns {name: (payload [W, maxlen] u8, lens [W] int64)}."""
+    ``jobs`` yields (name, kind, geom, EncIn, counts) in turn. Returns
+    {name: (payload [W, maxlen] u8, lens [W] int64)}."""
     coded = encode_window(
-        ((name, kind, geom, [(0, idx_c, bit_c, counts)])
-         for name, kind, geom, idx_c, bit_c, counts in jobs), device)
+        ((name, kind, geom, [(0, item, counts)])
+         for name, kind, geom, item, counts in jobs), device)
     return {name: v for (_, name), v in coded.items()}
 
 
@@ -621,11 +527,10 @@ def encode_stream(kind: str, geom, syms: np.ndarray, counts: np.ndarray,
     matrices for qual/seq; mflag: a format-v5 SEQ stream's [S, W]
     match-span flags."""
     counts = np.asarray(counts)
-    sched = stream_schedule(kind, geom, syms, counts, device, pos, reset,
-                            mflag)
-    if sched is None:
+    item = stream_inputs(kind, geom, syms, counts, device, pos, reset, mflag)
+    if item is None:
         return _empty_encode(syms.shape[1])
-    return encode_block([(kind, kind, geom, *sched, counts)], device)[kind]
+    return encode_block([(kind, kind, geom, item, counts)], device)[kind]
 
 
 def _payload_tensor(payload: np.ndarray, dev) -> torch.Tensor:
@@ -634,11 +539,6 @@ def _payload_tensor(payload: np.ndarray, dev) -> torch.Tensor:
     if payload.shape[1] == 0:
         payload = np.zeros((payload.shape[0], 1), dtype=np.uint8)
     return _to(payload, dev, torch.uint8)
-
-
-def _acts(counts_t: torch.Tensor, Sp: int) -> torch.Tensor:
-    steps = torch.arange(Sp, dtype=torch.int32, device=counts_t.device)
-    return (steps[:, None] < counts_t[None, :]).int()
 
 
 def decode_stream(kind: str, geom, payload: np.ndarray, lens: np.ndarray,
@@ -657,9 +557,10 @@ def decode_stream(kind: str, geom, payload: np.ndarray, lens: np.ndarray,
 
 def _ll_inputs(lane_len_mat: np.ndarray, S: int, W: int, dev):
     """(Sp, pos, reset [Sp, W] int32) of a per-read stream from its
-    per-lane record-length matrix, derived on the device."""
+    per-lane record-length matrix, derived on the device (Kernel L's
+    step-input mode)."""
     Sp = pad_steps(S)
-    return (Sp, *_pos_reset(_lane_lens(lane_len_mat, W, dev), Sp, S, W))
+    return (Sp, *pack_torch.step_inputs(lane_len_mat, Sp, S, W, dev))
 
 
 def encode_stream_ll(kind: str, geom, syms: np.ndarray,
@@ -667,29 +568,27 @@ def encode_stream_ll(kind: str, geom, syms: np.ndarray,
                      mflag: np.ndarray | None = None):
     """encode_stream for a per-read stream (qual/seq): pos/reset are
     derived on the device from the per-lane record-length matrix, so the
-    host ships only the [S, W] symbols (as bytes) and that matrix; the
-    schedule is built in step slices where the whole would pass
-    SLICE_BYTES. mflag: a format-v5 SEQ trial's [S, W] match-span flags.
-    Returns (payload [W, maxlen] u8, lens [W] int64)."""
+    host ships only the [S, W] symbols (as bytes) and that matrix.
+    mflag: a format-v5 SEQ trial's [S, W] match-span flags. Returns
+    (payload [W, maxlen] u8, lens [W] int64)."""
     S, W = syms.shape
     counts = np.asarray(counts)
     if pad_steps(S) == 0 or not (counts > 0).any():
         return _empty_encode(W)
     dev = torch.device(device)
     Sp, pos, reset = _ll_inputs(lane_len_mat, S, W, dev)
-    job = _coder_job(kind, kind, geom, _pad2(syms, Sp, W, dev, torch.uint8),
-                     pos, reset, _to(counts, dev, torch.int32),
-                     None if mflag is None
-                     else _pad2(mflag, Sp, W, dev, torch.uint8))
-    return encode_block([(kind, kind, geom, job.idx_c, job.bit_c, counts)],
-                        device)[kind]
+    item = EncIn(_pad2(syms, Sp, W, dev, torch.uint8), pos, reset,
+                 _to(counts, dev, torch.int32),
+                 None if mflag is None
+                 else _pad2(mflag, Sp, W, dev, torch.uint8))
+    return encode_block([(kind, kind, geom, item, counts)], device)[kind]
 
 
 def decode_stream_ll(kind: str, geom, payload: np.ndarray, lens: np.ndarray,
                      lane_len_mat: np.ndarray, counts: np.ndarray,
                      num_steps: int, device,
                      mflag: np.ndarray | None = None) -> np.ndarray:
-    """decode_stream with acts/pos/reset derived on the device from the
+    """decode_stream with pos/reset derived on the device from the
     per-lane record-length matrix: [num_steps, W] u8 symbols (0 past each
     count). mflag: a format-v5 SEQ stream's [S, W] match-span flags."""
     W = payload.shape[0]
@@ -700,7 +599,7 @@ def decode_stream_ll(kind: str, geom, payload: np.ndarray, lens: np.ndarray,
     dev = torch.device(device)
     Sp, pos, reset = _ll_inputs(lane_len_mat, S, W, dev)
     item = (_payload_tensor(payload, dev), _to(lens, dev, torch.int32),
-            _acts(_to(counts, dev, torch.int32), Sp), pos, reset)
+            _to(counts, dev, torch.int32), pos, reset)
     if mflag is not None:
         item += (_pad2(mflag, Sp, W, dev, torch.uint8),)
     with trace(f"sfq.decode.{kind}.coder"):
@@ -713,80 +612,35 @@ def decode_stream_ll(kind: str, geom, payload: np.ndarray, lens: np.ndarray,
 # ---------------------------------------------------------------------------
 
 def _lane_lens(ll_mat: np.ndarray, W: int, dev) -> torch.Tensor:
-    Rpl = max(ll_mat.shape[0], 1)
-    ll = np.zeros((Rpl, W), dtype=np.int64)
-    ll[: ll_mat.shape[0]] = ll_mat
-    return _to(ll, dev)
-
-
-class Slices(NamedTuple):
-    """A stream's encode schedule built one step slice at a time, as
-    Kernel E takes it (coder_torch.lane_encode_slices): a stream whose
-    whole schedule would pass SLICE_BYTES. Symbols (int32 or u8), pos and
-    reset [Sp, W], counts [W] int32 and match flags on the device; called
-    with (c0, c1), the schedule of chunks [c0, c1)."""
-    kind: str
-    geom: object
-    syms: torch.Tensor
-    pos: torch.Tensor
-    reset: torch.Tensor
-    counts: torch.Tensor
-    mflag: torch.Tensor | None
-
-    @property
-    def NC(self) -> int:
-        return self.syms.shape[0] // CHUNK_SYMS
-
-    def __call__(self, c0: int, c1: int):
-        with trace(f"sfq.encode.{self.kind}.schedule"):
-            return _schedule(self.kind, self.geom, self.syms, self.pos,
-                             self.reset, self.counts, self.mflag, c0, c1)
-
-    def encode(self, CB: int):
-        """Kernel E over the stream, one slice a step of this generator
-        (coder_torch.lane_encode_slices): (ebufs, eptrs, low, emax) as
-        lane_encode gives them, after the last."""
-        W = self.syms.shape[1]
-        return coder_torch.lane_encode_slices(
-            self, self.NC, slice_chunks(self.geom.depth, W), W, self.geom,
-            CB, self.syms.device)
-
-    def tensors(self) -> list:
-        return [t for t in (self.syms, self.pos, self.reset, self.counts,
-                            self.mflag) if t is not None]
+    """The per-lane record-length matrix on the device (int64, at least
+    one row), as _pos_reset takes it."""
+    return _to(pack_torch._lane_lens(ll_mat, W), dev)
 
 
 class CoderJob(NamedTuple):
-    """One SEQ/QUAL stream's coder inputs on the device: lane symbols
-    [Sp, W] (int32, or u8 where the host packed them), pos and reset
-    [Sp, W] int32, counts [W] int32 and the encode schedule idx_c, bit_c
-    [NC, 8*depth, W] int32; or, where the whole schedule would pass
-    SLICE_BYTES, idx_c a Slices and bit_c None."""
+    """One SEQ/QUAL stream's Kernel E inputs on the device (an EncIn:
+    lane symbols [Sp, W] u8, pos and reset [Sp, W] int32, counts [W]
+    int32 and a trial's match flags)."""
     name: str
     kind: str
     geom: object
-    syms: torch.Tensor
-    pos: torch.Tensor
-    reset: torch.Tensor
-    counts: torch.Tensor
-    idx_c: object
-    bit_c: torch.Tensor | None
+    item: EncIn
 
+    @property
+    def syms(self) -> torch.Tensor:
+        return self.item.syms
 
-def _coder_job(name: str, kind: str, geom, syms, pos, reset, counts_t,
-               mflag) -> CoderJob:
-    """A stream's CoderJob: its schedule built whole, or as Slices where
-    the whole would pass SLICE_BYTES."""
-    Sp, W = syms.shape
-    if Sp // CHUNK_SYMS > slice_chunks(geom.depth, W):
-        return CoderJob(name, kind, geom, syms, pos, reset, counts_t,
-                        Slices(kind, geom, syms, pos, reset, counts_t,
-                               mflag), None)
-    with trace(f"sfq.encode.{kind}.schedule"):
-        idx_c, bit_c = _schedule(kind, geom, syms, pos, reset, counts_t,
-                                 mflag)
-    return CoderJob(name, kind, geom, syms, pos, reset, counts_t, idx_c,
-                    bit_c)
+    @property
+    def pos(self) -> torch.Tensor:
+        return self.item.pos
+
+    @property
+    def reset(self) -> torch.Tensor:
+        return self.item.reset
+
+    @property
+    def counts(self) -> torch.Tensor:
+        return self.item.counts
 
 
 def _jobs(streams, pos, reset, counts_t, Sp: int, W: int, dev, seq_mflag,
@@ -798,8 +652,8 @@ def _jobs(streams, pos, reset, counts_t, Sp: int, W: int, dev, seq_mflag,
             continue
         mflag = (_pad2(seq_mflag, Sp, W, dev, torch.uint8)
                  if name == "SEQ" and seq_mflag is not None else None)
-        yield _coder_job(name, kind, geom, syms() if callable(syms) else
-                         syms, pos, reset, counts_t, mflag)
+        yield CoderJob(name, kind, geom, EncIn(
+            syms() if callable(syms) else syms, pos, reset, counts_t, mflag))
 
 
 def seq_qual_jobs(seq_geom, qual_geom, data: np.ndarray,
@@ -808,26 +662,25 @@ def seq_qual_jobs(seq_geom, qual_geom, data: np.ndarray,
                   qual_bias: int, ll_mat: np.ndarray, counts: np.ndarray,
                   device, seq_mflag: np.ndarray | None = None,
                   only: tuple = ("SEQ", "QUAL")):
-    """Lane-pack SEQ and QUAL from raw block bytes on the device, then
-    yield each stream's CoderJob in turn (QUAL, the longest chain, then
-    SEQ: a caller may launch the first while the second's schedule is
-    built). ``data`` is zero-padded to a pack_torch.pad_flat length (the
-    pipelined caller pays the pad copy in its host half); some lane has
-    symbols. seq_mflag: the [S, W] match-span flags of a format-v5 SEQ
-    trial; ``only`` restricts the jobs (a trial re-codes SEQ alone)."""
+    """Lane-pack SEQ and QUAL from raw block bytes on the device with
+    their pos and reset (Kernel L, one launch), then yield each stream's
+    CoderJob in turn (QUAL, the longest chain, then SEQ). ``data`` is
+    zero-padded to a pack_torch.pad_flat length (the pipelined caller
+    pays the pad copy in its host half); some lane has symbols.
+    seq_mflag: the [S, W] match-span flags of a format-v5 SEQ trial;
+    ``only`` restricts the jobs (a trial re-codes SEQ alone)."""
     if len(data) != pack_torch.pad_flat(len(data)):
         raise ValueError("raw block bytes must be padded to pad_flat")
     S = int(counts.max())
     Sp = pad_steps(S)
     dev = torch.device(device)
-    with trace("sfq.encode.pack_pair"):
-        seq_syms, qual_syms = pack_torch.pack_pair(
-            _to(data, dev), seq_offs, qual_offs, lengths, W, Sp, seq_map,
-            qual_bias)
-        pos, reset = _pos_reset(_lane_lens(ll_mat, W, dev), Sp, S, W)
+    with trace("sfq.encode.lane_layout"):
+        seq_syms, qual_syms, pos, reset = pack_torch.lane_layout(
+            _to(data, dev), seq_offs, qual_offs, lengths, ll_mat, W, Sp, S,
+            seq_map, qual_bias)
         counts_t = _to(counts, dev, torch.int32)
-    yield from _jobs((("QUAL", "qual", qual_geom, qual_syms.int),
-                      ("SEQ", "seq", seq_geom, seq_syms.int)),
+    yield from _jobs((("QUAL", "qual", qual_geom, qual_syms),
+                      ("SEQ", "seq", seq_geom, seq_syms)),
                      pos, reset, counts_t, Sp, W, dev, seq_mflag, only)
 
 
@@ -839,9 +692,9 @@ def host_jobs(seq_geom, qual_geom, seq_syms: np.ndarray,
     """seq_qual_jobs for lanes packed on the host (native.pack_lanes,
     [S, W] u8; qual_syms may be None where only SEQ is coded), the path
     of a block whose raw bytes reach 2 GiB: the symbols cross to the
-    device as bytes and stay bytes there; pos/reset are derived on the
-    device from the per-lane record-length matrix (the JAX package's
-    _build_schedule_ll). Some lane has symbols."""
+    device as bytes; pos/reset are derived on the device from the
+    per-lane record-length matrix (Kernel L's step-input mode, the JAX
+    package's _build_schedule_ll). Some lane has symbols."""
     counts = np.asarray(counts)
     W = len(counts)
     dev = torch.device(device)
@@ -870,7 +723,7 @@ def seq_qual_groups(gens, only: tuple = ("SEQ", "QUAL"),
             return
         j0 = jobs[0][2]
         yield from by_geom((rename or {}).get(j0.name, j0.name), j0.kind,
-                           [(b, j.geom, j.idx_c, j.bit_c, counts)
+                           [(b, j.geom, j.item, counts)
                             for b, counts, j in jobs])
 
 
@@ -889,7 +742,7 @@ def encode_seq_qual_raw(seq_geom, qual_geom, data: np.ndarray,
     if not (counts > 0).any():
         return {name: _empty_encode(W) for name in only}
     return encode_block(
-        ((j.name, j.kind, j.geom, j.idx_c, j.bit_c, counts)
+        ((j.name, j.kind, j.geom, j.item, counts)
          for j in seq_qual_jobs(seq_geom, qual_geom, data, seq_offs,
                                 qual_offs, lengths, W, seq_map, qual_bias,
                                 ll_mat, counts, device, seq_mflag, only)),
@@ -948,17 +801,17 @@ def decode_seq_qual_raw_blocks(sgeoms, pay_s, lens_s, pay_q, lens_q,
                       np.zeros(total, dtype=np.uint8))
             continue
         W = pay_s[b].shape[0]
-        pos, reset = _pos_reset(_lane_lens(ll_list[b], W, dev), Sp, S, W)
-        live[b] = (Sp, W, _acts(_to(counts, dev, torch.int32), Sp), pos,
-                   reset, S)
+        with trace("sfq.decode.lane_layout"):
+            pos, reset = pack_torch.step_inputs(ll_list[b], Sp, S, W, dev)
+        live[b] = (Sp, W, _to(counts, dev, torch.int32), pos, reset, S)
     dec = {}
     for name, kind, geoms, pays, lenses in (
             ("QUAL", "qual", qgeoms, pay_q, lens_q),
             ("SEQ", "seq", sgeoms, pay_s, lens_s)):
         groups: dict = {}
-        for b, (Sp, W, acts, pos, reset, _) in live.items():
+        for b, (Sp, W, counts_t, pos, reset, _) in live.items():
             item = (_payload_tensor(pays[b], dev),
-                    _to(lenses[b], dev, torch.int32), acts, pos, reset)
+                    _to(lenses[b], dev, torch.int32), counts_t, pos, reset)
             if name == "SEQ" and seq_mflags and seq_mflags[b] is not None:
                 mf = seq_mflags[b]()
                 mflag = torch.zeros((Sp, W), dtype=torch.uint8, device=dev)
@@ -1011,11 +864,11 @@ def encode_stream_blocks(kind: str, geom, syms_list, counts_list, device,
     per block (payload, lens), as encode_stream gives them."""
     entries = []
     for b, syms in enumerate(syms_list):
-        sched = stream_schedule(kind, geom, syms, counts_list[b], device,
-                                _nth(pos_list, b), _nth(reset_list, b),
-                                _nth(mflag_list, b))
-        if sched is not None:
-            entries.append((b, geom, *sched, np.asarray(counts_list[b])))
+        item = stream_inputs(kind, geom, syms, counts_list[b], device,
+                             _nth(pos_list, b), _nth(reset_list, b),
+                             _nth(mflag_list, b))
+        if item is not None:
+            entries.append((b, geom, item, np.asarray(counts_list[b])))
     coded = encode_window(by_geom(kind, kind, entries), device)
     return [coded.get((b, kind)) or _empty_encode(syms.shape[1])
             for b, syms in enumerate(syms_list)]

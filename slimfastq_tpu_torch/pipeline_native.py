@@ -23,9 +23,9 @@ A block whose raw byte span reaches 2 GiB (long reads: 65,536 records of
 ~16.4 kb and more) packs SEQ and QUAL into lanes on the host
 (native.pack_lanes) and unpacks them there on decode, as the JAX package
 does: the device pack would need [S, W] int64 indices. Its streams take
-the same coders, with pos/reset derived on the device and, where a
-stream's schedule would pass streams_torch.SLICE_BYTES, Kernel E in step
-slices. The byte budget of a window (api) codes such a block alone.
+the same coders, with pos/reset derived on the device (Kernel L's
+step-input mode), each stream in one Kernel E launch. The byte budget
+of a window (api) codes such a block alone.
 
 The NumPy oracle (``api.Oracle``, ``--backend oracle``) codes blocks
 prepared the same way with their lanes packed on the host
@@ -297,15 +297,14 @@ def device_bytes(pre, cfg: CodecConfig) -> int:
     """Device bytes of a prepared block's SEQ/QUAL encode, its match
     trials' SEQ included (streams_torch.encode_bytes): what a window's
     byte budget counts."""
-    jobs, _, _, _, ll_mat, raw_args, v5 = pre
+    jobs, v5 = pre[0], pre[6]
     counts = jobs["SEQ"][3]
     if not (counts > 0).any():
         return 0
     depths = [jobs["QUAL"][1].depth] + [jobs["SEQ"][1].depth] * (
         1 + len((v5 or {}).get("trials", ())))
-    return streams_torch.encode_bytes(
-        pad_steps(int(counts.max())), cfg.lanes, depths,
-        4 if raw_args is not None else 1)
+    return streams_torch.encode_bytes(pad_steps(int(counts.max())),
+                                      cfg.lanes, depths)
 
 
 def seq_qual_args(pre, cfg: CodecConfig, raw_args=None) -> tuple:
@@ -341,7 +340,7 @@ def _sq_jobs(pre, cfg: CodecConfig, device, alt=None, mflag=None,
 def _window_jobs(pres, cfg: CodecConfig, device):
     """Every coded stream of a window of prepared blocks as
     streams_torch.encode_window groups, one Kernel E launch each, its
-    schedules built on the device as the caller asks for them: QUAL and
+    inputs made on the device as the caller asks for them: QUAL and
     SEQ first, the longest chains, over the blocks that hold bases; then
     per threshold each match trial's SEQ and MATCH (named SEQ@t and
     MATCH@t) over the blocks with that trial; then each aux stream over
@@ -361,10 +360,10 @@ def _window_jobs(pres, cfg: CodecConfig, device):
             {"SEQ": f"SEQ@{t}"})
         entries = []
         for b, (_, _, msyms, mcounts, _) in trials:
-            sched = streams_torch.stream_schedule("byte", cfg.bytes_, msyms,
-                                                  mcounts, device)
-            if sched is not None:
-                entries.append((b, cfg.bytes_, *sched, mcounts))
+            item = streams_torch.stream_inputs("byte", cfg.bytes_, msyms,
+                                               mcounts, device)
+            if item is not None:
+                entries.append((b, cfg.bytes_, item, mcounts))
         yield from streams_torch.by_geom(f"MATCH@{t}", "byte", entries)
     for name in streams_for(cfg.fmt):
         if name in ("SEQ", "QUAL"):
@@ -374,19 +373,19 @@ def _window_jobs(pres, cfg: CodecConfig, device):
             kind, geom, syms, counts, _pos, _reset = pre[0][name]
             if syms.shape[0] == 0:
                 continue  # an all-empty stream codes nothing
-            sched = streams_torch.stream_schedule(kind, geom, syms, counts,
-                                                  device)
-            if sched is not None:
-                entries.append((b, geom, *sched, counts))
+            item = streams_torch.stream_inputs(kind, geom, syms, counts,
+                                               device)
+            if item is not None:
+                entries.append((b, geom, item, counts))
         yield from streams_torch.by_geom(name, pres[0][0][name][0], entries)
 
 
 def _coder_jobs(pre, cfg: CodecConfig, device):
     """Every coded stream of one prepared block as (name, kind, geom,
-    idx_c, bit_c, counts), in _window_jobs' order."""
+    EncIn, counts), in _window_jobs' order."""
     for name, kind, geom, members in _window_jobs([pre], cfg, device):
-        (_, idx_c, bit_c, counts), = members
-        yield name, kind, geom, idx_c, bit_c, counts
+        (_, item, counts), = members
+        yield name, kind, geom, item, counts
 
 
 def _coded_stream(coded: dict, name: str, counts) -> EncodedStream:

@@ -215,25 +215,29 @@ def test_seq_qual_raw_blocks_match_jax_mesh():
 def test_batched_plain_versions_equal_single():
     """lane_encode_blocks / lane_decode_blocks (and their _plain forms)
     over a ragged window (NC, Sp and Lb differ per block) equal the
-    one-block plain versions block by block; Kernel C's window form
-    equals compact_streams_plain on each block's stream."""
+    one-block plain versions block by block (E's online schedule equal to
+    the closed form's); Kernel C's window form equals
+    compact_streams_plain on each block's stream."""
     cfg = config_for_level(3, lanes=16, aux_lanes=8)
     geom = cfg.bytes_
     rng = np.random.default_rng(3)
-    scheds, streams = [], []
+    items, streams = [], []
     for S in (16, 40, 8):
         syms = torch.from_numpy(rng.integers(0, 256, size=(S, 8)).astype(
-            np.int32))
+            np.uint8))
         counts = rng.integers(1, S + 1, size=8)
-        z = torch.zeros_like(syms)
-        scheds.append(ST._schedule("byte", geom, syms, z, z,
-                                   torch.from_numpy(counts.astype(np.int32))))
-        streams.append((syms, counts))
+        items.append(CT.EncIn(syms, None, None,
+                              torch.from_numpy(counts.astype(np.int32))))
+        streams.append((syms.int(), counts))
     CB = ST._chunk_bytes(geom.depth, False)
-    enc = CT.lane_encode_blocks(scheds, geom, CB)
+    enc = CT.lane_encode_blocks(items, "byte", geom, CB)
     assert [e[0].shape[0] for e in enc] == [2, 5, 1]
-    for e, p, (i, b) in zip(enc, CT.lane_encode_blocks_plain(scheds, geom,
-                                                            CB), scheds):
+    for e, p, it in zip(enc, CT.lane_encode_blocks_plain(items, "byte", geom,
+                                                         CB), items):
+        z = torch.zeros(it.syms.shape, dtype=torch.int32)
+        i, b = ST._schedule("byte", geom, it.syms, z, z, it.counts)
+        assert all(torch.equal(x, y) for x, y in zip(
+            (i, b), CT.online_schedule("byte", geom, it)))
         for x, y, z in zip(e, p, CT.lane_encode_plain(i, b, geom, CB)):
             assert torch.equal(x, y) and torch.equal(x, z)
     comp = [(e[0], e[1], max(int(e[1].sum(dim=0).max()), 1)) for e in enc]
@@ -251,8 +255,8 @@ def test_batched_plain_versions_equal_single():
         Sp = syms.shape[0]
         z = torch.zeros((Sp, 8), dtype=torch.int32)
         items.append((torch.from_numpy(p), torch.from_numpy(
-            lens.astype(np.int32)), ST._acts(torch.from_numpy(
-                counts.astype(np.int32)), Sp), z, z))
+            lens.astype(np.int32)), torch.from_numpy(counts.astype(
+                np.int32)), z, z))
     assert len({it[0].shape[1] for it in items}) == 3  # Lb differs
     dec = CT.lane_decode_blocks(items, "byte", geom)
     for d, p, it, (syms, counts) in zip(
@@ -267,17 +271,19 @@ def test_batched_plain_versions_equal_single():
 
 def test_window_launch_refusals():
     geom = config_for_level(3).bytes_
-    z = torch.zeros((1, 64, 8), dtype=torch.int32)
+    z = CT.EncIn(torch.zeros((8, 8), dtype=torch.uint8), None, None,
+                 torch.zeros(8, dtype=torch.int32))
+    z4 = CT.EncIn(z.syms[:, :4], None, None, z.counts[:4])
     with pytest.raises(ValueError, match="blocks"):
-        CT.lane_encode_blocks([], geom, 16)
+        CT.lane_encode_blocks([], "byte", geom, 16)
     with pytest.raises(ValueError, match="same lanes"):
-        CT.lane_encode_blocks([(z, z), (z[..., :4], z[..., :4])], geom, 16)
+        CT.lane_encode_blocks([z, z4], "byte", geom, 16)
     pay = torch.zeros((8, 4), dtype=torch.uint8)
     lens = torch.zeros(8, dtype=torch.int32)
     a = torch.zeros((8, 8), dtype=torch.int32)
     with pytest.raises(ValueError, match="every block"):
-        CT.lane_decode_blocks([(pay, lens, a, a, a, a.to(torch.uint8)),
-                               (pay, lens, a, a, a, None)], "seq",
+        CT.lane_decode_blocks([(pay, lens, lens, a, a, a.to(torch.uint8)),
+                               (pay, lens, lens, a, a, None)], "seq",
                               config_for_level(4).seq)
 
 

@@ -96,12 +96,19 @@ def _check(kind, geom, syms, counts, pos=None, reset=None, hard=False,
                                 _t(counts), *(_t(m) for m in mf))
     assert np.array_equal(p_idx.numpy(), j_idx)
     assert np.array_equal(p_bit.numpy(), j_bit)
-    # encode: Kernel E's plain version vs _build_encode
+    # Kernel E's own rows: the contexts built online from the symbols
+    item = CT.EncIn(torch.from_numpy(args[0].astype(np.uint8)),
+                    *(_t(a) for a in args[1:]), _t(counts),
+                    *(torch.from_numpy(m.astype(np.uint8)) for m in mf))
+    o_idx, o_bit = CT.online_schedule(kind, geom, item)
+    assert np.array_equal(o_idx.numpy(), j_idx)
+    assert np.array_equal(o_bit.numpy(), j_bit)
+    # encode: Kernel E's plain version (from the symbols) vs _build_encode
     CB = SJ._chunk_bytes(geom.depth, hard)
     assert CB == ST._chunk_bytes(geom.depth, hard)
     eb, ep, lo, em = SJ._build_encode(kind, geom, Sp, W, hard)(
         jnp.asarray(j_idx), jnp.asarray(j_bit))
-    pe = CT.lane_encode(p_idx, p_bit, geom, CB)
+    pe = CT.lane_encode(*item[:4], kind, geom, CB, item.mflag)
     NC = Sp // CT.CHUNK_SYMS
     assert np.array_equal(pe[1].numpy(), np.asarray(ep))
     assert np.array_equal(pe[2].numpy().view(np.uint32), np.asarray(lo))
@@ -120,7 +127,7 @@ def _check(kind, geom, syms, counts, pos=None, reset=None, hard=False,
         jnp.asarray(lens.astype(np.int32)),
         *(jnp.asarray(a.reshape(NC, K, W)) for a in (acts, *args[1:])),
         *(jnp.asarray(m.astype(np.uint32).reshape(NC, K, W)) for m in mf))
-    pd = CT.lane_decode(torch.from_numpy(pay), _t(lens), _t(acts),
+    pd = CT.lane_decode(torch.from_numpy(pay), _t(lens), _t(counts),
                         *(_t(a) for a in args[1:]), kind, geom,
                         *(torch.from_numpy(m) for m in mf))
     assert np.array_equal(pd.numpy(), np.asarray(jd))
@@ -215,20 +222,28 @@ def test_seq_match_collision_w1024():
 
 def test_wrappers_reject_bad_inputs():
     geom = _geom(3, "qual")
-    z = torch.zeros((2, 48, 4), dtype=torch.int32)
+    z = torch.zeros((16, 4), dtype=torch.int32)
+    u, c = z.to(torch.uint8), torch.zeros(4, dtype=torch.int32)
     with pytest.raises(ValueError):
-        CT.lane_encode(z.long(), z, geom, 64)
+        CT.lane_encode(z.long(), z, z, c, "qual", geom, 64)
     with pytest.raises(ValueError):
-        CT.lane_encode(z[:, :40], z[:, :40], geom, 64)
+        CT.lane_encode(u[:12], z[:12], z[:12], c, "qual", geom, 64)
+    with pytest.raises(ValueError):
+        CT.lane_encode(u, None, None, c, "qual", geom, 64)
+    c4 = torch.zeros(4, dtype=torch.int32)
     with pytest.raises(ValueError):
         CT.lane_decode(torch.zeros((4, 8), dtype=torch.uint8),
-                       torch.zeros(4, dtype=torch.int64),
-                       *(torch.zeros((8, 4), dtype=torch.int32),) * 3,
+                       torch.zeros(4, dtype=torch.int64), c4,
+                       *(torch.zeros((8, 4), dtype=torch.int32),) * 2,
+                       "qual", geom)
+    with pytest.raises(ValueError, match="counts"):
+        CT.lane_decode(torch.zeros((4, 8), dtype=torch.uint8), c4,
+                       torch.zeros((8, 4), dtype=torch.int32),
+                       *(torch.zeros((8, 4), dtype=torch.int32),) * 2,
                        "qual", geom)
     with pytest.raises(ValueError, match="mflag"):
-        CT.lane_decode(torch.zeros((4, 8), dtype=torch.uint8),
-                       torch.zeros(4, dtype=torch.int32),
-                       *(torch.zeros((8, 4), dtype=torch.int32),) * 3,
+        CT.lane_decode(torch.zeros((4, 8), dtype=torch.uint8), c4, c4,
+                       *(torch.zeros((8, 4), dtype=torch.int32),) * 2,
                        "seq", _geom(4, "seq"),
                        torch.zeros((8, 4), dtype=torch.int32))
 

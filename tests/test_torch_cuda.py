@@ -1,4 +1,5 @@
-"""Kernels E, D and C against their plain PyTorch versions on a CUDA card,
+"""Kernels E, D, C, L and U against their plain PyTorch versions on a
+CUDA card,
 byte for byte, on each table placement (shared memory, device memory),
 with and without the visit warm-up, at the collision counts where the
 format's count field wraps, and with the level-4 match-context family and
@@ -8,9 +9,8 @@ time; Kernels E and D over a ragged window of blocks against their plain
 versions and against one launch per block; Kernel C's one launch over
 many streams (also a window's 88) against its plain version and against
 each stream compacted alone; the small-block window path end to end;
-Kernel E in step slices against one launch (also where the table lives
-in shared memory, level 1); the host-pack path (forced on small blocks)
-against the main path's containers; and the sharded path on a mesh of
+the host-pack path (forced on small blocks) against the main path's
+containers; and the sharded path on a mesh of
 one card, of the card named twice, and (with two cards or more) of two
 cards, against the sequential containers; the pure-Python pipeline
 (``use_native=False``) stream by stream on the card; the entry points
@@ -78,7 +78,7 @@ def _stream(kind, rng, dev, W, active=None, hi=64, match=False, Sp=256):
         syms = np.where(span, e, syms)
         syms[(p >= 18) & (p < 24)] = 0
         mflag = torch.from_numpy(span.astype(np.uint8)).to(dev)
-    return (torch.from_numpy(syms.astype(np.int32)).to(dev), counts, pos,
+    return (torch.from_numpy(syms.astype(np.uint8)).to(dev), counts, pos,
             reset, mflag)
 
 
@@ -118,10 +118,10 @@ def test_coder_and_compact_kernels_match_plain(dev, case):
                                               hi=1 << (depth or 6),
                                               match=match)
     c = torch.from_numpy(counts.astype(np.int32)).to(dev)
-    idx_c, bit_c = ST._schedule(kind, geom, syms, pos, reset, c, mflag)
     CB = ST._chunk_bytes(geom.depth, hard)
-    ke = CT.lane_encode(idx_c, bit_c, geom, CB)
-    pe = CT.lane_encode_plain(idx_c, bit_c, geom, CB)
+    ke = CT.lane_encode(syms, pos, reset, c, kind, geom, CB, mflag)
+    pe = CT.lane_encode_blocks_plain([CT.EncIn(syms, pos, reset, c, mflag)],
+                                     kind, geom, CB)[0]
     for a, b in zip(ke, pe):
         assert torch.equal(a.cpu(), b.cpu())
     ebufs, eptrs, low, emax = ke
@@ -137,12 +137,12 @@ def test_coder_and_compact_kernels_match_plain(dev, case):
     Sp = syms.shape[0]
     args = (torch.from_numpy(pay).to(dev),
             torch.from_numpy(lens.astype(np.int32)).to(dev),
-            ST._acts(c, Sp), pos, reset)
+            c, pos, reset)
     kd = CT.lane_decode(*args, kind, geom, mflag)
     pd = CT.lane_decode_plain(*args, kind, geom, mflag)
     assert torch.equal(kd.cpu(), pd.cpu())
     mask = torch.arange(Sp, device=dev)[:, None] < c[None, :]
-    assert torch.equal(kd[mask].int(), syms[mask])
+    assert torch.equal(kd[mask], syms[mask])
 
 
 def test_block_streams_at_once_equal_one_at_a_time(dev):
@@ -293,9 +293,10 @@ def test_block_streams_compacted_at_once_equal_alone(dev):
     pre = prepare_block_fast(np.frombuffer(data, dtype=np.uint8), idx, 0, n,
                              cfg)
     streams = []
-    for name, kind, geom, idx_c, bit_c, _ in _coder_jobs(pre, cfg, dev):
+    for name, kind, geom, item, _ in _coder_jobs(pre, cfg, dev):
         CB = ST._chunk_bytes(geom.depth, hard=False)
-        ebufs, eptrs, _, emax = CT.lane_encode(idx_c, bit_c, geom, CB)
+        ebufs, eptrs, _, emax = CT.lane_encode_blocks([item], kind, geom,
+                                                      CB)[0]
         assert int(emax) <= CB
         streams.append((ebufs, eptrs,
                         max(int(eptrs.sum(dim=0).max()), 1)))
@@ -351,19 +352,19 @@ def test_window_kernels_match_plain_and_single(dev, case):
     rng = np.random.default_rng(4)
     streams = [_stream(kind, rng, dev, W, active, match=match, Sp=Sp)
                for Sp, active in blocks]
-    scheds, counts = [], []
+    items, counts = [], []
     for syms, cnt, pos, reset, mflag in streams:
         c = torch.from_numpy(cnt.astype(np.int32)).to(dev)
-        scheds.append(ST._schedule(kind, geom, syms, pos, reset, c, mflag))
+        items.append(CT.EncIn(syms, pos, reset, c, mflag))
         counts.append(c)
     CB = ST._chunk_bytes(geom.depth, False)
     before = _cuda.launches["lane_encode"], _cuda.descs["lane_encode"]
-    ke = CT.lane_encode_blocks(scheds, geom, CB)
+    ke = CT.lane_encode_blocks(items, kind, geom, CB)
     assert (_cuda.launches["lane_encode"], _cuda.descs["lane_encode"]) == (
-        before[0] + 1, before[1] + len(scheds))
-    pe = CT.lane_encode_blocks_plain(scheds, geom, CB)
-    for k, p, (i, b) in zip(ke, pe, scheds):
-        one = CT.lane_encode(i, b, geom, CB)
+        before[0] + 1, before[1] + len(items))
+    pe = CT.lane_encode_blocks_plain(items, kind, geom, CB)
+    for k, p, it in zip(ke, pe, items):
+        one = CT.lane_encode(*it[:4], kind, geom, CB, it.mflag)
         for x, y, z in zip(k, p, one):
             assert torch.equal(x.cpu(), y.cpu())
             assert torch.equal(x.cpu(), z.cpu())
@@ -381,7 +382,7 @@ def test_window_kernels_match_plain_and_single(dev, case):
                                      e[2].cpu().numpy().view(np.uint32), cnt)
         items.append((torch.from_numpy(pay).to(dev),
                       torch.from_numpy(lens.astype(np.int32)).to(dev),
-                      ST._acts(c, syms.shape[0]), pos, reset, mflag))
+                      c, pos, reset, mflag))
     kd = CT.lane_decode_blocks(items, kind, geom)
     pd = CT.lane_decode_blocks_plain(items, kind, geom)
     for k, p, it, (syms, *_), c in zip(kd, pd, items, streams, counts):
@@ -389,7 +390,7 @@ def test_window_kernels_match_plain_and_single(dev, case):
         assert torch.equal(k.cpu(), CT.lane_decode(*it[:5], kind, geom,
                                                    it[5]).cpu())
         mask = torch.arange(syms.shape[0], device=dev)[:, None] < c[None, :]
-        assert torch.equal(k[mask].int(), syms[mask])
+        assert torch.equal(k[mask], syms[mask])
 
 
 def test_compact_window_88_streams(dev):
@@ -445,67 +446,13 @@ def test_window_round_trip_on_card(dev, level):
                    for b in container.iter_blocks(f, cfg))
 
 
-@pytest.mark.parametrize("case", ["qual-d6", "seq-collide-700",
-                                  "seq-l4-match-1024", "qual-l1", "seq-l1"])
-def test_sliced_encode_equals_unsliced(dev, case):
-    """Kernel E in step slices (1, 2, 3 and uneven; the table, low and
-    range carried from one launch to the next, each slice ending with its
-    last bit-step's commit; a table in shared memory loaded from and
-    stored to device memory at a slice's ends) gives the one launch's
-    bytes, chunk counts, low and emax at W = 1024; lane_encode_sliced
-    too; and its plain version over the same slices gives them as
-    well."""
-    from slimfastq_tpu_torch.ops import _cuda
-    level, kind, W, hard, active, depth, smem, match = CASES[case]
-    geom = _geom(level, kind, depth)
-    assert CT.table_in_smem(geom, W) == smem
-    rng = np.random.default_rng(4)
-    syms, counts, pos, reset, mflag = _stream(kind, rng, dev, W, active,
-                                              match=match, Sp=1024)
-    c = torch.from_numpy(counts.astype(np.int32)).to(dev)
-    CB = ST._chunk_bytes(geom.depth, hard)
-    want = CT.lane_encode(*ST._schedule(kind, geom, syms, pos, reset, c,
-                                        mflag), geom, CB)
-    sl = ST.Slices(kind, geom, syms, pos, reset, c, mflag)
-    NC = sl.NC
-    for bounds in ([0, NC], [0, NC // 2, NC], [0, 40, 80, NC],
-                   [0, 1, 7, 61, NC - 1, NC]):
-        carry = CT.EncCarry()
-        out = (torch.zeros((NC, W, CB), dtype=torch.uint8, device=dev),
-               torch.zeros((NC, W), dtype=torch.int32, device=dev))
-        before = _cuda.slices["lane_encode"]
-        for c0, c1 in zip(bounds, bounds[1:]):
-            (_, _, low, emax), = CT.lane_encode_blocks(
-                [sl(c0, c1)], geom, CB, [carry],
-                [(out[0][c0:c1], out[1][c0:c1])])
-        assert _cuda.slices["lane_encode"] == before + len(bounds) - 1
-        for got, exp in zip((*out, low, emax), want):
-            assert torch.equal(got, exp)
-    for got, exp in zip(CT.lane_encode_sliced(sl, NC, 37, W, geom, CB, dev),
-                        want):
-        assert torch.equal(got, exp)
-    # the plain version over slices, on the first 48 chunks
-    part = ST.Slices(kind, geom, syms[:384], pos[:384], reset[:384], c,
-                     None if mflag is None else mflag[:384])
-    k = CT.lane_encode_sliced(part, 48, 20, W, geom, CB, dev)
-    carry = CT.EncCarry()
-    p_out = (torch.zeros((48, W, CB), dtype=torch.uint8),
-             torch.zeros((48, W), dtype=torch.int32))
-    for c0 in (0, 20, 40):
-        c1 = min(48, c0 + 20)
-        (_, _, low, emax), = CT.lane_encode_blocks_plain(
-            [tuple(x.cpu() for x in part(c0, c1))], geom, CB, [carry],
-            [(p_out[0][c0:c1], p_out[1][c0:c1])])
-    for got, exp in zip(k, (*p_out, low, emax)):
-        assert torch.equal(got.cpu(), exp)
-
-
 @pytest.mark.parametrize("level", [3, 4])
 def test_host_pack_path_on_card(dev, level, monkeypatch):
     """Every block forced through the host-pack path (the port's _MAX_SPAN
-    lowered to 1; step slices of 5 QUAL chunks): the containers of the
-    path on the card equal the main path's, and each decodes exactly
-    through the host unpack; Kernel E ran in slices."""
+    lowered to 1): the containers of the path on the card equal the main
+    path's, and each decodes exactly through the host unpack; Kernel E
+    coded each SEQ/QUAL stream whole, Kernel L made its step inputs and
+    Kernel U did not run."""
     import io
     from slimfastq_tpu_torch import api, container
     from slimfastq_tpu_torch import pipeline_native as PN
@@ -516,12 +463,14 @@ def test_host_pack_path_on_card(dev, level, monkeypatch):
     kw = dict(level=level, block_records=2048)
     want = api.encode_fastq(data, **kw)
     monkeypatch.setattr(PN, "_MAX_SPAN", 1)
-    monkeypatch.setattr(ST, "SLICE_BYTES", 5 * 2 * 4 * 8 * 6 * 1024)
     _cuda.reset_launches()
     enc = api.encode_fastq(data, **kw)
-    assert _cuda.slices["lane_encode"] > 0
+    assert _cuda.launches["lane_encode"] >= 2
+    assert _cuda.launches["lane_layout"] >= 1
     assert enc == want
+    _cuda.reset_launches()
     assert api.decode_fastq(enc) == data
+    assert _cuda.launches["lane_unpack"] == 0
     if level == 4:
         f = io.BytesIO(enc)
         cfg = container.read_header(f)
@@ -555,12 +504,11 @@ def test_sharded_path_on_card(dev, devices):
     """The sharded path on a one-card mesh (one shard, on the calling
     thread) and on a mesh naming the card twice (two shard threads, two
     blocks each, each on its own CUDA stream): the sequential bytes; each
-    shard launched E, D and C on the card."""
+    shard launched E, D, C, L and U on the card."""
     by_shard = _sharded_round_trip(devices)
     assert set(by_shard) == {(i, "cuda:0") for i in range(len(devices))}
     for tally in by_shard.values():
-        assert set(tally) == {"lane_encode", "lane_decode",
-                              "compact_lanes_dev"}, tally
+        assert set(tally) == set(_cuda_names()), tally
 
 
 def test_sharded_over_two_cards(dev):
@@ -572,8 +520,12 @@ def test_sharded_over_two_cards(dev):
     by_shard = _sharded_round_trip(["cuda:0", "cuda:1"])
     assert set(by_shard) == {(0, "cuda:0"), (1, "cuda:1")}
     for tally in by_shard.values():
-        assert set(tally) == {"lane_encode", "lane_decode",
-                              "compact_lanes_dev"}, tally
+        assert set(tally) == set(_cuda_names()), tally
+
+
+def _cuda_names() -> list:
+    from slimfastq_tpu_torch.ops import _cuda
+    return list(_cuda.launches)
 
 
 @pytest.mark.parametrize("level", [3, 4])
@@ -607,13 +559,15 @@ def test_python_pipeline_on_card(dev, level):
 
 def test_wide_block_refused(dev):
     geom = config_for_level(3).flags
-    z = torch.zeros((1, 8, 2048), dtype=torch.int32, device=dev)
+    z = torch.zeros((8, 2048), dtype=torch.uint8, device=dev)
+    c = torch.zeros(2048, dtype=torch.int32, device=dev)
     with pytest.raises(ValueError, match="exceeds"):
-        CT.lane_encode(z, z, geom, 16)
+        CT.lane_encode(z, None, None, c, "flag", geom, 16)
     warm = replace(config_for_level(3).seq, rate=14, rate_lo=1)
-    z = torch.zeros((1, 16, 64), dtype=torch.int32, device=dev)
+    z, c = z[:, :64], c[:64]
+    zi = z.int()
     with pytest.raises(ValueError, match="visit cap"):
-        CT.lane_encode(z, z, warm, 16)
+        CT.lane_encode(z, zi, zi, c, "seq", warm, 16)
 
 
 def test_entry_on_card(dev):
@@ -640,3 +594,68 @@ def test_dryrun_multichip_on_cards(dev):
     out = entry.dryrun_multichip(torch.cuda.device_count())
     assert list(out) == ["toy", "production", "match"]
     assert all(_cuda.launches.values())
+
+
+def _raw_block(n: int, W: int, seed: int):
+    """A synthetic block's padded raw bytes on the card with its SEQ/QUAL
+    offsets, lengths (ragged, some 0: a record of length 0 sets no read
+    start), lane-length matrix, lane counts and steps."""
+    from slimfastq_tpu_torch import native
+    from slimfastq_tpu_torch.ops import pack_torch as PT
+    from slimfastq_tpu_torch.pipeline import _lane_lengths_matrix
+    from slimfastq_tpu_torch.utils.synth import synth_fastq
+    data = synth_fastq(n, read_len=100, seed=seed, var_len=True,
+                       n_rate=0.01)
+    idx, _ = native.fastq_index(data)
+    lengths = idx["seq_len"].astype(np.int64)
+    lengths[::7] = 0  # the index keeps its offsets; the lanes skip them
+    dpad = np.zeros(PT.pad_flat(len(data)), dtype=np.uint8)
+    dpad[: len(data)] = np.frombuffer(data, dtype=np.uint8)
+    ll = _lane_lengths_matrix(lengths, W)
+    counts = ll.sum(axis=0)
+    return (dpad, idx["seq_off"], idx["qual_off"], lengths, ll, counts,
+            int(counts.max()))
+
+
+@pytest.mark.parametrize("n,W", [(65536, 1024), (5000, 1024), (300, 64)])
+def test_lane_layout_and_unpack_match_plain(dev, n, W):
+    """Kernel L (pack mode: SEQ, QUAL, pos and reset in one launch;
+    step-input mode: pos and reset) and Kernel U against their plain
+    versions on the card (pack on the active rows; rows past a lane's
+    count hold 0), U giving back the packed records' bytes."""
+    from slimfastq_tpu_torch.ops import _cuda
+    from slimfastq_tpu_torch.ops import pack_torch as PT
+    from slimfastq_tpu_torch.ops.ranger import pad_steps
+    from slimfastq_tpu_torch.pipeline_native import (_BASE_TO_CODE_DEV,
+                                                     _CODE_TO_BASE_FULL)
+    dpad, soffs, qoffs, lengths, ll, counts, S = _raw_block(n, W, 11)
+    Sp = pad_steps(S)
+    d = torch.from_numpy(dpad).to(dev)
+    before = _cuda.launches["lane_layout"]
+    k = PT.lane_layout(d, soffs, qoffs, lengths, ll, W, Sp, S,
+                       _BASE_TO_CODE_DEV, 33)
+    assert _cuda.launches["lane_layout"] == before + 1
+    p = (*PT.pack_pair_plain(d, soffs, qoffs, lengths, W, Sp,
+                             _BASE_TO_CODE_DEV, 33),
+         *PT._pos_reset(torch.from_numpy(ll).to(dev), Sp, S, W))
+    active = torch.arange(Sp, device=dev)[:, None] < torch.from_numpy(
+        counts).to(dev)[None, :]
+    for a, b in zip(k, p):
+        assert torch.equal(a[active], b[active])
+    assert not k[0][~active].any() and not k[1][~active].any()
+    assert torch.equal(k[2], p[2]) and torch.equal(k[3], p[3])
+    pos, reset = PT.step_inputs(ll, Sp, S, W, dev)
+    assert torch.equal(pos, p[2]) and torch.equal(reset, p[3])
+    starts = np.zeros(n, dtype=np.int64)
+    starts[1:] = np.cumsum(lengths[:-1])
+    total = int(lengths.sum())
+    before = _cuda.launches["lane_unpack"]
+    ku = PT.unpack_pair(k[0], k[1], starts, lengths, W, total,
+                        _CODE_TO_BASE_FULL, 33)
+    assert _cuda.launches["lane_unpack"] == before + 1
+    pu = PT.unpack_pair_plain(k[0], k[1], starts, lengths, W, total,
+                              _CODE_TO_BASE_FULL, 33)
+    for a, b in zip(ku, pu):
+        assert a.shape == (total,) and torch.equal(a, b[:total])
+    want_q = b"".join(bytes(dpad[o: o + L]) for o, L in zip(qoffs, lengths))
+    assert bytes(ku[1][:total].cpu().numpy()) == want_q

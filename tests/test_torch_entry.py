@@ -1,7 +1,7 @@
 """The port's entry points (slimfastq_tpu_torch/entry.py) against the JAX
-package's __graft_entry__.py on the CPU: entry()'s flagship step (the
-level-3 QUAL schedule, then Kernel E's plain version) codes the same
-lanes byte for byte, and dryrun_multichip over two CPU shards round-trips
+package's __graft_entry__.py on the CPU: entry()'s flagship step (Kernel
+E's plain version on level-3 QUAL symbols) codes the same lanes byte for
+byte, and dryrun_multichip over two CPU shards round-trips
 its three phases, whose toy and level-4 containers equal the JAX
 package's api.encode_fastq of the same data and config. Without a card
 and without a CPU request, both raise."""

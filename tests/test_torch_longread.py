@@ -3,19 +3,20 @@ the host-pack path, which a block whose raw bytes reach 2 GiB takes, held
 against the JAX package at small sizes.
 
 * encode_stream_ll / decode_stream_ll (pos/reset derived on the device
-  from the lane lengths, Kernel E in step slices) give streams_jax's
+  from the lane lengths, Kernel E in one launch) give streams_jax's
   payloads and symbols (its test_ll_variants_match_oracle, ported);
-* Kernel E's plain version in 1, 2, 3 and uneven step slices, the coder
-  state carried from one to the next, gives the unsliced bytes, and each
-  schedule slice equals the whole schedule's rows, also for level 1's
-  QUAL and SEQ, whose tables the kernel keeps in shared memory;
-* the host pack (native.pack_lanes) gives pack_pair's symbols on an
-  N-rich block, and pos/reset the reference's layout;
-* the device-byte budget keeps today's windows and slices a long block.
+* Kernel E's plain version (its rows built online) gives the bytes of
+  the closed-form schedule's rows through the coder, on read layouts
+  from ragged to one busy lane, also for level 1's QUAL and SEQ, whose
+  tables the kernel keeps in shared memory;
+* the host pack (native.pack_lanes) gives Kernel L's pack-mode symbols
+  on an N-rich block, and pos/reset the reference's layout;
+* the device-byte budget keeps today's windows and codes a long block
+  alone.
 
 The containers of the forced path (the port's _MAX_SPAN lowered) are
 held against the JAX package's in tests/test_torch_longread_levels.py
-and _l4.py, the window budget and the sliced overflow rerun in
+and _l4.py, the window budget and the overflow rerun in
 tests/test_torch_longread_windows.py.
 """
 
@@ -58,10 +59,16 @@ def _reads(seed: int, n: int = 100, hi: int = 60):
 
 @pytest.mark.parametrize("kind", ["qual", "seq", "seq-mflag"])
 def test_ll_variants_match_jax(kind, monkeypatch):
-    """encode_stream_ll (in step slices: SLICE_BYTES lowered to 3 QUAL
-    chunks) and decode_stream_ll give the payloads and symbols of the JAX
-    package's streams_jax.encode_stream_ll / decode_stream_ll."""
-    monkeypatch.setattr(ST, "SLICE_BYTES", 3 * 2 * 4 * 8 * 6 * W)
+    """encode_stream_ll (one Kernel E launch over the whole stream) and
+    decode_stream_ll give the payloads and symbols of the JAX package's
+    streams_jax.encode_stream_ll / decode_stream_ll."""
+    coded, fn = [], CT.lane_encode_blocks
+
+    def spy(*args, **kw):  # the chunks each launch codes
+        out = fn(*args, **kw)
+        coded.extend(o[1].shape[0] for o in out)
+        return out
+    monkeypatch.setattr(CT, "lane_encode_blocks", spy)
     level = 4 if kind == "seq-mflag" else 3
     jcfg = jconfig_for_level(level, lanes=W, aux_lanes=8)
     cfg = config_for_level(level, lanes=W, aux_lanes=8)
@@ -83,6 +90,7 @@ def test_ll_variants_match_jax(kind, monkeypatch):
                                             mflag=mflag)
     p_t, l_t = ST.encode_stream_ll(k, geom, syms, ll_mat, counts, "cpu",
                                    mflag=mflag)
+    assert coded == [pad_steps(S) // 8]
     assert np.array_equal(l_t, l_j)
     assert np.array_equal(p_t, p_j)
     d_j = streams_jax.decode_stream_ll(k, jgeom, p_j, l_j, ll_mat, counts,
@@ -94,66 +102,71 @@ def test_ll_variants_match_jax(kind, monkeypatch):
     assert np.array_equal(d_t[mask], syms[mask])
 
 
-def _sched_inputs(kind: str):
-    """(geom, syms, pos, reset, counts, mflag) of a ragged per-read stream
-    at W lanes on the CPU (level-3 QUAL / SEQ; seq-mflag: level-4 SEQ
-    with match-span flags; qual-l1 / seq-l1: level 1's, whose tables fit
-    shared memory), Sp = 256 steps."""
+LAYOUTS = ["ragged", "zero-length", "one-lane", "long-reads"]
+
+
+def _sched_inputs(kind: str, layout: str = "ragged"):
+    """(geom, syms, pos, reset, counts, mflag) of a per-read stream at W
+    lanes on the CPU (level-3 QUAL / SEQ; seq-mflag: level-4 SEQ with
+    match-span flags; qual-l1 / seq-l1: level 1's, whose tables fit
+    shared memory). Layouts: ragged reads of 0 to 59 symbols; a third of
+    them of length 0; one lane with reads, the others empty; reads of 90
+    to 120 symbols, each across several chunks."""
     level = {"seq-mflag": 4, "qual-l1": 1, "seq-l1": 1}.get(kind, 3)
     cfg = config_for_level(level, lanes=W, aux_lanes=8)
-    lengths, ll_mat, counts, S, recs = _reads(7)
+    seed = 7 + LAYOUTS.index(layout)
+    rng = np.random.default_rng(seed)
+    if layout == "ragged":
+        lengths = rng.integers(0, 60, size=100)
+    elif layout == "zero-length":
+        lengths = rng.integers(1, 40, size=120) * (rng.random(120) > 1 / 3)
+    elif layout == "one-lane":
+        lengths = np.zeros(5 * W, dtype=np.int64)
+        lengths[3::W] = rng.integers(1, 50, size=5)
+    else:
+        lengths = rng.integers(90, 121, size=2 * W)
+    lengths = lengths.astype(np.int64)
+    ll_mat = _lane_lengths_matrix(lengths, W)
+    counts = ll_mat.sum(axis=0)
+    S = int(counts.max())
+    recs = [np.clip(30 + np.cumsum(rng.integers(-2, 3, size=L)), 0,
+                    63).astype(np.uint32) for L in lengths]
     if geom_kind(kind) != "qual":
         recs = [r & 3 for r in recs]
     Sp = pad_steps(S)
     syms = ST._pad2(_scatter_record_symbols(recs, W, S, counts), Sp, W,
-                    "cpu")
+                    "cpu", torch.uint8)
     pos, reset = ST._pos_reset(ST._lane_lens(ll_mat, W, "cpu"), Sp, S, W)
     mflag = None
     if kind == "seq-mflag":
-        rng = np.random.default_rng(8)
         mflag = torch.from_numpy((rng.random((Sp, W)) < 0.4).astype(
             np.uint8))
     geom = cfg.qual if geom_kind(kind) == "qual" else cfg.seq
     return geom, syms, pos, reset, torch.from_numpy(counts).int(), mflag
 
 
-@pytest.mark.parametrize("split", ["1", "2", "3", "uneven"])
+@pytest.mark.parametrize("layout", LAYOUTS)
 @pytest.mark.parametrize("kind", ["qual", "seq", "seq-mflag", "qual-l1",
                                   "seq-l1"])
-def test_plain_encode_slices_give_unsliced_bytes(kind, split):
-    """Kernel E's plain version over step slices (the coder state carried
-    in an EncCarry, each slice's schedule built alone with its halo of
-    history) gives every byte, chunk count, final low and emax of the one
-    unsliced launch, also where the kernel keeps the table in shared
-    memory (level 1)."""
-    geom, syms, pos, reset, counts, mflag = _sched_inputs(kind)
+def test_online_encode_equals_closed_form(kind, layout):
+    """Kernel E's plain version, which builds each step's row online from
+    the symbols before it as the kernel does, gives every byte, chunk
+    count, final low and emax of the closed-form schedule's rows
+    (streams_torch._schedule) through the same coder, and its rows equal
+    them, also where the kernel keeps the table in shared memory (level
+    1)."""
+    geom, syms, pos, reset, counts, mflag = _sched_inputs(kind, layout)
     assert CT.table_in_smem(geom, W) == kind.endswith("-l1")
-    NC = syms.shape[0] // 8
-    whole = ST._schedule(geom_kind(kind), geom, syms, pos, reset, counts,
-                         mflag)
+    k = geom_kind(kind)
+    closed = ST._schedule(k, geom, syms, pos, reset, counts, mflag)
+    item = CT.EncIn(syms, pos, reset, counts, mflag)
+    online = CT.online_schedule(k, geom, item)
+    assert torch.equal(online[0], closed[0])
+    assert torch.equal(online[1], closed[1])
     CB = ST._chunk_bytes(geom.depth, hard=False)
-    want = CT.lane_encode(*whole, geom, CB)
-    bounds = {"1": [0, NC], "2": [0, NC // 2, NC],
-              "3": [0, NC // 3, 2 * NC // 3, NC],
-              "uneven": [0, 1, 7, 20, NC - 1, NC]}[split]
-    ebufs = torch.zeros((NC, W, CB), dtype=torch.uint8)
-    eptrs = torch.zeros((NC, W), dtype=torch.int32)
-    carry = CT.EncCarry()
-    for c0, c1 in zip(bounds, bounds[1:]):
-        part = ST._schedule(geom_kind(kind), geom, syms, pos, reset, counts,
-                            mflag, c0, c1)
-        assert torch.equal(part[0], whole[0][c0:c1])
-        assert torch.equal(part[1], whole[1][c0:c1])
-        (_, _, low, emax), = CT.lane_encode_blocks(
-            [part], geom, CB, [carry], [(ebufs[c0:c1], eptrs[c0:c1])])
-    for got, exp in zip((ebufs, eptrs, low, emax), want):
-        assert torch.equal(got, exp)
-    if split == "3":  # lane_encode_sliced's fixed step, the same bytes
-        sl = ST.Slices(geom_kind(kind), geom, syms, pos, reset, counts,
-                       mflag)
-        got = CT.lane_encode_sliced(sl, NC, NC // 3, W, geom, CB, "cpu")
-        for g, exp in zip(got, want):
-            assert torch.equal(g, exp)
+    got = CT.lane_encode(syms, pos, reset, counts, k, geom, CB, mflag)
+    for g, exp in zip(got, CT.lane_encode_plain(*closed, geom, CB)):
+        assert torch.equal(g, exp)
 
 
 def geom_kind(kind: str) -> str:
@@ -161,37 +174,35 @@ def geom_kind(kind: str) -> str:
 
 
 def test_slices_refused_for_a_shared_memory_table():
-    """Step slices of a table that lives in shared memory are no longer
-    refused: the kernel carries it in device memory between slices (the
-    plain version carries its own). What the wrapper still refuses: a
-    depth-1 table that does not fit shared memory (no level has one), and
-    a launch without one carry and one output pair a block."""
+    """A table that lives in shared memory codes in one launch with the
+    others (the kernel builds it there, fresh; nothing carries it between
+    launches). What the wrapper refuses: a depth-1 table that does not
+    fit shared memory (no level has one), a launch of no blocks, and
+    blocks of different lanes."""
     cfg = config_for_level(3, lanes=W, aux_lanes=8)
-    z = torch.zeros((2, 8 * cfg.bytes_.depth, W), dtype=torch.int32)
+    counts = torch.full((W,), 16, dtype=torch.int32)
+    z = CT.EncIn(torch.zeros((16, W), dtype=torch.uint8), None, None, counts)
     assert CT.table_in_smem(cfg.bytes_, W)
-    carry = CT.EncCarry()
-    (_, eptrs, _, _), = CT.lane_encode_blocks([(z, z)], cfg.bytes_, 64,
-                                              [carry])
-    assert eptrs.shape == (2, W) and carry.table is not None
+    outs = CT.lane_encode_blocks([z, z], "byte", cfg.bytes_, 64)
+    assert [o[1].shape for o in outs] == [(2, W)] * 2
     wide = replace(cfg.flags, hist_bits=17)
     assert not CT.table_in_smem(wide, W)
     with pytest.raises(ValueError, match="shared memory"):
         CT._kernel_geom(wide, W, torch.device("cpu"))
-    q = torch.zeros((2, 8 * cfg.qual.depth, W), dtype=torch.int32)
-    with pytest.raises(ValueError, match="one carry"):
-        CT.lane_encode_blocks([(q, q)], cfg.qual, 64, [])
-    with pytest.raises(ValueError, match="outs"):
-        CT.lane_encode_blocks([(q, q)], cfg.qual, 64, [CT.EncCarry()],
-                              [(torch.zeros((1, W, 64), dtype=torch.uint8),
-                                torch.zeros((1, W), dtype=torch.int32))])
+    with pytest.raises(ValueError, match="blocks"):
+        CT.lane_encode_blocks([], "byte", cfg.bytes_, 64)
+    z8 = CT.EncIn(z.syms[:, :8], None, None, counts[:8])
+    with pytest.raises(ValueError, match="same lanes"):
+        CT.lane_encode_blocks([z, z8], "byte", cfg.bytes_, 64)
 
 
 @pytest.mark.parametrize("lanes", [16, 128])
 def test_host_pack_matches_device_pack(lanes):
     """On an N-rich block (n_rate 0.01) the host pack's SEQ lanes
     (native.pack_lanes with the map's 255 for non-ACGT, written as 0) and
-    QUAL lanes (minus minq) equal pack_pair's with _BASE_TO_CODE_DEV, and
-    its non-ACGT census equals scan_bad's."""
+    QUAL lanes (minus minq) equal Kernel L's pack mode's
+    (pack_torch.lane_layout, its plain version) with _BASE_TO_CODE_DEV,
+    and its non-ACGT census equals scan_bad's."""
     data = synth_fastq(300, read_len=40, seed=2, var_len=True, n_rate=0.01)
     idx, n = native.fastq_index(data)
     buf = np.frombuffer(data, dtype=np.uint8)
@@ -209,9 +220,9 @@ def test_host_pack_matches_device_pack(lanes):
     assert nbad == nbad2 and np.array_equal(rec_bad, rec_bad2)
     dpad = np.zeros(pack_torch.pad_flat(len(buf)), dtype=np.uint8)
     dpad[: len(buf)] = buf
-    s_dev, q_dev = pack_torch.pack_pair(
+    s_dev, q_dev, _, _ = pack_torch.lane_layout(
         torch.from_numpy(dpad), idx["seq_off"], idx["qual_off"], lengths,
-        lanes, pad_steps(S), TPN._BASE_TO_CODE_DEV, minq)
+        ll_mat, lanes, pad_steps(S), S, TPN._BASE_TO_CODE_DEV, minq)
     counts = ll_mat.sum(axis=0)
     mask = np.arange(S)[:, None] < counts[None, :]
     assert np.array_equal(s_dev[:S].numpy()[mask], sq[mask])
@@ -238,21 +249,17 @@ def test_budget_keeps_todays_windows_and_slices_long_reads():
     """The byte rule at the main path's geometry (W = 1024): four 65,536
     x 100 bp level-4 blocks with both match trials (a window of 4) and
     eight 16,384 x 100 bp blocks (a window of 8) stay far below 40 GB,
-    half of an 80 GB card's free bytes, and each of their streams is one
-    slice, so their windows and launches do not change; a 65,536 x 16.5
-    kb block takes QUAL in 25 slices and level-3 SEQ in 9, and passes
-    that budget alone with a second such block."""
+    half of an 80 GB card's free bytes, so their windows do not change; a
+    65,536 x 16.5 kb block (Kernel E's inputs and chunk buffers, no
+    schedule: 24.9 GB at level 3) passes half that budget and codes in a
+    window of its own: two such blocks take two windows."""
     budget = 40 << 30
-    big = ST.encode_bytes(pad_steps(6400), 1024, [6, 2, 2, 2], 4)
-    small = ST.encode_bytes(pad_steps(1600), 1024, [6, 2, 2, 2], 4)
+    big = ST.encode_bytes(pad_steps(6400), 1024, [6, 2, 2, 2])
+    small = ST.encode_bytes(pad_steps(1600), 1024, [6, 2, 2, 2])
     assert 4 * big < budget // 8 and 8 * small < budget // 8
-    for S in (6400, 1600):
-        for depth in (6, 2):
-            assert pad_steps(S) // 8 <= ST.slice_chunks(depth, 1024)
     NC = pad_steps(65536 // 1024 * 16500) // 8
-    assert -(-NC // ST.slice_chunks(6, 1024)) == 25
-    assert -(-NC // ST.slice_chunks(2, 1024)) == 9
-    long_block = ST.encode_bytes(8 * NC, 1024, [6, 2], 1)
+    long_block = ST.encode_bytes(8 * NC, 1024, [6, 2])
     assert budget // 2 < long_block < budget < 2 * long_block
+    assert ST.split_by_bytes([long_block] * 2, budget) == [[0], [1]]
     assert ST.split_by_bytes([3, 3, 5, 1, 9, 1], 6) == [[0, 1], [2, 3], [4],
                                                         [5]]

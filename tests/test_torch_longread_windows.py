@@ -2,8 +2,8 @@
 versions), against the JAX package's container of three small blocks: a
 lowered device-byte budget splits encode and decode windows (and a
 lowered prep-ahead) without changing a byte, and an optimistic chunk
-buffer overflowed in step slices reruns every slice with hard buffers
-and keeps the bytes."""
+buffer overflowed on the host-pack path reruns its streams with hard
+buffers and keeps the bytes."""
 
 import pytest
 import torch
@@ -75,23 +75,26 @@ def test_window_budget_splits_decode(three_blocks, monkeypatch):
 
 
 def test_sliced_overflow_reruns_every_slice(three_blocks, monkeypatch):
-    """The host-pack path in step slices with no room in the optimistic
-    chunk buffers, so every stream's emax passes them: each stream is
-    coded again with hard buffers, a sliced one slice by slice with its
-    schedules rebuilt, and the container is still the JAX package's."""
+    """The host-pack path with no room in the optimistic chunk buffers, so
+    every stream's emax passes them: each SEQ/QUAL stream of the three
+    blocks is coded again with hard buffers, whole, in one launch of
+    the overflowed blocks, and the container is still the JAX
+    package's."""
     data, enc_j, _ = three_blocks
     chunk_bytes = ST._chunk_bytes
     monkeypatch.setattr(TPN, "_MAX_SPAN", 1)
-    monkeypatch.setattr(ST, "SLICE_BYTES", 3 * 2 * 4 * 8 * 6 * 128)
     monkeypatch.setattr(ST, "_chunk_bytes",
                         lambda depth, hard: chunk_bytes(depth, hard)
                         if hard else 0)
-    calls, fn = [], CT.lane_encode_slices
+    calls, fn = [], CT.lane_encode_blocks
 
-    def spy(build, NC, step, W, geom, CB, dev):
-        calls.append((build.kind, CB))
-        return fn(build, NC, step, W, geom, CB, dev)
-    monkeypatch.setattr(CT, "lane_encode_slices", spy)
+    def spy(items, kind, geom, CB):
+        out = fn(items, kind, geom, CB)
+        if kind in ("qual", "seq"):
+            assert all(o[1].shape[0] == it.NC for it, o in zip(items, out))
+            calls.extend([(kind, CB)] * len(items))
+        return out
+    monkeypatch.setattr(CT, "lane_encode_blocks", spy)
     assert tapi.encode_fastq(data, device="cpu", level=3, **KW) == enc_j
     # QUAL and SEQ of each of the three blocks, optimistic then hard
     hard = {k: chunk_bytes(d, True) for k, d in (("qual", 6), ("seq", 2))}

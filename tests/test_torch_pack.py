@@ -1,5 +1,6 @@
 """The port's lane pack/unpack (slimfastq_tpu_torch.ops.pack_torch) against
-the JAX package's ops/pack_jax, the SEQ+QUAL pair forms and the
+the JAX package's ops/pack_jax, the SEQ+QUAL pair forms (Kernel L's pack
+mode and Kernel U, through their plain versions on the CPU) and the
 single-stream pack_device / unpack_device: every symbol of the [Sp, W]
 matrices and every byte of the record-major buffers equal."""
 
@@ -52,8 +53,8 @@ def test_pack_pair_matches_jax(seed, n, W, maxlen):
     minq = 35
     js, jq = PJ.pack_pair_device(jnp.asarray(dpad), so, qo, lengths, W, Sp,
                                  _BASE_TO_CODE_DEV, minq)
-    ps, pq = PT.pack_pair(torch.from_numpy(dpad), so, qo, lengths, W, Sp,
-                          _BASE_TO_CODE_DEV, minq)
+    ps, pq = PT.pack_pair_plain(torch.from_numpy(dpad), so, qo, lengths, W,
+                                Sp, _BASE_TO_CODE_DEV, minq)
     assert ps.dtype == torch.uint8 and pq.dtype == torch.uint8
     assert np.array_equal(ps.numpy(), np.asarray(js))
     assert np.array_equal(pq.numpy(), np.asarray(jq))
@@ -88,8 +89,11 @@ def test_pack_unpack_round_trip():
     n, W = 90, 16
     dpad, so, qo, lengths, S = _block(rng, n, W, 70, zero_len=False)
     Sp = R.pad_steps(S)
-    ps, pq = PT.pack_pair(torch.from_numpy(dpad), so, qo, lengths, W, Sp,
-                          _BASE_TO_CODE_DEV, 35)
+    ll = np.zeros(((n + W - 1) // W) * W, dtype=np.int64)
+    ll[:n] = lengths
+    ps, pq, _, _ = PT.lane_layout(torch.from_numpy(dpad), so, qo, lengths,
+                                  ll.reshape(-1, W), W, Sp, S,
+                                  _BASE_TO_CODE_DEV, 35)
     starts = np.zeros(n, dtype=np.int64)
     starts[1:] = np.cumsum(lengths[:-1])
     total = int(lengths.sum())

@@ -157,7 +157,7 @@ def test_seq_mflag_decode_matches_jax():
     got = coder_torch.lane_decode_plain(
         streams_torch._payload_tensor(p, "cpu"),
         torch.from_numpy(lens.astype(np.int32)),
-        streams_torch._acts(torch.from_numpy(counts.astype(np.int32)), Sp),
+        torch.from_numpy(counts.astype(np.int32)),
         *(streams_torch._pad2(x, Sp, W, "cpu") for x in (pos, reset)),
         "seq", cfg.seq, torch.from_numpy(mf)).numpy()[:S]
     assert np.array_equal(got, want)

@@ -10,7 +10,9 @@ as the main path prepares it (pipeline_native.prepare_block_fast,
 _coder_jobs). Kernel E runs once per stream and its outputs are kept;
 encode_block then runs with E's wrapper (coder_torch.lane_encode_blocks,
 or lane_encode on a tree from before the window path) answering from
-them, so the call costs the phase after the join and nothing of E. Each call is
+them, keyed on the wrapper's arguments (each stream's inputs, the
+symbols with pos/reset and counts or a tree's schedule, by address), so
+the call costs the phase after the join and nothing of E. Each call is
 timed with the host clock (it returns with the payloads on the host) and
 with CUDA events on the calling stream, and must give the payloads of the
 first, uncached call. Then, under torch.profiler, the mean device time
@@ -44,7 +46,8 @@ def _median_span(xs):
 
 
 def _key(x):
-    """A call's arguments as a cache key: tensors by address."""
+    """A call's arguments as a cache key: tensors by address, and the
+    tuples that hold them (a stream's EncIn) by their tensors."""
     if hasattr(x, "data_ptr"):
         return x.data_ptr()
     if isinstance(x, (list, tuple)):

@@ -11,15 +11,16 @@ device activities' intervals over the wall: a block's coder streams run
 at once on their own CUDA streams, so their times overlap) beside the sum
 of all device time; the peak device memory (torch's allocator);
 Kernel C's device time and launches per block
-(encode), beside the coder kernels' rows; and, for the codec's trace
+(encode), beside the rows of the coder kernels and of Kernels L (lane
+layout) and U (unpack); and, for the codec's trace
 spans (`sfq.*`), the host time and the device time of the work they
 enqueued, each summed over the span's calls.
 With --block-records (and --window) the same for smaller blocks coded
 in windows, e.g. the 16k window: 65,536 reads as 4 blocks of 16,384 in
 one window of 4 (Kernel C per block is then the window's launch divided
 by its blocks). With --read-len the reads' length, e.g. 16500 for the
-long-read block (65,536 reads, raw span past 2 GiB: the host-pack path,
-Kernel E in step slices). Needs a CUDA card.
+long-read block (65,536 reads, raw span past 2 GiB: the host-pack path).
+Needs a CUDA card.
 
 Usage: python3 tools/gpu_profile.py [reads [level]] [--block-records N]
        [--window B] [--read-len L]
@@ -41,7 +42,8 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
 def _kernel_name(key: str) -> str:
     m = re.search(r"(lane_encode_kernel<[^>]*>|lane_decode_kernel<[^>]*>|"
                   r"lane_encode_kernel|lane_decode_kernel|"
-                  r"compact_streams_kernel|compact_lanes_kernel)", key)
+                  r"compact_streams_kernel|compact_lanes_kernel|"
+                  r"lane_layout_kernel|lane_unpack_kernel)", key)
     return m.group(1) if m else key[:80]
 
 

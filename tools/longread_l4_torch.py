@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Level 4 on the long-read block with the PyTorch/CUDA port
 (slimfastq_tpu_torch): one block of 65,536 reads of 16.5 kb (raw span past
-2 GiB: SEQ and QUAL packed on the host, Kernel E in step slices, the
+2 GiB: SEQ and QUAL packed on the host, Kernel E once a stream, the
 matcher over ~1.08 Gbase, the plain SEQ and both match trials coded)
 encoded twice and decoded once through api.encode_fastq / decode_fastq.
 
@@ -9,7 +9,7 @@ Prints the arena line (`long_read_arena`), then one JSON line
 (`long_read_l4`): for each encode its wall, peak device memory, the
 matcher's host seconds (native.match_find_arrays; with SFQ_MATCH_STATS=1
 the library prints its phases to stderr), the block's device bytes beside
-the window's budget, Kernel E's launches and slices, the container's
+the window's budget, the kernels' launches, the container's
 size and SHA-256; whether the two encodes' SHA-256 agree; the decode's
 wall and peak device memory and whether the round trip is exact; the
 ratio; and the matcher's candidate arena reckoned with NumPy from the
@@ -136,8 +136,7 @@ def run(data: bytes, level: int, device, encodes: int = 2,
         out = fn()
         sync()
         rec = {"wall_s": time.perf_counter() - t,
-               "launches": dict(_cuda.launches),
-               "slices": dict(_cuda.slices)}
+               "launches": dict(_cuda.launches)}
         rec["peak_device_GB"] = (torch.cuda.max_memory_allocated(dev) / 1e9
                                  if cuda else None)
         return out, rec

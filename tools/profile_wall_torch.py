@@ -8,7 +8,7 @@ whatever thread calls it:
 
 - prep: pipeline_native.prepare_block_fast (the prep pool);
 - device_step: api.Card.encode / decode (the main thread: issuing the
-  schedules and launches, the syncs below, the flush);
+  uploads and launches, the syncs below, the flush);
 - within it, the host's waits on the card: sync_heads
   (streams_torch._heads: Kernel E's overflow check), sync_to_host
   (streams_torch._to_host: Kernel C's payloads brought back),
