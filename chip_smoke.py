@@ -24,12 +24,17 @@ Phases (any failure exits non-zero; nothing is caught):
      x 100 bp block's QUAL stream: W = 1024, Sp = 6400, NC = 800, where E
      is also held against its plain version; and its level-4 SEQ stream
      as the winning match trial codes it), where D's output is held
-     against the packed symbols; Kernel L (lane_layout: pack mode, SEQ,
+     against the packed symbols; Kernel L (lane_layout: pair mode, SEQ,
      QUAL, pos and reset in one launch; step-input mode, pos and reset)
      and Kernel U (lane_unpack) on the pinned block's own inputs
-     against their plain versions (the tensor-op chains they replaced),
-     timed (profiler records) beside them and their byte bounds, L then U
-     giving the block's qualities back; with the host's time for
+     against their plain versions (the tensor-op chains they replaced)
+     on whole matrices, timed (profiler records; the wrappers with CUDA
+     events) beside them and their byte bounds (the earlier design's
+     recorded times on the earlier_ms line),
+     L then U giving the block's qualities back; the raw block's upload
+     from a pageable array and from a page-locked one (pinned_empty),
+     and L reading that buffer straight through its mapping (held
+     against the kernel); with the host's time for
      the level-4 matcher and trials; Kernel C's one launch over the pinned
      block's coded streams (7 at level 3, 11 at level 4, as encode_block
      hands them over; again with QUAL at the hard chunk size) against its
@@ -52,7 +57,10 @@ Phases (any failure exits non-zero; nothing is caught):
      beside the sum); at level 4 its E launches (with the trials' SEQ and
      MATCH) alone and in two orders; the main path's device halves timed
      with CUDA events; then encode and decode wall time over 4 blocks of
-     the same generator, at each level.
+     the same generator, at each level; the 4-block set at level 3
+     encoded twice back to back on page-locked buffers the pool reuses,
+     both containers equal to the set's container from the host-pack
+     path (no pool), and no new buffer taken by the second.
 
   5. the small-block window path on the same 4-block set at
      block_records = 16,384 (the 4 blocks in one window): Kernels E and D over
@@ -77,8 +85,9 @@ Phases (any failure exits non-zero; nothing is caught):
      exact round trip, walls, peak device memory, launches, the block's
      device bytes against the window budget; E over the long QUAL in one
      launch, D on its payload, C on its chunk buffers and L's step
-     inputs over the block, timed beside their bounds, E held against its
-     plain version on the first 2 chunks, L against its plain version;
+     inputs over the block (three times), timed beside their bounds, E
+     held against its plain version on the first 2 chunks, L against its
+     plain version;
      then the pinned block forced through the host-pack path keeps its
      SHA-256 at level 3 and level 4.
   7. block sharding (parallel.sharded) on make_mesh() (every card) and on
@@ -102,8 +111,10 @@ Phases (any failure exits non-zero; nothing is caught):
      make_mesh(); a 2,048-read input encoded on the card equals the NumPy
      oracle's container (backend="oracle"), whose encode and decode
      launch no kernel and allocate nothing on the card; and the
-     single-stream pack_device / unpack_device on the pinned block's QUAL
-     timed beside their byte bounds and held against the pair form.
+     single-stream pack_device / unpack_device (Kernels L and U in their
+     single-stream modes) on the pinned block's QUAL (bias) and SEQ (map)
+     held against pack_device_plain / unpack_device_plain on whole
+     arrays and timed beside them and their byte bounds.
   9. the entry points (slimfastq_tpu_torch/entry.py): entry()'s flagship
      step (Kernel E on level-3 QUAL symbols, launched once) on
      the card equals its CPU run; dryrun_multichip over every card
@@ -121,7 +132,7 @@ Phases (any failure exits non-zero; nothing is caught):
      are printed.
 
 Prints `compact_block_l3`, `compact_block_l4`, `compact_phase_l3`,
-`compact_phase_l4`, `block`, `block_l4`, `wall`, `wall_l4`,
+`compact_phase_l4`, `block`, `block_l4`, `wall`, `pool_reuse`, `wall_l4`,
 `window_kernels`, `window_walls`, `window_sweep`, `streaming`,
 `long_read`, `long_read_kernels`, `sharded`, `sharded_streaming`,
 `gather_nccl`, `level1`, `python_pipeline`, `python_pipeline_s`,
@@ -188,6 +199,15 @@ EARLIER_MS = {"before_smem_table_law": {"lane_encode": 142.01,
                                         "lane_decode": 136.97,
                                         "compact_lanes_dev": 0.0317},
               "one_launch_per_stream": {"compact_lanes_dev": 0.0325}}
+# Kernels L and U before L's tiled design (L: one thread a lane and a run
+# of 64 rows; their inputs in one pageable copy each), recorded by this
+# script (H100 80GB HBM3, 700 W, the pinned 64k L3 block; the long block
+# for its step inputs, two runs; ms): device time (profiler) and, where
+# recorded, the wrapper's (CUDA events)
+EARLIER_LANES_MS = {"pack": {"ms": 0.0702, "wrapper_ms": 0.591},
+                 "steps": {"ms": 0.0427},
+                 "unpack": {"ms": 0.0537, "wrapper_ms": 0.230},
+                 "long_steps": {"ms": [9.63, 13.96]}}
 BARRIER_ITERS = 200000
 # The window forms' plain versions run on the first PLAIN_CHUNKS chunks of
 # CHUNK_STEPS symbol steps of each block of the 16k window
@@ -457,13 +477,21 @@ def time_kernels(data: bytes, dev, errs: dict) -> dict:
 
 
 def lanes(args, dev, errs: dict) -> dict:
-    """Kernel L (pack mode, step-input mode) and Kernel U on a block's own
-    inputs (seq_qual_args), each against its plain version (L's pack on
-    the active rows; the kernel writes 0 past a lane's count) and timed
-    (CUDA events) beside it, the plain version being the tensor-op chain
-    the kernel replaced; U's QUAL bytes must be the block's qualities.
+    """Kernel L (pair mode, step-input mode) and Kernel U on a block's own
+    inputs (seq_qual_args), each against its plain version (whole
+    matrices: L's rows past a lane's count hold the clamped gather's
+    bytes in both) and timed: device time from profiler records, the
+    wrapper's (its staged upload of offsets, lengths and map, its
+    allocations and the launch) with CUDA events around 20 calls, beside
+    the plain version (the tensor-op chain the kernel replaced, events),
+    with the earlier design's recorded times printed beside them (not
+    returned); U's QUAL bytes must be the block's qualities. Also the
+    block's raw bytes to the card: from a pageable array and from a
+    page-locked one of pinned_empty (events), and L reading them straight
+    from that mapped buffer, with no device copy.
     Bytes: what the function must move (the records' bases and
-    qualities, offsets, lengths in; the rows out), at 3.35 TB/s."""
+    qualities; offsets and lengths as int32 [Rpl, W], the map; the rows
+    out), at 3.35 TB/s."""
     import numpy as np
     import torch
     from slimfastq_tpu_torch.ops import pack_torch as PT
@@ -476,8 +504,6 @@ def lanes(args, dev, errs: dict) -> dict:
     S = int(counts.max())
     Sp = pad_steps(S)
     d = ST._to(dpad, dev)
-    counts_t = ST._to(counts, dev, torch.int32)
-    active = torch.arange(Sp, device=dev)[:, None] < counts_t[None, :]
 
     def pack():
         return PT.lane_layout(d, soffs, qoffs, lengths, ll_mat, W, Sp, S,
@@ -488,12 +514,9 @@ def lanes(args, dev, errs: dict) -> dict:
                                     seq_map, minq),
                 *PT._pos_reset(ST._lane_lens(ll_mat, W, dev), Sp, S, W))
     k, p = pack(), pack_plain()
-    _compare(errs, "lane_layout", "L pack mode vs plain (active rows)",
-             [x[active] for x in k[:2]], [x[active] for x in p[:2]])
-    _compare(errs, "lane_layout", "L pack mode's pos/reset vs plain",
-             k[2:], p[2:])
-    if k[0][~active].any() or k[1][~active].any():
-        raise AssertionError("L pack mode wrote a row past a lane's count")
+    _compare(errs, "lane_layout", "L pair mode vs plain (whole matrices)",
+             k, p)
+    del p
 
     def steps():
         return PT.step_inputs(ll_mat, Sp, S, W, dev)
@@ -518,10 +541,28 @@ def lanes(args, dev, errs: dict) -> dict:
     want_q = np.concatenate([dpad[o: o + L] for o, L in zip(qoffs, lengths)])
     if not np.array_equal(u[1].cpu().numpy(), want_q):
         raise AssertionError("L then U does not give the block's qualities")
-    rec = 16 * n + 4 * ll_mat.size  # offsets (2 x int64), lengths (int32)
-    nbytes = {"pack": 2 * total + rec + 256 + 10 * Sp * W,
-              "steps": 4 * ll_mat.size + 8 * Sp * W,
-              "unpack": 2 * total + 8 * n + 4 * n + 256 + 2 * total}
+    # the raw block's ways to the card
+    host = PT.pinned_empty(len(dpad))
+    host[:] = dpad
+    hpin = torch.from_numpy(host)
+    mapped = lambda: PT._layout(  # noqa: E731
+        PT._PAIR, dev, Sp, S, W, ll_mat, hpin, (soffs, qoffs), seq_map, minq)
+    _compare(errs, "lane_layout", "L reading the mapped page-locked block",
+             mapped(), k)
+    upload = {
+        "bytes": len(dpad),
+        "pageable_ms": _time_ms(lambda: torch.from_numpy(dpad).to(dev), 20),
+        "pinned_ms": _time_ms(lambda: PT.upload(host, dev), 20),
+        "pcie_bound_ms": len(dpad) / PCIE_BYTES_PER_S * 1e3,
+        "mapped_read_pair_ms": _device_ms(mapped, 20, "lane_layout_kernel"),
+        "note": "L in pair mode reading the raw bytes straight from the "
+                "page-locked host buffer (no device copy), beside the "
+                "pinned upload plus L from device memory"}
+    del host, hpin
+    nrec = ll_mat.size  # Rpl * W: every int32 input's entries
+    nbytes = {"pack": 2 * total + 12 * nrec + 256 + 10 * Sp * W,
+              "steps": 4 * nrec + 8 * Sp * W,
+              "unpack": 2 * total + 8 * n + 256 + 2 * total}
     out = {}
     for f, fn, fp, key in (
             ("pack", pack, pack_plain, "lane_layout_kernel"),
@@ -532,7 +573,13 @@ def lanes(args, dev, errs: dict) -> dict:
                   "plain_ms": _time_ms(fp, 3), "bytes": nbytes[f],
                   "bound_ms": nbytes[f] / HBM_BYTES_PER_S * 1e3,
                   "bound_by": "bytes"}
-    return {"lane_layout": {**out["pack"], "step_inputs": out["steps"]},
+        print(f"Kernel {'U' if f == 'unpack' else 'L'} {f}: device "
+              f"{out[f]['ms']:.4f} ms, wrapper {out[f]['wrapper_ms']:.4f} "
+              f"ms, bound {out[f]['bound_ms']:.4f} ms; before the tiled "
+              f"design (recorded, not measured in this run): "
+              f"{json.dumps(EARLIER_LANES_MS[f])}", flush=True)
+    return {"lane_layout": {**out["pack"], "step_inputs": out["steps"],
+                            "raw_upload": upload},
             "lane_unpack": out["unpack"]}
 
 
@@ -1029,6 +1076,43 @@ def wall(data: bytes, dev, level: int) -> None:
         "encode_s": t_enc, "decode_s": t_dec,
         "encode_GBps": len(data) / t_enc / 1e9,
         "decode_GBps": len(data) / t_dec / 1e9}}), flush=True)
+
+
+def pool_reuse(data4: bytes) -> dict:
+    """The 4 x 64k L3 set through api.encode_fastq twice back to back on
+    the card, its raw bytes in page-locked buffers (pack_torch.pinned_empty,
+    from PyTorch's caching host allocator), the second encode on the
+    memory the first returned: both containers equal the set's container
+    from the host-pack path (the port's _MAX_SPAN lowered to 1: no raw
+    buffer; that path keeps the JAX package's SHA-256 on the pinned block,
+    host_pack_pins), and the second encode allocates no new page-locked
+    memory. The JAX package's SHA-256 of this set is not in the
+    repository: its encode on a CPU is a full-size run."""
+    import torch
+    from slimfastq_tpu_torch import api
+    from slimfastq_tpu_torch import pipeline_native as PN
+    saved = PN._MAX_SPAN
+    PN._MAX_SPAN = 1
+    try:
+        ref = api.encode_fastq(data4, level=3, device="cuda")
+    finally:
+        PN._MAX_SPAN = saved
+    want = hashlib.sha256(ref).hexdigest()
+    shas, held = [], []
+    for _ in range(2):
+        enc = api.encode_fastq(data4, level=3, device="cuda")
+        shas.append(hashlib.sha256(enc).hexdigest())
+        held.append(torch.cuda.host_memory_stats()["num_host_alloc"])
+    if shas != [want, want]:
+        raise AssertionError(f"4 x 64k L3 encoded twice: SHA-256 {shas}, "
+                             f"the host-pack path's {want}")
+    if held[1] != held[0]:
+        raise AssertionError(f"the second encode allocated new page-locked "
+                             f"memory: {held} allocations")
+    out = {"compressed_bytes": len(ref), "sha256": want,
+           "page_locked_allocations": held}
+    print(json.dumps({"pool_reuse": out}), flush=True)
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -1592,17 +1676,25 @@ def _long_read_kernels(pre, enc: bytes, dev, bar_us: float,
     qs = blk.streams["QUAL"]
     ll_mat, counts = pre[4], pre[0]["QUAL"][3]
     S = int(counts.max())
-    # L's step-input mode over the whole block against its plain version
+    # L's step-input mode over the whole block against its plain version,
+    # timed three times (events; each run writes 8.65 GB afresh)
     torch.cuda.empty_cache()
-    l_ms, (pos, reset) = _events_ms(
-        lambda: PT.step_inputs(ll_mat, Sp, S, W, dev))
+    l_runs = []
+    for _ in range(3):
+        l_ms, (pos, reset) = _events_ms(
+            lambda: PT.step_inputs(ll_mat, Sp, S, W, dev))
+        l_runs.append(l_ms)
+        if len(l_runs) < 3:
+            del pos, reset
     ppos, preset = PT._pos_reset(ST._lane_lens(ll_mat, W, dev), Sp, S, W)
     _compare(errs, "lane_layout", "L step inputs vs plain, long block",
              (pos, reset), (ppos, preset))
     del ppos, preset
     l_bytes = ll_mat.size * 4 + 8 * Sp * W
-    out["lane_layout"] = {"ms": l_ms, "mode": "step inputs (decode)",
-                          "bytes": l_bytes,
+    out["lane_layout"] = {"ms": l_runs[0], "runs_ms": l_runs,
+                          "ms_is": "the first run, on fresh device memory, "
+                                   "as the main path launches it",
+                          "mode": "step inputs (decode)", "bytes": l_bytes,
                           "bound_ms": l_bytes / HBM_BYTES_PER_S * 1e3,
                           "bound_by": "bytes"}
     item = (ST._payload_tensor(qs.payload, dev),
@@ -2134,66 +2226,83 @@ def python_pipeline(data: bytes) -> dict:
     return out
 
 
-def single_stream_pack(data: bytes, dev) -> dict:
-    """pack_device / unpack_device (ops/pack_torch, the JAX package's
-    single-stream pack_jax.py:75 / :93, which no path runs) on the pinned
-    block's QUAL (W = 1024): times by CUDA events beside each one's byte
-    bound (pack: the QUAL bytes and the two [Rpl, W] int64 index matrices
-    read, the [Sp, W] symbols written; unpack: the symbols and matrices
-    read, the [pad_flat(total)] buffer written); the packed symbols equal
-    Kernel L's QUAL (pack mode) and the unpack gives the QUAL bytes
-    back."""
+def single_stream_pack(data: bytes, dev, errs: dict) -> dict:
+    """pack_device / unpack_device (ops/pack_torch: Kernel L's and U's
+    single-stream modes, the JAX package's single-stream pack_jax.py:75 /
+    :93, which no path runs) on the pinned block's QUAL (through its bias)
+    and SEQ (through the map) at W = 1024: each against its plain version
+    (pack_device_plain / unpack_device_plain) on whole arrays (the [Sp, W]
+    matrix with its rows past a lane's count, the [pad_flat(total)] buffer
+    with its bytes past the total), the largest difference in `errs`
+    under the kernel's name; device time (profiler records), wrapper time
+    (CUDA events) and the plain version's beside each one's byte bound
+    (pack: the stream's bytes, int32 offsets and lengths [Rpl, W], the map
+    read, the [Sp, W] symbols written; unpack: the active symbols, int32
+    offsets and lengths [n] read, the [pad_flat(total)] buffer written);
+    the unpack gives QUAL back."""
     import numpy as np
     import torch
     from slimfastq_tpu_torch import native
-    from slimfastq_tpu_torch.ops import pack_torch
+    from slimfastq_tpu_torch.ops import pack_torch as PT
     from slimfastq_tpu_torch.ops.ranger import pad_steps
-    from slimfastq_tpu_torch.pipeline_native import _BASE_TO_CODE_DEV
+    from slimfastq_tpu_torch.pipeline_native import (_BASE_TO_CODE_DEV,
+                                                     _CODE_TO_BASE_FULL)
     buf = np.frombuffer(data, dtype=np.uint8)
     idx, n = native.fastq_index(data)
     W = 1024
     lengths = idx["seq_len"].astype(np.int64)
-    qoffs, soffs = idx["qual_off"].astype(np.int64), idx["seq_off"]
     minq, _ = native.minmax_ranges(buf, idx["qual_off"], lengths)
     Sp = pad_steps(int(np.bincount(np.arange(n) % W, weights=lengths,
                                    minlength=W).max()))
-    dpad = np.zeros(pack_torch.pad_flat(len(buf)), dtype=np.uint8)
+    dpad = np.zeros(PT.pad_flat(len(buf)), dtype=np.uint8)
     dpad[: len(buf)] = buf
     d = torch.from_numpy(dpad).to(dev)
-    syms = pack_torch.pack_device(d, qoffs, lengths, W, Sp, bias=minq)
-    ll_mat = np.zeros(-(-n // W) * W, dtype=np.int64)
-    ll_mat[:n] = lengths
-    ll_mat = ll_mat.reshape(-1, W)
-    counts = ll_mat.sum(axis=0)
-    _, qual, _, _ = pack_torch.lane_layout(d, soffs, qoffs, lengths, ll_mat,
-                                           W, Sp, int(counts.max()),
-                                           _BASE_TO_CODE_DEV, minq)
-    active = torch.from_numpy(np.arange(Sp)[:, None] < counts[None, :]).to(
-        dev)
-    if not torch.equal(syms[active], qual[active]):
-        raise AssertionError("pack_device differs from Kernel L's QUAL")
     starts = np.zeros(n, dtype=np.int64)
     starts[1:] = np.cumsum(lengths[:-1])
     total = int(lengths.sum())
-    flat = pack_torch.unpack_device(syms, starts, lengths, W, total,
-                                    bias=minq)
-    want = np.concatenate([buf[o: o + L] for o, L in zip(qoffs, lengths)])
-    if not np.array_equal(flat[:total].cpu().numpy(), want):
-        raise AssertionError("unpack_device does not give QUAL back")
     Rpl = -(-n // W)
-    mats = 2 * Rpl * W * 8
-    pack_bytes = total + mats + Sp * W
-    unpack_bytes = Sp * W + mats + pack_torch.pad_flat(total)
-    out = {"shape": f"the pinned block's QUAL: n = {n}, W = {W}, "
-                    f"Sp = {Sp}",
-           "pack_ms": _time_ms(lambda: pack_torch.pack_device(
-               d, qoffs, lengths, W, Sp, bias=minq), 20),
-           "pack_bound_ms": pack_bytes / HBM_BYTES_PER_S * 1e3,
-           "unpack_ms": _time_ms(lambda: pack_torch.unpack_device(
-               syms, starts, lengths, W, total, bias=minq), 20),
-           "unpack_bound_ms": unpack_bytes / HBM_BYTES_PER_S * 1e3,
-           "bound_by": "bytes", "pack_bytes": pack_bytes,
-           "unpack_bytes": unpack_bytes}
+    out = {"shape": f"the pinned block: n = {n}, W = {W}, Sp = {Sp}"}
+    for name, offs, fwd, back in (
+            ("qual", idx["qual_off"].astype(np.int64), dict(bias=minq),
+             dict(bias=minq)),
+            ("seq", idx["seq_off"].astype(np.int64),
+             dict(map256=_BASE_TO_CODE_DEV),
+             dict(map256=_CODE_TO_BASE_FULL))):
+        def pack():
+            return PT.pack_device(d, offs, lengths, W, Sp, **fwd)
+
+        def pack_plain():
+            return PT.pack_device_plain(d, offs, lengths, W, Sp, **fwd)
+        syms = pack()
+        _compare(errs, "lane_layout", f"single-stream L, {name}", syms,
+                 pack_plain())
+
+        def unpack():
+            return PT.unpack_device(syms, starts, lengths, W, total, **back)
+
+        def unpack_plain():
+            return PT.unpack_device_plain(syms, starts, lengths, W, total,
+                                          **back)
+        flat = unpack()
+        _compare(errs, "lane_unpack", f"single-stream U, {name}", flat,
+                 unpack_plain())
+        if name == "qual":
+            want = np.concatenate([buf[o: o + L]
+                                   for o, L in zip(offs, lengths)])
+            if not np.array_equal(flat[:total].cpu().numpy(), want):
+                raise AssertionError("unpack_device does not give QUAL "
+                                     "back")
+        nb = {"pack": total + 8 * Rpl * W + 256 + Sp * W,
+              "unpack": total + 8 * n + 256 + PT.pad_flat(total)}
+        for f, fn, fp, key in (("pack", pack, pack_plain,
+                                "lane_layout_kernel"),
+                               ("unpack", unpack, unpack_plain,
+                                "lane_unpack_kernel")):
+            out[f"{f}_{name}"] = {
+                "ms": _device_ms(fn, 20, key), "wrapper_ms": _time_ms(fn, 20),
+                "plain_ms": _time_ms(fp, 3), "bytes": nb[f],
+                "bound_ms": nb[f] / HBM_BYTES_PER_S * 1e3,
+                "bound_by": "bytes"}
     print(json.dumps({"single_stream_pack": out}), flush=True)
     return out
 
@@ -2450,6 +2559,7 @@ def main() -> int:
     launches = main_path(data, 3)
     spans = block_spans(data, dev)
     wall(data4, dev, 3)
+    pool_reuse(data4)
     done("main_path_l3")
     launches4 = main_path(data, 4)
     spans4 = l4_spans(data, dev)
@@ -2487,7 +2597,7 @@ def main() -> int:
     print(json.dumps({"python_pipeline_s": time.perf_counter() - t}),
           flush=True)
     done("python_pipeline")
-    single_stream_pack(data, dev)
+    single = single_stream_pack(data, dev, errs)
     done("single_stream_pack")
     # the entry points and the streaming run at scale
     entry_phase()
@@ -2509,7 +2619,9 @@ def main() -> int:
     also = {"lane_encode": ["slimfastq_tpu/ops/streams_jax.py:91",
                             "slimfastq_tpu/ops/streams_jax.py:207",
                             "slimfastq_tpu/ops/streams_jax.py:262"],
-            "lane_layout": ["slimfastq_tpu/ops/streams_jax.py:241"]}
+            "lane_layout": ["slimfastq_tpu/ops/streams_jax.py:241",
+                            "slimfastq_tpu/ops/pack_jax.py:75"],
+            "lane_unpack": ["slimfastq_tpu/ops/pack_jax.py:93"]}
     source = {"lane_encode": "slimfastq_tpu_torch/csrc/coder.cu",
               "lane_decode": "slimfastq_tpu_torch/csrc/coder.cu",
               "compact_lanes_dev": "slimfastq_tpu_torch/csrc/compact.cu",
@@ -2622,11 +2734,19 @@ def main() -> int:
                         f"{shape['Sp']}",
                "sharded_launches": _by_shard(shard, name)}
         if name == "lane_layout":
-            row.update(mode="pack (SEQ, QUAL, pos, reset)",
+            row.update(mode="pair (SEQ, QUAL, pos, reset)",
                        step_inputs=t3["step_inputs"],
+                       raw_upload=t3["raw_upload"],
                        long_read={"launches": lr["encode"]["launches"][name]
                                   + lr["decode"]["launches"][name],
-                                  **lr["kernels"][name]})
+                                  **lr["kernels"][name]},
+                       single_stream={k: v for k, v in single.items()
+                                      if k == "shape"
+                                      or k.startswith("pack_")})
+        else:
+            row.update(single_stream={k: v for k, v in single.items()
+                                      if k == "shape"
+                                      or k.startswith("unpack_")})
         kernels.append(row)
     # the window forms: one launch over the blocks of a window, on the 16k
     # L3 window's own inputs (4 blocks of 16,384 records); launches (and
@@ -2671,8 +2791,11 @@ def main() -> int:
         "note": "recorded constants (this script, H100 80GB HBM3, 700 W), "
                 "not measured in this run: E, D and C before the "
                 "shared-memory table law, and C on QUAL alone when it took "
-                "one launch per stream (CUDA events around the wrapper)",
-        **EARLIER_MS}}), flush=True)
+                "one launch per stream (CUDA events around the wrapper); "
+                "Kernels L and U before L's tiled design (profiler records; "
+                "wrappers with CUDA events), as lanes_before_tiles",
+        **EARLIER_MS, "lanes_before_tiles": EARLIER_LANES_MS}}),
+        flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

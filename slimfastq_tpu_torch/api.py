@@ -41,13 +41,14 @@ import torch
 
 from . import container, native
 from .config import CodecConfig, config_for_level
-from .ops import streams_np, streams_torch
+from .ops import pack_torch, streams_np, streams_torch
 from .parallel.mesh import fits
 from .pipeline import decode_block, encode_block
 from .pipeline_native import (block_span, decode_block_finish,
                               decode_block_oracle, decode_blocks_device,
                               device_bytes, encode_prepared_block_oracle,
-                              encode_prepared_blocks, prepare_block_fast)
+                              encode_prepared_blocks, numpy_empty,
+                              prepare_block_fast)
 from .utils.fastq import FastqBatch, parse_fastq_bytes, serialize_fastq
 
 
@@ -106,13 +107,16 @@ def _batch_window(cfg: CodecConfig, window: int | None = None) -> int:
 class Card:
     """One device as the pipelines' device step (parallel.sharded.Sharded
     is a mesh's; Oracle the NumPy oracle's): whether its blocks pack
-    their lanes on the host, the blocks a window takes, each shard's
-    device-byte budget (one shard here), and a window's encode and
-    decode."""
+    their lanes on the host, the host buffers their raw bytes are
+    prepared in (page-locked, pack_torch.pinned_empty, for a card),
+    the blocks a window takes, each shard's device-byte budget (one shard
+    here), and a window's encode and decode."""
     host_pack = False
 
     def __init__(self, dev: torch.device):
         self.dev = dev
+        self.empty = (pack_torch.pinned_empty if dev.type == "cuda"
+                      else numpy_empty)
 
     def window(self, cfg: CodecConfig, window: int | None) -> int:
         return _batch_window(cfg, window)
@@ -133,6 +137,7 @@ class Oracle:
     ops/streams_np, one block at a time; no device is touched. NumPy
     steps every lane one bit at a time: for small inputs."""
     host_pack = True
+    empty = staticmethod(numpy_empty)
 
     def window(self, cfg: CodecConfig, window: int | None) -> int:
         return 1
@@ -204,7 +209,8 @@ def _encode_ranges(ranges, cfg: CodecConfig, step, window, emit) -> list:
                 if pfuts and held + span > _PREP_BYTES:
                     return
                 pfuts.append((prep_ex.submit(prepare_block_fast, *nxt, cfg,
-                                             step.host_pack), span))
+                                             step.host_pack, step.empty),
+                               span))
                 held += span
                 nxt = None
         fill()

@@ -4,19 +4,26 @@ forms of the main path, and the single-stream ``pack_device`` /
 ``unpack_device``, which no path runs, as in the JAX package), and the
 per-step inputs of a per-read stream (streams_jax._pos_reset_device).
 
-On CUDA tensors the pair forms and the step inputs are the hand-written
-kernels of csrc/lanes.cu:
+On CUDA tensors every form is a hand-written kernel of csrc/lanes.cu:
 
-* Kernel L (``lane_layout``, counted as ``lane_layout``): pack mode
+* Kernel L (counted as ``lane_layout``): pair mode (``lane_layout``)
   writes SEQ through the map, QUAL minus the bias and the stream's pos
   and reset in one launch a block; step-input mode (``step_inputs``)
-  writes pos and reset;
-* Kernel U (``unpack_pair``, counted as ``lane_unpack``): the inverse of
-  pack mode, [Sp, W] SEQ and QUAL to their record-major bytes.
+  writes pos and reset; single-stream mode (``pack_device``) one stream
+  through a map or minus a bias;
+* Kernel U (counted as ``lane_unpack``): pair mode (``unpack_pair``), the
+  inverse of L's, [Sp, W] SEQ and QUAL to their record-major bytes;
+  single-stream mode (``unpack_device``) one stream.
+
+A launch's offsets (int32, relative to the block: ``staging`` refuses one
+that does not fit), lengths and map go up in one page-locked copy on the
+stream it launches on; a block's raw bytes go up the same way where the
+pipeline prepared them in a page-locked buffer (``pinned_empty``).
 
 On CPU tensors they run their plain versions below (``pack_pair_plain``,
-``unpack_pair_plain``, ``_pos_reset``), whole-array tensor ops
-with this index math (O(Sp*W), outside the coder loop):
+``unpack_pair_plain``, ``_pos_reset``, ``pack_device_plain``,
+``unpack_device_plain``), whole-array tensor ops with this index math
+(O(Sp*W), outside the coder loop):
 
   record r -> lane w = r % W, ordinal j = r // W    (frozen format rule)
   ll[j, w]   = record length          (reshape of the lengths array)
@@ -29,8 +36,9 @@ with this index math (O(Sp*W), outside the coder loop):
   is the flat source byte for every (s, w). Zero-length records collide
   their delta onto the next record's row; the sum telescopes, so the last
   record starting at a row wins, which is exactly the pack order. Rows
-  past a lane's total are inactive (the coder masks them via counts;
-  Kernel L writes 0 there, the plain version the clamped gather's bytes).
+  past a lane's total are inactive (the coder masks them via counts);
+  they hold the clamped gather's bytes, in the kernels as in the plain
+  versions.
 
 SEQ and QUAL share the lane layout (same lengths), so one index_add_ +
 cumsum serves both and one flat gather (pack) or scatter (unpack) moves
@@ -41,6 +49,7 @@ bias, wrapping modulo 256 (the JAX package's int32 -> u8 conversion).
 from __future__ import annotations
 
 import ctypes
+from functools import partial
 
 import numpy as np
 import torch
@@ -49,13 +58,14 @@ from . import _cuda
 
 _P, _I, _L = _cuda.PTR, _cuda.INT, ctypes.c_longlong
 _SIGS = {
-    # data, Dp, off_s, off_q, smap, qbias, seq, qual, lens, n, Sp, S, W,
-    # pos, reset, stream
-    "lane_layout": [_P, _L, _P, _P, _P, _I, _P, _P, _P, _L, _L, _L, _I, _P,
-                    _P, _P],
+    # mode, data, Dp, off_s, off_q, lens, smap, bias, Rpl, Sp, S, W, seq,
+    # qual, pos, reset, stream
+    "lane_layout": [_I, _P, _L, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P,
+                    _P, _P, _P],
     # seq, qual, offs, lens, n, Sp, total, W, smap, qbias, seq_out,
-    # qual_out, stream
-    "lane_unpack": [_P, _P, _P, _P, _L, _L, _L, _I, _P, _I, _P, _P, _P],
+    # qual_out, Tp, stream
+    "lane_unpack": [_P, _P, _P, _P, _L, _L, _L, _I, _P, _I, _P, _P, _L,
+                    _P],
 }
 
 _BUCKET = 1 << 20  # flat-buffer length quantum (1 MiB)
@@ -186,66 +196,158 @@ def _lane_lens(ll_mat: np.ndarray, W: int) -> np.ndarray:
     return ll
 
 
-def _dev(x: np.ndarray, dev, dtype: torch.dtype) -> torch.Tensor:
-    t = torch.from_numpy(np.ascontiguousarray(x))
-    return t.to(device=dev, dtype=dtype)
+# ---------------------------------------------------------------------------
+# the kernels' inputs from the host
+# ---------------------------------------------------------------------------
+
+_I32 = np.iinfo(np.int32)
 
 
-def _layout(dev, Sp: int, S: int, W: int, ll_mat: np.ndarray,
-            pack=None) -> tuple:
-    """Kernel L, one launch: (pos, reset) [Sp, W] int32, preceded in pack
-    mode (``pack`` = (data, seq_offs, qual_offs, seq_map, qual_bias)) by
-    (seq, qual) [Sp, W] u8."""
+def staging(parts, empty=None):
+    """The small inputs of a launch in one host buffer: each part an
+    (array, dtype, count) triple, written as ``count`` entries of
+    ``dtype`` (the array's, then zeros) at a 16-byte boundary. Returns
+    the buffer (from ``empty(nbytes)``, u8; a numpy one without it) and
+    the parts' views into it.
+    An int32 part raises ValueError where a value does not fit: record
+    offsets are relative to the block and no narrowing is silent."""
+    spans, at = [], 0
+    for x, dtype, count in parts:
+        nbytes = count * np.dtype(dtype).itemsize
+        spans.append((at, nbytes))
+        at += -(-nbytes // 16) * 16
+    buf = (empty or partial(np.empty, dtype=np.uint8))(max(at, 16))
+    views = []
+    for (x, dtype, count), (at, nbytes) in zip(parts, spans):
+        x = np.asarray(x).reshape(-1)
+        if dtype == np.int32 and x.size and (int(x.min()) < _I32.min
+                                             or int(x.max()) > _I32.max):
+            raise ValueError("an offset or length does not fit int32 "
+                             "(a block's raw span must stay below 2 GiB)")
+        v = buf[at: at + nbytes].view(dtype)
+        v[: x.size] = x
+        v[x.size:] = 0
+        views.append(v)
+    return buf, views
+
+
+def pinned_empty(nbytes: int) -> np.ndarray:
+    """A page-locked u8 host array of ``nbytes`` (contents undefined)
+    from PyTorch's caching host allocator, which hands its memory out
+    again only once the copies ``upload`` made from it have completed."""
+    return torch.empty(max(nbytes, 1), dtype=torch.uint8,
+                       pin_memory=True).numpy()[:nbytes]
+
+
+def upload(arr: np.ndarray, dev: torch.device) -> torch.Tensor:
+    """u8 ``arr`` [n] on ``dev``: one asynchronous copy on the current
+    stream from the page-locked tensor it lies in (pinned_empty's: the
+    allocator records the copy against that tensor's block); a plain copy
+    from any other array."""
+    t = arr
+    while t is not None and not isinstance(t, torch.Tensor):
+        # numpy views lead to the tensor the memory is from
+        t = getattr(t, "base", None)
+    if dev.type != "cuda" or t is None or arr.ndim != 1 \
+            or not arr.flags.c_contiguous or not t.is_pinned():
+        return torch.from_numpy(np.ascontiguousarray(arr)).to(dev)
+    at = arr.ctypes.data - t.data_ptr()
+    with torch.cuda.device(dev):
+        return t[at: at + arr.size].to(dev, non_blocking=True)
+
+
+def _upload(dev, parts) -> list:
+    """staging(parts) on ``dev`` in one page-locked, asynchronous copy on
+    the device's current stream (the one the kernel launches on). Returns
+    the parts on the device, in order."""
+    host, views = staging(parts, pinned_empty)
+    buf = upload(host, dev)
+    out, at = [], 0
+    for v in views:
+        out.append(buf[at: at + v.nbytes].view(_TORCH[v.dtype]))
+        at += -(-v.nbytes // 16) * 16
+    return out
+
+
+_TORCH = {np.dtype(np.int32): torch.int32, np.dtype(np.uint8): torch.uint8}
+
+
+def _check(x: torch.Tensor, W: int, what: str) -> int:
+    """Sp of a contiguous [Sp, W] u8 CUDA tensor, or ValueError."""
+    if x.dtype != torch.uint8 or x.dim() != 2 or x.shape[1] != W \
+            or not x.is_contiguous():
+        raise ValueError(f"{what} must be contiguous [Sp, W] uint8")
+    return int(x.shape[0])
+
+
+def _raw(data: torch.Tensor) -> None:
+    if data.dtype != torch.uint8 or data.dim() != 1 \
+            or not data.is_contiguous():
+        raise ValueError("data must be contiguous [Dp] uint8")
+
+
+_PAIR, _STEPS, _ONE = 0, 1, 2
+
+
+def _layout(mode: int, dev, Sp: int, S: int, W: int, ll_mat: np.ndarray,
+            data=None, offs=(), smap=None, bias: int = 0) -> tuple:
+    """Kernel L, one launch: (seq, qual) [Sp, W] u8 then (pos, reset)
+    [Sp, W] int32 (pair mode: ``offs`` = (seq_offs, qual_offs), ``smap``
+    SEQ's map, ``bias`` QUAL's), (pos, reset) (step-input mode) or the one
+    stream's [Sp, W] u8 (single-stream mode: ``offs`` = (offs,), through
+    ``smap`` or minus ``bias``). Offsets, lengths and the map go up in one
+    staged copy."""
     if W < 1 or Sp < 1:
         raise ValueError("the lane layout needs a lane and a step")
-    lens = _dev(_lane_lens(ll_mat, W).reshape(-1), dev, torch.int32)
-    outs = [torch.empty((Sp, W), dtype=torch.int32, device=dev)
-            for _ in range(2)]
-    ptr = [None] * 6  # data, off_s, off_q, smap, seq, qual
-    Dp, qbias = 0, 0
-    if pack is not None:
-        data, seq_offs, qual_offs, seq_map, qbias = pack
-        if data.dtype != torch.uint8 or data.dim() != 1 \
-                or not data.is_contiguous():
-            raise ValueError("data must be contiguous [Dp] uint8")
-        syms = [torch.empty((Sp, W), dtype=torch.uint8, device=dev)
-                for _ in range(2)]
-        ins = [_dev(seq_offs, dev, torch.int64),
-               _dev(qual_offs, dev, torch.int64),
-               _dev(seq_map, dev, torch.uint8)]
-        ptr = [data.data_ptr()] + [t.data_ptr() for t in ins + syms]
-        Dp, outs = data.shape[0], syms + outs
+    Rpl = max(ll_mat.shape[0], 1)
+    parts = [(ll_mat, np.int32, Rpl * W)]
+    parts += [(o, np.int32, Rpl * W) for o in offs]
+    if smap is not None:
+        parts.append((smap, np.uint8, 256))
+    ins = _upload(dev, parts)
+    lens_t, offs_t = ins[0], ins[1: 1 + len(offs)]
+    smap_t = ins[-1] if smap is not None else None
+    ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
+    u8 = [torch.empty((Sp, W), dtype=torch.uint8, device=dev)
+          for _ in range({_PAIR: 2, _STEPS: 0, _ONE: 1}[mode])]
+    i32 = [torch.empty((Sp, W), dtype=torch.int32, device=dev)
+           for _ in range(0 if mode == _ONE else 2)]
+    outs = (u8 + [None, None])[:2] + (i32 + [None, None])[:2]
+    if data is not None:
+        _raw(data)
     lib = _cuda.load("lanes", _SIGS)
-    pos, reset = outs[-2:]
     err = _cuda.launch(
-        outs[0], lib.lane_layout, ptr[0], Dp, ptr[1], ptr[2], ptr[3],
-        int(qbias), ptr[4], ptr[5], lens.data_ptr(), lens.numel(), Sp, S, W,
-        pos.data_ptr(), reset.data_ptr())
+        (u8 + i32)[0], lib.lane_layout, mode, ptr(data),
+        0 if data is None else data.shape[0], *(ptr(t) for t in
+                                                (offs_t + [None] * 2)[:2]),
+        lens_t.data_ptr(), ptr(smap_t), int(bias), Rpl, Sp, S, W,
+        *(ptr(t) for t in outs))
     _cuda.count("lane_layout", 1, dev)
     _cuda.check(lib, err, "lane_layout")
-    return tuple(outs)
+    return tuple(u8 + i32)
 
 
 def lane_layout(data: torch.Tensor, seq_offs: np.ndarray,
                 qual_offs: np.ndarray, lengths: np.ndarray,
                 ll_mat: np.ndarray, W: int, Sp: int, S: int,
                 seq_map: np.ndarray, qual_bias: int) -> tuple:
-    """Kernel L, pack mode: a block's SEQ and QUAL lanes from its raw
+    """Kernel L, pair mode: a block's SEQ and QUAL lanes from its raw
     bytes (``data`` u8 [Dp], a pad_flat length; offsets relative to its
-    start; ``lengths`` per record and ``ll_mat`` [Rpl, W] the same
-    lengths by lane) and the per-step pos and reset of its reads (S: the
-    longest lane's steps), in one launch on a CUDA tensor. Returns (seq,
-    qual) [Sp, W] u8 and (pos, reset) [Sp, W] int32; rows past a lane's
-    count hold 0 (the plain version: the clamped gather's bytes; they are
-    never coded). On a CPU tensor: pack_pair_plain and _pos_reset."""
+    start, each below 2^31; ``lengths`` per record and ``ll_mat``
+    [Rpl, W] the same lengths by lane) and the per-step pos and reset of
+    its reads (S: the longest lane's steps), in one launch on a CUDA
+    tensor. Returns (seq, qual) [Sp, W] u8 and (pos, reset) [Sp, W]
+    int32, the whole matrices equal to the plain versions' (rows past a
+    lane's count hold the clamped gather's bytes; they are never coded).
+    On a CPU tensor: pack_pair_plain and _pos_reset."""
     dev = data.device
     if dev.type == "cpu":
         return (*pack_pair_plain(data, seq_offs, qual_offs, lengths, W, Sp,
                                  seq_map, qual_bias),
                 *_pos_reset(torch.from_numpy(_lane_lens(ll_mat, W)), Sp, S,
                             W))
-    return _layout(dev, Sp, S, W, ll_mat, (data, seq_offs, qual_offs,
-                                           seq_map, qual_bias))
+    return _layout(_PAIR, dev, Sp, S, W, ll_mat, data,
+                   (seq_offs, qual_offs), seq_map, int(qual_bias))
 
 
 def step_inputs(ll_mat: np.ndarray, Sp: int, S: int, W: int,
@@ -257,7 +359,39 @@ def step_inputs(ll_mat: np.ndarray, Sp: int, S: int, W: int,
     dev = torch.device(device)
     if dev.type == "cpu":
         return _pos_reset(torch.from_numpy(_lane_lens(ll_mat, W)), Sp, S, W)
-    return _layout(dev, Sp, S, W, ll_mat)
+    return _layout(_STEPS, dev, Sp, S, W, ll_mat)
+
+
+def _unpack(syms, qual, out_offs, lengths, W: int, total: int, smap,
+            bias: int, Tp: int) -> tuple:
+    """Kernel U, one launch: pair mode where ``qual`` is given (two
+    [total] buffers), single-stream mode otherwise (one [Tp] buffer).
+    Output offsets, lengths and the map go up in one staged copy."""
+    dev = syms.device
+    Sp = _check(syms, W, "symbols")
+    if qual is not None and (qual.device != dev
+                             or _check(qual, W, "symbols") != Sp):
+        raise ValueError("symbols must be contiguous [Sp, W] uint8 on one "
+                         "device")
+    n = len(out_offs)
+    parts = [(out_offs, np.int32, n), (lengths, np.int32, n)]
+    if smap is not None:
+        parts.append((smap, np.uint8, 256))
+    ins = _upload(dev, parts)
+    smap_t = ins[2] if smap is not None else None
+    size = total if qual is not None else Tp
+    outs = [torch.empty(max(size, 1), dtype=torch.uint8, device=dev)[:size]
+            for _ in range(1 if qual is None else 2)]
+    lib = _cuda.load("lanes", _SIGS)
+    err = _cuda.launch(
+        syms, lib.lane_unpack, syms.data_ptr(),
+        None if qual is None else qual.data_ptr(), ins[0].data_ptr(),
+        ins[1].data_ptr(), n, Sp, total, W,
+        None if smap_t is None else smap_t.data_ptr(), int(bias),
+        outs[0].data_ptr(), None if qual is None else outs[1].data_ptr(), Tp)
+    _cuda.count("lane_unpack", 1, dev)
+    _cuda.check(lib, err, "lane_unpack")
+    return tuple(outs)
 
 
 def unpack_pair(seq_syms: torch.Tensor, qual_syms: torch.Tensor,
@@ -266,43 +400,23 @@ def unpack_pair(seq_syms: torch.Tensor, qual_syms: torch.Tensor,
     """SEQ + QUAL lane unpack: [Sp, W] u8 symbols -> their record-major
     bytes, seq through ``seq_map``, qual plus ``qual_bias``, on the
     symbols' device (``out_offs``: each record's first byte, ``total``
-    the bytes). Kernel U, one launch, on CUDA tensors: two [total] u8
-    buffers; unpack_pair_plain on CPU tensors: [pad_flat(total)], of
-    which the first ``total`` bytes are meaningful."""
-    dev = seq_syms.device
-    if dev.type == "cpu":
+    the bytes, below 2^31). Kernel U, one launch, on CUDA tensors: two
+    [total] u8 buffers; unpack_pair_plain on CPU tensors:
+    [pad_flat(total)], of which the first ``total`` bytes are
+    meaningful."""
+    if seq_syms.device.type == "cpu":
         return unpack_pair_plain(seq_syms, qual_syms, out_offs, lengths, W,
                                  total, seq_map, qual_bias)
-    Sp = int(seq_syms.shape[0])
-    for x in (seq_syms, qual_syms):
-        if x.dtype != torch.uint8 or x.shape != (Sp, W) \
-                or not x.is_contiguous() or x.device != dev:
-            raise ValueError("symbols must be contiguous [Sp, W] uint8 on "
-                             "one device")
-    n = len(out_offs)
-    offs = _dev(out_offs, dev, torch.int64)
-    lens = _dev(lengths, dev, torch.int32)
-    smap = _dev(seq_map, dev, torch.uint8)
-    outs = [torch.empty(max(total, 1), dtype=torch.uint8, device=dev)[:total]
-            for _ in range(2)]
-    lib = _cuda.load("lanes", _SIGS)
-    err = _cuda.launch(
-        seq_syms, lib.lane_unpack, seq_syms.data_ptr(), qual_syms.data_ptr(),
-        offs.data_ptr(), lens.data_ptr(), n, Sp, total, W, smap.data_ptr(),
-        int(qual_bias), outs[0].data_ptr(), outs[1].data_ptr())
-    _cuda.count("lane_unpack", 1, dev)
-    _cuda.check(lib, err, "lane_unpack")
-    return tuple(outs)
+    return _unpack(seq_syms, qual_syms, out_offs, lengths, W, total, seq_map,
+                   qual_bias, total)
 
 
-def pack_device(data: torch.Tensor, offs: np.ndarray, lengths: np.ndarray,
-                W: int, Sp: int, map256: np.ndarray | None = None,
-                bias: int = 0) -> torch.Tensor:
-    """One stream's lane pack: record-major bytes gathered into the
-    [Sp, W] u8 lane-major symbol matrix on data's device, through
-    ``map256`` or minus ``bias``. data: u8 [Dp] (a pad_flat length);
-    ``offs`` are relative to its start. Rows past a lane's count hold the
-    clamped gather's bytes, as in the JAX package."""
+def pack_device_plain(data: torch.Tensor, offs: np.ndarray,
+                      lengths: np.ndarray, W: int, Sp: int,
+                      map256: np.ndarray | None = None,
+                      bias: int = 0) -> torch.Tensor:
+    """Plain version of Kernel L's single-stream mode: the JAX package's
+    pack_device in tensor ops."""
     dev = data.device
     n = len(offs)
     Rpl = max((n + W - 1) // W, 1)
@@ -315,14 +429,32 @@ def pack_device(data: torch.Tensor, offs: np.ndarray, lengths: np.ndarray,
     return _map_or_bias(raw, map256, -int(bias))
 
 
-def unpack_device(syms: torch.Tensor, out_offs: np.ndarray,
-                  lengths: np.ndarray, W: int, total: int,
-                  map256: np.ndarray | None = None,
-                  bias: int = 0) -> torch.Tensor:
-    """One stream's lane unpack: the [Sp, W] u8 symbols scattered back to
-    a record-major [pad_flat(total)] u8 buffer on their device (the first
-    ``total`` bytes are meaningful), through ``map256`` or plus
-    ``bias``."""
+def pack_device(data: torch.Tensor, offs: np.ndarray, lengths: np.ndarray,
+                W: int, Sp: int, map256: np.ndarray | None = None,
+                bias: int = 0) -> torch.Tensor:
+    """One stream's lane pack: record-major bytes gathered into the
+    [Sp, W] u8 lane-major symbol matrix on data's device, through
+    ``map256`` or minus ``bias``. data: u8 [Dp] (a pad_flat length);
+    ``offs`` are relative to its start (below 2^31 on a card). Rows past
+    a lane's count hold the clamped gather's bytes, as in the JAX
+    package. Kernel L's single-stream mode, one launch, on a CUDA tensor;
+    pack_device_plain on a CPU tensor."""
+    dev = data.device
+    if dev.type == "cpu":
+        return pack_device_plain(data, offs, lengths, W, Sp, map256, bias)
+    ll_mat = np.zeros(max(-(-len(lengths) // W), 1) * W, dtype=np.int64)
+    ll_mat[: len(lengths)] = lengths
+    seq, = _layout(_ONE, dev, Sp, Sp, W, ll_mat.reshape(-1, W), data,
+                   (offs,), map256, bias)
+    return seq
+
+
+def unpack_device_plain(syms: torch.Tensor, out_offs: np.ndarray,
+                        lengths: np.ndarray, W: int, total: int,
+                        map256: np.ndarray | None = None,
+                        bias: int = 0) -> torch.Tensor:
+    """Plain version of Kernel U's single-stream mode: the JAX package's
+    unpack_device in tensor ops."""
     dev = syms.device
     n = len(out_offs)
     Sp = int(syms.shape[0])
@@ -337,3 +469,21 @@ def unpack_device(syms: torch.Tensor, out_offs: np.ndarray,
     flat = torch.zeros(Tp + 1, dtype=torch.uint8, device=dev)
     flat.index_put_((idx.reshape(-1),), syms.reshape(-1))
     return _map_or_bias(flat[:-1], map256, bias)
+
+
+def unpack_device(syms: torch.Tensor, out_offs: np.ndarray,
+                  lengths: np.ndarray, W: int, total: int,
+                  map256: np.ndarray | None = None,
+                  bias: int = 0) -> torch.Tensor:
+    """One stream's lane unpack: the [Sp, W] u8 symbols scattered back to
+    a record-major [pad_flat(total)] u8 buffer on their device (the first
+    ``total`` bytes are the records', the rest the zero byte through
+    ``map256`` or plus ``bias``; the records' output ranges tile [0,
+    total), as their starts give them). Kernel U's single-stream mode,
+    one launch, on a CUDA tensor; unpack_device_plain on a CPU tensor."""
+    if syms.device.type == "cpu":
+        return unpack_device_plain(syms, out_offs, lengths, W, total, map256,
+                                   bias)
+    flat, = _unpack(syms, None, out_offs, lengths, W, total, map256, bias,
+                    pad_flat(total))
+    return flat

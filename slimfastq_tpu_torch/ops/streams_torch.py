@@ -666,7 +666,10 @@ def seq_qual_jobs(seq_geom, qual_geom, data: np.ndarray,
     their pos and reset (Kernel L, one launch), then yield each stream's
     CoderJob in turn (QUAL, the longest chain, then SEQ). ``data`` is
     zero-padded to a pack_torch.pad_flat length (the pipelined caller
-    pays the pad copy in its host half); some lane has symbols.
+    pays the pad copy in its host half; where it wrote them into a
+    page-locked buffer of pack_torch.pinned_empty, they go up in one
+    asynchronous copy on the stream Kernel L launches on); some lane has
+    symbols.
     seq_mflag: the [S, W] match-span flags of a format-v5 SEQ trial;
     ``only`` restricts the jobs (a trial re-codes SEQ alone)."""
     if len(data) != pack_torch.pad_flat(len(data)):
@@ -676,8 +679,8 @@ def seq_qual_jobs(seq_geom, qual_geom, data: np.ndarray,
     dev = torch.device(device)
     with trace("sfq.encode.lane_layout"):
         seq_syms, qual_syms, pos, reset = pack_torch.lane_layout(
-            _to(data, dev), seq_offs, qual_offs, lengths, ll_mat, W, Sp, S,
-            seq_map, qual_bias)
+            pack_torch.upload(data, dev), seq_offs, qual_offs,
+            lengths, ll_mat, W, Sp, S, seq_map, qual_bias)
         counts_t = _to(counts, dev, torch.int32)
     yield from _jobs((("QUAL", "qual", qual_geom, qual_syms),
                       ("SEQ", "seq", seq_geom, seq_syms)),

@@ -40,13 +40,13 @@ import numpy as np
 from .. import api, container
 from ..config import CodecConfig, config_for_level
 from ..models.matcher import THRESHOLDS
-from ..ops import streams_torch
+from ..ops import pack_torch, streams_torch
 from ..ops.streams_np import build_pos_reset
 from ..pipeline import (MATCH_USED, QUAL_NODELTA, EncodedBlock,
                         EncodedStream, _lane_lengths_matrix, decode_block,
                         decode_block_lengths, stream_jobs, streams_for)
 from ..pipeline_native import (decode_block_finish, decode_blocks_device,
-                               encode_prepared_blocks)
+                               encode_prepared_blocks, numpy_empty)
 from ..utils.fastq import parse_fastq_bytes, serialize_fastq
 from . import mesh as pmesh
 from .mesh import Mesh, budgets, make_mesh, map_blocks
@@ -91,12 +91,16 @@ def _default_window(mesh: Mesh, cfg: CodecConfig) -> int:
 
 class Sharded:
     """A mesh as the api pipelines' device step (api.Card is one card's):
-    the blocks a window takes, each shard's device-byte budget, and a
-    window's encode and decode."""
+    the host buffers its blocks' raw bytes are prepared in (page-locked
+    where a shard is a card), the blocks a window takes, each shard's
+    device-byte budget, and a window's encode and decode."""
     host_pack = False
 
     def __init__(self, mesh: Mesh):
         self.mesh = mesh
+        self.empty = (pack_torch.pinned_empty
+                      if any(d.type == "cuda" for d in mesh.devices)
+                      else numpy_empty)
 
     def window(self, cfg: CodecConfig, window: int | None) -> int:
         if window is None:

@@ -63,6 +63,11 @@ _CODE_TO_BASE_FULL = _CODE_TO_BASE[np.arange(256) & 3].astype(np.uint8)
 _MAX_SPAN = 1 << 31
 
 
+def numpy_empty(nbytes: int) -> np.ndarray:
+    """A u8 host buffer of ``nbytes`` (pageable; contents undefined)."""
+    return np.empty(nbytes, dtype=np.uint8)
+
+
 def block_span(idx: dict, lo: int, hi: int) -> int:
     """Raw bytes of records [lo, hi): '@' of the first to the end of the
     last's quality line."""
@@ -210,14 +215,15 @@ def _match_span_bounds(m_arr, lengths):
 
 
 def _match_trials(matches, raw_args, W: int, Wa: int, S: int,
-                  host=None) -> list:
+                  host=None, empty=numpy_empty) -> list:
     """The per-threshold SEQ alternatives of a block whose reads matched,
     in threshold order: [(min_score, the block's SEQ with the matched
     spans rewritten, MATCH syms [S', Wa], MATCH counts, mflag [S, W])]. A
     threshold that accepts no read has none, and so has one that accepts
     the same reads as the one before: its trial would code the same bytes,
     which can never win the strict test against their twin. The rewritten
-    SEQ is raw_args with its padded bytes rewritten (the device pack); or,
+    SEQ is raw_args with its padded bytes rewritten (the device pack), in
+    a buffer from ``empty`` (as prepare_block_fast's); or,
     for a block packed on the host (raw_args None, host = (its raw bytes,
     seq offsets into them, lengths)), the rewritten bytes' SEQ lanes
     [S, W] u8, packed on the host."""
@@ -241,7 +247,8 @@ def _match_trials(matches, raw_args, W: int, Wa: int, S: int,
         # the spans rewritten with e-transform letters, refs read from the
         # unmodified bytes (the reference's _e_rewrite_letters)
         if raw_args is not None:
-            dpad_e = dpad.copy()
+            dpad_e = empty(len(dpad))
+            dpad_e[:] = dpad
             native.match_apply_arrays(dpad_e, dpad, offs_s, lengths,
                                       matches, t)
             alt = (dpad_e, offs_s, offs_q, lengths)
@@ -257,13 +264,18 @@ def _match_trials(matches, raw_args, W: int, Wa: int, S: int,
 
 
 def prepare_block_fast(data: np.ndarray, idx: dict, lo: int, hi: int,
-                       cfg: CodecConfig, host_pack: bool = False):
+                       cfg: CodecConfig, host_pack: bool = False,
+                       empty=numpy_empty):
     """Host-only half of a block encode (stream modelling + aux lane
     matrices + the padded raw byte range, or SEQ/QUAL lanes packed on the
     host where that range reaches _MAX_SPAN or ``host_pack`` asks for
     them + a v5 block's match trials). The returned opaque tuple feeds
     encode_prepared_block (or encode_prepared_block_oracle) — split so a
-    pipelined caller can prep block k+1 while block k is on the device."""
+    pipelined caller can prep block k+1 while block k is on the device.
+    ``empty(nbytes)`` gives the u8 buffers the padded range and the
+    trials' rewritten copies are written into: page-locked ones
+    (pack_torch.pinned_empty) for a card, so they go up in one
+    asynchronous copy each; numpy_empty's by default."""
     span = block_span(idx, lo, hi)
     host = host_pack or span >= _MAX_SPAN
     jobs, n, minq, qual_depth, ll_mat, extra = stream_jobs_fast(
@@ -275,7 +287,7 @@ def prepare_block_fast(data: np.ndarray, idx: dict, lo: int, hi: int,
         # the block's raw byte range ships to the device once, padded to
         # the shape bucket here, in the pipelined host half; offsets
         # become block-local
-        dpad = np.empty(pack_torch.pad_flat(span), dtype=np.uint8)
+        dpad = empty(pack_torch.pad_flat(span))
         dpad[:span] = data[base:base + span]
         dpad[span:] = 0
         raw_args = (dpad, idx["seq_off"][sl] - base,
@@ -289,7 +301,7 @@ def prepare_block_fast(data: np.ndarray, idx: dict, lo: int, hi: int,
         matches = extra.pop("matches")
         v5 = {**extra, "trials": [] if matches is None else _match_trials(
             matches, raw_args, cfg.lanes, cfg.aux_lanes,
-            int(ll_mat.sum(0).max()), host_args)}
+            int(ll_mat.sum(0).max()), host_args, empty)}
     return jobs, n, minq, qual_depth, ll_mat, raw_args, v5
 
 

@@ -596,10 +596,11 @@ def test_dryrun_multichip_on_cards(dev):
     assert all(_cuda.launches.values())
 
 
-def _raw_block(n: int, W: int, seed: int):
+def _raw_block(n: int, W: int, seed: int, empty_lane: bool = False):
     """A synthetic block's padded raw bytes on the card with its SEQ/QUAL
     offsets, lengths (ragged, some 0: a record of length 0 sets no read
-    start), lane-length matrix, lane counts and steps."""
+    start; with ``empty_lane`` every record of lane 1 is 0 long),
+    lane-length matrix, lane counts and steps."""
     from slimfastq_tpu_torch import native
     from slimfastq_tpu_torch.ops import pack_torch as PT
     from slimfastq_tpu_torch.pipeline import _lane_lengths_matrix
@@ -609,6 +610,8 @@ def _raw_block(n: int, W: int, seed: int):
     idx, _ = native.fastq_index(data)
     lengths = idx["seq_len"].astype(np.int64)
     lengths[::7] = 0  # the index keeps its offsets; the lanes skip them
+    if empty_lane:
+        lengths[1::W] = 0
     dpad = np.zeros(PT.pad_flat(len(data)), dtype=np.uint8)
     dpad[: len(data)] = np.frombuffer(data, dtype=np.uint8)
     ll = _lane_lengths_matrix(lengths, W)
@@ -617,19 +620,27 @@ def _raw_block(n: int, W: int, seed: int):
             int(counts.max()))
 
 
-@pytest.mark.parametrize("n,W", [(65536, 1024), (5000, 1024), (300, 64)])
-def test_lane_layout_and_unpack_match_plain(dev, n, W):
-    """Kernel L (pack mode: SEQ, QUAL, pos and reset in one launch;
+@pytest.mark.parametrize("n,W,empty_lane", [(65536, 1024, False),
+                                            (5000, 1024, False),
+                                            (300, 64, False),
+                                            (7000, 1000, False),
+                                            (3000, 96, True)])
+def test_lane_layout_and_unpack_match_plain(dev, n, W, empty_lane):
+    """Kernel L (pair mode: SEQ, QUAL, pos and reset in one launch;
     step-input mode: pos and reset) and Kernel U against their plain
-    versions on the card (pack on the active rows; rows past a lane's
-    count hold 0), U giving back the packed records' bytes."""
+    versions on the card (whole matrices, rows past a lane's count
+    included), at W a multiple of 16 (vector stores) and not (W = 1000),
+    with a lane whose records are all empty; U giving back the packed
+    records' bytes."""
     from slimfastq_tpu_torch.ops import _cuda
     from slimfastq_tpu_torch.ops import pack_torch as PT
     from slimfastq_tpu_torch.ops.ranger import pad_steps
     from slimfastq_tpu_torch.pipeline_native import (_BASE_TO_CODE_DEV,
                                                      _CODE_TO_BASE_FULL)
-    dpad, soffs, qoffs, lengths, ll, counts, S = _raw_block(n, W, 11)
-    Sp = pad_steps(S)
+    dpad, soffs, qoffs, lengths, ll, counts, S = _raw_block(n, W, 11,
+                                                            empty_lane)
+    assert not empty_lane or counts[1] == 0
+    Sp = pad_steps(S) + 8  # rows past every lane's count too
     d = torch.from_numpy(dpad).to(dev)
     before = _cuda.launches["lane_layout"]
     k = PT.lane_layout(d, soffs, qoffs, lengths, ll, W, Sp, S,
@@ -638,12 +649,8 @@ def test_lane_layout_and_unpack_match_plain(dev, n, W):
     p = (*PT.pack_pair_plain(d, soffs, qoffs, lengths, W, Sp,
                              _BASE_TO_CODE_DEV, 33),
          *PT._pos_reset(torch.from_numpy(ll).to(dev), Sp, S, W))
-    active = torch.arange(Sp, device=dev)[:, None] < torch.from_numpy(
-        counts).to(dev)[None, :]
     for a, b in zip(k, p):
-        assert torch.equal(a[active], b[active])
-    assert not k[0][~active].any() and not k[1][~active].any()
-    assert torch.equal(k[2], p[2]) and torch.equal(k[3], p[3])
+        assert a.dtype == b.dtype and torch.equal(a, b)
     pos, reset = PT.step_inputs(ll, Sp, S, W, dev)
     assert torch.equal(pos, p[2]) and torch.equal(reset, p[3])
     starts = np.zeros(n, dtype=np.int64)
@@ -659,3 +666,57 @@ def test_lane_layout_and_unpack_match_plain(dev, n, W):
         assert a.shape == (total,) and torch.equal(a, b[:total])
     want_q = b"".join(bytes(dpad[o: o + L]) for o, L in zip(qoffs, lengths))
     assert bytes(ku[1][:total].cpu().numpy()) == want_q
+
+
+@pytest.mark.parametrize("n,W", [(65536, 1024), (700, 1000), (90, 24)])
+@pytest.mark.parametrize("aux", ["map", "bias"])
+def test_single_stream_kernels_match_plain(dev, n, W, aux):
+    """Kernel L's and U's single-stream modes (pack_device /
+    unpack_device) against pack_device_plain / unpack_device_plain on
+    whole arrays: the [Sp, W] matrix with its rows past a lane's count,
+    the [pad_flat(total)] buffer with its bytes past the total; each
+    launch counted under its kernel."""
+    from slimfastq_tpu_torch.ops import _cuda
+    from slimfastq_tpu_torch.ops import pack_torch as PT
+    from slimfastq_tpu_torch.ops.ranger import pad_steps
+    dpad, _, qoffs, lengths, _, counts, S = _raw_block(n, W, 12)
+    Sp = pad_steps(S) + 8
+    d = torch.from_numpy(dpad).to(dev)
+    rng = np.random.default_rng(n)
+    kw = (dict(map256=rng.integers(0, 256, 256).astype(np.uint8))
+          if aux == "map" else dict(bias=33))
+    before = dict(_cuda.launches)
+    k = PT.pack_device(d, qoffs, lengths, W, Sp, **kw)
+    assert _cuda.launches["lane_layout"] == before["lane_layout"] + 1
+    assert torch.equal(k, PT.pack_device_plain(d, qoffs, lengths, W, Sp,
+                                               **kw))
+    starts = np.zeros(n, dtype=np.int64)
+    starts[1:] = np.cumsum(lengths[:-1])
+    total = int(lengths.sum())
+    back = dict(map256=np.arange(256, dtype=np.uint8)[::-1].copy()) \
+        if aux == "map" else dict(bias=-7)
+    u = PT.unpack_device(k, starts, lengths, W, total, **back)
+    assert _cuda.launches["lane_unpack"] == before["lane_unpack"] + 1
+    assert torch.equal(u, PT.unpack_device_plain(k, starts, lengths, W,
+                                                 total, **back))
+
+
+def test_host_buffers_reused_across_encodes(dev):
+    """The page-locked raw-byte buffers (pack_torch.pinned_empty, from
+    PyTorch's caching host allocator): two encodes of a 4-block set back
+    to back give the same container (a buffer reused before its copy
+    completed would change bytes), and the second allocates no new
+    page-locked memory: it reuses the first's."""
+    from slimfastq_tpu_torch import api
+    from slimfastq_tpu_torch.ops import pack_torch as PT
+    from slimfastq_tpu_torch.utils.synth import synth_fastq
+    data = synth_fastq(4000, read_len=100, seed=5, var_len=True,
+                       n_rate=0.01)
+    kw = dict(level=3, device=dev, block_records=1000, window=2)
+    assert torch.from_numpy(PT.pinned_empty(16)).is_pinned()
+    first = api.encode_fastq(data, **kw)
+    held = torch.cuda.host_memory_stats()["num_host_alloc"]
+    assert held >= 1
+    assert api.encode_fastq(data, **kw) == first
+    assert torch.cuda.host_memory_stats()["num_host_alloc"] == held
+    assert api.decode_fastq(first, device=dev) == data

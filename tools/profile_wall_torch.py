@@ -15,6 +15,9 @@ whatever thread calls it:
   sync_symbols (streams_torch.StreamSet.symbols: a stream's Kernel D
   symbols brought back), and seq_qual_decode
   (streams_torch.decode_seq_qual_raw_blocks, its launches and downloads);
+- within those, the host's time in Kernel L's and U's wrappers (inputs
+  staged and uploaded, outputs allocated, the launch): lane_layout,
+  step_inputs, unpack_pair (pack_torch; on any thread);
 - write_block / read_block (container), finish
   (pipeline_native.decode_block_finish, the finish pool);
 - native: fastq_index, flush_append, fastq_assemble and the match_*
@@ -31,6 +34,9 @@ SFQ_PIPE_DEPTH in {1, 2, 4} and SFQ_BATCH_BLOCKS in {1, 4}, which the
 port reads as the JAX package does.
 
 Usage: python3 tools/profile_wall_torch.py [--runs N] [--device cpu]
+       [--cells 64k_l3,64k_l4] [--configs 2x4,1x1] [--ways decode]
+(--configs: depth x window pairs; cells and configs default to the whole
+sweep, --ways to both directions).
 Prints one JSON line a cell, depth and window, then the card's name and
 power limit. Runs on the card unless --device cpu is given (the plain
 kernels: only for tiny inputs); without a card it exits 1.
@@ -73,6 +79,7 @@ class Profile:
 
     def __init__(self):
         from slimfastq_tpu_torch import api, container, native
+        from slimfastq_tpu_torch.ops import pack_torch as PT
         from slimfastq_tpu_torch.ops import streams_torch as ST
         self.targets = [
             (api, "prepare_block_fast", "prep"),
@@ -85,6 +92,8 @@ class Profile:
             (container, "write_block", "write_block"),
             (container, "read_block", "read_block"),
             (api, "decode_block_finish", "finish"),
+            *((PT, name, name) for name in (
+                "lane_layout", "step_inputs", "unpack_pair")),
             *((native, name, name) for name in (
                 "fastq_index", "flush_append", "fastq_assemble",
                 "match_find_arrays", "match_apply_arrays",
@@ -174,11 +183,12 @@ MAIN = {"encode": ("fastq_index", "wait_prep", "device_step", "wait_write"),
 
 
 def profile_cell(data: bytes, cfg, device, runs: int, depth=None,
-                 window=None) -> tuple:
-    """``data`` coded once to warm up, then ``runs`` times each way under
-    Profile, with SFQ_PIPE_DEPTH = depth and SFQ_BATCH_BLOCKS = window
-    (None: unset). Each run's container and output are held to the warm
-    run's. Returns (the container, the report)."""
+                 window=None, ways=("encode", "decode")) -> tuple:
+    """``data`` coded once to warm up, then ``runs`` times each way of
+    ``ways`` under Profile, with SFQ_PIPE_DEPTH = depth and
+    SFQ_BATCH_BLOCKS = window (None: unset). Each run's container and
+    output are held to the warm run's. Returns (the container, the
+    report)."""
     import torch
     from slimfastq_tpu_torch import api, native
     dev = api.resolve_device(device)
@@ -195,11 +205,11 @@ def profile_cell(data: bytes, cfg, device, runs: int, depth=None,
         enc = api.encode_fastq(data, cfg, device=device)
         if api.decode_fastq(enc, device=device) != data:
             raise AssertionError("the round trip is not exact")
-        walls = {"encode": [], "decode": []}
-        stages = {"encode": [], "decode": []}
+        walls = {way: [] for way in ways}
+        stages = {way: [] for way in ways}
         with Profile() as prof:
             for _ in range(runs):
-                for way in ("encode", "decode"):
+                for way in ways:
                     sync()
                     prof.take()
                     t = pc()
@@ -217,7 +227,7 @@ def profile_cell(data: bytes, cfg, device, runs: int, depth=None,
                     if out != (enc if way == "encode" else data):
                         raise AssertionError(f"{way} under the profile "
                                              "differs from the warm run")
-    for way in ("encode", "decode"):
+    for way in ways:
         names = sorted({k for got in stages[way] for k in got})
         rep[way] = {
             "wall_s_min": min(walls[way]),
@@ -233,7 +243,14 @@ def main() -> int:
     p = argparse.ArgumentParser()
     p.add_argument("--runs", type=int, default=5)
     p.add_argument("--device", default=None)
+    p.add_argument("--cells", default=",".join(c[0] for c in CELLS))
+    p.add_argument("--configs", default=",".join(
+        f"{d}x{w}" for d in DEPTHS for w in WINDOWS))
+    p.add_argument("--ways", default="encode,decode")
     args = p.parse_args()
+    cells = args.cells.split(",")
+    configs = [tuple(int(x) for x in c.split("x"))
+               for c in args.configs.split(",")]
     import torch
     if args.device is None and not torch.cuda.is_available():
         print("profile_wall_torch: no CUDA device", file=sys.stderr)
@@ -248,18 +265,19 @@ def main() -> int:
             check=True).stdout.strip().splitlines()[0]
     data = {}
     for cell, level, block_records, reads in CELLS:
+        if cell not in cells:
+            continue
         if reads not in data:
             data[reads] = synth_fastq(reads, read_len=100, seed=0,
                                       var_len=False, n_rate=0.0005)
         cfg = config_for_level(level, block_records=block_records)
-        for depth in DEPTHS:
-            for window in WINDOWS:
-                _, rep = profile_cell(data[reads], cfg, args.device,
-                                      args.runs, depth, window)
-                print(json.dumps({"profile_wall": {
-                    "cell": cell, "level": level,
-                    "block_records": block_records, "reads": reads,
-                    "runs": args.runs, "card": card, **rep}}), flush=True)
+        for depth, window in configs:
+            _, rep = profile_cell(data[reads], cfg, args.device, args.runs,
+                                  depth, window, tuple(args.ways.split(",")))
+            print(json.dumps({"profile_wall": {
+                "cell": cell, "level": level,
+                "block_records": block_records, "reads": reads,
+                "runs": args.runs, "card": card, **rep}}), flush=True)
     print(card or "cpu", flush=True)
     return 0
 
