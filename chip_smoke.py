@@ -8,7 +8,10 @@ Run from the root of a checkout on a machine with a CUDA card:
 Phases (any failure exits non-zero; nothing is caught):
   1. the card's name and power limit, the torch/CUDA versions;
   2. build the CUDA kernels from csrc/ (one nvcc per source, in parallel);
-  3. kernels: each of Kernel E (lane_encode, coding from the symbols), D
+  3. kernels: each of Kernel E (lane_encode: the decoupled encode, six
+     phases, each also held against its own plain version slice by slice
+     on whole outputs wherever E runs below, QUAL also in slices of
+     1,000 bit-steps and the ragged windows in slices of 100), D
      (lane_decode) and C (compact_lanes_dev, one stream) against its plain
      PyTorch version on the card, byte for byte, at W = 1024, Sp = 256
      with the level-3 SEQ
@@ -22,7 +25,9 @@ Phases (any failure exits non-zero; nothing is caught):
      stream, rows longer than one shared-memory stage); then E and D
      timed with CUDA events on the main path's own inputs (the pinned 64k
      x 100 bp block's QUAL stream: W = 1024, Sp = 6400, NC = 800, where E
-     is also held against its plain version; and its level-4 SEQ stream
+     and its phases are also held against their plain versions, and the
+     phases are timed one after another beside their byte and chain
+     bounds (the sort also beside torch.sort); and its level-4 SEQ stream
      as the winning match trial codes it), where D's output is held
      against the packed symbols; Kernel L (lane_layout: pair mode, SEQ,
      QUAL, pos and reset in one launch; step-input mode, pos and reset)
@@ -49,7 +54,8 @@ Phases (any failure exits non-zero; nothing is caught):
      api.encode_fastq / decode_fastq on the card: container size and
      SHA-256 equal the JAX package's, the round trip is exact, every
      kernel's launch count moved, at level 3 exactly 1 L / 7 E / 1 C to
-     encode and 1 L / 7 D / 1 U to decode (at level 4 the block takes a
+     encode (each of E's phases once a slice of each stream) and 1 L / 7
+     D / 1 U to decode (at level 4 the block takes a
      match trial, one L launch a trial); at level 3 the block's seven E
      and seven D launches, on the
      main path's inputs, timed alone and launched at once through the main
@@ -83,8 +89,10 @@ Phases (any failure exits non-zero; nothing is caught):
      GiB) through api.encode_fastq / decode_fastq at the defaults: SEQ
      and QUAL packed and unpacked on the host, Kernel E once a stream;
      exact round trip, walls, peak device memory, launches, the block's
-     device bytes against the window budget; E over the long QUAL in one
-     launch, D on its payload, C on its chunk buffers and L's step
+     device bytes against the window budget; the same block on a card
+     held to a quarter of its memory fails with torch's OOM error and
+     leaves no container; E over the long QUAL in one launch set, D on its
+     payload, C on its chunk buffers and L's step
      inputs over the block (three times), timed beside their bounds, E
      held against its plain version on the first 2 chunks, L against its
      plain version;
@@ -138,7 +146,7 @@ Prints `compact_block_l3`, `compact_block_l4`, `compact_phase_l3`,
 `gather_nccl`, `level1`, `python_pipeline`, `python_pipeline_s`,
 `single_stream_pack`, `entry`, `streaming_scale`, `matcher_faults`,
 `earlier_ms`
-(recorded constants),
+(recorded constants, Kernel E's lockstep design among them),
 `phase_s` (seconds a phase) and `kernels` JSON lines, then the card's
 name and power limit and, as its last line, the `ok` JSON line.
 """
@@ -208,6 +216,20 @@ EARLIER_LANES_MS = {"pack": {"ms": 0.0702, "wrapper_ms": 0.591},
                  "steps": {"ms": 0.0427},
                  "unpack": {"ms": 0.0537, "wrapper_ms": 0.230},
                  "long_steps": {"ms": [9.63, 13.96]}}
+# Kernel E before this design (the lockstep encode, two barriers a
+# bit-step), recorded by this script (H100 80GB HBM3, 700 W; ms): the
+# pinned 64k block's QUAL and its level-4 SEQ trial, the 16k window's QUAL,
+# the long block's QUAL (CUDA events); its SEQ from the block's streams
+# timed alone
+EARLIER_E_MS = {"qual_64k": 56.27, "seq_64k": 45.0, "window_16k_qual": 14.97,
+                "l4_seq_trial": 33.94, "long_qual": 10731.0}
+# one link of the decoupled encode's chains at its least latency: dependent
+# integer operations of 4 cycles each at the H100 SXM's 1,980 MHz boost
+# clock (an entry scan's record: the two deltas' shifts, the scaled sum,
+# the clamp; a lane coder's decision: the split, the interval, the renorm
+# test)
+LINK_OPS = {"entry_scan": 12, "code": 10}
+SM_CLOCK_HZ = 1.98e9
 BARRIER_ITERS = 200000
 # The window forms' plain versions run on the first PLAIN_CHUNKS chunks of
 # CHUNK_STEPS symbol steps of each block of the 16k window
@@ -255,6 +277,134 @@ def _compare(errs: dict, name: str, what: str, a, b) -> None:
 # ---------------------------------------------------------------------------
 # phase 3a: kernels against their plain versions at the reduced shape
 # ---------------------------------------------------------------------------
+
+def _phases_vs_plain(errs: dict, items, kind, geom, CB, what: str,
+                     plain_s: dict | None = None, L=None) -> None:
+    """Each of Kernel E's phase kernels against its plain version on the
+    card, slice by slice, on whole outputs (encode_torch.compare_phases;
+    L: slices of L bit-steps in place of the default, through
+    SLICE_DECISIONS); records each phase's largest difference in `errs`
+    as encode_<phase> and adds the plain versions' host seconds to
+    `plain_s`."""
+    from slimfastq_tpu_torch.ops import coder_torch as CT
+    from slimfastq_tpu_torch.ops import encode_torch as E
+    W, items = CT._check_items(items, kind, geom)
+    items = [CT.EncIn(*(None if x is None else x.contiguous() for x in it))
+             for it in items]
+    saved = E.SLICE_DECISIONS
+    if L is not None:
+        E.SLICE_DECISIONS = L * len(items) * W
+    try:
+        got = E.compare_phases(items, kind, geom, CB, plain_s)
+    finally:
+        E.SLICE_DECISIONS = saved
+    for name, err in got.items():
+        key = f"encode_{name}"
+        errs[key] = max(errs.get(key, 0), err)
+    if any(got.values()):
+        raise AssertionError(f"{what}: a phase differs from its plain "
+                             f"version: {got}")
+
+
+def _head(item, steps: int):
+    """The first `steps` symbol-steps of an EncIn (a prefix codes exactly
+    as the stream's start)."""
+    from slimfastq_tpu_torch.ops import coder_torch as CT
+    return CT.EncIn(*(None if x is None else x[:steps]
+                      for x in item[:3]), item.counts,
+                    None if item.mflag is None else item.mflag[:steps])
+
+
+def phase_times(items, kind, geom, CB, errs: dict | None = None) -> dict:
+    """Kernel E's phases on `items` one after another (CUDA events around
+    each phase's launches, summed over the slices) beside each one's byte
+    bound at HBM_BYTES_PER_S and, for the chains, the longest chain's
+    links at their least latency (LINK_OPS); the sort also beside one
+    torch.sort of each slice's keys (library_ms, stable). Then the same
+    items through lane_encode_blocks (the lane coder beside the next
+    slice's phases), timed as `e_ms`, which must equal the phases'
+    outputs."""
+    import torch
+    from slimfastq_tpu_torch.ops import coder_torch as CT
+    from slimfastq_tpu_torch.ops import encode_torch as E
+    es = E.EncodeSet(items, kind, geom, CB)
+    ms = dict.fromkeys((n for n, _, _ in E.STEPS), 0.0)
+    lib_ms, chains, records = 0.0, {"entry_scan": 0, "code": 0}, 0
+    for s0 in range(0, es.S, es.L):
+        for name, fn, sliced in E.STEPS:
+            t, _ = _events_ms(lambda: fn(es, s0) if sliced else fn(es))
+            ms[name] += t
+            if name == "sort":  # the slice's longest chain of records
+                N = es.records()
+                records += N
+                K = es.sorted_records()[0][:N]
+                if N:
+                    chains["entry_scan"] += int(torch.unique_consecutive(
+                        K, return_counts=True)[1].max())
+                # the library's yardstick: a stable sort of the same keys
+                lib_ms += _events_ms(lambda: torch.sort(
+                    es.key[:N] if K.data_ptr() != es.key.data_ptr()
+                    else K.clone(), stable=True))[0]
+    chains["code"] = es.S
+    res = es.results()
+    e_ms, got = _events_ms(lambda: CT.lane_encode_blocks(items, kind, geom,
+                                                         CB))
+    for a, b in zip(got, res):
+        _compare({} if errs is None else errs, "lane_encode",
+                 "E launched whole vs phase by phase", a, b)
+    # each input read once, each output written once: a symbol-step's u8
+    # symbol, int32 pos and reset and u8 match flag where the stream has
+    # them, its int32 row; a decision's u16 rid, then its u16 p | bit; a
+    # record's int32 key and n | k (and its sorted key, number and p)
+    syms = sum(it.syms.numel() for it in items)
+    per = 1 + 8 * (items[0].pos is not None) + (items[0].mflag is not None)
+    D = syms * geom.depth
+    out_bytes = sum(r[0].numel() + r[1].numel() * 4 + r[2].numel() * 4
+                    for r in res)
+    nbytes = {"rows": syms * (per + 4),
+              "touches": syms * 5 + D * 2 + records * 8,
+              "sort": records * 12,
+              "entry_scan": records * 16,
+              "gather": D * 8 + syms,
+              "code": D * 2 + out_bytes}
+    link_s = {k: v * 4 / SM_CLOCK_HZ for k, v in LINK_OPS.items()}
+    out = {"e_ms": e_ms, "slices": -(-es.S // es.L),
+           "slice_bit_steps": es.L, "records": records, "decisions": D,
+           "phases": {}}
+    for name in ms:
+        row = {"ms": ms[name], "bytes": nbytes[name],
+               "bound_ms": nbytes[name] / HBM_BYTES_PER_S * 1e3,
+               "bound_by": "bytes"}
+        if name in chains:
+            row["chain_links"] = chains[name]
+            row["chain_bound_ms"] = chains[name] * link_s[name] * 1e3
+        if name == "sort":
+            row["library_ms"] = lib_ms
+            row["library"] = "torch.sort(keys, stable=True) a slice"
+        out["phases"][name] = row
+    return out
+
+
+def phase_counts(data: bytes, level: int, dev) -> dict:
+    """Launches of each of Kernel E's phases when the block's streams are
+    coded one launch set a stream (the main path at level 3, the
+    pure-Python pipeline): each stream's slices."""
+    import numpy as np
+    from slimfastq_tpu_torch import native, pipeline_native as PN
+    from slimfastq_tpu_torch.config import config_for_level
+    from slimfastq_tpu_torch.ops import _cuda
+    from slimfastq_tpu_torch.ops import encode_torch as E
+    cfg = config_for_level(level)
+    idx, n = native.fastq_index(data)
+    pre = PN.prepare_block_fast(np.frombuffer(data, dtype=np.uint8), idx, 0,
+                                n, cfg)
+    slices = 0
+    for _name, _kind, geom, item, _ in PN._coder_jobs(pre, cfg, dev):
+        Sp, W = item.syms.shape
+        S = Sp * geom.depth
+        slices += -(-S // E.slice_steps(1, W, S))
+    return {k: slices for k in _cuda.launches if k.startswith("encode_")}
+
 
 def _reads_layout(W: int, Sp: int, read_len: int, active: int):
     """The first `active` lanes hold reads of `read_len` starting at step
@@ -306,6 +456,11 @@ def _check_stream(kind, geom, syms_np, counts_np, pos, reset, dev, plain,
     plain["lane_encode"] = (time.perf_counter() - t) * 1e3
     _compare(errs, "lane_encode", f"lane_encode {kind} W={W}", enc_k,
              enc_p)
+    phase_s = {}
+    _phases_vs_plain(errs, [item], kind, geom, CB, f"E's phases, {kind} "
+                     f"W={W}", phase_s)
+    for name, s in phase_s.items():
+        plain[f"encode_{name}"] = s * 1e3
     ebufs, eptrs, low, emax = enc_k
     if int(emax) > CB:
         raise AssertionError(f"{kind}: optimistic chunk buffer overflowed")
@@ -365,6 +520,12 @@ def check_kernels(dev):
                       errs)
     _check_stream("qual", cfg.qual, qual, counts, pos, reset, dev,
                   plain_qual, errs)
+    # slices of 1,000 bit-steps: each ends inside a symbol and a chunk
+    item = ST.EncIn(torch.from_numpy(qual).to(dev), pos, reset,
+                    torch.from_numpy(counts.astype(np.int32)).to(dev))
+    _phases_vs_plain(errs, [item], "qual", cfg.qual,
+                     ST._chunk_bytes(6, hard=False), "E's phases, qual in "
+                     "slices of 1,000 bit-steps", L=1000)
     Wa = cfg.aux_lanes
     zeros = torch.zeros((Sp, Wa), dtype=torch.int32, device=dev)
     ragged = rng.integers(Sp // 2, Sp + 1, size=Wa)
@@ -442,6 +603,11 @@ def time_kernels(data: bytes, dev, errs: dict) -> dict:
     _compare(errs, "lane_encode", f"lane_encode qual at the pinned block's "
              f"shape (Sp={Sp}, W={W})", (ebufs, eptrs, low, emax), plain)
     del plain
+    phase_s = {}
+    _phases_vs_plain(errs, [q.item], "qual", q.geom, CB, "E's phases at the "
+                     f"pinned block's QUAL (Sp={Sp}, W={W})", phase_s)
+    out["phase_plain_ms"] = {k: v * 1e3 for k, v in phase_s.items()}
+    out["phases"] = phase_times([q.item], "qual", q.geom, CB, errs)
     e_ms = _time_ms(enc, 3)
     e_bytes = 9 * Sp * W + W * 4 + ebufs.numel() + eptrs.numel() * 4 \
         + W * 4
@@ -650,6 +816,9 @@ def time_kernels_l4(data: bytes, dev, errs4: dict) -> dict:
     e_ms = _time_ms(enc, 3)
     e_bytes = 10 * Sp * W + W * 4 + ebufs.numel() + eptrs.numel() * 4 \
         + W * 4
+    _phases_vs_plain(errs4, [_head(job.item, 256)], "seq", job.geom, CB,
+                     "E's phases, the L4 SEQ trial's first 256 steps")
+    out["phases"] = phase_times([job.item], "seq", job.geom, CB, errs4)
     totals = eptrs.sum(dim=0)
     Bmax = int(totals.max())
     _compare(errs4, "compact_lanes_dev", f"compact L4 seq NC={NC} W={W}",
@@ -851,7 +1020,9 @@ def barrier_us(dev) -> float:
 
 # launches a direction of the pinned 64k block on the main path at level
 # 3: Kernel L packs SEQ and QUAL with pos/reset (encode) or makes the step
-# inputs (decode), E or D codes the 7 streams, C compacts them, U unpacks
+# inputs (decode), E (one launch set a stream) or D codes the 7 streams, C
+# compacts them, U unpacks; each of E's phases launches once a slice of a
+# stream (phase_counts)
 MAIN_LAUNCHES_L3 = (
     {"lane_encode": 7, "lane_decode": 0, "compact_lanes_dev": 1,
      "lane_layout": 1, "lane_unpack": 0},
@@ -859,18 +1030,30 @@ MAIN_LAUNCHES_L3 = (
      "lane_layout": 1, "lane_unpack": 1})
 
 
+def _phases_even(launches: dict) -> bool:
+    """Kernel E's six phases launched alike, at least once a launch set
+    of E."""
+    n = {v for k, v in launches.items() if k.startswith("encode_")}
+    return len(n) == 1 and n.pop() >= launches["lane_encode"]
+
+
 def main_path(data: bytes, level: int) -> dict:
     """The pinned block through api.encode_fastq / decode_fastq at
     `level`, the launch counts set to 0 just before each direction and
-    read just after: at level 3 exactly MAIN_LAUNCHES_L3 (no schedule,
-    pack or pos/reset tensor op is left to launch), at level 4 every
-    kernel, one L launch for the block and one a match trial, and the
-    block must take a match trial (MATCH_USED). Returns the launches of
-    both directions summed."""
+    read just after: at level 3 exactly MAIN_LAUNCHES_L3 and E's phases
+    once a slice of each stream (phase_counts; no schedule, pack or
+    pos/reset tensor op is left to launch), at level 4 every kernel, one
+    L launch for the block and one a match trial, E's phases alike, and
+    the block must take a match trial (MATCH_USED). Returns the launches
+    of both directions summed."""
     import io
+    import torch
     from slimfastq_tpu_torch import api, container
     from slimfastq_tpu_torch.ops import _cuda
     from slimfastq_tpu_torch.pipeline import MATCH_USED
+    phases = phase_counts(data, 3, torch.device("cuda"))
+    want_l3 = ({**MAIN_LAUNCHES_L3[0], **phases},
+               {**MAIN_LAUNCHES_L3[1], **dict.fromkeys(phases, 0)})
     _cuda.reset_launches()
     enc = api.encode_fastq(data, level=level, device="cuda")
     enc_launches = dict(_cuda.launches)
@@ -892,12 +1075,13 @@ def main_path(data: bytes, level: int) -> dict:
     if idle:
         raise AssertionError(f"kernels not launched on the L{level} main "
                              f"path: {idle}")
-    if level == 3 and (enc_launches, dec_launches) != MAIN_LAUNCHES_L3:
+    if level == 3 and (enc_launches, dec_launches) != want_l3:
         raise AssertionError(f"L3 launches: encode {enc_launches}, decode "
-                             f"{dec_launches}, expected {MAIN_LAUNCHES_L3}")
+                             f"{dec_launches}, expected {want_l3}")
     # at level 4 each trial codes SEQ@t and MATCH@t beside the 7 streams
     if level == 4 and (enc_launches["lane_layout"]
                        != (enc_launches["lane_encode"] - 7) // 2 + 1
+                       or not _phases_even(enc_launches)
                        or dec_launches["lane_layout"] != 1
                        or dec_launches["lane_unpack"] != 1):
         raise AssertionError(f"L4 launches: encode {enc_launches}, decode "
@@ -960,6 +1144,9 @@ def block_spans(data: bytes, dev) -> dict:
     launches = {"encode": {}, "decode": {}}
     for name, kind, geom, item, _counts in jobs:
         CB = ST._chunk_bytes(geom.depth, hard=False)
+        _phases_vs_plain({}, [_head(item, 16)], kind, geom, CB,
+                         f"E's phases, the block's {name}: its first 2 "
+                         "chunks")
         launches["encode"][name] = (
             lambda item=item, kind=kind, geom=geom, CB=CB:
             coder_torch.lane_encode_blocks([item], kind, geom, CB)[0],
@@ -1025,6 +1212,9 @@ def l4_spans(data: bytes, dev) -> dict:
     fns = {}
     for name, kind, geom, item, _counts in PN._coder_jobs(pre, cfg, dev):
         CB = ST._chunk_bytes(geom.depth, hard=False)
+        _phases_vs_plain({}, [_head(item, 16)], kind, geom, CB,
+                         f"E's phases, the L4 block's {name}: its first 2 "
+                         "chunks")
         fns[name] = (lambda item=item, kind=kind, geom=geom, CB=CB:
                      coder_torch.lane_encode_blocks([item], kind, geom,
                                                     CB)[0],
@@ -1191,6 +1381,9 @@ def check_windows(dev, errs: dict) -> None:
         _compare({}, "lane_encode_blocks", f"{what}: E vs one launch a "
                  "block", enc, [CT.lane_encode_blocks([it], kind, geom, CB)[0]
                                 for it in scheds])
+        _phases_vs_plain(errs, scheds, kind, geom, CB, f"{what}: E's phases")
+        _phases_vs_plain(errs, scheds, kind, geom, CB, f"{what}: E's phases "
+                         "in slices of 100 bit-steps", L=100)
         items = []
         for (s, counts, c, pos, reset, mflag), e in zip(inputs, enc):
             if int(e[3]) > CB:
@@ -1324,6 +1517,10 @@ def time_window(data: bytes, dev, bar_us: float, errs: dict) -> dict:
         _compare(errs, name, f"{name}: the 16k L3 window's QUAL, the first "
                  f"{n_steps} steps of each block", got, want)
         prefix_ms[name] = _time_ms(lambda a=args, k=kernel: k(a), 3)
+    _phases_vs_plain(errs, pre_e, "qual", geom, CB, f"E's phases: the 16k "
+                     f"L3 window's QUAL, the first {n_steps} steps of each "
+                     "block")
+    phases = phase_times(scheds, "qual", geom, CB, errs)
     d_ms = _time_ms(lambda: CT.lane_decode_blocks(items, "qual", geom), 3)
     d_one = sum(_time_ms(lambda it=it: CT.lane_decode(*it, "qual", geom), 1)
                 for it in items)
@@ -1368,7 +1565,7 @@ def time_window(data: bytes, dev, bar_us: float, errs: dict) -> dict:
                "bit_steps_per_block": steps,
                "plain_ms": plain["lane_encode_blocks"],
                "prefix_ms": prefix_ms["lane_encode_blocks"],
-               "plain_shape": prefix},
+               "plain_shape": prefix, "phases": phases},
            "lane_decode_blocks": {
                "ms": d_ms, "one_launch_a_block_sum_ms": d_one,
                "bound_ms": steps * bar_us / 1e3, "bound_by": "latency",
@@ -1438,6 +1635,7 @@ def window_path(data: bytes, level: int) -> tuple:
     if launches["compact_lanes_dev"] != 1 \
             or descs["compact_lanes_dev"] < 4 * 7 \
             or launches["lane_encode"] > e_max \
+            or not _phases_even(launches) \
             or launches["lane_decode"] > d_max \
             or any(descs[k] <= launches[k]
                    for k in ("lane_encode", "lane_decode")):
@@ -1631,6 +1829,7 @@ def _long_read_kernels(pre, enc: bytes, dev, bar_us: float,
     from slimfastq_tpu_torch.config import config_for_level
     from slimfastq_tpu_torch.ops import coder_torch as CT
     from slimfastq_tpu_torch.ops import compact_torch as CC
+    from slimfastq_tpu_torch.ops import encode_torch as E
     from slimfastq_tpu_torch.ops import pack_torch as PT
     from slimfastq_tpu_torch.ops import streams_torch as ST
     cfg = config_for_level(3)
@@ -1649,16 +1848,27 @@ def _long_read_kernels(pre, enc: bytes, dev, bar_us: float,
     _compare(errs, "lane_encode", "E vs plain, long QUAL, first 2 chunks",
              CT.lane_encode_blocks([head], "qual", q.geom, CB)[0], plain)
     del plain
+    _phases_vs_plain(errs, [head], "qual", q.geom, CB, "E's phases, long "
+                     "QUAL, first 2 chunks")
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
     total_ms, (ebufs, eptrs, low, emax) = _events_ms(
         lambda: CT.lane_encode_blocks([item], "qual", q.geom, CB)[0])
     if int(emax) > CB:
         raise AssertionError("long QUAL: optimistic chunk buffer overflowed")
     Sp = item.syms.shape[0]
     e_bytes = 9 * Sp * W + ebufs.numel() + eptrs.numel() * 4 + 2 * W * 4
+    steps = NC * 8 * depth
     out["lane_encode"] = {
         "ms": total_ms, "bytes": e_bytes,
         "bound_ms": e_bytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
-        "lockstep_ms": NC * 8 * depth * bar_us / 1e3,
+        "lane_coder_chain_bound_ms": steps * LINK_OPS["code"] * 4
+        / SM_CLOCK_HZ * 1e3,
+        "slices": -(-steps // E.slice_steps(1, W, steps)),
+        "device_GB_above_inputs": (torch.cuda.max_memory_allocated() - base)
+        / 1e9,
+        "outputs_GB": (ebufs.numel() + eptrs.numel() * 4) / 1e9,
         "plain_ms_2_chunks": out["plain_ms_2_chunks"]}
     Bmax = int(eptrs.sum(dim=0).max())
     streams = [(ebufs, eptrs, Bmax)]
@@ -1713,6 +1923,41 @@ def _long_read_kernels(pre, enc: bytes, dev, bar_us: float,
         "us_per_bit_step": d_ms * 1e3 / steps}
     out["lane_encode"]["us_per_bit_step"] = \
         out["lane_encode"]["ms"] * 1e3 / steps
+    return out
+
+
+def _long_read_oom(data: bytes) -> dict:
+    """The long block on a card that cannot hold it (the allocator held to
+    a quarter of the card, which the window budget, from the free bytes,
+    does not see): api.encode_file must fail with torch's OOM error, not
+    hang, and leave no container; then the card codes again."""
+    import os
+    import tempfile
+    import torch
+    from slimfastq_tpu_torch import api
+    with tempfile.TemporaryDirectory() as d:
+        src, dst = os.path.join(d, "in.fq"), os.path.join(d, "out.sfq")
+        with open(src, "wb") as f:
+            f.write(data)
+        torch.cuda.empty_cache()
+        torch.cuda.set_per_process_memory_fraction(0.25)
+        t = time.perf_counter()
+        try:
+            api.encode_file(src, dst, device="cuda")
+        except torch.OutOfMemoryError as e:
+            err = type(e).__name__
+        else:
+            raise AssertionError("the long block encoded in a quarter of "
+                                 "the card")
+        finally:
+            torch.cuda.set_per_process_memory_fraction(1.0)
+            torch.cuda.empty_cache()
+        out = {"memory_fraction": 0.25, "raised": err,
+               "s": time.perf_counter() - t,
+               "container_left": os.path.exists(dst)}
+    if out["container_left"]:
+        raise AssertionError("an encode that ran out of device memory left "
+                             "a container")
     return out
 
 
@@ -1777,6 +2022,7 @@ def long_read(dev, bar_us: float, errs: dict) -> dict:
     # the host packs and unpacks: Kernel L makes pos/reset, U does not
     # run; each stream one E launch (an overflowed one a second)
     if not 7 <= e["descriptors"]["lane_encode"] <= 14 \
+            or not _phases_even(e["launches"]) \
             or e["launches"]["compact_lanes_dev"] < 1 \
             or d["launches"]["lane_decode"] < 2 \
             or e["launches"]["lane_layout"] != 1 \
@@ -1785,6 +2031,7 @@ def long_read(dev, bar_us: float, errs: dict) -> dict:
         raise AssertionError(f"long block launches: encode {e}, decode {d}")
     out["ratio"] = len(data) / len(enc)
     out["compressed_bytes"] = len(enc)
+    out["past_the_card"] = _long_read_oom(data)
     print(json.dumps({"long_read": out}), flush=True)
     del data
     out["kernels"] = _long_read_kernels(pre, enc, dev, bar_us, errs)
@@ -2106,6 +2353,8 @@ def level1(data: bytes, dev, errs: dict) -> dict:
              "2 chunks vs its plain version",
              CT.lane_encode_blocks([part], "qual", q.geom, CB)[0],
              CT.lane_encode_blocks_plain([part], "qual", q.geom, CB)[0])
+    _phases_vs_plain(errs, [part], "qual", q.geom, CB, "E's phases, L1 "
+                     "QUAL, first 2 chunks")
     out = {"unforced_bytes": len(want), "forced_e_launches": n_e,
            "qual_one_launch_ms": one_ms, "qual_NC": q.item.NC,
            "table_bytes": CT.table_bytes(q.geom)}
@@ -2179,8 +2428,17 @@ def python_pipeline(data: bytes) -> dict:
         flags = [blk.flags for blk in container.iter_blocks(f, cfg)]
         if level == 4 and not flags[0] & MATCH_USED:
             raise AssertionError(f"use_native=False L4: flags {flags}")
+        # E's phases: once a slice of each stream (at level 3 as the
+        # block's streams give them: phase_counts), never to decode
         want_e, want_d = PYTHON_LAUNCHES[level]
-        if (e["launches"], d["launches"]) != (want_e, want_d):
+        phases = {k: v for k, v in e["launches"].items()
+                  if k.startswith("encode_")}
+        if level == 3:
+            phases = phase_counts(data, level, torch.device("cuda"))
+        want_e = {**want_e, **phases}
+        want_d = {**want_d, **dict.fromkeys(phases, 0)}
+        if (e["launches"], d["launches"]) != (want_e, want_d) \
+                or not _phases_even(e["launches"]):
             raise AssertionError(f"use_native=False L{level}: launches "
                                  f"{e['launches']} / {d['launches']}")
         out[f"L{level}"] = {"encode": e, "decode": d, "flags": flags}
@@ -2622,7 +2880,7 @@ def main() -> int:
             "lane_layout": ["slimfastq_tpu/ops/streams_jax.py:241",
                             "slimfastq_tpu/ops/pack_jax.py:75"],
             "lane_unpack": ["slimfastq_tpu/ops/pack_jax.py:93"]}
-    source = {"lane_encode": "slimfastq_tpu_torch/csrc/coder.cu",
+    source = {"lane_encode": "slimfastq_tpu_torch/csrc/encode.cu",
               "lane_decode": "slimfastq_tpu_torch/csrc/coder.cu",
               "compact_lanes_dev": "slimfastq_tpu_torch/csrc/compact.cu",
               "lane_layout": "slimfastq_tpu_torch/csrc/lanes.cu",
@@ -2650,12 +2908,16 @@ def main() -> int:
             "block_span_ms": spans[direction]["span_ms"],
             "block_sum_ms": spans[direction]["sum_ms"]})
         if name == "lane_encode":
-            # E's table evolves with its inputs alone: the function
-            # needs no barrier, so its bound stays the byte bound and
-            # this design's barrier floor stands beside it; its plain
+            # E's table evolves with its inputs alone: the decoupled
+            # encode needs no barrier and its bound is the byte bound;
+            # its phases are rows of their own below; the lockstep plain
             # version also ran at the pinned block's full shape
-            row.update(lockstep_ms=lockstep_ms,
-                       plain_full_shape_ms=times["lane_encode_plain_full_ms"])
+            row.update(plain_full_shape_ms=times["lane_encode_plain_full_ms"],
+                       slices=times["phases"]["slices"],
+                       slice_bit_steps=times["phases"]["slice_bit_steps"],
+                       phases_one_after_another_ms={
+                           k: v["ms"] for k, v in
+                           times["phases"]["phases"].items()})
         else:
             # D's law couples the lanes at every bit-step: one barrier
             # per bit-step is the floor of the function
@@ -2672,8 +2934,7 @@ def main() -> int:
               "bound_by": "bytes", "shape": times4["shape"],
               "bit_steps": steps4, "us_per_bit_step": ms4 * 1e3 / steps4}
         if name == "lane_encode":
-            l4.update({"lockstep_ms": steps4 * bar_us / 1e3,
-                       "block_streams_ms": spans4["streams_ms"]})
+            l4.update({"block_streams_ms": spans4["streams_ms"]})
         if name == "lane_decode":
             l4.update({"bound_ms": steps4 * bar_us / 1e3,
                        "bound_by": "latency",
@@ -2687,6 +2948,33 @@ def main() -> int:
         if name == "lane_encode":
             row["l1_shared_memory_table"] = l1
         row["sharded_launches"] = _by_shard(shard, name)
+        kernels.append(row)
+    # Kernel E's six phases on the pinned block's QUAL, one after another
+    # (CUDA events summed over its slices), each held against its plain
+    # version at this shape and at the others (errs); launches from the
+    # main path's run
+    for phase, t in times["phases"]["phases"].items():
+        name = f"encode_{phase}"
+        row = {"name": name, "route": "cuda",
+               "source": source["lane_encode"],
+               "replaces": replaces["lane_encode"],
+               "also_replaces": also["lane_encode"],
+               "launches": launches[name], "launches_l4": launches4[name],
+               "match": errs[name] == 0 and errs4[name] == 0,
+               "max_abs_err": max(errs[name], errs4[name]),
+               "ms": t["ms"], "plain_ms": times["phase_plain_ms"][phase],
+               "plain_shape": "the same QUAL, host clock",
+               "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+               "bytes": t["bytes"], "library_ms": t.get("library_ms"),
+               "shape": f"the pinned 64k L3 block's QUAL: W = "
+                        f"{shape['W']}, Sp = {shape['Sp']}, "
+                        f"{times['phases']['slices']} slices",
+               "l4_seq_trial": times4["phases"]["phases"][phase],
+               "window_16k_qual": win["lane_encode_blocks"]["phases"][
+                   "phases"][phase]}
+        for k in ("chain_links", "chain_bound_ms", "library"):
+            if k in t:
+                row[k] = t[k]
         kernels.append(row)
     # Kernel C: one launch per block; its device time (profiler) is `ms`
     name = "compact_lanes_dev"
@@ -2793,8 +3081,11 @@ def main() -> int:
                 "shared-memory table law, and C on QUAL alone when it took "
                 "one launch per stream (CUDA events around the wrapper); "
                 "Kernels L and U before L's tiled design (profiler records; "
-                "wrappers with CUDA events), as lanes_before_tiles",
-        **EARLIER_MS, "lanes_before_tiles": EARLIER_LANES_MS}}),
+                "wrappers with CUDA events), as lanes_before_tiles; Kernel "
+                "E's lockstep design before the decoupled encode, as "
+                "lockstep_encode",
+        **EARLIER_MS, "lanes_before_tiles": EARLIER_LANES_MS,
+        "lockstep_encode": EARLIER_E_MS}}),
         flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)

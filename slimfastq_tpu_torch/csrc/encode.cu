@@ -1,0 +1,718 @@
+// Kernel E (lane_encode): the decoupled encode of one stream of each block
+// of a window.
+//
+// Replaces: slimfastq_tpu/ops/streams_jax.py `_build_encode` (the encode
+// coder scan) together with the schedule it reads, `_ctx_precompute` +
+// `_build_schedule` / `_build_schedule_ll` (every bit-step's table index
+// and bit), with and without the match-context family. Those are plain XLA
+// programs, not Pallas, but they carry the whole coding loop.
+//
+// Contract (byte-identical to the JAX package and its NumPy oracle): W
+// lanes advance in lockstep, one binary decision per lane per bit-step,
+// through a carry-less 32-bit range coder with byte renorm, against one
+// shared adaptive table under the batch-synchronous collision-capped law
+// (ctx.cuh, law_delta; coder.cu states it in full). Bit j of symbol-step
+// t takes entry row + ((1 << j) | (sym >> (depth - j))) - 1 and codes bit
+// (sym >> (depth - 1 - j)) & 1; a step at or past its lane's count codes
+// symbol 0 in the sacrificial row, which never adapts.
+//
+// The law in decoupled form. At bit-step s every real lane on entry e reads
+// the same p and visit count and sees the same count n of real lanes on
+// e; the k lanes coding a 1 add the same delta d1, the others the same d0.
+// So p(s+1) = clamp(p + k*d1 + (n-k)*d0, 16, 4080) and vis += n: the
+// table's evolution depends on the symbols alone, never on the coder. The
+// encode therefore splits into phases with no lane-wide barrier in the
+// coding, each a separate launch over its own parallel axis:
+//   1. rows (symbol-steps): each step's first table entry, its lane's
+//      context (CtxState, ctx.cuh: the function Kernel D decodes with)
+//      rebuilt from the step's last few symbols, which alone decide it;
+//   2. touches (bit-steps): per bit-step, the real lanes grouped by entry in
+//      a shared-memory hash into records (entry, n, k), numbered within the
+//      step in the order of each entry's first lane (so the output is
+//      deterministic); a counting pass, an exclusive scan of the counts
+//      (each step's first record) and a writing pass that also gives every
+//      decision its record's number within the step (rid; 0xFFFF for a
+//      sacrificial decision).
+//   3. sort (records): the records grouped by entry with an LSD radix sort
+//      of 8-bit digits over the key's bits, each pass a tile histogram, an
+//      exclusive scan and a stable scatter (ranks within a tile from
+//      __match_any_sync, in record order), so an entry's records stay in
+//      step order.
+//   4. entry scan (entries): one thread an entry walks its records in step
+//      order and writes p as it stood before each record over the record's
+//      (n, k); its chain is the entry's touches, at most the slice's
+//      symbol-steps.
+//   5. gather (decisions): each decision's p through its record, with its
+//      bit, written over its rid (a u16: p | bit << 15);
+//   6. lane coder (lanes): each lane codes its decisions alone from them
+//      (one coalesced u16 a decision, loaded PF decisions ahead of its
+//      use), emitting into its chunk windows as the lockstep coder did:
+//      no barrier.
+// A window's B blocks share every launch (records carry their block; an
+// entry's records are grouped across blocks in block order and the scan
+// switches tables where the block changes). Slices of L bit-steps bound
+// the scratch whatever the stream's length: the table and each lane's
+// low, range and chunk position carry from one slice to the next (a slice
+// may end inside a symbol); the lane coder of one slice runs beside the
+// other phases of the next (the wrapper's two CUDA streams).
+//
+// Bound on the H100: the function is bound by its bytes (3.35 TB/s) — the
+// symbols and step inputs read once, the chunk buffers written once. This
+// design's floor is the lane coder's chain: one lane's decisions in order,
+// ~10 dependent integer operations each, on 1,024 lanes (one warp an SM,
+// 32 SMs); it measures ~0.14 us a decision, which sets E's time (the
+// pinned 64k block's QUAL 6.04 ms, 38,400 decisions a lane; PERF.md). The
+// other phases spread over every SM, the entry scan's chain being the
+// hottest entry's touches.
+
+#include <climits>
+
+#include "ctx.cuh"
+
+namespace {
+
+constexpr int EMPTY = -1;
+constexpr uint16_t NO_RECORD = 0xFFFF;  // rid of a sacrificial decision
+constexpr int RADIX_BITS = 8;
+constexpr int RADIX = 1 << RADIX_BITS;
+constexpr int SORT_THREADS = 256;
+constexpr int SORT_ROUNDS = 4;
+constexpr int TILE = SORT_THREADS * SORT_ROUNDS;  // records a sort tile
+constexpr int SCAN_THREADS = 1024;
+constexpr int SCAN_ITEMS = 4;
+constexpr int SCAN_CHUNK = SCAN_THREADS * SCAN_ITEMS;
+constexpr int STEPS_PER_CTA = 16;  // bit-steps a touches CTA walks
+constexpr int ROW_THREADS = 128;
+constexpr int PF = 16;  // decisions the lane coder loads ahead
+constexpr int SP = 8;  // records an entry scan load stage runs ahead
+// record fields: n (bits 0-10), k (11-21), block (22-29)
+constexpr int NK_BITS = 11;
+// the gather's u16 a decision: p (bits 0-11), its bit at BIT_SHIFT
+constexpr int BIT_SHIFT = 15;
+
+// One block's stream (the wrapper uploads B of them).
+struct Block {
+  const uint8_t* syms;    // [Sp, W]
+  const int* poss;        // [Sp, W]; null for the byte and flag kinds
+  const int* resets;      // [Sp, W]; null for the byte and flag kinds
+  const int* counts;      // [W]
+  const uint8_t* mflags;  // [Sp, W]; null without the match family
+  uint8_t* ebufs;         // [NC, W, CB]
+  int* eptrs;             // [NC, W]
+  int Sp, NC;
+};
+
+// One launch set's scratch, carried state and shape (encode_torch's
+// _Plan mirrors it field by field).
+struct Plan {
+  const Block* blocks;  // [B], device memory
+  int* rows;            // [B, Lt, W]: each symbol-step's first entry
+  int* cnt;             // [B * L + 1]: records a step, then their offsets
+  uint16_t* rid;        // [B, L, W]: each decision's record in its step,
+                        // then (the gather) its p | bit << 15
+  int* key;             // [Dcap]: the records' entries (sort buffer 0)
+  uint32_t* nk;         // [Dcap]: n | k << 11 | block << 22, then p
+  int* key1;            // [Dcap]: sort buffer 1
+  int* val1;            // [Dcap]
+  int* val2;            // [Dcap]
+  int* hist;            // [RADIX, ntiles]: a pass's histogram
+  int* parts;           // scan partial sums
+  uint16_t* tables;     // [B, table_size]: p | vis << 12
+  uint32_t* coder;      // [B, 3, W]: low, range, chunk position carried
+  uint32_t* low;        // [B, W]: the final low
+  int* emax;            // [B]: each block's largest chunk count
+  Geo geo;
+  Ctx cx;
+  int B, W, CB, L, Lt, Dcap, ntiles, nbits;
+};
+
+__device__ __forceinline__ unsigned lanemask_lt() {
+  unsigned m;
+  asm("mov.u32 %0, %%lanemask_lt;" : "=r"(m));
+  return m;
+}
+
+// ---------------------------------------------------------------------------
+// phase 1: rows
+// ---------------------------------------------------------------------------
+
+// The context state at a step depends on the last `hist` symbol-steps
+// alone (QUAL two symbols, SEQ its order, BYTE one, FLAG its history
+// bits; a read start clears it), so each step's row is built from that
+// window, from a zero state, with the function Kernel D decodes with.
+__global__ void __launch_bounds__(ROW_THREADS)
+    rows_kernel(const __grid_constant__ Plan p, int s0) {
+  const int b = blockIdx.y;
+  const size_t i = (size_t)blockIdx.x * ROW_THREADS + threadIdx.x;
+  const int W = p.W, depth = p.cx.depth;
+  const Block d = p.blocks[b];  // in registers: stores cannot alias it
+  const int t0 = s0 / depth, t = t0 + (int)(i / W), w = (int)(i % W);
+  const int S = d.Sp * depth;
+  if (s0 >= S || t >= (min(s0 + p.L, S) + depth - 1) / depth) return;
+  const int cnt = d.counts[w];
+  const int hist = p.cx.kind == QUAL ? 2 : (p.cx.kind == BYTE ? 1 : p.cx.k0);
+  CtxState st;
+  int row = 0;
+  for (int u = max(t - hist, 0); u <= t; ++u) {
+    const size_t at = (size_t)u * W + w;
+    const bool act = u < cnt;
+    const bool rs = d.resets != nullptr && d.resets[at] != 0;
+    const uint32_t pos = d.poss != nullptr ? (uint32_t)d.poss[at] : 0u;
+    const bool mf = d.mflags != nullptr && d.mflags[at] == 1;
+    row = st.row(p.cx, act, rs, pos, mf);
+    st.advance(p.cx, act ? d.syms[at] : 0u);
+  }
+  p.rows[((size_t)b * p.Lt + (t - t0)) * W + w] = row;
+}
+
+// ---------------------------------------------------------------------------
+// phase 2: touches
+// ---------------------------------------------------------------------------
+
+// the slot of `k` (linear probing; at most W keys in >= 2W slots)
+__device__ __forceinline__ int hash_find(int* key, int nsl, int k) {
+  const unsigned m = (1u << nsl) - 1;
+  unsigned h = ((unsigned)k * 2654435761u) >> (32 - nsl);
+  for (;;) {
+    const int old = atomicCAS(key + h, EMPTY, k);
+    if (old == EMPTY || old == k) return (int)h;
+    h = (h + 1) & m;
+  }
+}
+
+// COUNT: each step's record count into cnt; WRITE: the records at the
+// scanned offsets and each decision's rid. Shared memory: two buffers (by
+// step parity) of key, n | k << 16 and first lane, 2^nsl slots each, and
+// two of the warps' representative counts.
+template <bool WRITE>
+__global__ void __launch_bounds__(1024)
+    touch_kernel(const __grid_constant__ Plan p, int s0, int nsl) {
+  extern __shared__ __align__(16) int hs[];
+  const int NS = 1 << nsl;
+  int* key = hs;
+  int* nkc = hs + 2 * NS;
+  int* first = hs + 4 * NS;
+  int* wc = hs + 6 * NS;  // [2][32]
+  const int b = blockIdx.y;
+  const Block d = p.blocks[b];  // in registers: stores cannot alias it
+  const int W = p.W, depth = p.cx.depth, S = d.Sp * depth;
+  const int sa = s0 + blockIdx.x * STEPS_PER_CTA;
+  const int sb = min(min(sa + STEPS_PER_CTA, s0 + p.L), S);
+  if (sa >= sb) return;
+  const int w = threadIdx.x, lane = w & 31, warp = w >> 5;
+  const int nwarps = blockDim.x >> 5;
+  const bool live = w < W;
+  for (int i = w; i < 2 * NS; i += blockDim.x) {
+    key[i] = EMPTY;
+    nkc[i] = 0;
+    first[i] = INT_MAX;
+  }
+  __syncthreads();
+  const int cnt = live ? d.counts[w] : 0;
+  const int t0 = s0 / depth;
+  const int* rows = p.rows + (size_t)b * p.Lt * W;
+  const int sac = p.geo.sac_base;
+  // the step's row and symbol, loaded a step ahead of their use
+  int t = sa / depth, j = sa - t * depth;
+  int row_n = 0;
+  uint32_t sym_n = 0;
+  if (live) {
+    row_n = rows[(size_t)(t - t0) * W + w];
+    sym_n = t < cnt ? d.syms[(size_t)t * W + w] : 0u;
+  }
+  bool was_rep = false;
+  int prev = 0;  // the slot this lane represented in the step before
+  for (int s = sa; s < sb; ++s) {
+    const int buf = (s & 1) * NS;
+    if (was_rep) {  // clear last step's slot (the other buffer)
+      const int at = ((s - 1) & 1) * NS + prev;
+      key[at] = EMPTY;
+      nkc[at] = 0;
+      first[at] = INT_MAX;
+    }
+    const int row = row_n;
+    const uint32_t sym = sym_n;
+    const int jj = j;
+    if (++j == depth) {
+      j = 0;
+      ++t;
+    }
+    if (live && s + 1 < sb) {
+      row_n = rows[(size_t)(t - t0) * W + w];
+      sym_n = t < cnt ? d.syms[(size_t)t * W + w] : 0u;
+    }
+    const int entry = row + (int)((1u << jj) | (sym >> (depth - jj))) - 1;
+    const uint32_t one = (sym >> (depth - 1 - jj)) & 1u;
+    const bool real = live && entry < sac;
+    // the warp's lanes on one entry act through their lowest lane: one
+    // insert and one add a warp and entry
+    const unsigned peers =
+        __match_any_sync(FULL, real ? entry : (int)(0x80000000u | lane));
+    const int lead = __ffs(peers) - 1;
+    const unsigned ones = __ballot_sync(FULL, real && one) & peers;
+    int slot = 0;
+    if (real && lead == lane) {
+      slot = buf + hash_find(key + buf, nsl, entry);
+      atomicAdd(nkc + slot, __popc(peers) + (__popc(ones) << 16));
+      atomicMin(first + slot, w);
+    }
+    slot = __shfl_sync(FULL, slot, lead);
+    __syncthreads();
+    const bool rep = real && first[slot] == w;
+    const unsigned bal = __ballot_sync(FULL, rep);
+    if (lane == 0) wc[(s & 1) * 32 + warp] = __popc(bal);
+    __syncthreads();
+    const int* wcs = wc + (s & 1) * 32;
+    const size_t step = (size_t)b * p.L + (s - s0);
+    if (!WRITE) {
+      if (w == 0) {
+        int tot = 0;
+        for (int v = 0; v < nwarps; ++v) tot += wcs[v];
+        p.cnt[step] = tot;
+      }
+    } else {
+      if (rep) {
+        int local = __popc(bal & lanemask_lt());
+        for (int v = 0; v < warp; ++v) local += wcs[v];
+        const int at = p.cnt[step] + local;
+        const int c = nkc[slot];
+        p.key[at] = entry;
+        p.nk[at] = (uint32_t)(c & 0xFFFF) | ((uint32_t)(c >> 16) << NK_BITS) |
+                   ((uint32_t)b << (2 * NK_BITS));
+        first[slot] = local;  // every read of first[] came before
+      }
+      __syncthreads();
+      if (live)
+        p.rid[step * W + w] = real ? (uint16_t)first[slot] : NO_RECORD;
+      __syncthreads();
+    }
+    was_rep = rep;
+    prev = slot - buf;
+  }
+}
+
+// ---------------------------------------------------------------------------
+// an exclusive scan of n ints in place (two launches: chunk sums, then each
+// chunk scanned from the sum of the chunks before it)
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ int warp_incl_scan(int v) {
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const int u = __shfl_up_sync(FULL, v, o);
+    if (lane >= o) v += u;
+  }
+  return v;
+}
+
+// exclusive scan of one value a thread over the CTA; *total gets the sum
+__device__ int block_excl_scan(int v, int* total) {
+  __shared__ int ws[32];
+  __shared__ int tot;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int inc = warp_incl_scan(v);
+  if (lane == 31) ws[warp] = inc;
+  __syncthreads();
+  if (warp == 0) {
+    const int x = lane < (int)(blockDim.x >> 5) ? ws[lane] : 0;
+    const int xi = warp_incl_scan(x);
+    ws[lane] = xi - x;
+    if (lane == 31) tot = xi;
+  }
+  __syncthreads();
+  const int out = ws[warp] + inc - v;
+  *total = tot;
+  __syncthreads();  // ws and tot are reused by the next call
+  return out;
+}
+
+// n: the ints to scan, or, with `total`, RADIX x the sort tiles that
+// *total records fill (a radix pass's histogram, sized on the device)
+__device__ __forceinline__ int scan_len(int n, const int* total) {
+  return total != nullptr ? RADIX * ((*total + TILE - 1) / TILE) : n;
+}
+
+__global__ void __launch_bounds__(SCAN_THREADS)
+    scan_reduce_kernel(const int* a, int n, const int* total, int* parts) {
+  n = scan_len(n, total);
+  if ((int)blockIdx.x * SCAN_CHUNK >= n) return;
+  const int base = blockIdx.x * SCAN_CHUNK + threadIdx.x * SCAN_ITEMS;
+  int v = 0, tot;
+#pragma unroll
+  for (int i = 0; i < SCAN_ITEMS; ++i)
+    if (base + i < n) v += a[base + i];
+  block_excl_scan(v, &tot);
+  if (threadIdx.x == 0) parts[blockIdx.x] = tot;
+}
+
+__global__ void __launch_bounds__(SCAN_THREADS)
+    scan_apply_kernel(int* a, int n, const int* total, const int* parts) {
+  n = scan_len(n, total);
+  if ((int)blockIdx.x * SCAN_CHUNK >= n) return;
+  int pre = 0, before, tot;
+  for (int i = threadIdx.x; i < (int)blockIdx.x; i += blockDim.x)
+    pre += parts[i];
+  block_excl_scan(pre, &before);  // the sum of the chunks before this one
+  const int base = blockIdx.x * SCAN_CHUNK + threadIdx.x * SCAN_ITEMS;
+  int v[SCAN_ITEMS], sum = 0;
+#pragma unroll
+  for (int i = 0; i < SCAN_ITEMS; ++i) {
+    v[i] = base + i < n ? a[base + i] : 0;
+    sum += v[i];
+  }
+  int run = block_excl_scan(sum, &tot) + before;
+#pragma unroll
+  for (int i = 0; i < SCAN_ITEMS; ++i) {
+    if (base + i < n) a[base + i] = run;
+    run += v[i];
+  }
+}
+
+// cap: the most ints the scan can be given (its grid)
+cudaError_t excl_scan(int* a, int cap, const int* total, int* parts,
+                      cudaStream_t st) {
+  const int chunks = (cap + SCAN_CHUNK - 1) / SCAN_CHUNK;
+  scan_reduce_kernel<<<chunks, SCAN_THREADS, 0, st>>>(a, cap, total, parts);
+  scan_apply_kernel<<<chunks, SCAN_THREADS, 0, st>>>(a, cap, total, parts);
+  return cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
+// phase 3: the records' LSD radix sort by entry
+// ---------------------------------------------------------------------------
+
+// the histogram [RADIX, U] of the U tiles the records fill
+__global__ void __launch_bounds__(SORT_THREADS)
+    radix_hist_kernel(const int* keys, const int* total, int shift, int bits,
+                      int* hist) {
+  __shared__ int h[RADIX];
+  const int tid = threadIdx.x;
+  const int N = *total, U = (N + TILE - 1) / TILE;
+  if ((int)blockIdx.x >= U) return;
+  h[tid] = 0;
+  __syncthreads();
+  const int base = blockIdx.x * TILE, mask = (1 << bits) - 1;
+  for (int r = 0; r < SORT_ROUNDS; ++r) {
+    const int i = base + r * SORT_THREADS + tid;
+    if (i < N) atomicAdd(h + ((keys[i] >> shift) & mask), 1);
+  }
+  __syncthreads();
+  hist[(size_t)tid * U + blockIdx.x] = h[tid];
+}
+
+// vals_in null: the values are the records' own numbers (the first pass)
+__global__ void __launch_bounds__(SORT_THREADS)
+    radix_scatter_kernel(const int* keys_in, const int* vals_in,
+                         int* keys_out, int* vals_out, const int* total,
+                         int shift, int bits, const int* hist) {
+  __shared__ int run[RADIX];
+  __shared__ int wc[SORT_THREADS / 32][RADIX + 1];
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int N = *total, base = blockIdx.x * TILE, mask = (1 << bits) - 1;
+  if (base >= N) return;
+  run[tid] = hist[(size_t)tid * ((N + TILE - 1) / TILE) + blockIdx.x];
+  for (int r = 0; r < SORT_ROUNDS; ++r) {
+    const int i = base + r * SORT_THREADS + tid;
+    const bool valid = i < N;
+    const int k = valid ? keys_in[i] : 0;
+    const int v = valid ? (vals_in != nullptr ? vals_in[i] : i) : 0;
+    const int dg = valid ? (k >> shift) & mask : RADIX;
+    for (int x = tid; x < (SORT_THREADS / 32) * (RADIX + 1);
+         x += SORT_THREADS)
+      (&wc[0][0])[x] = 0;
+    __syncthreads();
+    const unsigned peers = __match_any_sync(FULL, dg);
+    const unsigned before = peers & lanemask_lt();
+    if (before == 0) wc[warp][dg] = __popc(peers);
+    __syncthreads();
+    {  // thread tid owns digit tid: the warps' offsets in warp order
+      int acc = run[tid];
+      for (int v2 = 0; v2 < SORT_THREADS / 32; ++v2) {
+        const int c = wc[v2][tid];
+        wc[v2][tid] = acc;
+        acc += c;
+      }
+      run[tid] = acc;
+    }
+    __syncthreads();
+    if (valid) {
+      const int pos = wc[warp][dg] + __popc(before);
+      keys_out[pos] = k;
+      vals_out[pos] = v;
+    }
+    __syncthreads();
+  }
+}
+
+// ---------------------------------------------------------------------------
+// phase 4: the entry scan
+// ---------------------------------------------------------------------------
+
+template <bool WARM>
+__global__ void __launch_bounds__(256)
+    entry_scan_kernel(const __grid_constant__ Plan p, const int* K,
+                      const int* V) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  const int N = p.cnt[(size_t)p.B * p.L];
+  if (i >= N) return;
+  const int e = K[i];
+  if (i > 0 && K[i - 1] == e) return;
+  // the group's end: galloping, then a binary search (K is sorted)
+  int lo = i, step = 1;
+  while (lo + step < N && K[lo + step] == e) {
+    lo += step;
+    step *= 2;
+  }
+  int hi = min(lo + step, N);  // K[lo] == e, K[hi] != e or hi == N
+  while (hi - lo > 1) {
+    const int mid = (lo + hi) / 2;
+    if (K[mid] == e) lo = mid; else hi = mid;
+  }
+  const int end = hi;
+  const Geo& g = p.geo;
+  int cur = -1, pr = 0, vis = 0;
+  // a two-stage load pipeline SP records deep: the record's number, then
+  // its n | k | block
+  int v1[SP], v2[SP];
+  uint32_t n2[SP];
+  auto st1 = [&](int k, int j) {
+    if (j < end) v1[k] = V[j];
+  };
+  auto st2 = [&](int k, int j) {
+    if (j < end) {
+      v2[k] = v1[k];
+      n2[k] = p.nk[v1[k]];
+    }
+  };
+#pragma unroll
+  for (int k = 0; k < SP; ++k) {
+    st1(k, i + k);
+    st2(k, i + k);
+    st1(k, i + SP + k);
+  }
+  for (int j = i; j < end; j += SP) {
+#pragma unroll
+    for (int k = 0; k < SP; ++k) {
+      const int jk = j + k;
+      if (jk >= end) break;
+      const int r = v2[k];
+      const uint32_t nk = n2[k];
+      st2(k, jk + SP);
+      st1(k, jk + 2 * SP);
+      const int n = (int)(nk & ((1u << NK_BITS) - 1));
+      const int kk = (int)((nk >> NK_BITS) & ((1u << NK_BITS) - 1));
+      const int b = (int)(nk >> (2 * NK_BITS));
+      if (b != cur) {
+        if (cur >= 0)
+          p.tables[(size_t)cur * g.table_size + e] =
+              (uint16_t)(pr | (vis << VIS_SHIFT));
+        cur = b;
+        const int ent = p.tables[(size_t)b * g.table_size + e];
+        pr = ent & P_MASK;
+        vis = ent >> VIS_SHIFT;
+      }
+      p.nk[r] = (uint32_t)pr;
+      const int d1 = law_delta<WARM>(g, pr, vis, n, true);
+      const int d0 = law_delta<WARM>(g, pr, vis, n, false);
+      pr = clampi(pr + kk * d1 + (n - kk) * d0, PROB_MIN, PROB_MAX);
+      if (WARM) vis = min(vis + n, g.vcap);
+    }
+  }
+  p.tables[(size_t)cur * g.table_size + e] =
+      (uint16_t)(pr | (vis << VIS_SHIFT));
+}
+
+// ---------------------------------------------------------------------------
+// phase 5: the gather
+// ---------------------------------------------------------------------------
+
+__global__ void __launch_bounds__(256)
+    gather_kernel(const __grid_constant__ Plan p, int s0) {
+  const int b = blockIdx.y;
+  const size_t i = (size_t)blockIdx.x * 256 + threadIdx.x;
+  const int W = p.W, depth = p.cx.depth;
+  const Block d = p.blocks[b];
+  const int s = s0 + (int)(i / W), w = (int)(i % W);
+  if (s >= min(s0 + p.L, d.Sp * depth)) return;
+  const int t = s / depth, j = s - t * depth;
+  uint16_t* at = p.rid + ((size_t)b * p.L + (s - s0)) * W + w;
+  const uint16_t ri = *at;
+  const uint32_t sym = t < d.counts[w] ? d.syms[(size_t)t * W + w] : 0u;
+  const uint32_t pv =
+      ri == NO_RECORD
+          ? (uint32_t)PROB_MAX
+          : p.nk[p.cnt[(size_t)b * p.L + (s - s0)] + ri];
+  *at = (uint16_t)(pv | (((sym >> (depth - 1 - j)) & 1u) << BIT_SHIFT));
+}
+
+// ---------------------------------------------------------------------------
+// phase 6: the lane coder
+// ---------------------------------------------------------------------------
+
+__global__ void __launch_bounds__(32)
+    lane_code_kernel(const __grid_constant__ Plan p, int s0) {
+  const int b = blockIdx.y, w = blockIdx.x * 32 + threadIdx.x;
+  if (w >= p.W) return;
+  const Block d = p.blocks[b];  // in registers: stores cannot alias it
+  const int W = p.W, depth = p.cx.depth, CB = p.CB, S = d.Sp * depth;
+  if (s0 >= S) return;
+  const int s1 = min(s0 + p.L, S), KD = CHUNK_SYMS * depth;
+  uint32_t* carry = p.coder + (size_t)b * 3 * W;
+  uint32_t low = 0, rng = 0xFFFFFFFFu;
+  int eptr = 0;
+  if (s0 > 0) {
+    low = carry[w];
+    rng = carry[W + w];
+    eptr = (int)carry[2 * W + w];
+  }
+  // each decision's p | bit << 15 ([s - s0][w]), loaded PF decisions
+  // ahead of its use: coalesced, and independent of the coder
+  const uint16_t* __restrict__ pb = p.rid + (size_t)b * p.L * W + w;
+  uint8_t* __restrict__ ebufs = d.ebufs;
+  uint32_t q[PF];
+#pragma unroll
+  for (int k = 0; k < PF; ++k)
+    q[k] = s0 + k < s1 ? pb[(size_t)k * W] : 0u;
+  int emx = 0;
+  int c = s0 / KD, kc = s0 - c * KD;  // the chunk and the bit-step in it
+  uint8_t* eb = ebufs + ((size_t)c * W + w) * CB;
+  for (int s = s0; s < s1; s += PF) {
+#pragma unroll
+    for (int k = 0; k < PF; ++k) {
+      if (s + k >= s1) break;
+      const uint32_t cur = q[k];
+      if (s + k + PF < s1) q[k] = pb[(size_t)(s + k + PF - s0) * W];
+      const uint32_t split = (rng >> PROB_BITS) * (cur & P_MASK);
+      if (cur >> BIT_SHIFT) {
+        low += split;
+        rng -= split;
+      } else {
+        rng = split;
+      }
+      for (int r = 0; r < RENORM_ITERS; ++r) {
+        bool agree;
+        if (!renorm_needed(low, rng, &agree)) break;  // state is final
+        if (!agree) rng = (0u - low) & (BOT - 1);
+        if (eptr < CB) eb[eptr] = (uint8_t)(low >> 24);
+        ++eptr;  // counted past CB: the caller reruns with hard buffers
+        low <<= 8;
+        rng <<= 8;
+      }
+      if (++kc == KD) {  // the chunk is complete
+        d.eptrs[(size_t)c * W + w] = eptr;
+        emx = max(emx, eptr);
+        eptr = 0;
+        kc = 0;
+        eb = ebufs + ((size_t)(++c) * W + w) * CB;
+      }
+    }
+  }
+  carry[w] = low;
+  carry[W + w] = rng;
+  carry[2 * W + w] = (uint32_t)eptr;
+  if (s1 == S) p.low[(size_t)b * W + w] = low;
+  if (emx) atomicMax(p.emax + b, emx);
+}
+
+int touch_shape(int W, int* threads, int* nsl, int* bytes) {
+  *threads = (W + 31) / 32 * 32;
+  *nsl = 0;
+  while ((1 << *nsl) < 2 * *threads) ++*nsl;
+  *bytes = (6 * (1 << *nsl) + 64) * 4;
+  return W >= 1 && *threads <= 1024 && *bytes <= SMEM_LIMIT;
+}
+
+}  // namespace
+
+extern "C" {
+
+const char* error_string(int err) {
+  return cudaGetErrorString((cudaError_t)err);
+}
+
+// Each entry launches its phase's kernels over a launch set described by
+// `plan` (a Plan) on `stream` and returns cudaGetLastError(); s0: the
+// slice's first bit-step.
+
+int enc_rows(const void* plan, int s0, cudaStream_t stream) {
+  const Plan& p = *static_cast<const Plan*>(plan);
+  const dim3 grid(
+      (unsigned)(((size_t)p.Lt * p.W + ROW_THREADS - 1) / ROW_THREADS), p.B);
+  rows_kernel<<<grid, ROW_THREADS, 0, stream>>>(p, s0);
+  return (int)cudaGetLastError();
+}
+
+int enc_touches(const void* plan, int s0, cudaStream_t stream) {
+  const Plan& p = *static_cast<const Plan*>(plan);
+  int threads, nsl, bytes;
+  if (p.B < 1 || p.B > MAX_BLOCKS || !touch_shape(p.W, &threads, &nsl,
+                                                  &bytes))
+    return (int)cudaErrorInvalidValue;
+  const int n = p.B * p.L + 1;
+  cudaError_t e = cudaMemsetAsync(p.cnt, 0, sizeof(int) * n, stream);
+  if (e != cudaSuccess) return (int)e;
+  for (auto kern : {touch_kernel<false>, touch_kernel<true>}) {
+    e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             bytes);
+    if (e != cudaSuccess) return (int)e;
+  }
+  const dim3 grid((p.L + STEPS_PER_CTA - 1) / STEPS_PER_CTA, p.B);
+  touch_kernel<false><<<grid, threads, bytes, stream>>>(p, s0, nsl);
+  e = excl_scan(p.cnt, n, nullptr, p.parts, stream);
+  if (e != cudaSuccess) return (int)e;
+  touch_kernel<true><<<grid, threads, bytes, stream>>>(p, s0, nsl);
+  return (int)cudaGetLastError();
+}
+
+int enc_sort(const void* plan, cudaStream_t stream) {
+  const Plan& p = *static_cast<const Plan*>(plan);
+  const int* total = p.cnt + (size_t)p.B * p.L;
+  int* kin = p.key;
+  const int* vin = nullptr;
+  for (int shift = 0; shift < p.nbits; shift += RADIX_BITS) {
+    const int bits = min(RADIX_BITS, p.nbits - shift);
+    const bool odd = (shift / RADIX_BITS) % 2 == 0;
+    int* kout = odd ? p.key1 : p.key;
+    int* vout = odd ? p.val1 : p.val2;
+    radix_hist_kernel<<<p.ntiles, SORT_THREADS, 0, stream>>>(
+        kin, total, shift, bits, p.hist);
+    const cudaError_t e =
+        excl_scan(p.hist, RADIX * p.ntiles, total, p.parts, stream);
+    if (e != cudaSuccess) return (int)e;
+    radix_scatter_kernel<<<p.ntiles, SORT_THREADS, 0, stream>>>(
+        kin, vin, kout, vout, total, shift, bits, p.hist);
+    kin = kout;
+    vin = vout;
+  }
+  return (int)cudaGetLastError();
+}
+
+int enc_scan(const void* plan, cudaStream_t stream) {
+  const Plan& p = *static_cast<const Plan*>(plan);
+  const bool odd = ((p.nbits + RADIX_BITS - 1) / RADIX_BITS) % 2 == 1;
+  const int* K = odd ? p.key1 : p.key;
+  const int* V = odd ? p.val1 : p.val2;
+  const int grid = (p.Dcap + 255) / 256;
+  if (p.geo.vcap)
+    entry_scan_kernel<true><<<grid, 256, 0, stream>>>(p, K, V);
+  else
+    entry_scan_kernel<false><<<grid, 256, 0, stream>>>(p, K, V);
+  return (int)cudaGetLastError();
+}
+
+int enc_gather(const void* plan, int s0, cudaStream_t stream) {
+  const Plan& p = *static_cast<const Plan*>(plan);
+  const dim3 grid((unsigned)(((size_t)p.L * p.W + 255) / 256), p.B);
+  gather_kernel<<<grid, 256, 0, stream>>>(p, s0);
+  return (int)cudaGetLastError();
+}
+
+int enc_code(const void* plan, int s0, cudaStream_t stream) {
+  const Plan& p = *static_cast<const Plan*>(plan);
+  const dim3 grid((p.W + 31) / 32, p.B);
+  lane_code_kernel<<<grid, 32, 0, stream>>>(p, s0);
+  return (int)cudaGetLastError();
+}
+
+}  // extern "C"

@@ -12,7 +12,11 @@ it launches its kernel, and nowhere else, so a run can show which kernels
 its path went through; ``descs[name]`` adds up the descriptors those
 launches took (blocks for Kernels E and D, streams for Kernel C), so a
 window's launches show how many blocks each carried; ``by_shard`` the
-launches of each shard of a mesh, by its device.
+launches of each shard of a mesh, by its device. Kernel E counts each
+launch set (one stream of a window's blocks) as ``lane_encode`` and each
+phase's launch of a slice under its own name (``encode_rows``,
+``encode_touches``, ``encode_sort``, ``encode_entry_scan``, ``encode_gather``,
+``encode_code``).
 """
 
 from __future__ import annotations
@@ -29,12 +33,14 @@ import torch
 CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))), "csrc")
 BUILD = os.path.join(CSRC, "build")
-SOURCES = ("coder", "compact", "lanes")
+SOURCES = ("coder", "compact", "encode", "lanes")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 launches = {"lane_encode": 0, "lane_decode": 0, "compact_lanes_dev": 0,
-            "lane_layout": 0, "lane_unpack": 0}
+            "lane_layout": 0, "lane_unpack": 0, "encode_rows": 0,
+            "encode_touches": 0, "encode_sort": 0, "encode_entry_scan": 0,
+            "encode_gather": 0, "encode_code": 0}
 descs = dict.fromkeys(launches, 0)
 # launches by mesh shard: (shard, device) -> {name: launches}, where a
 # shard of parallel.mesh made them (as_shard)
@@ -90,10 +96,13 @@ def _so(name: str) -> str:
 
 
 def _stale(name: str) -> bool:
+    """Whether lib<name>.so is older than its source or a header of
+    csrc/ (ctx.cuh: what Kernels E and D share)."""
     so = _so(name)
-    src = os.path.join(CSRC, f"{name}.cu")
-    return not os.path.exists(so) or os.path.getmtime(so) < \
-        os.path.getmtime(src)
+    deps = [os.path.join(CSRC, f"{name}.cu")] + [
+        os.path.join(CSRC, f) for f in os.listdir(CSRC) if f.endswith(".cuh")]
+    return not os.path.exists(so) or os.path.getmtime(so) < max(
+        os.path.getmtime(d) for d in deps)
 
 
 def build(names=SOURCES) -> dict[str, str]:

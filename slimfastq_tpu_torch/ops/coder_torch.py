@@ -1,4 +1,4 @@
-"""The lockstep lane coder: Kernel E (encode) and Kernel D (decode).
+"""The lane coder: Kernel E (encode) and Kernel D (decode).
 
 Ports of the JAX package's ``ops/streams_jax.py`` ``_build_encode`` (with
 the schedule it reads, ``_ctx_precompute`` + ``_build_schedule``) and
@@ -24,23 +24,28 @@ the schedule it reads, ``_ctx_precompute`` + ``_build_schedule``) and
   match-span flags ``[Sp, W]`` u8; ``_build_decode(with_mflag=True)``) ->
   symbols ``[Sp, W]`` u8 (0 where a step is inactive).
 
-``lane_encode_blocks`` / ``lane_decode_blocks`` run one stream of each
-block of a window in one launch (one CTA a block; the JAX package's vmap
-over blocks, parallel/mesh.py with mesh=None): each block its own inputs
-and step count, its own fresh table and its own overflow check.
-``lane_encode`` / ``lane_decode`` are their one-block case; the plain
-versions of the window forms loop over the one-block plain versions.
+``lane_encode_blocks`` / ``lane_decode_blocks`` code one stream of each
+block of a window at once (the JAX package's vmap over blocks,
+parallel/mesh.py with mesh=None): each block its own inputs and step
+count, its own fresh table and its own overflow check. ``lane_encode`` /
+``lane_decode`` are their one-block case.
 
 Both run the batch-synchronous, collision-capped table law (see
 ops/ranger.py) with the format-v4 visit-count warm-up when the geometry
-sets ``0 < rate_lo < rate``. On CUDA tensors the wrappers launch the
-kernels of csrc/coder.cu; on CPU tensors they run the plain PyTorch
-versions below, which carry low/range/code in int64 masked to 32 bits
-(torch.uint32 has no arithmetic) and the table in int32, whose adds wrap
-exactly as the format's collision-count field requires.
+sets ``0 < rate_lo < rate``. Kernel E is the decoupled encode of
+ops/encode_torch.py (csrc/encode.cu: p of every decision by a scan per
+table entry, then each lane coded alone), on CUDA tensors its phases'
+kernels and on CPU tensors their plain versions; Kernel D is the lockstep
+decode of csrc/coder.cu on CUDA tensors and ``lane_decode_plain`` on CPU
+tensors. The plain versions here carry low/range/code in int64 masked to
+32 bits (torch.uint32 has no arithmetic) and the table in int32, whose
+adds wrap exactly as the format's collision-count field requires:
+``lane_encode_plain`` (the lockstep encode, from the schedule
+``online_schedule`` builds) is the independent reference the decoupled
+encode is held against.
 
 The kernels keep 16-bit entries (12-bit p, the visit count saturated at
-``visit_cap``) and hold the table in shared memory where
+``visit_cap``); Kernel D holds the table in shared memory where
 ``table_in_smem`` says it fits; the wrappers refuse a geometry whose cap
 needs more than 4 bits.
 """
@@ -63,10 +68,6 @@ _PMASK = (1 << CNT_SHIFT) - 1
 _P, _I = _cuda.PTR, _cuda.INT
 _SIGS = {
     # descs, n, W, table_size, sac_base, rate, rate_lo, vcap, smem_table,
-    # CB, depth, kind, num_ctx, k0, k1, k2, k3, stream
-    "lane_encode": [_P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
-                    _I, _I, _I, _P],
-    # descs, n, W, table_size, sac_base, rate, rate_lo, vcap, smem_table,
     # depth, kind, num_ctx, k0, k1, k2, k3, match, stream
     "lane_decode": [_P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
                     _I, _I, _I, _P],
@@ -75,16 +76,6 @@ _SIGS = {
 }
 MAX_LANES = 1024  # one CTA, one thread per lane
 MAX_BLOCKS = 256  # blocks a launch: csrc/coder.cu's MAX_BLOCKS
-
-
-class _EncDesc(ctypes.Structure):
-    """csrc/coder.cu's EncDesc: one block's stream for Kernel E."""
-    _fields_ = [("syms", ctypes.c_void_p), ("poss", ctypes.c_void_p),
-                ("resets", ctypes.c_void_p), ("counts", ctypes.c_void_p),
-                ("mflags", ctypes.c_void_p), ("table", ctypes.c_void_p),
-                ("ebufs", ctypes.c_void_p), ("eptrs", ctypes.c_void_p),
-                ("low", ctypes.c_void_p), ("emax", ctypes.c_void_p),
-                ("NC", ctypes.c_int)]
 
 
 class EncIn(NamedTuple):
@@ -174,11 +165,10 @@ def table_in_smem(geom, W: int) -> bool:
     return (table_bytes(geom) + 15) // 16 * 16 + hash_bytes(W) <= SMEM_LIMIT
 
 
-def _kernel_geom(geom, W: int, dev, B: int | None = None):
-    """The kernels' table arguments: (a fresh device table, [B,
-    table_size] for B blocks, or None, vcap, smem_table).
-    Raises where the lanes or the geometry do not fit the kernels (one
-    CTA, the 16-bit entry)."""
+def _check_geom(geom, W: int) -> int:
+    """The kernels' visit cap of the geometry; raises where the lanes or
+    the geometry do not fit them (one CTA of Kernel D a block, the 16-bit
+    entry; Kernel E's collision counts and rid stop at 1,024 lanes too)."""
     if W > MAX_LANES:
         raise ValueError(f"W={W} lanes exceeds {MAX_LANES} (one CTA per "
                          "stream; a grid-wide barrier is needed for more)")
@@ -186,6 +176,15 @@ def _kernel_geom(geom, W: int, dev, B: int | None = None):
     if cap >= 1 << VIS_BITS:
         raise ValueError(f"visit cap {cap} of rate={geom.rate} rate_lo="
                          f"{geom.rate_lo} does not fit {VIS_BITS} bits")
+    return cap
+
+
+def _kernel_geom(geom, W: int, dev, B: int | None = None):
+    """The kernels' table arguments: (a fresh device table, [B,
+    table_size] for B blocks, or None, vcap, smem_table).
+    Raises where the lanes or the geometry do not fit the kernels (one
+    CTA, the 16-bit entry)."""
+    cap = _check_geom(geom, W)
     if table_in_smem(geom, W):
         return None, cap, 1
     if geom.depth < 2:
@@ -563,50 +562,22 @@ def lane_encode_blocks(items, kind: str, geom, CB: int) -> list:
     """Kernel E over a window: ``items`` holds each block's EncIn of one
     stream (one W, kind and geometry for all). Returns per block (ebufs
     [NC, W, CB] u8, eptrs [NC, W] i32, low [W], emax) as lane_encode
-    does, emax the block's own. One launch (one CTA a block) on CUDA
-    tensors, the plain version on CPU tensors."""
+    does, emax the block's own. The decoupled encode of ops/encode_torch
+    (in its slices): its phases' kernels on CUDA tensors, their plain
+    versions on CPU tensors. Its bytes are lane_encode_blocks_plain's
+    (the lockstep form)."""
+    from . import encode_torch  # it imports this module's helpers
     if not 1 <= len(items) <= MAX_BLOCKS:
         raise ValueError(f"one launch codes 1 to {MAX_BLOCKS} blocks, not "
                          f"{len(items)}")
     W, items = _check_items(items, kind, geom)
     dev = _window_device([t for it in items for t in it.tensors()])
-    if dev.type == "cpu":
-        return lane_encode_blocks_plain(items, kind, geom, CB)
-    B = len(items)
-    table, vcap, smem = _kernel_geom(geom, W, dev, B)
-    items = [EncIn(*(None if x is None else x.contiguous() for x in it))
-             for it in items]
-    lib = _cuda.load("coder", _SIGS)
-    # one allocation each for the window's chunk windows and counts; every
-    # block's windows start 16-byte aligned (CB is a multiple of 16)
-    NCs = [it.NC for it in items]
-    ebufs = torch.zeros(sum(NCs) * W * CB, dtype=torch.uint8, device=dev)
-    eptrs = torch.empty(sum(NCs) * W, dtype=torch.int32, device=dev)
-    low = torch.empty((B, W), dtype=torch.int32, device=dev)
-    emax = torch.zeros(B, dtype=torch.int32, device=dev)
-
-    def ptr(t):
-        return None if t is None else t.data_ptr()
-    descs, res, at = (_EncDesc * B)(), [], 0
-    for b, (it, NC) in enumerate(zip(items, NCs)):
-        eb = ebufs[at * W * CB: (at + NC) * W * CB].view(NC, W, CB)
-        ep = eptrs[at * W: (at + NC) * W].view(NC, W)
-        at += NC
-        d = descs[b]
-        d.syms, d.poss, d.resets, d.counts, d.mflags = (ptr(x) for x in it)
-        d.table = None if table is None else table[b].data_ptr()
-        d.ebufs, d.eptrs = eb.data_ptr(), ep.data_ptr()
-        d.low, d.emax = low[b].data_ptr(), emax[b:b + 1].data_ptr()
-        d.NC = NC
-        res.append((eb, ep, low[b], emax[b]))
-    rate_lo = getattr(geom, "rate_lo", 0)
-    err = _cuda.launch(
-        ebufs, lib.lane_encode, ctypes.addressof(descs), B, W,
-        geom.table_size, geom.sac_base, geom.rate, rate_lo, vcap, smem, CB,
-        geom.depth, KINDS[kind], geom.num_ctx, *_kind_params(kind, geom))
-    _cuda.count("lane_encode", B, dev)
-    _cuda.check(lib, err, "lane_encode")
-    return res
+    if dev.type == "cuda":
+        _check_geom(geom, W)
+        items = [EncIn(*(None if x is None else x.contiguous() for x in it))
+                 for it in items]
+        _cuda.count("lane_encode", len(items), dev)
+    return encode_torch.encode_blocks(items, kind, geom, CB)
 
 
 def lane_encode(syms: torch.Tensor, pos: torch.Tensor | None,

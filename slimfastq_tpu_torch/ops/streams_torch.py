@@ -39,7 +39,8 @@ A block of 2 GiB and more packs its lanes on the host instead
 (``host_jobs``, and ``decode_seq_qual_raw_blocks(host_unpack=...)``;
 ``encode_stream_ll`` / ``decode_stream_ll`` are the one-stream forms, as
 in streams_jax), with pos/reset from Kernel L's step-input mode. Kernel
-E codes each stream in one launch, and ``device_budget`` /
+E codes each stream in one launch set (ops/encode_torch: slices of
+bounded scratch), and ``device_budget`` /
 ``encode_bytes`` / ``decode_bytes`` bound what a window holds on the
 device.
 
@@ -59,7 +60,7 @@ import torch
 from .. import native
 from ..pipeline import _lane_lengths_matrix
 from ..utils.stats import trace
-from . import coder_torch, compact_torch, pack_torch
+from . import coder_torch, compact_torch, encode_torch, pack_torch
 from .coder_torch import CHUNK_SYMS, EncIn, _per_read, _qdelta_code
 from .pack_torch import _pos_reset
 from .ranger import FLUSH_BYTES, pad_steps
@@ -88,11 +89,14 @@ def encode_bytes(Sp: int, W: int, depths) -> int:
     lanes, one tree depth a stream in ``depths`` (QUAL, SEQ, then each
     match trial's SEQ): what Kernel E reads, pos and reset (int32) and
     per stream its symbols (u8); a trial's match flags (u8); and per
-    stream its chunk buffers and counts at the optimistic size."""
+    stream its chunk buffers and counts at the optimistic size and the
+    scratch of its E launch set (encode_torch.scratch_bytes: one slice's,
+    at most ~105 MB whatever the stream's length)."""
     NC = Sp // CHUNK_SYMS
     total = (8 + max(len(depths) - 2, 0)) * Sp * W
     for d in depths:
         total += Sp * W + NC * W * (_chunk_bytes(d, hard=False) + 4)
+        total += encode_torch.scratch_bytes(1, W, Sp * d, d)
     return total
 
 
@@ -121,10 +125,11 @@ def card_share(n: int):
 
 
 def device_budget(device) -> int:
-    """Device bytes the SEQ/QUAL streams of a window may take (a window
-    closes before the block that would pass it; a block above it codes
-    alone): half of what the card has free, its caching allocator's idle
-    blocks included, over the shards that share the card (card_share).
+    """Device bytes the SEQ/QUAL streams of a window may take, Kernel E's
+    scratch included (encode_bytes; a window closes before the block that
+    would pass it; a block above it codes alone): half of what the card
+    has free, its caching allocator's idle blocks included, over the
+    shards that share the card (card_share).
     The other half is headroom: a hard-chunk rerun raises a stream's
     chunk buffers up to 2.5-fold (QUAL at depth 6: 160 against 64 bytes
     a chunk and lane), and Kernel C's and the unpack's outputs come on

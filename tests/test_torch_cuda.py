@@ -14,7 +14,9 @@ containers; and the sharded path on a mesh of
 one card, of the card named twice, and (with two cards or more) of two
 cards, against the sequential containers; the pure-Python pipeline
 (``use_native=False``) stream by stream on the card; the entry points
-(``entry()`` against its CPU run, ``dryrun_multichip`` over every card).
+(``entry()`` against its CPU run, ``dryrun_multichip`` over every card);
+Kernel E's six phases each against its plain version, slice by slice,
+also over a stream of several slices.
 Marked `cuda`: they
 skip without a card. This file imports
 neither JAX nor the JAX package, so it runs on a machine that has only
@@ -143,6 +145,48 @@ def test_coder_and_compact_kernels_match_plain(dev, case):
     assert torch.equal(kd.cpu(), pd.cpu())
     mask = torch.arange(Sp, device=dev)[:, None] < c[None, :]
     assert torch.equal(kd[mask], syms[mask])
+
+
+@pytest.mark.parametrize("case", list(CASES))
+def test_encode_phases_match_plain(dev, case, monkeypatch):
+    """Each of Kernel E's phases (rows, touches, sort, entry scan, gather,
+    lane coder) against its plain version on whole outputs, slice by
+    slice (encode_torch.compare_phases), at the shapes above; QUAL in
+    slices of 1,000 bit-steps, which end inside a symbol and a chunk."""
+    from slimfastq_tpu_torch.ops import encode_torch as E
+    level, kind, W, hard, active, depth, smem, match = CASES[case]
+    geom = _geom(level, kind, depth)
+    rng = np.random.default_rng(1)
+    syms, counts, pos, reset, mflag = _stream(kind, rng, dev, W, active,
+                                              hi=1 << (depth or 6),
+                                              match=match)
+    c = torch.from_numpy(counts.astype(np.int32)).to(dev)
+    _, items = CT._check_items([CT.EncIn(syms, pos, reset, c, mflag)],
+                               kind, geom)
+    if kind == "qual":
+        monkeypatch.setattr(E, "SLICE_DECISIONS", 1000 * W)
+    E.compare_phases(items, kind, geom, ST._chunk_bytes(geom.depth, hard))
+
+
+def test_encode_long_stream_crosses_slices(dev, monkeypatch):
+    """A QUAL stream of 4,096 steps (24,576 bit-steps, 6 slices of the
+    default size) through the kernels equals its phases' plain versions
+    at the default slices and the kernels at slices of 4,999 bit-steps:
+    the table and each lane's coder state carry from slice to slice."""
+    from slimfastq_tpu_torch.ops import encode_torch as E
+    geom = _geom(3, "qual")
+    rng = np.random.default_rng(6)
+    syms, counts, pos, reset, _ = _stream("qual", rng, dev, 1024, Sp=4096)
+    c = torch.from_numpy(counts.astype(np.int32)).to(dev)
+    item = CT.EncIn(syms, pos, reset, c)
+    CB = ST._chunk_bytes(geom.depth, False)
+    assert E.slice_steps(1, 1024, 4096 * 6) * 5 < 4096 * 6
+    E.compare_phases([item], "qual", geom, CB)
+    whole = CT.lane_encode(syms, pos, reset, c, "qual", geom, CB)
+    monkeypatch.setattr(E, "SLICE_DECISIONS", 4999 * 1024)
+    for a, b in zip(whole, CT.lane_encode(syms, pos, reset, c, "qual",
+                                          geom, CB)):
+        assert torch.equal(a, b)
 
 
 def test_block_streams_at_once_equal_one_at_a_time(dev):

@@ -160,7 +160,7 @@ def test_host_cpp_equals_reference_outside_matcher():
     assert (pb, pa) == (rb, ra)
 
 
-@pytest.mark.parametrize("name", ["coder.cu", "compact.cu"])
+@pytest.mark.parametrize("name", ["coder.cu", "compact.cu", "encode.cu"])
 def test_cuda_sources_carry_their_note(name):
     """Each kernel source opens with the note that says what it replaces
     and what bounds it."""

@@ -40,10 +40,13 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
 
 
 def _kernel_name(key: str) -> str:
-    m = re.search(r"(lane_encode_kernel<[^>]*>|lane_decode_kernel<[^>]*>|"
-                  r"lane_encode_kernel|lane_decode_kernel|"
+    m = re.search(r"(lane_decode_kernel<[^>]*>|lane_decode_kernel|"
                   r"compact_streams_kernel|compact_lanes_kernel|"
-                  r"lane_layout_kernel|lane_unpack_kernel)", key)
+                  r"lane_layout_kernel|lane_unpack_kernel|"
+                  r"touch_kernel<[^>]*>|entry_scan_kernel<[^>]*>|"
+                  r"rows_kernel|radix_hist_kernel|radix_scatter_kernel|"
+                  r"scan_reduce_kernel|scan_apply_kernel|gather_kernel|"
+                  r"lane_code_kernel)", key)
     return m.group(1) if m else key[:80]
 
 
