@@ -20,7 +20,9 @@ Phases (any failure exits non-zero; nothing is caught):
      wraps) and QUAL geometries, at the aux width W = 64 with the byte and
      flag kinds (tables in shared memory), and with level 4's SEQ (order
      11, the match-context family: 1,024 and 700 flagged lanes on one
-     entry) and QUAL (the q1-q2 delta); Kernel C's one launch over a
+     entry) and QUAL (the q1-q2 delta); D's cluster form with 700
+     colliding lanes spread over every CTA of its cluster (L3 SEQ, L4 SEQ
+     with the match family); Kernel C's one launch over a
      ragged mix of streams (W of 8 to 1,024, counts above CB, an empty
      stream, rows longer than one shared-memory stage); then E and D
      timed with CUDA events on the main path's own inputs (the pinned 64k
@@ -49,7 +51,9 @@ Phases (any failure exits non-zero; nothing is caught):
      compaction-to-host phase (tools/compact_phase.py: from the join of
      the coder launches to the payloads on the host); and one 1,024-thread
      barrier timed, for D's lockstep bound (bit-steps x one barrier; E's
-     is printed beside its byte bound);
+     is printed beside its byte bound), and the cluster barrier of 2, 4
+     and 8 CTAs of 128 to 512 threads, beside which D's SEQ lanes run
+     over a cluster;
   4. main path, level 3 then level 4: the pinned block through
      api.encode_fastq / decode_fastq on the card: container size and
      SHA-256 equal the JAX package's, the round trip is exact, every
@@ -61,8 +65,9 @@ Phases (any failure exits non-zero; nothing is caught):
      main path's inputs, timed alone and launched at once through the main
      path's StreamSet (the block's coder span, first launch to join,
      beside the sum); at level 4 its E launches (with the trials' SEQ and
-     MATCH) alone and in two orders; the main path's device halves timed
-     with CUDA events; then encode and decode wall time over 4 blocks of
+     MATCH) alone and in two orders, and each stream's D alone; the
+     main path's device halves timed with CUDA events; then encode and
+     decode wall time over 4 blocks of
      the same generator, at each level; the 4-block set at level 3
      encoded twice back to back on page-locked buffers the pool reuses,
      both containers equal to the set's container from the host-pack
@@ -145,8 +150,9 @@ Prints `compact_block_l3`, `compact_block_l4`, `compact_phase_l3`,
 `long_read`, `long_read_kernels`, `sharded`, `sharded_streaming`,
 `gather_nccl`, `level1`, `python_pipeline`, `python_pipeline_s`,
 `single_stream_pack`, `entry`, `streaming_scale`, `matcher_faults`,
-`earlier_ms`
-(recorded constants, Kernel E's lockstep design among them),
+`barrier_us`, `cluster_barrier_us`, `earlier_ms`
+(recorded constants, Kernel E's lockstep design and Kernel D's one-CTA
+design among them),
 `phase_s` (seconds a phase) and `kernels` JSON lines, then the card's
 name and power limit and, as its last line, the `ok` JSON line.
 """
@@ -223,6 +229,19 @@ EARLIER_LANES_MS = {"pack": {"ms": 0.0702, "wrapper_ms": 0.591},
 # timed alone
 EARLIER_E_MS = {"qual_64k": 56.27, "seq_64k": 45.0, "window_16k_qual": 14.97,
                 "l4_seq_trial": 33.94, "long_qual": 10731.0}
+# Kernel D before this design (one CTA a stream, two barriers a bit-step,
+# the hash in two buffers, the payload one byte at a time), recorded by
+# this script (H100 80GB HBM3, 700 W; ms): the pinned 64k L3 block's
+# streams each alone and their decode span, its level-4 SEQ trial, the 16k
+# window's QUAL, the long block's QUAL (CUDA events)
+EARLIER_D_MS = {"streams_64k": {"QUAL": 56.45, "SEQ": 46.95, "IDD": 35.69,
+                                "LEN": 4.45, "FLAG": 2.34, "SEQX": 1.97,
+                                "IDX": 0.53},
+                "block_decode_span": 56.50, "l4_seq_trial": 33.84,
+                "window_16k_qual": 14.92, "long_qual": 10855.0}
+# the cluster barriers timed beside the CTA's: (CTAs, threads a CTA)
+CLUSTER_BARRIERS = [(2, 128), (2, 512), (4, 128), (4, 256), (8, 128),
+                    (8, 256), (8, 512)]
 # one link of the decoupled encode's chains at its least latency: dependent
 # integer operations of 4 cycles each at the H100 SXM's 1,980 MHz boost
 # clock (an entry scan's record: the two deltas' shifts, the scaled sum,
@@ -406,13 +425,13 @@ def phase_counts(data: bytes, level: int, dev) -> dict:
     return {k: slices for k in _cuda.launches if k.startswith("encode_")}
 
 
-def _reads_layout(W: int, Sp: int, read_len: int, active: int):
-    """The first `active` lanes hold reads of `read_len` starting at step
-    0, the others none: at each read start the active lanes share one
-    context (the collision case)."""
+def _reads_layout(W: int, Sp: int, read_len: int, active):
+    """The first `active` lanes (or the lanes of the array `active`) hold
+    reads of `read_len` starting at step 0, the others none: at each read
+    start the active lanes share one context (the collision case)."""
     import numpy as np
-    ll = np.full((Sp // read_len, W), read_len, dtype=np.int64)
-    ll[:, active:] = 0
+    ll = np.zeros((Sp // read_len, W), dtype=np.int64)
+    ll[:, np.arange(active) if np.isscalar(active) else active] = read_len
     return ll, ll.sum(axis=0)
 
 
@@ -503,6 +522,7 @@ def check_kernels(dev):
     import numpy as np
     import torch
     from slimfastq_tpu_torch.config import config_for_level
+    from slimfastq_tpu_torch.ops import coder_torch as CT
     from slimfastq_tpu_torch.ops import streams_torch as ST
     cfg = config_for_level(3)
     rng = np.random.default_rng(7)
@@ -520,6 +540,20 @@ def check_kernels(dev):
                       errs)
     _check_stream("qual", cfg.qual, qual, counts, pos, reset, dev,
                   plain_qual, errs)
+    # Kernel D's cluster form (SEQ): 700 colliding lanes spread over every
+    # CTA of the cluster, the count each reads being the whole cluster's
+    spread = np.sort(np.random.default_rng(8).choice(W, 700, replace=False))
+    for geom in (cfg.seq, config_for_level(4).seq):
+        shape = CT.decode_shape(geom, W)
+        if shape.cluster < 2 or len(set(spread // shape.threads)) \
+                != shape.cluster:
+            raise AssertionError(f"the spread lanes do not cover the "
+                                 f"cluster of {shape}")
+    ll_s, counts_s = _reads_layout(W, Sp, READ_LEN, spread)
+    pos_s, reset_s = ST._pos_reset(torch.from_numpy(ll_s).to(dev), Sp,
+                                   int(counts_s.max()), W)
+    _check_stream("seq", cfg.seq, seq, counts_s, pos_s, reset_s, dev, {},
+                  errs)
     # slices of 1,000 bit-steps: each ends inside a symbol and a chunk
     item = ST.EncIn(torch.from_numpy(qual).to(dev), pos, reset,
                     torch.from_numpy(counts.astype(np.int32)).to(dev))
@@ -545,11 +579,16 @@ def check_kernels(dev):
                       plain_seq4, errs4, mflag)
     _check_stream("qual", cfg4.qual, qual, counts, pos, reset, dev, {},
                   errs4)
+    e_syms, mflag = _match_layout(seq, pos_s, counts_s)
+    _check_stream("seq", cfg4.seq, e_syms, counts_s, pos_s, reset_s, dev,
+                  {}, errs4, mflag)
     print(f"kernels match their plain versions: seq (1,024 and 700 "
           f"colliding lanes)/qual at W={W} Sp={Sp}, byte/flag at W={Wa} "
           f"Sp={Sp}; level 4: seq with the match family (1,024 and 700 "
-          f"flagged lanes on one entry), qual with the q1-q2 delta",
-          flush=True)
+          f"flagged lanes on one entry), qual with the q1-q2 delta; D's "
+          f"cluster form with 700 colliding lanes spread over its "
+          f"{CT.decode_shape(cfg.seq, W).cluster} CTAs (L3 seq, L4 seq with "
+          f"the match family)", flush=True)
     return plain_qual, errs, plain_seq4, errs4
 
 
@@ -997,21 +1036,30 @@ def block_compaction(data: bytes, dev, level: int, errs: dict) -> dict:
     return out
 
 
-def barrier_us(dev) -> float:
-    """One 1,024-thread __syncthreads() on the card (us): csrc/coder.cu's
-    barrier_loop, CUDA events around BARRIER_ITERS barriers, less a launch
-    of none."""
+def barrier_us(dev, cluster: int = 1, threads: int = 1024) -> float:
+    """One barrier on the card (us): `threads` threads of one CTA
+    (__syncthreads()), or of each CTA of a cluster of `cluster` CTAs (the
+    cluster barrier); csrc/coder.cu's barrier_loop, CUDA events around
+    BARRIER_ITERS barriers, less a launch of none."""
     import torch
     from slimfastq_tpu_torch.ops import _cuda, coder_torch
     lib = _cuda.load("coder", coder_torch._SIGS)
     out = torch.zeros(1, dtype=torch.int32, device=dev)
 
     def run(iters):
-        _cuda.check(lib, _cuda.launch(out, lib.barrier_loop, iters, 1024,
-                                      out.data_ptr()), "barrier_loop")
+        _cuda.check(lib, _cuda.launch(out, lib.barrier_loop, iters, threads,
+                                      cluster, out.data_ptr()),
+                    "barrier_loop")
     full = _time_ms(lambda: run(BARRIER_ITERS), 3)
     empty = _time_ms(lambda: run(0), 3)
     return (full - empty) * 1e3 / BARRIER_ITERS
+
+
+def cluster_barrier_us(dev) -> dict:
+    """The cluster barrier (barrier.cluster.arrive / wait) of 2, 4 and 8
+    CTAs of 128 to 512 threads (us), beside which Kernel D's cluster form
+    runs its bit-steps."""
+    return {f"{c}x{t}": barrier_us(dev, c, t) for c, t in CLUSTER_BARRIERS}
 
 
 # ---------------------------------------------------------------------------
@@ -1199,18 +1247,21 @@ def l4_spans(data: bytes, dev) -> dict:
     the bytes of the launches alone. Also the main path's device halves
     at level 4, CUDA events on the calling stream."""
     import numpy as np
+    import torch
     from slimfastq_tpu_torch import native, pipeline_native as PN
     from slimfastq_tpu_torch.config import config_for_level
     from slimfastq_tpu_torch.ops import coder_torch
     from slimfastq_tpu_torch.ops import streams_torch as ST
+    from slimfastq_tpu_torch.ops.ranger import pad_steps
     cfg = config_for_level(4)
     idx, n = native.fastq_index(data)
     pre = PN.prepare_block_fast(np.frombuffer(data, dtype=np.uint8), idx, 0,
                                 n, cfg)
     enc_ms, blk = _events_ms(lambda: PN.encode_prepared_block(pre, cfg, dev))
     dec_ms, _ = _events_ms(lambda: PN.decode_block_device(blk, cfg, dev))
-    fns = {}
+    fns, jobs = {}, {}
     for name, kind, geom, item, _counts in PN._coder_jobs(pre, cfg, dev):
+        jobs[name] = (kind, geom, item)
         CB = ST._chunk_bytes(geom.depth, hard=False)
         _phases_vs_plain({}, [_head(item, 16)], kind, geom, CB,
                          f"E's phases, the L4 block's {name}: its first 2 "
@@ -1240,7 +1291,39 @@ def l4_spans(data: bytes, dev) -> dict:
         for (name, (fn, _)), got in zip(fns.items(), res):
             _compare({}, name, f"L4 encode {name}: launched at once vs "
                      "alone", got, fn())
+    # each stream's D alone on the block's payload, its output against the
+    # coded symbols (SEQ, whose flags come from the kept trial, is timed
+    # in time_kernels_l4)
+    dec_alone = {}
+    for name, es in blk.streams.items():
+        if name == "SEQ":
+            continue
+        kind, geom, item = jobs[name if name in jobs else
+                                next(k for k in jobs
+                                     if k.startswith(name + "@"))]
+        W = es.payload.shape[0]
+        counts = ST._to(es.sym_counts, dev, torch.int32)
+        S = int(es.sym_counts.max())
+        Sp = pad_steps(S)
+        if kind in ("seq", "qual"):
+            pos, reset = ST._pos_reset(ST._lane_lens(pre[4], W, dev), Sp, S,
+                                       W)
+        else:
+            pos = reset = ST._pad2(None, Sp, W, dev)
+        args = (ST._payload_tensor(es.payload, dev),
+                ST._to(es.lane_lens, dev, torch.int32), counts, pos, reset)
+        got = coder_torch.lane_decode(*args, kind, geom)
+        if name in jobs:
+            n = min(Sp, item.syms.shape[0])
+            mask = torch.arange(n, device=dev)[:, None] < counts[None, :]
+            if not torch.equal(got[:n][mask], item.syms[:n][mask]):
+                raise AssertionError(f"L4 decode of {name} does not return "
+                                     "its coded symbols")
+        dec_alone[name] = _time_ms(
+            lambda args=args, kind=kind, geom=geom:
+            coder_torch.lane_decode(*args, kind, geom), 1)
     out = {"streams_ms": alone, "sum_ms": sum(alone.values()), **spans,
+           "decode_streams_ms": dec_alone,
            "device_half_ms": {"encode": enc_ms, "decode": dec_ms}}
     print(json.dumps({"block_l4": out}), flush=True)
     return out
@@ -2813,6 +2896,8 @@ def main() -> int:
               flush=True)
     bar_us = barrier_us(dev)
     print(json.dumps({"barrier_us": bar_us}), flush=True)
+    cbar_us = cluster_barrier_us(dev)
+    print(json.dumps({"cluster_barrier_us": cbar_us}), flush=True)
     done("compaction_and_barrier")
     launches = main_path(data, 3)
     spans = block_spans(data, dev)
@@ -2920,9 +3005,25 @@ def main() -> int:
                            times["phases"]["phases"].items()})
         else:
             # D's law couples the lanes at every bit-step: one barrier
-            # per bit-step is the floor of the function
-            row.update({"bound_ms": lockstep_ms, "bound_by": "latency",
-                        "byte_bound_ms": row["bound_ms"]})
+            # per bit-step is the floor of the function; beside it the
+            # cluster barrier SEQ's lanes run over and E's lane coder a
+            # bit-step on the same stream (the coder chain without the
+            # law)
+            from slimfastq_tpu_torch.config import config_for_level
+            from slimfastq_tpu_torch.ops import coder_torch as CT
+            c3 = config_for_level(3)
+            sq = CT.decode_shape(c3.seq, shape["W"])
+            row.update({
+                "bound_ms": lockstep_ms, "bound_by": "latency",
+                "byte_bound_ms": row["bound_ms"],
+                "decode_shapes": {
+                    "QUAL": CT.decode_shape(c3.qual, shape["W"])._asdict(),
+                    "SEQ": sq._asdict()},
+                "cluster_barrier_us": cbar_us,
+                "seq_cluster_barrier_us": cbar_us[
+                    f"{sq.cluster}x{sq.threads}"],
+                "e_lane_coder_us_per_bit_step":
+                    times["phases"]["phases"]["code"]["ms"] * 1e3 / steps})
         # level 4: the pinned block's SEQ stream (the winning match trial,
         # order-11 table); the checks of phase 3 at level 4
         ms4, nbytes4 = times4[name]
@@ -2938,7 +3039,11 @@ def main() -> int:
         if name == "lane_decode":
             l4.update({"bound_ms": steps4 * bar_us / 1e3,
                        "bound_by": "latency",
-                       "byte_bound_ms": l4["bound_ms"]})
+                       "byte_bound_ms": l4["bound_ms"],
+                       "block_streams_ms": {
+                           **spans4["decode_streams_ms"], "SEQ": ms4},
+                       "device_half_ms": spans4["device_half_ms"][
+                           "decode"]})
         row["l4"] = l4
         # the long-read block (one of 65,536 x 16.5 kb reads): launches in
         # its main-path run, and the kernel on its QUAL stream
@@ -3083,9 +3188,10 @@ def main() -> int:
                 "Kernels L and U before L's tiled design (profiler records; "
                 "wrappers with CUDA events), as lanes_before_tiles; Kernel "
                 "E's lockstep design before the decoupled encode, as "
-                "lockstep_encode",
+                "lockstep_encode; Kernel D before this design (one CTA a "
+                "stream, two barriers a bit-step), as lockstep_decode",
         **EARLIER_MS, "lanes_before_tiles": EARLIER_LANES_MS,
-        "lockstep_encode": EARLIER_E_MS}}),
+        "lockstep_encode": EARLIER_E_MS, "lockstep_decode": EARLIER_D_MS}}),
         flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)

@@ -45,9 +45,10 @@ adds wrap exactly as the format's collision-count field requires:
 encode is held against.
 
 The kernels keep 16-bit entries (12-bit p, the visit count saturated at
-``visit_cap``); Kernel D holds the table in shared memory where
-``table_in_smem`` says it fits; the wrappers refuse a geometry whose cap
-needs more than 4 bits.
+``visit_cap``); Kernel D's launch shape (a CTA or a thread block cluster
+a block, the table in the CTAs' shared memory or in device memory) is
+``decode_shape``'s, derived from the geometry, W and the window's blocks;
+the wrappers refuse a geometry whose cap needs more than 4 bits.
 """
 
 from __future__ import annotations
@@ -67,15 +68,18 @@ _PMASK = (1 << CNT_SHIFT) - 1
 
 _P, _I = _cuda.PTR, _cuda.INT
 _SIGS = {
-    # descs, n, W, table_size, sac_base, rate, rate_lo, vcap, smem_table,
-    # depth, kind, num_ctx, k0, k1, k2, k3, match, stream
-    "lane_decode": [_P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
-                    _I, _I, _I, _P],
-    # iters, threads, out, stream
-    "barrier_loop": [_I, _I, _P, _P],
+    # descs, n, W, table_size, sac_base, rate, rate_lo, vcap, depth, kind,
+    # num_ctx, k0, k1, k2, k3, match, then the DecodeShape: cluster,
+    # threads, nsl, smem_table, two, bytes; stream
+    "lane_decode": [_P] + [_I] * 21 + [_P],
+    # iters, threads, cluster, out, stream
+    "barrier_loop": [_I, _I, _I, _P, _P],
 }
-MAX_LANES = 1024  # one CTA, one thread per lane
+MAX_LANES = 1024  # one thread per lane, over one CTA or one cluster
 MAX_BLOCKS = 256  # blocks a launch: csrc/coder.cu's MAX_BLOCKS
+MAX_CLUSTER = 8  # CTAs a cluster: the portable size (csrc/coder.cu)
+SMS = 132  # the H100 SXM's streaming multiprocessors
+NBUF = 3  # Kernel D's hash buffers, rotated by bit-step mod 3
 
 
 class EncIn(NamedTuple):
@@ -150,28 +154,40 @@ def table_bytes(geom) -> int:
     return 2 * geom.table_size
 
 
-def hash_bytes(W: int) -> int:
-    """Shared memory of the kernels' per-step hash: two buffers of
-    2^k >= 2 * (W rounded up to whole warps) slots of three int32."""
+def _slots(W: int) -> int:
+    """Slots of one hash buffer: the least power of two >= 2 * (W rounded
+    up to whole warps)."""
     slots = 1
     while slots < 2 * ((W + 31) // 32 * 32):
         slots *= 2
-    return 3 * 2 * slots * 4
+    return slots
+
+
+def hash_bytes(W: int) -> int:
+    """Shared memory of Kernel D's per-step hash in one CTA: NBUF buffers
+    of _slots(W) slots of two int32, key and counts (a cluster's CTAs each
+    hold one: a CTA's entries can be all W lanes')."""
+    return 2 * NBUF * _slots(W) * 4
+
+
+def _table_smem(entries: int) -> int:
+    return (2 * entries + 15) // 16 * 16
 
 
 def table_in_smem(geom, W: int) -> bool:
-    """Whether the table and the hash of W lanes fit one CTA's shared
-    memory (the kernels then keep the table there)."""
-    return (table_bytes(geom) + 15) // 16 * 16 + hash_bytes(W) <= SMEM_LIMIT
+    """Whether the whole table and the hash of W lanes fit one CTA's
+    shared memory."""
+    return _table_smem(geom.table_size) + hash_bytes(W) <= SMEM_LIMIT
 
 
 def _check_geom(geom, W: int) -> int:
     """The kernels' visit cap of the geometry; raises where the lanes or
-    the geometry do not fit them (one CTA of Kernel D a block, the 16-bit
-    entry; Kernel E's collision counts and rid stop at 1,024 lanes too)."""
+    the geometry do not fit them (one thread a lane in one CTA or cluster
+    of Kernel D a block, the 16-bit entry; Kernel E's collision counts and
+    rid stop at 1,024 lanes too)."""
     if W > MAX_LANES:
-        raise ValueError(f"W={W} lanes exceeds {MAX_LANES} (one CTA per "
-                         "stream; a grid-wide barrier is needed for more)")
+        raise ValueError(f"W={W} lanes exceeds {MAX_LANES} (one thread a "
+                         "lane in one CTA or cluster a stream)")
     cap = visit_cap(geom)
     if cap >= 1 << VIS_BITS:
         raise ValueError(f"visit cap {cap} of rate={geom.rate} rate_lo="
@@ -179,21 +195,76 @@ def _check_geom(geom, W: int) -> int:
     return cap
 
 
-def _kernel_geom(geom, W: int, dev, B: int | None = None):
-    """The kernels' table arguments: (a fresh device table, [B,
-    table_size] for B blocks, or None, vcap, smem_table).
-    Raises where the lanes or the geometry do not fit the kernels (one
-    CTA, the 16-bit entry)."""
-    cap = _check_geom(geom, W)
+class DecodeShape(NamedTuple):
+    """Kernel D's launch over a window: ``cluster`` CTAs of ``threads``
+    threads a block (lane w in CTA w // threads; the hash slots of entry e
+    in CTA e % cluster), ``nsl`` the log2 of a hash buffer's slots, the
+    table in the CTA's shared memory ("smem", one CTA a block) or in
+    device memory ("device"), each CTA's table and hash bytes, a second
+    barrier a bit-step (``two_barriers``) and the launch's ``ctas``."""
+    cluster: int
+    threads: int
+    nsl: int
+    table: str
+    table_bytes: int
+    hash_bytes: int
+    smem_bytes: int
+    two_barriers: bool
+    ctas: int
+
+
+def decode_shape(geom, W: int, B: int = 1) -> DecodeShape:
+    """Kernel D's launch shape for W lanes of B blocks, derived (no option
+    sets it). The table lives in the CTA's shared memory where it fits
+    beside the hash, else in device memory (depth >= 2). A second barrier
+    follows the commit where the one-barrier ordering does not hold:
+    depth 1, and a depth-2 table in device memory (its entries are loaded
+    one bit-step ahead). Such a stream of at least 256 lanes (SEQ at
+    levels 3 and 4, the level-4 trials) spreads over a cluster of up to
+    MAX_CLUSTER CTAs of at least 128 threads, as large as lets a window's
+    clusters of two streams run side by side on the card's SMS (2 * B *
+    cluster <= SMS): there the card measured the cluster faster; every
+    other stream keeps one CTA a block, where the CTA's barrier (0.039 us
+    on the H100) costs less than the cluster's (0.42 us). Raises where the
+    lanes or the geometry do not fit the kernel."""
+    _check_geom(geom, W)
+    if not 1 <= B <= MAX_BLOCKS:
+        raise ValueError(f"one launch codes 1 to {MAX_BLOCKS} blocks, not "
+                         f"{B}")
+    lanes = (W + 31) // 32 * 32
+    slots = _slots(W)
+    hb = hash_bytes(W)
+    tb = _table_smem(geom.table_size)
     if table_in_smem(geom, W):
-        return None, cap, 1
-    if geom.depth < 2:
-        # the kernels load a device table's entry one bit-step ahead,
-        # which needs consecutive bit-steps on different tree levels; no
-        # level reaches this: the one depth-1 kind, flag, has 2^hist_bits
-        # + 1 entries (5 at levels 1-4)
-        raise ValueError("a depth-1 table must fit shared memory")
-    return device_table(geom, dev, B), cap, 0
+        table = "smem"
+    else:
+        if geom.depth < 2:
+            # a device table's entry is loaded one bit-step ahead, after
+            # the commit of the level before; no level reaches this: the
+            # one depth-1 kind, flag, has 2^hist_bits + 1 entries (5 at
+            # levels 1-4)
+            raise ValueError("a depth-1 table must fit shared memory")
+        table, tb = "device", 0
+    two = geom.depth == 1 or (geom.depth == 2 and table == "device")
+    C = 1
+    while (two and table == "device" and C < MAX_CLUSTER
+           and lanes // (2 * C) >= 128 and 2 * B * 2 * C <= SMS):
+        C *= 2
+    threads = (-(-W // C) + 31) // 32 * 32
+    return DecodeShape(C, threads, slots.bit_length() - 1, table, tb, hb,
+                       tb + hb, two, B * C)
+
+
+def _kernel_geom(geom, W: int, dev, B: int | None = None):
+    """Kernel D's table arguments: (a fresh device table, [B,
+    table_size] for B blocks, or None where the table lives in shared
+    memory, vcap, the DecodeShape). Raises where the lanes or the geometry
+    do not fit the kernel."""
+    shape = decode_shape(geom, W, 1 if B is None else B)
+    cap = visit_cap(geom)
+    if shape.table == "smem":
+        return None, cap, shape
+    return device_table(geom, dev, B), cap, shape
 
 
 def device_table(geom, dev, B: int | None = None) -> torch.Tensor:
@@ -596,8 +667,9 @@ def lane_decode_blocks(items, kind: str, geom) -> list:
     family its mflag [Sp_b, W] u8 or None), one W and geometry for all;
     the flags are given for every block of a launch or for none.
     poss/resets/mflag may also come as the reference's [NC, 8, W].
-    Returns each block's symbols [Sp_b, W] u8. One launch (one CTA a
-    block) on CUDA tensors, the plain version on CPU tensors."""
+    Returns each block's symbols [Sp_b, W] u8. One launch (one CTA or
+    cluster a block, decode_shape) on CUDA tensors, the plain version on
+    CPU tensors."""
     if not 1 <= len(items) <= MAX_BLOCKS:
         raise ValueError(f"one launch codes 1 to {MAX_BLOCKS} blocks, not "
                          f"{len(items)}")
@@ -632,7 +704,7 @@ def lane_decode_blocks(items, kind: str, geom) -> list:
     if dev.type == "cpu":
         return lane_decode_blocks_plain(checked, kind, geom)
     B = len(checked)
-    table, vcap, smem = _kernel_geom(geom, W, dev, B)
+    table, vcap, shape = _kernel_geom(geom, W, dev, B)
     # the kernel takes the flags only where the geometry has the family
     family = all(flagged) and kind == "seq" and bool(geom.match_bits)
     lib = _cuda.load("coder", _SIGS)
@@ -653,9 +725,11 @@ def lane_decode_blocks(items, kind: str, geom) -> list:
     rate_lo = getattr(geom, "rate_lo", 0)
     err = _cuda.launch(
         outs[0], lib.lane_decode, ctypes.addressof(descs), B, W,
-        geom.table_size, geom.sac_base, geom.rate, rate_lo, vcap, smem,
+        geom.table_size, geom.sac_base, geom.rate, rate_lo, vcap,
         geom.depth, KINDS[kind], geom.num_ctx, *_kind_params(kind, geom),
-        int(family))
+        int(family), shape.cluster, shape.threads, shape.nsl,
+        int(shape.table == "smem"), int(shape.two_barriers),
+        shape.smem_bytes)
     _cuda.count("lane_decode", B, dev)
     _cuda.check(lib, err, "lane_decode")
     return outs

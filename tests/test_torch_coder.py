@@ -283,7 +283,7 @@ def test_table_bytes_and_shared_memory_fit():
     for W in (1, 31, 64, 100, 1024):
         threads = -(-W // 32) * 32
         slots = next(1 << k for k in range(20) if 1 << k >= 2 * threads)
-        assert CT.hash_bytes(W) == 3 * 2 * slots * 4
+        assert CT.hash_bytes(W) == 2 * 3 * slots * 4
     for level in (1, 2, 3, 4):
         cfg = tconfig.LEVELS[level]
         for g in (cfg.qual, cfg.seq, cfg.bytes_, cfg.flags):
@@ -316,12 +316,17 @@ def test_kernel_geometry_refusals():
         CT._kernel_geom(warm, 64, cpu)
     with pytest.raises(ValueError, match="exceeds"):
         CT._kernel_geom(tconfig.LEVELS[3].qual, 1025, cpu)
-    table, cap, smem = CT._kernel_geom(tconfig.LEVELS[3].qual, 1024, cpu)
-    assert (cap, smem) == (8, 0) and table.dtype == torch.int16
+    # L3 QUAL's table in device memory, fresh (one CTA); L3 SEQ's too
+    # (a cluster)
+    table, cap, shape = CT._kernel_geom(tconfig.LEVELS[3].qual, 1024, cpu)
+    assert (cap, shape.table, shape.cluster) == (8, "device", 1)
+    assert table.dtype == torch.int16
     assert int(table[0]) == R.PROB_INIT
     assert int(table[-1]) == R.PROB_MAX
-    assert CT._kernel_geom(tconfig.LEVELS[3].bytes_, 64, cpu) == (None, 0,
-                                                                  1)
+    table, cap, shape = CT._kernel_geom(tconfig.LEVELS[3].seq, 1024, cpu)
+    assert (shape.table, shape.cluster) == ("device", 8)
+    table, cap, shape = CT._kernel_geom(tconfig.LEVELS[3].bytes_, 64, cpu)
+    assert (table, cap, shape.table, shape.cluster) == (None, 0, "smem", 1)
 
 
 @pytest.mark.parametrize("order", ["path", "reversed"])

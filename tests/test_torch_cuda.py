@@ -16,7 +16,10 @@ cards, against the sequential containers; the pure-Python pipeline
 (``use_native=False``) stream by stream on the card; the entry points
 (``entry()`` against its CPU run, ``dryrun_multichip`` over every card);
 Kernel E's six phases each against its plain version, slice by slice,
-also over a stream of several slices.
+also over a stream of several slices; Kernel D's cluster form (a SEQ
+stream's 1,024 lanes over 8 CTAs) against its plain version where the
+colliding lanes lie in every CTA, with level 4's match family, and over a
+ragged window.
 Marked `cuda`: they
 skip without a card. This file imports
 neither JAX nor the JAX package, so it runs on a machine that has only
@@ -764,3 +767,80 @@ def test_host_buffers_reused_across_encodes(dev):
     assert api.encode_fastq(data, **kw) == first
     assert torch.cuda.host_memory_stats()["num_host_alloc"] == held
     assert api.decode_fastq(first, device=dev) == data
+
+
+# (level, blocks [(Sp, lanes)], match-span flags) of Kernel D's cluster
+# form on SEQ: "all" lanes hold reads that start at step 0 (every lane on
+# one entry at each read start), an int n: n lanes chosen at random,
+# spread over every CTA of the cluster (700 on one entry read a negative
+# count); a ragged window of 4 blocks; level 4's match family
+CLUSTER_CASES = {
+    "seq-one-entry-1024": (3, [(256, "all")], False),
+    "seq-one-entry-700-spread": (3, [(256, 700)], False),
+    "seq-ragged-window-4": (3, [(304, "all"), (104, 1), (512, 700),
+                                (200, "all")], False),
+    "seq-l4-match-700-spread": (4, [(256, 700)], True),
+}
+
+
+@pytest.mark.parametrize("case", list(CLUSTER_CASES))
+def test_cluster_decode_matches_plain(dev, case):
+    """Kernel D with a SEQ stream's 1,024 lanes over a thread block
+    cluster (each entry's hash slots in one CTA's shared memory, reached by
+    the others as distributed shared memory; the table in device memory)
+    against lane_decode_blocks_plain, byte for byte, where the colliding
+    lanes lie in every CTA of the cluster; one launch for the window."""
+    from slimfastq_tpu_torch.ops import _cuda
+    level, blocks, match = CLUSTER_CASES[case]
+    kind = "seq"
+    geom, W = _geom(level, kind), 1024
+    shape = CT.decode_shape(geom, W, len(blocks))
+    assert shape.cluster == 8
+    rng = np.random.default_rng(7)
+    items, refs = [], []
+    for Sp, lanes in blocks:
+        on = (np.arange(W) if lanes == "all"
+              else np.sort(rng.choice(W, lanes, replace=False)))
+        if len(on) >= shape.cluster:
+            assert len(set(on // shape.threads)) == shape.cluster
+        ll = np.zeros((-(-Sp // 100), W), dtype=np.int64)
+        ll[:, on] = 100
+        ll[-1, on] = Sp - 100 * (ll.shape[0] - 1)
+        counts = ll.sum(axis=0)
+        pos, reset = ST._pos_reset(torch.from_numpy(ll).to(dev), Sp,
+                                   int(counts.max()), W)
+        syms = rng.integers(0, 4, size=(Sp, W))
+        mflag = None
+        if match:  # the flagged steps' e-letters all 0 at positions 18-23
+            p = pos.cpu().numpy()
+            span = (p >= 20) & (p < 90) & (np.arange(Sp)[:, None]
+                                           < counts[None, :])
+            syms = np.where(span, np.where(rng.random((Sp, W)) < 0.9, 0,
+                                           syms), syms)
+            syms[(p >= 18) & (p < 24)] = 0
+            mflag = torch.from_numpy(span.astype(np.uint8)).to(dev)
+        syms = torch.from_numpy(syms.astype(np.uint8)).to(dev)
+        c = torch.from_numpy(counts.astype(np.int32)).to(dev)
+        CB = ST._chunk_bytes(geom.depth, False)
+        ebufs, eptrs, low, emax = CT.lane_encode(syms, pos, reset, c, kind,
+                                                 geom, CB, mflag)
+        assert int(emax) <= CB
+        pay, tot = CC.compact_lanes_dev(ebufs, eptrs, max(int(
+            eptrs.sum(dim=0).max()), 1))
+        pay, lens = ST._flush_append(pay.cpu().numpy(),
+                                     tot.cpu().numpy().astype(np.int64),
+                                     low.cpu().numpy().view(np.uint32),
+                                     counts)
+        items.append((torch.from_numpy(pay).to(dev),
+                      torch.from_numpy(lens.astype(np.int32)).to(dev), c,
+                      pos, reset, mflag))
+        refs.append((syms, c))
+    before = _cuda.launches["lane_decode"], _cuda.descs["lane_decode"]
+    kd = CT.lane_decode_blocks(items, kind, geom)
+    assert (_cuda.launches["lane_decode"], _cuda.descs["lane_decode"]) == (
+        before[0] + 1, before[1] + len(items))
+    pd = CT.lane_decode_blocks_plain(items, kind, geom)
+    for k, p, (syms, c) in zip(kd, pd, refs):
+        assert torch.equal(k.cpu(), p.cpu())
+        mask = torch.arange(syms.shape[0], device=dev)[:, None] < c[None, :]
+        assert torch.equal(k[mask], syms[mask])

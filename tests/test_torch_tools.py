@@ -150,7 +150,9 @@ def test_arena_cursor_counts_sampled_keys():
 
 @pytest.mark.parametrize("tool", ["bench_1gb_torch.py",
                                   "profile_wall_torch.py",
-                                  "longread_l4_torch.py"])
+                                  "longread_l4_torch.py",
+                                  "decode_streams.py",
+                                  "matcher_overflow_torch.py"])
 def test_tool_needs_a_card(tool):
     env = dict(os.environ, CUDA_VISIBLE_DEVICES="", PYTHONPATH=ROOT)
     r = subprocess.run([sys.executable, os.path.join(ROOT, "tools", tool)],
