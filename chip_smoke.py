@@ -22,7 +22,8 @@ Phases (any failure exits non-zero; nothing is caught):
      11, the match-context family: 1,024 and 700 flagged lanes on one
      entry) and QUAL (the q1-q2 delta); D's cluster form with 700
      colliding lanes spread over every CTA of its cluster (L3 SEQ, L4 SEQ
-     with the match family); Kernel C's one launch over a
+     with the match family, 100-base reads) and over 1,500-base reads;
+     Kernel C's one launch over a
      ragged mix of streams (W of 8 to 1,024, counts above CB, an empty
      stream, rows longer than one shared-memory stage); then E and D
      timed with CUDA events on the main path's own inputs (the pinned 64k
@@ -50,10 +51,13 @@ Phases (any failure exits non-zero; nothing is caught):
      32-byte-sector bound, at level 3 also on QUAL alone; the block's
      compaction-to-host phase (tools/compact_phase.py: from the join of
      the coder launches to the payloads on the host); and one 1,024-thread
-     barrier timed, for D's lockstep bound (bit-steps x one barrier; E's
-     is printed beside its byte bound), and the cluster barrier of 2, 4
-     and 8 CTAs of 128 to 512 threads, beside which D's SEQ lanes run
-     over a cluster;
+     barrier timed, for D's bound (the larger of two such barriers a
+     symbol-step, whatever shape D takes, and the lane coder's chain a
+     bit-step, beside the lockstep order's one barrier a bit-step; E's is
+     printed beside its byte bound), and the cluster barrier of 2, 4 and
+     8 CTAs of 128 to 512 threads, which D's QUAL and SEQ lanes wait at
+     where they run over a cluster (printed beside the bound as the
+     design's cost);
   4. main path, level 3 then level 4: the pinned block through
      api.encode_fastq / decode_fastq on the card: container size and
      SHA-256 equal the JAX package's, the round trip is exact, every
@@ -229,16 +233,17 @@ EARLIER_LANES_MS = {"pack": {"ms": 0.0702, "wrapper_ms": 0.591},
 # timed alone
 EARLIER_E_MS = {"qual_64k": 56.27, "seq_64k": 45.0, "window_16k_qual": 14.97,
                 "l4_seq_trial": 33.94, "long_qual": 10731.0}
-# Kernel D before this design (one CTA a stream, two barriers a bit-step,
-# the hash in two buffers, the payload one byte at a time), recorded by
-# this script (H100 80GB HBM3, 700 W; ms): the pinned 64k L3 block's
-# streams each alone and their decode span, its level-4 SEQ trial, the 16k
-# window's QUAL, the long block's QUAL (CUDA events)
-EARLIER_D_MS = {"streams_64k": {"QUAL": 56.45, "SEQ": 46.95, "IDD": 35.69,
-                                "LEN": 4.45, "FLAG": 2.34, "SEQX": 1.97,
-                                "IDX": 0.53},
-                "block_decode_span": 56.50, "l4_seq_trial": 33.84,
-                "window_16k_qual": 14.92, "long_qual": 10855.0}
+# Kernel D before this design (in lockstep by bit-step: one barrier a
+# bit-step, two for the flag kind and SEQ's device table, the hash in three
+# buffers, SEQ over a cluster of 8 CTAs whatever its reads), recorded by
+# this script (H100 80GB HBM3, 700 W; ms): the pinned 64k L3 block's streams
+# each alone and their decode span, its level-4 SEQ trial, the 16k window's
+# QUAL, the long block's QUAL (CUDA events)
+EARLIER_D_MS = {"streams_64k": {"QUAL": 46.38, "SEQ": 39.49, "IDD": 27.08,
+                                "LEN": 3.73, "FLAG": 1.74, "SEQX": 2.00,
+                                "IDX": 0.62},
+                "block_decode_span": 46.28, "l4_seq_trial": 31.97,
+                "window_16k_qual": 12.23, "long_qual": 8607.0}
 # the cluster barriers timed beside the CTA's: (CTAs, threads a CTA)
 CLUSTER_BARRIERS = [(2, 128), (2, 512), (4, 128), (4, 256), (8, 128),
                     (8, 256), (8, 512)]
@@ -250,6 +255,29 @@ CLUSTER_BARRIERS = [(2, 128), (2, 512), (4, 128), (4, 256), (8, 128),
 LINK_OPS = {"entry_scan": 12, "code": 10}
 SM_CLOCK_HZ = 1.98e9
 BARRIER_ITERS = 200000
+
+
+def d_bound(bit_steps: int, depth: int, bar_us: float, shape,
+            cbar_us: dict) -> dict:
+    """Kernel D's floor for one block's stream (ms): its symbol-steps, each
+    two barriers of the card's fastest (`bar_us`, one CTA's: the card
+    could run the function in one CTA whatever shape the design takes),
+    against its bit-steps, each one decision of the lane coder's chain
+    (E's lane coder runs the same arithmetic: LINK_OPS dependent
+    operations at their least latency), whichever is larger; beside it
+    the lockstep order's floor on the same barrier, one a bit-step, and
+    what the barriers of the design's `shape` cost (its cluster's, timed
+    in cluster_barrier_us, where it spans one)."""
+    sync_ms = bit_steps // depth * 2 * bar_us / 1e3
+    chain_ms = bit_steps * LINK_OPS["code"] * 4 / SM_CLOCK_HZ * 1e3
+    design_us = (bar_us if shape.cluster == 1
+                 else cbar_us[f"{shape.cluster}x{shape.threads}"])
+    return {"bound_ms": max(sync_ms, chain_ms),
+            "bound_by": "operations" if chain_ms >= sync_ms else "latency",
+            "symbol_step_barriers_ms": sync_ms, "decision_chain_ms": chain_ms,
+            "lockstep_bound_ms": bit_steps * bar_us / 1e3,
+            "design_barrier_us": design_us,
+            "design_barriers_ms": bit_steps // depth * 2 * design_us / 1e3}
 # The window forms' plain versions run on the first PLAIN_CHUNKS chunks of
 # CHUNK_STEPS symbol steps of each block of the 16k window
 CHUNK_STEPS, PLAIN_CHUNKS = 8, 8
@@ -540,20 +568,29 @@ def check_kernels(dev):
                       errs)
     _check_stream("qual", cfg.qual, qual, counts, pos, reset, dev,
                   plain_qual, errs)
-    # Kernel D's cluster form (SEQ): 700 colliding lanes spread over every
-    # CTA of the cluster, the count each reads being the whole cluster's
+    # Kernel D's cluster form (SEQ, 100-base reads): 700 colliding lanes
+    # spread over every CTA of the cluster, the count each reads being the
+    # whole cluster's
     spread = np.sort(np.random.default_rng(8).choice(W, 700, replace=False))
+    ll_s, counts_s = _reads_layout(W, Sp, READ_LEN, spread)
+    pos_s, reset_s = ST._pos_reset(torch.from_numpy(ll_s).to(dev), Sp,
+                                   int(counts_s.max()), W)
     for geom in (cfg.seq, config_for_level(4).seq):
-        shape = CT.decode_shape(geom, W)
+        shape = CT.decode_shape(geom, W, 1)
         if shape.cluster < 2 or len(set(spread // shape.threads)) \
                 != shape.cluster:
             raise AssertionError(f"the spread lanes do not cover the "
                                  f"cluster of {shape}")
-    ll_s, counts_s = _reads_layout(W, Sp, READ_LEN, spread)
-    pos_s, reset_s = ST._pos_reset(torch.from_numpy(ll_s).to(dev), Sp,
-                                   int(counts_s.max()), W)
     _check_stream("seq", cfg.seq, seq, counts_s, pos_s, reset_s, dev, {},
                   errs)
+    # SEQ of long reads over the cluster too: 1,500-base reads
+    S_long = 3000
+    ll_l, counts_l = _reads_layout(W, S_long, 1500, W)
+    pos_l, reset_l = ST._pos_reset(torch.from_numpy(ll_l).to(dev), S_long,
+                                   int(counts_l.max()), W)
+    _check_stream("seq", cfg.seq, np.random.default_rng(10).integers(
+        0, 4, size=(S_long, W)).astype(np.uint8), counts_l, pos_l, reset_l,
+        dev, {}, errs)
     # slices of 1,000 bit-steps: each ends inside a symbol and a chunk
     item = ST.EncIn(torch.from_numpy(qual).to(dev), pos, reset,
                     torch.from_numpy(counts.astype(np.int32)).to(dev))
@@ -587,8 +624,10 @@ def check_kernels(dev):
           f"Sp={Sp}; level 4: seq with the match family (1,024 and 700 "
           f"flagged lanes on one entry), qual with the q1-q2 delta; D's "
           f"cluster form with 700 colliding lanes spread over its "
-          f"{CT.decode_shape(cfg.seq, W).cluster} CTAs (L3 seq, L4 seq with "
-          f"the match family)", flush=True)
+          f"{CT.decode_shape(cfg.seq, W, 1).cluster} CTAs (L3 seq, "
+          f"L4 seq with "
+          f"the match family); SEQ of 1,500-base reads",
+          flush=True)
     return plain_qual, errs, plain_seq4, errs4
 
 
@@ -1524,7 +1563,8 @@ def _window_pres(data: bytes, level: int, block_records: int):
                  for lo in range(0, n, block_records)]
 
 
-def time_window(data: bytes, dev, bar_us: float, errs: dict) -> dict:
+def time_window(data: bytes, dev, bar_us: float, cbar_us: dict,
+                errs: dict) -> dict:
     """The batched launches on the 16k L3 window's own inputs
     (pipeline_native._window_jobs, 4 blocks of 16,384 records): E over the
     window's QUAL (the longest chain) timed with CUDA events beside one
@@ -1651,7 +1691,8 @@ def time_window(data: bytes, dev, bar_us: float, errs: dict) -> dict:
                "plain_shape": prefix, "phases": phases},
            "lane_decode_blocks": {
                "ms": d_ms, "one_launch_a_block_sum_ms": d_one,
-               "bound_ms": steps * bar_us / 1e3, "bound_by": "latency",
+               **d_bound(steps, geom.depth, bar_us, CT.decode_shape(
+                   geom, items[0][0].shape[0], len(items)), cbar_us),
                "plain_ms": plain["lane_decode_blocks"],
                "prefix_ms": prefix_ms["lane_decode_blocks"],
                "plain_shape": prefix},
@@ -1893,7 +1934,7 @@ def streaming(data: bytes) -> dict:
 # phase 6: long reads, the host-pack path
 # ---------------------------------------------------------------------------
 
-def _long_read_kernels(pre, enc: bytes, dev, bar_us: float,
+def _long_read_kernels(pre, enc: bytes, dev, bar_us: float, cbar_us: dict,
                        errs: dict) -> dict:
     """Kernels E, D, C and L on the long block's QUAL stream, from the main
     path's own setup (pipeline_native.prepare_block_fast packs it on the
@@ -2000,7 +2041,8 @@ def _long_read_kernels(pre, enc: bytes, dev, bar_us: float,
                              "host-packed symbols")
     steps = NC * 8 * depth
     out["lane_decode"] = {
-        "ms": d_ms, "bound_ms": steps * bar_us / 1e3, "bound_by": "latency",
+        "ms": d_ms, **d_bound(steps, depth, bar_us, CT.decode_shape(
+            pre[0]["QUAL"][1], W), cbar_us),
         "byte_bound_ms": (qs.payload.size + 2 * Sp * W * 4 + Sp * W
                           + 2 * W * 4) / HBM_BYTES_PER_S * 1e3,
         "us_per_bit_step": d_ms * 1e3 / steps}
@@ -2044,7 +2086,7 @@ def _long_read_oom(data: bytes) -> dict:
     return out
 
 
-def long_read(dev, bar_us: float, errs: dict) -> dict:
+def long_read(dev, bar_us: float, cbar_us: dict, errs: dict) -> dict:
     """One block of 65,536 x 16.5 kb reads (LONG_READS x LONG_LEN: raw
     span >= 2 GiB, so SEQ and QUAL pack on the host) through
     api.encode_fastq / decode_fastq at the defaults (level 3, 65,536
@@ -2117,7 +2159,8 @@ def long_read(dev, bar_us: float, errs: dict) -> dict:
     out["past_the_card"] = _long_read_oom(data)
     print(json.dumps({"long_read": out}), flush=True)
     del data
-    out["kernels"] = _long_read_kernels(pre, enc, dev, bar_us, errs)
+    out["kernels"] = _long_read_kernels(pre, enc, dev, bar_us, cbar_us,
+                                        errs)
     print(json.dumps({"long_read_kernels": out["kernels"]}), flush=True)
     return out
 
@@ -2401,8 +2444,7 @@ def level1(data: bytes, dev, errs: dict) -> dict:
     from slimfastq_tpu_torch.ops import coder_torch as CT
     from slimfastq_tpu_torch.ops import streams_torch as ST
     cfg = config_for_level(1)
-    if not (CT.table_in_smem(cfg.qual, 1024)
-            and CT.table_in_smem(cfg.seq, 1024)):
+    if not (CT.table_in_smem(cfg.qual) and CT.table_in_smem(cfg.seq)):
         raise AssertionError("L1 tables do not live in shared memory")
     want = api.encode_fastq(data, cfg=cfg, device="cuda")
     saved, kinds = (PN._MAX_SPAN, CT.lane_encode_blocks), []
@@ -2909,7 +2951,7 @@ def main() -> int:
     wall(data4, dev, 4)
     done("main_path_l4")
     # the small-block window path on the same 4-block set
-    win = time_window(data, dev, bar_us, errs)
+    win = time_window(data, dev, bar_us, cbar_us, errs)
     done("window_kernels")
     wlaunches = {level: window_path(data, level) for level in (3, 4)}
     done("window_path")
@@ -2920,7 +2962,7 @@ def main() -> int:
     streaming(data)
     done("streaming")
     # long reads: the host-pack path, Kernel E once a stream
-    lr = long_read(dev, bar_us, errs)
+    lr = long_read(dev, bar_us, cbar_us, errs)
     done("long_read")
     host_pack_pins(data)
     done("host_pack_pins")
@@ -2985,7 +3027,6 @@ def main() -> int:
             "bound_by": "bytes", "library_ms": None, "shape": shape}
         direction = "encode" if name == "lane_encode" else "decode"
         steps = times["bit_steps"]
-        lockstep_ms = steps * bar_us / 1e3
         row.update({
             "bit_steps": steps, "us_per_bit_step": ms * 1e3 / steps,
             "barrier_us": bar_us,
@@ -3004,24 +3045,27 @@ def main() -> int:
                            k: v["ms"] for k, v in
                            times["phases"]["phases"].items()})
         else:
-            # D's law couples the lanes at every bit-step: one barrier
-            # per bit-step is the floor of the function; beside it the
-            # cluster barrier SEQ's lanes run over and E's lane coder a
-            # bit-step on the same stream (the coder chain without the
-            # law)
+            # D's law couples the lanes once a symbol-step: two CTA
+            # barriers a symbol-step or the lane coder's chain, whichever
+            # is larger, is the floor of the function (d_bound), the
+            # design's cluster barriers beside it as their cost; then
+            # QUAL's and SEQ's shapes, the cluster barrier and E's lane
+            # coder a bit-step on the same stream (the coder chain
+            # without the law)
             from slimfastq_tpu_torch.config import config_for_level
             from slimfastq_tpu_torch.ops import coder_torch as CT
             c3 = config_for_level(3)
             sq = CT.decode_shape(c3.seq, shape["W"])
+            qs = CT.decode_shape(c3.qual, shape["W"])
             row.update({
-                "bound_ms": lockstep_ms, "bound_by": "latency",
+                **d_bound(steps, c3.qual.depth, bar_us, qs, cbar_us),
                 "byte_bound_ms": row["bound_ms"],
                 "decode_shapes": {
-                    "QUAL": CT.decode_shape(c3.qual, shape["W"])._asdict(),
+                    "QUAL": qs._asdict(),
                     "SEQ": sq._asdict()},
                 "cluster_barrier_us": cbar_us,
-                "seq_cluster_barrier_us": cbar_us[
-                    f"{sq.cluster}x{sq.threads}"],
+                "seq_cluster_barrier_us": cbar_us.get(
+                    f"{sq.cluster}x{sq.threads}"),
                 "e_lane_coder_us_per_bit_step":
                     times["phases"]["phases"]["code"]["ms"] * 1e3 / steps})
         # level 4: the pinned block's SEQ stream (the winning match trial,
@@ -3037,9 +3081,10 @@ def main() -> int:
         if name == "lane_encode":
             l4.update({"block_streams_ms": spans4["streams_ms"]})
         if name == "lane_decode":
-            l4.update({"bound_ms": steps4 * bar_us / 1e3,
-                       "bound_by": "latency",
+            s4 = CT.decode_shape(config_for_level(4).seq, times4["shape"]["W"])
+            l4.update({**d_bound(steps4, 2, bar_us, s4, cbar_us),
                        "byte_bound_ms": l4["bound_ms"],
+                       "seq_shape": s4._asdict(),
                        "block_streams_ms": {
                            **spans4["decode_streams_ms"], "SEQ": ms4},
                        "device_half_ms": spans4["device_half_ms"][
@@ -3188,8 +3233,8 @@ def main() -> int:
                 "Kernels L and U before L's tiled design (profiler records; "
                 "wrappers with CUDA events), as lanes_before_tiles; Kernel "
                 "E's lockstep design before the decoupled encode, as "
-                "lockstep_encode; Kernel D before this design (one CTA a "
-                "stream, two barriers a bit-step), as lockstep_decode",
+                "lockstep_encode; Kernel D before this design (in lockstep "
+                "by bit-step), as lockstep_decode",
         **EARLIER_MS, "lanes_before_tiles": EARLIER_LANES_MS,
         "lockstep_encode": EARLIER_E_MS, "lockstep_decode": EARLIER_D_MS}}),
         flush=True)

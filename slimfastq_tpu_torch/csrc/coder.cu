@@ -1,4 +1,4 @@
-// Lockstep lane decoder: Kernel D (lane_decode).
+// Lane decoder: Kernel D (lane_decode), synchronised once a symbol-step.
 //
 // Replaces: slimfastq_tpu/ops/streams_jax.py `_build_decode` and
 // `_build_decode_ll` (the decode coder scan), with and without
@@ -27,92 +27,95 @@
 // Geometries with 0 < rate_lo < rate also count visits (format-v4
 // warm-up): the shift is min(rate, rate_lo + ceil_log2(min(vis,1024)+1)).
 //
-// Bound on the H100: D is a serial chain of bit-steps (QUAL at the
-// 64k-record block: 6,400 steps x 6 bits = 38,400 bit-steps). Its law
-// couples the lanes at every bit-step (the next decision's entry follows
-// from the symbol this one decodes), so its floor is bit-steps x one
-// barrier of the lanes (barrier_loop below measures the CTA's and the
-// cluster's). A block's seven streams run on their own CUDA streams, so a
-// block costs its longest chain, not the sum; a window's B blocks run side
-// by side in one launch, so its bound is one block's chain, not B of them.
-// At W = 1024 in one CTA a bit-step is bound by its 32 warps' issue on one
-// SM; a W = 64 stream by the latency of its chain (the shared atomics
-// before each barrier among it).
+// The order this kernel runs, one synchronisation a symbol-step: each lane
+// decodes all `depth` bits of its symbol from the table as the last
+// symbol-step left it and counts each bit and its decision at its entry;
+// barrier; every lane on an entry stores the value the law leaves there;
+// barrier; the next symbol-step. It is exact because the tree's levels
+// never share an entry: bit j of symbol-step t reads and updates only
+// entry row + node - 1 with node in [2^j, 2^(j+1)), and rows are disjoint
+// ranges of 2^depth - 1 entries, so an entry's level is fixed by the entry.
+// Hence in the format's order (bit-step by bit-step), the entries
+// bit-step (t, j) reads were last changed at (t - 1, j) or earlier, never
+// by another bit of symbol-step t in any lane; and the lanes on an entry
+// at (t, j) are exactly the lanes whose symbol-step t touches that entry.
+// So reading every level from the table as symbol-step t - 1 left it, and
+// committing each entry from its count, ones and the value it read, gives
+// every entry and every decision of the bit-step order, for every kind and
+// depth. At depth 1 (the flag kind) a symbol-step is one bit-step, and the
+// order is the lockstep one with two barriers, as before. The commit is
+// the format's marker arithmetic: clamp(p + sum(d - MARK) + sum(MARK)) =
+// clamp(p + sum(d)); int32 addition commutes, every lane on an entry read
+// the same p and visits, and its delta takes one of two values by its
+// decision, so each stores clamp(p + n1 * d(1) + (n - n1) * d(0)) with the
+// visit count raised by n: one value, whichever lane's store lands.
+//
+// Bound on the H100: the symbol-steps are a serial chain (QUAL at the
+// 64k-record block: 6,400 symbol-steps of 6 bits), each at least two
+// barriers (barrier_loop below measures the CTA's and the cluster's) and
+// `depth` dependent decisions of the lane coder (E's lane coder, which
+// runs the same arithmetic without the law, measures one), so the floor is
+// the larger of symbol-steps x 2 barriers and bit-steps x one decision.
+// (The lockstep order it replaces was bit-steps x one barrier.) A block's
+// seven streams run on their own CUDA streams, so a block costs its
+// longest chain; a window's B blocks run side by side in one launch.
 //
 // Design: one thread per lane, the lanes of a block's stream in one CTA
-// or, for a SEQ stream of 1,024 lanes, over a thread block cluster of C
-// CTAs (C a power of two <= 8, lane w in CTA w / T of T threads; the extra
-// threads take part in barriers only). coder_torch.decode_shape derives
-// C, T, where the table lives and every region's bytes from the geometry,
-// W and the window's B; the entry below refuses a shape that does not hold
-// and never launches another. A launch decodes one stream of each block of
-// a window (also replacing parallel/mesh.py's vmap over blocks,
-// mesh=None): CTA (or cluster) b reads block b's pointers and step count
-// from a descriptor in the launch's __grid_constant__ parameters (CUDA >=
-// 12.1 passes 32 KB), so blocks of any lengths share a launch, each with
-// its own steps and fresh table.
+// or over a thread block cluster of C CTAs (C a power of two <= 8, lane w
+// in CTA w / T of T threads; the extra threads take part in barriers
+// only): a stream whose table lives in device memory, beside 256 lanes or
+// more (QUAL, SEQ), takes the cluster, since one SM's path to L2 bounds
+// its counters' traffic: the card measured it about twice as fast as one
+// CTA for SEQ at every read length from 100 bases to 16.5 kb.
+// coder_torch.decode_shape derives C, T and where the table lives from
+// the geometry, W and the window's B; the entry below refuses a shape
+// that does not hold and never launches another. A launch decodes one
+// stream of each block of a window (also replacing parallel/mesh.py's vmap
+// over blocks, mesh=None): CTA (or cluster) b reads block b's pointers and
+// step count from a descriptor in the launch's __grid_constant__
+// parameters (CUDA >= 12.1 passes 32 KB), so blocks of any lengths share a
+// launch, each with its own steps, fresh table and zeroed counters.
 // * Table entries are 16 bits: p in bits 0-11 (always in [16, 4080]) and
 //   a saturating visit count in bits 12-15. The law reads the visit count
 //   only through the shift above, which stops changing at a count `vcap`
 //   (8 for QUAL, 2 for L3 SEQ, 1 for L1/L2 SEQ), so min(vis, vcap) is
 //   exact; the wrapper derives vcap and refuses a geometry past 15.
-// * Where the table and the hash fit the 227 KB of shared memory (the
-//   byte and flag kinds, the L1 tables and L2's SEQ) it lives there, built
-//   by the kernel; otherwise (L3 SEQ 8.4 MB, QUAL 1.03 MB) in device
-//   memory, L2-resident (read past L1 where a cluster shares it).
-// * The law's per-step bookkeeping is an open-addressed hash of >= 2W
-//   slots (key; count and ones, 16 bits each) in shared memory, three
-//   buffers rotated by bit-step mod 3; in a cluster entry e's slots live in
-//   CTA e mod C, which the others reach as distributed shared memory
-//   (map_shared_rank; remote shared atomics). No global atomics. A real
-//   lane probes its entry's slot (atomicCAS; the lane whose CAS placed the
-//   key owns the slot) as soon as it knows the entry, and after its decode
-//   adds 1 | one << 16 to the slot. The owner then stores the entry as the
-//   format's law leaves it: the decode does not read the count, every
-//   lane on an entry read the same p and visits, and its delta takes one
-//   of two values by its decision, so the deltas sum to n1 * d(one) +
-//   (n - n1) * d(zero) with n the slot's count and n1 its ones.
-// * One barrier a bit-step. Between the barriers ending bit-steps s-1 and
-//   s: the owners of step s-1 commit (store clamp(p + sum) with the visit
-//   count raised by n) and clear their slots; every lane decodes step s
-//   with the entry it loaded ahead and counts itself into its slot; then
-//   probes its step s+1 slot in the next buffer and loads that entry
-//   ahead. This is exact because:
-//   - step s's counts are complete at the barrier that ends it, where its
-//     owners read them in the next interval;
-//   - a buffer is cleared (step s-1's, in interval s) one interval before
-//     it is probed again (step s+2's, at the end of interval s+1), hence
-//     three;
-//   - the entries step s-1 commits lie on another tree level than those
-//     step s reads (consecutive bit-steps are consecutive levels, depth
-//     >= 2), and than those step s+1 loads ahead where depth >= 3 (levels
-//     j-1 and j+1 mod depth), so no lane reads an entry while it is
-//     stored; the stores of steps before s-1 are ordered by barriers.
-//   Where that fails a second barrier follows the commit (`two`): depth 1
-//   (the flag kind, whose steps share one level) and a depth-2 table in
-//   device memory (SEQ, whose entry is loaded one bit-step ahead, and
-//   step s+1's level is step s-1's). A depth-2 table in shared memory is
-//   read at its use, after the barrier, and keeps one barrier.
-//   This equals the format's marker arithmetic: today's entry is
-//   clamp(p + sum(d - MARK) + sum(MARK)) = clamp(p + sum(d)), int32
-//   addition commutes, and colliding lanes store one value.
-// * Only SEQ's 1,024 lanes (two barriers a bit-step, a device table) span
-//   a cluster: there the card measured 8 CTAs of 128 threads faster than
-//   one CTA on 100 bp reads (on 16.5 kb reads, whose lanes rarely share an
-//   entry, one CTA measured faster; the shape does not see the reads);
-//   elsewhere the cluster barrier (0.42 us against the CTA's 0.039 us on
-//   the H100) costs more than it saves. (Measured and not
-//   kept: L3 QUAL over 8 CTAs with its table split over their shared
-//   memory; merging a warp's lanes on one entry, by __all_sync or by
-//   __match_any_sync, before their atomics; loading both children of a
-//   step's node one bit-step earlier from a device table.)
+// * Where the table fits the 227 KB of shared memory (the byte and flag
+//   kinds, the L1 tables and L2's SEQ) it lives there, built by the
+//   kernel; otherwise (L3 SEQ 8.4 MB, QUAL 1.03 MB) in device memory,
+//   L2-resident (read past L1 where a cluster shares it). A depth-2 device
+//   table (SEQ) is laid out in rows padded to 4 entries, so a lane loads
+//   its row's three entries in one 8-byte load at the symbol's start.
+// * The law's counts: one int32 an entry of the unpadded table (count in
+//   bits 0-15, ones in bits 16-31) in device memory, 16.8 MB for L3 SEQ,
+//   so its table and counters (28 MB) stay in the 50 MB L2 on long reads.
+//   A lane adds its marks to its entries' counters with reductions whose
+//   result it never awaits (no slot to claim, no hash); after the first
+//   barrier every lane on an entry reads its counter and stores the one
+//   value the law leaves; after the second each lane subtracts its marks
+//   again, which clears every counter by the next symbol-step's first
+//   barrier whatever the order of the adds and subtracts that meet there.
 // * The payload: each lane reads its bytes from aligned 4-byte words in
 //   registers, two words loaded ahead of the one in use, so no renorm round
 //   waits on device memory; the step inputs come one symbol-step ahead and
 //   are read only at their use. (A barrier does not wait for a thread's
 //   pending loads into registers; only their use does.)
+// * Measured on the H100 and not kept (tools/decode_streams.py beside
+//   probes): the law in a shared-memory hash, one a tree level, whose
+//   lanes claim their slots by CAS (QUAL 53.4 ms, IDD 37.3: the atomics
+//   cost more than the barriers saved); merging a warp's lanes on an entry
+//   (__match_any_sync) before one add; one owner a counter (an add that
+//   returns) committing for the others; QUAL's row padded to 64 entries and
+//   loaded whole (no gain); QUAL in one CTA (79 ms: its counters' traffic
+//   through one SM); the counters in two halves by symbol-step parity,
+//   each cleared by stores (QUAL about 5% faster, the long block's 20%,
+//   but SEQ's padded halves, 56 MB with its table, passed the L2: the long
+//   block's SEQ took 9.7 s over the cluster against 3.1 now); the
+//   subtracts issued after the next symbol's decode (no gain).
 
 #include <cooperative_groups.h>
+
+#include <type_traits>
 
 #include "ctx.cuh"
 
@@ -120,19 +123,12 @@ namespace cg = cooperative_groups;
 
 namespace {
 
-constexpr int EMPTY = -1;
-constexpr int NBUF = 3;          // hash buffers, rotated by bit-step mod 3
+constexpr int MAX_DEPTH = 8;     // tree levels a symbol (the byte kind's 8)
 constexpr int MAX_CLUSTER = 8;   // the portable cluster size
 
-// Layout of a CTA's dynamic shared memory: [the table, where it lives in
-// shared memory][hash keys | counts], each hash array NBUF buffers of
-// 2^nsl slots.
+// A CTA's dynamic shared memory: the table, where it lives there.
 __host__ __device__ inline int table_smem_bytes(int entries) {
   return (entries * 2 + 15) / 16 * 16;
-}
-
-__host__ __device__ inline int hash_smem_bytes(int nsl) {
-  return 2 * NBUF * (1 << nsl) * 4;
 }
 
 // One lane's payload bytes through aligned 4-byte words in registers, two
@@ -186,8 +182,8 @@ __device__ __forceinline__ void sync_all() {
 }
 
 // One block's stream for Kernel D: its payload and step inputs, its
-// fresh device table (null where the table lives in shared memory) and
-// its symbols.
+// fresh device table (null where the table lives in shared memory), the
+// law's zeroed counters and its symbols.
 struct DecDesc {
   const uint8_t* payload;  // [W, Lb]
   const int* lens;         // [W]
@@ -195,7 +191,8 @@ struct DecDesc {
   const int* poss;         // [Sp, W]
   const int* resets;       // [Sp, W]
   const uint8_t* mflags;   // [Sp, W], a format-v5 SEQ stream's only
-  uint16_t* table;         // [table_size]
+  uint16_t* table;         // [table_size] (padded where PAD)
+  int* tally;              // [table_size] (unpadded), zero
   uint8_t* syms;           // [Sp, W]
   int Lb, Sp;
 };
@@ -204,16 +201,15 @@ struct DecParams {
   DecDesc d[MAX_BLOCKS];
   Geo geo;
   Ctx cx;
-  int W, nsl, lc;  // lanes; log2 of a buffer's slots; log2 of C
-  int two;         // a second barrier after the commit
-  int ahead;       // each entry loaded one bit-step ahead
-  int match;       // the descriptors carry match-span flags
+  int W, lc;  // lanes; log2 of C
+  int match;  // the descriptors carry match-span flags
 };
 
-// SMEM: the table lives in the CTA's shared memory (one CTA a block); CL:
-// the lanes span a cluster, the table in device memory; WARM: the geometry
-// counts visits.
-template <bool SMEM, bool CL, bool WARM>
+// SMEM: the table lives in the CTA's shared memory (one CTA a block);
+// CL: the lanes span a cluster, the table in device memory; WARM: the
+// geometry counts visits; PAD: a depth-2 device table (SEQ) whose rows are
+// padded to 4 entries, each loaded whole at its symbol's start.
+template <bool SMEM, bool CL, bool WARM, bool PAD>
 __global__ void __launch_bounds__(CL ? 512 : 1024, 1)
     lane_decode_kernel(const __grid_constant__ DecParams p) {
   extern __shared__ __align__(16) unsigned char smem[];
@@ -222,37 +218,25 @@ __global__ void __launch_bounds__(CL ? 512 : 1024, 1)
   const DecDesc& desc = p.d[blockIdx.x >> lc];
   const Ctx& cx = p.cx;
   const Geo& g = p.geo;
-  const int W = p.W, Lb = desc.Lb, Sp = desc.Sp, NS = 1 << p.nsl;
+  const int W = p.W, Lb = desc.Lb, Sp = desc.Sp;
+  const int depth = PAD ? 2 : cx.depth;
   static_assert(!(SMEM && CL), "a cluster's table lives in device memory");
-  const int hoff = SMEM ? table_smem_bytes(p.geo.table_size) : 0;
+  static_assert(!(SMEM && PAD), "padded rows in device memory only");
   const int w = rank * (int)blockDim.x + (int)threadIdx.x;
   const bool live = w < W;
   const int* __restrict__ poss = desc.poss;
   const int* __restrict__ resets = desc.resets;
   const uint8_t* __restrict__ mflags = desc.mflags;
   uint8_t* __restrict__ syms = desc.syms;
-  uint16_t* gtab = desc.table;
-  uint16_t* const table = SMEM ? reinterpret_cast<uint16_t*>(smem) : gtab;
-  {  // this CTA's hash (and table), fresh
-    int* h = reinterpret_cast<int*>(smem + hoff);
-    for (int i = threadIdx.x; i < 2 * NBUF * NS; i += blockDim.x)
-      h[i] = i < NBUF * NS ? EMPTY : 0;
-    if (SMEM) {  // the sacrificial row pinned at PROB_MAX
-      for (int i = threadIdx.x; i < g.table_size; i += blockDim.x)
-        table[i] = (uint16_t)(i < g.sac_base ? PROB_INIT : PROB_MAX);
-    }
+  int* const tally = desc.tally;
+  uint16_t* const table =
+      SMEM ? reinterpret_cast<uint16_t*>(smem) : desc.table;
+  if (SMEM) {  // this CTA's table, fresh; the sacrificial row at PROB_MAX
+    for (int i = threadIdx.x; i < g.table_size; i += blockDim.x)
+      table[i] = (uint16_t)(i < g.sac_base ? PROB_INIT : PROB_MAX);
+    __syncthreads();
   }
-  // every CTA of the cluster set up before any reaches its shared memory
-  sync_all<CL>();
 
-  // entry e's keys in buffer bf (its counts NBUF * NS on), in the shared
-  // memory of its CTA, e mod C
-  auto keys = [&](int e, int bf) -> int* {
-    const unsigned r = (unsigned)(e & ((1 << lc) - 1));
-    unsigned char* home =
-        CL ? cg::this_cluster().map_shared_rank(smem, r) : smem;
-    return reinterpret_cast<int*>(home + hoff) + bf * NS;
-  };
   // the table's entries; a cluster's CTAs reach the device table past
   // their L1s
   auto tload = [&](int e) -> int {
@@ -263,29 +247,6 @@ __global__ void __launch_bounds__(CL ? 512 : 1024, 1)
       __stcg(table + e, (unsigned short)v);
     else
       table[e] = (uint16_t)v;
-  };
-  const unsigned hmask = (unsigned)NS - 1;
-
-  // this bit-step's entry and its slot probe (issued the interval before,
-  // resolved after the decode)
-  int ce = 0, cahead = 0, cold = EMPTY;
-  unsigned ch = 0;
-  bool creal = false;
-  int* ckp = nullptr;
-  // the last bit-step's slot and entry, until its commit
-  int pe = 0, pslot = 0, pbuf = 0, pp = 0, pvis = 0;
-  bool pown = false;
-  // the entry of the next bit-step: loaded ahead, its slot probed in
-  // buffer bf
-  auto enter = [&](int e, int bf) {
-    ce = e;
-    creal = live && e < g.sac_base;
-    if (creal) {
-      if (p.ahead) cahead = tload(e);
-      ckp = keys(e, bf);
-      ch = ((unsigned)e * 2654435761u) >> (32 - p.nsl);
-      cold = atomicCAS(ckp + ch, EMPTY, e);
-    }
   };
 
   Bytes in;
@@ -308,87 +269,119 @@ __global__ void __launch_bounds__(CL ? 512 : 1024, 1)
       if (p.match) x->mf = mflags[at];
     }
   };
-  auto row = [&](int t, const Inputs& x) {
-    return st.row(cx, t < cnt, x.rs != 0, (uint32_t)x.pos, x.mf == 1);
-  };
   // this symbol-step's inputs and the next one's, loaded ahead
   Inputs cur, nxt;
   inputs(0, &cur);
   inputs(1, &nxt);
-  int base = row(0, cur), node = 1, d = 0, t = 0;
-  enter(base, 0);
-  sync_all<CL>();
-  const int S = Sp * cx.depth;
-  for (int s = 0, bf = 0; s < S; ++s) {
-    if (pown) {  // commit bit-step s-1 and clear its slot
-      int* ks = keys(pe, pbuf) + pslot;
-      const int c = ks[NBUF * NS];
-      const int n = c & 0xFFFF, n1 = c >> 16;
-      const int sum = n1 * law_delta<WARM>(g, pp, pvis, n, true) +
-                      (n - n1) * law_delta<WARM>(g, pp, pvis, n, false);
-      const int nv = WARM ? min(pvis + n, g.vcap) : 0;
-      tstore(pe, clampi(pp + sum, PROB_MIN, PROB_MAX) | (nv << VIS_SHIFT));
-      ks[0] = EMPTY;
-      ks[NBUF * NS] = 0;
-      pown = false;
+  for (int t = 0; t < Sp; ++t) {
+    const bool act = t < cnt;
+    const int base =
+        st.row(cx, act, cur.rs != 0, (uint32_t)cur.pos, cur.mf == 1);
+    // a real lane's row lies below the sacrificial one, and so does each
+    // entry of it
+    const bool real = live && base < g.sac_base;
+    // the row's first entry in the table: padded rows start at row * 4
+    const int rb = PAD ? base / 3 * 4 : base;
+    // a padded row, whole: its three entries (and the unused fourth) in one
+    // 8-byte load
+    uint2 rw = make_uint2(PROB_MAX | (PROB_MAX << 16), PROB_MAX);
+    if (PAD && real) {
+      const uint2* src = reinterpret_cast<const uint2*>(table + rb);
+      rw = CL ? __ldcg(src) : *src;
     }
-    if (p.two) sync_all<CL>();
-    int prob = PROB_MAX, vis = 0;
-    if (creal) {
-      const int e = p.ahead ? cahead : tload(ce);
-      prob = e & P_MASK;
-      vis = e >> VIS_SHIFT;
-    }
-    const uint32_t split = (rng >> PROB_BITS) * (uint32_t)prob;
-    const bool one = code - low >= split;
-    if (one) {
-      low += split;
-      rng -= split;
-    } else {
-      rng = split;
-    }
-    for (int r = 0; r < RENORM_ITERS; ++r) {
-      bool agree;
-      if (!renorm_needed(low, rng, &agree)) break;
-      if (!agree) rng = (0u - low) & (BOT - 1);
-      code = (code << 8) | in.next();
-      low <<= 8;
-      rng <<= 8;
-    }
-    // the lane counts itself and its decision into its slot: count in bits
-    // 0-15, ones in bits 16-31 (at most 1,024 each)
-    if (creal) {
-      while (cold != EMPTY && cold != ce) {
-        ch = (ch + 1) & hmask;
-        cold = atomicCAS(ckp + ch, EMPTY, ce);
+    // decode every bit of the symbol from the table as the last
+    // symbol-step left it: bit j's entry, rb + (node >> (depth - j)) - 1
+    // with the symbol's final node, read `got[j]` (p | visits << 12)
+    int got[MAX_DEPTH];
+    int node = 1;
+#pragma unroll
+    for (int j = 0; j < MAX_DEPTH; ++j) {
+      if (j < depth) {
+        int v = PROB_MAX;
+        if (PAD) {  // entry node - 1 of the row: 0 (level 0), 1 or 2
+          v = (int)(node == 1   ? rw.x & 0xFFFFu
+                    : node == 2 ? rw.x >> 16
+                                : rw.y & 0xFFFFu);
+        } else if (real) {
+          v = tload(rb + node - 1);
+        }
+        const uint32_t split = (rng >> PROB_BITS) * (uint32_t)(v & P_MASK);
+        const bool one = code - low >= split;
+        if (one) {
+          low += split;
+          rng -= split;
+        } else {
+          rng = split;
+        }
+        for (int r = 0; r < RENORM_ITERS; ++r) {
+          bool agree;
+          if (!renorm_needed(low, rng, &agree)) break;
+          if (!agree) rng = (0u - low) & (BOT - 1);
+          code = (code << 8) | in.next();
+          low <<= 8;
+          rng <<= 8;
+        }
+        node = 2 * node + one;
+        got[j] = v;
       }
-      pown = cold == EMPTY;
-      atomicAdd(ckp + NBUF * NS + ch, 1 | ((int)one << 16));
     }
-    pe = ce;
-    pslot = (int)ch;
-    pbuf = bf;
-    pp = prob;
-    pvis = vis;
-    node = 2 * node + one;
-    if (++d == cx.depth) {  // the symbol is complete
-      const uint32_t sym = t < cnt ? (uint32_t)(node - (1 << cx.depth)) : 0u;
-      st.advance(cx, sym);
-      if (live) syms[(size_t)t * W + w] = (uint8_t)sym;
-      cur = nxt;
-      inputs(++t + 1, &nxt);
-      base = row(t, cur);
-      node = 1;
-      d = 0;
+    auto entry = [&](int b, int nd, int j) {
+      return b + (nd >> (depth - j)) - 1;
+    };
+    // bit j's share of its entry's counter: count in bits 0-15, ones in
+    // bits 16-31 (at most 1,024 each)
+    auto mark = [&](int j) {
+      return 1 | (((node >> (depth - 1 - j)) & 1) << 16);
+    };
+    // count each bit and its decision at its entry (the counters index
+    // the unpadded table); no result is awaited
+    if (real) {
+#pragma unroll
+      for (int j = 0; j < MAX_DEPTH; ++j) {
+        if (j < depth) atomicAdd(tally + entry(base, node, j), mark(j));
+      }
     }
-    bf = bf == NBUF - 1 ? 0 : bf + 1;
-    if (s + 1 < S) enter(base + node - 1, bf);
-    sync_all<CL>();
+    const uint32_t sym = act ? (uint32_t)(node - (1 << depth)) : 0u;
+    st.advance(cx, sym);
+    if (live) syms[(size_t)t * W + w] = (uint8_t)sym;
+    cur = nxt;
+    inputs(t + 2, &nxt);
+    sync_all<CL>();  // the symbol-step's counts are complete
+    if (real) {  // every lane on an entry stores the one value it leaves
+      int c[MAX_DEPTH];
+#pragma unroll
+      for (int j = 0; j < MAX_DEPTH; ++j) {
+        if (j < depth) c[j] = __ldcg(tally + entry(base, node, j));
+      }
+#pragma unroll
+      for (int j = 0; j < MAX_DEPTH; ++j) {
+        if (j < depth) {
+          const int n = c[j] & 0xFFFF, n1 = c[j] >> 16;
+          const int pp = got[j] & P_MASK, pvis = got[j] >> VIS_SHIFT;
+          const int sum = n1 * law_delta<WARM>(g, pp, pvis, n, true) +
+                          (n - n1) * law_delta<WARM>(g, pp, pvis, n, false);
+          const int nv = WARM ? min(pvis + n, g.vcap) : 0;
+          tstore(entry(rb, node, j),
+                 clampi(pp + sum, PROB_MIN, PROB_MAX) | (nv << VIS_SHIFT));
+        }
+      }
+    }
+    sync_all<CL>();  // the commits seen before the next symbol-step reads
+    // every counter read, each lane takes its marks back out: the adds of
+    // the next symbol-step may land before or after (addition commutes),
+    // and all of these land before its first barrier, so each counter
+    // reads the next symbol-step's marks alone there
+    if (real) {
+#pragma unroll
+      for (int j = 0; j < MAX_DEPTH; ++j) {
+        if (j < depth) atomicSub(tally + entry(base, node, j), mark(j));
+      }
+    }
   }
 }
 
 // One barrier of `blockDim` threads (of every CTA of the cluster, CL) per
-// loop step: the latency that bounds Kernel D's lockstep from below.
+// loop step: the latency that bounds Kernel D's symbol-step from below.
 template <bool CL>
 __global__ void barrier_loop_kernel(int iters, int* out) {
   int acc = threadIdx.x;
@@ -431,42 +424,37 @@ const char* error_string(int err) {
 // parameter of a type in the anonymous namespace would take the entry's C
 // linkage away), one cluster of `cluster` CTAs of `threads` each a block
 // (one CTA where cluster is 1), in the shape coder_torch.decode_shape
-// derived: nsl, log2 of a hash buffer's slots; smem_table, the table in
-// the CTA's shared memory (one CTA a block; else the descriptors' device
-// tables); two, a second barrier a bit-step; bytes, a CTA's dynamic shared
-// memory. vcap: the saturating visit count, 0 without warm-up. match: the
-// descriptors carry a format-v5 SEQ stream's [Sp, W] match-span flags. A
-// shape that does not hold is refused (cudaErrorInvalidValue), as is a
-// launch the card refuses; nothing else is launched in its place.
+// derived: smem_table, the table in the CTA's shared memory (one CTA a
+// block; else the descriptors' device tables); padded, a depth-2 device
+// table laid out in rows padded to 4 entries (the descriptors' counters
+// keep the unpadded layout of table_size entries); bytes, a CTA's dynamic
+// shared memory. vcap: the saturating visit count, 0 without warm-up.
+// match: the descriptors carry a format-v5 SEQ stream's [Sp, W] match-span
+// flags. A shape that does not hold is refused (cudaErrorInvalidValue), as
+// is a launch the card refuses; nothing else is launched in its place.
 int lane_decode(const void* descs, int n, int W, int table_size,
                 int sac_base, int rate, int rate_lo, int vcap, int depth,
                 int kind, int num_ctx, int k0, int k1, int k2, int k3,
-                int match, int cluster, int threads, int nsl, int smem_table,
-                int two, int bytes, cudaStream_t stream) {
+                int match, int cluster, int threads, int smem_table,
+                int padded, int bytes, cudaStream_t stream) {
   int lc = 0;
   while ((1 << lc) < cluster) ++lc;
-  const int lanes = (W + 31) / 32 * 32;
   const bool ok =
       n >= 1 && n <= MAX_BLOCKS && W >= 1 && W <= 1024 && cluster >= 1 &&
       cluster <= MAX_CLUSTER && (1 << lc) == cluster && threads >= 32 &&
       threads <= (cluster > 1 ? 512 : 1024) && threads % 32 == 0 &&
-      threads * cluster >= W && nsl >= 1 && nsl <= 16 &&
-      (1 << nsl) >= 2 * lanes && depth >= 1 &&
-      (smem_table ? cluster == 1 : depth >= 2) &&
-      bytes == (smem_table ? table_smem_bytes(table_size) : 0) +
-                   hash_smem_bytes(nsl) &&
-      bytes <= SMEM_LIMIT &&
-      (two || !(depth == 1 || (depth == 2 && !smem_table)));
+      threads * cluster >= W && depth >= 1 && depth <= MAX_DEPTH &&
+      (!smem_table || cluster == 1) &&
+      (!padded || (!smem_table && depth == 2 && table_size % 3 == 0)) &&
+      bytes == (smem_table ? table_smem_bytes(table_size) : 0) &&
+      bytes <= SMEM_LIMIT;
   if (!ok) return (int)cudaErrorInvalidValue;
   DecParams p = {};
   for (int i = 0; i < n; ++i) p.d[i] = static_cast<const DecDesc*>(descs)[i];
   p.geo = Geo{table_size, sac_base, rate, rate_lo, vcap};
   p.cx = Ctx{kind, depth, num_ctx, k0, k1, k2, k3};
   p.W = W;
-  p.nsl = nsl;
   p.lc = lc;
-  p.two = two;
-  p.ahead = depth >= 3 || !smem_table;
   p.match = match;
   auto go = [&](auto kern) -> int {
     cudaError_t e = cudaFuncSetAttribute(
@@ -477,13 +465,18 @@ int lane_decode(const void* descs, int n, int W, int table_size,
     return e != cudaSuccess ? (int)e : (int)cudaGetLastError();
   };
   if (smem_table)
-    return vcap ? go(lane_decode_kernel<true, false, true>)
-                : go(lane_decode_kernel<true, false, false>);
-  if (cluster > 1)
-    return vcap ? go(lane_decode_kernel<false, true, true>)
-                : go(lane_decode_kernel<false, true, false>);
-  return vcap ? go(lane_decode_kernel<false, false, true>)
-              : go(lane_decode_kernel<false, false, false>);
+    return vcap ? go(lane_decode_kernel<true, false, true, false>)
+                : go(lane_decode_kernel<true, false, false, false>);
+  // a device table: one CTA or a cluster, rows padded or not
+  auto dev = [&](auto cl) -> int {
+    constexpr bool C = decltype(cl)::value;
+    if (padded)
+      return vcap ? go(lane_decode_kernel<false, C, true, true>)
+                  : go(lane_decode_kernel<false, C, false, true>);
+    return vcap ? go(lane_decode_kernel<false, C, true, false>)
+                : go(lane_decode_kernel<false, C, false, false>);
+  };
+  return cluster > 1 ? dev(std::true_type{}) : dev(std::false_type{});
 }
 
 // `iters` barriers of `threads` threads in one CTA, or of a cluster of

@@ -35,20 +35,22 @@ ops/ranger.py) with the format-v4 visit-count warm-up when the geometry
 sets ``0 < rate_lo < rate``. Kernel E is the decoupled encode of
 ops/encode_torch.py (csrc/encode.cu: p of every decision by a scan per
 table entry, then each lane coded alone), on CUDA tensors its phases'
-kernels and on CPU tensors their plain versions; Kernel D is the lockstep
-decode of csrc/coder.cu on CUDA tensors and ``lane_decode_plain`` on CPU
-tensors. The plain versions here carry low/range/code in int64 masked to
-32 bits (torch.uint32 has no arithmetic) and the table in int32, whose
-adds wrap exactly as the format's collision-count field requires:
+kernels and on CPU tensors their plain versions; Kernel D is the decode
+of csrc/coder.cu (one synchronisation a symbol-step) on CUDA tensors and
+``lane_decode_plain`` (the format's bit-step order) on CPU tensors. The
+plain versions here carry low/range/code in int64 masked to 32 bits
+(torch.uint32 has no arithmetic) and the table in int32, whose adds wrap
+exactly as the format's collision-count field requires:
 ``lane_encode_plain`` (the lockstep encode, from the schedule
 ``online_schedule`` builds) is the independent reference the decoupled
 encode is held against.
 
 The kernels keep 16-bit entries (12-bit p, the visit count saturated at
 ``visit_cap``); Kernel D's launch shape (a CTA or a thread block cluster
-a block, the table in the CTAs' shared memory or in device memory) is
-``decode_shape``'s, derived from the geometry, W and the window's blocks;
-the wrappers refuse a geometry whose cap needs more than 4 bits.
+a block, the table in the CTA's shared memory or in device memory, SEQ's
+device table in padded rows) is ``decode_shape``'s, derived from the
+geometry, W and the window's blocks; the wrappers refuse a geometry whose
+cap needs more than 4 bits.
 """
 
 from __future__ import annotations
@@ -70,8 +72,8 @@ _P, _I = _cuda.PTR, _cuda.INT
 _SIGS = {
     # descs, n, W, table_size, sac_base, rate, rate_lo, vcap, depth, kind,
     # num_ctx, k0, k1, k2, k3, match, then the DecodeShape: cluster,
-    # threads, nsl, smem_table, two, bytes; stream
-    "lane_decode": [_P] + [_I] * 21 + [_P],
+    # threads, smem_table, padded, bytes; stream
+    "lane_decode": [_P] + [_I] * 20 + [_P],
     # iters, threads, cluster, out, stream
     "barrier_loop": [_I, _I, _I, _P, _P],
 }
@@ -79,7 +81,7 @@ MAX_LANES = 1024  # one thread per lane, over one CTA or one cluster
 MAX_BLOCKS = 256  # blocks a launch: csrc/coder.cu's MAX_BLOCKS
 MAX_CLUSTER = 8  # CTAs a cluster: the portable size (csrc/coder.cu)
 SMS = 132  # the H100 SXM's streaming multiprocessors
-NBUF = 3  # Kernel D's hash buffers, rotated by bit-step mod 3
+MAX_DEPTH = 8  # tree levels a symbol Kernel D takes (csrc/coder.cu)
 
 
 class EncIn(NamedTuple):
@@ -107,7 +109,8 @@ class _DecDesc(ctypes.Structure):
     _fields_ = [("payload", ctypes.c_void_p), ("lens", ctypes.c_void_p),
                 ("counts", ctypes.c_void_p), ("poss", ctypes.c_void_p),
                 ("resets", ctypes.c_void_p), ("mflags", ctypes.c_void_p),
-                ("table", ctypes.c_void_p), ("syms", ctypes.c_void_p),
+                ("table", ctypes.c_void_p), ("tally", ctypes.c_void_p),
+                ("syms", ctypes.c_void_p),
                 ("Lb", ctypes.c_int), ("Sp", ctypes.c_int)]
 SMEM_LIMIT = 232448  # dynamic shared memory one CTA may use on the H100
 VIS_BITS = 4  # the kernels' 16-bit entries: 12-bit p, 4-bit visit count
@@ -154,30 +157,14 @@ def table_bytes(geom) -> int:
     return 2 * geom.table_size
 
 
-def _slots(W: int) -> int:
-    """Slots of one hash buffer: the least power of two >= 2 * (W rounded
-    up to whole warps)."""
-    slots = 1
-    while slots < 2 * ((W + 31) // 32 * 32):
-        slots *= 2
-    return slots
-
-
-def hash_bytes(W: int) -> int:
-    """Shared memory of Kernel D's per-step hash in one CTA: NBUF buffers
-    of _slots(W) slots of two int32, key and counts (a cluster's CTAs each
-    hold one: a CTA's entries can be all W lanes')."""
-    return 2 * NBUF * _slots(W) * 4
-
-
 def _table_smem(entries: int) -> int:
     return (2 * entries + 15) // 16 * 16
 
 
-def table_in_smem(geom, W: int) -> bool:
-    """Whether the whole table and the hash of W lanes fit one CTA's
-    shared memory."""
-    return _table_smem(geom.table_size) + hash_bytes(W) <= SMEM_LIMIT
+def table_in_smem(geom) -> bool:
+    """Whether Kernel D's table fits one CTA's shared memory (the kernel
+    then builds it there)."""
+    return _table_smem(geom.table_size) <= SMEM_LIMIT
 
 
 def _check_geom(geom, W: int) -> int:
@@ -188,6 +175,9 @@ def _check_geom(geom, W: int) -> int:
     if W > MAX_LANES:
         raise ValueError(f"W={W} lanes exceeds {MAX_LANES} (one thread a "
                          "lane in one CTA or cluster a stream)")
+    if not 1 <= geom.depth <= MAX_DEPTH:
+        raise ValueError(f"depth {geom.depth} outside Kernel D's 1 to "
+                         f"{MAX_DEPTH} levels")
     cap = visit_cap(geom)
     if cap >= 1 << VIS_BITS:
         raise ValueError(f"visit cap {cap} of rate={geom.rate} rate_lo="
@@ -197,83 +187,90 @@ def _check_geom(geom, W: int) -> int:
 
 class DecodeShape(NamedTuple):
     """Kernel D's launch over a window: ``cluster`` CTAs of ``threads``
-    threads a block (lane w in CTA w // threads; the hash slots of entry e
-    in CTA e % cluster), ``nsl`` the log2 of a hash buffer's slots, the
-    table in the CTA's shared memory ("smem", one CTA a block) or in
-    device memory ("device"), each CTA's table and hash bytes, a second
-    barrier a bit-step (``two_barriers``) and the launch's ``ctas``."""
+    threads a block (lane w in CTA w // threads), the table in the CTA's
+    shared memory ("smem", one CTA a block) or in device memory
+    ("device"), ``padded``: a depth-2 device table (SEQ) laid out in rows
+    padded to 4 entries, each loaded whole at its symbol's start;
+    ``entries``: the table's entries in that layout; each CTA's dynamic
+    shared memory and the launch's ``ctas``. The law's counters, one
+    int32 an entry of the unpadded table, live in device memory."""
     cluster: int
     threads: int
-    nsl: int
     table: str
-    table_bytes: int
-    hash_bytes: int
+    padded: bool
+    entries: int
     smem_bytes: int
-    two_barriers: bool
     ctas: int
+
+
+def may_cluster(geom, W: int) -> bool:
+    """Whether Kernel D may spread a stream over a cluster: a table in
+    device memory (QUAL and SEQ at levels 2-4, the level-4 trials) beside
+    at least 256 lanes, two CTAs of 128 threads or more."""
+    return not table_in_smem(geom) and (W + 31) // 32 * 32 >= 256
 
 
 def decode_shape(geom, W: int, B: int = 1) -> DecodeShape:
     """Kernel D's launch shape for W lanes of B blocks, derived (no option
-    sets it). The table lives in the CTA's shared memory where it fits
-    beside the hash, else in device memory (depth >= 2). A second barrier
-    follows the commit where the one-barrier ordering does not hold:
-    depth 1, and a depth-2 table in device memory (its entries are loaded
-    one bit-step ahead). Such a stream of at least 256 lanes (SEQ at
-    levels 3 and 4, the level-4 trials) spreads over a cluster of up to
-    MAX_CLUSTER CTAs of at least 128 threads, as large as lets a window's
-    clusters of two streams run side by side on the card's SMS (2 * B *
-    cluster <= SMS): there the card measured the cluster faster; every
-    other stream keeps one CTA a block, where the CTA's barrier (0.039 us
-    on the H100) costs less than the cluster's (0.42 us). Raises where the
-    lanes or the geometry do not fit the kernel."""
+    sets it). The table lives in the CTA's shared memory where it fits,
+    else in device memory. A stream that may_cluster (QUAL, SEQ) spreads
+    over a cluster of up to MAX_CLUSTER CTAs of at least 128 threads, as
+    large as lets a window's clusters of two streams run side by side on
+    the card's SMS (2 * B * cluster <= SMS), whatever its reads: the card
+    measured SEQ's cluster about twice as fast as one CTA from 100-base
+    reads to 16.5 kb ones. Every other stream keeps one CTA a block.
+    Raises where the lanes or the geometry do not fit the kernel."""
     _check_geom(geom, W)
     if not 1 <= B <= MAX_BLOCKS:
         raise ValueError(f"one launch codes 1 to {MAX_BLOCKS} blocks, not "
                          f"{B}")
     lanes = (W + 31) // 32 * 32
-    slots = _slots(W)
-    hb = hash_bytes(W)
-    tb = _table_smem(geom.table_size)
-    if table_in_smem(geom, W):
-        table = "smem"
+    if table_in_smem(geom):
+        table, smem = "smem", _table_smem(geom.table_size)
     else:
         if geom.depth < 2:
-            # a device table's entry is loaded one bit-step ahead, after
-            # the commit of the level before; no level reaches this: the
-            # one depth-1 kind, flag, has 2^hist_bits + 1 entries (5 at
-            # levels 1-4)
+            # no level has a depth-1 table past shared memory: the one
+            # depth-1 kind, flag, has 2^hist_bits + 1 entries (5 at levels
+            # 1-4)
             raise ValueError("a depth-1 table must fit shared memory")
-        table, tb = "device", 0
-    two = geom.depth == 1 or (geom.depth == 2 and table == "device")
+        table, smem = "device", 0
+    padded = table == "device" and geom.depth == 2
+    entries = geom.table_size // 3 * 4 if padded else geom.table_size
     C = 1
-    while (two and table == "device" and C < MAX_CLUSTER
+    while (may_cluster(geom, W) and C < MAX_CLUSTER
            and lanes // (2 * C) >= 128 and 2 * B * 2 * C <= SMS):
         C *= 2
     threads = (-(-W // C) + 31) // 32 * 32
-    return DecodeShape(C, threads, slots.bit_length() - 1, table, tb, hb,
-                       tb + hb, two, B * C)
+    return DecodeShape(C, threads, table, padded, entries, smem, B * C)
 
 
 def _kernel_geom(geom, W: int, dev, B: int | None = None):
     """Kernel D's table arguments: (a fresh device table, [B,
-    table_size] for B blocks, or None where the table lives in shared
-    memory, vcap, the DecodeShape). Raises where the lanes or the geometry
-    do not fit the kernel."""
+    entries] for B blocks, or None where the table lives in shared
+    memory; the law's zeroed counters, [B, table_size] int32; vcap; the
+    DecodeShape). Raises where the lanes or the geometry do not fit the
+    kernel."""
     shape = decode_shape(geom, W, 1 if B is None else B)
-    cap = visit_cap(geom)
-    if shape.table == "smem":
-        return None, cap, shape
-    return device_table(geom, dev, B), cap, shape
+    table = (None if shape.table == "smem"
+             else device_table(geom, dev, B, shape.padded))
+    tally = torch.zeros((1 if B is None else B, geom.table_size),
+                        dtype=torch.int32, device=dev)
+    return table, tally, visit_cap(geom), shape
 
 
-def device_table(geom, dev, B: int | None = None) -> torch.Tensor:
+def device_table(geom, dev, B: int | None = None,
+                 padded: bool = False) -> torch.Tensor:
     """A fresh table of the kernels' 16-bit entries in device memory
     (PROB_INIT, visit count 0; the sacrificial row at PROB_MAX), or B of
-    them [B, table_size], one a block."""
-    shape = (geom.table_size,) if B is None else (B, geom.table_size)
-    table = torch.full(shape, PROB_INIT, dtype=torch.int16, device=dev)
-    table[..., geom.sac_base:] = PROB_MAX
+    them [B, table_size], one a block; ``padded``: a depth-2 table's rows
+    padded to 4 entries (Kernel D's layout: row r's node k at 4 r + k -
+    1)."""
+    size, sac = geom.table_size, geom.sac_base
+    if padded:
+        size, sac = size // 3 * 4, sac // 3 * 4
+    table = torch.full((size,) if B is None else (B, size), PROB_INIT,
+                       dtype=torch.int16, device=dev)
+    table[..., sac:] = PROB_MAX
     return table
 
 
@@ -704,7 +701,7 @@ def lane_decode_blocks(items, kind: str, geom) -> list:
     if dev.type == "cpu":
         return lane_decode_blocks_plain(checked, kind, geom)
     B = len(checked)
-    table, vcap, shape = _kernel_geom(geom, W, dev, B)
+    table, tally, vcap, shape = _kernel_geom(geom, W, dev, B)
     # the kernel takes the flags only where the geometry has the family
     family = all(flagged) and kind == "seq" and bool(geom.match_bits)
     lib = _cuda.load("coder", _SIGS)
@@ -720,6 +717,7 @@ def lane_decode_blocks(items, kind: str, geom) -> list:
             x.data_ptr() for x in ins)
         d.mflags = None if mflag is None else mflag.data_ptr()
         d.table = None if table is None else table[b].data_ptr()
+        d.tally = tally[b].data_ptr()
         d.syms, d.Lb, d.Sp = syms.data_ptr(), ins[0].shape[1], poss.shape[0]
         outs.append(syms)
     rate_lo = getattr(geom, "rate_lo", 0)
@@ -727,9 +725,8 @@ def lane_decode_blocks(items, kind: str, geom) -> list:
         outs[0], lib.lane_decode, ctypes.addressof(descs), B, W,
         geom.table_size, geom.sac_base, geom.rate, rate_lo, vcap,
         geom.depth, KINDS[kind], geom.num_ctx, *_kind_params(kind, geom),
-        int(family), shape.cluster, shape.threads, shape.nsl,
-        int(shape.table == "smem"), int(shape.two_barriers),
-        shape.smem_bytes)
+        int(family), shape.cluster, shape.threads,
+        int(shape.table == "smem"), int(shape.padded), shape.smem_bytes)
     _cuda.count("lane_decode", B, dev)
     _cuda.check(lib, err, "lane_decode")
     return outs

@@ -277,29 +277,21 @@ def test_visit_cap_is_exact(table, level):
 
 
 def test_table_bytes_and_shared_memory_fit():
-    """16-bit tables: the byte and flag tables fit one CTA's 227 KB beside
-    the hash of 64 or 1,024 lanes; QUAL and SEQ at levels 3 and 4 do not
-    claim to."""
-    for W in (1, 31, 64, 100, 1024):
-        threads = -(-W // 32) * 32
-        slots = next(1 << k for k in range(20) if 1 << k >= 2 * threads)
-        assert CT.hash_bytes(W) == 2 * 3 * slots * 4
+    """16-bit tables: the byte and flag tables fit one CTA's 227 KB (Kernel
+    D keeps no other shared memory: the law's counters live in device
+    memory); QUAL and SEQ at levels 3 and 4 do not claim to."""
     for level in (1, 2, 3, 4):
         cfg = tconfig.LEVELS[level]
         for g in (cfg.qual, cfg.seq, cfg.bytes_, cfg.flags):
             assert CT.table_bytes(g) == 2 * g.table_size
-            for W in (64, 1024):
-                fits = (CT.table_bytes(g) + 15) // 16 * 16 \
-                    + CT.hash_bytes(W) <= 232448
-                assert CT.table_in_smem(g, W) == fits
-        for W in (64, 1024):
-            assert CT.table_in_smem(cfg.bytes_, W)
-            assert CT.table_in_smem(cfg.flags, W)
-            if level >= 3:
-                for d in (6, 7, 8):
-                    assert not CT.table_in_smem(replace(cfg.qual, depth=d),
-                                                W)
-                assert not CT.table_in_smem(cfg.seq, W)
+            fits = (CT.table_bytes(g) + 15) // 16 * 16 <= 232448
+            assert CT.table_in_smem(g) == fits
+        assert CT.table_in_smem(cfg.bytes_)
+        assert CT.table_in_smem(cfg.flags)
+        if level >= 3:
+            for d in (6, 7, 8):
+                assert not CT.table_in_smem(replace(cfg.qual, depth=d))
+            assert not CT.table_in_smem(cfg.seq)
     cfg = tconfig.LEVELS[3]
     assert CT.table_bytes(cfg.bytes_) == 131070
     assert CT.table_bytes(cfg.qual) == 1032318
@@ -316,16 +308,32 @@ def test_kernel_geometry_refusals():
         CT._kernel_geom(warm, 64, cpu)
     with pytest.raises(ValueError, match="exceeds"):
         CT._kernel_geom(tconfig.LEVELS[3].qual, 1025, cpu)
-    # L3 QUAL's table in device memory, fresh (one CTA); L3 SEQ's too
-    # (a cluster)
-    table, cap, shape = CT._kernel_geom(tconfig.LEVELS[3].qual, 1024, cpu)
-    assert (cap, shape.table, shape.cluster) == (8, "device", 1)
-    assert table.dtype == torch.int16
+    # L3 QUAL's table in device memory, fresh, beside its zeroed counters
+    # (a cluster); L3 SEQ's too, in padded rows (a cluster)
+    table, tally, cap, shape = CT._kernel_geom(tconfig.LEVELS[3].qual,
+                                               1024, cpu)
+    assert (cap, shape.table, shape.cluster, shape.padded) == (
+        8, "device", 8, False)
+    assert table.dtype == torch.int16 and table.shape == (shape.entries,)
     assert int(table[0]) == R.PROB_INIT
     assert int(table[-1]) == R.PROB_MAX
-    table, cap, shape = CT._kernel_geom(tconfig.LEVELS[3].seq, 1024, cpu)
-    assert (shape.table, shape.cluster) == ("device", 8)
-    table, cap, shape = CT._kernel_geom(tconfig.LEVELS[3].bytes_, 64, cpu)
+    # the law's counters: one int32 an entry, zero
+    assert tally.shape == (1, shape.entries)
+    assert tally.dtype == torch.int32 and not tally.any()
+    table, tally, cap, shape = CT._kernel_geom(tconfig.LEVELS[3].seq,
+                                               1024, cpu)
+    assert (shape.table, shape.cluster, shape.padded) == ("device", 8,
+                                                           True)
+    # SEQ's rows padded to 4 entries: row r's node k at 4 r + k - 1, the
+    # sacrificial row at PROB_MAX
+    rows = tconfig.LEVELS[3].seq.num_ctx
+    assert table.shape == (shape.entries,) == ((rows + 1) * 4,)
+    assert int(table[4 * rows - 1]) == R.PROB_INIT
+    assert int(table[4 * rows]) == R.PROB_MAX
+    # the counters index the unpadded table
+    assert tally.shape == (1, tconfig.LEVELS[3].seq.table_size)
+    table, tally, cap, shape = CT._kernel_geom(tconfig.LEVELS[3].bytes_,
+                                               64, cpu)
     assert (table, cap, shape.table, shape.cluster) == (None, 0, "smem", 1)
 
 

@@ -17,9 +17,10 @@ cards, against the sequential containers; the pure-Python pipeline
 (``entry()`` against its CPU run, ``dryrun_multichip`` over every card);
 Kernel E's six phases each against its plain version, slice by slice,
 also over a stream of several slices; Kernel D's cluster form (a SEQ
-stream's 1,024 lanes over 8 CTAs) against its plain version where the
-colliding lanes lie in every CTA, with level 4's match family, and over a
-ragged window.
+stream's 1,024 lanes of 100-base reads over 8 CTAs; QUAL's in every
+1,024-lane case) against its plain version where the colliding lanes lie
+in every CTA, with level 4's match family, and over a ragged window; and
+SEQ's other shape, one CTA for 1,500-base reads, chosen by its inputs.
 Marked `cuda`: they
 skip without a card. This file imports
 neither JAX nor the JAX package, so it runs on a machine that has only
@@ -103,6 +104,7 @@ CASES = {
     "qual-d6": (3, "qual", 1024, False, None, None, False, False),
     "qual-d8": (3, "qual", 1024, False, None, 8, False, False),
     "qual-hard": (3, "qual", 256, True, None, None, False, False),
+    "qual-w128": (3, "qual", 128, False, None, None, False, False),
     "seq-l1": (1, "seq", 1024, False, None, None, True, False),
     "qual-l1": (1, "qual", 1024, False, None, None, True, False),
     "byte": (3, "byte", 64, False, None, None, True, False),
@@ -117,7 +119,7 @@ CASES = {
 def test_coder_and_compact_kernels_match_plain(dev, case):
     level, kind, W, hard, active, depth, smem, match = CASES[case]
     geom = _geom(level, kind, depth)
-    assert CT.table_in_smem(geom, W) == smem
+    assert CT.table_in_smem(geom) == smem
     rng = np.random.default_rng(1)
     syms, counts, pos, reset, mflag = _stream(kind, rng, dev, W, active,
                                               hi=1 << (depth or 6),
@@ -786,32 +788,42 @@ CLUSTER_CASES = {
 @pytest.mark.parametrize("case", list(CLUSTER_CASES))
 def test_cluster_decode_matches_plain(dev, case):
     """Kernel D with a SEQ stream's 1,024 lanes over a thread block
-    cluster (each entry's hash slots in one CTA's shared memory, reached by
-    the others as distributed shared memory; the table in device memory)
-    against lane_decode_blocks_plain, byte for byte, where the colliding
-    lanes lie in every CTA of the cluster; one launch for the window."""
-    from slimfastq_tpu_torch.ops import _cuda
+    cluster (the table and the law's counters in device memory) against
+    lane_decode_blocks_plain, byte for byte, where the colliding lanes lie
+    in every CTA of the cluster; one launch for the window."""
     level, blocks, match = CLUSTER_CASES[case]
-    kind = "seq"
-    geom, W = _geom(level, kind), 1024
+    items, refs, spreads = _seq_blocks(level, blocks, match, 100, dev)
+    geom, W = _geom(level, "seq"), 1024
     shape = CT.decode_shape(geom, W, len(blocks))
     assert shape.cluster == 8
-    rng = np.random.default_rng(7)
-    items, refs = [], []
+    for on in spreads:
+        if len(on) >= shape.cluster:
+            assert len(set(on // shape.threads)) == shape.cluster
+    _decode_window(items, refs, geom, dev)
+
+
+def _seq_blocks(level, blocks, match, read_len, dev, seed=7):
+    """SEQ blocks [(Sp, lanes)] at W = 1,024 encoded on the card: "all"
+    lanes hold reads of `read_len` that start at step 0 (every lane on one
+    entry at each read start), an int n: n lanes chosen at random; with
+    `match`, the flagged steps' e-letters all 0 at positions 18-23. Returns
+    Kernel D's items, (symbols, counts) of each and each block's lanes."""
+    geom, W, kind = _geom(level, "seq"), 1024, "seq"
+    rng = np.random.default_rng(seed)
+    items, refs, spreads = [], [], []
     for Sp, lanes in blocks:
         on = (np.arange(W) if lanes == "all"
               else np.sort(rng.choice(W, lanes, replace=False)))
-        if len(on) >= shape.cluster:
-            assert len(set(on // shape.threads)) == shape.cluster
-        ll = np.zeros((-(-Sp // 100), W), dtype=np.int64)
-        ll[:, on] = 100
-        ll[-1, on] = Sp - 100 * (ll.shape[0] - 1)
+        spreads.append(on)
+        ll = np.zeros((-(-Sp // read_len), W), dtype=np.int64)
+        ll[:, on] = read_len
+        ll[-1, on] = Sp - read_len * (ll.shape[0] - 1)
         counts = ll.sum(axis=0)
         pos, reset = ST._pos_reset(torch.from_numpy(ll).to(dev), Sp,
                                    int(counts.max()), W)
         syms = rng.integers(0, 4, size=(Sp, W))
         mflag = None
-        if match:  # the flagged steps' e-letters all 0 at positions 18-23
+        if match:
             p = pos.cpu().numpy()
             span = (p >= 20) & (p < 90) & (np.arange(Sp)[:, None]
                                            < counts[None, :])
@@ -835,12 +847,31 @@ def test_cluster_decode_matches_plain(dev, case):
                       torch.from_numpy(lens.astype(np.int32)).to(dev), c,
                       pos, reset, mflag))
         refs.append((syms, c))
+    return items, refs, spreads
+
+
+def _decode_window(items, refs, geom, dev):
+    """Kernel D's one launch over `items` against its plain version and
+    the coded symbols."""
+    from slimfastq_tpu_torch.ops import _cuda
     before = _cuda.launches["lane_decode"], _cuda.descs["lane_decode"]
-    kd = CT.lane_decode_blocks(items, kind, geom)
+    kd = CT.lane_decode_blocks(items, "seq", geom)
     assert (_cuda.launches["lane_decode"], _cuda.descs["lane_decode"]) == (
         before[0] + 1, before[1] + len(items))
-    pd = CT.lane_decode_blocks_plain(items, kind, geom)
+    pd = CT.lane_decode_blocks_plain(items, "seq", geom)
     for k, p, (syms, c) in zip(kd, pd, refs):
         assert torch.equal(k.cpu(), p.cpu())
         mask = torch.arange(syms.shape[0], device=dev)[:, None] < c[None, :]
         assert torch.equal(k[mask], syms[mask])
+
+
+@pytest.mark.parametrize("level,match", [(3, False), (4, True)])
+def test_long_read_seq_decodes_over_the_cluster(dev, level, match):
+    """SEQ of long reads over the cluster, as short reads: 1,024 lanes of
+    1,500-base reads (a ragged window of two blocks, 700 lanes on one entry
+    in the second) against the plain version, byte for byte."""
+    items, refs, _ = _seq_blocks(level, [(3000, "all"), (1600, 700)],
+                                 match, 1500, dev)
+    geom = _geom(level, "seq")
+    assert CT.decode_shape(geom, 1024, 2).cluster == 8
+    _decode_window(items, refs, geom, dev)

@@ -156,7 +156,7 @@ def test_online_encode_equals_closed_form(kind, layout):
     them, also where the kernel keeps the table in shared memory (level
     1)."""
     geom, syms, pos, reset, counts, mflag = _sched_inputs(kind, layout)
-    assert CT.table_in_smem(geom, W) == kind.endswith("-l1")
+    assert CT.table_in_smem(geom) == kind.endswith("-l1")
     k = geom_kind(kind)
     closed = ST._schedule(k, geom, syms, pos, reset, counts, mflag)
     item = CT.EncIn(syms, pos, reset, counts, mflag)
@@ -182,11 +182,11 @@ def test_slices_refused_for_a_shared_memory_table():
     cfg = config_for_level(3, lanes=W, aux_lanes=8)
     counts = torch.full((W,), 16, dtype=torch.int32)
     z = CT.EncIn(torch.zeros((16, W), dtype=torch.uint8), None, None, counts)
-    assert CT.table_in_smem(cfg.bytes_, W)
+    assert CT.table_in_smem(cfg.bytes_)
     outs = CT.lane_encode_blocks([z, z], "byte", cfg.bytes_, 64)
     assert [o[1].shape for o in outs] == [(2, W)] * 2
     wide = replace(cfg.flags, hist_bits=17)
-    assert not CT.table_in_smem(wide, W)
+    assert not CT.table_in_smem(wide)
     with pytest.raises(ValueError, match="shared memory"):
         CT._kernel_geom(wide, W, torch.device("cpu"))
     with pytest.raises(ValueError, match="blocks"):

@@ -68,5 +68,5 @@ def test_host_pack_containers_identical_and_cross_decode(level, forced):
     assert {k for k, _, _ in forced["coded"]} == {"qual", "seq"}
     if level == 1:
         cfg = config_for_level(1)
-        assert all(CT.table_in_smem(g, 128) for g in (cfg.qual, cfg.seq))
+        assert all(CT.table_in_smem(g) for g in (cfg.qual, cfg.seq))
 

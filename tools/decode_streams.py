@@ -10,7 +10,15 @@ the coded symbols. CUDA events, the mean of ``--reps`` launches after one
 more; prints one JSON line (`decode_streams`) with the card's name and
 power limit.
 
+With ``--shape-sweep L ...`` it times instead, for each read length L, the
+level-3 SEQ stream of one block of synthetic reads of L bases (about
+``--sweep-bases`` bases, by default as many as the pinned block; at least
+one read a lane) in Kernel D's shape, a cluster, and in one CTA (forced
+here by hiding SEQ from coder_torch.may_cluster), beside the share of its
+steps that start a read.
+
 Usage: python3 tools/decode_streams.py [--root DIR] [--reps N]
+       [--shape-sweep L ... [--sweep-bases N]]
 Runs on the card only (exits 1 without one). Run the parent and this tree
 in turns on one card (parent, change, change, parent) to compare them.
 """
@@ -29,6 +37,8 @@ def main() -> int:
     ap.add_argument("--root", default=os.path.dirname(os.path.dirname(
         os.path.abspath(__file__))))
     ap.add_argument("--reps", type=int, default=3)
+    ap.add_argument("--shape-sweep", type=int, nargs="+", default=None)
+    ap.add_argument("--sweep-bases", type=int, default=None)
     a = ap.parse_args()
     root = os.path.abspath(a.root)
     sys.path.insert(0, root)
@@ -47,6 +57,16 @@ def main() -> int:
     from slimfastq_tpu_torch.ops.ranger import pad_steps
     from slimfastq_tpu_torch.pipeline import MATCH_USED
     dev = torch.device("cuda")
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True,
+                          text=True).stdout.strip().splitlines()[0]
+    if a.shape_sweep:
+        print(json.dumps({"seq_shape_sweep": {
+            "root": root, "card": card, "reps": a.reps,
+            "reads": [sweep(L, a.reps, dev, a.sweep_bases)
+                      for L in a.shape_sweep]}}),
+            flush=True)
+        return 0
     data = CS._pinned(CS.READS)
     buf = np.frombuffer(data, dtype=np.uint8)
     idx, n = native.fastq_index(data)
@@ -57,16 +77,7 @@ def main() -> int:
             raise AssertionError(f"{what}: D does not return the symbols")
 
     def ms(fn):
-        fn()
-        torch.cuda.synchronize()
-        t0 = torch.cuda.Event(enable_timing=True)
-        t1 = torch.cuda.Event(enable_timing=True)
-        t0.record()
-        for _ in range(a.reps):
-            fn()
-        t1.record()
-        torch.cuda.synchronize()
-        return t0.elapsed_time(t1) / a.reps
+        return _ms(fn, a.reps)
 
     # the level-3 block's streams, as block_spans in chip_smoke.py
     cfg = config_for_level(3)
@@ -148,13 +159,74 @@ def main() -> int:
         same(got, syms, counts, "the 16k window's QUAL")
     out["window_16k_qual_ms"] = ms(lambda: CT.lane_decode_blocks(
         items, "qual", geom))
-    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                           "--format=csv,noheader"], capture_output=True,
-                          text=True).stdout.strip().splitlines()[0]
     print(json.dumps({"decode_streams": {"root": root, "card": card,
                                          "reps": a.reps, **out}}),
           flush=True)
     return 0
+
+
+def _ms(fn, reps: int) -> float:
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    t0 = torch.cuda.Event(enable_timing=True)
+    t1 = torch.cuda.Event(enable_timing=True)
+    t0.record()
+    for _ in range(reps):
+        fn()
+    t1.record()
+    torch.cuda.synchronize()
+    return t0.elapsed_time(t1) / reps
+
+
+def sweep(L: int, reps: int, dev, bases: int | None = None) -> dict:
+    """One block of reads of L bases at level 3 (about ``bases`` bases, by
+    default the pinned block's): its SEQ stream's Kernel D in a cluster
+    and in one CTA (ms), each held against the coded symbols, and the
+    share of its steps that start a read."""
+    import numpy as np
+    import torch
+    import chip_smoke as CS
+    from slimfastq_tpu_torch import native, pipeline_native as PN
+    from slimfastq_tpu_torch.config import config_for_level
+    from slimfastq_tpu_torch.ops import coder_torch as CT
+    from slimfastq_tpu_torch.ops import streams_torch as ST
+    from slimfastq_tpu_torch.ops.ranger import pad_steps
+    from slimfastq_tpu_torch.utils.synth import synth_fastq
+    cfg = config_for_level(3)
+    reads = max(cfg.lanes, (bases or CS.READS * CS.READ_LEN) // L)
+    data = synth_fastq(reads, read_len=L, seed=0, var_len=False,
+                       n_rate=0.0005)
+    buf = np.frombuffer(data, dtype=np.uint8)
+    idx, n = native.fastq_index(data)
+    pre = PN.prepare_block_fast(buf, idx, 0, n, cfg)
+    blk = PN.encode_prepared_block(pre, cfg, dev)
+    _, _, geom, item, _ = next(j for j in PN._coder_jobs(pre, cfg, dev)
+                               if j[0] == "SEQ")
+    es = blk.streams["SEQ"]
+    W = es.payload.shape[0]
+    S = int(es.sym_counts.max())
+    Sp = pad_steps(S)
+    share = int(np.count_nonzero(pre[4])) / int(es.sym_counts.sum())
+    pos, reset = ST._pos_reset(ST._lane_lens(pre[4], W, dev), Sp, S, W)
+    counts = ST._to(es.sym_counts, dev, torch.int32)
+    args = (ST._payload_tensor(es.payload, dev),
+            ST._to(es.lane_lens, dev, torch.int32), counts, pos, reset)
+    m = torch.arange(Sp, device=dev)[:, None] < counts[None, :]
+    out = {"read_len": L, "reads": reads, "steps": S, "share": share,
+           "cluster": CT.decode_shape(geom, W).cluster}
+    real = CT.may_cluster
+    for what, cluster in (("cluster_ms", True), ("one_cta_ms", False)):
+        CT.may_cluster = real if cluster else (lambda g, w: False)
+        try:
+            got = CT.lane_decode(*args, "seq", geom)
+            if not torch.equal(got[m], item.syms[m]):
+                raise AssertionError(f"{L}-base reads, {what}: D does not "
+                                     "return the symbols")
+            out[what] = _ms(lambda: CT.lane_decode(*args, "seq", geom), reps)
+        finally:
+            CT.may_cluster = real
+    return out
 
 
 if __name__ == "__main__":

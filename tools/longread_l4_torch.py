@@ -3,7 +3,8 @@
 (slimfastq_tpu_torch): one block of 65,536 reads of 16.5 kb (raw span past
 2 GiB: SEQ and QUAL packed on the host, Kernel E once a stream, the
 matcher over ~1.08 Gbase, the plain SEQ and both match trials coded)
-encoded twice and decoded once through api.encode_fastq / decode_fastq.
+encoded twice and decoded once through api.encode_fastq / decode_fastq,
+the card's kernels built before the first clock starts.
 
 Prints the arena line (`long_read_arena`), then one JSON line
 (`long_read_l4`): for each encode its wall, peak device memory, the
@@ -17,8 +18,20 @@ sampling rule (arena_cursor) against what the 27-bit block field of
 native/host.cpp's MIndex holds (a slot packs blk / 4 << 5 | cnt in 32
 bits: 2^29 entries; match_find raises past it).
 
+With ``--roots DIR ...`` it compares decodes instead: the block encoded
+once by this tree at ``--level``, then decoded by each tree of the port
+given (e.g. an earlier commit unpacked with git archive; ``--roots A B B
+A`` compares two in turns; ``DIR@one_cta`` decodes SEQ in one CTA of
+Kernel D, not its cluster, by hiding SEQ from coder_torch.may_cluster),
+each in a fresh process that builds its
+kernels before any clock starts: the decode's wall and whether it returns
+the input, then a second decode with each Kernel D launch timed (CUDA
+events around coder_torch.lane_decode_blocks: its kind, lanes, steps and
+milliseconds). Prints one JSON line (`long_read_decode`) with the card's
+name and power limit.
+
 Usage: python3 tools/longread_l4_torch.py [--reads N] [--read-len L]
-       [--level 4] [--device cpu]
+       [--level 4] [--device cpu] [--roots DIR ...]
 Runs on the card unless --device cpu is given; without a card it exits 1.
 """
 
@@ -28,11 +41,12 @@ import argparse
 import hashlib
 import json
 import os
+import subprocess
 import sys
+import tempfile
 import time
 
-sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
-    __file__))))
+HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 # a slot's 27-bit field addresses a candidate block in 4-entry units
 # (MIndex::insert: s.bc = blk / 4 << 5 | cnt in a uint32), so the arena
@@ -108,6 +122,8 @@ def run(data: bytes, level: int, device, encodes: int = 2,
     from slimfastq_tpu_torch.ops import streams_torch as ST
     dev = api.resolve_device(device)
     cuda = dev.type == "cuda"
+    if cuda:  # every kernel built before any clock starts
+        _cuda.build()
     acc = {"match_s": 0.0, "device_bytes": []}
     real_find, real_bytes = native.match_find_arrays, api.device_bytes
 
@@ -166,13 +182,97 @@ def run(data: bytes, level: int, device, encodes: int = 2,
     return out
 
 
+def decode_child(spec: str, path: str, want: str) -> int:
+    """Decode the container at ``path`` with the tree of ``spec`` (a root
+    directory, @ the SEQ shape to force or none) on the card, twice (the
+    second with Kernel D's launches timed); print one JSON line."""
+    root, _, shape = spec.partition("@")
+    sys.path.insert(0, root)
+    import torch
+    from slimfastq_tpu_torch import api
+    from slimfastq_tpu_torch.ops import _cuda
+    from slimfastq_tpu_torch.ops import coder_torch as CT
+    if shape == "one_cta":
+        real = CT.may_cluster
+        CT.may_cluster = lambda g, w: g.depth != 2 and real(g, w)
+    elif shape:
+        raise ValueError(f"unknown shape {shape!r}")
+    _cuda.build()
+    with open(path, "rb") as f:
+        enc = f.read()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    dec = api.decode_fastq(enc, device="cuda")
+    torch.cuda.synchronize()
+    out = {"root": spec, "wall_s": time.perf_counter() - t,
+           "exact": hashlib.sha256(dec).hexdigest() == want}
+    del dec
+    real, rec = CT.lane_decode_blocks, []
+
+    def timed(items, kind, geom, *a, **k):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        res = real(items, kind, geom, *a, **k)
+        ev[1].record()
+        W = items[0][0].shape[0]
+        rec.append((kind, W, int(items[0][3].reshape(-1, W).shape[0]), ev))
+        return res
+    CT.lane_decode_blocks = timed
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    api.decode_fastq(enc, device="cuda")
+    torch.cuda.synchronize()
+    out["timed_wall_s"] = time.perf_counter() - t
+    out["d_launches"] = [{"kind": k, "W": W, "Sp": Sp,
+                          "ms": ev[0].elapsed_time(ev[1])}
+                         for k, W, Sp, ev in rec]
+    print(json.dumps(out), flush=True)
+    return 0
+
+
+def compare_decodes(data: bytes, level: int, roots: list) -> dict:
+    """``data`` encoded once on the card by this tree, then decoded by
+    each of ``roots`` in a fresh process (decode_child)."""
+    import torch
+    from slimfastq_tpu_torch import api
+    from slimfastq_tpu_torch.ops import _cuda
+    _cuda.build()
+    want = hashlib.sha256(data).hexdigest()
+    t = time.perf_counter()
+    enc = api.encode_fastq(data, level=level, device="cuda")
+    out = {"level": level, "raw_bytes": len(data),
+           "encode_s": time.perf_counter() - t, "compressed_bytes": len(enc),
+           "sha256": hashlib.sha256(enc).hexdigest(), "runs": []}
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "long.sfq")
+        with open(path, "wb") as f:
+            f.write(enc)
+        del enc
+        for spec in roots:
+            root, at, shape = spec.partition("@")
+            r = subprocess.run([sys.executable, os.path.abspath(__file__),
+                                "--child", os.path.abspath(root) + at + shape,
+                                path, want], capture_output=True, text=True)
+            if r.returncode != 0:
+                raise RuntimeError(f"decode with {spec} failed:\n"
+                                   f"{r.stderr[-3000:]}")
+            out["runs"].append(json.loads(r.stdout.strip().splitlines()[-1]))
+    return out
+
+
 def main() -> int:
     p = argparse.ArgumentParser()
     p.add_argument("--reads", type=int, default=65536)
     p.add_argument("--read-len", type=int, default=16500)
     p.add_argument("--level", type=int, default=4)
     p.add_argument("--device", default=None)
+    p.add_argument("--roots", nargs="+", default=None)
+    p.add_argument("--child", nargs=3, help=argparse.SUPPRESS)
     args = p.parse_args()
+    if args.child:
+        return decode_child(*args.child)
+    sys.path.insert(0, HERE)
     import torch
     if args.device is None and not torch.cuda.is_available():
         print("longread_l4_torch: no CUDA device", file=sys.stderr)
@@ -182,6 +282,15 @@ def main() -> int:
     data = synth_fastq(args.reads, read_len=args.read_len, seed=0,
                        var_len=False, n_rate=0.0005)
     make_s = time.perf_counter() - t
+    if args.roots:
+        out = compare_decodes(data, args.level, args.roots)
+        out.update(reads=args.reads, read_len=args.read_len,
+                   card=subprocess.run(
+                       ["nvidia-smi", "--query-gpu=name,power.limit",
+                        "--format=csv,noheader"], capture_output=True,
+                       text=True).stdout.strip().splitlines()[0])
+        print(json.dumps({"long_read_decode": out}), flush=True)
+        return 0 if all(r["exact"] for r in out["runs"]) else 1
     t = time.perf_counter()
     arena = arena_cursor(data)
     arena["reckon_s"] = time.perf_counter() - t
