@@ -23,6 +23,10 @@ Phases (any failure exits non-zero; nothing is caught):
      entry) and QUAL (the q1-q2 delta); D's cluster form with 700
      colliding lanes spread over every CTA of its cluster (L3 SEQ, L4 SEQ
      with the match family, 100-base reads) and over 1,500-base reads;
+     past 1,024 lanes (WIDE_CHECKS): E, C and D at W = 1,500, 2,048 and
+     4,096 with 1,100 or every lane on one entry (the format's count
+     field wraps), level 4's match family, and level 1's QUAL and the
+     byte and flag kinds two or four lanes a thread;
      Kernel C's one launch over a
      ragged mix of streams (W of 8 to 1,024, counts above CB, an empty
      stream, rows longer than one shared-memory stage); then E and D
@@ -75,7 +79,15 @@ Phases (any failure exits non-zero; nothing is caught):
      the same generator, at each level; the 4-block set at level 3
      encoded twice back to back on page-locked buffers the pool reuses,
      both containers equal to the set's container from the host-pack
-     path (no pool), and no new buffer taken by the second.
+     path (no pool), and no new buffer taken by the second; then lane
+     counts past 1,024: the pinned block at lanes 2,048 and 4,096 (L3,
+     L4) and aux_lanes 2,048 and 4,096 (L3) through api.encode_fastq /
+     decode_fastq on the card, each container's size and SHA-256 the JAX
+     package's (PINNED_WIDE), exact round trips, E, C, D, L and U
+     launched; lanes or aux lanes of 4,097 refused on the card, encode
+     and decode, with a ValueError naming 4,096; and the W sweep: the
+     level-3 block's seven E and D launches alone and at once at W =
+     1,024, 2,048 and 4,096 (block_spans) beside the container's ratio.
 
   5. the small-block window path on the same 4-block set at
      block_records = 16,384 (the 4 blocks in one window): Kernels E and D over
@@ -150,6 +162,7 @@ Phases (any failure exits non-zero; nothing is caught):
 
 Prints `compact_block_l3`, `compact_block_l4`, `compact_phase_l3`,
 `compact_phase_l4`, `block`, `block_l4`, `wall`, `pool_reuse`, `wall_l4`,
+`block_w1024`, `block_w2048`, `block_w4096`, `wide_lanes`,
 `window_kernels`, `window_walls`, `window_sweep`, `streaming`,
 `long_read`, `long_read_kernels`, `sharded`, `sharded_streaming`,
 `gather_nccl`, `level1`, `python_pipeline`, `python_pipeline_s`,
@@ -182,6 +195,46 @@ PINNED = {
         "31026796c476744a9da168b3b6132be07d3151b3c7020feeb8790e7a5322470f"),
 }
 WALL_BLOCKS = 4
+# Lane counts past 1,024 (coder_torch.MAX_LANES = 4,096): size and SHA-256
+# of the JAX package's container of the pinned block at (level, field,
+# lanes) (its api.encode_fastq(data, level=level, backend=streams_jax,
+# **{field: lanes}), run on a CPU)
+PINNED_WIDE = {
+    (3, "lanes", 2048): (
+        2570589,
+        "1e10d5fab136357c424554809663825add81a348b23d845095ff6af25dfcc01f"),
+    (3, "lanes", 4096): (
+        2965739,
+        "3f888a82c1d4906b7b8ef94c2371e471fcc1c2872ad16a75a4da6947ad6f22af"),
+    (3, "aux_lanes", 2048): (
+        2884815,
+        "ec56ffd8725797ddb2107f267545949c3429487fc4abab125c4b71a094e41907"),
+    (3, "aux_lanes", 4096): (
+        2962328,
+        "e51bf8e4aefc70c6b286873118a665613a88b5aaa5199ea5459ef57dbbec57a3"),
+    (4, "lanes", 2048): (
+        2037527,
+        "37c2dc85e3824ae9611c7c64b929f6a1097944adf40d2da55b3f418c13e669ab"),
+    (4, "lanes", 4096): (
+        2420294,
+        "155f60ea74f6eae780be39f6469c26f6b047388f65be0183cab0762a4f4174c2"),
+}
+# the W sweep of the wide_lanes phase: the pinned block at level 3
+WIDE_SWEEP = (1024, 2048, 4096)
+# Kernels E and D against their plain versions past 1,024 lanes: (level,
+# kind, W, lanes on one entry at each read start; None: the byte and flag
+# kinds' ragged lanes, every one on the root entry at step 0). 1,100 lanes
+# read a count of 76, 4,096 of 0; W = 1,500 leaves the last CTA, warp and
+# round ragged; level 1's QUAL and the byte and flag kinds keep their
+# table in shared memory, two or four lanes a thread
+WIDE_CHECKS = [(3, "seq", 1500, 1100), (3, "qual", 2048, 1100),
+               (3, "seq", 4096, 4096), (4, "seq", 2048, 1100),
+               (4, "qual", 4096, 1100), (1, "qual", 4096, 4096),
+               (3, "byte", 2048, None), (3, "flag", 1500, None),
+               (3, "byte", 4096, None)]
+# records of the input whose encode and decode must be refused past 4,096
+# lanes on the card
+REFUSE_READS = 300
 # The small-block window path: the same 4-block set (4 x 16,384 records,
 # the generator above with 65,536 reads) at block_records = 16,384, coded
 # in one window (the default takes all 4); size and SHA-256 of the JAX
@@ -281,6 +334,17 @@ def d_bound(bit_steps: int, depth: int, bar_us: float, shape,
 # The window forms' plain versions run on the first PLAIN_CHUNKS chunks of
 # CHUNK_STEPS symbol steps of each block of the 16k window
 CHUNK_STEPS, PLAIN_CHUNKS = 8, 8
+
+
+def _kernel_name(line: str) -> str:
+    """A kernel's name and template arguments from ptxas's mangled one,
+    e.g. lane_decode_kernel<1,0,1,0,4>."""
+    import re
+    m = re.search(r"\d([a-z_]+_kernel)(I(?:L[bi]\d+E)+E)?", line)
+    if m is None:
+        return line.split()[-1]
+    args = re.findall(r"L[bi](\d+)E", m.group(2) or "")
+    return m.group(1) + (f"<{','.join(args)}>" if args else "")
 
 
 def _pinned(reads: int) -> bytes:
@@ -628,7 +692,50 @@ def check_kernels(dev):
           f"L4 seq with "
           f"the match family); SEQ of 1,500-base reads",
           flush=True)
+    check_wide(dev, errs, errs4)
     return plain_qual, errs, plain_seq4, errs4
+
+
+def check_wide(dev, errs: dict, errs4: dict) -> None:
+    """E, C and D against their plain versions past 1,024 lanes
+    (WIDE_CHECKS), Sp = 256: more than 1,024 lanes on one entry, where the
+    format's count field wraps (the law reads n mod 1024), at W 1,500,
+    2,048 and 4,096; level 4's SEQ with every active lane flagged."""
+    import numpy as np
+    import torch
+    from slimfastq_tpu_torch.config import config_for_level
+    from slimfastq_tpu_torch.ops import coder_torch as CT
+    from slimfastq_tpu_torch.ops import streams_torch as ST
+    Sp, ran = 256, []
+    for level, kind, W, active in WIDE_CHECKS:
+        cfg = config_for_level(level)
+        geom = {"seq": cfg.seq, "qual": cfg.qual, "byte": cfg.bytes_,
+                "flag": cfg.flags}[kind]
+        rng = np.random.default_rng(W + level)
+        mflag = None
+        if active is None:
+            counts = rng.integers(Sp // 2, Sp + 1, size=W)
+            syms = rng.integers(0, 256 if kind == "byte" else 2, size=(Sp, W))
+            pos = reset = torch.zeros((Sp, W), dtype=torch.int32, device=dev)
+        else:
+            ll, counts = _reads_layout(W, Sp, READ_LEN, active)
+            pos, reset = ST._pos_reset(torch.from_numpy(ll).to(dev), Sp,
+                                       int(counts.max()), W)
+            if kind == "seq":
+                syms = rng.integers(0, 4, size=(Sp, W))
+            else:
+                syms = np.clip(30 + np.cumsum(rng.integers(-2, 3, (Sp, W)),
+                                              axis=0), 0, 41)
+            if level == 4 and kind == "seq":
+                syms, mflag = _match_layout(syms, pos, counts)
+        _check_stream(kind, geom, syms.astype(np.uint8), counts, pos, reset,
+                      dev, {}, errs4 if level == 4 else errs, mflag)
+        shape = CT.decode_shape(geom, W)
+        ran.append(f"L{level} {kind} W={W} ({active or W} lanes on one "
+                     f"entry; D {shape.cluster} x {shape.threads} threads x "
+                     f"{CT.lanes_per_thread(shape, W)} lanes)")
+    print("kernels match their plain versions past 1,024 lanes: "
+          + "; ".join(ran), flush=True)
 
 
 # ---------------------------------------------------------------------------
@@ -1199,8 +1306,9 @@ def _events_ms(fn):
     return t0.elapsed_time(t1), out
 
 
-def block_spans(data: bytes, dev) -> dict:
-    """The pinned block's seven coder launches per direction, with the
+def block_spans(data: bytes, dev, cfg=None, key: str = "block") -> dict:
+    """The pinned block's seven coder launches per direction (at level 3,
+    or at `cfg`; printed under `key`), with the
     inputs the main path gives them (pipeline_native's own setup): each
     stream's E and D time (ms) alone, and the block's coder span, its
     streams launched at once through streams_torch.StreamSet as the main
@@ -1220,7 +1328,7 @@ def block_spans(data: bytes, dev) -> dict:
     from slimfastq_tpu_torch.ops import coder_torch
     from slimfastq_tpu_torch.ops import streams_torch as ST
     from slimfastq_tpu_torch.ops.ranger import pad_steps
-    cfg = config_for_level(3)
+    cfg = cfg or config_for_level(3)
     idx, n = native.fastq_index(data)
     pre = PN.prepare_block_fast(np.frombuffer(data, dtype=np.uint8), idx, 0,
                                 n, cfg)
@@ -1272,7 +1380,87 @@ def block_spans(data: bytes, dev) -> dict:
                           "streams_ms": alone,
                           "device_half_ms": (enc_ms if direction == "encode"
                                              else dec_ms)}
-    print(json.dumps({"block": out}), flush=True)
+    print(json.dumps({key: out}), flush=True)
+    return out
+
+
+def wide_lanes(data: bytes, dev, card: str) -> dict:
+    """Lane counts past 1,024 on the main path: the pinned block through
+    api.encode_fastq / decode_fastq on the card at each PINNED_WIDE width
+    (lanes 2,048 and 4,096 at levels 3 and 4, aux_lanes 2,048 and 4,096 at
+    level 3),
+    the launch counts set to 0 just before each direction and read just
+    after: size and SHA-256 equal the JAX package's, the round trip is
+    exact, E, C and D launched. Past 4,096 lanes or aux lanes the card
+    refuses, encode and decode alike (the decode of a container the plain
+    versions wrote), with a ValueError naming 4,096.
+    Then the W sweep (WIDE_SWEEP): block_spans on the level-3 block at
+    each lane count, D's streams alone and the block's decode span, E's
+    streams alone and its launch-set span, beside the container's size
+    and ratio; every figure with the card's name and power limit."""
+    from slimfastq_tpu_torch import api
+    from slimfastq_tpu_torch.config import config_for_level
+    from slimfastq_tpu_torch.ops import _cuda
+    out = {"card": card, "containers": {}, "launches": {}, "sweep": {}}
+    sizes = {1024: PINNED[3][0]}
+    for (level, field, W), (nbytes, want) in PINNED_WIDE.items():
+        what = f"L{level} {field}={W}"
+        _cuda.reset_launches()
+        enc = api.encode_fastq(data, level=level, device="cuda", **{field: W})
+        enc_l = dict(_cuda.launches)
+        _cuda.reset_launches()
+        dec = api.decode_fastq(enc, device="cuda")
+        dec_l = dict(_cuda.launches)
+        sha = hashlib.sha256(enc).hexdigest()
+        if (len(enc), sha) != (nbytes, want):
+            raise AssertionError(f"{what}: container {len(enc)} bytes, "
+                                 f"SHA-256 {sha}; the JAX package's "
+                                 f"{nbytes}, {want}")
+        if dec != data:
+            raise AssertionError(f"{what}: decode does not return the input")
+        idle = [k for k in ("lane_encode", "compact_lanes_dev", "lane_layout")
+                if not enc_l[k]] + [k for k in ("lane_decode", "lane_unpack")
+                                    if not dec_l[k]]
+        if idle:
+            raise AssertionError(f"{what}: kernels not launched: {idle}")
+        if level == 3 and field == "lanes":
+            sizes[W] = len(enc)
+        out["containers"][what] = {"bytes": len(enc),
+                                   "ratio": len(data) / len(enc),
+                                   "sha256_matches": True}
+        for k in enc_l:
+            out["launches"][k] = out["launches"].get(k, 0) + enc_l[k] + \
+                dec_l[k]
+    small = _pinned(REFUSE_READS)
+    for field in ("lanes", "aux_lanes"):
+        kw = {field: 4097}
+        back = api.encode_fastq(small, level=3, device="cpu", **kw)
+        for direction, fn in (
+                ("encode", lambda: api.encode_fastq(small, level=3,
+                                                    device="cuda", **kw)),
+                ("decode", lambda: api.decode_fastq(back, device="cuda"))):
+            try:
+                fn()
+            except ValueError as e:
+                if "4096" not in str(e):
+                    raise
+            else:
+                raise AssertionError(f"{direction} at {field}=4097 was not "
+                                     "refused on the card")
+    out["refused_past_4096"] = True
+    for W in WIDE_SWEEP:
+        spans = block_spans(data, dev, config_for_level(3, lanes=W),
+                            key=f"block_w{W}")
+        dec, enc = spans["decode"], spans["encode"]
+        out["sweep"][W] = {
+            "decode_streams_ms": {k: dec["streams_ms"][k]
+                                  for k in ("QUAL", "SEQ", "IDD")},
+            "decode_span_ms": dec["span_ms"],
+            "encode_streams_ms": {k: enc["streams_ms"][k]
+                                  for k in ("QUAL", "SEQ", "IDD")},
+            "encode_span_ms": enc["span_ms"],
+            "bytes": sizes[W], "ratio": len(data) / sizes[W]}
+    print(json.dumps({"wide_lanes": out}), flush=True)
     return out
 
 
@@ -2907,8 +3095,10 @@ def main() -> int:
     print(f"build: {time.perf_counter() - t:.1f} s", flush=True)
     for name, rep in reports.items():
         for line in rep.splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"  {name}.cu ptxas: {line.strip()}", flush=True)
+            if "Function properties for" in line:
+                fn = _kernel_name(line)
+            elif "registers" in line or "spill" in line:
+                print(f"  {name}.cu ptxas {fn}: {line.strip()}", flush=True)
 
     # seconds each phase took, printed as the `phase_s` line
     phase_s, last = {}, [time.perf_counter()]
@@ -2950,6 +3140,9 @@ def main() -> int:
     spans4 = l4_spans(data, dev)
     wall(data4, dev, 4)
     done("main_path_l4")
+    # lane counts past 1,024: pins, refusals past 4,096, the W sweep
+    wide = wide_lanes(data, dev, card)
+    done("wide_lanes")
     # the small-block window path on the same 4-block set
     win = time_window(data, dev, bar_us, cbar_us, errs)
     done("window_kernels")
@@ -3098,6 +3291,15 @@ def main() -> int:
         if name == "lane_encode":
             row["l1_shared_memory_table"] = l1
         row["sharded_launches"] = _by_shard(shard, name)
+        # past 1,024 lanes: launches on the wide main path (both
+        # directions), and the W sweep's times on the level-3 block
+        way = "encode" if name == "lane_encode" else "decode"
+        row["wide_lanes"] = {
+            "launches": wide["launches"][name], "card": card,
+            "sweep": {W: {"span_ms": v[f"{way}_span_ms"],
+                          "streams_ms": v[f"{way}_streams_ms"],
+                          "ratio": v["ratio"]}
+                      for W, v in wide["sweep"].items()}}
         kernels.append(row)
     # Kernel E's six phases on the pinned block's QUAL, one after another
     # (CUDA events summed over its slices), each held against its plain

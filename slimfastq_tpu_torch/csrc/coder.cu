@@ -66,7 +66,11 @@
 // only): a stream whose table lives in device memory, beside 256 lanes or
 // more (QUAL, SEQ), takes the cluster, since one SM's path to L2 bounds
 // its counters' traffic: the card measured it about twice as fast as one
-// CTA for SEQ at every read length from 100 bases to 16.5 kb.
+// CTA for SEQ at every read length from 100 bases to 16.5 kb. Up to 4,096
+// lanes: such a stream keeps one lane a thread over a cluster of CTAs of
+// at most 512 threads; a stream whose table lives in shared memory stays
+// in its one CTA of at most 1,024 threads, two or four lanes a thread
+// past 1,024 (each thread's lanes in registers, or spilled: ptxas says).
 // coder_torch.decode_shape derives C, T and where the table lives from
 // the geometry, W and the window's B; the entry below refuses a shape
 // that does not hold and never launches another. A launch decodes one
@@ -125,6 +129,8 @@ namespace {
 
 constexpr int MAX_DEPTH = 8;     // tree levels a symbol (the byte kind's 8)
 constexpr int MAX_CLUSTER = 8;   // the portable cluster size
+constexpr int MAX_LANES = 4096;  // coder_torch.MAX_LANES
+constexpr int MAX_PER_THREAD = 4;  // lanes a thread (a table in smem)
 
 // A CTA's dynamic shared memory: the table, where it lives there.
 __host__ __device__ inline int table_smem_bytes(int entries) {
@@ -208,8 +214,12 @@ struct DecParams {
 // SMEM: the table lives in the CTA's shared memory (one CTA a block);
 // CL: the lanes span a cluster, the table in device memory; WARM: the
 // geometry counts visits; PAD: a depth-2 device table (SEQ) whose rows are
-// padded to 4 entries, each loaded whole at its symbol's start.
-template <bool SMEM, bool CL, bool WARM, bool PAD>
+// padded to 4 entries, each loaded whole at its symbol's start; K: lanes a
+// thread (lane (rank K + i) T + t on thread t of CTA rank, i < K), 2 or 4
+// only for a table in shared memory past 1,024 lanes: each phase of a
+// symbol-step runs over the thread's lanes in turn, so its lanes keep the
+// order they would keep on K threads.
+template <bool SMEM, bool CL, bool WARM, bool PAD, int K>
 __global__ void __launch_bounds__(CL ? 512 : 1024, 1)
     lane_decode_kernel(const __grid_constant__ DecParams p) {
   extern __shared__ __align__(16) unsigned char smem[];
@@ -222,8 +232,7 @@ __global__ void __launch_bounds__(CL ? 512 : 1024, 1)
   const int depth = PAD ? 2 : cx.depth;
   static_assert(!(SMEM && CL), "a cluster's table lives in device memory");
   static_assert(!(SMEM && PAD), "padded rows in device memory only");
-  const int w = rank * (int)blockDim.x + (int)threadIdx.x;
-  const bool live = w < W;
+  static_assert(K == 1 || (SMEM && !CL), "lanes a thread: one CTA, smem");
   const int* __restrict__ poss = desc.poss;
   const int* __restrict__ resets = desc.resets;
   const uint8_t* __restrict__ mflags = desc.mflags;
@@ -249,120 +258,144 @@ __global__ void __launch_bounds__(CL ? 512 : 1024, 1)
       table[e] = (uint16_t)v;
   };
 
-  Bytes in;
-  in.init(desc.payload + (size_t)(live ? w : 0) * Lb, live ? desc.lens[w] : 0,
-          Lb);
-  const int cnt = live ? desc.counts[w] : 0;
-  uint32_t low = 0, rng = 0xFFFFFFFFu, code = 0;
-  for (int r = 0; r < 4; ++r) code = (code << 8) | in.next();
-  CtxState st;
   // a symbol-step's inputs as loaded (read at their use: a compare right
   // after the load would wait on it); the byte and flag kinds read none
   struct Inputs {
     int rs = 0, pos = 0, mf = 0;
   };
-  auto inputs = [&](int t, Inputs* x) {
-    if (live && t < Sp && cx.kind <= SEQ) {
-      const size_t at = (size_t)t * W + w;
+  // the thread's lanes: each one's payload, count, coder and context state,
+  // and its symbol-step's inputs and the next one's, loaded ahead
+  int w[K], cnt[K];
+  bool live[K];
+  Bytes in[K];
+  uint32_t low[K], rng[K], code[K];
+  CtxState st[K];
+  Inputs cur[K], nxt[K];
+  auto inputs = [&](int t, int i, Inputs* x) {
+    if (live[i] && t < Sp && cx.kind <= SEQ) {
+      const size_t at = (size_t)t * W + w[i];
       x->rs = resets[at];
       x->pos = poss[at];
       if (p.match) x->mf = mflags[at];
     }
   };
-  // this symbol-step's inputs and the next one's, loaded ahead
-  Inputs cur, nxt;
-  inputs(0, &cur);
-  inputs(1, &nxt);
+#pragma unroll
+  for (int i = 0; i < K; ++i) {
+    w[i] = (rank * K + i) * (int)blockDim.x + (int)threadIdx.x;
+    live[i] = w[i] < W;
+    in[i].init(desc.payload + (size_t)(live[i] ? w[i] : 0) * Lb,
+               live[i] ? desc.lens[w[i]] : 0, Lb);
+    cnt[i] = live[i] ? desc.counts[w[i]] : 0;
+    low[i] = 0;
+    rng[i] = 0xFFFFFFFFu;
+    code[i] = 0;
+    for (int r = 0; r < 4; ++r) code[i] = (code[i] << 8) | in[i].next();
+    inputs(0, i, &cur[i]);
+    inputs(1, i, &nxt[i]);
+  }
+  // bit j's entry, b + (nd >> (depth - j)) - 1 with the symbol's final
+  // node nd, and its share of the entry's counter: count in bits 0-15,
+  // ones in bits 16-31 (at most 4,096 each)
+  auto entry = [&](int b, int nd, int j) {
+    return b + (nd >> (depth - j)) - 1;
+  };
+  auto mark = [&](int nd, int j) {
+    return 1 | (((nd >> (depth - 1 - j)) & 1) << 16);
+  };
   for (int t = 0; t < Sp; ++t) {
-    const bool act = t < cnt;
-    const int base =
-        st.row(cx, act, cur.rs != 0, (uint32_t)cur.pos, cur.mf == 1);
-    // a real lane's row lies below the sacrificial one, and so does each
-    // entry of it
-    const bool real = live && base < g.sac_base;
-    // the row's first entry in the table: padded rows start at row * 4
-    const int rb = PAD ? base / 3 * 4 : base;
-    // a padded row, whole: its three entries (and the unused fourth) in one
-    // 8-byte load
-    uint2 rw = make_uint2(PROB_MAX | (PROB_MAX << 16), PROB_MAX);
-    if (PAD && real) {
-      const uint2* src = reinterpret_cast<const uint2*>(table + rb);
-      rw = CL ? __ldcg(src) : *src;
-    }
-    // decode every bit of the symbol from the table as the last
-    // symbol-step left it: bit j's entry, rb + (node >> (depth - j)) - 1
-    // with the symbol's final node, read `got[j]` (p | visits << 12)
-    int got[MAX_DEPTH];
-    int node = 1;
+    int base[K], rb[K], node[K];
+    bool real[K];
+    // what each bit of the symbol read: `got[i][j]` (p | visits << 12)
+    int got[K][MAX_DEPTH];
 #pragma unroll
-    for (int j = 0; j < MAX_DEPTH; ++j) {
-      if (j < depth) {
-        int v = PROB_MAX;
-        if (PAD) {  // entry node - 1 of the row: 0 (level 0), 1 or 2
-          v = (int)(node == 1   ? rw.x & 0xFFFFu
-                    : node == 2 ? rw.x >> 16
-                                : rw.y & 0xFFFFu);
-        } else if (real) {
-          v = tload(rb + node - 1);
-        }
-        const uint32_t split = (rng >> PROB_BITS) * (uint32_t)(v & P_MASK);
-        const bool one = code - low >= split;
-        if (one) {
-          low += split;
-          rng -= split;
-        } else {
-          rng = split;
-        }
-        for (int r = 0; r < RENORM_ITERS; ++r) {
-          bool agree;
-          if (!renorm_needed(low, rng, &agree)) break;
-          if (!agree) rng = (0u - low) & (BOT - 1);
-          code = (code << 8) | in.next();
-          low <<= 8;
-          rng <<= 8;
-        }
-        node = 2 * node + one;
-        got[j] = v;
+    for (int i = 0; i < K; ++i) {
+      const bool act = t < cnt[i];
+      base[i] = st[i].row(cx, act, cur[i].rs != 0, (uint32_t)cur[i].pos,
+                          cur[i].mf == 1);
+      // a real lane's row lies below the sacrificial one, and so does each
+      // entry of it
+      real[i] = live[i] && base[i] < g.sac_base;
+      // the row's first entry in the table: padded rows start at row * 4
+      rb[i] = PAD ? base[i] / 3 * 4 : base[i];
+      // a padded row, whole: its three entries (and the unused fourth) in
+      // one 8-byte load
+      uint2 rw = make_uint2(PROB_MAX | (PROB_MAX << 16), PROB_MAX);
+      if (PAD && real[i]) {
+        const uint2* src = reinterpret_cast<const uint2*>(table + rb[i]);
+        rw = CL ? __ldcg(src) : *src;
       }
-    }
-    auto entry = [&](int b, int nd, int j) {
-      return b + (nd >> (depth - j)) - 1;
-    };
-    // bit j's share of its entry's counter: count in bits 0-15, ones in
-    // bits 16-31 (at most 1,024 each)
-    auto mark = [&](int j) {
-      return 1 | (((node >> (depth - 1 - j)) & 1) << 16);
-    };
-    // count each bit and its decision at its entry (the counters index
-    // the unpadded table); no result is awaited
-    if (real) {
-#pragma unroll
-      for (int j = 0; j < MAX_DEPTH; ++j) {
-        if (j < depth) atomicAdd(tally + entry(base, node, j), mark(j));
-      }
-    }
-    const uint32_t sym = act ? (uint32_t)(node - (1 << depth)) : 0u;
-    st.advance(cx, sym);
-    if (live) syms[(size_t)t * W + w] = (uint8_t)sym;
-    cur = nxt;
-    inputs(t + 2, &nxt);
-    sync_all<CL>();  // the symbol-step's counts are complete
-    if (real) {  // every lane on an entry stores the one value it leaves
-      int c[MAX_DEPTH];
-#pragma unroll
-      for (int j = 0; j < MAX_DEPTH; ++j) {
-        if (j < depth) c[j] = __ldcg(tally + entry(base, node, j));
-      }
+      // decode every bit of the symbol from the table as the last
+      // symbol-step left it: bit j's entry, entry(rb, node, j) with the
+      // symbol's final node
+      int nd = 1;
 #pragma unroll
       for (int j = 0; j < MAX_DEPTH; ++j) {
         if (j < depth) {
-          const int n = c[j] & 0xFFFF, n1 = c[j] >> 16;
-          const int pp = got[j] & P_MASK, pvis = got[j] >> VIS_SHIFT;
-          const int sum = n1 * law_delta<WARM>(g, pp, pvis, n, true) +
-                          (n - n1) * law_delta<WARM>(g, pp, pvis, n, false);
-          const int nv = WARM ? min(pvis + n, g.vcap) : 0;
-          tstore(entry(rb, node, j),
-                 clampi(pp + sum, PROB_MIN, PROB_MAX) | (nv << VIS_SHIFT));
+          int v = PROB_MAX;
+          if (PAD) {  // entry nd - 1 of the row: 0 (level 0), 1 or 2
+            v = (int)(nd == 1   ? rw.x & 0xFFFFu
+                      : nd == 2 ? rw.x >> 16
+                                : rw.y & 0xFFFFu);
+          } else if (real[i]) {
+            v = tload(rb[i] + nd - 1);
+          }
+          const uint32_t split =
+              (rng[i] >> PROB_BITS) * (uint32_t)(v & P_MASK);
+          const bool one = code[i] - low[i] >= split;
+          if (one) {
+            low[i] += split;
+            rng[i] -= split;
+          } else {
+            rng[i] = split;
+          }
+          for (int r = 0; r < RENORM_ITERS; ++r) {
+            bool agree;
+            if (!renorm_needed(low[i], rng[i], &agree)) break;
+            if (!agree) rng[i] = (0u - low[i]) & (BOT - 1);
+            code[i] = (code[i] << 8) | in[i].next();
+            low[i] <<= 8;
+            rng[i] <<= 8;
+          }
+          nd = 2 * nd + one;
+          got[i][j] = v;
+        }
+      }
+      node[i] = nd;
+      // count each bit and its decision at its entry (the counters index
+      // the unpadded table); no result is awaited
+      if (real[i]) {
+#pragma unroll
+        for (int j = 0; j < MAX_DEPTH; ++j) {
+          if (j < depth) atomicAdd(tally + entry(base[i], nd, j), mark(nd, j));
+        }
+      }
+      const uint32_t sym = act ? (uint32_t)(nd - (1 << depth)) : 0u;
+      st[i].advance(cx, sym);
+      if (live[i]) syms[(size_t)t * W + w[i]] = (uint8_t)sym;
+      cur[i] = nxt[i];
+      inputs(t + 2, i, &nxt[i]);
+    }
+    sync_all<CL>();  // the symbol-step's counts are complete
+#pragma unroll
+    for (int i = 0; i < K; ++i) {
+      if (real[i]) {  // every lane on an entry stores the one value it
+                      // leaves
+        int c[MAX_DEPTH];
+#pragma unroll
+        for (int j = 0; j < MAX_DEPTH; ++j) {
+          if (j < depth) c[j] = __ldcg(tally + entry(base[i], node[i], j));
+        }
+#pragma unroll
+        for (int j = 0; j < MAX_DEPTH; ++j) {
+          if (j < depth) {
+            const int n = c[j] & 0xFFFF, n1 = c[j] >> 16;
+            const int pp = got[i][j] & P_MASK, pvis = got[i][j] >> VIS_SHIFT;
+            const int sum = n1 * law_delta<WARM>(g, pp, pvis, n, true) +
+                            (n - n1) * law_delta<WARM>(g, pp, pvis, n, false);
+            const int nv = WARM ? min(pvis + n, g.vcap) : 0;
+            tstore(entry(rb[i], node[i], j),
+                   clampi(pp + sum, PROB_MIN, PROB_MAX) | (nv << VIS_SHIFT));
+          }
         }
       }
     }
@@ -371,10 +404,14 @@ __global__ void __launch_bounds__(CL ? 512 : 1024, 1)
     // the next symbol-step may land before or after (addition commutes),
     // and all of these land before its first barrier, so each counter
     // reads the next symbol-step's marks alone there
-    if (real) {
 #pragma unroll
-      for (int j = 0; j < MAX_DEPTH; ++j) {
-        if (j < depth) atomicSub(tally + entry(base, node, j), mark(j));
+    for (int i = 0; i < K; ++i) {
+      if (real[i]) {
+#pragma unroll
+        for (int j = 0; j < MAX_DEPTH; ++j) {
+          if (j < depth)
+            atomicSub(tally + entry(base[i], node[i], j), mark(node[i], j));
+        }
       }
     }
   }
@@ -423,7 +460,8 @@ const char* error_string(int err) {
 // One launch over n blocks' descriptors (an array of DecDesc: a
 // parameter of a type in the anonymous namespace would take the entry's C
 // linkage away), one cluster of `cluster` CTAs of `threads` each a block
-// (one CTA where cluster is 1), in the shape coder_torch.decode_shape
+// (one CTA where cluster is 1), `per_thread` lanes a thread (2 or 4 only
+// for a table in shared memory), in the shape coder_torch.decode_shape
 // derived: smem_table, the table in the CTA's shared memory (one CTA a
 // block; else the descriptors' device tables); padded, a depth-2 device
 // table laid out in rows padded to 4 entries (the descriptors' counters
@@ -436,14 +474,18 @@ int lane_decode(const void* descs, int n, int W, int table_size,
                 int sac_base, int rate, int rate_lo, int vcap, int depth,
                 int kind, int num_ctx, int k0, int k1, int k2, int k3,
                 int match, int cluster, int threads, int smem_table,
-                int padded, int bytes, cudaStream_t stream) {
+                int padded, int bytes, int per_thread, cudaStream_t stream) {
   int lc = 0;
   while ((1 << lc) < cluster) ++lc;
   const bool ok =
-      n >= 1 && n <= MAX_BLOCKS && W >= 1 && W <= 1024 && cluster >= 1 &&
-      cluster <= MAX_CLUSTER && (1 << lc) == cluster && threads >= 32 &&
-      threads <= (cluster > 1 ? 512 : 1024) && threads % 32 == 0 &&
-      threads * cluster >= W && depth >= 1 && depth <= MAX_DEPTH &&
+      n >= 1 && n <= MAX_BLOCKS && W >= 1 && W <= MAX_LANES &&
+      cluster >= 1 && cluster <= MAX_CLUSTER && (1 << lc) == cluster &&
+      threads >= 32 && threads <= (cluster > 1 ? 512 : 1024) &&
+      threads % 32 == 0 &&
+      (per_thread == 1 ||
+       (smem_table && (per_thread == 2 || per_thread == MAX_PER_THREAD))) &&
+      threads * cluster * per_thread >= W && depth >= 1 &&
+      depth <= MAX_DEPTH &&
       (!smem_table || cluster == 1) &&
       (!padded || (!smem_table && depth == 2 && table_size % 3 == 0)) &&
       bytes == (smem_table ? table_smem_bytes(table_size) : 0) &&
@@ -464,17 +506,24 @@ int lane_decode(const void* descs, int n, int W, int table_size,
                         p);
     return e != cudaSuccess ? (int)e : (int)cudaGetLastError();
   };
+  // a table in shared memory: one CTA, 1, 2 or 4 lanes a thread
+  auto sm = [&](auto k) -> int {
+    constexpr int K = decltype(k)::value;
+    return vcap ? go(lane_decode_kernel<true, false, true, false, K>)
+                : go(lane_decode_kernel<true, false, false, false, K>);
+  };
   if (smem_table)
-    return vcap ? go(lane_decode_kernel<true, false, true, false>)
-                : go(lane_decode_kernel<true, false, false, false>);
+    return per_thread == 1   ? sm(std::integral_constant<int, 1>{})
+           : per_thread == 2 ? sm(std::integral_constant<int, 2>{})
+                             : sm(std::integral_constant<int, 4>{});
   // a device table: one CTA or a cluster, rows padded or not
   auto dev = [&](auto cl) -> int {
     constexpr bool C = decltype(cl)::value;
     if (padded)
-      return vcap ? go(lane_decode_kernel<false, C, true, true>)
-                  : go(lane_decode_kernel<false, C, false, true>);
-    return vcap ? go(lane_decode_kernel<false, C, true, false>)
-                : go(lane_decode_kernel<false, C, false, false>);
+      return vcap ? go(lane_decode_kernel<false, C, true, true, 1>)
+                  : go(lane_decode_kernel<false, C, false, true, 1>);
+    return vcap ? go(lane_decode_kernel<false, C, true, false, 1>)
+                : go(lane_decode_kernel<false, C, false, false, 1>);
   };
   return cluster > 1 ? dev(std::true_type{}) : dev(std::false_type{});
 }

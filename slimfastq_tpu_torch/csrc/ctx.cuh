@@ -45,17 +45,18 @@ struct Geo {
 // The delta of one lane coding `one` against an entry that reads p after
 // vis prior visits and n real lanes in this bit-step (ranger.table_update):
 // the shift min(rate, rate_lo + ceil_log2(vis + 1)) where the geometry
-// warms up, scaled down by 2^(ceil_log2(n) - CAP_LOG2) where the format's
-// 10-bit count field holds more than 2^CAP_LOG2 (it reads n < 512 as is,
-// 512..1023 negative and 1024 as 0); the negative delta shifts
-// arithmetically.
+// warms up, scaled down by 2^(ceil_log2(m) - CAP_LOG2) where the format's
+// 10-bit count field, which holds m = n mod 1024, reads more than
+// 2^CAP_LOG2 (it reads m < 512 as is, 512..1023 negative and 0 as 0,
+// whatever the lane count); the negative delta shifts arithmetically.
 template <bool WARM>
 __device__ __forceinline__ int law_delta(const Geo& g, int p, int vis, int n,
                                          bool one) {
   const int r = WARM ? min(g.rate, g.rate_lo + ceil_log2(vis + 1)) : g.rate;
   int d = one ? -(p >> r) : (PROB_ONE - p) >> r;
-  if (n > (1 << CAP_LOG2) && n < (1 << (CNT_BITS - 1)))
-    d >>= 32 - __clz(n - 1) - CAP_LOG2;
+  const int m = n & ((1 << CNT_BITS) - 1);
+  if (m > (1 << CAP_LOG2) && m < (1 << (CNT_BITS - 1)))
+    d >>= 32 - __clz(m - 1) - CAP_LOG2;
   return d;
 }
 

@@ -32,7 +32,9 @@
 //      deterministic); a counting pass, an exclusive scan of the counts
 //      (each step's first record) and a writing pass that also gives every
 //      decision its record's number within the step (rid; 0xFFFF for a
-//      sacrificial decision).
+//      sacrificial decision). One CTA holds a step's lanes: up to 1,024 one
+//      a thread, up to 4,096 two or four a thread (lane i T + t on thread
+//      t), its hash at least 2W slots.
 //   3. sort (records): the records grouped by entry with an LSD radix sort
 //      of 8-bit digits over the key's bits, each pass a tile histogram, an
 //      exclusive scan and a stable scatter (ranks within a tile from
@@ -48,9 +50,10 @@
 //      (one coalesced u16 a decision, loaded PF decisions ahead of its
 //      use), emitting into its chunk windows as the lockstep coder did:
 //      no barrier.
-// A window's B blocks share every launch (records carry their block; an
-// entry's records are grouped across blocks in block order and the scan
-// switches tables where the block changes). Slices of L bit-steps bound
+// A window's B blocks share every launch (block b's records lie between
+// its steps' first offsets, cnt[b L] and cnt[(b+1) L]; an entry's records
+// are grouped across blocks in block order, and the scan walks each
+// block's run of them against that block's table). Slices of L bit-steps bound
 // the scratch whatever the stream's length: the table and each lane's
 // low, range and chunk position carry from one slice to the next (a slice
 // may end inside a symbol); the lane coder of one slice runs beside the
@@ -85,8 +88,11 @@ constexpr int STEPS_PER_CTA = 16;  // bit-steps a touches CTA walks
 constexpr int ROW_THREADS = 128;
 constexpr int PF = 16;  // decisions the lane coder loads ahead
 constexpr int SP = 8;  // records an entry scan load stage runs ahead
-// record fields: n (bits 0-10), k (11-21), block (22-29)
-constexpr int NK_BITS = 11;
+// record fields: n (bits 0-15), k (16-31): the hash's count word as it
+// stands, for up to 4,096 lanes
+constexpr int NK_BITS = 16;
+constexpr int MAX_LANES = 4096;  // coder_torch.MAX_LANES
+constexpr int MAX_PER_THREAD = 4;  // a touches thread's lanes
 // the gather's u16 a decision: p (bits 0-11), its bit at BIT_SHIFT
 constexpr int BIT_SHIFT = 15;
 
@@ -111,7 +117,7 @@ struct Plan {
   uint16_t* rid;        // [B, L, W]: each decision's record in its step,
                         // then (the gather) its p | bit << 15
   int* key;             // [Dcap]: the records' entries (sort buffer 0)
-  uint32_t* nk;         // [Dcap]: n | k << 11 | block << 22, then p
+  uint32_t* nk;         // [Dcap]: n | k << 16, then p
   int* key1;            // [Dcap]: sort buffer 1
   int* val1;            // [Dcap]
   int* val2;            // [Dcap]
@@ -124,6 +130,9 @@ struct Plan {
   Geo geo;
   Ctx cx;
   int B, W, CB, L, Lt, Dcap, ntiles, nbits;
+  // the touches launch (encode_torch.touch_shape): threads, lanes a thread,
+  // log2 of the hash's slots, dynamic shared memory
+  int tthreads, tlanes, nsl, tbytes;
 };
 
 __device__ __forceinline__ unsigned lanemask_lt() {
@@ -181,113 +190,145 @@ __device__ __forceinline__ int hash_find(int* key, int nsl, int k) {
 }
 
 // COUNT: each step's record count into cnt; WRITE: the records at the
-// scanned offsets and each decision's rid. Shared memory: two buffers (by
+// scanned offsets and each decision's rid. K lanes a thread: lane i T + t
+// on thread t of T, so lanes run in (round i, thread) order and a step's
+// records are numbered by their first lane. Shared memory: two buffers (by
 // step parity) of key, n | k << 16 and first lane, 2^nsl slots each, and
-// two of the warps' representative counts.
-template <bool WRITE>
+// two of the representative counts of each round's warps.
+template <bool WRITE, int K>
 __global__ void __launch_bounds__(1024)
-    touch_kernel(const __grid_constant__ Plan p, int s0, int nsl) {
+    touch_kernel(const __grid_constant__ Plan p, int s0) {
   extern __shared__ __align__(16) int hs[];
-  const int NS = 1 << nsl;
+  const int nsl = p.nsl, NS = 1 << nsl;
   int* key = hs;
   int* nkc = hs + 2 * NS;
   int* first = hs + 4 * NS;
-  int* wc = hs + 6 * NS;  // [2][32]
+  int* wc = hs + 6 * NS;  // [2][K][32]
   const int b = blockIdx.y;
   const Block d = p.blocks[b];  // in registers: stores cannot alias it
   const int W = p.W, depth = p.cx.depth, S = d.Sp * depth;
   const int sa = s0 + blockIdx.x * STEPS_PER_CTA;
   const int sb = min(min(sa + STEPS_PER_CTA, s0 + p.L), S);
   if (sa >= sb) return;
-  const int w = threadIdx.x, lane = w & 31, warp = w >> 5;
-  const int nwarps = blockDim.x >> 5;
-  const bool live = w < W;
-  for (int i = w; i < 2 * NS; i += blockDim.x) {
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int T = blockDim.x, nwarps = T >> 5;
+  for (int i = tid; i < 2 * NS; i += T) {
     key[i] = EMPTY;
     nkc[i] = 0;
     first[i] = INT_MAX;
   }
   __syncthreads();
-  const int cnt = live ? d.counts[w] : 0;
   const int t0 = s0 / depth;
   const int* rows = p.rows + (size_t)b * p.Lt * W;
   const int sac = p.geo.sac_base;
-  // the step's row and symbol, loaded a step ahead of their use
   int t = sa / depth, j = sa - t * depth;
-  int row_n = 0;
-  uint32_t sym_n = 0;
-  if (live) {
-    row_n = rows[(size_t)(t - t0) * W + w];
-    sym_n = t < cnt ? d.syms[(size_t)t * W + w] : 0u;
+  // each lane's count, and its step's row and symbol, loaded a step ahead
+  // of their use
+  int cnt[K], row_n[K], prev[K];  // prev: the slot it represented
+  uint32_t sym_n[K];
+  bool was_rep[K];
+#pragma unroll
+  for (int i = 0; i < K; ++i) {
+    const int w = i * T + tid;
+    const bool live = w < W;
+    cnt[i] = live ? d.counts[w] : 0;
+    row_n[i] = live ? rows[(size_t)(t - t0) * W + w] : 0;
+    sym_n[i] = live && t < cnt[i] ? d.syms[(size_t)t * W + w] : 0u;
+    was_rep[i] = false;
+    prev[i] = 0;
   }
-  bool was_rep = false;
-  int prev = 0;  // the slot this lane represented in the step before
   for (int s = sa; s < sb; ++s) {
     const int buf = (s & 1) * NS;
-    if (was_rep) {  // clear last step's slot (the other buffer)
-      const int at = ((s - 1) & 1) * NS + prev;
-      key[at] = EMPTY;
-      nkc[at] = 0;
-      first[at] = INT_MAX;
+#pragma unroll
+    for (int i = 0; i < K; ++i) {
+      if (was_rep[i]) {  // clear last step's slot (the other buffer)
+        const int at = ((s - 1) & 1) * NS + prev[i];
+        key[at] = EMPTY;
+        nkc[at] = 0;
+        first[at] = INT_MAX;
+      }
     }
-    const int row = row_n;
-    const uint32_t sym = sym_n;
     const int jj = j;
     if (++j == depth) {
       j = 0;
       ++t;
     }
-    if (live && s + 1 < sb) {
-      row_n = rows[(size_t)(t - t0) * W + w];
-      sym_n = t < cnt ? d.syms[(size_t)t * W + w] : 0u;
+    int entry[K], slot[K];
+    bool real[K];
+#pragma unroll
+    for (int i = 0; i < K; ++i) {
+      const int w = i * T + tid;
+      const bool live = w < W;
+      const int row = row_n[i];
+      const uint32_t sym = sym_n[i];
+      if (live && s + 1 < sb) {
+        row_n[i] = rows[(size_t)(t - t0) * W + w];
+        sym_n[i] = t < cnt[i] ? d.syms[(size_t)t * W + w] : 0u;
+      }
+      entry[i] = row + (int)((1u << jj) | (sym >> (depth - jj))) - 1;
+      const uint32_t one = (sym >> (depth - 1 - jj)) & 1u;
+      real[i] = live && entry[i] < sac;
+      // the warp's lanes on one entry act through their lowest lane: one
+      // insert and one add a warp and entry
+      const unsigned peers = __match_any_sync(
+          FULL, real[i] ? entry[i] : (int)(0x80000000u | lane));
+      const int lead = __ffs(peers) - 1;
+      const unsigned ones = __ballot_sync(FULL, real[i] && one) & peers;
+      int sl = 0;
+      if (real[i] && lead == lane) {
+        sl = buf + hash_find(key + buf, nsl, entry[i]);
+        atomicAdd(nkc + sl, __popc(peers) + (__popc(ones) << 16));
+        atomicMin(first + sl, w);
+      }
+      slot[i] = __shfl_sync(FULL, sl, lead);
     }
-    const int entry = row + (int)((1u << jj) | (sym >> (depth - jj))) - 1;
-    const uint32_t one = (sym >> (depth - 1 - jj)) & 1u;
-    const bool real = live && entry < sac;
-    // the warp's lanes on one entry act through their lowest lane: one
-    // insert and one add a warp and entry
-    const unsigned peers =
-        __match_any_sync(FULL, real ? entry : (int)(0x80000000u | lane));
-    const int lead = __ffs(peers) - 1;
-    const unsigned ones = __ballot_sync(FULL, real && one) & peers;
-    int slot = 0;
-    if (real && lead == lane) {
-      slot = buf + hash_find(key + buf, nsl, entry);
-      atomicAdd(nkc + slot, __popc(peers) + (__popc(ones) << 16));
-      atomicMin(first + slot, w);
+    __syncthreads();
+    bool rep[K];
+    unsigned bal[K];
+    int* wcs = wc + (s & 1) * K * 32;
+#pragma unroll
+    for (int i = 0; i < K; ++i) {
+      rep[i] = real[i] && first[slot[i]] == i * T + tid;
+      bal[i] = __ballot_sync(FULL, rep[i]);
+      if (lane == 0) wcs[i * 32 + warp] = __popc(bal[i]);
     }
-    slot = __shfl_sync(FULL, slot, lead);
     __syncthreads();
-    const bool rep = real && first[slot] == w;
-    const unsigned bal = __ballot_sync(FULL, rep);
-    if (lane == 0) wc[(s & 1) * 32 + warp] = __popc(bal);
-    __syncthreads();
-    const int* wcs = wc + (s & 1) * 32;
     const size_t step = (size_t)b * p.L + (s - s0);
     if (!WRITE) {
-      if (w == 0) {
+      if (tid == 0) {
         int tot = 0;
-        for (int v = 0; v < nwarps; ++v) tot += wcs[v];
+        for (int i = 0; i < K; ++i)
+          for (int v = 0; v < nwarps; ++v) tot += wcs[i * 32 + v];
         p.cnt[step] = tot;
       }
     } else {
-      if (rep) {
-        int local = __popc(bal & lanemask_lt());
-        for (int v = 0; v < warp; ++v) local += wcs[v];
-        const int at = p.cnt[step] + local;
-        const int c = nkc[slot];
-        p.key[at] = entry;
-        p.nk[at] = (uint32_t)(c & 0xFFFF) | ((uint32_t)(c >> 16) << NK_BITS) |
-                   ((uint32_t)b << (2 * NK_BITS));
-        first[slot] = local;  // every read of first[] came before
+#pragma unroll
+      for (int i = 0; i < K; ++i) {
+        if (rep[i]) {  // its number: the representatives of lower lanes
+          int local = __popc(bal[i] & lanemask_lt());
+          for (int u = 0; u < i; ++u)
+            for (int v = 0; v < nwarps; ++v) local += wcs[u * 32 + v];
+          for (int v = 0; v < warp; ++v) local += wcs[i * 32 + v];
+          const int at = p.cnt[step] + local;
+          p.key[at] = entry[i];
+          p.nk[at] = (uint32_t)nkc[slot[i]];
+          first[slot[i]] = local;  // every read of first[] came before
+        }
       }
       __syncthreads();
-      if (live)
-        p.rid[step * W + w] = real ? (uint16_t)first[slot] : NO_RECORD;
+#pragma unroll
+      for (int i = 0; i < K; ++i) {
+        const int w = i * T + tid;
+        if (w < W)
+          p.rid[step * W + w] = real[i] ? (uint16_t)first[slot[i]] : NO_RECORD;
+      }
       __syncthreads();
     }
-    was_rep = rep;
-    prev = slot - buf;
+#pragma unroll
+    for (int i = 0; i < K; ++i) {
+      was_rep[i] = rep[i];
+      prev[i] = slot[i] - buf;
+    }
   }
 }
 
@@ -471,56 +512,69 @@ __global__ void __launch_bounds__(256)
   }
   const int end = hi;
   const Geo& g = p.geo;
-  int cur = -1, pr = 0, vis = 0;
   // a two-stage load pipeline SP records deep: the record's number, then
-  // its n | k | block
-  int v1[SP], v2[SP];
+  // its n | k; `stop`: the end of the run it walks. The loads run ahead
+  // unguarded (clamped to the run's last record) and only the records'
+  // steps are guarded: with guarded loads and an early exit the compiler
+  // waited on each load as it landed (the pinned 64k block's IDD scan on
+  // an H100: 0.70 ms this way, 1.64 guarded; tools/block_spans.py)
+  int v1[SP], v2[SP], stop = end;
   uint32_t n2[SP];
-  auto st1 = [&](int k, int j) {
-    if (j < end) v1[k] = V[j];
-  };
+  auto st1 = [&](int k, int j) { v1[k] = V[min(j, stop - 1)]; };
   auto st2 = [&](int k, int j) {
-    if (j < end) {
-      v2[k] = v1[k];
-      n2[k] = p.nk[v1[k]];
-    }
+    v2[k] = v1[k];
+    n2[k] = p.nk[v1[k]];
   };
-#pragma unroll
-  for (int k = 0; k < SP; ++k) {
-    st1(k, i + k);
-    st2(k, i + k);
-    st1(k, i + SP + k);
-  }
-  for (int j = i; j < end; j += SP) {
+  // the group's records run block by block (their numbers rise along the
+  // group, and block b's are those from cnt[b L] to cnt[(b+1) L]): each
+  // run starts at the last block whose first record is at or before its
+  // first one and ends at the group's first record past that block
+  for (int j0 = i; j0 < end; j0 = stop) {
+    const int r0 = V[j0];
+    int b = 0, bh = p.B;
+    while (bh - b > 1) {
+      const int mid = (b + bh) / 2;
+      if (p.cnt[(size_t)mid * p.L] <= r0) b = mid; else bh = mid;
+    }
+    const int past = p.cnt[(size_t)(b + 1) * p.L];
+    stop = end;
+    if (V[end - 1] >= past) {
+      int below = j0, at = end - 1;  // V[below] < past <= V[at]
+      while (at - below > 1) {
+        const int mid = (below + at) / 2;
+        if (V[mid] < past) below = mid; else at = mid;
+      }
+      stop = at;
+    }
+    uint16_t* const ent = p.tables + (size_t)b * g.table_size + e;
+    int pr = *ent & P_MASK, vis = *ent >> VIS_SHIFT;
 #pragma unroll
     for (int k = 0; k < SP; ++k) {
-      const int jk = j + k;
-      if (jk >= end) break;
-      const int r = v2[k];
-      const uint32_t nk = n2[k];
-      st2(k, jk + SP);
-      st1(k, jk + 2 * SP);
-      const int n = (int)(nk & ((1u << NK_BITS) - 1));
-      const int kk = (int)((nk >> NK_BITS) & ((1u << NK_BITS) - 1));
-      const int b = (int)(nk >> (2 * NK_BITS));
-      if (b != cur) {
-        if (cur >= 0)
-          p.tables[(size_t)cur * g.table_size + e] =
-              (uint16_t)(pr | (vis << VIS_SHIFT));
-        cur = b;
-        const int ent = p.tables[(size_t)b * g.table_size + e];
-        pr = ent & P_MASK;
-        vis = ent >> VIS_SHIFT;
-      }
-      p.nk[r] = (uint32_t)pr;
-      const int d1 = law_delta<WARM>(g, pr, vis, n, true);
-      const int d0 = law_delta<WARM>(g, pr, vis, n, false);
-      pr = clampi(pr + kk * d1 + (n - kk) * d0, PROB_MIN, PROB_MAX);
-      if (WARM) vis = min(vis + n, g.vcap);
+      st1(k, j0 + k);
+      st2(k, j0 + k);
+      st1(k, j0 + SP + k);
     }
+    for (int j = j0; j < stop; j += SP) {
+#pragma unroll
+      for (int k = 0; k < SP; ++k) {
+        const int jk = j + k;
+        const int r = v2[k];
+        const uint32_t nk = n2[k];
+        st2(k, jk + SP);
+        st1(k, jk + 2 * SP);
+        if (jk < stop) {
+          const int n = (int)(nk & ((1u << NK_BITS) - 1));
+          const int kk = (int)(nk >> NK_BITS);
+          p.nk[r] = (uint32_t)pr;
+          const int d1 = law_delta<WARM>(g, pr, vis, n, true);
+          const int d0 = law_delta<WARM>(g, pr, vis, n, false);
+          pr = clampi(pr + kk * d1 + (n - kk) * d0, PROB_MIN, PROB_MAX);
+          if (WARM) vis = min(vis + n, g.vcap);
+        }
+      }
+    }
+    *ent = (uint16_t)(pr | (vis << VIS_SHIFT));
   }
-  p.tables[(size_t)cur * g.table_size + e] =
-      (uint16_t)(pr | (vis << VIS_SHIFT));
 }
 
 // ---------------------------------------------------------------------------
@@ -615,12 +669,17 @@ __global__ void __launch_bounds__(32)
   if (emx) atomicMax(p.emax + b, emx);
 }
 
-int touch_shape(int W, int* threads, int* nsl, int* bytes) {
-  *threads = (W + 31) / 32 * 32;
-  *nsl = 0;
-  while ((1 << *nsl) < 2 * *threads) ++*nsl;
-  *bytes = (6 * (1 << *nsl) + 64) * 4;
-  return W >= 1 && *threads <= 1024 && *bytes <= SMEM_LIMIT;
+// whether the touches launch the wrapper derived (encode_torch.touch_shape)
+// holds W lanes: whole warps of at most 1,024 threads, 1, 2 or 4 lanes a
+// thread, at least 2W hash slots, its shared memory within the CTA's
+bool touch_shape_holds(const Plan& p) {
+  const int T = p.tthreads, K = p.tlanes;
+  return p.W >= 1 && p.W <= MAX_LANES && T >= 32 && T <= 1024 &&
+         T % 32 == 0 && (K == 1 || K == 2 || K == MAX_PER_THREAD) &&
+         T * K >= p.W && p.nsl >= 1 && p.nsl <= 16 &&
+         (1 << p.nsl) >= 2 * p.W &&
+         p.tbytes == (6 * (1 << p.nsl) + 2 * 32 * K) * 4 &&
+         p.tbytes <= SMEM_LIMIT;
 }
 
 }  // namespace
@@ -645,24 +704,32 @@ int enc_rows(const void* plan, int s0, cudaStream_t stream) {
 
 int enc_touches(const void* plan, int s0, cudaStream_t stream) {
   const Plan& p = *static_cast<const Plan*>(plan);
-  int threads, nsl, bytes;
-  if (p.B < 1 || p.B > MAX_BLOCKS || !touch_shape(p.W, &threads, &nsl,
-                                                  &bytes))
+  if (p.B < 1 || p.B > MAX_BLOCKS || !touch_shape_holds(p))
     return (int)cudaErrorInvalidValue;
   const int n = p.B * p.L + 1;
   cudaError_t e = cudaMemsetAsync(p.cnt, 0, sizeof(int) * n, stream);
   if (e != cudaSuccess) return (int)e;
-  for (auto kern : {touch_kernel<false>, touch_kernel<true>}) {
-    e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             bytes);
-    if (e != cudaSuccess) return (int)e;
-  }
-  const dim3 grid((p.L + STEPS_PER_CTA - 1) / STEPS_PER_CTA, p.B);
-  touch_kernel<false><<<grid, threads, bytes, stream>>>(p, s0, nsl);
-  e = excl_scan(p.cnt, n, nullptr, p.parts, stream);
-  if (e != cudaSuccess) return (int)e;
-  touch_kernel<true><<<grid, threads, bytes, stream>>>(p, s0, nsl);
-  return (int)cudaGetLastError();
+  auto go = [&](auto count, auto write) -> cudaError_t {
+    for (auto kern : {count, write}) {
+      const cudaError_t a = cudaFuncSetAttribute(
+          kern, cudaFuncAttributeMaxDynamicSharedMemorySize, p.tbytes);
+      if (a != cudaSuccess) return a;
+    }
+    const dim3 grid((p.L + STEPS_PER_CTA - 1) / STEPS_PER_CTA, p.B);
+    count<<<grid, p.tthreads, p.tbytes, stream>>>(p, s0);
+    const cudaError_t a = excl_scan(p.cnt, n, nullptr, p.parts, stream);
+    if (a != cudaSuccess) return a;
+    write<<<grid, p.tthreads, p.tbytes, stream>>>(p, s0);
+    return cudaGetLastError();
+  };
+  if (p.tlanes == 1)
+    e = go(touch_kernel<false, 1>, touch_kernel<true, 1>);
+  else if (p.tlanes == 2)
+    e = go(touch_kernel<false, 2>, touch_kernel<true, 2>);
+  else
+    e = go(touch_kernel<false, MAX_PER_THREAD>,
+           touch_kernel<true, MAX_PER_THREAD>);
+  return (int)e;
 }
 
 int enc_sort(const void* plan, cudaStream_t stream) {

@@ -72,12 +72,18 @@ _P, _I = _cuda.PTR, _cuda.INT
 _SIGS = {
     # descs, n, W, table_size, sac_base, rate, rate_lo, vcap, depth, kind,
     # num_ctx, k0, k1, k2, k3, match, then the DecodeShape: cluster,
-    # threads, smem_table, padded, bytes; stream
-    "lane_decode": [_P] + [_I] * 20 + [_P],
+    # threads, smem_table, padded, bytes, and the lanes a thread; stream
+    "lane_decode": [_P] + [_I] * 21 + [_P],
     # iters, threads, cluster, out, stream
     "barrier_loop": [_I, _I, _I, _P, _P],
 }
-MAX_LANES = 1024  # one thread per lane, over one CTA or one cluster
+# lanes of a stream on the card: Kernel D one lane a thread over a cluster
+# of up to 8 CTAs of 512 threads (a table in device memory) or two or four
+# a thread in one CTA of up to 1,024 (a table in shared memory); Kernel E's
+# touches two or four a thread past 1,024
+MAX_LANES = 4096
+CTA_THREADS = 1024  # threads of one CTA
+CLUSTER_THREADS = 512  # threads of each CTA of a cluster (csrc/coder.cu)
 MAX_BLOCKS = 256  # blocks a launch: csrc/coder.cu's MAX_BLOCKS
 MAX_CLUSTER = 8  # CTAs a cluster: the portable size (csrc/coder.cu)
 SMS = 132  # the H100 SXM's streaming multiprocessors
@@ -169,12 +175,11 @@ def table_in_smem(geom) -> bool:
 
 def _check_geom(geom, W: int) -> int:
     """The kernels' visit cap of the geometry; raises where the lanes or
-    the geometry do not fit them (one thread a lane in one CTA or cluster
-    of Kernel D a block, the 16-bit entry; Kernel E's collision counts and
-    rid stop at 1,024 lanes too)."""
-    if W > MAX_LANES:
-        raise ValueError(f"W={W} lanes exceeds {MAX_LANES} (one thread a "
-                         "lane in one CTA or cluster a stream)")
+    the geometry do not fit them (Kernel D's lanes in one CTA or cluster a
+    block, E's touches in one CTA a step, the 16-bit entry)."""
+    if not 1 <= W <= MAX_LANES:
+        raise ValueError(f"W={W} lanes exceeds {MAX_LANES} (the kernels "
+                         "hold a stream's lanes in one CTA or cluster)")
     if not 1 <= geom.depth <= MAX_DEPTH:
         raise ValueError(f"depth {geom.depth} outside Kernel D's 1 to "
                          f"{MAX_DEPTH} levels")
@@ -218,8 +223,12 @@ def decode_shape(geom, W: int, B: int = 1) -> DecodeShape:
     large as lets a window's clusters of two streams run side by side on
     the card's SMS (2 * B * cluster <= SMS), whatever its reads: the card
     measured SEQ's cluster about twice as fast as one CTA from 100-base
-    reads to 16.5 kb ones. Every other stream keeps one CTA a block.
-    Raises where the lanes or the geometry do not fit the kernel."""
+    reads to 16.5 kb ones; past 1,024 lanes, a cluster as large as keeps
+    its CTAs at CLUSTER_THREADS (one lane a thread up to 4,096). Every
+    other stream keeps one CTA a block, past 1,024 lanes with two or four
+    lanes a thread (lanes_per_thread). For W <= 1,024 every thread holds
+    one lane. Raises where the lanes or the geometry do not fit the
+    kernel."""
     _check_geom(geom, W)
     if not 1 <= B <= MAX_BLOCKS:
         raise ValueError(f"one launch codes 1 to {MAX_BLOCKS} blocks, not "
@@ -240,8 +249,25 @@ def decode_shape(geom, W: int, B: int = 1) -> DecodeShape:
     while (may_cluster(geom, W) and C < MAX_CLUSTER
            and lanes // (2 * C) >= 128 and 2 * B * 2 * C <= SMS):
         C *= 2
-    threads = (-(-W // C) + 31) // 32 * 32
+    while (may_cluster(geom, W) and W > CTA_THREADS
+           and -(-W // C) > CLUSTER_THREADS):
+        C *= 2
+    k = 1 if C > 1 else cta_lanes_per_thread(W)
+    threads = (-(-W // (C * k)) + 31) // 32 * 32
     return DecodeShape(C, threads, table, padded, entries, smem, B * C)
+
+
+def cta_lanes_per_thread(W: int) -> int:
+    """The lanes each thread holds where one CTA holds W lanes (Kernel D
+    beside a table in shared memory, E's touches): one up to CTA_THREADS,
+    then two, then four."""
+    return 1 if W <= CTA_THREADS else 2 if W <= 2 * CTA_THREADS else 4
+
+
+def lanes_per_thread(shape: DecodeShape, W: int) -> int:
+    """The lanes each thread of Kernel D's launch in ``shape`` decodes:
+    lane (r k + i) T + t on thread t of CTA r of the cluster, i < k."""
+    return -(-W // (shape.cluster * shape.threads))
 
 
 def _kernel_geom(geom, W: int, dev, B: int | None = None):
@@ -277,7 +303,9 @@ def device_table(geom, dev, B: int | None = None,
 def _lg_lut(dev):
     """lg[c] = #{j < 10 : c > 2^j} for c in [0, 1025] (ceil_log2 of a
     count, saturating at 10, 0 for c <= 1): the threshold sums of the
-    table law as one lookup."""
+    table law as one lookup. Its users index it with a count the format's
+    field holds (n mod 1024) or a visit count capped at 1,024, plus one,
+    never with a raw lane count."""
     c = torch.arange(1026, device=dev)[:, None]
     return (c > (1 << torch.arange(10, device=dev))[None, :]).sum(
         dim=1).int()
@@ -726,7 +754,8 @@ def lane_decode_blocks(items, kind: str, geom) -> list:
         geom.table_size, geom.sac_base, geom.rate, rate_lo, vcap,
         geom.depth, KINDS[kind], geom.num_ctx, *_kind_params(kind, geom),
         int(family), shape.cluster, shape.threads,
-        int(shape.table == "smem"), int(shape.padded), shape.smem_bytes)
+        int(shape.table == "smem"), int(shape.padded), shape.smem_bytes,
+        lanes_per_thread(shape, W))
     _cuda.count("lane_decode", B, dev)
     _cuda.check(lib, err, "lane_decode")
     return outs

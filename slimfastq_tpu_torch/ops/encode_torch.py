@@ -17,11 +17,12 @@ phases, each over its own parallel axis (csrc/encode.cu):
    step; the plain version carries it across the slice, and to the next
    in ``ctx``);
 2. ``touches``: per bit-step, the real lanes grouped by entry into
-   records (entry ``key``, ``nk`` = n | k << 11 | block << 22), numbered
-   within the step in the order of each entry's first lane; ``cnt [B*L +
-   1]`` becomes each step's first record (an exclusive scan, the total
-   last) and ``rid [B, L, W]`` int16 each decision's record number in
-   its step (-1 for a sacrificial decision);
+   records (entry ``key``, ``nk`` = n | k << 16), numbered within the
+   step in the order of each entry's first lane; ``cnt [B*L + 1]``
+   becomes each step's first record (an exclusive scan, the total last),
+   so block b's records are those from ``cnt[b*L]`` to ``cnt[(b+1)*L]``,
+   and ``rid [B, L, W]`` int16 each decision's record number in its step
+   (-1 for a sacrificial decision);
 3. ``sort``: the records grouped by entry, in step order within an entry
    (a stable sort: an LSD radix sort of 8-bit digits on the card), with
    each record's number in the same order;
@@ -48,14 +49,15 @@ under its name) and runs its plain version, below, on CPU tensors;
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
 from . import _cuda
 from .coder_torch import (CHUNK_SYMS, KINDS, _coder_step, _ctx_advance,
                           _ctx_init, _ctx_step, _kind_params, _lg_lut,
-                          _renorm, _u32_bits, _warm, device_table,
-                          visit_cap)
+                          _renorm, _u32_bits, _warm, cta_lanes_per_thread,
+                          device_table, visit_cap)
 from .ranger import (BOT, CAP_LOG2, MASK32, PROB_MAX, PROB_MIN, PROB_ONE,
                      RENORM_ITERS)
 
@@ -67,7 +69,8 @@ SLICE_DECISIONS = 1 << 22
 # more buffers 12, its tile histogram 1
 SCRATCH_PER_DECISION = 25
 NO_RECORD = -1  # rid of a sacrificial decision (0xFFFF in the kernel)
-NK_BITS = 11  # record fields: n (bits 0-10), k (11-21), block (22-29)
+NK_BITS = 16  # record fields: n (bits 0-15), k (16-31), up to 4,096 each
+COUNT_FIELD = 1 << 10  # the format's collision-count field holds n mod 1024
 RADIX_BITS = 8
 TILE = 1024  # records a sort tile (csrc/encode.cu)
 SCAN_CHUNK = 4096  # ints a scan CTA covers
@@ -97,7 +100,30 @@ class _Plan(ctypes.Structure):
         (n, ctypes.c_int) for n in (
             "table_size", "sac_base", "rate", "rate_lo", "vcap", "kind",
             "depth", "num_ctx", "k0", "k1", "k2", "k3", "B", "W", "CB", "L",
-            "Lt", "Dcap", "ntiles", "nbits")]
+            "Lt", "Dcap", "ntiles", "nbits", "tthreads", "tlanes", "nsl",
+            "tbytes")]
+
+
+class TouchShape(NamedTuple):
+    """The touches phase's launch (one CTA a bit-step run): ``threads``
+    threads of ``per_thread`` lanes each (lane i * threads + t on thread
+    t), a hash of 2^nsl slots (at least 2W) and ``smem_bytes`` of dynamic
+    shared memory."""
+    threads: int
+    per_thread: int
+    nsl: int
+    smem_bytes: int
+
+
+def touch_shape(W: int) -> TouchShape:
+    """The touches launch for W lanes (coder_torch._check_geom's, up to
+    MAX_LANES): one lane a thread up to 1,024, then two or four, in whole
+    warps; the hash's slots and the count words of each round's warps in
+    two buffers (csrc/encode.cu checks the shape and refuses another)."""
+    k = cta_lanes_per_thread(W)
+    threads = (-(-W // k) + 31) // 32 * 32
+    nsl = (2 * threads * k - 1).bit_length()
+    return TouchShape(threads, k, nsl, (6 * (1 << nsl) + 64 * k) * 4)
 
 
 def slice_steps(B: int, W: int, S: int) -> int:
@@ -194,6 +220,8 @@ class EncodeSet:
                   B=self.B, W=self.W, CB=self.CB, L=self.L, Lt=self.Lt,
                   Dcap=self.Dcap, ntiles=self.ntiles, nbits=self.nbits)
         p.k0, p.k1, p.k2, p.k3 = _kind_params(self.kind, g)
+        (p.tthreads, p.tlanes, p.nsl,
+         p.tbytes) = touch_shape(self.W)
         for name in ("blocks", "rows", "cnt", "rid", "key", "nk",
                      "key1", "val1", "val2", "hist", "parts", "tables",
                      "coder", "low", "emax"):
@@ -426,8 +454,7 @@ def touches_plain(es: EncodeSet, s0: int) -> None:
         at = (es.cnt[b * L: b * L + n_s].long()[:, None] + local)[rep]
         es.key[at] = entry[rep].int()
         urep = inv[rep[real]]
-        es.nk[at] = (n[urep] | (k[urep] << NK_BITS)
-                     | (b << 2 * NK_BITS)).int()
+        es.nk[at] = (n[urep] | (k[urep] << NK_BITS)).int()
         rid = torch.full((n_s, W), NO_RECORD, dtype=torch.int64,
                          device=es.dev)
         rid[real] = loc_u[inv]
@@ -446,12 +473,15 @@ def sort_plain(es: EncodeSet) -> None:
 
 def _law(geom, warm: bool, lg, p, vis, n, one: bool):
     """ranger.table_update's delta of a lane coding `one` (law_delta in
-    csrc/ctx.cuh), over tensors."""
-    r = ((lg[vis + 1] + geom.rate_lo).clamp(max=geom.rate) if warm
-         else geom.rate)
+    csrc/ctx.cuh), over tensors: the format's count field holds the n
+    lanes on the entry mod 1024 and scales the delta only where it reads
+    17 to 511."""
+    r = ((lg[vis.clamp(max=1024) + 1] + geom.rate_lo).clamp(max=geom.rate)
+         if warm else geom.rate)
     d = -(p >> r) if one else (PROB_ONE - p) >> r
-    scaled = (n > (1 << CAP_LOG2)) & (n < 512)
-    return d >> torch.where(scaled, lg[n] - CAP_LOG2, 0)
+    m = n & (COUNT_FIELD - 1)
+    scaled = (m > (1 << CAP_LOG2)) & (m < COUNT_FIELD // 2)
+    return d >> torch.where(scaled, lg[m] - CAP_LOG2, 0)
 
 
 def entry_scan_plain(es: EncodeSet) -> None:
@@ -471,6 +501,9 @@ def entry_scan_plain(es: EncodeSet) -> None:
     e = K[starts]
     G = starts.numel()
     tab = es.tables.view(-1)
+    # a record's block: the last block whose first record is at or before
+    # it (a block without records starts where the next one does)
+    starts_b = es.cnt[0: es.B * es.L: es.L].long()
     cur = torch.full((G,), -1, dtype=torch.int64, device=es.dev)
     pr = torch.zeros(G, dtype=torch.int64, device=es.dev)
     vis = torch.zeros_like(pr)
@@ -483,9 +516,8 @@ def entry_scan_plain(es: EncodeSet) -> None:
         g = (lens > i).nonzero().flatten()
         r = V[starts[g] + i]
         nk = es.nk[r].long()
-        n = nk & ((1 << NK_BITS) - 1)
-        k = (nk >> NK_BITS) & ((1 << NK_BITS) - 1)
-        b = nk >> 2 * NK_BITS
+        n, k = nk & ((1 << NK_BITS) - 1), nk >> NK_BITS
+        b = torch.searchsorted(starts_b, r, right=True) - 1
         sw = b != cur[g]
         out = g[sw & (cur[g] >= 0)]
         if out.numel():

@@ -306,8 +306,12 @@ def test_kernel_geometry_refusals():
     assert CT.visit_cap(warm) == 512
     with pytest.raises(ValueError, match="visit cap"):
         CT._kernel_geom(warm, 64, cpu)
-    with pytest.raises(ValueError, match="exceeds"):
-        CT._kernel_geom(tconfig.LEVELS[3].qual, 1025, cpu)
+    with pytest.raises(ValueError, match="exceeds 4096"):
+        CT._kernel_geom(tconfig.LEVELS[3].qual, 4097, cpu)
+    # 1,025 lanes and more are taken up to 4,096: QUAL over a cluster of
+    # CTAs of at most 512 threads
+    shape = CT._kernel_geom(tconfig.LEVELS[3].qual, 1025, cpu)[3]
+    assert shape.cluster * shape.threads >= 1025 and shape.threads <= 512
     # L3 QUAL's table in device memory, fresh, beside its zeroed counters
     # (a cluster); L3 SEQ's too, in padded rows (a cluster)
     table, tally, cap, shape = CT._kernel_geom(tconfig.LEVELS[3].qual,

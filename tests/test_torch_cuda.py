@@ -112,6 +112,19 @@ CASES = {
     "seq-l4-match-1024": (4, "seq", 1024, False, None, None, False, True),
     "seq-l4-match-700": (4, "seq", 1024, False, 700, None, False, True),
     "qual-l4": (4, "qual", 1024, False, None, None, False, False),
+    # past 1,024 lanes: more than 1,024 lanes on one entry (the count
+    # field wraps), ragged last CTAs and warps, two and four lanes a thread
+    # where the table lives in shared memory
+    "seq-w1500-collide-1100": (3, "seq", 1500, False, 1100, None, False,
+                               False),
+    "qual-w2048": (3, "qual", 2048, False, None, None, False, False),
+    "seq-w4096-collide": (3, "seq", 4096, False, None, None, False, False),
+    "seq-l4-match-w2048-1100": (4, "seq", 2048, False, 1100, None, False,
+                                True),
+    "qual-l1-w4096": (1, "qual", 4096, False, None, None, True, False),
+    "byte-w2048": (3, "byte", 2048, False, None, None, True, False),
+    "flag-w1500": (3, "flag", 1500, False, None, None, True, False),
+    "byte-w4096": (3, "byte", 4096, False, None, None, True, False),
 }
 
 
@@ -608,10 +621,15 @@ def test_python_pipeline_on_card(dev, level):
 
 def test_wide_block_refused(dev):
     geom = config_for_level(3).flags
-    z = torch.zeros((8, 2048), dtype=torch.uint8, device=dev)
-    c = torch.zeros(2048, dtype=torch.int32, device=dev)
-    with pytest.raises(ValueError, match="exceeds"):
+    z = torch.zeros((8, 4097), dtype=torch.uint8, device=dev)
+    c = torch.zeros(4097, dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError, match="exceeds 4096"):
         CT.lane_encode(z, None, None, c, "flag", geom, 16)
+    # 1,025 lanes code on the card (no plain version stands in)
+    from slimfastq_tpu_torch.ops import _cuda
+    _cuda.reset_launches()
+    CT.lane_encode(z[:, :1025], None, None, c[:1025], "flag", geom, 16)
+    assert _cuda.launches["lane_encode"] == 1
     warm = replace(config_for_level(3).seq, rate=14, rate_lo=1)
     z, c = z[:, :64], c[:64]
     zi = z.int()

@@ -5,8 +5,12 @@ every level's QUAL, SEQ, byte and flag geometry, at 1 to 1,024 lanes
 fits and in device memory otherwise, the cluster stays within the
 portable size, is taken by every wide stream with a device table (QUAL,
 SEQ) whatever its reads, and a window's two cluster streams fit the
-card side by side, and the refusals hold. The kernel itself runs only on
-a card (tests/test_torch_cuda.py)."""
+card side by side, and the refusals hold. Past 1,024 lanes (1,500,
+2,048, 4,096) a cluster's CTAs keep at most 512 threads, one lane each,
+and a table in shared memory keeps one CTA, two or four lanes a thread;
+every shape up to 1,024 lanes is the one it was, and so is Kernel E's
+touches launch (encode_torch.touch_shape). The kernels themselves run
+only on a card (tests/test_torch_cuda.py)."""
 
 from dataclasses import replace
 
@@ -14,6 +18,7 @@ import pytest
 
 from slimfastq_tpu_torch import config as tconfig
 from slimfastq_tpu_torch.ops import coder_torch as CT
+from slimfastq_tpu_torch.ops import encode_torch as ET
 
 KINDS = {"qual": "qual", "seq": "seq", "byte": "bytes_", "flag": "flags"}
 
@@ -89,13 +94,14 @@ def test_decode_shape_of_the_main_path():
 
 
 def test_decode_shape_refusals():
-    """W past 1,024 lanes, a visit cap past 4 bits, a depth past the
+    """W past 4,096 lanes, a visit cap past 4 bits, a depth past the
     kernel's 8 levels, a depth-1 table that does not fit shared memory and
     a launch of 0 or more than 256 blocks are refused, each with its
-    reason."""
+    reason; 1,025 lanes are taken."""
     cfg = tconfig.LEVELS[3]
-    with pytest.raises(ValueError, match="exceeds"):
-        CT.decode_shape(cfg.qual, 1025)
+    with pytest.raises(ValueError, match="exceeds 4096"):
+        CT.decode_shape(cfg.qual, 4097)
+    assert CT.decode_shape(cfg.qual, 1025).cluster == 8
     with pytest.raises(ValueError, match="visit cap"):
         CT.decode_shape(replace(cfg.seq, rate=14, rate_lo=1), 64)
     with pytest.raises(ValueError, match="levels"):
@@ -105,3 +111,75 @@ def test_decode_shape_refusals():
     for B in (0, CT.MAX_BLOCKS + 1):
         with pytest.raises(ValueError, match="blocks"):
             CT.decode_shape(cfg.qual, 1024, B)
+
+
+@pytest.mark.parametrize("B", [1, 4])
+@pytest.mark.parametrize("W", [1500, 2048, 4096])
+@pytest.mark.parametrize("kind", list(KINDS))
+@pytest.mark.parametrize("level", [1, 2, 3, 4])
+def test_decode_shape_past_1024_lanes(level, kind, W, B):
+    geom = getattr(tconfig.LEVELS[level], KINDS[kind])
+    s = CT.decode_shape(geom, W, B)
+    k = CT.lanes_per_thread(s, W)
+    # the regions fit one CTA's shared memory; the table where it was
+    assert s.smem_bytes <= CT.SMEM_LIMIT
+    assert (s.table == "smem") == CT.table_in_smem(geom)
+    assert s.ctas == B * s.cluster and s.threads % 32 == 0
+    # every lane on a thread, and less than a warp of empty lanes a CTA
+    # and round (lane (r k + i) T + t on thread t of CTA r)
+    assert 0 <= k * s.threads * s.cluster - W < 32 * k * s.cluster
+    if s.table == "device":
+        # one lane a thread over a cluster of CTAs of at most 512 threads
+        assert (k, s.cluster > 1) == (1, True)
+        assert s.cluster <= CT.MAX_CLUSTER and s.threads <= 512
+    else:
+        # one CTA of at most 1,024 threads, two or four lanes a thread
+        assert (s.cluster, k) == (1, 2 if W <= 2048 else 4)
+        assert s.threads <= 1024
+
+
+def _old_decode_shape(geom, W, B):
+    """decode_shape as it stood for 1 to 1,024 lanes, one lane a thread."""
+    lanes = (W + 31) // 32 * 32
+    smem = CT.table_in_smem(geom)
+    padded = not smem and geom.depth == 2
+    C = 1
+    while (CT.may_cluster(geom, W) and C < 8 and lanes // (2 * C) >= 128
+           and 2 * B * 2 * C <= 132):
+        C *= 2
+    return CT.DecodeShape(
+        C, (-(-W // C) + 31) // 32 * 32, "smem" if smem else "device",
+        padded, geom.table_size // 3 * 4 if padded else geom.table_size,
+        (2 * geom.table_size + 15) // 16 * 16 if smem else 0, B * C)
+
+
+@pytest.mark.parametrize("kind", list(KINDS))
+@pytest.mark.parametrize("level", [1, 2, 3, 4])
+def test_shapes_to_1024_lanes_unchanged(level, kind):
+    """Every W from 1 to 1,024 keeps its shape, one lane a thread, at
+    windows of 1 to 256 blocks."""
+    geom = getattr(tconfig.LEVELS[level], KINDS[kind])
+    for W in list(range(1, 1025, 7)) + [255, 256, 1023, 1024]:
+        for B in (1, 4, 8, 16, 17, 33, 34, 256):
+            s = CT.decode_shape(geom, W, B)
+            assert s == _old_decode_shape(geom, W, B), (W, B)
+            assert CT.lanes_per_thread(s, W) == 1
+
+
+def test_touch_shape():
+    """Kernel E's touches launch: up to 1,024 lanes as it was (one lane a
+    thread, 2^ceil(log2(2 threads)) hash slots), past it two or four lanes
+    a thread, at least 2W slots, within one CTA's shared memory."""
+    for W in range(1, 1025):
+        threads = (W + 31) // 32 * 32
+        nsl = next(n for n in range(20) if (1 << n) >= 2 * threads)
+        assert ET.touch_shape(W) == (threads, 1, nsl,
+                                     (6 * (1 << nsl) + 64) * 4)
+    for W in range(1025, 4097, 13):
+        t = ET.touch_shape(W)
+        assert t.per_thread == (2 if W <= 2048 else 4)
+        assert t.threads % 32 == 0 and t.threads <= 1024
+        assert t.threads * t.per_thread >= W
+        assert (1 << t.nsl) >= 2 * W
+        assert t.smem_bytes <= CT.SMEM_LIMIT
+    assert ET.touch_shape(4096) == (1024, 4, 13, 197632)

@@ -152,6 +152,7 @@ def test_arena_cursor_counts_sampled_keys():
                                   "profile_wall_torch.py",
                                   "longread_l4_torch.py",
                                   "decode_streams.py",
+                                  "block_spans.py",
                                   "matcher_overflow_torch.py"])
 def test_tool_needs_a_card(tool):
     env = dict(os.environ, CUDA_VISIBLE_DEVICES="", PYTHONPATH=ROOT)
