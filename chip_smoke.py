@@ -26,13 +26,17 @@ Phases (any failure exits non-zero; nothing is caught):
      past 1,024 lanes (WIDE_CHECKS): E, C and D at W = 1,500, 2,048 and
      4,096 with 1,100 or every lane on one entry (the format's count
      field wraps), level 4's match family, and level 1's QUAL and the
-     byte and flag kinds two or four lanes a thread;
+     byte and flag kinds two or four lanes a thread; past 4,096 (D's loop
+     form, E's touches over chunks) at W = 5,000, 8,192 and 65,536, every
+     lane on one entry at a read start (at 65,536 D's 64-bit counters and
+     E's 32-bit record fields), level 4's match family, level 1's QUAL
+     and the byte and flag kinds with their tables in device memory;
      Kernel C's one launch over a
      ragged mix of streams (W of 8 to 1,024, counts above CB, an empty
      stream, rows longer than one shared-memory stage); then E and D
      timed with CUDA events on the main path's own inputs (the pinned 64k
-     x 100 bp block's QUAL stream: W = 1024, Sp = 6400, NC = 800, where E
-     and its phases are also held against their plain versions, and the
+     x 100 bp block's QUAL stream: W = 1024, Sp = 6400, NC = 800, where E's
+     phases are also held against their plain versions, and the
      phases are timed one after another beside their byte and chain
      bounds (the sort also beside torch.sort); and its level-4 SEQ stream
      as the winning match trial codes it), where D's output is held
@@ -80,14 +84,14 @@ Phases (any failure exits non-zero; nothing is caught):
      encoded twice back to back on page-locked buffers the pool reuses,
      both containers equal to the set's container from the host-pack
      path (no pool), and no new buffer taken by the second; then lane
-     counts past 1,024: the pinned block at lanes 2,048 and 4,096 (L3,
-     L4) and aux_lanes 2,048 and 4,096 (L3) through api.encode_fastq /
+     counts past 1,024: the pinned block at lanes 2,048, 4,096, 5,000,
+     8,192, 16,384 and 65,536 (L3; 2,048, 4,096 and 8,192 at L4) and
+     aux_lanes 2,048, 4,096 and 8,192 (L3) through api.encode_fastq /
      decode_fastq on the card, each container's size and SHA-256 the JAX
      package's (PINNED_WIDE), exact round trips, E, C, D, L and U
-     launched; lanes or aux lanes of 4,097 refused on the card, encode
-     and decode, with a ValueError naming 4,096; and the W sweep: the
-     level-3 block's seven E and D launches alone and at once at W =
-     1,024, 2,048 and 4,096 (block_spans) beside the container's ratio.
+     launched; and the W sweep: the level-3 block's seven E and D
+     launches alone and at once at W = 1,024 to 65,536 (block_spans)
+     beside the container's ratio and QUAL's D bound.
 
   5. the small-block window path on the same 4-block set at
      block_records = 16,384 (the 4 blocks in one window): Kernels E and D over
@@ -162,7 +166,7 @@ Phases (any failure exits non-zero; nothing is caught):
 
 Prints `compact_block_l3`, `compact_block_l4`, `compact_phase_l3`,
 `compact_phase_l4`, `block`, `block_l4`, `wall`, `pool_reuse`, `wall_l4`,
-`block_w1024`, `block_w2048`, `block_w4096`, `wide_lanes`,
+`block_w1024` ... `block_w65536`, `wide_lanes`,
 `window_kernels`, `window_walls`, `window_sweep`, `streaming`,
 `long_read`, `long_read_kernels`, `sharded`, `sharded_streaming`,
 `gather_nccl`, `level1`, `python_pipeline`, `python_pipeline_s`,
@@ -178,6 +182,7 @@ from __future__ import annotations
 
 import hashlib
 import json
+import signal
 import subprocess
 import sys
 import time
@@ -195,10 +200,12 @@ PINNED = {
         "31026796c476744a9da168b3b6132be07d3151b3c7020feeb8790e7a5322470f"),
 }
 WALL_BLOCKS = 4
-# Lane counts past 1,024 (coder_torch.MAX_LANES = 4,096): size and SHA-256
-# of the JAX package's container of the pinned block at (level, field,
-# lanes) (its api.encode_fastq(data, level=level, backend=streams_jax,
-# **{field: lanes}), run on a CPU)
+# Lane counts past 1,024 (past coder_torch.REG_LANES = 4,096 D's loop form
+# and E's touches over chunks; at 65,536 one read a lane, every lane on
+# one entry at the first symbol-step): size and SHA-256 of the JAX
+# package's container of the pinned block at (level, field, lanes) (its
+# api.encode_fastq(data, level=level, backend=streams_jax, **{field:
+# lanes}), run on a CPU)
 PINNED_WIDE = {
     (3, "lanes", 2048): (
         2570589,
@@ -218,23 +225,45 @@ PINNED_WIDE = {
     (4, "lanes", 4096): (
         2420294,
         "155f60ea74f6eae780be39f6469c26f6b047388f65be0183cab0762a4f4174c2"),
+    (3, "lanes", 5000): (
+        2810007,
+        "8cd8c42383aaaab0efe0ce106010cb66d8b8fce57ae32eb278515c23fc1f64f0"),
+    (3, "lanes", 8192): (
+        3160580,
+        "29955ea312d339f8f7cf1446a598dfc0e8fe7faad9c9b12f2bfd6b030c717c6f"),
+    (3, "lanes", 16384): (
+        4571045,
+        "4e4d5c28596467838a144d28b22816146fe3b8188c4d44b1fbfe597212651037"),
+    (3, "lanes", 65536): (
+        6511387,
+        "125ab7b85ace87b788f95236a8eaddb901f92dd466a7592192fc951fca985d7a"),
+    (4, "lanes", 8192): (
+        2616306,
+        "bc7c407afb2b5a6885abb00aaa4b8ff28bbdd23a3e2184d3c5290350bc6a3991"),
+    (3, "aux_lanes", 8192): (
+        3046196,
+        "61acad2da02a3fc317c05025335c9d4188877ab6c9538d09a6b49dabc045f212"),
 }
 # the W sweep of the wide_lanes phase: the pinned block at level 3
-WIDE_SWEEP = (1024, 2048, 4096)
+WIDE_SWEEP = (1024, 2048, 4096, 8192, 16384, 65536)
 # Kernels E and D against their plain versions past 1,024 lanes: (level,
 # kind, W, lanes on one entry at each read start; None: the byte and flag
 # kinds' ragged lanes, every one on the root entry at step 0). 1,100 lanes
 # read a count of 76, 4,096 of 0; W = 1,500 leaves the last CTA, warp and
 # round ragged; level 1's QUAL and the byte and flag kinds keep their
-# table in shared memory, two or four lanes a thread
+# table in shared memory, two or four lanes a thread up to 4,096; past
+# it D's loop form (their tables in device memory) and E's touches over
+# chunks, at 65,536 lanes on one entry D's 64-bit counters and E's 32-bit
+# record fields
 WIDE_CHECKS = [(3, "seq", 1500, 1100), (3, "qual", 2048, 1100),
                (3, "seq", 4096, 4096), (4, "seq", 2048, 1100),
                (4, "qual", 4096, 1100), (1, "qual", 4096, 4096),
                (3, "byte", 2048, None), (3, "flag", 1500, None),
-               (3, "byte", 4096, None)]
-# records of the input whose encode and decode must be refused past 4,096
-# lanes on the card
-REFUSE_READS = 300
+               (3, "byte", 4096, None),
+               (3, "seq", 8192, 8192), (3, "qual", 5000, 4500),
+               (4, "seq", 8192, 5000), (1, "qual", 8192, 8192),
+               (3, "byte", 8192, None), (3, "flag", 5000, None),
+               (3, "seq", 65536, 65536), (3, "qual", 65536, 65536)]
 # The small-block window path: the same 4-block set (4 x 16,384 records,
 # the generator above with 65,536 reads) at block_records = 16,384, coded
 # in one window (the default takes all 4); size and SHA-256 of the JAX
@@ -297,9 +326,10 @@ EARLIER_D_MS = {"streams_64k": {"QUAL": 46.38, "SEQ": 39.49, "IDD": 27.08,
                                 "IDX": 0.62},
                 "block_decode_span": 46.28, "l4_seq_trial": 31.97,
                 "window_16k_qual": 12.23, "long_qual": 8607.0}
-# the cluster barriers timed beside the CTA's: (CTAs, threads a CTA)
+# the cluster barriers timed beside the CTA's: (CTAs, threads a CTA); 8
+# of 1,024 threads: Kernel D's loop form past 4,096 lanes
 CLUSTER_BARRIERS = [(2, 128), (2, 512), (4, 128), (4, 256), (8, 128),
-                    (8, 256), (8, 512)]
+                    (8, 256), (8, 512), (8, 1024)]
 # one link of the decoupled encode's chains at its least latency: dependent
 # integer operations of 4 cycles each at the H100 SXM's 1,980 MHz boost
 # clock (an entry scan's record: the two deltas' shifts, the scaled sum,
@@ -308,6 +338,8 @@ CLUSTER_BARRIERS = [(2, 128), (2, 512), (4, 128), (4, 256), (8, 128),
 LINK_OPS = {"entry_scan": 12, "code": 10}
 SM_CLOCK_HZ = 1.98e9
 BARRIER_ITERS = 200000
+# seconds any one phase of main() may take before the process ends
+PHASE_LIMIT_S = 420
 
 
 def d_bound(bit_steps: int, depth: int, bar_us: float, shape,
@@ -323,8 +355,10 @@ def d_bound(bit_steps: int, depth: int, bar_us: float, shape,
     in cluster_barrier_us, where it spans one)."""
     sync_ms = bit_steps // depth * 2 * bar_us / 1e3
     chain_ms = bit_steps * LINK_OPS["code"] * 4 / SM_CLOCK_HZ * 1e3
-    design_us = (bar_us if shape.cluster == 1
-                 else cbar_us[f"{shape.cluster}x{shape.threads}"])
+    key = f"{shape.cluster}x{shape.threads}"
+    # the loop form's CTAs of fewer than 1,024 threads: the timed 8 x 1,024
+    design_us = (bar_us if shape.cluster == 1 else cbar_us.get(
+        key, cbar_us[f"{shape.cluster}x1024"]))
     return {"bound_ms": max(sync_ms, chain_ms),
             "bound_by": "operations" if chain_ms >= sync_ms else "latency",
             "symbol_step_barriers_ms": sync_ms, "decision_chain_ms": chain_ms,
@@ -746,8 +780,8 @@ def time_kernels(data: bytes, dev, errs: dict) -> dict:
     """Device times (ms) and byte bounds of E, D, L and U on the pinned
     block's own inputs (pipeline_native.prepare_block_fast,
     streams_torch.seq_qual_jobs): E and D on its QUAL stream (the longest
-    serial chain of the block), E held against its plain version at this
-    full shape (`errs`; the plain version's host time recorded); Kernel
+    serial chain of the block), E's phases held against their plain
+    versions at this full shape (`errs`; their host times recorded); Kernel
     L's pack mode (SEQ, QUAL, pos, reset) and step-input mode (pos,
     reset) and Kernel U (both streams back to their record-major
     bytes) held against their plain versions and timed beside them (the
@@ -779,15 +813,6 @@ def time_kernels(data: bytes, dev, errs: dict) -> dict:
     ebufs, eptrs, low, emax = enc()
     if int(emax) > CB:
         raise AssertionError("QUAL: optimistic chunk buffer overflowed")
-    torch.cuda.synchronize()
-    t = time.perf_counter()
-    plain = coder_torch.lane_encode_blocks_plain([q.item], "qual", q.geom,
-                                                 CB)[0]
-    torch.cuda.synchronize()
-    out["lane_encode_plain_full_ms"] = (time.perf_counter() - t) * 1e3
-    _compare(errs, "lane_encode", f"lane_encode qual at the pinned block's "
-             f"shape (Sp={Sp}, W={W})", (ebufs, eptrs, low, emax), plain)
-    del plain
     phase_s = {}
     _phases_vs_plain(errs, [q.item], "qual", q.geom, CB, "E's phases at the "
                      f"pinned block's QUAL (Sp={Sp}, W={W})", phase_s)
@@ -819,8 +844,8 @@ def time_kernels(data: bytes, dev, errs: dict) -> dict:
     out["lane_encode"] = (e_ms, e_bytes)
     out["lane_decode"] = (d_ms, d_bytes)
     out.update(lanes(args, dev, errs))
-    print(f"kernels at the main path's shape: E equals its plain version "
-          f"({out['lane_encode_plain_full_ms']:.0f} ms plain), compact "
+    print(f"kernels at the main path's shape: E's phases equal their plain "
+          f"versions, compact "
           f"equals its plain version (NC={NC}, W={W}), decode returns the "
           f"packed QUAL symbols; L (pack and step inputs) and U equal their "
           f"plain versions", flush=True)
@@ -1384,23 +1409,24 @@ def block_spans(data: bytes, dev, cfg=None, key: str = "block") -> dict:
     return out
 
 
-def wide_lanes(data: bytes, dev, card: str) -> dict:
+def wide_lanes(data: bytes, dev, card: str, bar_us: float,
+               cbar_us: dict) -> dict:
     """Lane counts past 1,024 on the main path: the pinned block through
     api.encode_fastq / decode_fastq on the card at each PINNED_WIDE width
-    (lanes 2,048 and 4,096 at levels 3 and 4, aux_lanes 2,048 and 4,096 at
-    level 3),
-    the launch counts set to 0 just before each direction and read just
-    after: size and SHA-256 equal the JAX package's, the round trip is
-    exact, E, C and D launched. Past 4,096 lanes or aux lanes the card
-    refuses, encode and decode alike (the decode of a container the plain
-    versions wrote), with a ValueError naming 4,096.
+    (lanes 2,048 to 65,536 at level 3, 2,048 to 8,192 at level 4,
+    aux_lanes 2,048 to 8,192 at level 3), the launch counts set to 0 just
+    before each direction and read just after: size and SHA-256 equal the
+    JAX package's, the round trip is exact, E, C, D, L and U launched.
     Then the W sweep (WIDE_SWEEP): block_spans on the level-3 block at
     each lane count, D's streams alone and the block's decode span, E's
     streams alone and its launch-set span, beside the container's size
-    and ratio; every figure with the card's name and power limit."""
+    and ratio and QUAL's D bound (d_bound on its shape at that W); every
+    figure with the card's name and power limit."""
     from slimfastq_tpu_torch import api
     from slimfastq_tpu_torch.config import config_for_level
     from slimfastq_tpu_torch.ops import _cuda
+    from slimfastq_tpu_torch.ops import coder_torch as CT
+    from slimfastq_tpu_torch.ops.ranger import pad_steps
     out = {"card": card, "containers": {}, "launches": {}, "sweep": {}}
     sizes = {1024: PINNED[3][0]}
     for (level, field, W), (nbytes, want) in PINNED_WIDE.items():
@@ -1431,28 +1457,18 @@ def wide_lanes(data: bytes, dev, card: str) -> dict:
         for k in enc_l:
             out["launches"][k] = out["launches"].get(k, 0) + enc_l[k] + \
                 dec_l[k]
-    small = _pinned(REFUSE_READS)
-    for field in ("lanes", "aux_lanes"):
-        kw = {field: 4097}
-        back = api.encode_fastq(small, level=3, device="cpu", **kw)
-        for direction, fn in (
-                ("encode", lambda: api.encode_fastq(small, level=3,
-                                                    device="cuda", **kw)),
-                ("decode", lambda: api.decode_fastq(back, device="cuda"))):
-            try:
-                fn()
-            except ValueError as e:
-                if "4096" not in str(e):
-                    raise
-            else:
-                raise AssertionError(f"{direction} at {field}=4097 was not "
-                                     "refused on the card")
-    out["refused_past_4096"] = True
     for W in WIDE_SWEEP:
-        spans = block_spans(data, dev, config_for_level(3, lanes=W),
-                            key=f"block_w{W}")
+        cfg = config_for_level(3, lanes=W)
+        spans = block_spans(data, dev, cfg, key=f"block_w{W}")
         dec, enc = spans["decode"], spans["encode"]
+        # QUAL's symbol-steps: the longest lane's bases, padded
+        Sp = pad_steps(-(-READS // W) * READ_LEN)
+        shape = CT.decode_shape(cfg.qual, W)
         out["sweep"][W] = {
+            "qual_shape": {**shape._asdict(),
+                           "per_thread": CT.lanes_per_thread(shape, W)},
+            "qual_d_bound": d_bound(Sp * cfg.qual.depth, cfg.qual.depth,
+                                    bar_us, shape, cbar_us),
             "decode_streams_ms": {k: dec["streams_ms"][k]
                                   for k in ("QUAL", "SEQ", "IDD")},
             "decode_span_ms": dec["span_ms"],
@@ -3100,13 +3116,17 @@ def main() -> int:
             elif "registers" in line or "spill" in line:
                 print(f"  {name}.cu ptxas {fn}: {line.strip()}", flush=True)
 
-    # seconds each phase took, printed as the `phase_s` line
+    # seconds each phase took, printed as the `phase_s` line; each phase
+    # under PHASE_LIMIT_S (SIGALRM's default action ends the process: a
+    # kernel that never returns cannot hold the card past it)
     phase_s, last = {}, [time.perf_counter()]
+    signal.alarm(PHASE_LIMIT_S)
 
     def done(name: str) -> None:
         now = time.perf_counter()
         phase_s[name] = now - last[0]
         last[0] = now
+        signal.alarm(PHASE_LIMIT_S)
 
     plain, errs, plain4, errs4 = check_kernels(dev)
     check_ragged(dev, errs)
@@ -3140,8 +3160,8 @@ def main() -> int:
     spans4 = l4_spans(data, dev)
     wall(data4, dev, 4)
     done("main_path_l4")
-    # lane counts past 1,024: pins, refusals past 4,096, the W sweep
-    wide = wide_lanes(data, dev, card)
+    # lane counts past 1,024: pins and the W sweep to 65,536
+    wide = wide_lanes(data, dev, card, bar_us, cbar_us)
     done("wide_lanes")
     # the small-block window path on the same 4-block set
     win = time_window(data, dev, bar_us, cbar_us, errs)
@@ -3229,10 +3249,8 @@ def main() -> int:
         if name == "lane_encode":
             # E's table evolves with its inputs alone: the decoupled
             # encode needs no barrier and its bound is the byte bound;
-            # its phases are rows of their own below; the lockstep plain
-            # version also ran at the pinned block's full shape
-            row.update(plain_full_shape_ms=times["lane_encode_plain_full_ms"],
-                       slices=times["phases"]["slices"],
+            # its phases are rows of their own below
+            row.update(slices=times["phases"]["slices"],
                        slice_bit_steps=times["phases"]["slice_bit_steps"],
                        phases_one_after_another_ms={
                            k: v["ms"] for k, v in

@@ -104,6 +104,20 @@
 //   waits on device memory; the step inputs come one symbol-step ahead and
 //   are read only at their use. (A barrier does not wait for a thread's
 //   pending loads into registers; only their use does.)
+// * Past REG_LANES (4,096) lanes a thread no longer holds its lanes in
+//   registers: the loop form keeps each lane's coder, payload position,
+//   context state and its symbol's reads in device memory (LaneState) and
+//   each thread of a cluster of 8 CTAs of up to 1,024 threads walks
+//   its lanes (lane r T + t + i C T on thread t of CTA r, i = 0, 1, ...)
+//   in each phase of a symbol-step: take out its lane's last marks and
+//   decode and count, barrier, commit, barrier. Its table lives in device
+//   memory whatever its size (a table that would fit shared memory too:
+//   every CTA of the cluster reads and commits the one copy), and its
+//   counters take 64 bits (count in bits 0-31, ones in 32-63) from
+//   WIDE_LANES (65,536) lanes on, where 16 bits no longer hold a count.
+//   The cluster's CTAs are scheduled together (the hardware's guarantee),
+//   so its barrier cannot wait on a CTA that never runs, whatever else
+//   the card runs beside it.
 // * Measured on the H100 and not kept (tools/decode_streams.py beside
 //   probes): the law in a shared-memory hash, one a tree level, whose
 //   lanes claim their slots by CAS (QUAL 53.4 ms, IDD 37.3: the atomics
@@ -129,7 +143,8 @@ namespace {
 
 constexpr int MAX_DEPTH = 8;     // tree levels a symbol (the byte kind's 8)
 constexpr int MAX_CLUSTER = 8;   // the portable cluster size
-constexpr int MAX_LANES = 4096;  // coder_torch.MAX_LANES
+constexpr int REG_LANES = 4096;  // coder_torch.REG_LANES
+constexpr int WIDE_LANES = 1 << 16;  // coder_torch.WIDE_LANES
 constexpr int MAX_PER_THREAD = 4;  // lanes a thread (a table in smem)
 
 // A CTA's dynamic shared memory: the table, where it lives there.
@@ -198,8 +213,10 @@ struct DecDesc {
   const int* resets;       // [Sp, W]
   const uint8_t* mflags;   // [Sp, W], a format-v5 SEQ stream's only
   uint16_t* table;         // [table_size] (padded where PAD)
-  int* tally;              // [table_size] (unpadded), zero
+  int* tally;              // [table_size] (unpadded), zero; 64-bit
+                           // counters from WIDE_LANES lanes on
   uint8_t* syms;           // [Sp, W]
+  void* state;             // [W] LaneState past REG_LANES, else null
   int Lb, Sp;
 };
 
@@ -417,6 +434,164 @@ __global__ void __launch_bounds__(CL ? 512 : 1024, 1)
   }
 }
 
+// A lane's state between the phases of the loop form (past REG_LANES):
+// its coder, its next payload byte, its context state, and its symbol's
+// first entry (sac_base where the lane is not real), final node and reads.
+struct LaneState {
+  uint32_t low, rng, code;
+  int ptr;
+  uint32_t sa, sb;
+  int base, node;
+  uint16_t got[MAX_DEPTH];
+};
+
+// The loop form of Kernel D: lanes a thread in device memory (LaneState)
+// over a cluster, the table in device memory. WIDE: 64-bit counters (count
+// in bits 0-31, ones in 32-63), else 32-bit ones (count in bits 0-15, ones
+// in 16-31, read unsigned).
+template <bool WARM, bool PAD, bool WIDE>
+__global__ void __launch_bounds__(1024, 1)
+    lane_decode_loop_kernel(const __grid_constant__ DecParams p) {
+  using Tally = typename std::conditional<WIDE, unsigned long long,
+                                          unsigned>::type;
+  constexpr int HALF = WIDE ? 32 : 16;
+  const int lc = p.lc;
+  const int rank = (int)cg::this_cluster().block_rank();
+  const DecDesc& desc = p.d[blockIdx.x >> lc];
+  const Ctx& cx = p.cx;
+  const Geo& g = p.geo;
+  const int W = p.W, Lb = desc.Lb, Sp = desc.Sp;
+  const int depth = PAD ? 2 : cx.depth;
+  const int T = (int)blockDim.x, stride = T << lc;
+  const int first = rank * T + (int)threadIdx.x;
+  LaneState* const st = static_cast<LaneState*>(desc.state);
+  Tally* const tally = reinterpret_cast<Tally*>(desc.tally);
+  uint16_t* const table = desc.table;
+  const uint8_t* const payload = desc.payload;
+  // lane w's payload byte q: row[q] below min(len, Lb), row[Lb - 1] up to
+  // len, 0 past len (the plain version's read)
+  auto byte = [&](int w, int len, int q) -> uint32_t {
+    if (q >= len) return 0u;
+    return __ldg(payload + (size_t)w * Lb + min(q, Lb - 1));
+  };
+  auto entry = [&](int b, int nd, int j) {
+    return b + (nd >> (depth - j)) - 1;
+  };
+  auto mark = [&](int nd, int j) -> Tally {
+    return (Tally)1 | ((Tally)((nd >> (depth - 1 - j)) & 1) << HALF);
+  };
+  for (int w = first; w < W; w += stride) {
+    LaneState s;
+    const int len = desc.lens[w];
+    s.low = 0;
+    s.rng = 0xFFFFFFFFu;
+    s.code = 0;
+    for (int q = 0; q < 4; ++q) s.code = (s.code << 8) | byte(w, len, q);
+    s.ptr = 4;
+    s.sa = s.sb = 0;
+    s.base = g.sac_base;
+    s.node = 1;
+    st[w] = s;
+  }
+  for (int t = 0; t < Sp; ++t) {
+    for (int w = first; w < W; w += stride) {
+      LaneState s = st[w];
+      if (s.base < g.sac_base) {  // take the last symbol-step's marks out
+#pragma unroll
+        for (int j = 0; j < MAX_DEPTH; ++j)
+          if (j < depth)
+            atomicAdd(tally + entry(s.base, s.node, j),
+                      (Tally)0 - mark(s.node, j));
+      }
+      const bool act = t < desc.counts[w];
+      const size_t at = (size_t)t * W + w;
+      bool rs = false, mf = false;
+      uint32_t pos = 0;
+      if (cx.kind <= SEQ) {
+        rs = desc.resets[at] != 0;
+        pos = (uint32_t)desc.poss[at];
+        if (p.match) mf = desc.mflags[at] == 1;
+      }
+      CtxState cs;
+      cs.sa = s.sa;
+      cs.sb = s.sb;
+      const int base = cs.row(cx, act, rs, pos, mf);
+      const bool real = base < g.sac_base;
+      const int rb = PAD ? base / 3 * 4 : base;
+      uint2 rw = make_uint2(PROB_MAX | (PROB_MAX << 16), PROB_MAX);
+      if (PAD && real) rw = __ldcg(reinterpret_cast<const uint2*>(table + rb));
+      const int len = desc.lens[w];
+      int nd = 1;
+#pragma unroll
+      for (int j = 0; j < MAX_DEPTH; ++j) {
+        if (j < depth) {
+          int v = PROB_MAX;
+          if (PAD)
+            v = (int)(nd == 1   ? rw.x & 0xFFFFu
+                      : nd == 2 ? rw.x >> 16
+                                : rw.y & 0xFFFFu);
+          else if (real)
+            v = (int)__ldcg(table + rb + nd - 1);
+          const uint32_t split = (s.rng >> PROB_BITS) * (uint32_t)(v & P_MASK);
+          const bool one = s.code - s.low >= split;
+          if (one) {
+            s.low += split;
+            s.rng -= split;
+          } else {
+            s.rng = split;
+          }
+          for (int r = 0; r < RENORM_ITERS; ++r) {
+            bool agree;
+            if (!renorm_needed(s.low, s.rng, &agree)) break;
+            if (!agree) s.rng = (0u - s.low) & (BOT - 1);
+            s.code = (s.code << 8) | byte(w, len, s.ptr++);
+            s.low <<= 8;
+            s.rng <<= 8;
+          }
+          nd = 2 * nd + one;
+          s.got[j] = (uint16_t)v;
+        }
+      }
+      if (real) {
+#pragma unroll
+        for (int j = 0; j < MAX_DEPTH; ++j)
+          if (j < depth) atomicAdd(tally + entry(base, nd, j), mark(nd, j));
+      }
+      const uint32_t sym = act ? (uint32_t)(nd - (1 << depth)) : 0u;
+      cs.advance(cx, sym);
+      desc.syms[at] = (uint8_t)sym;
+      s.sa = cs.sa;
+      s.sb = cs.sb;
+      s.base = real ? base : g.sac_base;
+      s.node = nd;
+      st[w] = s;
+    }
+    sync_all<true>();  // the symbol-step's counts are complete
+    for (int w = first; w < W; w += stride) {
+      const LaneState& s = st[w];
+      const int base = s.base, nd = s.node;
+      if (base >= g.sac_base) continue;
+      const int rb = PAD ? base / 3 * 4 : base;
+#pragma unroll
+      for (int j = 0; j < MAX_DEPTH; ++j) {
+        if (j < depth) {
+          const Tally c = __ldcg(tally + entry(base, nd, j));
+          const int n = (int)(c & (((Tally)1 << HALF) - 1));
+          const int n1 = (int)(c >> HALF);
+          const int pp = s.got[j] & P_MASK, pvis = s.got[j] >> VIS_SHIFT;
+          const int sum = n1 * law_delta<WARM>(g, pp, pvis, n, true) +
+                          (n - n1) * law_delta<WARM>(g, pp, pvis, n, false);
+          const int nv = WARM ? min(pvis + n, g.vcap) : 0;
+          __stcg(table + entry(rb, nd, j),
+                 (unsigned short)(clampi(pp + sum, PROB_MIN, PROB_MAX) |
+                                  (nv << VIS_SHIFT)));
+        }
+      }
+    }
+    sync_all<true>();  // the commits seen before the next symbol-step reads
+  }
+}
+
 // One barrier of `blockDim` threads (of every CTA of the cluster, CL) per
 // loop step: the latency that bounds Kernel D's symbol-step from below.
 template <bool CL>
@@ -477,15 +652,25 @@ int lane_decode(const void* descs, int n, int W, int table_size,
                 int padded, int bytes, int per_thread, cudaStream_t stream) {
   int lc = 0;
   while ((1 << lc) < cluster) ++lc;
+  // past REG_LANES the loop form: a device table, any lanes a thread
+  const bool loop = W > REG_LANES;
+  bool states = true;
+  for (int i = 0; i < n; ++i)
+    states = states && (static_cast<const DecDesc*>(descs)[i].state !=
+                        nullptr) == loop;
   const bool ok =
-      n >= 1 && n <= MAX_BLOCKS && W >= 1 && W <= MAX_LANES &&
+      n >= 1 && n <= MAX_BLOCKS && W >= 1 && states &&
       cluster >= 1 && cluster <= MAX_CLUSTER && (1 << lc) == cluster &&
-      threads >= 32 && threads <= (cluster > 1 ? 512 : 1024) &&
+      threads >= 32 &&
+      threads <= (cluster > 1 && !loop ? 512 : 1024) &&
       threads % 32 == 0 &&
-      (per_thread == 1 ||
-       (smem_table && (per_thread == 2 || per_thread == MAX_PER_THREAD))) &&
-      threads * cluster * per_thread >= W && depth >= 1 &&
-      depth <= MAX_DEPTH &&
+      (loop ? cluster > 1 && !smem_table && (long long)threads * cluster * per_thread >= W &&
+                  (long long)threads * cluster * (per_thread - 1) < W
+            : (per_thread == 1 ||
+               (smem_table &&
+                (per_thread == 2 || per_thread == MAX_PER_THREAD))) &&
+                  threads * cluster * per_thread >= W) &&
+      depth >= 1 && depth <= MAX_DEPTH &&
       (!smem_table || cluster == 1) &&
       (!padded || (!smem_table && depth == 2 && table_size % 3 == 0)) &&
       bytes == (smem_table ? table_smem_bytes(table_size) : 0) &&
@@ -512,6 +697,17 @@ int lane_decode(const void* descs, int n, int W, int table_size,
     return vcap ? go(lane_decode_kernel<true, false, true, false, K>)
                 : go(lane_decode_kernel<true, false, false, false, K>);
   };
+  if (loop) {  // lanes a thread in device memory, over a cluster
+    auto lp = [&](auto pad) -> int {
+      constexpr bool P = decltype(pad)::value;
+      if (W >= WIDE_LANES)
+        return vcap ? go(lane_decode_loop_kernel<true, P, true>)
+                    : go(lane_decode_loop_kernel<false, P, true>);
+      return vcap ? go(lane_decode_loop_kernel<true, P, false>)
+                  : go(lane_decode_loop_kernel<false, P, false>);
+    };
+    return padded ? lp(std::true_type{}) : lp(std::false_type{});
+  }
   if (smem_table)
     return per_thread == 1   ? sm(std::integral_constant<int, 1>{})
            : per_thread == 2 ? sm(std::integral_constant<int, 2>{})

@@ -31,10 +31,10 @@
 //      step in the order of each entry's first lane (so the output is
 //      deterministic); a counting pass, an exclusive scan of the counts
 //      (each step's first record) and a writing pass that also gives every
-//      decision its record's number within the step (rid; 0xFFFF for a
-//      sacrificial decision). One CTA holds a step's lanes: up to 1,024 one
-//      a thread, up to 4,096 two or four a thread (lane i T + t on thread
-//      t), its hash at least 2W slots.
+//      decision its record's number within the step (rid; all ones for a
+//      sacrificial one). One CTA holds a step's 4,096 lanes or fewer, its
+//      hash 2W slots or more; past that, chunks of 256 lanes with the
+//      hash in device memory. From 65,536 lanes n, k, rid are 32-bit.
 //   3. sort (records): the records grouped by entry with an LSD radix sort
 //      of 8-bit digits over the key's bits, each pass a tile histogram, an
 //      exclusive scan and a stable scatter (ranks within a tile from
@@ -75,7 +75,6 @@
 namespace {
 
 constexpr int EMPTY = -1;
-constexpr uint16_t NO_RECORD = 0xFFFF;  // rid of a sacrificial decision
 constexpr int RADIX_BITS = 8;
 constexpr int RADIX = 1 << RADIX_BITS;
 constexpr int SORT_THREADS = 256;
@@ -88,10 +87,11 @@ constexpr int STEPS_PER_CTA = 16;  // bit-steps a touches CTA walks
 constexpr int ROW_THREADS = 128;
 constexpr int PF = 16;  // decisions the lane coder loads ahead
 constexpr int SP = 8;  // records an entry scan load stage runs ahead
-// record fields: n (bits 0-15), k (16-31): the hash's count word as it
-// stands, for up to 4,096 lanes
+// record fields below WIDE_LANES: n (bits 0-15), k (16-31); from
+// WIDE_LANES lanes on n in nk and k in kk, and rid 32 bits
 constexpr int NK_BITS = 16;
-constexpr int MAX_LANES = 4096;  // coder_torch.MAX_LANES
+constexpr int WIDE_LANES = 1 << 16;  // encode_torch.WIDE_LANES
+constexpr int CTA_LANES = 4096;  // lanes the touches hold in one CTA
 constexpr int MAX_PER_THREAD = 4;  // a touches thread's lanes
 // the gather's u16 a decision: p (bits 0-11), its bit at BIT_SHIFT
 constexpr int BIT_SHIFT = 15;
@@ -114,10 +114,12 @@ struct Plan {
   const Block* blocks;  // [B], device memory
   int* rows;            // [B, Lt, W]: each symbol-step's first entry
   int* cnt;             // [B * L + 1]: records a step, then their offsets
-  uint16_t* rid;        // [B, L, W]: each decision's record in its step,
-                        // then (the gather) its p | bit << 15
+  void* rid;            // [B, L, W] u16 (u32 from WIDE_LANES): each
+                        // decision's record in its step, then (the
+                        // gather) its p | bit << 15
   int* key;             // [Dcap]: the records' entries (sort buffer 0)
-  uint32_t* nk;         // [Dcap]: n | k << 16, then p
+  uint32_t* nk;         // [Dcap]: n | k << 16 (n from WIDE_LANES), then p
+  uint32_t* kk;         // [Dcap]: k from WIDE_LANES lanes, else null
   int* key1;            // [Dcap]: sort buffer 1
   int* val1;            // [Dcap]
   int* val2;            // [Dcap]
@@ -127,13 +129,30 @@ struct Plan {
   uint32_t* coder;      // [B, 3, W]: low, range, chunk position carried
   uint32_t* low;        // [B, W]: the final low
   int* emax;            // [B]: each block's largest chunk count
+  // the touches past CTA_LANES (else null): each step's hash of 2^nsl
+  // slots in device memory, [B * L, 2^nsl] (the entry, then the record's
+  // number; n | k << 32; the first lane), each decision's slot [Dcap] (-1
+  // for a sacrificial one) and the chunks' counts [B * L * nch + 1]
+  int* hkey;
+  unsigned long long* hcnt;
+  int* hfirst;
+  int* hslot;
+  int* ccnt;
   Geo geo;
   Ctx cx;
   int B, W, CB, L, Lt, Dcap, ntiles, nbits;
+  int wide;  // W >= WIDE_LANES: n and k apart, rid 32 bits
   // the touches launch (encode_torch.touch_shape): threads, lanes a thread,
-  // log2 of the hash's slots, dynamic shared memory
-  int tthreads, tlanes, nsl, tbytes;
+  // log2 of the hash's slots, dynamic shared memory (0 past CTA_LANES,
+  // whose chunks of `tthreads` lanes number nch a step)
+  int tthreads, tlanes, nsl, tbytes, nch;
 };
+
+// rid's sacrificial value: all ones of its width
+template <typename R>
+__host__ __device__ constexpr R no_record() {
+  return (R)~(R)0;
+}
 
 __device__ __forceinline__ unsigned lanemask_lt() {
   unsigned m;
@@ -320,7 +339,8 @@ __global__ void __launch_bounds__(1024)
       for (int i = 0; i < K; ++i) {
         const int w = i * T + tid;
         if (w < W)
-          p.rid[step * W + w] = real[i] ? (uint16_t)first[slot[i]] : NO_RECORD;
+          static_cast<uint16_t*>(p.rid)[step * W + w] =
+              real[i] ? (uint16_t)first[slot[i]] : no_record<uint16_t>();
       }
       __syncthreads();
     }
@@ -330,6 +350,147 @@ __global__ void __launch_bounds__(1024)
       prev[i] = slot[i] - buf;
     }
   }
+}
+
+// ---------------------------------------------------------------------------
+// phase 2 past CTA_LANES: the touches over chunks of a step's lanes, the
+// step's hash (at least 2W slots) in device memory. The chunks insert
+// (entry, n | k << 32, first lane), count their representatives (each
+// entry's first lane), an exclusive scan of the chunks' counts in step and
+// lane order numbers the records, each representative writes its record
+// and leaves its number in its slot, and every decision reads it there.
+// From WIDE_LANES lanes a record keeps n in nk and k in kk, rid 32 bits.
+// ---------------------------------------------------------------------------
+
+// the slot of `k` in a step's hash of 2^nsl slots (linear probing)
+__device__ __forceinline__ int hash_find_dev(int* key, int nsl, int k) {
+  const unsigned m = (1u << nsl) - 1;
+  unsigned h = ((unsigned)k * 2654435761u) >> (32 - nsl);
+  for (;;) {
+    const int old = atomicCAS(key + h, EMPTY, k);
+    if (old == EMPTY || old == k) return (int)h;
+    h = (h + 1) & m;
+  }
+}
+
+// CTA (chunk, step, block) of the touches past CTA_LANES: its step's
+// place among the launch set's (b L + s - s0), or -1 past the block's
+// stream or the slice, and lane w of the chunk
+struct Chunk {
+  size_t step;
+  int s, w;
+  bool in;
+};
+
+__device__ __forceinline__ Chunk chunk_of(const Plan& p, int s0) {
+  const int b = blockIdx.z, s = s0 + (int)blockIdx.y;
+  const int S = p.blocks[b].Sp * p.cx.depth;
+  Chunk c;
+  c.step = (size_t)b * p.L + blockIdx.y;
+  c.s = s;
+  c.w = (int)blockIdx.x * p.tthreads + (int)threadIdx.x;
+  c.in = s < min(s0 + p.L, S);
+  return c;
+}
+
+// each real decision's entry into its step's hash: its count and ones
+// (a warp's lanes on one entry through their lowest lane) and its first
+// lane; every decision's slot (-1: sacrificial or no lane)
+__global__ void __launch_bounds__(1024)
+    touch_insert_kernel(const __grid_constant__ Plan p, int s0) {
+  const Chunk c = chunk_of(p, s0);
+  if (!c.in) return;
+  const int W = p.W, depth = p.cx.depth, lane = threadIdx.x & 31;
+  const Block d = p.blocks[blockIdx.z];
+  const int t = c.s / depth, j = c.s - t * depth, t0 = s0 / depth;
+  const bool live = c.w < W;
+  int entry = 0;
+  uint32_t one = 0;
+  if (live) {
+    const int row =
+        p.rows[((size_t)blockIdx.z * p.Lt + (t - t0)) * W + c.w];
+    const uint32_t sym =
+        t < d.counts[c.w] ? d.syms[(size_t)t * W + c.w] : 0u;
+    entry = row + (int)((1u << j) | (sym >> (depth - j))) - 1;
+    one = (sym >> (depth - 1 - j)) & 1u;
+  }
+  const bool real = live && entry < p.geo.sac_base;
+  const unsigned peers =
+      __match_any_sync(FULL, real ? entry : (int)(0x80000000u | lane));
+  const int lead = __ffs(peers) - 1;
+  const unsigned ones = __ballot_sync(FULL, real && one) & peers;
+  const size_t hs = c.step << p.nsl;
+  int sl = -1;
+  if (real && lead == lane) {
+    sl = hash_find_dev(p.hkey + hs, p.nsl, entry);
+    atomicAdd(p.hcnt + hs + sl, (unsigned long long)__popc(peers) +
+                                    ((unsigned long long)__popc(ones) << 32));
+    atomicMin(p.hfirst + hs + sl, c.w);
+  }
+  sl = __shfl_sync(FULL, sl, lead);
+  if (live) p.hslot[c.step * W + c.w] = real ? sl : -1;
+}
+
+// whether lane w represents its decision's entry (its first lane)
+__device__ __forceinline__ bool touch_rep(const Plan& p, const Chunk& c,
+                                          int* slot) {
+  *slot = c.w < p.W ? p.hslot[c.step * p.W + c.w] : -1;
+  return *slot >= 0 && p.hfirst[(c.step << p.nsl) + *slot] == c.w;
+}
+
+// each chunk's representatives, in ccnt[step nch + chunk]
+__global__ void __launch_bounds__(1024)
+    touch_count_kernel(const __grid_constant__ Plan p, int s0) {
+  const Chunk c = chunk_of(p, s0);
+  if (!c.in) return;
+  int slot;
+  const int n = __syncthreads_count(touch_rep(p, c, &slot));
+  if (threadIdx.x == 0) p.ccnt[c.step * p.nch + blockIdx.x] = n;
+}
+
+// each step's first record, from the scanned chunk counts (the total last)
+__global__ void touch_offsets_kernel(const __grid_constant__ Plan p) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i <= p.B * p.L) p.cnt[i] = p.ccnt[(size_t)i * p.nch];
+}
+
+__device__ int block_excl_scan(int v, int* total);
+
+// each representative's record at its chunk's offset plus its rank among
+// the chunk's representatives; its number within the step over its slot's
+// entry
+template <bool WIDE>
+__global__ void __launch_bounds__(1024)
+    touch_write_kernel(const __grid_constant__ Plan p, int s0) {
+  const Chunk c = chunk_of(p, s0);
+  if (!c.in) return;
+  int slot, tot;
+  const bool rep = touch_rep(p, c, &slot);
+  const int rank = block_excl_scan(rep ? 1 : 0, &tot);
+  if (!rep) return;
+  const int at = p.ccnt[c.step * p.nch + blockIdx.x] + rank;
+  const size_t hs = (c.step << p.nsl) + slot;
+  p.key[at] = p.hkey[hs];
+  const unsigned long long nk = p.hcnt[hs];
+  if (WIDE) {
+    p.nk[at] = (uint32_t)nk;
+    p.kk[at] = (uint32_t)(nk >> 32);
+  } else {
+    p.nk[at] = (uint32_t)nk | ((uint32_t)(nk >> 32) << NK_BITS);
+  }
+  p.hkey[hs] = at - p.ccnt[c.step * p.nch];
+}
+
+// each decision's rid: its record's number, read from its slot
+template <typename R>
+__global__ void __launch_bounds__(1024)
+    touch_rid_kernel(const __grid_constant__ Plan p, int s0) {
+  const Chunk c = chunk_of(p, s0);
+  if (!c.in || c.w >= p.W) return;
+  const size_t at = c.step * p.W + c.w;
+  const int slot = p.hslot[at];
+  static_cast<R*>(p.rid)[at] =
+      slot >= 0 ? (R)p.hkey[(c.step << p.nsl) + slot] : no_record<R>();
 }
 
 // ---------------------------------------------------------------------------
@@ -490,7 +651,9 @@ __global__ void __launch_bounds__(SORT_THREADS)
 // phase 4: the entry scan
 // ---------------------------------------------------------------------------
 
-template <bool WARM>
+// WIDE: n in nk and k in kk (from WIDE_LANES lanes), a template argument
+// so that the record loop of the 16-bit form stays as it was
+template <bool WARM, bool WIDE>
 __global__ void __launch_bounds__(256)
     entry_scan_kernel(const __grid_constant__ Plan p, const int* K,
                       const int* V) {
@@ -563,8 +726,8 @@ __global__ void __launch_bounds__(256)
         st2(k, jk + SP);
         st1(k, jk + 2 * SP);
         if (jk < stop) {
-          const int n = (int)(nk & ((1u << NK_BITS) - 1));
-          const int kk = (int)(nk >> NK_BITS);
+          const int n = WIDE ? (int)nk : (int)(nk & ((1u << NK_BITS) - 1));
+          const int kk = WIDE ? (int)p.kk[r] : (int)(nk >> NK_BITS);
           p.nk[r] = (uint32_t)pr;
           const int d1 = law_delta<WARM>(g, pr, vis, n, true);
           const int d0 = law_delta<WARM>(g, pr, vis, n, false);
@@ -581,6 +744,7 @@ __global__ void __launch_bounds__(256)
 // phase 5: the gather
 // ---------------------------------------------------------------------------
 
+template <typename R>
 __global__ void __launch_bounds__(256)
     gather_kernel(const __grid_constant__ Plan p, int s0) {
   const int b = blockIdx.y;
@@ -590,20 +754,21 @@ __global__ void __launch_bounds__(256)
   const int s = s0 + (int)(i / W), w = (int)(i % W);
   if (s >= min(s0 + p.L, d.Sp * depth)) return;
   const int t = s / depth, j = s - t * depth;
-  uint16_t* at = p.rid + ((size_t)b * p.L + (s - s0)) * W + w;
-  const uint16_t ri = *at;
+  R* at = static_cast<R*>(p.rid) + ((size_t)b * p.L + (s - s0)) * W + w;
+  const R ri = *at;
   const uint32_t sym = t < d.counts[w] ? d.syms[(size_t)t * W + w] : 0u;
   const uint32_t pv =
-      ri == NO_RECORD
+      ri == no_record<R>()
           ? (uint32_t)PROB_MAX
           : p.nk[p.cnt[(size_t)b * p.L + (s - s0)] + ri];
-  *at = (uint16_t)(pv | (((sym >> (depth - 1 - j)) & 1u) << BIT_SHIFT));
+  *at = (R)(pv | (((sym >> (depth - 1 - j)) & 1u) << BIT_SHIFT));
 }
 
 // ---------------------------------------------------------------------------
 // phase 6: the lane coder
 // ---------------------------------------------------------------------------
 
+template <typename R>
 __global__ void __launch_bounds__(32)
     lane_code_kernel(const __grid_constant__ Plan p, int s0) {
   const int b = blockIdx.y, w = blockIdx.x * 32 + threadIdx.x;
@@ -622,7 +787,8 @@ __global__ void __launch_bounds__(32)
   }
   // each decision's p | bit << 15 ([s - s0][w]), loaded PF decisions
   // ahead of its use: coalesced, and independent of the coder
-  const uint16_t* __restrict__ pb = p.rid + (size_t)b * p.L * W + w;
+  const R* __restrict__ pb =
+      static_cast<const R*>(p.rid) + (size_t)b * p.L * W + w;
   uint8_t* __restrict__ ebufs = d.ebufs;
   uint32_t q[PF];
 #pragma unroll
@@ -670,16 +836,77 @@ __global__ void __launch_bounds__(32)
 }
 
 // whether the touches launch the wrapper derived (encode_torch.touch_shape)
-// holds W lanes: whole warps of at most 1,024 threads, 1, 2 or 4 lanes a
-// thread, at least 2W hash slots, its shared memory within the CTA's
+// holds W lanes: up to CTA_LANES, whole warps of at most 1,024 threads, 1,
+// 2 or 4 lanes a thread, at least 2W hash slots, its shared memory within
+// the CTA's; past it, chunks of whole warps of one lane a thread covering
+// the lanes, a step's hash of at least 2W slots in device memory, and the
+// record fields 32 bits wide from WIDE_LANES on
 bool touch_shape_holds(const Plan& p) {
   const int T = p.tthreads, K = p.tlanes;
-  return p.W >= 1 && p.W <= MAX_LANES && T >= 32 && T <= 1024 &&
-         T % 32 == 0 && (K == 1 || K == 2 || K == MAX_PER_THREAD) &&
-         T * K >= p.W && p.nsl >= 1 && p.nsl <= 16 &&
-         (1 << p.nsl) >= 2 * p.W &&
-         p.tbytes == (6 * (1 << p.nsl) + 2 * 32 * K) * 4 &&
+  if (p.W < 1 || T < 32 || T > 1024 || T % 32 != 0 || p.nsl < 1 ||
+      (size_t)1 << p.nsl < 2 * (size_t)p.W || p.wide != (p.W >= WIDE_LANES))
+    return false;
+  if (p.W > CTA_LANES)
+    return K == 1 && p.tbytes == 0 && p.nsl <= 30 &&
+           p.nch == (p.W + T - 1) / T && p.hkey && p.hcnt && p.hfirst &&
+           p.hslot && p.ccnt && (p.kk != nullptr) == (p.wide != 0);
+  return (K == 1 || K == 2 || K == MAX_PER_THREAD) && T * K >= p.W &&
+         p.nsl <= 16 && p.tbytes == (6 * (1 << p.nsl) + 2 * 32 * K) * 4 &&
          p.tbytes <= SMEM_LIMIT;
+}
+
+// the phases that read or write rid, on its width: u16, or u32 from
+// WIDE_LANES lanes
+template <typename R>
+cudaError_t launch_rid(const Plan& p, int s0, cudaStream_t stream) {
+  touch_rid_kernel<R><<<dim3(p.nch, p.L, p.B), p.tthreads, 0, stream>>>(
+      p, s0);
+  return cudaGetLastError();
+}
+
+template <typename R>
+cudaError_t launch_gather(const Plan& p, int s0, cudaStream_t stream) {
+  const dim3 grid((unsigned)(((size_t)p.L * p.W + 255) / 256), p.B);
+  gather_kernel<R><<<grid, 256, 0, stream>>>(p, s0);
+  return cudaGetLastError();
+}
+
+template <typename R>
+cudaError_t launch_code(const Plan& p, int s0, cudaStream_t stream) {
+  const dim3 grid((p.W + 31) / 32, p.B);
+  lane_code_kernel<R><<<grid, 32, 0, stream>>>(p, s0);
+  return cudaGetLastError();
+}
+
+// past CTA_LANES: a step's chunks insert, count their representatives,
+// the counts are scanned (each step's first record), and the records and
+// rids written
+cudaError_t touches_wide(const Plan& p, int s0, cudaStream_t stream) {
+  const size_t slots = ((size_t)p.B * p.L) << p.nsl;
+  const size_t nc = (size_t)p.B * p.L * p.nch + 1;
+  cudaError_t e = cudaMemsetAsync(p.hkey, 0xFF, slots * sizeof(int), stream);
+  if (e == cudaSuccess)
+    e = cudaMemsetAsync(p.hcnt, 0, slots * sizeof(unsigned long long),
+                        stream);
+  // 0x7F7F7F7F: past every lane, for atomicMin
+  if (e == cudaSuccess)
+    e = cudaMemsetAsync(p.hfirst, 0x7F, slots * sizeof(int), stream);
+  if (e == cudaSuccess)
+    e = cudaMemsetAsync(p.ccnt, 0, nc * sizeof(int), stream);
+  if (e != cudaSuccess) return e;
+  const dim3 grid(p.nch, p.L, p.B);
+  touch_insert_kernel<<<grid, p.tthreads, 0, stream>>>(p, s0);
+  touch_count_kernel<<<grid, p.tthreads, 0, stream>>>(p, s0);
+  e = excl_scan(p.ccnt, (int)nc, nullptr, p.parts, stream);
+  if (e != cudaSuccess) return e;
+  const int n = p.B * p.L + 1;
+  touch_offsets_kernel<<<(n + 255) / 256, 256, 0, stream>>>(p);
+  if (p.wide)
+    touch_write_kernel<true><<<grid, p.tthreads, 0, stream>>>(p, s0);
+  else
+    touch_write_kernel<false><<<grid, p.tthreads, 0, stream>>>(p, s0);
+  return p.wide ? launch_rid<uint32_t>(p, s0, stream)
+                : launch_rid<uint16_t>(p, s0, stream);
 }
 
 }  // namespace
@@ -706,6 +933,7 @@ int enc_touches(const void* plan, int s0, cudaStream_t stream) {
   const Plan& p = *static_cast<const Plan*>(plan);
   if (p.B < 1 || p.B > MAX_BLOCKS || !touch_shape_holds(p))
     return (int)cudaErrorInvalidValue;
+  if (p.W > CTA_LANES) return (int)touches_wide(p, s0, stream);
   const int n = p.B * p.L + 1;
   cudaError_t e = cudaMemsetAsync(p.cnt, 0, sizeof(int) * n, stream);
   if (e != cudaSuccess) return (int)e;
@@ -761,25 +989,29 @@ int enc_scan(const void* plan, cudaStream_t stream) {
   const int* K = odd ? p.key1 : p.key;
   const int* V = odd ? p.val1 : p.val2;
   const int grid = (p.Dcap + 255) / 256;
-  if (p.geo.vcap)
-    entry_scan_kernel<true><<<grid, 256, 0, stream>>>(p, K, V);
-  else
-    entry_scan_kernel<false><<<grid, 256, 0, stream>>>(p, K, V);
+  if (p.wide) {
+    if (p.geo.vcap)
+      entry_scan_kernel<true, true><<<grid, 256, 0, stream>>>(p, K, V);
+    else
+      entry_scan_kernel<false, true><<<grid, 256, 0, stream>>>(p, K, V);
+  } else if (p.geo.vcap) {
+    entry_scan_kernel<true, false><<<grid, 256, 0, stream>>>(p, K, V);
+  } else {
+    entry_scan_kernel<false, false><<<grid, 256, 0, stream>>>(p, K, V);
+  }
   return (int)cudaGetLastError();
 }
 
 int enc_gather(const void* plan, int s0, cudaStream_t stream) {
   const Plan& p = *static_cast<const Plan*>(plan);
-  const dim3 grid((unsigned)(((size_t)p.L * p.W + 255) / 256), p.B);
-  gather_kernel<<<grid, 256, 0, stream>>>(p, s0);
-  return (int)cudaGetLastError();
+  return (int)(p.wide ? launch_gather<uint32_t>(p, s0, stream)
+                      : launch_gather<uint16_t>(p, s0, stream));
 }
 
 int enc_code(const void* plan, int s0, cudaStream_t stream) {
   const Plan& p = *static_cast<const Plan*>(plan);
-  const dim3 grid((p.W + 31) / 32, p.B);
-  lane_code_kernel<<<grid, 32, 0, stream>>>(p, s0);
-  return (int)cudaGetLastError();
+  return (int)(p.wide ? launch_code<uint32_t>(p, s0, stream)
+                      : launch_code<uint16_t>(p, s0, stream));
 }
 
 }  // extern "C"

@@ -48,9 +48,10 @@ encode is held against.
 The kernels keep 16-bit entries (12-bit p, the visit count saturated at
 ``visit_cap``); Kernel D's launch shape (a CTA or a thread block cluster
 a block, the table in the CTA's shared memory or in device memory, SEQ's
-device table in padded rows) is ``decode_shape``'s, derived from the
-geometry, W and the window's blocks; the wrappers refuse a geometry whose
-cap needs more than 4 bits.
+device table in padded rows, the lanes' state in registers or, past
+REG_LANES, in device memory) is ``decode_shape``'s, derived from the
+geometry, W and the window's blocks; the wrappers take any lane count
+and refuse a geometry whose cap needs more than 4 bits.
 """
 
 from __future__ import annotations
@@ -77,13 +78,19 @@ _SIGS = {
     # iters, threads, cluster, out, stream
     "barrier_loop": [_I, _I, _I, _P, _P],
 }
-# lanes of a stream on the card: Kernel D one lane a thread over a cluster
-# of up to 8 CTAs of 512 threads (a table in device memory) or two or four
-# a thread in one CTA of up to 1,024 (a table in shared memory); Kernel E's
-# touches two or four a thread past 1,024
-MAX_LANES = 4096
+# lanes of a stream Kernel D holds in registers: one lane a thread over a
+# cluster of up to 8 CTAs of 512 threads (a table in device memory) or two
+# or four a thread in one CTA of up to 1,024 (a table in shared memory);
+# past it the loop form, each lane's state in device memory
+REG_LANES = 4096
+# lanes from which a count of lanes on one entry (and E's record numbers)
+# no longer fits 16 bits: D's counters take 64 bits, E's records 32-bit
+# fields (ops/encode_torch.py)
+WIDE_LANES = 1 << 16
 CTA_THREADS = 1024  # threads of one CTA
 CLUSTER_THREADS = 512  # threads of each CTA of a cluster (csrc/coder.cu)
+LOOP_THREADS = 1024  # threads of each CTA of the loop form's cluster
+LANE_STATE_BYTES = 48  # csrc/coder.cu's LaneState
 MAX_BLOCKS = 256  # blocks a launch: csrc/coder.cu's MAX_BLOCKS
 MAX_CLUSTER = 8  # CTAs a cluster: the portable size (csrc/coder.cu)
 SMS = 132  # the H100 SXM's streaming multiprocessors
@@ -116,7 +123,7 @@ class _DecDesc(ctypes.Structure):
                 ("counts", ctypes.c_void_p), ("poss", ctypes.c_void_p),
                 ("resets", ctypes.c_void_p), ("mflags", ctypes.c_void_p),
                 ("table", ctypes.c_void_p), ("tally", ctypes.c_void_p),
-                ("syms", ctypes.c_void_p),
+                ("syms", ctypes.c_void_p), ("state", ctypes.c_void_p),
                 ("Lb", ctypes.c_int), ("Sp", ctypes.c_int)]
 SMEM_LIMIT = 232448  # dynamic shared memory one CTA may use on the H100
 VIS_BITS = 4  # the kernels' 16-bit entries: 12-bit p, 4-bit visit count
@@ -173,13 +180,9 @@ def table_in_smem(geom) -> bool:
     return _table_smem(geom.table_size) <= SMEM_LIMIT
 
 
-def _check_geom(geom, W: int) -> int:
-    """The kernels' visit cap of the geometry; raises where the lanes or
-    the geometry do not fit them (Kernel D's lanes in one CTA or cluster a
-    block, E's touches in one CTA a step, the 16-bit entry)."""
-    if not 1 <= W <= MAX_LANES:
-        raise ValueError(f"W={W} lanes exceeds {MAX_LANES} (the kernels "
-                         "hold a stream's lanes in one CTA or cluster)")
+def _check_geom(geom) -> int:
+    """The kernels' visit cap of the geometry; raises where the geometry
+    does not fit them (Kernel D's tree levels, the 16-bit entry)."""
     if not 1 <= geom.depth <= MAX_DEPTH:
         raise ValueError(f"depth {geom.depth} outside Kernel D's 1 to "
                          f"{MAX_DEPTH} levels")
@@ -227,12 +230,20 @@ def decode_shape(geom, W: int, B: int = 1) -> DecodeShape:
     its CTAs at CLUSTER_THREADS (one lane a thread up to 4,096). Every
     other stream keeps one CTA a block, past 1,024 lanes with two or four
     lanes a thread (lanes_per_thread). For W <= 1,024 every thread holds
-    one lane. Raises where the lanes or the geometry do not fit the
-    kernel."""
-    _check_geom(geom, W)
+    one lane. Past REG_LANES every stream takes the loop form: a cluster
+    of MAX_CLUSTER CTAs of up to LOOP_THREADS threads, its table in device
+    memory (in padded rows at depth 2), as many lanes a thread as W asks.
+    Raises where the geometry does not fit the kernel."""
+    _check_geom(geom)
     if not 1 <= B <= MAX_BLOCKS:
         raise ValueError(f"one launch codes 1 to {MAX_BLOCKS} blocks, not "
                          f"{B}")
+    if W > REG_LANES:
+        C = MAX_CLUSTER
+        threads = min(LOOP_THREADS, (-(-W // C) + 31) // 32 * 32)
+        padded = geom.depth == 2
+        entries = geom.table_size // 3 * 4 if padded else geom.table_size
+        return DecodeShape(C, threads, "device", padded, entries, 0, B * C)
     lanes = (W + 31) // 32 * 32
     if table_in_smem(geom):
         table, smem = "smem", _table_smem(geom.table_size)
@@ -273,14 +284,15 @@ def lanes_per_thread(shape: DecodeShape, W: int) -> int:
 def _kernel_geom(geom, W: int, dev, B: int | None = None):
     """Kernel D's table arguments: (a fresh device table, [B,
     entries] for B blocks, or None where the table lives in shared
-    memory; the law's zeroed counters, [B, table_size] int32; vcap; the
-    DecodeShape). Raises where the lanes or the geometry do not fit the
-    kernel."""
+    memory; the law's zeroed counters, [B, table_size] int32, int64 from
+    WIDE_LANES lanes on; vcap; the DecodeShape). Raises where the
+    geometry does not fit the kernel."""
     shape = decode_shape(geom, W, 1 if B is None else B)
     table = (None if shape.table == "smem"
              else device_table(geom, dev, B, shape.padded))
     tally = torch.zeros((1 if B is None else B, geom.table_size),
-                        dtype=torch.int32, device=dev)
+                        dtype=torch.int64 if W >= WIDE_LANES
+                        else torch.int32, device=dev)
     return table, tally, visit_cap(geom), shape
 
 
@@ -669,7 +681,7 @@ def lane_encode_blocks(items, kind: str, geom, CB: int) -> list:
     W, items = _check_items(items, kind, geom)
     dev = _window_device([t for it in items for t in it.tensors()])
     if dev.type == "cuda":
-        _check_geom(geom, W)
+        _check_geom(geom)
         items = [EncIn(*(None if x is None else x.contiguous() for x in it))
                  for it in items]
         _cuda.count("lane_encode", len(items), dev)
@@ -730,6 +742,9 @@ def lane_decode_blocks(items, kind: str, geom) -> list:
         return lane_decode_blocks_plain(checked, kind, geom)
     B = len(checked)
     table, tally, vcap, shape = _kernel_geom(geom, W, dev, B)
+    # the loop form's lanes' state (csrc/coder.cu's LaneState), one a lane
+    states = (torch.empty((B, W, LANE_STATE_BYTES // 4), dtype=torch.int32,
+                          device=dev) if W > REG_LANES else None)
     # the kernel takes the flags only where the geometry has the family
     family = all(flagged) and kind == "seq" and bool(geom.match_bits)
     lib = _cuda.load("coder", _SIGS)
@@ -746,6 +761,7 @@ def lane_decode_blocks(items, kind: str, geom) -> list:
         d.mflags = None if mflag is None else mflag.data_ptr()
         d.table = None if table is None else table[b].data_ptr()
         d.tally = tally[b].data_ptr()
+        d.state = None if states is None else states[b].data_ptr()
         d.syms, d.Lb, d.Sp = syms.data_ptr(), ins[0].shape[1], poss.shape[0]
         outs.append(syms)
     rate_lo = getattr(geom, "rate_lo", 0)

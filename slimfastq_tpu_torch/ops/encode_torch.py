@@ -22,7 +22,9 @@ phases, each over its own parallel axis (csrc/encode.cu):
    becomes each step's first record (an exclusive scan, the total last),
    so block b's records are those from ``cnt[b*L]`` to ``cnt[(b+1)*L]``,
    and ``rid [B, L, W]`` int16 each decision's record number in its step
-   (-1 for a sacrificial decision);
+   (all ones for a sacrificial decision). From WIDE_LANES lanes on, where
+   n, k and a step's records can reach 65,536, ``nk`` holds n and ``kk``
+   k, and ``rid`` is int32;
 3. ``sort``: the records grouped by entry, in step order within an entry
    (a stable sort: an LSD radix sort of 8-bit digits on the card), with
    each record's number in the same order;
@@ -56,8 +58,8 @@ import torch
 from . import _cuda
 from .coder_torch import (CHUNK_SYMS, KINDS, _coder_step, _ctx_advance,
                           _ctx_init, _ctx_step, _kind_params, _lg_lut,
-                          _renorm, _u32_bits, _warm, cta_lanes_per_thread,
-                          device_table, visit_cap)
+                          _renorm, _u32_bits, _warm, WIDE_LANES,
+                          cta_lanes_per_thread, device_table, visit_cap)
 from .ranger import (BOT, CAP_LOG2, MASK32, PROB_MAX, PROB_MIN, PROB_ONE,
                      RENORM_ITERS)
 
@@ -68,8 +70,12 @@ SLICE_DECISIONS = 1 << 22
 # rid 2 + 2 (two buffers), the records' key and nk 4 + 4, the sort's three
 # more buffers 12, its tile histogram 1
 SCRATCH_PER_DECISION = 25
-NO_RECORD = -1  # rid of a sacrificial decision (0xFFFF in the kernel)
-NK_BITS = 16  # record fields: n (bits 0-15), k (16-31), up to 4,096 each
+# from WIDE_LANES lanes on: rid 4 + 4 and the records' kk 4
+WIDE_SCRATCH = 8
+NK_BITS = 16  # record fields below WIDE_LANES: n (bits 0-15), k (16-31)
+# WIDE_LANES (coder_torch): from there n, k (up to W each) and a step's
+# record numbers (up to W - 1, beside the sacrificial all ones) no longer
+# fit 16 bits: the records keep n in nk and k in kk, and rid is 32 bits
 COUNT_FIELD = 1 << 10  # the format's collision-count field holds n mod 1024
 RADIX_BITS = 8
 TILE = 1024  # records a sort tile (csrc/encode.cu)
@@ -95,35 +101,63 @@ class _Plan(ctypes.Structure):
     """csrc/encode.cu's Plan: a launch set's scratch, carried state and
     shape."""
     _fields_ = [(n, ctypes.c_void_p) for n in (
-        "blocks", "rows", "cnt", "rid", "key", "nk", "key1", "val1",
-        "val2", "hist", "parts", "tables", "coder", "low", "emax")] + [
+        "blocks", "rows", "cnt", "rid", "key", "nk", "kk", "key1", "val1",
+        "val2", "hist", "parts", "tables", "coder", "low", "emax", "hkey",
+        "hcnt", "hfirst", "hslot", "ccnt")] + [
         (n, ctypes.c_int) for n in (
             "table_size", "sac_base", "rate", "rate_lo", "vcap", "kind",
             "depth", "num_ctx", "k0", "k1", "k2", "k3", "B", "W", "CB", "L",
-            "Lt", "Dcap", "ntiles", "nbits", "tthreads", "tlanes", "nsl",
-            "tbytes")]
+            "Lt", "Dcap", "ntiles", "nbits", "wide", "tthreads", "tlanes",
+            "nsl", "tbytes", "nch")]
 
 
 class TouchShape(NamedTuple):
-    """The touches phase's launch (one CTA a bit-step run): ``threads``
-    threads of ``per_thread`` lanes each (lane i * threads + t on thread
-    t), a hash of 2^nsl slots (at least 2W) and ``smem_bytes`` of dynamic
-    shared memory."""
+    """The touches phase's launch: up to CTA_LANES lanes one CTA a
+    bit-step run, ``threads`` threads of ``per_thread`` lanes each (lane
+    i * threads + t on thread t), a hash of 2^nsl slots (at least 2W) and
+    ``smem_bytes`` of dynamic shared memory; past it one CTA a chunk of
+    ``threads`` lanes and a bit-step, one lane a thread, the step's hash
+    of 2^nsl slots in device memory (``smem_bytes`` 0)."""
     threads: int
     per_thread: int
     nsl: int
     smem_bytes: int
 
+    @property
+    def in_device(self) -> bool:
+        """Whether the step's hash lives in device memory."""
+        return self.smem_bytes == 0
+
+    def chunks(self, W: int) -> int:
+        """A step's CTAs where the hash lives in device memory."""
+        return -(-W // self.threads)
+
+
+CTA_LANES = 4096  # lanes the touches hold in one CTA (csrc/encode.cu)
+CHUNK_THREADS = 256  # a touches CTA past CTA_LANES: one lane a thread
+# a device-memory hash slot: the entry (then its record's number), n | k
+# << 32 and the first lane
+SLOT_BYTES = 16
+
 
 def touch_shape(W: int) -> TouchShape:
-    """The touches launch for W lanes (coder_torch._check_geom's, up to
-    MAX_LANES): one lane a thread up to 1,024, then two or four, in whole
-    warps; the hash's slots and the count words of each round's warps in
-    two buffers (csrc/encode.cu checks the shape and refuses another)."""
+    """The touches launch for W lanes: one lane a thread up to 1,024,
+    then two or four, in whole warps of one CTA up to CTA_LANES, the
+    hash's slots and the count words of each round's warps in two buffers
+    in its shared memory; past it chunks of CHUNK_THREADS lanes, the
+    step's hash in device memory (csrc/encode.cu checks the shape and
+    refuses another)."""
+    if W > CTA_LANES:
+        return TouchShape(CHUNK_THREADS, 1, (2 * W - 1).bit_length(), 0)
     k = cta_lanes_per_thread(W)
     threads = (-(-W // k) + 31) // 32 * 32
     nsl = (2 * threads * k - 1).bit_length()
     return TouchShape(threads, k, nsl, (6 * (1 << nsl) + 64 * k) * 4)
+
+
+def wide_records(W: int) -> bool:
+    """Whether W lanes need the 32-bit record fields (WIDE_LANES)."""
+    return W >= WIDE_LANES
 
 
 def slice_steps(B: int, W: int, S: int) -> int:
@@ -137,8 +171,12 @@ def scratch_bytes(B: int, W: int, S: int, depth: int) -> int:
     tables and the outputs not included)."""
     L = slice_steps(B, W, S)
     D = B * L * W
-    return int(D * SCRATCH_PER_DECISION) + 4 * B * (L // depth + 2) * W \
-        + 4 * (B * L + 1) + 24 * B * W
+    per = SCRATCH_PER_DECISION + WIDE_SCRATCH * wide_records(W)
+    ts = touch_shape(W)
+    hash_bytes = (B * L * ((1 << ts.nsl) * SLOT_BYTES + 4 * ts.chunks(W))
+                  + 4 * D if ts.in_device else 0)
+    return int(D * per) + 4 * B * (L // depth + 2) * W \
+        + 4 * (B * L + 1) + 24 * B * W + hash_bytes
 
 
 class EncodeSet:
@@ -172,13 +210,28 @@ class EncodeSet:
         self.cnt = i32(B * L + 1)
         # two: the lane coder of one slice reads one while the phases of
         # the next write the other
-        self.rids = [zeros(B, L, W, dtype=torch.int16) for _ in range(2)]
+        self.wide = wide_records(W)
+        rtype = torch.int32 if self.wide else torch.int16
+        self.rids = [zeros(B, L, W, dtype=rtype) for _ in range(2)]
         self.rid = self.rids[0]
         self.key, self.nk = i32(D), i32(D)
+        self.kk = i32(D) if self.wide else None
         self.key1, self.val1, self.val2 = i32(D), i32(D), i32(D)
         self.hist = i32((1 << RADIX_BITS) * self.ntiles)
-        self.parts = i32(-(-max(B * L + 1, (1 << RADIX_BITS) * self.ntiles)
-                           // SCAN_CHUNK))
+        ts = self.touch = touch_shape(W)
+        # the touches past CTA_LANES: each step's hash and the chunks'
+        # counts (csrc/encode.cu's Plan)
+        nc = B * L * ts.chunks(W) + 1 if ts.in_device else 0
+        if ts.in_device:
+            slots = B * L << ts.nsl
+            self.hkey, self.hfirst = i32(slots), i32(slots)
+            self.hcnt = torch.empty(slots, dtype=torch.int64, device=dev)
+            self.hslot, self.ccnt = i32(D), i32(nc)
+        else:
+            self.hkey = self.hcnt = self.hfirst = self.hslot = None
+            self.ccnt = None
+        self.parts = i32(-(-max(B * L + 1, (1 << RADIX_BITS) * self.ntiles,
+                                nc) // SCAN_CHUNK))
         self.tables = device_table(geom, dev, B)
         self.coder = i32(B, 3, W)
         self.low = zeros(B, W)
@@ -220,12 +273,16 @@ class EncodeSet:
                   B=self.B, W=self.W, CB=self.CB, L=self.L, Lt=self.Lt,
                   Dcap=self.Dcap, ntiles=self.ntiles, nbits=self.nbits)
         p.k0, p.k1, p.k2, p.k3 = _kind_params(self.kind, g)
-        (p.tthreads, p.tlanes, p.nsl,
-         p.tbytes) = touch_shape(self.W)
+        p.tthreads, p.tlanes, p.nsl, p.tbytes = self.touch
+        p.nch = self.touch.chunks(self.W) if self.touch.in_device else 0
         for name in ("blocks", "rows", "cnt", "rid", "key", "nk",
                      "key1", "val1", "val2", "hist", "parts", "tables",
                      "coder", "low", "emax"):
             setattr(p, name, getattr(self, name).data_ptr())
+        for name in ("kk", "hkey", "hcnt", "hfirst", "hslot", "ccnt"):
+            t = getattr(self, name)
+            setattr(p, name, None if t is None else t.data_ptr())
+        p.wide = int(self.wide)
         return p
 
     def use_rid(self, i: int) -> None:
@@ -360,6 +417,18 @@ def encode_blocks(items, kind: str, geom, CB: int):
 # plain versions (whole-slice tensor ops; the coder steps bit by bit)
 # ---------------------------------------------------------------------------
 
+def _wrap(v: torch.Tensor, dtype) -> torch.Tensor:
+    """Non-negative int64 values below 2^bits as the same bits of a signed
+    `dtype` of that width (int16 or int32)."""
+    bits = torch.iinfo(dtype).bits
+    return torch.where(v >= 1 << (bits - 1), v - (1 << bits), v).to(dtype)
+
+
+def _rid_bits(es: EncodeSet) -> int:
+    """All ones of rid's width: the sacrificial decision's rid."""
+    return (1 << torch.iinfo(es.rid.dtype).bits) - 1
+
+
 def _state_in(es: EncodeSet, b: int, s0: int) -> tuple:
     """Block b's carried context state as _ctx_step takes it."""
     W = es.W
@@ -408,13 +477,18 @@ def _decisions(es: EncodeSet, b: int, s0: int, s1: int):
     """Block b's decisions of bit-steps [s0, s1): (entry, bit) [s1-s0, W]
     int64, from the rows and the symbols."""
     it, depth = es.items[b], es.depth
-    s = torch.arange(s0, s1, device=es.dev)
-    t, j = s // depth, (s % depth)[:, None]
-    act = t[:, None] < it.counts.long()[None, :]
-    sym = torch.where(act, it.syms[t].long(), 0)
-    row = es.rows[b, t - s0 // depth].long()
+    t0, t1 = s0 // depth, -(-s1 // depth)
+    t = torch.arange(t0, t1, device=es.dev)[:, None, None]
+    act = t < it.counts.long()[None, None, :]
+    sym = torch.where(act, it.syms[t0:t1].long()[:, None, :], 0)
+    row = es.rows[b, :t1 - t0].long()[:, None, :]
+    # every bit of each symbol-step, [t1 - t0, depth, W], then the span's
+    j = torch.arange(depth, device=es.dev)[None, :, None]
     entry = row + ((1 << j) | (sym >> (depth - j))) - 1
-    return entry, (sym >> (depth - 1 - j)) & 1
+    one = (sym >> (depth - 1 - j)) & 1
+    lo, hi = s0 - t0 * depth, s1 - t0 * depth
+    W = es.W
+    return (entry.reshape(-1, W)[lo:hi], one.reshape(-1, W)[lo:hi])
 
 
 def touches_plain(es: EncodeSet, s0: int) -> None:
@@ -454,11 +528,14 @@ def touches_plain(es: EncodeSet, s0: int) -> None:
         at = (es.cnt[b * L: b * L + n_s].long()[:, None] + local)[rep]
         es.key[at] = entry[rep].int()
         urep = inv[rep[real]]
-        es.nk[at] = (n[urep] | (k[urep] << NK_BITS)).int()
-        rid = torch.full((n_s, W), NO_RECORD, dtype=torch.int64,
+        if es.wide:
+            es.nk[at], es.kk[at] = n[urep].int(), k[urep].int()
+        else:
+            es.nk[at] = _wrap(n[urep] | (k[urep] << NK_BITS), torch.int32)
+        rid = torch.full((n_s, W), _rid_bits(es), dtype=torch.int64,
                          device=es.dev)
         rid[real] = loc_u[inv]
-        es.rid[b, :n_s] = rid.to(torch.int16)
+        es.rid[b, :n_s] = _wrap(rid, es.rid.dtype)
 
 
 def sort_plain(es: EncodeSet) -> None:
@@ -515,8 +592,11 @@ def entry_scan_plain(es: EncodeSet) -> None:
     for i in range(int(lens.max())):
         g = (lens > i).nonzero().flatten()
         r = V[starts[g] + i]
-        nk = es.nk[r].long()
-        n, k = nk & ((1 << NK_BITS) - 1), nk >> NK_BITS
+        if es.wide:
+            n, k = es.nk[r].long(), es.kk[r].long()
+        else:
+            nk = es.nk[r].long() & MASK32
+            n, k = nk & ((1 << NK_BITS) - 1), nk >> NK_BITS
         b = torch.searchsorted(starts_b, r, right=True) - 1
         sw = b != cur[g]
         out = g[sw & (cur[g] >= 0)]
@@ -547,12 +627,11 @@ def gather_plain(es: EncodeSet, s0: int) -> None:
         n_s = span[1] - s0
         _, one = _decisions(es, b, *span)
         off = es.cnt[b * es.L: b * es.L + n_s].long()
-        rid = es.rid[b, :n_s].long()
-        p = torch.where(rid < 0, PROB_MAX,
-                        es.nk[off[:, None] + rid.clamp(min=0)].long())
-        v = p | (one << BIT_SHIFT)
-        es.rid[b, :n_s] = torch.where(v >= 1 << 15, v - (1 << 16),
-                                      v).to(torch.int16)
+        none = _rid_bits(es)
+        rid = es.rid[b, :n_s].long() & none
+        p = torch.where(rid == none, PROB_MAX,
+                        es.nk[off[:, None] + torch.where(rid == none, 0, rid)].long())
+        es.rid[b, :n_s] = _wrap(p | (one << BIT_SHIFT), es.rid.dtype)
 
 
 def code_plain(es: EncodeSet, s0: int) -> None:
@@ -618,7 +697,8 @@ def outputs_of(es: EncodeSet, phase: str) -> tuple:
     if phase == "rows":
         return (es.rows,)
     if phase == "touches":
-        return es.cnt, es.rid, es.key[:N], es.nk[:N]
+        kk = () if es.kk is None else (es.kk[:N],)
+        return (es.cnt, es.rid, es.key[:N], es.nk[:N], *kk)
     if phase == "sort":
         return tuple(x[:N] for x in es.sorted_records())
     if phase == "entry_scan":

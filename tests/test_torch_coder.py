@@ -299,15 +299,23 @@ def test_table_bytes_and_shared_memory_fit():
 
 
 def test_kernel_geometry_refusals():
-    """Where the 16-bit entry or one CTA cannot hold a geometry, the
-    kernels' wrappers raise (they never fall back to the plain version)."""
+    """Where the 16-bit entry cannot hold a geometry, the kernels'
+    wrappers raise (they never fall back to the plain version); any lane
+    count is taken."""
     cpu = torch.device("cpu")
     warm = replace(tconfig.LEVELS[3].seq, rate=14, rate_lo=1)
     assert CT.visit_cap(warm) == 512
     with pytest.raises(ValueError, match="visit cap"):
         CT._kernel_geom(warm, 64, cpu)
-    with pytest.raises(ValueError, match="exceeds 4096"):
-        CT._kernel_geom(tconfig.LEVELS[3].qual, 4097, cpu)
+    # 4,097 lanes and more are taken: the loop form, its counters 64-bit
+    # from 65,536 lanes on
+    for W, wide in ((4097, False), (8192, False), (65536, True)):
+        table, tally, _, shape = CT._kernel_geom(tconfig.LEVELS[3].qual, W,
+                                                 cpu)
+        assert shape.cluster * shape.threads * CT.lanes_per_thread(
+            shape, W) >= W
+        assert tally.dtype == (torch.int64 if wide else torch.int32)
+        assert table.shape == (shape.entries,) and not tally.any()
     # 1,025 lanes and more are taken up to 4,096: QUAL over a cluster of
     # CTAs of at most 512 threads
     shape = CT._kernel_geom(tconfig.LEVELS[3].qual, 1025, cpu)[3]

@@ -20,8 +20,10 @@ also over a stream of several slices; Kernel D's cluster form (a SEQ
 stream's 1,024 lanes of 100-base reads over 8 CTAs; QUAL's in every
 1,024-lane case) against its plain version where the colliding lanes lie
 in every CTA, with level 4's match family, and over a ragged window; and
-SEQ's other shape, one CTA for 1,500-base reads, chosen by its inputs.
-Marked `cuda`: they
+SEQ's other shape, one CTA for 1,500-base reads, chosen by its inputs;
+past 4,096 lanes (up to 65,536, every lane on one entry) D's loop form
+and E's touches over chunks, any lane count taken. Each test runs under
+an alarm of CARD_TEST_LIMIT_S. Marked `cuda`: they
 skip without a card. This file imports
 neither JAX nor the JAX package, so it runs on a machine that has only
 PyTorch and a card:
@@ -29,6 +31,7 @@ PyTorch and a card:
     python -m pytest tests/test_torch_cuda.py -m cuda -q
 """
 
+import signal
 from dataclasses import replace
 
 import numpy as np
@@ -43,6 +46,17 @@ from slimfastq_tpu_torch.ops import streams_torch as ST
 torch.set_num_threads(1)
 
 pytestmark = pytest.mark.cuda
+
+# seconds a card test may take: SIGALRM's default action then ends the run,
+# so a kernel that never returns cannot hold the card
+CARD_TEST_LIMIT_S = 600
+
+
+@pytest.fixture(autouse=True)
+def _time_limit():
+    signal.alarm(CARD_TEST_LIMIT_S)
+    yield
+    signal.alarm(0)
 
 
 @pytest.fixture
@@ -125,6 +139,21 @@ CASES = {
     "byte-w2048": (3, "byte", 2048, False, None, None, True, False),
     "flag-w1500": (3, "flag", 1500, False, None, None, True, False),
     "byte-w4096": (3, "byte", 4096, False, None, None, True, False),
+    # past 4,096 lanes: D's loop form (every kind's table in device
+    # memory, the flag kind's depth 1 too), E's touches over chunks with
+    # the step's hash in device memory; at 65,536 lanes on one entry D's
+    # 64-bit counters and E's 32-bit record fields
+    "seq-w8192-collide": (3, "seq", 8192, False, None, None, False, False),
+    "qual-w5000-collide-4500": (3, "qual", 5000, False, 4500, None, False,
+                                False),
+    "seq-l4-match-w8192-5000": (4, "seq", 8192, False, 5000, None, False,
+                                True),
+    "qual-l1-w8192": (1, "qual", 8192, False, None, None, True, False),
+    "byte-w8192": (3, "byte", 8192, False, None, None, True, False),
+    "flag-w5000": (3, "flag", 5000, False, None, None, True, False),
+    "seq-w65536-collide": (3, "seq", 65536, False, None, None, False, False),
+    "qual-w65536-collide": (3, "qual", 65536, False, None, None, False,
+                            False),
 }
 
 
@@ -620,18 +649,19 @@ def test_python_pipeline_on_card(dev, level):
 
 
 def test_wide_block_refused(dev):
+    """Any lane count codes on the card (no plain version stands in); a
+    visit cap past 4 bits is refused."""
     geom = config_for_level(3).flags
-    z = torch.zeros((8, 4097), dtype=torch.uint8, device=dev)
-    c = torch.zeros(4097, dtype=torch.int32, device=dev)
-    with pytest.raises(ValueError, match="exceeds 4096"):
-        CT.lane_encode(z, None, None, c, "flag", geom, 16)
-    # 1,025 lanes code on the card (no plain version stands in)
     from slimfastq_tpu_torch.ops import _cuda
-    _cuda.reset_launches()
-    CT.lane_encode(z[:, :1025], None, None, c[:1025], "flag", geom, 16)
-    assert _cuda.launches["lane_encode"] == 1
+    for W in (1025, 4097, 65536):
+        z = torch.zeros((8, W), dtype=torch.uint8, device=dev)
+        c = torch.zeros(W, dtype=torch.int32, device=dev)
+        _cuda.reset_launches()
+        CT.lane_encode(z, None, None, c, "flag", geom, 16)
+        assert _cuda.launches["lane_encode"] == 1
+    z = torch.zeros((8, 64), dtype=torch.uint8, device=dev)
+    c = torch.zeros(64, dtype=torch.int32, device=dev)
     warm = replace(config_for_level(3).seq, rate=14, rate_lo=1)
-    z, c = z[:, :64], c[:64]
     zi = z.int()
     with pytest.raises(ValueError, match="visit cap"):
         CT.lane_encode(z, zi, zi, c, "seq", warm, 16)

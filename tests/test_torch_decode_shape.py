@@ -9,8 +9,11 @@ card side by side, and the refusals hold. Past 1,024 lanes (1,500,
 2,048, 4,096) a cluster's CTAs keep at most 512 threads, one lane each,
 and a table in shared memory keeps one CTA, two or four lanes a thread;
 every shape up to 1,024 lanes is the one it was, and so is Kernel E's
-touches launch (encode_torch.touch_shape). The kernels themselves run
-only on a card (tests/test_torch_cuda.py)."""
+touches launch (encode_torch.touch_shape). Past 4,096 lanes every stream
+takes D's loop form (a cluster of 8 CTAs of at most 1,024 threads, every
+lane on one thread, the table in device memory) and E's touches spread a
+step over chunks of 256 lanes with the step's hash in device memory. The
+kernels themselves run only on a card (tests/test_torch_cuda.py)."""
 
 from dataclasses import replace
 
@@ -94,13 +97,14 @@ def test_decode_shape_of_the_main_path():
 
 
 def test_decode_shape_refusals():
-    """W past 4,096 lanes, a visit cap past 4 bits, a depth past the
-    kernel's 8 levels, a depth-1 table that does not fit shared memory and
-    a launch of 0 or more than 256 blocks are refused, each with its
-    reason; 1,025 lanes are taken."""
+    """A visit cap past 4 bits, a depth past the kernel's 8 levels, a
+    depth-1 table that does not fit shared memory and a launch of 0 or
+    more than 256 blocks are refused, each with its reason; 1,025, 4,097,
+    8,192 and 65,536 lanes are taken."""
     cfg = tconfig.LEVELS[3]
-    with pytest.raises(ValueError, match="exceeds 4096"):
-        CT.decode_shape(cfg.qual, 4097)
+    for W in (4097, 8192, 65536):
+        s = CT.decode_shape(cfg.qual, W)
+        assert s.cluster * s.threads * CT.lanes_per_thread(s, W) >= W
     assert CT.decode_shape(cfg.qual, 1025).cluster == 8
     with pytest.raises(ValueError, match="visit cap"):
         CT.decode_shape(replace(cfg.seq, rate=14, rate_lo=1), 64)
@@ -169,7 +173,9 @@ def test_shapes_to_1024_lanes_unchanged(level, kind):
 def test_touch_shape():
     """Kernel E's touches launch: up to 1,024 lanes as it was (one lane a
     thread, 2^ceil(log2(2 threads)) hash slots), past it two or four lanes
-    a thread, at least 2W slots, within one CTA's shared memory."""
+    a thread, at least 2W slots, within one CTA's shared memory; past
+    4,096 lanes a step's chunks of 256 lanes, one a thread, its hash of at
+    least 2W slots in device memory."""
     for W in range(1, 1025):
         threads = (W + 31) // 32 * 32
         nsl = next(n for n in range(20) if (1 << n) >= 2 * threads)
@@ -183,3 +189,42 @@ def test_touch_shape():
         assert (1 << t.nsl) >= 2 * W
         assert t.smem_bytes <= CT.SMEM_LIMIT
     assert ET.touch_shape(4096) == (1024, 4, 13, 197632)
+    for W in (4097, 5000, 8192, 16384, 65535, 65536, 100000, 1 << 20):
+        t = ET.touch_shape(W)
+        assert t.in_device and (t.threads, t.per_thread) == (256, 1)
+        # every lane in one chunk, the last chunk with a live lane
+        n = t.chunks(W)
+        assert n * t.threads >= W > (n - 1) * t.threads
+        assert (1 << t.nsl) >= 2 * W > 1 << (t.nsl - 1)
+        assert t.smem_bytes == 0
+        assert ET.wide_records(W) == (W >= 65536)
+        # the chunks' grid: a slice's steps and a window's blocks within
+        # the grid's y and z limits
+        for B in (1, 256):
+            assert ET.slice_steps(B, W, 10 ** 9) <= 65535
+
+
+@pytest.mark.parametrize("B", [1, 4, 256])
+@pytest.mark.parametrize("W", [4097, 5000, 8192, 16384, 65536, 100000])
+@pytest.mark.parametrize("kind", list(KINDS))
+@pytest.mark.parametrize("level", [1, 2, 3, 4])
+def test_decode_shape_past_4096_lanes(level, kind, W, B):
+    """The loop form: a cluster of 8 CTAs of at most 1,024 threads a
+    block, every lane on one thread (lane r T + t + i C T), the table in
+    device memory (a depth-2 table in padded rows), no shared memory; the
+    launch's clusters are scheduled whole, so a window of 256 blocks
+    only queues them."""
+    geom = getattr(tconfig.LEVELS[level], KINDS[kind])
+    s = CT.decode_shape(geom, W, B)
+    k = CT.lanes_per_thread(s, W)
+    assert (s.cluster, s.table, s.smem_bytes) == (8, "device", 0)
+    # one cluster a block, resident whole on the card's SMs, one CTA an SM
+    assert s.ctas == B * 8 and s.cluster <= CT.SMS
+    assert s.threads % 32 == 0 and 32 <= s.threads <= 1024
+    assert s.threads == (1024 if W > 8192 else (-(-W // 8) + 31) // 32 * 32)
+    # every lane on one thread, every thread's last lane within one round
+    assert k * s.cluster * s.threads >= W > (k - 1) * s.cluster * s.threads
+    assert s.padded == (geom.depth == 2)
+    assert s.entries == (geom.table_size // 3 * 4 if s.padded
+                         else geom.table_size)
+    assert s.smem_bytes <= CT.SMEM_LIMIT
