@@ -91,7 +91,17 @@ Phases (any failure exits non-zero; nothing is caught):
      package's (PINNED_WIDE), exact round trips, E, C, D, L and U
      launched; and the W sweep: the level-3 block's seven E and D
      launches alone and at once at W = 1,024 to 65,536 (block_spans)
-     beside the container's ratio and QUAL's D bound.
+     beside the container's ratio and QUAL's D bound; then the header's
+     other geometries (GEOMS: level 3 with QUAL at rate 7 / rate_lo 2,
+     visit cap 16, SEQ at 14 / 1, cap 512, both in the kernels' 32-bit
+     entries, and FLAG at 17 history bits, a depth-1 table in device
+     memory): E, C and D against their plain versions at each (512 lanes
+     and more on one entry; E's phases also over several slices), the
+     pinned block through api.encode_fastq / decode_fastq at each with
+     the JAX package's size and SHA-256 (PINNED_GEOM), exact round trips,
+     E, C, L and D, U launched, and E's and D's QUAL and SEQ streams
+     alone at level 3 (16-bit entries) and at the two warm-up geometries
+     (32-bit), in turns.
 
   5. the small-block window path on the same 4-block set at
      block_records = 16,384 (the 4 blocks in one window): Kernels E and D over
@@ -166,7 +176,8 @@ Phases (any failure exits non-zero; nothing is caught):
 
 Prints `compact_block_l3`, `compact_block_l4`, `compact_phase_l3`,
 `compact_phase_l4`, `block`, `block_l4`, `wall`, `pool_reuse`, `wall_l4`,
-`block_w1024` ... `block_w65536`, `wide_lanes`,
+`block_w1024` ... `block_w65536`, `wide_lanes`, `block_geom_*`,
+`geometries`,
 `window_kernels`, `window_walls`, `window_sweep`, `streaming`,
 `long_read`, `long_read_kernels`, `sharded`, `sharded_streaming`,
 `gather_nccl`, `level1`, `python_pipeline`, `python_pipeline_s`,
@@ -246,6 +257,29 @@ PINNED_WIDE = {
 }
 # the W sweep of the wide_lanes phase: the pinned block at level 3
 WIDE_SWEEP = (1024, 2048, 4096, 8192, 16384, 65536)
+# Geometries the header names past the built-in levels': the pinned block
+# at level 3 with one stream changed (the stream's config field and its
+# changes): visit caps of 16 (QUAL rate 7, rate_lo 2) and 512 (SEQ 14 / 1,
+# the most the law allows) in the kernels' 32-bit entries, and FLAG's 17
+# history bits, a depth-1 table past shared memory that Kernel D keeps in
+# device memory
+GEOMS = {"qual_rate7_lo2": ("qual", {"rate": 7, "rate_lo": 2}),
+         "seq_rate14_lo1": ("seq", {"rate": 14, "rate_lo": 1}),
+         "flag_hist17": ("flags", {"hist_bits": 17})}
+# size and SHA-256 of the JAX package's container of the pinned block at
+# each geometry (its api.encode_fastq(data, cfg=cfg, backend=streams_jax)
+# with the JAX package's level 3 changed alike, run on a CPU)
+PINNED_GEOM = {
+    "qual_rate7_lo2": (
+        2459962,
+        "5d7c0c3007546ffeaed575601454c969b016230467ed6ce60f11f09d62e13548"),
+    "seq_rate14_lo1": (
+        2577465,
+        "2f58e4a7ce5df3374ef15a9f373903926559c63eeb68bcaa11d728395da3189b"),
+    "flag_hist17": (
+        2593974,
+        "46024d7ec6cfee79598dd0e9bf3706b4ba80cee10d589641fa27237b9ba9664e"),
+}
 # Kernels E and D against their plain versions past 1,024 lanes: (level,
 # kind, W, lanes on one entry at each read start; None: the byte and flag
 # kinds' ragged lanes, every one on the root entry at step 0). 1,100 lanes
@@ -372,12 +406,13 @@ CHUNK_STEPS, PLAIN_CHUNKS = 8, 8
 
 def _kernel_name(line: str) -> str:
     """A kernel's name and template arguments from ptxas's mangled one,
-    e.g. lane_decode_kernel<1,0,1,0,4>."""
+    e.g. lane_decode_kernel<1,0,1,0,4,u16>."""
     import re
-    m = re.search(r"\d([a-z_]+_kernel)(I(?:L[bi]\d+E)+E)?", line)
+    m = re.search(r"\d([a-z_]+_kernel)(I(?:L[bi]\d+E|[tj])+E)?", line)
     if m is None:
         return line.split()[-1]
-    args = re.findall(r"L[bi](\d+)E", m.group(2) or "")
+    args = [a or {"t": "u16", "j": "u32"}[t] for a, t in re.findall(
+        r"L[bi](\d+)E|([tj])", m.group(2) or "")]
     return m.group(1) + (f"<{','.join(args)}>" if args else "")
 
 
@@ -1477,6 +1512,133 @@ def wide_lanes(data: bytes, dev, card: str, bar_us: float,
             "encode_span_ms": enc["span_ms"],
             "bytes": sizes[W], "ratio": len(data) / sizes[W]}
     print(json.dumps({"wide_lanes": out}), flush=True)
+    return out
+
+
+def geom_cfg(name: str):
+    """Level 3 with GEOMS[name]'s one stream changed."""
+    from dataclasses import replace
+    from slimfastq_tpu_torch.config import config_for_level
+    field, changes = GEOMS[name]
+    cfg = config_for_level(3)
+    return replace(cfg, **{field: replace(getattr(cfg, field), **changes)})
+
+
+def check_geometries(dev, errs: dict) -> list:
+    """E, C and D against their plain versions at each GEOMS geometry, at
+    the shapes of check_kernels (W = 1,024, Sp = 256; the flag kind at the
+    64 aux lanes, ragged): QUAL at cap 16 with all 1,024 lanes on one
+    entry at each read start, SEQ at cap 512 with 700 (a count that reads
+    negative) and 1,024, FLAG at 17 history bits; then E's phases over
+    slices of 1,000 bit-steps at QUAL cap 16 and of 200 at SEQ cap 512,
+    so the 32-bit tables carry across slices. Returns what ran."""
+    import numpy as np
+    import torch
+    from slimfastq_tpu_torch.ops import coder_torch as CT
+    from slimfastq_tpu_torch.ops import streams_torch as ST
+    rng = np.random.default_rng(11)
+    Sp, W = 256, 1024
+    seq = rng.integers(0, 4, size=(Sp, W)).astype(np.uint8)
+    qual = np.clip(30 + np.cumsum(rng.integers(-2, 3, size=(Sp, W)),
+                                  axis=0), 0, 41).astype(np.uint8)
+    q, s, f = (getattr(geom_cfg(n), GEOMS[n][0]) for n in GEOMS)
+    ran, items = [], {}
+    for kind, geom, syms, active in (("qual", q, qual, W),
+                                     ("seq", s, seq, 700),
+                                     ("seq", s, seq, W)):
+        ll, counts = _reads_layout(W, Sp, READ_LEN, active)
+        pos, reset = ST._pos_reset(torch.from_numpy(ll).to(dev), Sp,
+                                   int(counts.max()), W)
+        _check_stream(kind, geom, syms, counts, pos, reset, dev, {}, errs)
+        items[kind] = ST.EncIn(torch.from_numpy(syms).to(dev), pos, reset,
+                               torch.from_numpy(counts.astype(np.int32)).to(
+                                   dev))
+        shape = CT.decode_shape(geom, W)
+        ran.append(f"{kind} rate {geom.rate} rate_lo {geom.rate_lo} (cap "
+                   f"{CT.visit_cap(geom)}, {shape.entry_bytes}-byte entries, "
+                   f"D {shape.table} {shape.cluster} x {shape.threads}; "
+                   f"{active} lanes on one entry)")
+    Wa = 64
+    zeros = torch.zeros((Sp, Wa), dtype=torch.int32, device=dev)
+    _check_stream("flag", f, rng.integers(0, 2, size=(Sp, Wa)).astype(
+        np.uint8), rng.integers(Sp // 2, Sp + 1, size=Wa), zeros, zeros, dev,
+                  {}, errs)
+    shape = CT.decode_shape(f, Wa)
+    ran.append(f"flag hist_bits {f.hist_bits} ({f.table_size} entries, D "
+               f"{shape.table} {shape.cluster} x {shape.threads})")
+    for kind, geom, L in (("qual", q, 1000), ("seq", s, 200)):
+        _phases_vs_plain(errs, [items[kind]], kind, geom,
+                         ST._chunk_bytes(geom.depth, hard=False),
+                         f"E's phases, {kind} cap {CT.visit_cap(geom)} in "
+                         f"slices of {L} bit-steps", L=L)
+        ran.append(f"E's phases {kind} cap {CT.visit_cap(geom)} in slices "
+                   f"of {L} bit-steps")
+    print("kernels match their plain versions at the header's other "
+          "geometries: " + "; ".join(ran), flush=True)
+    return ran
+
+
+def geometries(data: bytes, dev, card: str, errs: dict) -> dict:
+    """Every geometry the header names on the main path: the kernels
+    against their plain versions (check_geometries), then the pinned block
+    through api.encode_fastq / decode_fastq on the card at each GEOMS
+    geometry, the launch counts set to 0 just before each direction and
+    read just after: size and SHA-256 equal the JAX package's
+    (PINNED_GEOM), the round trip is exact, E, C and L launched to encode
+    and D and U to decode. Then E's and D's QUAL and SEQ streams alone on
+    the block (block_spans), at level 3 (16-bit entries) and at the two
+    warm-up geometries (32-bit), in turns: L3, QUAL 7 / 2, SEQ 14 / 1,
+    SEQ 14 / 1, QUAL 7 / 2, L3."""
+    from slimfastq_tpu_torch import api
+    from slimfastq_tpu_torch.config import config_for_level
+    from slimfastq_tpu_torch.ops import _cuda
+    from slimfastq_tpu_torch.ops import coder_torch as CT
+    out = {"card": card, "checks": check_geometries(dev, errs),
+           "containers": {}, "launches": {}}
+    for name, (nbytes, want) in PINNED_GEOM.items():
+        cfg = geom_cfg(name)
+        _cuda.reset_launches()
+        enc = api.encode_fastq(data, cfg=cfg, device="cuda")
+        enc_l = dict(_cuda.launches)
+        _cuda.reset_launches()
+        dec = api.decode_fastq(enc, device="cuda")
+        dec_l = dict(_cuda.launches)
+        sha = hashlib.sha256(enc).hexdigest()
+        if (len(enc), sha) != (nbytes, want):
+            raise AssertionError(f"{name}: container {len(enc)} bytes, "
+                                 f"SHA-256 {sha}; the JAX package's "
+                                 f"{nbytes}, {want}")
+        if dec != data:
+            raise AssertionError(f"{name}: decode does not return the input")
+        idle = [k for k in ("lane_encode", "compact_lanes_dev", "lane_layout")
+                if not enc_l[k]] + [k for k in ("lane_decode", "lane_unpack")
+                                    if not dec_l[k]]
+        if idle:
+            raise AssertionError(f"{name}: kernels not launched: {idle}")
+        geom = getattr(cfg, GEOMS[name][0])
+        W = cfg.aux_lanes if GEOMS[name][0] == "flags" else cfg.lanes
+        shape = CT.decode_shape(geom, W)
+        out["containers"][name] = {
+            "bytes": len(enc), "ratio": len(data) / len(enc),
+            "sha256_matches": True, "visit_cap": CT.visit_cap(geom),
+            "entry_bytes": CT.entry_bytes(geom),
+            "table_bytes": CT.table_bytes(geom), "d_shape": shape._asdict(),
+            "launches": {"encode": enc_l, "decode": dec_l}}
+        for k in enc_l:
+            out["launches"][k] = out["launches"].get(k, 0) + enc_l[k] + \
+                dec_l[k]
+    turns = ("l3", "qual_rate7_lo2", "seq_rate14_lo1", "seq_rate14_lo1",
+             "qual_rate7_lo2", "l3")
+    times = {}
+    for i, name in enumerate(turns):
+        cfg = config_for_level(3) if name == "l3" else geom_cfg(name)
+        spans = block_spans(data, dev, cfg, key=f"block_geom_{name}_{i}")
+        for way in ("encode", "decode"):
+            for stream in ("QUAL", "SEQ"):
+                times.setdefault(name, {}).setdefault(way, {}).setdefault(
+                    stream, []).append(spans[way]["streams_ms"][stream])
+    out["streams_ms"] = times
+    print(json.dumps({"geometries": out}), flush=True)
     return out
 
 
@@ -3163,6 +3325,9 @@ def main() -> int:
     # lane counts past 1,024: pins and the W sweep to 65,536
     wide = wide_lanes(data, dev, card, bar_us, cbar_us)
     done("wide_lanes")
+    # the header's other geometries: 32-bit entries, FLAG's device table
+    geo = geometries(data, dev, card, errs)
+    done("geometries")
     # the small-block window path on the same 4-block set
     win = time_window(data, dev, bar_us, cbar_us, errs)
     done("window_kernels")
@@ -3318,6 +3483,14 @@ def main() -> int:
                           "streams_ms": v[f"{way}_streams_ms"],
                           "ratio": v["ratio"]}
                       for W, v in wide["sweep"].items()}}
+        # the header's other geometries: launches on their main-path runs
+        # (both directions), QUAL's and SEQ's times alone in turns (16-bit
+        # entries at level 3, 32-bit at the warm-up geometries)
+        row["geometries"] = {
+            "launches": geo["launches"][name], "card": card,
+            "streams_ms": {g: v[way] for g, v in geo["streams_ms"].items()},
+            "entry_bytes": {g: v["entry_bytes"]
+                            for g, v in geo["containers"].items()}}
         kernels.append(row)
     # Kernel E's six phases on the pinned block's QUAL, one after another
     # (CUDA events summed over its slices), each held against its plain

@@ -79,17 +79,23 @@
 // step count from a descriptor in the launch's __grid_constant__
 // parameters (CUDA >= 12.1 passes 32 KB), so blocks of any lengths share a
 // launch, each with its own steps, fresh table and zeroed counters.
-// * Table entries are 16 bits: p in bits 0-11 (always in [16, 4080]) and
-//   a saturating visit count in bits 12-15. The law reads the visit count
-//   only through the shift above, which stops changing at a count `vcap`
-//   (8 for QUAL, 2 for L3 SEQ, 1 for L1/L2 SEQ), so min(vis, vcap) is
-//   exact; the wrapper derives vcap and refuses a geometry past 15.
+// * Table entries hold p in bits 0-11 (always in [16, 4080]) and a
+//   saturating visit count from bit 12. The law reads the visit count only
+//   through the shift above, which stops changing at a count `vcap` (8 for
+//   QUAL, 2 for L3 SEQ, 1 for L1/L2 SEQ), so min(vis, vcap) is exact. An
+//   entry is 16 bits where vcap fits 4 bits (every built-in level) and 32
+//   bits where it does not (caps 16 to 512, e.g. rate 7 / rate_lo 2, or
+//   14 / 1): the entry type E is a template argument, and the 32-bit form
+//   is instantiated only where the geometry warms up (QUAL and SEQ). A
+//   32-bit entry keeps D at one load a node; shared memory holds half as
+//   many, and a padded SEQ row is one 16-byte load in place of 8 bytes.
 // * Where the table fits the 227 KB of shared memory (the byte and flag
 //   kinds, the L1 tables and L2's SEQ) it lives there, built by the
 //   kernel; otherwise (L3 SEQ 8.4 MB, QUAL 1.03 MB) in device memory,
-//   L2-resident (read past L1 where a cluster shares it). A depth-2 device
-//   table (SEQ) is laid out in rows padded to 4 entries, so a lane loads
-//   its row's three entries in one 8-byte load at the symbol's start.
+//   L2-resident (read past L1 where a cluster shares it), as is a depth-1
+//   table past shared memory (the flag kind past 16 history bits). A
+//   depth-2 device table (SEQ) is laid out in rows padded to 4 entries, so
+//   a lane loads its row's three entries in one load at the symbol's start.
 // * The law's counts: one int32 an entry of the unpadded table (count in
 //   bits 0-15, ones in bits 16-31) in device memory, 16.8 MB for L3 SEQ,
 //   so its table and counters (28 MB) stay in the 50 MB L2 on long reads.
@@ -148,9 +154,36 @@ constexpr int WIDE_LANES = 1 << 16;  // coder_torch.WIDE_LANES
 constexpr int MAX_PER_THREAD = 4;  // lanes a thread (a table in smem)
 
 // A CTA's dynamic shared memory: the table, where it lives there.
-__host__ __device__ inline int table_smem_bytes(int entries) {
-  return (entries * 2 + 15) / 16 * 16;
+__host__ __device__ inline int table_smem_bytes(int entries, int ebytes) {
+  return (entries * ebytes + 15) / 16 * 16;
 }
+
+// A padded row of a depth-2 device table, its 4 entries of type E loaded
+// whole: V the load, `at` node nd's entry (nd 1, 2 or 3)
+template <typename E>
+struct PadRow;
+
+template <>
+struct PadRow<uint16_t> {
+  using V = uint2;
+  static __device__ __forceinline__ V none() {
+    return make_uint2(PROB_MAX | (PROB_MAX << 16), PROB_MAX);
+  }
+  static __device__ __forceinline__ int at(const V& r, int nd) {
+    return (int)(nd == 1 ? r.x & 0xFFFFu : nd == 2 ? r.x >> 16 : r.y & 0xFFFFu);
+  }
+};
+
+template <>
+struct PadRow<uint32_t> {
+  using V = uint4;
+  static __device__ __forceinline__ V none() {
+    return make_uint4(PROB_MAX, PROB_MAX, PROB_MAX, PROB_MAX);
+  }
+  static __device__ __forceinline__ int at(const V& r, int nd) {
+    return (int)(nd == 1 ? r.x : nd == 2 ? r.y : r.z);
+  }
+};
 
 // One lane's payload bytes through aligned 4-byte words in registers, two
 // loaded ahead of the one in use: byte q is row[q] below min(len, Lb),
@@ -212,7 +245,8 @@ struct DecDesc {
   const int* poss;         // [Sp, W]
   const int* resets;       // [Sp, W]
   const uint8_t* mflags;   // [Sp, W], a format-v5 SEQ stream's only
-  uint16_t* table;         // [table_size] (padded where PAD)
+  void* table;             // [table_size] entries of type E (padded
+                           // where PAD)
   int* tally;              // [table_size] (unpadded), zero; 64-bit
                            // counters from WIDE_LANES lanes on
   uint8_t* syms;           // [Sp, W]
@@ -235,8 +269,9 @@ struct DecParams {
 // thread (lane (rank K + i) T + t on thread t of CTA rank, i < K), 2 or 4
 // only for a table in shared memory past 1,024 lanes: each phase of a
 // symbol-step runs over the thread's lanes in turn, so its lanes keep the
-// order they would keep on K threads.
-template <bool SMEM, bool CL, bool WARM, bool PAD, int K>
+// order they would keep on K threads. E: the table entry, uint16_t or (a
+// visit cap past 15, WARM only) uint32_t.
+template <bool SMEM, bool CL, bool WARM, bool PAD, int K, typename E>
 __global__ void __launch_bounds__(CL ? 512 : 1024, 1)
     lane_decode_kernel(const __grid_constant__ DecParams p) {
   extern __shared__ __align__(16) unsigned char smem[];
@@ -250,16 +285,18 @@ __global__ void __launch_bounds__(CL ? 512 : 1024, 1)
   static_assert(!(SMEM && CL), "a cluster's table lives in device memory");
   static_assert(!(SMEM && PAD), "padded rows in device memory only");
   static_assert(K == 1 || (SMEM && !CL), "lanes a thread: one CTA, smem");
+  static_assert(sizeof(E) == 2 || WARM, "32-bit entries warm up");
+  using Row = PadRow<E>;
   const int* __restrict__ poss = desc.poss;
   const int* __restrict__ resets = desc.resets;
   const uint8_t* __restrict__ mflags = desc.mflags;
   uint8_t* __restrict__ syms = desc.syms;
   int* const tally = desc.tally;
-  uint16_t* const table =
-      SMEM ? reinterpret_cast<uint16_t*>(smem) : desc.table;
+  E* const table =
+      SMEM ? reinterpret_cast<E*>(smem) : static_cast<E*>(desc.table);
   if (SMEM) {  // this CTA's table, fresh; the sacrificial row at PROB_MAX
     for (int i = threadIdx.x; i < g.table_size; i += blockDim.x)
-      table[i] = (uint16_t)(i < g.sac_base ? PROB_INIT : PROB_MAX);
+      table[i] = (E)(i < g.sac_base ? PROB_INIT : PROB_MAX);
     __syncthreads();
   }
 
@@ -270,9 +307,9 @@ __global__ void __launch_bounds__(CL ? 512 : 1024, 1)
   };
   auto tstore = [&](int e, int v) {
     if (CL)
-      __stcg(table + e, (unsigned short)v);
+      __stcg(table + e, (E)v);
     else
-      table[e] = (uint16_t)v;
+      table[e] = (E)v;
   };
 
   // a symbol-step's inputs as loaded (read at their use: a compare right
@@ -335,10 +372,11 @@ __global__ void __launch_bounds__(CL ? 512 : 1024, 1)
       // the row's first entry in the table: padded rows start at row * 4
       rb[i] = PAD ? base[i] / 3 * 4 : base[i];
       // a padded row, whole: its three entries (and the unused fourth) in
-      // one 8-byte load
-      uint2 rw = make_uint2(PROB_MAX | (PROB_MAX << 16), PROB_MAX);
+      // one 8-byte (16-bit entries) or 16-byte load
+      typename Row::V rw = Row::none();
       if (PAD && real[i]) {
-        const uint2* src = reinterpret_cast<const uint2*>(table + rb[i]);
+        const auto* src =
+            reinterpret_cast<const typename Row::V*>(table + rb[i]);
         rw = CL ? __ldcg(src) : *src;
       }
       // decode every bit of the symbol from the table as the last
@@ -350,9 +388,7 @@ __global__ void __launch_bounds__(CL ? 512 : 1024, 1)
         if (j < depth) {
           int v = PROB_MAX;
           if (PAD) {  // entry nd - 1 of the row: 0 (level 0), 1 or 2
-            v = (int)(nd == 1   ? rw.x & 0xFFFFu
-                      : nd == 2 ? rw.x >> 16
-                                : rw.y & 0xFFFFu);
+            v = Row::at(rw, nd);
           } else if (real[i]) {
             v = tload(rb[i] + nd - 1);
           }
@@ -436,24 +472,29 @@ __global__ void __launch_bounds__(CL ? 512 : 1024, 1)
 
 // A lane's state between the phases of the loop form (past REG_LANES):
 // its coder, its next payload byte, its context state, and its symbol's
-// first entry (sac_base where the lane is not real), final node and reads.
+// first entry (sac_base where the lane is not real), final node and reads
+// (entries of type E: coder_torch.lane_state_bytes is its size).
+template <typename E>
 struct LaneState {
   uint32_t low, rng, code;
   int ptr;
   uint32_t sa, sb;
   int base, node;
-  uint16_t got[MAX_DEPTH];
+  E got[MAX_DEPTH];
 };
 
 // The loop form of Kernel D: lanes a thread in device memory (LaneState)
 // over a cluster, the table in device memory. WIDE: 64-bit counters (count
 // in bits 0-31, ones in 32-63), else 32-bit ones (count in bits 0-15, ones
-// in 16-31, read unsigned).
-template <bool WARM, bool PAD, bool WIDE>
+// in 16-31, read unsigned). E: the table entry.
+template <bool WARM, bool PAD, bool WIDE, typename E>
 __global__ void __launch_bounds__(1024, 1)
     lane_decode_loop_kernel(const __grid_constant__ DecParams p) {
+  static_assert(sizeof(E) == 2 || WARM, "32-bit entries warm up");
   using Tally = typename std::conditional<WIDE, unsigned long long,
                                           unsigned>::type;
+  using Row = PadRow<E>;
+  using Lane = LaneState<E>;
   constexpr int HALF = WIDE ? 32 : 16;
   const int lc = p.lc;
   const int rank = (int)cg::this_cluster().block_rank();
@@ -464,9 +505,9 @@ __global__ void __launch_bounds__(1024, 1)
   const int depth = PAD ? 2 : cx.depth;
   const int T = (int)blockDim.x, stride = T << lc;
   const int first = rank * T + (int)threadIdx.x;
-  LaneState* const st = static_cast<LaneState*>(desc.state);
+  Lane* const st = static_cast<Lane*>(desc.state);
   Tally* const tally = reinterpret_cast<Tally*>(desc.tally);
-  uint16_t* const table = desc.table;
+  E* const table = static_cast<E*>(desc.table);
   const uint8_t* const payload = desc.payload;
   // lane w's payload byte q: row[q] below min(len, Lb), row[Lb - 1] up to
   // len, 0 past len (the plain version's read)
@@ -481,7 +522,7 @@ __global__ void __launch_bounds__(1024, 1)
     return (Tally)1 | ((Tally)((nd >> (depth - 1 - j)) & 1) << HALF);
   };
   for (int w = first; w < W; w += stride) {
-    LaneState s;
+    Lane s;
     const int len = desc.lens[w];
     s.low = 0;
     s.rng = 0xFFFFFFFFu;
@@ -495,7 +536,7 @@ __global__ void __launch_bounds__(1024, 1)
   }
   for (int t = 0; t < Sp; ++t) {
     for (int w = first; w < W; w += stride) {
-      LaneState s = st[w];
+      Lane s = st[w];
       if (s.base < g.sac_base) {  // take the last symbol-step's marks out
 #pragma unroll
         for (int j = 0; j < MAX_DEPTH; ++j)
@@ -518,8 +559,9 @@ __global__ void __launch_bounds__(1024, 1)
       const int base = cs.row(cx, act, rs, pos, mf);
       const bool real = base < g.sac_base;
       const int rb = PAD ? base / 3 * 4 : base;
-      uint2 rw = make_uint2(PROB_MAX | (PROB_MAX << 16), PROB_MAX);
-      if (PAD && real) rw = __ldcg(reinterpret_cast<const uint2*>(table + rb));
+      typename Row::V rw = Row::none();
+      if (PAD && real)
+        rw = __ldcg(reinterpret_cast<const typename Row::V*>(table + rb));
       const int len = desc.lens[w];
       int nd = 1;
 #pragma unroll
@@ -527,9 +569,7 @@ __global__ void __launch_bounds__(1024, 1)
         if (j < depth) {
           int v = PROB_MAX;
           if (PAD)
-            v = (int)(nd == 1   ? rw.x & 0xFFFFu
-                      : nd == 2 ? rw.x >> 16
-                                : rw.y & 0xFFFFu);
+            v = Row::at(rw, nd);
           else if (real)
             v = (int)__ldcg(table + rb + nd - 1);
           const uint32_t split = (s.rng >> PROB_BITS) * (uint32_t)(v & P_MASK);
@@ -549,7 +589,7 @@ __global__ void __launch_bounds__(1024, 1)
             s.rng <<= 8;
           }
           nd = 2 * nd + one;
-          s.got[j] = (uint16_t)v;
+          s.got[j] = (E)v;
         }
       }
       if (real) {
@@ -568,7 +608,7 @@ __global__ void __launch_bounds__(1024, 1)
     }
     sync_all<true>();  // the symbol-step's counts are complete
     for (int w = first; w < W; w += stride) {
-      const LaneState& s = st[w];
+      const Lane& s = st[w];
       const int base = s.base, nd = s.node;
       if (base >= g.sac_base) continue;
       const int rb = PAD ? base / 3 * 4 : base;
@@ -583,8 +623,7 @@ __global__ void __launch_bounds__(1024, 1)
                           (n - n1) * law_delta<WARM>(g, pp, pvis, n, false);
           const int nv = WARM ? min(pvis + n, g.vcap) : 0;
           __stcg(table + entry(rb, nd, j),
-                 (unsigned short)(clampi(pp + sum, PROB_MIN, PROB_MAX) |
-                                  (nv << VIS_SHIFT)));
+                 (E)(clampi(pp + sum, PROB_MIN, PROB_MAX) | (nv << VIS_SHIFT)));
         }
       }
     }
@@ -641,15 +680,18 @@ const char* error_string(int err) {
 // block; else the descriptors' device tables); padded, a depth-2 device
 // table laid out in rows padded to 4 entries (the descriptors' counters
 // keep the unpadded layout of table_size entries); bytes, a CTA's dynamic
-// shared memory. vcap: the saturating visit count, 0 without warm-up.
-// match: the descriptors carry a format-v5 SEQ stream's [Sp, W] match-span
-// flags. A shape that does not hold is refused (cudaErrorInvalidValue), as
-// is a launch the card refuses; nothing else is launched in its place.
+// shared memory. vcap: the saturating visit count, 0 without warm-up;
+// ebytes: a table entry's bytes, 2, or 4 where vcap passes 15
+// (coder_torch.entry_bytes). match: the descriptors carry a format-v5 SEQ
+// stream's [Sp, W] match-span flags. A shape that does not hold is refused
+// (cudaErrorInvalidValue), as is a launch the card refuses; nothing else
+// is launched in its place.
 int lane_decode(const void* descs, int n, int W, int table_size,
                 int sac_base, int rate, int rate_lo, int vcap, int depth,
                 int kind, int num_ctx, int k0, int k1, int k2, int k3,
                 int match, int cluster, int threads, int smem_table,
-                int padded, int bytes, int per_thread, cudaStream_t stream) {
+                int padded, int bytes, int per_thread, int ebytes,
+                cudaStream_t stream) {
   int lc = 0;
   while ((1 << lc) < cluster) ++lc;
   // past REG_LANES the loop form: a device table, any lanes a thread
@@ -673,7 +715,8 @@ int lane_decode(const void* descs, int n, int W, int table_size,
       depth >= 1 && depth <= MAX_DEPTH &&
       (!smem_table || cluster == 1) &&
       (!padded || (!smem_table && depth == 2 && table_size % 3 == 0)) &&
-      bytes == (smem_table ? table_smem_bytes(table_size) : 0) &&
+      ebytes == (vcap < (1 << 4) ? 2 : 4) && vcap <= (1 << 9) &&
+      bytes == (smem_table ? table_smem_bytes(table_size, ebytes) : 0) &&
       bytes <= SMEM_LIMIT;
   if (!ok) return (int)cudaErrorInvalidValue;
   DecParams p = {};
@@ -691,37 +734,47 @@ int lane_decode(const void* descs, int n, int W, int table_size,
                         p);
     return e != cudaSuccess ? (int)e : (int)cudaGetLastError();
   };
+  // 32-bit entries only where the geometry warms up past a cap of 15
+  const bool wide_entry = ebytes == 4;
   // a table in shared memory: one CTA, 1, 2 or 4 lanes a thread
   auto sm = [&](auto k) -> int {
     constexpr int K = decltype(k)::value;
-    return vcap ? go(lane_decode_kernel<true, false, true, false, K>)
-                : go(lane_decode_kernel<true, false, false, false, K>);
+    if (wide_entry)
+      return go(lane_decode_kernel<true, false, true, false, K, uint32_t>);
+    return vcap
+               ? go(lane_decode_kernel<true, false, true, false, K, uint16_t>)
+               : go(lane_decode_kernel<true, false, false, false, K, uint16_t>);
   };
   if (loop) {  // lanes a thread in device memory, over a cluster
-    auto lp = [&](auto pad) -> int {
-      constexpr bool P = decltype(pad)::value;
-      if (W >= WIDE_LANES)
-        return vcap ? go(lane_decode_loop_kernel<true, P, true>)
-                    : go(lane_decode_loop_kernel<false, P, true>);
-      return vcap ? go(lane_decode_loop_kernel<true, P, false>)
-                  : go(lane_decode_loop_kernel<false, P, false>);
+    auto lp = [&](auto pad, auto wide) -> int {
+      constexpr bool P = decltype(pad)::value, WD = decltype(wide)::value;
+      if (wide_entry)
+        return go(lane_decode_loop_kernel<true, P, WD, uint32_t>);
+      return vcap ? go(lane_decode_loop_kernel<true, P, WD, uint16_t>)
+                  : go(lane_decode_loop_kernel<false, P, WD, uint16_t>);
     };
-    return padded ? lp(std::true_type{}) : lp(std::false_type{});
+    auto lw = [&](auto pad) -> int {
+      return W >= WIDE_LANES ? lp(pad, std::true_type{})
+                             : lp(pad, std::false_type{});
+    };
+    return padded ? lw(std::true_type{}) : lw(std::false_type{});
   }
   if (smem_table)
     return per_thread == 1   ? sm(std::integral_constant<int, 1>{})
            : per_thread == 2 ? sm(std::integral_constant<int, 2>{})
                              : sm(std::integral_constant<int, 4>{});
   // a device table: one CTA or a cluster, rows padded or not
-  auto dev = [&](auto cl) -> int {
-    constexpr bool C = decltype(cl)::value;
-    if (padded)
-      return vcap ? go(lane_decode_kernel<false, C, true, true, 1>)
-                  : go(lane_decode_kernel<false, C, false, true, 1>);
-    return vcap ? go(lane_decode_kernel<false, C, true, false, 1>)
-                : go(lane_decode_kernel<false, C, false, false, 1>);
+  auto dev = [&](auto cl, auto pad) -> int {
+    constexpr bool C = decltype(cl)::value, P = decltype(pad)::value;
+    if (wide_entry)
+      return go(lane_decode_kernel<false, C, true, P, 1, uint32_t>);
+    return vcap ? go(lane_decode_kernel<false, C, true, P, 1, uint16_t>)
+                : go(lane_decode_kernel<false, C, false, P, 1, uint16_t>);
   };
-  return cluster > 1 ? dev(std::true_type{}) : dev(std::false_type{});
+  auto dp = [&](auto cl) -> int {
+    return padded ? dev(cl, std::true_type{}) : dev(cl, std::false_type{});
+  };
+  return cluster > 1 ? dp(std::true_type{}) : dp(std::false_type{});
 }
 
 // `iters` barriers of `threads` threads in one CTA, or of a cluster of

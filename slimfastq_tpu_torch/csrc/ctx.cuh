@@ -21,8 +21,14 @@ constexpr int CAP_LOG2 = 4;
 constexpr int CNT_BITS = 10;  // the format's collision-count field
 constexpr int RENORM_ITERS = 4;
 constexpr int CHUNK_SYMS = 8;  // symbol-steps of an emission chunk
-constexpr int P_MASK = PROB_ONE - 1;  // entry bits 0-11: p
-constexpr int VIS_SHIFT = PROB_BITS;  // entry bits 12-15: visit count
+// A table entry: p in bits 0-11, the visit count (saturated at the
+// geometry's cap) from bit 12. The entry is 16 bits (a 4-bit count) where
+// the cap is below 16, which every built-in level's is, else 32 bits (a
+// 10-bit count: the law's ceil_log2 saturates at 10, so no cap passes 512);
+// coder_torch.entry_bytes chooses, and each kernel takes the entry's type
+// as a template argument.
+constexpr int P_MASK = PROB_ONE - 1;
+constexpr int VIS_SHIFT = PROB_BITS;
 constexpr unsigned FULL = 0xFFFFFFFFu;
 constexpr int SMEM_LIMIT = 232448;  // dynamic shared memory of one CTA
 constexpr int MAX_BLOCKS = 256;  // blocks a launch: coder_torch's too

@@ -69,6 +69,7 @@
 // hottest entry's touches.
 
 #include <climits>
+#include <type_traits>
 
 #include "ctx.cuh"
 
@@ -125,7 +126,8 @@ struct Plan {
   int* val2;            // [Dcap]
   int* hist;            // [RADIX, ntiles]: a pass's histogram
   int* parts;           // scan partial sums
-  uint16_t* tables;     // [B, table_size]: p | vis << 12
+  void* tables;         // [B, table_size]: p | vis << 12, entries of
+                        // `ebytes` (coder_torch.entry_bytes)
   uint32_t* coder;      // [B, 3, W]: low, range, chunk position carried
   uint32_t* low;        // [B, W]: the final low
   int* emax;            // [B]: each block's largest chunk count
@@ -146,6 +148,7 @@ struct Plan {
   // log2 of the hash's slots, dynamic shared memory (0 past CTA_LANES,
   // whose chunks of `tthreads` lanes number nch a step)
   int tthreads, tlanes, nsl, tbytes, nch;
+  int ebytes;  // a table entry's bytes: 2, or 4 where vcap passes 15
 };
 
 // rid's sacrificial value: all ones of its width
@@ -652,11 +655,14 @@ __global__ void __launch_bounds__(SORT_THREADS)
 // ---------------------------------------------------------------------------
 
 // WIDE: n in nk and k in kk (from WIDE_LANES lanes), a template argument
-// so that the record loop of the 16-bit form stays as it was
-template <bool WARM, bool WIDE>
+// so that the record loop of the 16-bit form stays as it was; E: the
+// table entry, uint16_t or (a visit cap past 15, WARM only) uint32_t, so
+// the visit count carried from slice to slice is whole
+template <bool WARM, bool WIDE, typename E>
 __global__ void __launch_bounds__(256)
     entry_scan_kernel(const __grid_constant__ Plan p, const int* K,
                       const int* V) {
+  static_assert(sizeof(E) == 2 || WARM, "32-bit entries warm up");
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   const int N = p.cnt[(size_t)p.B * p.L];
   if (i >= N) return;
@@ -709,7 +715,7 @@ __global__ void __launch_bounds__(256)
       }
       stop = at;
     }
-    uint16_t* const ent = p.tables + (size_t)b * g.table_size + e;
+    E* const ent = static_cast<E*>(p.tables) + (size_t)b * g.table_size + e;
     int pr = *ent & P_MASK, vis = *ent >> VIS_SHIFT;
 #pragma unroll
     for (int k = 0; k < SP; ++k) {
@@ -736,7 +742,7 @@ __global__ void __launch_bounds__(256)
         }
       }
     }
-    *ent = (uint16_t)(pr | (vis << VIS_SHIFT));
+    *ent = (E)(pr | (vis << VIS_SHIFT));
   }
 }
 
@@ -985,20 +991,28 @@ int enc_sort(const void* plan, cudaStream_t stream) {
 
 int enc_scan(const void* plan, cudaStream_t stream) {
   const Plan& p = *static_cast<const Plan*>(plan);
+  if (p.ebytes != (p.geo.vcap < (1 << 4) ? 2 : 4) || p.geo.vcap > (1 << 9))
+    return (int)cudaErrorInvalidValue;
   const bool odd = ((p.nbits + RADIX_BITS - 1) / RADIX_BITS) % 2 == 1;
   const int* K = odd ? p.key1 : p.key;
   const int* V = odd ? p.val1 : p.val2;
   const int grid = (p.Dcap + 255) / 256;
-  if (p.wide) {
-    if (p.geo.vcap)
-      entry_scan_kernel<true, true><<<grid, 256, 0, stream>>>(p, K, V);
+  auto go = [&](auto wide) {
+    constexpr bool WD = decltype(wide)::value;
+    if (p.ebytes == 4)
+      entry_scan_kernel<true, WD, uint32_t><<<grid, 256, 0, stream>>>(p, K,
+                                                                        V);
+    else if (p.geo.vcap)
+      entry_scan_kernel<true, WD, uint16_t><<<grid, 256, 0, stream>>>(p, K,
+                                                                        V);
     else
-      entry_scan_kernel<false, true><<<grid, 256, 0, stream>>>(p, K, V);
-  } else if (p.geo.vcap) {
-    entry_scan_kernel<true, false><<<grid, 256, 0, stream>>>(p, K, V);
-  } else {
-    entry_scan_kernel<false, false><<<grid, 256, 0, stream>>>(p, K, V);
-  }
+      entry_scan_kernel<false, WD, uint16_t><<<grid, 256, 0, stream>>>(p, K,
+                                                                         V);
+  };
+  if (p.wide)
+    go(std::true_type{});
+  else
+    go(std::false_type{});
   return (int)cudaGetLastError();
 }
 

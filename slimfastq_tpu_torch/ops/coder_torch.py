@@ -45,13 +45,16 @@ exactly as the format's collision-count field requires:
 ``online_schedule`` builds) is the independent reference the decoupled
 encode is held against.
 
-The kernels keep 16-bit entries (12-bit p, the visit count saturated at
-``visit_cap``); Kernel D's launch shape (a CTA or a thread block cluster
-a block, the table in the CTA's shared memory or in device memory, SEQ's
-device table in padded rows, the lanes' state in registers or, past
-REG_LANES, in device memory) is ``decode_shape``'s, derived from the
-geometry, W and the window's blocks; the wrappers take any lane count
-and refuse a geometry whose cap needs more than 4 bits.
+The kernels' table entries hold a 12-bit p and the visit count saturated
+at ``visit_cap``: 16 bits (a 4-bit count) where the cap is below 16,
+which every built-in level's is, else 32 bits (a 10-bit count, caps up
+to 512, the most any header can ask for); ``entry_bytes`` chooses.
+Kernel D's launch shape (a CTA or a thread block cluster a block, the
+table in the CTA's shared memory or in device memory, SEQ's device table
+in padded rows, the lanes' state in registers or, past REG_LANES, in
+device memory) is ``decode_shape``'s, derived from the geometry, W and
+the window's blocks; the wrappers take any lane count and any geometry
+the header names up to Kernel D's eight tree levels.
 """
 
 from __future__ import annotations
@@ -73,8 +76,9 @@ _P, _I = _cuda.PTR, _cuda.INT
 _SIGS = {
     # descs, n, W, table_size, sac_base, rate, rate_lo, vcap, depth, kind,
     # num_ctx, k0, k1, k2, k3, match, then the DecodeShape: cluster,
-    # threads, smem_table, padded, bytes, and the lanes a thread; stream
-    "lane_decode": [_P] + [_I] * 21 + [_P],
+    # threads, smem_table, padded, bytes, the lanes a thread and the
+    # entry's bytes; stream
+    "lane_decode": [_P] + [_I] * 22 + [_P],
     # iters, threads, cluster, out, stream
     "barrier_loop": [_I, _I, _I, _P, _P],
 }
@@ -90,7 +94,6 @@ WIDE_LANES = 1 << 16
 CTA_THREADS = 1024  # threads of one CTA
 CLUSTER_THREADS = 512  # threads of each CTA of a cluster (csrc/coder.cu)
 LOOP_THREADS = 1024  # threads of each CTA of the loop form's cluster
-LANE_STATE_BYTES = 48  # csrc/coder.cu's LaneState
 MAX_BLOCKS = 256  # blocks a launch: csrc/coder.cu's MAX_BLOCKS
 MAX_CLUSTER = 8  # CTAs a cluster: the portable size (csrc/coder.cu)
 SMS = 132  # the H100 SXM's streaming multiprocessors
@@ -126,7 +129,9 @@ class _DecDesc(ctypes.Structure):
                 ("syms", ctypes.c_void_p), ("state", ctypes.c_void_p),
                 ("Lb", ctypes.c_int), ("Sp", ctypes.c_int)]
 SMEM_LIMIT = 232448  # dynamic shared memory one CTA may use on the H100
-VIS_BITS = 4  # the kernels' 16-bit entries: 12-bit p, 4-bit visit count
+# the kernels' entries: p in bits 0-11, the visit count from bit 12, in
+# the 4 bits of a 16-bit entry or in a 32-bit one (csrc/ctx.cuh)
+VIS_BITS = 4
 
 
 def _warm(geom) -> bool:
@@ -145,52 +150,53 @@ def _tables(geom, dev):
     return table, vtab
 
 
-def _ceil_log2(c: int) -> int:
-    """#{j < 10 : c > 2^j}, the law's threshold sum."""
-    return sum(c > (1 << j) for j in range(10))
-
-
-def _warm_shift(geom, vis: int) -> int:
-    """The warm-up law's adaptation shift after ``vis`` prior visits
-    (ranger_np.table_update)."""
-    return min(geom.rate, geom.rate_lo + _ceil_log2(min(vis, 1024) + 1))
-
-
 def visit_cap(geom) -> int:
     """The least visit count from which the warm-up shift stops changing
-    (0 without warm-up): the kernels keep min(visits, cap) in 4 bits."""
+    (0 without warm-up): the kernels keep min(visits, cap). The shift
+    min(rate, rate_lo + ceil_log2(v + 1)) reaches its last value where
+    ceil_log2(v + 1) reaches min(rate - rate_lo, 10) (the law's
+    ceil_log2 saturates at 10), at v = 2^(that - 1): no cap passes 512.
+    A closed form: the wrappers read it at every launch."""
     if not _warm(geom):
         return 0
-    top = _warm_shift(geom, 1024)
-    return next(v for v in range(1025) if _warm_shift(geom, v) == top)
+    return 1 << (min(geom.rate - geom.rate_lo, 10) - 1)
+
+
+def entry_bytes(geom) -> int:
+    """Bytes of one entry of the kernels' tables (and of the plain
+    encode's carried tables): 2 where the visit cap fits 4 bits (every
+    built-in level), else 4."""
+    return 2 if visit_cap(geom) < 1 << VIS_BITS else 4
 
 
 def table_bytes(geom) -> int:
-    """Bytes of the kernels' 16-bit table."""
-    return 2 * geom.table_size
+    """Bytes of the kernels' table (entry_bytes an entry)."""
+    return entry_bytes(geom) * geom.table_size
 
 
-def _table_smem(entries: int) -> int:
-    return (2 * entries + 15) // 16 * 16
+def _table_smem(geom) -> int:
+    return (table_bytes(geom) + 15) // 16 * 16
 
 
 def table_in_smem(geom) -> bool:
     """Whether Kernel D's table fits one CTA's shared memory (the kernel
     then builds it there)."""
-    return _table_smem(geom.table_size) <= SMEM_LIMIT
+    return _table_smem(geom) <= SMEM_LIMIT
+
+
+def lane_state_bytes(geom) -> int:
+    """Bytes of csrc/coder.cu's LaneState (the loop form's lanes): its
+    coder, context and symbol fields, and one entry a tree level."""
+    return 32 + MAX_DEPTH * entry_bytes(geom)
 
 
 def _check_geom(geom) -> int:
     """The kernels' visit cap of the geometry; raises where the geometry
-    does not fit them (Kernel D's tree levels, the 16-bit entry)."""
+    does not fit them (Kernel D's tree levels)."""
     if not 1 <= geom.depth <= MAX_DEPTH:
         raise ValueError(f"depth {geom.depth} outside Kernel D's 1 to "
                          f"{MAX_DEPTH} levels")
-    cap = visit_cap(geom)
-    if cap >= 1 << VIS_BITS:
-        raise ValueError(f"visit cap {cap} of rate={geom.rate} rate_lo="
-                         f"{geom.rate_lo} does not fit {VIS_BITS} bits")
-    return cap
+    return visit_cap(geom)
 
 
 class DecodeShape(NamedTuple):
@@ -200,8 +206,9 @@ class DecodeShape(NamedTuple):
     ("device"), ``padded``: a depth-2 device table (SEQ) laid out in rows
     padded to 4 entries, each loaded whole at its symbol's start;
     ``entries``: the table's entries in that layout; each CTA's dynamic
-    shared memory and the launch's ``ctas``. The law's counters, one
-    int32 an entry of the unpadded table, live in device memory."""
+    shared memory and the launch's ``ctas``; ``entry_bytes``: 2 or 4
+    (entry_bytes). The law's counters, one int32 an entry of the unpadded
+    table, live in device memory."""
     cluster: int
     threads: int
     table: str
@@ -209,6 +216,7 @@ class DecodeShape(NamedTuple):
     entries: int
     smem_bytes: int
     ctas: int
+    entry_bytes: int = 2
 
 
 def may_cluster(geom, W: int) -> bool:
@@ -233,26 +241,26 @@ def decode_shape(geom, W: int, B: int = 1) -> DecodeShape:
     one lane. Past REG_LANES every stream takes the loop form: a cluster
     of MAX_CLUSTER CTAs of up to LOOP_THREADS threads, its table in device
     memory (in padded rows at depth 2), as many lanes a thread as W asks.
-    Raises where the geometry does not fit the kernel."""
+    Entries of 32 bits (entry_bytes) halve the entries shared memory
+    holds. Raises where the geometry does not fit the kernel."""
     _check_geom(geom)
     if not 1 <= B <= MAX_BLOCKS:
         raise ValueError(f"one launch codes 1 to {MAX_BLOCKS} blocks, not "
                          f"{B}")
+    eb = entry_bytes(geom)
     if W > REG_LANES:
         C = MAX_CLUSTER
         threads = min(LOOP_THREADS, (-(-W // C) + 31) // 32 * 32)
         padded = geom.depth == 2
         entries = geom.table_size // 3 * 4 if padded else geom.table_size
-        return DecodeShape(C, threads, "device", padded, entries, 0, B * C)
+        return DecodeShape(C, threads, "device", padded, entries, 0, B * C,
+                           eb)
     lanes = (W + 31) // 32 * 32
+    # a table past shared memory lives in device memory, a depth-1 one
+    # (the flag kind past 16 history bits) as well as a deeper one
     if table_in_smem(geom):
-        table, smem = "smem", _table_smem(geom.table_size)
+        table, smem = "smem", _table_smem(geom)
     else:
-        if geom.depth < 2:
-            # no level has a depth-1 table past shared memory: the one
-            # depth-1 kind, flag, has 2^hist_bits + 1 entries (5 at levels
-            # 1-4)
-            raise ValueError("a depth-1 table must fit shared memory")
         table, smem = "device", 0
     padded = table == "device" and geom.depth == 2
     entries = geom.table_size // 3 * 4 if padded else geom.table_size
@@ -265,7 +273,7 @@ def decode_shape(geom, W: int, B: int = 1) -> DecodeShape:
         C *= 2
     k = 1 if C > 1 else cta_lanes_per_thread(W)
     threads = (-(-W // (C * k)) + 31) // 32 * 32
-    return DecodeShape(C, threads, table, padded, entries, smem, B * C)
+    return DecodeShape(C, threads, table, padded, entries, smem, B * C, eb)
 
 
 def cta_lanes_per_thread(W: int) -> int:
@@ -298,16 +306,17 @@ def _kernel_geom(geom, W: int, dev, B: int | None = None):
 
 def device_table(geom, dev, B: int | None = None,
                  padded: bool = False) -> torch.Tensor:
-    """A fresh table of the kernels' 16-bit entries in device memory
-    (PROB_INIT, visit count 0; the sacrificial row at PROB_MAX), or B of
-    them [B, table_size], one a block; ``padded``: a depth-2 table's rows
-    padded to 4 entries (Kernel D's layout: row r's node k at 4 r + k -
-    1)."""
+    """A fresh table of the kernels' entries in device memory (int16 or
+    int32 by entry_bytes; PROB_INIT, visit count 0; the sacrificial row
+    at PROB_MAX), or B of them [B, table_size], one a block; ``padded``: a
+    depth-2 table's rows padded to 4 entries (Kernel D's layout: row r's
+    node k at 4 r + k - 1)."""
     size, sac = geom.table_size, geom.sac_base
     if padded:
         size, sac = size // 3 * 4, sac // 3 * 4
     table = torch.full((size,) if B is None else (B, size), PROB_INIT,
-                       dtype=torch.int16, device=dev)
+                       dtype=torch.int16 if entry_bytes(geom) == 2
+                       else torch.int32, device=dev)
     table[..., sac:] = PROB_MAX
     return table
 
@@ -743,8 +752,9 @@ def lane_decode_blocks(items, kind: str, geom) -> list:
     B = len(checked)
     table, tally, vcap, shape = _kernel_geom(geom, W, dev, B)
     # the loop form's lanes' state (csrc/coder.cu's LaneState), one a lane
-    states = (torch.empty((B, W, LANE_STATE_BYTES // 4), dtype=torch.int32,
-                          device=dev) if W > REG_LANES else None)
+    states = (torch.empty((B, W, lane_state_bytes(geom) // 4),
+                          dtype=torch.int32, device=dev)
+              if W > REG_LANES else None)
     # the kernel takes the flags only where the geometry has the family
     family = all(flagged) and kind == "seq" and bool(geom.match_bits)
     lib = _cuda.load("coder", _SIGS)
@@ -771,7 +781,7 @@ def lane_decode_blocks(items, kind: str, geom) -> list:
         geom.depth, KINDS[kind], geom.num_ctx, *_kind_params(kind, geom),
         int(family), shape.cluster, shape.threads,
         int(shape.table == "smem"), int(shape.padded), shape.smem_bytes,
-        lanes_per_thread(shape, W))
+        lanes_per_thread(shape, W), shape.entry_bytes)
     _cuda.count("lane_decode", B, dev)
     _cuda.check(lib, err, "lane_decode")
     return outs

@@ -30,7 +30,9 @@ phases, each over its own parallel axis (csrc/encode.cu):
    each record's number in the same order;
 4. ``entry_scan``: each entry walks its records in order and writes p
    as it stood before each record over the record's ``nk``; the tables
-   ``[B, table_size]`` (16-bit: p | vis << 12) carry to the next slice;
+   ``[B, table_size]`` (p | vis << 12, 16-bit or, where the visit cap
+   passes 15, 32-bit entries: coder_torch.entry_bytes) carry to the next
+   slice with the whole visit count;
 5. ``gather``: each decision's p through its record, with its bit,
    written over its rid (p | bit << 15);
 6. ``code``: each lane codes its decisions alone from them, emitting
@@ -59,9 +61,10 @@ from . import _cuda
 from .coder_torch import (CHUNK_SYMS, KINDS, _coder_step, _ctx_advance,
                           _ctx_init, _ctx_step, _kind_params, _lg_lut,
                           _renorm, _u32_bits, _warm, WIDE_LANES,
-                          cta_lanes_per_thread, device_table, visit_cap)
-from .ranger import (BOT, CAP_LOG2, MASK32, PROB_MAX, PROB_MIN, PROB_ONE,
-                     RENORM_ITERS)
+                          cta_lanes_per_thread, device_table, entry_bytes,
+                          visit_cap)
+from .ranger import (BOT, CAP_LOG2, MASK32, PROB_BITS, PROB_MAX, PROB_MIN,
+                     PROB_ONE, RENORM_ITERS)
 
 # decisions (blocks x bit-steps x lanes) of one slice: its scratch is
 # about SCRATCH_PER_DECISION bytes each (~105 MB); the tests lower it to
@@ -81,6 +84,7 @@ RADIX_BITS = 8
 TILE = 1024  # records a sort tile (csrc/encode.cu)
 SCAN_CHUNK = 4096  # ints a scan CTA covers
 BIT_SHIFT = 15  # the gather's u16 a decision: p (bits 0-11), its bit
+VIS_SHIFT = PROB_BITS  # a table entry's visit count, above its 12-bit p
 
 _P, _I = _cuda.PTR, _cuda.INT
 _SIGS = {"enc_rows": [_P, _I, _P], "enc_touches": [_P, _I, _P],
@@ -108,7 +112,7 @@ class _Plan(ctypes.Structure):
             "table_size", "sac_base", "rate", "rate_lo", "vcap", "kind",
             "depth", "num_ctx", "k0", "k1", "k2", "k3", "B", "W", "CB", "L",
             "Lt", "Dcap", "ntiles", "nbits", "wide", "tthreads", "tlanes",
-            "nsl", "tbytes", "nch")]
+            "nsl", "tbytes", "nch", "ebytes")]
 
 
 class TouchShape(NamedTuple):
@@ -283,6 +287,7 @@ class EncodeSet:
             t = getattr(self, name)
             setattr(p, name, None if t is None else t.data_ptr())
         p.wide = int(self.wide)
+        p.ebytes = entry_bytes(g)
         return p
 
     def use_rid(self, i: int) -> None:
@@ -578,6 +583,7 @@ def entry_scan_plain(es: EncodeSet) -> None:
     e = K[starts]
     G = starts.numel()
     tab = es.tables.view(-1)
+    bits = torch.iinfo(tab.dtype).bits  # 16 or 32 (entry_bytes)
     # a record's block: the last block whose first record is at or before
     # it (a block without records starts where the next one does)
     starts_b = es.cnt[0: es.B * es.L: es.L].long()
@@ -586,9 +592,8 @@ def entry_scan_plain(es: EncodeSet) -> None:
     vis = torch.zeros_like(pr)
 
     def store(g):
-        v = pr[g] | (vis[g] << 12)
-        tab[cur[g] * T + e[g]] = torch.where(v >= 1 << 15, v - (1 << 16),
-                                             v).to(torch.int16)
+        tab[cur[g] * T + e[g]] = _wrap(pr[g] | (vis[g] << VIS_SHIFT),
+                                       tab.dtype)
     for i in range(int(lens.max())):
         g = (lens > i).nonzero().flatten()
         r = V[starts[g] + i]
@@ -605,9 +610,9 @@ def entry_scan_plain(es: EncodeSet) -> None:
         into = g[sw]
         if into.numel():
             cur[into] = b[sw]
-            ent = tab[b[sw] * T + e[into]].long() & 0xFFFF
+            ent = tab[b[sw] * T + e[into]].long() & ((1 << bits) - 1)
             pr[into] = ent & (PROB_ONE - 1)
-            vis[into] = ent >> 12
+            vis[into] = ent >> VIS_SHIFT
         p, v = pr[g], vis[g]
         es.nk[r] = p.int()
         d1 = _law(geom, warm, lg, p, v, n, True)

@@ -299,14 +299,32 @@ def test_table_bytes_and_shared_memory_fit():
 
 
 def test_kernel_geometry_refusals():
-    """Where the 16-bit entry cannot hold a geometry, the kernels'
-    wrappers raise (they never fall back to the plain version); any lane
-    count is taken."""
+    """Every geometry the header names is taken: a visit cap of 16 or 512
+    (the most the law allows) with 32-bit entries, FLAG's depth-1 table
+    at 17 history bits in device memory; what stays refused is a depth
+    past Kernel D's 8 levels (the wrappers raise, never falling back to
+    the plain version); any lane count is taken."""
     cpu = torch.device("cpu")
-    warm = replace(tconfig.LEVELS[3].seq, rate=14, rate_lo=1)
-    assert CT.visit_cap(warm) == 512
-    with pytest.raises(ValueError, match="visit cap"):
-        CT._kernel_geom(warm, 64, cpu)
+    for rate, rate_lo, cap in ((7, 2, 16), (14, 1, 512)):
+        warm = replace(tconfig.LEVELS[3].seq, rate=rate, rate_lo=rate_lo)
+        assert CT.visit_cap(warm) == cap
+        table, tally, vcap, shape = CT._kernel_geom(warm, 64, cpu)
+        # SEQ's padded rows of four 32-bit entries, the visit count 0
+        assert (vcap, shape.entry_bytes, shape.padded) == (cap, 4, True)
+        assert table.dtype == torch.int32 and table.shape == (shape.entries,)
+        assert int(table[0]) == R.PROB_INIT and int(table[-1]) == R.PROB_MAX
+        assert tally.dtype == torch.int32 and not tally.any()
+        qual = replace(tconfig.LEVELS[3].qual, rate=rate, rate_lo=rate_lo)
+        table = CT._kernel_geom(qual, 4097, cpu, 2)[0]
+        assert table.dtype == torch.int32 and table.shape[0] == 2
+    flag = replace(tconfig.LEVELS[3].flags, hist_bits=17)
+    table, tally, vcap, shape = CT._kernel_geom(flag, 64, cpu)
+    assert (vcap, shape.table, shape.cluster, shape.entry_bytes) == (
+        0, "device", 1, 2)
+    assert table.dtype == torch.int16
+    assert table.shape == (flag.table_size,) == tally.shape[1:]
+    with pytest.raises(ValueError, match="levels"):
+        CT._kernel_geom(replace(tconfig.LEVELS[3].bytes_, depth=9), 64, cpu)
     # 4,097 lanes and more are taken: the loop form, its counters 64-bit
     # from 65,536 lanes on
     for W, wide in ((4097, False), (8192, False), (65536, True)):

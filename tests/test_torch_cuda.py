@@ -22,7 +22,11 @@ stream's 1,024 lanes of 100-base reads over 8 CTAs; QUAL's in every
 in every CTA, with level 4's match family, and over a ragged window; and
 SEQ's other shape, one CTA for 1,500-base reads, chosen by its inputs;
 past 4,096 lanes (up to 65,536, every lane on one entry) D's loop form
-and E's touches over chunks, any lane count taken. Each test runs under
+and E's touches over chunks, any lane count taken; geometries past the
+built-in levels' (visit caps of 16 and 512 in 32-bit entries, in every
+table placement and shape, with 512 lanes and more on one entry, also
+over several of E's slices; FLAG's depth-1 table at 17 history bits in
+device memory, in one CTA and over a cluster). Each test runs under
 an alarm of CARD_TEST_LIMIT_S. Marked `cuda`: they
 skip without a card. This file imports
 neither JAX nor the JAX package, so it runs on a machine that has only
@@ -154,13 +158,53 @@ CASES = {
     "seq-w65536-collide": (3, "seq", 65536, False, None, None, False, False),
     "qual-w65536-collide": (3, "qual", 65536, False, None, None, False,
                             False),
+    # geometries the header names past the built-in levels': visit caps of
+    # 16 (rate 7, rate_lo 2) and 512 (14 / 1) in 32-bit entries, 512 lanes
+    # and more on one entry (QUAL's 1,024 at each read start, SEQ's 700 or
+    # 1,024): a device table over a cluster, in one CTA (padded and not),
+    # in shared memory (level 1's QUAL, one, two and four lanes a thread)
+    # and in the loop form (padded and not, its counters 32- and 64-bit);
+    # FLAG at 17 history bits, its depth-1 table in device memory in one
+    # CTA and over a cluster
+    "qual-cap16": (3, "qual", 1024, False, None, None, False, False),
+    "qual-cap512": (3, "qual", 1024, False, None, None, False, False),
+    "seq-cap16-collide-1024": (3, "seq", 1024, False, None, None, False,
+                               False),
+    "seq-cap512-collide-700": (3, "seq", 1024, False, 700, None, False,
+                               False),
+    "seq-cap512-w64": (3, "seq", 64, False, None, None, False, False),
+    "qual-cap16-w128": (3, "qual", 128, False, None, None, False, False),
+    "qual-l1-cap16": (1, "qual", 1024, False, None, None, True, False),
+    "qual-l1-cap512-w2048": (1, "qual", 2048, False, None, None, True,
+                             False),
+    "qual-l1-cap16-w4096": (1, "qual", 4096, False, None, None, True,
+                            False),
+    "qual-cap512-w8192": (3, "qual", 8192, False, None, None, False, False),
+    "seq-cap16-w8192": (3, "seq", 8192, False, None, None, False, False),
+    "qual-cap16-w65536": (3, "qual", 65536, False, None, None, False,
+                          False),
+    "seq-cap512-w65536": (3, "seq", 65536, False, None, None, False,
+                          False),
+    "flag-hist17": (3, "flag", 64, False, None, None, False, False),
+    "flag-hist17-w1024": (3, "flag", 1024, False, None, None, False, False),
 }
+# each geometry case's change from its level's geometry
+CASE_GEOMS = {c: (dict(rate=7, rate_lo=2) if "cap16" in c
+                  else dict(rate=14, rate_lo=1) if "cap512" in c
+                  else dict(hist_bits=17))
+              for c in CASES if "cap" in c or "hist17" in c}
+
+
+def _case_geom(case):
+    """A CASES entry's geometry: its level's, with CASE_GEOMS' change."""
+    level, kind, _, _, _, depth, _, _ = CASES[case]
+    return replace(_geom(level, kind, depth), **CASE_GEOMS.get(case, {}))
 
 
 @pytest.mark.parametrize("case", list(CASES))
 def test_coder_and_compact_kernels_match_plain(dev, case):
     level, kind, W, hard, active, depth, smem, match = CASES[case]
-    geom = _geom(level, kind, depth)
+    geom = _case_geom(case)
     assert CT.table_in_smem(geom) == smem
     rng = np.random.default_rng(1)
     syms, counts, pos, reset, mflag = _stream(kind, rng, dev, W, active,
@@ -202,7 +246,7 @@ def test_encode_phases_match_plain(dev, case, monkeypatch):
     slices of 1,000 bit-steps, which end inside a symbol and a chunk."""
     from slimfastq_tpu_torch.ops import encode_torch as E
     level, kind, W, hard, active, depth, smem, match = CASES[case]
-    geom = _geom(level, kind, depth)
+    geom = _case_geom(case)
     rng = np.random.default_rng(1)
     syms, counts, pos, reset, mflag = _stream(kind, rng, dev, W, active,
                                               hi=1 << (depth or 6),
@@ -233,6 +277,31 @@ def test_encode_long_stream_crosses_slices(dev, monkeypatch):
     monkeypatch.setattr(E, "SLICE_DECISIONS", 4999 * 1024)
     for a, b in zip(whole, CT.lane_encode(syms, pos, reset, c, "qual",
                                           geom, CB)):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("rate,rate_lo", [(7, 2), (14, 1)])
+def test_encode_warm_stream_crosses_slices(dev, monkeypatch, rate,
+                                           rate_lo):
+    """A QUAL stream at visit caps 16 and 512 (32-bit entries) of 1,024
+    steps over 1,024 lanes (every lane on one entry at each read start), in
+    slices of 999 bit-steps (7): each of E's phases against its plain
+    version slice by slice, and E whole against the lockstep plain form,
+    so the tables carried between slices keep the whole visit count."""
+    from slimfastq_tpu_torch.ops import encode_torch as E
+    geom = replace(_geom(3, "qual"), rate=rate, rate_lo=rate_lo)
+    assert CT.entry_bytes(geom) == 4
+    rng = np.random.default_rng(rate)
+    syms, counts, pos, reset, _ = _stream("qual", rng, dev, 1024, Sp=1024)
+    c = torch.from_numpy(counts.astype(np.int32)).to(dev)
+    item = CT.EncIn(syms, pos, reset, c)
+    CB = ST._chunk_bytes(geom.depth, False)
+    monkeypatch.setattr(E, "SLICE_DECISIONS", 999 * 1024)
+    assert E.slice_steps(1, 1024, 1024 * 6) * 6 < 1024 * 6
+    E.compare_phases([item], "qual", geom, CB)
+    got = CT.lane_encode(syms, pos, reset, c, "qual", geom, CB)
+    for a, b in zip(got, CT.lane_encode_blocks_plain([item], "qual", geom,
+                                                     CB)[0]):
         assert torch.equal(a, b)
 
 
@@ -649,8 +718,9 @@ def test_python_pipeline_on_card(dev, level):
 
 
 def test_wide_block_refused(dev):
-    """Any lane count codes on the card (no plain version stands in); a
-    visit cap past 4 bits is refused."""
+    """Any lane count codes on the card (no plain version stands in), and
+    so does a visit cap of 512 (32-bit entries), equal to the plain
+    version on the CPU: nothing is refused."""
     geom = config_for_level(3).flags
     from slimfastq_tpu_torch.ops import _cuda
     for W in (1025, 4097, 65536):
@@ -659,12 +729,17 @@ def test_wide_block_refused(dev):
         _cuda.reset_launches()
         CT.lane_encode(z, None, None, c, "flag", geom, 16)
         assert _cuda.launches["lane_encode"] == 1
-    z = torch.zeros((8, 64), dtype=torch.uint8, device=dev)
-    c = torch.zeros(64, dtype=torch.int32, device=dev)
     warm = replace(config_for_level(3).seq, rate=14, rate_lo=1)
-    zi = z.int()
-    with pytest.raises(ValueError, match="visit cap"):
-        CT.lane_encode(z, zi, zi, c, "seq", warm, 16)
+    rng = np.random.default_rng(5)
+    syms, counts, pos, reset, _ = _stream("seq", rng, dev, 64)
+    c = torch.from_numpy(counts.astype(np.int32)).to(dev)
+    _cuda.reset_launches()
+    got = CT.lane_encode(syms, pos, reset, c, "seq", warm, 16)
+    assert _cuda.launches["lane_encode"] == 1
+    want = CT.lane_encode(*(x.cpu() for x in (syms, pos, reset, c)), "seq",
+                          warm, 16)
+    for a, b in zip(got, want):
+        assert torch.equal(a.cpu(), b)
 
 
 def test_entry_on_card(dev):

@@ -97,21 +97,34 @@ def test_decode_shape_of_the_main_path():
 
 
 def test_decode_shape_refusals():
-    """A visit cap past 4 bits, a depth past the kernel's 8 levels, a
-    depth-1 table that does not fit shared memory and a launch of 0 or
-    more than 256 blocks are refused, each with its reason; 1,025, 4,097,
-    8,192 and 65,536 lanes are taken."""
+    """A depth past the kernel's 8 levels and a launch of 0 or more than
+    256 blocks are refused, each with its reason; 1,025, 4,097, 8,192 and
+    65,536 lanes are taken, and so are visit caps of 16 and 512 (32-bit
+    entries: SEQ's padded rows, QUAL over its cluster as at 16 bits) and a
+    depth-1 table past shared memory (FLAG at 17 history bits: device
+    memory, one CTA, its rows unpadded)."""
     cfg = tconfig.LEVELS[3]
     for W in (4097, 8192, 65536):
         s = CT.decode_shape(cfg.qual, W)
         assert s.cluster * s.threads * CT.lanes_per_thread(s, W) >= W
     assert CT.decode_shape(cfg.qual, 1025).cluster == 8
-    with pytest.raises(ValueError, match="visit cap"):
-        CT.decode_shape(replace(cfg.seq, rate=14, rate_lo=1), 64)
+    for rate, rate_lo in ((7, 2), (14, 1)):
+        seq = replace(cfg.seq, rate=rate, rate_lo=rate_lo)
+        s = CT.decode_shape(seq, 64)
+        assert (s.table, s.padded, s.entry_bytes, s.cluster) == (
+            "device", True, 4, 1)
+        assert s.entries == seq.table_size // 3 * 4
+        qual = replace(cfg.qual, rate=rate, rate_lo=rate_lo)
+        assert CT.decode_shape(qual, 1024)._replace(entry_bytes=2) == \
+            CT.decode_shape(cfg.qual, 1024)
+    flag = replace(cfg.flags, hist_bits=17)
+    for W in (64, 1024, 5000):
+        s = CT.decode_shape(flag, W)
+        assert (s.table, s.padded, s.smem_bytes, s.entries) == (
+            "device", False, 0, flag.table_size)
+    assert CT.decode_shape(flag, 64).cluster == 1
     with pytest.raises(ValueError, match="levels"):
         CT.decode_shape(replace(cfg.bytes_, depth=9), 64)
-    with pytest.raises(ValueError, match="shared memory"):
-        CT.decode_shape(replace(cfg.flags, hist_bits=17), 64)
     for B in (0, CT.MAX_BLOCKS + 1):
         with pytest.raises(ValueError, match="blocks"):
             CT.decode_shape(cfg.qual, 1024, B)

@@ -176,9 +176,10 @@ def geom_kind(kind: str) -> str:
 def test_slices_refused_for_a_shared_memory_table():
     """A table that lives in shared memory codes in one launch with the
     others (the kernel builds it there, fresh; nothing carries it between
-    launches). What the wrapper refuses: a depth-1 table that does not
-    fit shared memory (no level has one), a launch of no blocks, and
-    blocks of different lanes."""
+    launches). A depth-1 table that does not fit shared memory (FLAG at
+    17 history bits; no level has one) takes Kernel D's device-memory
+    shape, a fresh table a block. What the wrapper refuses: a launch of
+    no blocks, and blocks of different lanes."""
     cfg = config_for_level(3, lanes=W, aux_lanes=8)
     counts = torch.full((W,), 16, dtype=torch.int32)
     z = CT.EncIn(torch.zeros((16, W), dtype=torch.uint8), None, None, counts)
@@ -187,8 +188,11 @@ def test_slices_refused_for_a_shared_memory_table():
     assert [o[1].shape for o in outs] == [(2, W)] * 2
     wide = replace(cfg.flags, hist_bits=17)
     assert not CT.table_in_smem(wide)
-    with pytest.raises(ValueError, match="shared memory"):
-        CT._kernel_geom(wide, W, torch.device("cpu"))
+    table, tally, _, shape = CT._kernel_geom(wide, W, torch.device("cpu"),
+                                             2)
+    assert (shape.table, shape.padded, shape.cluster, shape.smem_bytes) == (
+        "device", False, 1, 0)
+    assert table.shape == tally.shape == (2, wide.table_size)
     with pytest.raises(ValueError, match="blocks"):
         CT.lane_encode_blocks([], "byte", cfg.bytes_, 64)
     z8 = CT.EncIn(z.syms[:, :8], None, None, counts[:8])
