@@ -50,6 +50,7 @@ from .pipeline_native import (block_span, decode_block_finish,
                               encode_prepared_blocks, numpy_empty,
                               prepare_block_fast)
 from .utils.fastq import FastqBatch, parse_fastq_bytes, serialize_fastq
+from .utils.stats import current_call, root, trace
 
 
 # the most blocks a window takes: a window's coded streams (11 a level-4
@@ -185,9 +186,12 @@ def _encode_ranges(ranges, cfg: CodecConfig, step, window, emit) -> list:
     its device budget; the writer overlaps container framing/CRC/IO with
     the next window's device work. FIFO submission to the one-worker
     writer keeps block order, so the container equals the serial one.
-    Memory holds that many prepared blocks, whatever the file's size."""
+    Memory holds that many prepared blocks, whatever the file's size.
+    Spans: the main thread's waits on prep and on the writer, and each
+    window's device step; each prep takes the caller's call id."""
     wb = step.window(cfg, window)
     depth = _pipe_depth()
+    call = current_call()
     ahead = depth + wb - 1
     budgets = step.budgets()
     ranges = iter(ranges)
@@ -209,7 +213,8 @@ def _encode_ranges(ranges, cfg: CodecConfig, step, window, emit) -> list:
                 if pfuts and held + span > _PREP_BYTES:
                     return
                 pfuts.append((prep_ex.submit(prepare_block_fast, *nxt, cfg,
-                                             step.host_pack, step.empty),
+                                             step.host_pack, step.empty,
+                                             call=call),
                                span))
                 held += span
                 nxt = None
@@ -217,7 +222,8 @@ def _encode_ranges(ranges, cfg: CodecConfig, step, window, emit) -> list:
         while pfuts:
             pres, sizes, spans = [], [], 0
             while pfuts and len(pres) < wb:
-                pre = pfuts[0][0].result()
+                with trace("sfq.encode.wait_prep"):
+                    pre = pfuts[0][0].result()
                 need = device_bytes(pre, cfg)
                 if pres and not fits(sizes + [need], budgets):
                     break
@@ -225,14 +231,18 @@ def _encode_ranges(ranges, cfg: CodecConfig, step, window, emit) -> list:
                 sizes.append(need)
                 spans += pfuts.popleft()[1]
                 fill()
-            for blk in step.encode(pres, cfg):
+            with trace("sfq.encode.step", blocks=len(pres)):
+                blks = step.encode(pres, cfg)
+            for blk in blks:
                 wfuts.append(write_ex.submit(emit, blk))
-            del pres
+            del pres, blks
             held -= spans
             fill()
             while len(wfuts) > wb + 1:  # surface write errors promptly
-                results.append(wfuts.popleft().result())
-        results.extend(wf.result() for wf in wfuts)
+                with trace("sfq.encode.wait_write"):
+                    results.append(wfuts.popleft().result())
+        with trace("sfq.encode.wait_write"):
+            results.extend(wf.result() for wf in wfuts)
     return results
 
 
@@ -266,16 +276,21 @@ def encode_fastq_python(data: bytes, cfg: CodecConfig, coder) -> bytes:
 
 def encode_fastq_on(data: bytes, cfg: CodecConfig, step, window) -> bytes:
     """encode_fastq on a device step (a Card or a mesh's Sharded)."""
-    out = io.BytesIO()
-    container.write_header(out, cfg)
-    buf = np.frombuffer(data, dtype=np.uint8)
-    idx, n = native.fastq_index(data)
-    ranges = ((buf, idx, lo, min(lo + cfg.block_records, n))
-              for lo in range(0, max(n, 1), cfg.block_records))
-    offsets = _encode_ranges(ranges, cfg, step, window,
-                             lambda blk: container.write_block(out, blk))
-    container.write_index(out, offsets)
-    return out.getvalue()
+    with root("sfq.encode", raw_bytes=len(data)) as sp:
+        out = io.BytesIO()
+        container.write_header(out, cfg)
+        buf = np.frombuffer(data, dtype=np.uint8)
+        with trace("sfq.encode.index"):
+            idx, n = native.fastq_index(data)
+        starts = range(0, max(n, 1), cfg.block_records)
+        sp.set(blocks=len(starts))
+        ranges = ((buf, idx, lo, min(lo + cfg.block_records, n))
+                  for lo in starts)
+        offsets = _encode_ranges(ranges, cfg, step, window,
+                                 lambda blk: container.write_block(out, blk))
+        with trace("sfq.encode.output"):
+            container.write_index(out, offsets)
+            return out.getvalue()
 
 
 def _decode_blocks(f, cfg: CodecConfig, step, window, emit) -> None:
@@ -289,9 +304,12 @@ def _decode_blocks(f, cfg: CodecConfig, step, window, emit) -> None:
     release the GIL) run behind the device, collected in order. Blocks
     are read one at a time (seek-based, container.iter_blocks), so memory
     holds a window and the finishes in flight, whatever the container's
-    size."""
+    size. Spans: the main thread's waits on the reader (each with the
+    next block's read handed to it) and on the finishes, and each
+    window's device step; each finish takes the caller's call id."""
     wb = step.window(cfg, window)
     depth = _pipe_depth()
+    call = current_call()
     with native.pipeline_omp_cap(), \
             ThreadPoolExecutor(max_workers=depth) as fin_ex, \
             ThreadPoolExecutor(max_workers=1) as read_ex:
@@ -302,18 +320,28 @@ def _decode_blocks(f, cfg: CodecConfig, step, window, emit) -> None:
         while more:
             blocks = []
             while len(blocks) < wb:
-                blk = rfut.result()
+                with trace("sfq.decode.wait_read"):  # and the next read
+                    blk = rfut.result()
+                    if blk is not None:
+                        rfut = read_ex.submit(next, gen, None)
                 if blk is None:
                     more = False
                     break
-                rfut = read_ex.submit(next, gen, None)
                 blocks.append(blk)
-            for inter in step.decode(blocks, cfg):
-                futs.append(fin_ex.submit(decode_block_finish, inter, cfg))
+            with trace("sfq.decode.step", blocks=len(blocks)):
+                inters = step.decode(blocks, cfg)
+            for inter in inters:
+                futs.append(fin_ex.submit(decode_block_finish, inter, cfg,
+                                          call=call))
+            del inters
             while len(futs) > depth:
-                emit(futs.popleft().result())
+                with trace("sfq.decode.wait_finish"):
+                    part = futs.popleft().result()
+                emit(part)
         while futs:
-            emit(futs.popleft().result())
+            with trace("sfq.decode.wait_finish"):
+                part = futs.popleft().result()
+            emit(part)
 
 
 def decode_fastq(data: bytes, device=None, window: int | None = None,
@@ -336,11 +364,15 @@ def _decode_python(f, cfg: CodecConfig, coder, emit) -> None:
 
 def decode_fastq_on(data: bytes, step, window) -> bytes:
     """decode_fastq on a device step (a Card or a mesh's Sharded)."""
-    f = io.BytesIO(data)
-    cfg = container.read_header(f)
-    parts = []
-    _decode_blocks(f, cfg, step, window, parts.append)
-    return b"".join(parts)
+    with root("sfq.decode") as sp:
+        f = io.BytesIO(data)
+        cfg = container.read_header(f)
+        parts = []
+        _decode_blocks(f, cfg, step, window, parts.append)
+        with trace("sfq.decode.output"):
+            out = b"".join(parts)
+        sp.set(raw_bytes=len(out), blocks=len(parts))
+        return out
 
 
 def encode_file(src: str, dst: str, level: int = 3, device=None,
@@ -404,9 +436,10 @@ def iter_block_ranges_native(src: str, cfg: CodecConfig,
     carry = b""
     with open(src, "rb") as f:
         while True:
-            chunk = bytearray(len(carry) + chunk_bytes)
-            chunk[:len(carry)] = carry
-            got = _read_full(f, chunk, len(carry))
+            with trace("sfq.encode.read"):
+                chunk = bytearray(len(carry) + chunk_bytes)
+                chunk[:len(carry)] = carry
+                got = _read_full(f, chunk, len(carry))
             eof = got < chunk_bytes
             if eof:
                 del chunk[len(carry) + got:]
@@ -414,7 +447,8 @@ def iter_block_ranges_native(src: str, cfg: CodecConfig,
                 break
             cut = len(chunk) if eof else _record_boundary(chunk)
             data = memoryview(chunk)[:cut]
-            idx, n = native.fastq_index(data) if cut else ({}, 0)
+            with trace("sfq.encode.index"):
+                idx, n = native.fastq_index(data) if cut else ({}, 0)
             full = (n // cfg.block_records) * cfg.block_records
             limit = n if eof else full
             for lo in range(0, limit, cfg.block_records):
@@ -515,6 +549,7 @@ def encode_file_on(src: str, dst: str, cfg: CodecConfig, step,
         cfg = w.cfg
     else:
         w = container.Writer.create(dst, cfg)
+    coded = {"raw_bytes": 0, "blocks": 0}
 
     def todo():
         seen = 0
@@ -522,9 +557,13 @@ def encode_file_on(src: str, dst: str, cfg: CodecConfig, step,
                                                          chunk_bytes):
             seen += hi - lo
             if seen > skip_records:  # else: already in the resumed output
+                coded["raw_bytes"] += block_span(idx, lo, hi) + 1  # its \n
+                coded["blocks"] += 1
                 yield buf, idx, lo, hi
-    _encode_ranges(todo(), cfg, step, window, w.append)
-    w.close()
+    with root("sfq.encode") as sp:
+        _encode_ranges(todo(), cfg, step, window, w.append)
+        w.close()
+        sp.set(**coded)
 
 
 def decode_file_streaming(src: str, dst: str, device=None,
@@ -545,9 +584,18 @@ def decode_file_streaming(src: str, dst: str, device=None,
 def decode_file_on(src: str, dst: str, step, window) -> None:
     """decode_file_streaming on a device step (a Card or a mesh's
     Sharded)."""
-    with open(src, "rb") as f, open(dst, "wb") as out:
+    coded = {"raw_bytes": 0, "blocks": 0}
+
+    def emit(part):
+        coded["raw_bytes"] += len(part)
+        coded["blocks"] += 1
+        with trace("sfq.decode.write"):
+            out.write(part)
+    with root("sfq.decode") as sp, open(src, "rb") as f, \
+            open(dst, "wb") as out:
         cfg = container.read_header(f)
-        _decode_blocks(f, cfg, step, window, out.write)
+        _decode_blocks(f, cfg, step, window, emit)
+        sp.set(**coded)
 
 
 def decode_file(src: str, dst: str, device=None, backend: str = "torch",

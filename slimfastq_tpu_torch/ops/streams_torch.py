@@ -353,32 +353,34 @@ class StreamSet:
         None, reset or None[, mflag or None]): once over the blocks, or
         twice where only some carry the match-span flags of a format-v5
         SEQ stream (a launch takes them for every block or for none);
-        ``symbols(key)`` reads a block's back."""
-        dev, groups = self.dev, {}
-        for key, item in zip(keys, items):
-            payload, lens, counts, num_steps, pos, reset = item[:6]
-            mflag = item[6] if len(item) > 6 else None
-            W = payload.shape[0]
-            counts = np.asarray(counts)
-            Sp = pad_steps(num_steps)
-            if Sp == 0 or not (counts > 0).any():
-                self.decoded[key] = (None, None, num_steps, W)
-                continue
-            arg = (_payload_tensor(payload, dev), _to(lens, dev, torch.int32),
-                   _to(counts, dev, torch.int32),
-                   _pad2(pos, Sp, W, dev), _pad2(reset, Sp, W, dev))
-            if mflag is not None:
-                arg += (_pad2(mflag, Sp, W, dev, torch.uint8),)
-            groups.setdefault(len(arg), []).append(((key, num_steps, W),
-                                                    arg))
-        for members in groups.values():
-            args = [arg for _, arg in members]
-            with trace(f"sfq.decode.{name}.coder"):
+        ``symbols(key)`` reads a block's back. Its span takes the
+        uploads with the launches."""
+        with trace(f"sfq.decode.{name}.coder"):
+            dev, groups = self.dev, {}
+            for key, item in zip(keys, items):
+                payload, lens, counts, num_steps, pos, reset = item[:6]
+                mflag = item[6] if len(item) > 6 else None
+                W = payload.shape[0]
+                counts = np.asarray(counts)
+                Sp = pad_steps(num_steps)
+                if Sp == 0 or not (counts > 0).any():
+                    self.decoded[key] = (None, None, num_steps, W)
+                    continue
+                arg = (_payload_tensor(payload, dev),
+                       _to(lens, dev, torch.int32),
+                       _to(counts, dev, torch.int32),
+                       _pad2(pos, Sp, W, dev), _pad2(reset, Sp, W, dev))
+                if mflag is not None:
+                    arg += (_pad2(mflag, Sp, W, dev, torch.uint8),)
+                groups.setdefault(len(arg), []).append(((key, num_steps, W),
+                                                        arg))
+            for members in groups.values():
+                args = [arg for _, arg in members]
                 syms, s = self.launch(
                     lambda: coder_torch.lane_decode_blocks(args, kind, geom),
                     *_tensors(args))
-            for ((key, S, W), _), sy in zip(members, syms):
-                self.decoded[key] = (sy, s, S, W)
+                for ((key, S, W), _), sy in zip(members, syms):
+                    self.decoded[key] = (sy, s, S, W)
 
     def symbols(self, key) -> np.ndarray:
         """[num_steps, W] u8 symbols of a stream launched by ``decode`` or
@@ -387,7 +389,16 @@ class StreamSet:
         if syms is None:
             return np.zeros((S, W), dtype=np.uint8)
         with torch.cuda.stream(s) if s is not None else nullcontext():
-            return syms[:S].cpu().numpy()
+            return _host_copy(syms[:S])
+
+
+def _host_copy(t: torch.Tensor) -> np.ndarray:
+    """A decode's tensor on the host as a numpy array: one pageable copy
+    and the wait for it, each a ``sfq.decode.wait_card`` span (on the CPU
+    a span too, so the count of copies is the card's)."""
+    with trace("sfq.decode.wait_card", bytes=t.numel() * t.element_size(),
+               pinned=0):
+        return t.cpu().numpy()
 
 
 def stream_inputs(kind: str, geom, syms: np.ndarray, counts: np.ndarray,
@@ -457,15 +468,23 @@ def encode_window(groups, device) -> dict:
     maxlen] u8, lens [W] int64)}."""
     ss = StreamSet(device)
     todo = []
-    for name, kind, geom, members in groups:
+    groups = iter(groups)
+    while True:
+        with trace("sfq.encode.inputs"):
+            group = next(groups, None)
+        if group is None:
+            break
+        name, kind, geom, members = group
         CB = _chunk_bytes(geom.depth, hard=False)
         with trace(f"sfq.encode.{name}.coder"):
             outs = _encode_members(ss, members, kind, geom, CB)
         todo.append((name, kind, geom, members, outs))
     if not todo:
         return {}
-    ss.join()
-    heads = iter(_heads([o for *_, outs in todo for o in outs]))
+    every = [o for *_, outs in todo for o in outs]
+    with trace("sfq.encode.wait_card", bytes=16 * len(every)):
+        ss.join()
+        heads = iter(_heads(every))
     streams, tails, keys = [], [], []
     for name, kind, geom, members, outs in todo:
         head = [next(heads) for _ in outs]
@@ -478,7 +497,9 @@ def encode_window(groups, device) -> dict:
             with trace(f"sfq.encode.{name}.coder"):
                 again = [members[i] for i in over]
                 redo = _encode_members(None, again, kind, geom, CB)
-            for i, o, h in zip(over, redo, _heads(redo)):
+            with trace("sfq.encode.wait_card", bytes=16 * len(redo)):
+                redo_heads = _heads(redo)
+            for i, o, h in zip(over, redo, redo_heads):
                 if h[0] > CB:
                     raise AssertionError("encode chunk overflow even with "
                                          "hard buffers")
@@ -490,11 +511,12 @@ def encode_window(groups, device) -> dict:
     with trace("sfq.encode.compact"):
         flat, layout = compact_torch.compact_streams_dev(streams, tails)
         host = _to_host(flat)
-    return {(b, name): _flush_append(pay.numpy(), tot.numpy(),
-                                     low.numpy().view(np.uint32),
-                                     np.asarray(counts))
-            for (b, name, counts), (pay, tot, low) in zip(
-                keys, layout.views(host))}
+    with trace("sfq.encode.assemble"):
+        return {(b, name): _flush_append(pay.numpy(), tot.numpy(),
+                                         low.numpy().view(np.uint32),
+                                         np.asarray(counts))
+                for (b, name, counts), (pay, tot, low) in zip(
+                    keys, layout.views(host))}
 
 
 def encode_block(jobs, device) -> dict:
@@ -513,9 +535,11 @@ def _to_host(flat: torch.Tensor) -> torch.Tensor:
     alone (_flush_append copies out of it)."""
     if flat.device.type == "cpu":
         return flat
-    host = torch.empty(flat.shape, dtype=flat.dtype, pin_memory=True)
-    host.copy_(flat, non_blocking=True)
-    torch.cuda.current_stream(flat.device).synchronize()
+    with trace("sfq.encode.wait_card",
+               bytes=flat.numel() * flat.element_size()):
+        host = torch.empty(flat.shape, dtype=flat.dtype, pin_memory=True)
+        host.copy_(flat, non_blocking=True)
+        torch.cuda.current_stream(flat.device).synchronize()
     return host
 
 
@@ -609,7 +633,7 @@ def decode_stream_ll(kind: str, geom, payload: np.ndarray, lens: np.ndarray,
         item += (_pad2(mflag, Sp, W, dev, torch.uint8),)
     with trace(f"sfq.decode.{kind}.coder"):
         syms, = coder_torch.lane_decode_blocks([item], kind, geom)
-    return syms[:S].cpu().numpy()
+    return _host_copy(syms[:S])
 
 
 # ---------------------------------------------------------------------------
@@ -811,38 +835,42 @@ def decode_seq_qual_raw_blocks(sgeoms, pay_s, lens_s, pay_q, lens_q,
         W = pay_s[b].shape[0]
         with trace("sfq.decode.lane_layout"):
             pos, reset = pack_torch.step_inputs(ll_list[b], Sp, S, W, dev)
-        live[b] = (Sp, W, _to(counts, dev, torch.int32), pos, reset, S)
+            live[b] = (Sp, W, _to(counts, dev, torch.int32), pos, reset, S)
     dec = {}
     for name, kind, geoms, pays, lenses in (
             ("QUAL", "qual", qgeoms, pay_q, lens_q),
             ("SEQ", "seq", sgeoms, pay_s, lens_s)):
-        groups: dict = {}
-        for b, (Sp, W, counts_t, pos, reset, _) in live.items():
-            item = (_payload_tensor(pays[b], dev),
-                    _to(lenses[b], dev, torch.int32), counts_t, pos, reset)
-            if name == "SEQ" and seq_mflags and seq_mflags[b] is not None:
-                mf = seq_mflags[b]()
-                mflag = torch.zeros((Sp, W), dtype=torch.uint8, device=dev)
-                mflag[: mf.shape[0]] = _to(mf, dev)
-                item += (mflag,)
-            groups.setdefault((geoms[b], len(item)), []).append((b, item))
-        for (geom, _), members in groups.items():
-            items = [item for _, item in members]
-            with trace(f"sfq.decode.{name}.coder"):
+        with trace(f"sfq.decode.{name}.coder"):  # uploads and launches
+            groups: dict = {}
+            for b, (Sp, W, counts_t, pos, reset, _) in live.items():
+                item = (_payload_tensor(pays[b], dev),
+                        _to(lenses[b], dev, torch.int32), counts_t, pos,
+                        reset)
+                if name == "SEQ" and seq_mflags and \
+                        seq_mflags[b] is not None:
+                    mf = seq_mflags[b]()
+                    mflag = torch.zeros((Sp, W), dtype=torch.uint8,
+                                        device=dev)
+                    mflag[: mf.shape[0]] = _to(mf, dev)
+                    item += (mflag,)
+                groups.setdefault((geoms[b], len(item)), []).append(
+                    (b, item))
+            for (geom, _), members in groups.items():
+                items = [item for _, item in members]
                 syms, _ = ss.launch(lambda: coder_torch.lane_decode_blocks(
                     items, kind, geom), *_tensors(items))
-            for (b, _), sy in zip(members, syms):
-                dec[b, name] = sy
+                for (b, _), sy in zip(members, syms):
+                    dec[b, name] = sy
     ss.join()
     for b, (_, W, *_rest, S) in live.items():
         total = int(totals[b])
         if host_unpack and host_unpack[b]:
             with trace("sfq.decode.unpack_lanes"):
                 out[b] = (
-                    native.unpack_lanes(dec[b, "SEQ"][:S].cpu().numpy(),
+                    native.unpack_lanes(_host_copy(dec[b, "SEQ"][:S]),
                                         lengths_list[b], W, starts_list[b],
                                         total, map256=seq_map)[:total],
-                    native.unpack_lanes(dec[b, "QUAL"][:S].cpu().numpy(),
+                    native.unpack_lanes(_host_copy(dec[b, "QUAL"][:S]),
                                         lengths_list[b], W, starts_list[b],
                                         total, bias=minqs[b])[:total])
             continue
@@ -850,8 +878,8 @@ def decode_seq_qual_raw_blocks(sgeoms, pay_s, lens_s, pay_q, lens_q,
             seq_flat, qual_flat = pack_torch.unpack_pair(
                 dec[b, "SEQ"], dec[b, "QUAL"], starts_list[b],
                 lengths_list[b], W, total, seq_map, minqs[b])
-        out[b] = (seq_flat[:total].cpu().numpy(),
-                  qual_flat[:total].cpu().numpy())
+        out[b] = (_host_copy(seq_flat[:total]),
+                  _host_copy(qual_flat[:total]))
     return out
 
 

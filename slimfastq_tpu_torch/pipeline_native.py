@@ -265,7 +265,7 @@ def _match_trials(matches, raw_args, W: int, Wa: int, S: int,
 
 def prepare_block_fast(data: np.ndarray, idx: dict, lo: int, hi: int,
                        cfg: CodecConfig, host_pack: bool = False,
-                       empty=numpy_empty):
+                       empty=numpy_empty, call: int | None = None):
     """Host-only half of a block encode (stream modelling + aux lane
     matrices + the padded raw byte range, or SEQ/QUAL lanes packed on the
     host where that range reaches _MAX_SPAN or ``host_pack`` asks for
@@ -275,34 +275,36 @@ def prepare_block_fast(data: np.ndarray, idx: dict, lo: int, hi: int,
     ``empty(nbytes)`` gives the u8 buffers the padded range and the
     trials' rewritten copies are written into: page-locked ones
     (pack_torch.pinned_empty) for a card, so they go up in one
-    asynchronous copy each; numpy_empty's by default."""
-    span = block_span(idx, lo, hi)
-    host = host_pack or span >= _MAX_SPAN
-    jobs, n, minq, qual_depth, ll_mat, extra = stream_jobs_fast(
-        data, idx, lo, hi, cfg, host_pack=host)
-    raw_args = host_args = None
-    sl = slice(lo, hi)
-    base = int(idx["id_off"][lo]) - 1 if n else 0  # the record's '@'
-    if n and not host:
-        # the block's raw byte range ships to the device once, padded to
-        # the shape bucket here, in the pipelined host half; offsets
-        # become block-local
-        dpad = empty(pack_torch.pad_flat(span))
-        dpad[:span] = data[base:base + span]
-        dpad[span:] = 0
-        raw_args = (dpad, idx["seq_off"][sl] - base,
-                    idx["qual_off"][sl] - base,
-                    idx["seq_len"][sl].astype(np.int64))
-    elif n:
-        host_args = (data[base:base + span], idx["seq_off"][sl] - base,
-                     idx["seq_len"][sl].astype(np.int64))
-    v5 = None
-    if cfg.fmt >= 5:
-        matches = extra.pop("matches")
-        v5 = {**extra, "trials": [] if matches is None else _match_trials(
-            matches, raw_args, cfg.lanes, cfg.aux_lanes,
-            int(ll_mat.sum(0).max()), host_args, empty)}
-    return jobs, n, minq, qual_depth, ll_mat, raw_args, v5
+    asynchronous copy each; numpy_empty's by default. ``call``: the api
+    call id its span takes (it runs on a pool's thread)."""
+    with trace("sfq.encode.prep", call=call):
+        span = block_span(idx, lo, hi)
+        host = host_pack or span >= _MAX_SPAN
+        jobs, n, minq, qual_depth, ll_mat, extra = stream_jobs_fast(
+            data, idx, lo, hi, cfg, host_pack=host)
+        raw_args = host_args = None
+        sl = slice(lo, hi)
+        base = int(idx["id_off"][lo]) - 1 if n else 0  # the record's '@'
+        if n and not host:
+            # the block's raw byte range ships to the device once, padded to
+            # the shape bucket here, in the pipelined host half; offsets
+            # become block-local
+            dpad = empty(pack_torch.pad_flat(span))
+            dpad[:span] = data[base:base + span]
+            dpad[span:] = 0
+            raw_args = (dpad, idx["seq_off"][sl] - base,
+                        idx["qual_off"][sl] - base,
+                        idx["seq_len"][sl].astype(np.int64))
+        elif n:
+            host_args = (data[base:base + span], idx["seq_off"][sl] - base,
+                         idx["seq_len"][sl].astype(np.int64))
+        v5 = None
+        if cfg.fmt >= 5:
+            matches = extra.pop("matches")
+            v5 = {**extra, "trials": [] if matches is None else _match_trials(
+                matches, raw_args, cfg.lanes, cfg.aux_lanes,
+                int(ll_mat.sum(0).max()), host_args, empty)}
+        return jobs, n, minq, qual_depth, ll_mat, raw_args, v5
 
 
 def device_bytes(pre, cfg: CodecConfig) -> int:
@@ -418,10 +420,11 @@ def encode_prepared_blocks(pres, cfg: CodecConfig, device) -> list:
     coded alone."""
     coded = streams_torch.encode_window(_window_jobs(pres, cfg, device),
                                         device)
-    per = [{} for _ in pres]
-    for (b, name), v in coded.items():
-        per[b][name] = v
-    return [_assemble(pre, per[b], cfg) for b, pre in enumerate(pres)]
+    with trace("sfq.encode.assemble"):
+        per = [{} for _ in pres]
+        for (b, name), v in coded.items():
+            per[b][name] = v
+        return [_assemble(pre, per[b], cfg) for b, pre in enumerate(pres)]
 
 
 def encode_prepared_block(pre, cfg: CodecConfig, device) -> EncodedBlock:
@@ -494,53 +497,58 @@ def decode_blocks_device(blocks, cfg: CodecConfig, device) -> list:
             ss.decode_blocks(name, keys, kind, geom, items)
 
     def lanes(b, name):
-        c = counts[b, name]
-        syms = ss.symbols((b, name))
-        if syms.size:  # one blocked transpose, then zero-copy row views
-            rows = native.transpose_mat(np.ascontiguousarray(syms))
-            return [rows[w, : c[w]] for w in range(len(c))]
-        return [np.zeros(0, dtype=np.uint8) for _ in range(len(c))]
+        with trace("sfq.decode.lanes"):
+            c = counts[b, name]
+            syms = ss.symbols((b, name))
+            if syms.size:  # one blocked transpose, then zero-copy row views
+                rows = native.transpose_mat(np.ascontiguousarray(syms))
+                return [rows[w, : c[w]] for w in range(len(c))]
+            return [np.zeros(0, dtype=np.uint8) for _ in range(len(c))]
 
     prev_step = Wa if cfg.fmt >= 3 else 1  # delta baseline (frozen/fmt)
 
     # 2. lengths (each waits for LEN's stream only)
-    lengths = {b: native.lens_decode(lanes(b, "LEN"), blocks[b].num_records,
-                                     Wa, prev_step) for b in live}
+    with trace("sfq.decode.lanes"):
+        lengths = {b: native.lens_decode(lanes(b, "LEN"),
+                                         blocks[b].num_records, Wa,
+                                         prev_step) for b in live}
 
     # 3. seq + qual -> record-major flat byte buffers, in runs of blocks
     # within the device-byte budget (a window's run unless its blocks are
     # long); on return every stream of the window has been decoded
     m_arrs: dict = {}
     args, mflags, starts, host, sizes = [], [], [], [], []
-    for b in live:
-        blk = blocks[b]
-        n = blk.num_records
-        rec_starts = np.zeros(n, dtype=np.int64)
-        rec_starts[1:] = np.cumsum(lengths[b][:-1])
-        total = int(lengths[b].sum())
-        ll_mat = _lane_lengths_matrix(lengths[b], W)
-        scounts = ll_mat.sum(axis=0)
-        S = int(scounts.max()) if scounts.size else 0
-        sgeom = (replace(cfg.seq, order=blk.seq_order)
-                 if (cfg.fmt >= 5 and blk.seq_order) else cfg.seq)
-        qgeom = replace(cfg.qual, depth=blk.qual_depth,
-                        delta_bits=0 if (blk.flags & QUAL_NODELTA)
-                        else cfg.qual.delta_bits)
-        seq_s, qs = blk.streams["SEQ"], blk.streams["QUAL"]
-        # decode_seq_qual_raw_blocks' per-block arguments, in its order
-        args.append((sgeom, seq_s.payload, seq_s.lane_lens, qs.payload,
-                     qs.lane_lens, ll_mat, scounts, rec_starts, lengths[b],
-                     total, qgeom, blk.minq))
-        mflags.append(partial(_seq_mflag, b, lanes, lengths[b], W, Wa, S,
-                              m_arrs) if match_used[b] else None)
-        starts.append(rec_starts)
-        # seq + qual bytes, at most the raw span: such a block unpacks on
-        # the host, as it packed there
-        host.append(2 * total >= _MAX_SPAN)
-        sizes.append(streams_torch.decode_bytes(pad_steps(S), W))
+    with trace("sfq.decode.lanes"):
+        for b in live:
+            blk = blocks[b]
+            n = blk.num_records
+            rec_starts = np.zeros(n, dtype=np.int64)
+            rec_starts[1:] = np.cumsum(lengths[b][:-1])
+            total = int(lengths[b].sum())
+            ll_mat = _lane_lengths_matrix(lengths[b], W)
+            scounts = ll_mat.sum(axis=0)
+            S = int(scounts.max()) if scounts.size else 0
+            sgeom = (replace(cfg.seq, order=blk.seq_order)
+                     if (cfg.fmt >= 5 and blk.seq_order) else cfg.seq)
+            qgeom = replace(cfg.qual, depth=blk.qual_depth,
+                            delta_bits=0 if (blk.flags & QUAL_NODELTA)
+                            else cfg.qual.delta_bits)
+            seq_s, qs = blk.streams["SEQ"], blk.streams["QUAL"]
+            # decode_seq_qual_raw_blocks' per-block arguments, in its order
+            args.append((sgeom, seq_s.payload, seq_s.lane_lens, qs.payload,
+                         qs.lane_lens, ll_mat, scounts, rec_starts, lengths[b],
+                         total, qgeom, blk.minq))
+            mflags.append(partial(_seq_mflag, b, lanes, lengths[b], W, Wa, S,
+                                  m_arrs) if match_used[b] else None)
+            starts.append(rec_starts)
+            # seq + qual bytes, at most the raw span: such a block unpacks on
+            # the host, as it packed there
+            host.append(2 * total >= _MAX_SPAN)
+            sizes.append(streams_torch.decode_bytes(pad_steps(S), W))
+        runs = streams_torch.split_by_bytes(
+            sizes, streams_torch.device_budget(device)) if live else [[]]
     seq_qual = []
-    for run in streams_torch.split_by_bytes(
-            sizes, streams_torch.device_budget(device)) if live else [[]]:
+    for run in runs:
         seq_qual += streams_torch.decode_seq_qual_raw_blocks(
             *([args[i][k] for i in run] for k in range(12)),
             _CODE_TO_BASE_FULL, device, streams=ss,
@@ -551,13 +559,15 @@ def decode_blocks_device(blocks, cfg: CodecConfig, device) -> list:
     # delta/exception streams (chain decode is in the finish half) and
     # seq exceptions (parsed + patched in C++ in the finish half)
     inters: list = [None] * len(blocks)
-    for i, b in enumerate(live):
-        n = blocks[b].num_records
-        flags = native.flags_reorder(np.concatenate(lanes(b, "FLAG")), n, Wa)
-        idd_lanes, idx_lanes, sx_lanes = (lanes(b, k)
-                                          for k in ("IDD", "IDX", "SEQX"))
-        inters[b] = (n, prev_step, lengths[b], flags, idd_lanes, idx_lanes,
-                     sx_lanes, starts[i], *seq_qual[i], m_arrs.get(b))
+    with trace("sfq.decode.lanes"):
+        for i, b in enumerate(live):
+            n = blocks[b].num_records
+            flags = native.flags_reorder(np.concatenate(lanes(b, "FLAG")),
+                                         n, Wa)
+            idd_lanes, idx_lanes, sx_lanes = (lanes(b, k)
+                                              for k in ("IDD", "IDX", "SEQX"))
+            inters[b] = (n, prev_step, lengths[b], flags, idd_lanes, idx_lanes,
+                         sx_lanes, starts[i], *seq_qual[i], m_arrs.get(b))
     return inters
 
 
@@ -665,23 +675,26 @@ def decode_block_device(blk: EncodedBlock, cfg: CodecConfig, device):
     return decode_blocks_device([blk], cfg, device)[0]
 
 
-def decode_block_finish(inter, cfg: CodecConfig) -> memoryview | bytes:
+def decode_block_finish(inter, cfg: CodecConfig,
+                        call: int | None = None) -> memoryview | bytes:
     """Host half of a block decode: ID chain decode, v5 match
     reconstruction, SEQX patch, FASTQ assembly. Returns a bytes-like
-    (memoryview, zero-copy)."""
-    if inter is None:
-        return b""
-    (n, prev_step, lengths, flags, idd_lanes, idx_lanes, sx_lanes,
-     rec_starts, seq_bytes, qual_bytes, m_arr) = inter
-    if m_arr is not None:  # undo the e-transform, refs before dependents
-        seq_bytes = native.match_reconstruct_arrays(seq_bytes, rec_starts,
-                                                    lengths, m_arr)
-    ida, ioff, ilen, pla, poff, plen = native.ids_decode(
-        n, cfg.aux_lanes, flags, idd_lanes, idx_lanes, prev_step)
-    # SEQX exception runs are patched into the assembled output's seq
-    # fields, so seq/qual stay read-only views
-    return native.fastq_assemble(
-        n, ida, ioff, ilen,
-        np.ascontiguousarray(seq_bytes), rec_starts,
-        np.ascontiguousarray(qual_bytes), lengths,
-        pla, poff, plen, sx_lanes=sx_lanes, fmt=cfg.fmt)
+    (memoryview, zero-copy). ``call``: the api call id its span takes
+    (it runs on a pool's thread)."""
+    with trace("sfq.decode.finish", call=call):
+        if inter is None:
+            return b""
+        (n, prev_step, lengths, flags, idd_lanes, idx_lanes, sx_lanes,
+         rec_starts, seq_bytes, qual_bytes, m_arr) = inter
+        if m_arr is not None:  # undo the e-transform, refs before dependents
+            seq_bytes = native.match_reconstruct_arrays(seq_bytes, rec_starts,
+                                                        lengths, m_arr)
+        ida, ioff, ilen, pla, poff, plen = native.ids_decode(
+            n, cfg.aux_lanes, flags, idd_lanes, idx_lanes, prev_step)
+        # SEQX exception runs are patched into the assembled output's seq
+        # fields, so seq/qual stay read-only views
+        return native.fastq_assemble(
+            n, ida, ioff, ilen,
+            np.ascontiguousarray(seq_bytes), rec_starts,
+            np.ascontiguousarray(qual_bytes), lengths,
+            pla, poff, plen, sx_lanes=sx_lanes, fmt=cfg.fmt)

@@ -165,20 +165,23 @@ def test_tool_needs_a_card(tool):
 
 @pytest.mark.parametrize("cuda_up", [False, True])
 def test_trace_nvtx_range(monkeypatch, cuda_up):
-    """utils/stats.trace pushes an NVTX range of its name once CUDA is
-    initialised (none before), pops it on the way out, and lets the
-    body's exception through."""
-    from slimfastq_tpu_torch.utils.stats import trace
+    """While spans are recorded, utils/stats.trace pushes an NVTX range of
+    its name once CUDA is initialised (none before), pops it on the way
+    out, and lets the body's exception through (the span is kept)."""
+    from slimfastq_tpu_torch.utils import stats
     calls = []
     monkeypatch.setattr(torch.cuda, "is_initialized", lambda: cuda_up)
     monkeypatch.setattr(torch.cuda.nvtx, "range_push",
                         lambda name: calls.append(("push", name)))
     monkeypatch.setattr(torch.cuda.nvtx, "range_pop",
                         lambda: calls.append(("pop",)))
-    with pytest.raises(KeyError):
-        with trace("sfq.test"):
-            raise KeyError("body")
+    stats.spans()
+    with stats.recording():
+        with pytest.raises(KeyError):
+            with stats.trace("sfq.test"):
+                raise KeyError("body")
     assert calls == ([("push", "sfq.test"), ("pop",)] if cuda_up else [])
+    assert [s.name for s in stats.spans().spans] == ["sfq.test"]
 
 
 def test_streaming_ranges_own_their_blocks(tmp_path):
