@@ -565,6 +565,11 @@ def phase_times(items, kind, geom, CB, errs: dict | None = None) -> dict:
     return out
 
 
+# Kernel E's phases' launch counts (one a slice of a launch set)
+E_PHASES = ("encode_rows", "encode_touches", "encode_sort",
+            "encode_entry_scan", "encode_gather", "encode_code")
+
+
 def phase_counts(data: bytes, level: int, dev) -> dict:
     """Launches of each of Kernel E's phases when the block's streams are
     coded one launch set a stream (the main path at level 3, the
@@ -572,7 +577,6 @@ def phase_counts(data: bytes, level: int, dev) -> dict:
     import numpy as np
     from slimfastq_tpu_torch import native, pipeline_native as PN
     from slimfastq_tpu_torch.config import config_for_level
-    from slimfastq_tpu_torch.ops import _cuda
     from slimfastq_tpu_torch.ops import encode_torch as E
     cfg = config_for_level(level)
     idx, n = native.fastq_index(data)
@@ -580,10 +584,8 @@ def phase_counts(data: bytes, level: int, dev) -> dict:
                                 n, cfg)
     slices = 0
     for _name, _kind, geom, item, _ in PN._coder_jobs(pre, cfg, dev):
-        Sp, W = item.syms.shape
-        S = Sp * geom.depth
-        slices += -(-S // E.slice_steps(1, W, S))
-    return {k: slices for k in _cuda.launches if k.startswith("encode_")}
+        slices += E.set_slices([item], geom.depth)
+    return dict.fromkeys(E_PHASES, slices)
 
 
 def _reads_layout(W: int, Sp: int, read_len: int, active):
@@ -1275,20 +1277,22 @@ def cluster_barrier_us(dev) -> dict:
 # launches a direction of the pinned 64k block on the main path at level
 # 3: Kernel L packs SEQ and QUAL with pos/reset (encode) or makes the step
 # inputs (decode), E (one launch set a stream) or D codes the 7 streams, C
-# compacts them, U unpacks; each of E's phases launches once a slice of a
-# stream (phase_counts)
+# compacts them, U unpacks; one host call (enc_run) issues each launch set
+# of E, each of whose phases launches once a slice of a stream
+# (phase_counts)
 MAIN_LAUNCHES_L3 = (
     {"lane_encode": 7, "lane_decode": 0, "compact_lanes_dev": 1,
-     "lane_layout": 1, "lane_unpack": 0},
+     "lane_layout": 1, "lane_unpack": 0, "encode_run": 7},
     {"lane_encode": 0, "lane_decode": 7, "compact_lanes_dev": 0,
-     "lane_layout": 1, "lane_unpack": 1})
+     "lane_layout": 1, "lane_unpack": 1, "encode_run": 0})
 
 
 def _phases_even(launches: dict) -> bool:
     """Kernel E's six phases launched alike, at least once a launch set
-    of E."""
-    n = {v for k, v in launches.items() if k.startswith("encode_")}
-    return len(n) == 1 and n.pop() >= launches["lane_encode"]
+    of E, and each launch set one host call (encode_run)."""
+    n = {launches[k] for k in E_PHASES}
+    return (len(n) == 1 and n.pop() >= launches["lane_encode"]
+            and launches["encode_run"] == launches["lane_encode"])
 
 
 def main_path(data: bytes, level: int) -> dict:
@@ -2862,13 +2866,13 @@ def level1(data: bytes, dev, errs: dict) -> dict:
 # and both trials' SEQ and MATCH), D once a stream (level 4: MATCH too)
 PYTHON_LAUNCHES = {
     3: ({"lane_encode": 7, "lane_decode": 0, "compact_lanes_dev": 7,
-         "lane_layout": 0, "lane_unpack": 0},
+         "lane_layout": 0, "lane_unpack": 0, "encode_run": 7},
         {"lane_encode": 0, "lane_decode": 7, "compact_lanes_dev": 0,
-         "lane_layout": 0, "lane_unpack": 0}),
+         "lane_layout": 0, "lane_unpack": 0, "encode_run": 0}),
     4: ({"lane_encode": 11, "lane_decode": 0, "compact_lanes_dev": 11,
-         "lane_layout": 0, "lane_unpack": 0},
+         "lane_layout": 0, "lane_unpack": 0, "encode_run": 11},
         {"lane_encode": 0, "lane_decode": 8, "compact_lanes_dev": 0,
-         "lane_layout": 0, "lane_unpack": 0}),
+         "lane_layout": 0, "lane_unpack": 0, "encode_run": 0}),
 }
 
 
@@ -2922,8 +2926,7 @@ def python_pipeline(data: bytes) -> dict:
         # E's phases: once a slice of each stream (at level 3 as the
         # block's streams give them: phase_counts), never to decode
         want_e, want_d = PYTHON_LAUNCHES[level]
-        phases = {k: v for k, v in e["launches"].items()
-                  if k.startswith("encode_")}
+        phases = {k: e["launches"][k] for k in E_PHASES}
         if level == 3:
             phases = phase_counts(data, level, torch.device("cuda"))
         want_e = {**want_e, **phases}

@@ -57,7 +57,8 @@
 // the scratch whatever the stream's length: the table and each lane's
 // low, range and chunk position carry from one slice to the next (a slice
 // may end inside a symbol); the lane coder of one slice runs beside the
-// other phases of the next (the wrapper's two CUDA streams).
+// other phases of the next (two CUDA streams). One host call, enc_run,
+// issues a launch set's slices.
 //
 // Bound on the H100: the function is bound by its bytes (3.35 TB/s) — the
 // symbols and step inputs read once, the chunk buffers written once. This
@@ -1026,6 +1027,62 @@ int enc_code(const void* plan, int s0, cudaStream_t stream) {
   const Plan& p = *static_cast<const Plan*>(plan);
   return (int)(p.wide ? launch_code<uint32_t>(p, s0, stream)
                       : launch_code<uint16_t>(p, s0, stream));
+}
+
+// A whole launch set of S bit-steps, every slice of p.L issued from here in
+// the order the phases' entries above take them: the coding stream waits
+// for `prep`'s work so far; slice k codes into rid buffer k % 2 (rid0,
+// rid1), its rows, touches, sort, entry scan and gather on `prep` (behind
+// slice k - 2's lane coder, which read that buffer), its lane coder on
+// `coding` behind them; at the end `prep` waits for `coding`. The events
+// are released before it returns (the card keeps a pending one until it
+// completes). Returns the first error and, in where[0] and where[1], the
+// slice and phase it came from (0-5: rows ... lane coder; 6: the streams'
+// ordering).
+int enc_run(const void* plan, void* rid0, void* rid1, int S,
+            cudaStream_t prep, cudaStream_t coding, int* where) {
+  constexpr int ORDER = 6;
+  Plan p = *static_cast<const Plan*>(plan);
+  cudaEvent_t ev[3] = {};  // slice k's lane coder done at ev[k % 2]; a join
+  int err = 0;
+  // keeps the first error and where it came from; true once there is one
+  auto fail = [&](int e, int slice, int phase) {
+    if (e != 0 && err == 0) {
+      err = e;
+      where[0] = slice;
+      where[1] = phase;
+    }
+    return err != 0;
+  };
+  for (cudaEvent_t& e : ev)
+    if (fail(cudaEventCreateWithFlags(&e, cudaEventDisableTiming), 0, ORDER))
+      break;
+  if (!err && !fail(cudaEventRecord(ev[2], prep), 0, ORDER))
+    fail(cudaStreamWaitEvent(coding, ev[2], 0), 0, ORDER);
+  int k = 0;
+  for (int s0 = 0; !err && s0 < S; ++k, s0 += p.L) {
+    p.rid = k % 2 ? rid1 : rid0;
+    if ((k >= 2 && fail(cudaStreamWaitEvent(prep, ev[k % 2], 0), k, ORDER)) ||
+        fail(enc_rows(&p, s0, prep), k, 0) ||
+        fail(enc_touches(&p, s0, prep), k, 1) ||
+        fail(enc_sort(&p, prep), k, 2) || fail(enc_scan(&p, prep), k, 3) ||
+        fail(enc_gather(&p, s0, prep), k, 4) ||
+        fail(cudaEventRecord(ev[2], prep), k, ORDER) ||
+        fail(cudaStreamWaitEvent(coding, ev[2], 0), k, ORDER) ||
+        fail(enc_code(&p, s0, coding), k, 5) ||
+        fail(cudaEventRecord(ev[k % 2], coding), k, ORDER))
+      break;
+  }
+  // after an error too, `prep` is left behind `coding`'s work: the caller
+  // frees the buffers on `prep`
+  if (ev[2]) {
+    const cudaError_t e = cudaEventRecord(ev[2], coding);
+    fail(e, k, ORDER);
+    if (e == cudaSuccess) fail(cudaStreamWaitEvent(prep, ev[2], 0), k, ORDER);
+  }
+  for (cudaEvent_t e : ev)
+    if (e) cudaEventDestroy(e);
+  return err;
 }
 
 }  // extern "C"

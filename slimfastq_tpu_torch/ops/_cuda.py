@@ -13,10 +13,11 @@ its path went through; ``descs[name]`` adds up the descriptors those
 launches took (blocks for Kernels E and D, streams for Kernel C), so a
 window's launches show how many blocks each carried; ``by_shard`` the
 launches of each shard of a mesh, by its device. Kernel E counts each
-launch set (one stream of a window's blocks) as ``lane_encode`` and each
-phase's launch of a slice under its own name (``encode_rows``,
-``encode_touches``, ``encode_sort``, ``encode_entry_scan``, ``encode_gather``,
-``encode_code``).
+launch set (one stream of a window's blocks) as ``lane_encode``, the one
+host call that issues its slices as ``encode_run`` (its descriptors: the
+slices), and each phase's launch of a slice under its own name
+(``encode_rows``, ``encode_touches``, ``encode_sort``,
+``encode_entry_scan``, ``encode_gather``, ``encode_code``).
 """
 
 from __future__ import annotations
@@ -40,7 +41,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 launches = {"lane_encode": 0, "lane_decode": 0, "compact_lanes_dev": 0,
             "lane_layout": 0, "lane_unpack": 0, "encode_rows": 0,
             "encode_touches": 0, "encode_sort": 0, "encode_entry_scan": 0,
-            "encode_gather": 0, "encode_code": 0}
+            "encode_gather": 0, "encode_code": 0, "encode_run": 0}
 descs = dict.fromkeys(launches, 0)
 # launches by mesh shard: (shard, device) -> {name: launches}, where a
 # shard of parallel.mesh made them (as_shard)
@@ -55,13 +56,21 @@ _where = threading.local()  # .shard: the mesh shard this thread codes
 def count(name: str, n: int, device) -> None:
     """One launch of kernel ``name`` on ``device`` over ``n``
     descriptors (the shards of a mesh count from their own threads)."""
+    count_many({name: (1, n)}, device)
+
+
+def count_many(made: dict, device) -> None:
+    """``made[name]`` = (launches, descriptors) of each kernel, on
+    ``device``, in one update."""
     with _count_lock:
-        launches[name] += 1
-        descs[name] += n
         shard = getattr(_where, "shard", None)
-        if shard is not None:
-            tally = by_shard.setdefault((shard, str(device)), {})
-            tally[name] = tally.get(name, 0) + 1
+        tally = (None if shard is None else
+                 by_shard.setdefault((shard, str(device)), {}))
+        for name, (k, n) in made.items():
+            launches[name] += k
+            descs[name] += n
+            if tally is not None:
+                tally[name] = tally.get(name, 0) + k
 
 
 def reset_launches() -> None:

@@ -41,13 +41,14 @@ phases, each over its own parallel axis (csrc/encode.cu):
 
 A launch set covers one stream of each of B blocks (a window) in slices
 of L bit-steps, at most SLICE_DECISIONS decisions (B x L x W) a slice, so
-its scratch is bounded whatever the streams' length. On the card the
-lane coder of a slice runs on a second CUDA stream beside the other
-phases of the next slice. Each phase's wrapper
-launches its kernels on CUDA tensors (counted in ``_cuda.launches``
-under its name) and runs its plain version, below, on CPU tensors;
-``encode_blocks`` composes them, and its outputs are
-``coder_torch.lane_encode_blocks``'s.
+its scratch is bounded whatever the streams' length. On the card one host
+call (csrc/encode.cu's ``enc_run``) issues every slice's phases, the lane
+coder of a slice on a second CUDA stream beside the other phases of the
+next slice. Each phase's wrapper launches its kernels on CUDA tensors
+(counted in ``_cuda.launches`` under its name) and runs its plain
+version, below, on CPU tensors; ``encode_blocks`` composes the plain
+versions on CPU tensors and calls ``enc_run`` on CUDA tensors, and its
+outputs are ``coder_torch.lane_encode_blocks``'s.
 """
 
 from __future__ import annotations
@@ -89,7 +90,8 @@ VIS_SHIFT = PROB_BITS  # a table entry's visit count, above its 12-bit p
 _P, _I = _cuda.PTR, _cuda.INT
 _SIGS = {"enc_rows": [_P, _I, _P], "enc_touches": [_P, _I, _P],
          "enc_sort": [_P, _P], "enc_scan": [_P, _P],
-         "enc_gather": [_P, _I, _P], "enc_code": [_P, _I, _P]}
+         "enc_gather": [_P, _I, _P], "enc_code": [_P, _I, _P],
+         "enc_run": [_P, _P, _P, _I, _P, _P, _P]}
 
 
 class _Block(ctypes.Structure):
@@ -170,6 +172,14 @@ def slice_steps(B: int, W: int, S: int) -> int:
     return max(1, min(S, SLICE_DECISIONS // (B * W)))
 
 
+def set_slices(items, depth: int) -> int:
+    """Slices of the launch set of ``items`` (EncIn, symbols [Sp, W]) at
+    a code tree of ``depth``."""
+    W = items[0].syms.shape[1]
+    S = max(it.syms.shape[0] for it in items) * depth
+    return -(-S // slice_steps(len(items), W, S))
+
+
 def scratch_bytes(B: int, W: int, S: int, depth: int) -> int:
     """Device bytes of the scratch of such a launch set (the carried
     tables and the outputs not included)."""
@@ -217,7 +227,7 @@ class EncodeSet:
         self.wide = wide_records(W)
         rtype = torch.int32 if self.wide else torch.int16
         self.rids = [zeros(B, L, W, dtype=rtype) for _ in range(2)]
-        self.rid = self.rids[0]
+        self.rid = self.rids[0]  # the one the phases use; enc_run takes both
         self.key, self.nk = i32(D), i32(D)
         self.kk = i32(D) if self.wide else None
         self.key1, self.val1, self.val2 = i32(D), i32(D), i32(D)
@@ -289,12 +299,6 @@ class EncodeSet:
         p.wide = int(self.wide)
         p.ebytes = entry_bytes(g)
         return p
-
-    def use_rid(self, i: int) -> None:
-        """Slice phases from here on use rid buffer i."""
-        self.rid = self.rids[i]
-        if self.plan is not None:
-            self.plan.rid = self.rid.data_ptr()
 
     def span(self, b: int, s0: int):
         """Block b's bit-steps [s0, s1) of the slice at s0, or None."""
@@ -384,37 +388,37 @@ def code(es: EncodeSet, s0: int) -> None:
 STEPS = (("rows", rows, True), ("touches", touches, True),
          ("sort", sort, False), ("entry_scan", entry_scan, False),
          ("gather", gather, True), ("code", code, True))
+# where enc_run's error came from: a phase, or the streams' ordering
+RUN_PHASES = tuple(name for name, _, _ in STEPS) + ("stream order",)
 
 
 def encode_blocks(items, kind: str, geom, CB: int):
     """Kernel E over a launch set (coder_torch.lane_encode_blocks' checked
-    items): every slice through the six phases. On the card the lane
-    coder runs on a second CUDA stream: slice k's waits for its gather,
-    and slice k+2's touches (which write the rid buffer it reads) wait for
-    it; the calling stream joins it at the end. Returns per block (ebufs,
-    eptrs, low, emax)."""
+    items): every slice through the six phases. On the card one call of
+    enc_run issues them all: the lane coder on a second CUDA stream,
+    slice k's behind its gather, slice k+2's touches (which write the rid
+    buffer it reads) behind it, and the calling stream behind it at the
+    end. Returns per block (ebufs, eptrs, low, emax)."""
     es = EncodeSet(items, kind, geom, CB)
-    slices = range(0, es.S, es.L)
     if es.plan is None:
-        for s0 in slices:
+        for s0 in range(0, es.S, es.L):
             for _, fn, sliced in STEPS:
                 fn(es, s0) if sliced else fn(es)
         return es.results()
+    lib = _cuda.load("encode", _SIGS)
     prep = torch.cuda.current_stream(es.dev)
     coding = torch.cuda.Stream(es.dev)
-    coding.wait_stream(prep)
-    done = [None, None]
-    for k, s0 in enumerate(slices):
-        es.use_rid(k % 2)
-        if done[k % 2] is not None:
-            prep.wait_event(done[k % 2])
-        for _, fn, sliced in STEPS[:-1]:
-            fn(es, s0) if sliced else fn(es)
-        coding.wait_event(prep.record_event())
-        with torch.cuda.stream(coding):
-            code(es, s0)
-        done[k % 2] = coding.record_event()
-    prep.wait_stream(coding)
+    where = (ctypes.c_int * 2)()
+    with torch.cuda.device(es.dev):
+        err = lib.enc_run(ctypes.byref(es.plan), es.rids[0].data_ptr(),
+                          es.rids[1].data_ptr(), es.S, prep.cuda_stream,
+                          coding.cuda_stream, where)
+    n = -(-es.S // es.L)
+    _cuda.count_many({"encode_run": (1, n), **{
+        f"encode_{name}": (n, n * es.B) for name, _, _ in STEPS}}, es.dev)
+    if err:
+        _cuda.check(lib, err, f"enc_run (slice {where[0]}, "
+                    f"{RUN_PHASES[where[1]]})")
     return es.results()
 
 

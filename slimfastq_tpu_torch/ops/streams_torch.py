@@ -452,6 +452,12 @@ def _encode_members(ss: StreamSet | None, members, kind: str, geom,
     return run() if ss is None else ss.launch(run, *_tensors(items))[0]
 
 
+def _slices(members, geom) -> int:
+    """The slices of Kernel E's launch set over a group's members (the
+    ``slices`` of its coder span)."""
+    return encode_torch.set_slices([m[1] for m in members], geom.depth)
+
+
 def encode_window(groups, device) -> dict:
     """Code a window of blocks' streams at once. ``groups`` yields (name,
     kind, geom, members), members a list of (block, EncIn, counts [W]) of
@@ -476,7 +482,8 @@ def encode_window(groups, device) -> dict:
             break
         name, kind, geom, members = group
         CB = _chunk_bytes(geom.depth, hard=False)
-        with trace(f"sfq.encode.{name}.coder"):
+        with trace(f"sfq.encode.{name}.coder") as sp:
+            sp.set(slices=_slices(members, geom))
             outs = _encode_members(ss, members, kind, geom, CB)
         todo.append((name, kind, geom, members, outs))
     if not todo:
@@ -494,8 +501,9 @@ def encode_window(groups, device) -> dict:
             CB = _chunk_bytes(geom.depth, hard=True)
             for i in over:
                 outs[i] = None  # the optimistic buffers go first
-            with trace(f"sfq.encode.{name}.coder"):
+            with trace(f"sfq.encode.{name}.coder") as sp:
                 again = [members[i] for i in over]
+                sp.set(slices=_slices(again, geom))
                 redo = _encode_members(None, again, kind, geom, CB)
             with trace("sfq.encode.wait_card", bytes=16 * len(redo)):
                 redo_heads = _heads(redo)

@@ -16,7 +16,9 @@ cards, against the sequential containers; the pure-Python pipeline
 (``use_native=False``) stream by stream on the card; the entry points
 (``entry()`` against its CPU run, ``dryrun_multichip`` over every card);
 Kernel E's six phases each against its plain version, slice by slice,
-also over a stream of several slices; Kernel D's cluster form (a SEQ
+also over a stream of several slices; a launch set of E issued by one
+host call (enc_run) against the plain phases and the lockstep form, with
+its launch counts, also on the main path; Kernel D's cluster form (a SEQ
 stream's 1,024 lanes of 100-base reads over 8 CTAs; QUAL's in every
 1,024-lane case) against its plain version where the colliding lanes lie
 in every CTA, with level 4's match family, and over a ragged window; and
@@ -305,6 +307,72 @@ def test_encode_warm_stream_crosses_slices(dev, monkeypatch, rate,
         assert torch.equal(a, b)
 
 
+# Kernel E's one-call driver (enc_run): (level, kind, W, [(Sp, active
+# lanes)] a block, match-span flags, geometry change, bit-steps a slice).
+# QUAL in 4 blocks of unequal lengths in slices of 1,000 bit-steps (they
+# end inside a symbol and a chunk, and past some blocks' ends); SEQ with
+# level 4's match flags; 4,097 lanes, whose touches run over chunks with
+# the hash in device memory; QUAL at a visit cap of 16 (32-bit entries)
+RUN_CASES = {
+    "qual-b4": (3, "qual", 1024, [(256, None), (512, 900), (104, 1),
+                                  (384, None)], False, {}, 1000),
+    "seq-l4-match": (4, "seq", 1024, [(256, 700), (200, None)], True, {},
+                     150),
+    "seq-w4097": (3, "seq", 4097, [(256, None)], False, {}, 200),
+    "qual-cap16": (3, "qual", 1024, [(512, None)], False,
+                   dict(rate=7, rate_lo=2), 999),
+}
+
+
+def _plain_phases(items, kind, geom, CB):
+    """The six phases' plain versions composed over the launch set's
+    slices (what encode_blocks runs on CPU tensors), on the card."""
+    from slimfastq_tpu_torch.ops import encode_torch as E
+    es = E.EncodeSet(items, kind, geom, CB)
+    for s0 in range(0, es.S, es.L):
+        for name, _, sliced in E.STEPS:
+            E.PLAIN[name](es, *((s0,) if sliced else ()))
+    return es.results()
+
+
+@pytest.mark.parametrize("case", list(RUN_CASES))
+def test_encode_run_matches_plain(dev, case, monkeypatch):
+    """A launch set issued by one enc_run call gives the bytes of the
+    plain phases composed slice by slice and of the lockstep plain form
+    (lane_encode_blocks_plain): every chunk byte, eptrs, low and emax;
+    it counts one encode_run over its slices and each phase once a
+    slice."""
+    from slimfastq_tpu_torch.ops import _cuda
+    from slimfastq_tpu_torch.ops import encode_torch as E
+    level, kind, W, blocks, match, change, L = RUN_CASES[case]
+    geom = replace(_geom(level, kind), **change)
+    rng = np.random.default_rng(9)
+    items = []
+    for Sp, active in blocks:
+        syms, cnt, pos, reset, mflag = _stream(kind, rng, dev, W, active,
+                                               match=match, Sp=Sp)
+        c = torch.from_numpy(cnt.astype(np.int32)).to(dev)
+        items.append(CT.EncIn(syms, pos, reset, c, mflag))
+    _, items = CT._check_items(items, kind, geom)
+    monkeypatch.setattr(E, "SLICE_DECISIONS", L * len(items) * W)
+    n = E.set_slices(items, geom.depth)
+    assert n > 2 and E.slice_steps(len(items), W, 1 << 30) == L
+    CB = ST._chunk_bytes(geom.depth, False)
+    _cuda.reset_launches()
+    got = CT.lane_encode_blocks(items, kind, geom, CB)
+    assert (_cuda.launches["encode_run"], _cuda.descs["encode_run"]) == (
+        1, n)
+    for k in E.STEPS:
+        name = f"encode_{k[0]}"
+        assert (_cuda.launches[name], _cuda.descs[name]) == (
+            n, n * len(items))
+    for a, b, c in zip(got, _plain_phases(items, kind, geom, CB),
+                       CT.lane_encode_blocks_plain(items, kind, geom, CB)):
+        for x, y, z in zip(a, b, c):
+            assert torch.equal(x, y)
+            assert torch.equal(x, z)
+
+
 def test_block_streams_at_once_equal_one_at_a_time(dev):
     """A block's seven streams coded concurrently (encode_prepared_block,
     decode_block_device) against each stream coded alone on the default
@@ -485,6 +553,15 @@ def test_main_path_round_trip_on_card(dev):
     # every E and D launch carried one block
     for k in ("lane_encode", "lane_decode"):
         assert _cuda.descs[k] == _cuda.launches[k]
+    _assert_one_run_a_set(_cuda)
+
+
+def _assert_one_run_a_set(_cuda):
+    """Every launch set of Kernel E was one enc_run call, and each of its
+    phases launched once a slice of those calls."""
+    assert _cuda.launches["encode_run"] == _cuda.launches["lane_encode"] > 0
+    for k in ("rows", "touches", "sort", "entry_scan", "gather", "code"):
+        assert _cuda.launches[f"encode_{k}"] == _cuda.descs["encode_run"]
 
 
 # (level, kind, [(Sp, active lanes)], match-span flags) of ragged windows:
@@ -597,6 +674,7 @@ def test_window_round_trip_on_card(dev, level):
         assert _cuda.descs[k] > _cuda.launches[k] > 0, _cuda.descs
     assert _cuda.launches["compact_lanes_dev"] == 1
     assert _cuda.descs["compact_lanes_dev"] >= 4 * 7
+    _assert_one_run_a_set(_cuda)
     assert enc == alone
     assert api.decode_fastq(enc, window=1) == data
     if level == 4:

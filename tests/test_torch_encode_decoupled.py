@@ -227,6 +227,30 @@ def test_hard_chunk_rerun():
     assert torch.equal(small[0], hard[0][:, :, :4])
 
 
+@pytest.mark.parametrize("L,blocks", [(None, (16,)), (7, (16,)),
+                                      (100, (24, 16, 8)), (64, (24, 8))])
+def test_set_slices_counts_the_slices(monkeypatch, L, blocks):
+    """set_slices (a coder span's ``slices``; the count enc_run's call
+    takes) equals the slices encode_blocks walks: the rows phase runs
+    once a slice."""
+    rng = np.random.default_rng(len(blocks))
+    geom, W = _geom(3, "byte"), 8
+    items = [CT.EncIn(torch.from_numpy(rng.integers(0, 256, (Sp, W),
+                                                    dtype=np.uint8)),
+                      None, None, torch.full((W,), Sp, dtype=torch.int32))
+             for Sp in blocks]
+    runs = []
+    rows_plain = E.rows_plain
+    monkeypatch.setattr(E, "rows_plain",
+                        lambda es, s0: runs.append(s0) or rows_plain(es, s0))
+    with _slices(L, len(items), W):
+        n = E.set_slices(items, geom.depth)
+        CT.lane_encode_blocks(items, "byte", geom, 4)
+    S = max(blocks) * geom.depth
+    assert n == len(runs) == (1 if L is None else -(-S // L))
+    assert runs == list(range(0, S, S if L is None else L))
+
+
 def _law_p(j_idx, j_bit, geom):
     """p of every decision [bit-steps, W] by the table law stepped in
     NumPy (ranger_np.table_mark / table_update), from the JAX schedule."""

@@ -99,6 +99,42 @@ def test_launch_counts_from_shard_threads():
     assert not _cuda.by_shard and not any(_cuda.launches.values())
 
 
+def test_launch_counts_many_at_once_from_shard_threads():
+    """count_many (Kernel E's launch set: one encode_run over its slices,
+    each phase once a slice) adds every kernel's launches and descriptors
+    in one update: 8 threads, each counting 1,000 launch sets of 5 slices
+    of 3 blocks as its own shard, lose none."""
+    import sys
+    import threading
+    _cuda.reset_launches()
+    made = {"encode_run": (1, 5), "encode_rows": (5, 15),
+            "encode_code": (5, 15)}
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        def run(i):
+            with _cuda.as_shard(i % 2):
+                for _ in range(1000):
+                    _cuda.count_many(made, "cpu")
+        threads = [threading.Thread(target=run, args=(i,))
+                   for i in range(8)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=60)
+        assert not any(t.is_alive() for t in threads)
+    finally:
+        sys.setswitchinterval(interval)
+    for name, (k, n) in made.items():
+        assert (_cuda.launches[name], _cuda.descs[name]) == (8000 * k,
+                                                              8000 * n)
+    assert _cuda.by_shard == {(i, "cpu"): {name: 4000 * k for name, (k, _)
+                                           in made.items()}
+                              for i in range(2)}
+    assert _cuda.launches["lane_encode"] == 0
+    _cuda.reset_launches()
+
+
 def _qual_blocks(n_recs, seed):
     """Per block (syms, counts, pos, reset, steps) of a qual-like stream at
     W lanes, records of 10-59 symbols."""

@@ -139,6 +139,27 @@ def test_round_trip_gives_the_span_tree(recorded, data):
     assert len(preps) == len(finishes) == blocks
 
 
+def test_coder_spans_carry_their_slices(monkeypatch, data):
+    """Each ``sfq.encode.<S>.coder`` span's ``slices`` counts the slices
+    of its launch set of Kernel E: over an encode in slices of a few
+    bit-steps they add up to the rows phase's runs."""
+    from slimfastq_tpu_torch.ops import encode_torch as E
+    runs = []
+    rows_plain = E.rows_plain
+    monkeypatch.setattr(E, "rows_plain",
+                        lambda es, s0: runs.append(s0) or rows_plain(es, s0))
+    monkeypatch.setattr(E, "SLICE_DECISIONS", 5 * CFG["lanes"])
+    stats.spans()
+    with stats.recording():
+        api.encode_fastq(data, config_for_level(3, **CFG), device="cpu",
+                         window=1)
+    coders = [s for s in stats.spans().spans
+              if fnmatchcase(s.name, "sfq.encode.*.coder")]
+    slices = [s.attrs["slices"] for s in coders]
+    assert len(coders) >= 7 and max(slices) > 1
+    assert sum(slices) == len(runs)
+
+
 @pytest.mark.parametrize("kind", ["encode", "decode"])
 def test_spans_cover_the_main_thread(recorded, kind):
     """The spans but the root and the device steps cover at least 90% of
